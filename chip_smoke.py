@@ -17,12 +17,29 @@ prints one JSON line; a failed phase raises and the script exits non-zero.
   3. a depth-2, full-width TinyLlama + LoRA model from seeded numpy weights:
      prefill logits on the card (kernels, bf16) against the CPU (plain
      versions, fp32);
-  4. the slice: full-width TinyLlama-1.1B-Chat with LoRA r=16 on q/k/v/proj,
-     all 22 layers, random weights from --seed, serving 16 synthetic DualHyp
+  4. the decode slice: full-width TinyLlama-1.1B-Chat with LoRA r=16 on
+     q/k/v/proj, random weights from --seed, serving 16 synthetic DualHyp
      requests through `cli.inference_ger.run_inference` (lockstep greedy,
-     decode batch 8, 32 new tokens); every kernel's launch count is read
-     around this run and must be > 0;
-  5. the `{"kernels": [...]}` line, the card's name and power limit, and the
+     decode batch 8, 32 new tokens); the launch count of each kernel of that
+     path is read around this run and must be > 0;
+  5. the K1 backward kernel against its plain version (B=8, Hq=32, G=4,
+     T=1024 and a ragged T=200), and K2, K3 (both directions) and K4 at the
+     training shape of 8192 rows;
+  6. a depth-2, full-width TinyLlama + LoRA training step: the loss and
+     every LoRA gradient on the card (kernels, bf16) against the CPU (plain
+     versions, fp32);
+  7. the training slice: LoRA finetuning of full-width TinyLlama-1.1B-Chat,
+     all 22 layers, through `cli.finetune_ger.run_training` (bf16, frozen
+     leaves bf16, LoRA r=16 alpha=16 dropout 0.05, remat, batch 32 of micro
+     batches 8, 64 synthetic train records and 16 val records, 2 epochs = 4
+     optimizer steps, then validation and the npz checkpoints); it checks
+     the losses, the leaves, the checkpoint's reload and a decode from it,
+     and that all five kernels (K3 in both directions) launched; then one
+     step under torch.profiler;
+  8. the headline training step (`bench.py`'s shape: micro batch 8, T=1024,
+     half the labels masked), remat on and off: median step time, tokens/s,
+     MFU and peak memory;
+  9. the `{"kernels": [...]}` line, the card's name and power limit, and the
      last line `{"ok": true, "device": {...}}`.
 
 Exits non-zero without printing a result when no CUDA card is present or
@@ -62,11 +79,30 @@ TOLERANCES = {
     # atomics in no fixed order; h may round apart by one bf16 ulp.
     "swiglu_mlp": (1e-2, 2.0 ** -6),
 }
+# flash backward: |kernel - plain| <= F + A * rms(plain) + R * |plain|. The
+# kernel rounds P and dS to bf16 (2^-9 relative each) before products that
+# sum up to q_per_kv * T terms, dQ's in no fixed order (atomics), so its
+# error scales with the gradient's overall size, not with each element's
+# (A, 2^-4 of the RMS); the outputs round to bf16 on both sides (R, two
+# ulps); where the exact gradient is zero (dQ, dK at T=1) both sides hold
+# fp32 noise (F, 2^-10). A fault (a wrong mask, a lost head) moves elements
+# by about the RMS itself.
+FLASH_BWD_TOL = (2.0 ** -10, 2.0 ** -4, 2.0 ** -6)
+# depth-2 training step, card bf16 vs CPU fp32: the loss (~ln 32000 = 10.4)
+# moves by the logits' bf16 error (~0.03 at most, averaged over tokens), so
+# |loss difference| <= 0.05; each LoRA gradient passes ~20 bf16 roundings
+# (2^-9 relative each, adding in quadrature to ~1%) on its way, so its
+# relative L2 error ||card - cpu|| / ||cpu|| <= 0.05. A wiring fault (a lost
+# gradient path, a transposed factor) gives a relative error of ~1.
+TRAIN_LOSS_ATOL = 0.05
+TRAIN_GRAD_REL = 0.05
 # depth-2 logits, card bf16 vs CPU fp32. The logits' spread is ~0.6 here: a
 # wiring fault (a transposed head, a wrong cache slot, a lost LoRA branch)
 # moves them by about that much, while bf16 weights and activations through
 # two blocks move them by a few bf16 ulps of the largest logits (~0.03).
 DEPTH2_ATOL = 0.1
+# depth of the decode slice (full width); the training slice keeps all 22
+DECODE_LAYERS = 22
 
 
 def emit(obj) -> None:
@@ -140,6 +176,23 @@ def compare(name, got, want, torch) -> float:
         raise RuntimeError(f"{name}: kernel disagrees with its plain version: "
                            f"max_abs_err {err}, tolerance atol {atol} rtol {rtol}")
     return err
+
+
+def compare_scaled(name, got, want, torch) -> dict:
+    """The K1 backward's check (FLASH_BWD_TOL); returns the max abs error,
+    the relative L2 error and the worst ratio of error to tolerance."""
+    f, a, r = FLASH_BWD_TOL
+    torch.cuda.synchronize()
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    tol = f + a * float(want.pow(2).mean().sqrt()) + r * want.abs()
+    worst = float((diff / tol).max())
+    out = {"max_abs_err": float(diff.max()),
+           "rel_l2_err": float((got - want).norm() / want.norm()),
+           "worst_err_over_tol": worst}
+    if not worst <= 1.0:
+        raise RuntimeError(f"{name}: kernel disagrees with its plain version: {out}")
+    return out
 
 
 def kernel_phases(torch, seed: int) -> dict:
@@ -248,12 +301,13 @@ def kernel_phases(torch, seed: int) -> dict:
     return results
 
 
-def lora_config(n_layer: int):
+def lora_config(n_layer: int, lora_dropout: float = 0.0):
     from dualhyp_tpu_torch import config_from_name
 
     return config_from_name(
         "tiny-llama-1.1b-chat", n_layer=n_layer, lora_r=16, lora_alpha=16,
-        lora_query=True, lora_key=True, lora_value=True, lora_projection=True)
+        lora_dropout=lora_dropout, lora_query=True, lora_key=True, lora_value=True,
+        lora_projection=True)
 
 
 def numpy_tree(cfg, seed: int) -> dict:
@@ -326,6 +380,18 @@ def depth2_check(torch, seed: int) -> dict:
     return result
 
 
+def profile_summary(prof, wall_ms: float, top_n: int = 12) -> dict:
+    """Device busy time, idle share of the wall, and the top kernels by
+    device time of a torch.profiler run."""
+    times = device_kernel_times(prof)
+    busy_ms = sum(us for us, _ in times.values()) / 1e3
+    top = sorted(times.items(), key=lambda kv: -kv[1][0])[:top_n]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "idle_share": (1 - busy_ms / wall_ms) if busy_ms else None,
+            "kernels": [{"name": name[:100], "ms": us / 1e3, "count": n}
+                        for name, (us, n) in top]}
+
+
 class WordTokenizer:
     """Whitespace word-level tokenizer over a fixed vocabulary (the card's
     machine has no `tokenizers`)."""
@@ -339,6 +405,9 @@ class WordTokenizer:
         self.words = {i: w for w, i in self.vocab.items()}
         self.eos_token_id = 1
 
+    def __len__(self):
+        return len(self.vocab)
+
     def encode(self, text):
         return [self.vocab.get(w, 0) for w in text.split()]
 
@@ -346,13 +415,31 @@ class WordTokenizer:
         return " ".join(self.words.get(int(i), f"<{int(i)}>") for i in ids)
 
 
+DECODE_PATH = ("rms_norm", "apply_rope", "flash_attention_fwd", "swiglu_mlp")
+
+
+def reset_counts():
+    from dualhyp_tpu_torch.ops import KERNELS, TRANSPOSED
+
+    for kernel in (*KERNELS.values(), *TRANSPOSED.values()):
+        kernel.launches = 0
+
+
+def read_counts() -> dict:
+    from dualhyp_tpu_torch.ops import KERNELS, TRANSPOSED
+
+    counts = {name: kernel.launches for name, kernel in KERNELS.items()}
+    counts.update({f"{name}_transpose": kernel.launches
+                   for name, kernel in TRANSPOSED.items()})
+    return counts
+
+
 def slice_run(torch, seed: int) -> dict:
     from dualhyp_tpu_torch.cli.inference_ger import run_inference
     from dualhyp_tpu_torch.data import hypotheses, prompts, synthetic
     from dualhyp_tpu_torch.models.gpt import GPT
-    from dualhyp_tpu_torch.ops import KERNELS
 
-    cfg = lora_config(22)
+    cfg = lora_config(DECODE_LAYERS)
     model = GPT(cfg, device="cuda", dtype=torch.bfloat16)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     model.init_weights(gen)
@@ -378,15 +465,14 @@ def slice_run(torch, seed: int) -> dict:
 
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for kernel in KERNELS.values():
-            kernel.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         out_records, metrics = run_inference(
             model, tok, dataset(), decode_batch=8, max_new_tokens=32,
             temperature=0.2, top_k=1, collect_latency=True)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {name: kernel.launches for name, kernel in KERNELS.items()}
+        launches = read_counts()
 
         # the same traffic again under torch.profiler: where the device time
         # goes, and how much of the wall the device is idle
@@ -398,13 +484,7 @@ def slice_run(torch, seed: int) -> dict:
                           temperature=0.2, top_k=1)
             torch.cuda.synchronize()
             prof_wall_ms = (time.perf_counter() - t1) * 1e3
-    times = device_kernel_times(prof)
-    busy_ms = sum(us for us, _ in times.values()) / 1e3
-    top = sorted(times.items(), key=lambda kv: -kv[1][0])[:12]
-    emit({"phase": "slice_profile", "wall_ms": prof_wall_ms, "device_busy_ms": busy_ms,
-          "idle_share": (1 - busy_ms / prof_wall_ms) if busy_ms else None,
-          "kernels": [{"name": name[:100], "ms": us / 1e3, "count": n}
-                      for name, (us, n) in top]})
+    emit({"phase": "slice_profile", **profile_summary(prof, prof_wall_ms)})
 
     result = {"phase": "slice", "model": cfg.name, "n_layer": cfg.n_layer,
               "lora_r": cfg.lora_r, "requests": len(out_records),
@@ -418,10 +498,366 @@ def slice_run(torch, seed: int) -> dict:
         raise RuntimeError("the slice did not answer every request")
     if not all(math.isfinite(metrics[k]) for k in ("WER", "post_ST_wer")):
         raise RuntimeError(f"non-finite metrics {metrics}")
+    missing = [name for name in DECODE_PATH if launches[name] <= 0]
+    if missing:
+        raise RuntimeError(f"kernels never launched on the decode path: {missing}")
+    return result
+
+
+def flash_bwd_phase(torch, seed: int) -> dict:
+    """K1 backward against its plain version at the training shape
+    (B=8, Hq=32, G=4, T=1024, D=64) and a ragged T=200, with O as the
+    forward's (B, T, H, D) view; times at T=1024 beside SDPA's backward."""
+    import torch.nn.functional as F
+
+    from dualhyp_tpu_torch.ops import attention
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    b, nh, g, hs = 8, 32, 4, 64
+    scale = 1.0 / math.sqrt(hs)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    entry = {}
+    for t in (200, 1024):
+        q, k, v = randn(b, nh, t, hs), randn(b, g, t, hs), randn(b, g, t, hs)
+        o, lse = attention._flash_fwd(q, k, v, scale)
+        do = randn(b, nh, t, hs)
+        got = attention.flash_attention_bwd(q, k, v, o, lse, do, scale)
+        want = attention.flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
+        checks = {name: compare_scaled(f"flash_attention_bwd d{name} T={t}", x, y, torch)
+                  for name, x, y in zip("qkv", got, want)}
+        del got, want
+        entry[f"T{t}"] = checks
+    # q, k, v, o, do, lse of the T=1024 case stay for the times
+    bwd = lambda: attention.flash_attention_bwd(q, k, v, o, lse, do, scale)  # noqa: E731
+    qr, kr, vr = (z.detach().requires_grad_() for z in (q, k, v))
+    out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True, enable_gqa=True)
+    lib = lambda: torch.autograd.grad(out, (qr, kr, vr), do, retain_graph=True)  # noqa: E731
+    t = 1024
+    pairs = b * nh * t * (t + 1) // 2
+    n_q, n_kv = b * nh * t * hs, b * g * t * hs
+    bms, by = bound((3 * n_q + 2 * n_kv) * 2 + (n_q + 2 * n_kv) * 2 + 2 * b * nh * t * 4,
+                    10 * hs * pairs, BF16_TENSOR_FLOPS)
+    entry.update(
+        shape=[b, nh, g, t, hs], max_abs_err=max(c["max_abs_err"] for c in checks.values()),
+        ms=time_ms(bwd, torch), device_ms=device_ms(bwd, torch),
+        plain_ms=time_ms(lambda: attention.flash_attention_bwd_plain(
+            q, k, v, o, lse, do, scale), torch, warmup=1, iters=5),
+        library_ms=time_ms(lib, torch), library="SDPA backward (autograd.grad)",
+        bound_ms=bms, bound_by=by)
+    emit({"phase": "kernel", "name": "flash_attention_bwd",
+          "tolerance": dict(zip(("atol", "atol_of_rms", "rtol"), FLASH_BWD_TOL)),
+          **entry})
+    return entry
+
+
+def training_shape_phase(torch, seed: int) -> dict:
+    """K2, K3 (forward and transposed) and K4 at the training shape of one
+    micro batch: 8 x 1024 = 8192 rows, checked and timed."""
+    import torch.nn.functional as F
+
+    from dualhyp_tpu_torch.config import GPTConfig
+    from dualhyp_tpu_torch.models.gpt import split_heads
+    from dualhyp_tpu_torch.ops import rmsnorm, rope, swiglu
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    bf16 = torch.bfloat16
+    b, t, d, inter, nh, g, hs = 8, 1024, 2048, 5632, 32, 4, 64
+    rows = b * t
+
+    def randn(*shape, std=1.0, dtype=bf16):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+    out = {}
+    x = randn(rows, d)
+    scale = 1.0 + randn(d, std=0.1, dtype=torch.float32)
+    err = compare("rms_norm", rmsnorm.rms_norm(x, scale), rmsnorm.rms_norm_plain(x, scale), torch)
+    bms, by = bound(2 * rows * d * 2 + d * 4, 4 * rows * d, FP32_FLOPS)
+    scale_bf16 = scale.to(bf16)
+    out["rms_norm"] = dict(
+        shape=[rows, d], max_abs_err=err,
+        ms=time_ms(lambda: rmsnorm.rms_norm(x, scale), torch),
+        device_ms=device_ms(lambda: rmsnorm.rms_norm(x, scale), torch),
+        plain_ms=time_ms(lambda: rmsnorm.rms_norm_plain(x, scale), torch),
+        library_ms=time_ms(lambda: F.rms_norm(x, (d,), scale_bf16, 1e-5), torch),
+        bound_ms=bms, bound_by=by)
+
+    cfg = GPTConfig(n_embd=d, n_head=nh, n_query_groups=g, rotary_percentage=1.0,
+                    intermediate_size=inter, mlp_class="LLaMAMLP")
+    q5, _, _ = split_heads(cfg, randn(b, t, cfg.qkv_out_dim))
+    dq = randn(b, g, nh // g, t, hs)  # the gradient of the roped q, contiguous
+    cos, sin = rope.build_rope_cache(t, hs, dtype=bf16, device=dev)
+    n_q = b * nh * t * hs
+    bms, by = bound(2 * n_q * 2 + 2 * t * hs * 2, 4 * n_q, FP32_FLOPS)
+    for label, xin, tr in (("forward", q5, False), ("transpose", dq, True)):
+        err = compare("apply_rope", rope.apply_rope(xin, cos, sin, tr),
+                      rope.apply_rope_plain(xin, cos, sin, tr), torch)
+        out[f"apply_rope_{label}"] = dict(
+            shape=list(xin.shape), max_abs_err=err,
+            ms=time_ms(lambda: rope.apply_rope(xin, cos, sin, tr), torch),
+            device_ms=device_ms(lambda: rope.apply_rope(xin, cos, sin, tr), torch),
+            plain_ms=time_ms(lambda: rope.apply_rope_plain(xin, cos, sin, tr), torch),
+            library_ms=None, bound_ms=bms, bound_by=by)
+
+    w1, w2 = randn(inter, d, std=0.02), randn(inter, d, std=0.02)
+    w3 = randn(d, inter, std=0.02)
+    err = compare("swiglu_mlp", swiglu.swiglu_mlp(x, w1, w2, w3),
+                  swiglu.swiglu_mlp_plain(x, w1, w2, w3), torch)
+    bms, by = bound((2 * rows * d + 3 * inter * d) * 2, 6 * rows * d * inter,
+                    BF16_TENSOR_FLOPS)
+    out["swiglu_mlp"] = dict(
+        shape=[rows, d, inter], max_abs_err=err,
+        ms=time_ms(lambda: swiglu.swiglu_mlp(x, w1, w2, w3), torch),
+        device_ms=device_ms(lambda: swiglu.swiglu_mlp(x, w1, w2, w3), torch),
+        plain_ms=time_ms(lambda: swiglu.swiglu_mlp_plain(x, w1, w2, w3), torch),
+        library_ms=time_ms(lambda: (F.silu(x @ w1.t()) * (x @ w2.t())) @ w3.t(), torch),
+        bound_ms=bms, bound_by=by)
+    # K4's gradient (plain PyTorch, fp32 with TF32 off), for the record
+    g_out = randn(rows, d)
+    out["swiglu_mlp_bwd_fp32"] = dict(
+        shape=[rows, d, inter],
+        ms=time_ms(lambda: swiglu.swiglu_mlp_bwd(x, w1, w2, w3, g_out,
+                                                  needs=(True, False, False, False)),
+                   torch, warmup=1, iters=5),
+        bound_ms=bound(0, 5 * 2 * rows * d * inter, FP32_FLOPS)[0], bound_by="operations")
+    emit({"phase": "training_shape_kernels", "rows": rows,
+          "tolerance": {k: dict(zip(("atol", "rtol"), TOLERANCES[k]))
+                        for k in ("rms_norm", "apply_rope", "swiglu_mlp")}, **out})
+    return out
+
+
+def depth2_train_check(torch, seed: int) -> dict:
+    """One Trainer step of a depth-2, full-width TinyLlama + LoRA model from
+    seeded numpy weights, dropout off: the loss and every LoRA leaf's
+    gradient, card bf16 against CPU fp32."""
+    import numpy as np
+
+    from dualhyp_tpu_torch.train import TrainConfig, Trainer
+
+    cfg = lora_config(2)
+    tree = numpy_tree(cfg, seed)
+    rng = np.random.default_rng(seed + 2)
+    t = 160  # not a multiple of the flash kernels' 64-row tiles
+    ids = rng.integers(3, cfg.vocab_size, size=(2, t)).astype(np.int32)
+    labels = ids.copy()
+    labels[:, : t // 2] = -1
+    batch = {"input_ids": ids, "labels": labels}
+    results = {}
+    for device, dtype in (("cuda", "bfloat16"), ("cpu", "float32")):
+        tcfg = TrainConfig(batch_size=2, micro_batch_size=2, compute_dtype=dtype,
+                           frozen_dtype="bfloat16" if device == "cuda" else "",
+                           lm_head_chunk_size=128)
+        trainer = Trainer(cfg, tcfg, tree, device=device)
+        loss, _ = trainer.train_step(batch, max_iters=100, warmup_steps=10)
+        results[device] = (float(loss), {n: p.grad.detach().float().cpu()
+                                         for n, p in trainer.trainable.items()})
+        del trainer
+    torch.cuda.empty_cache()
+    (loss_card, g_card), (loss_cpu, g_cpu) = results["cuda"], results["cpu"]
+    rel = {n: float((g_card[n] - g_cpu[n]).norm() / g_cpu[n].norm()) for n in g_cpu}
+    result = {"phase": "depth2_train_card_vs_cpu", "shape": [2, t],
+              "loss_card": loss_card, "loss_cpu": loss_cpu,
+              "loss_abs_err": abs(loss_card - loss_cpu), "loss_atol": TRAIN_LOSS_ATOL,
+              "grad_rel_l2_err": rel, "grad_rel_tol": TRAIN_GRAD_REL}
+    emit(result)
+    if not abs(loss_card - loss_cpu) <= TRAIN_LOSS_ATOL:
+        raise RuntimeError(f"depth-2 train loss: card {loss_card} vs CPU {loss_cpu}")
+    bad = {n: e for n, e in rel.items() if not e <= TRAIN_GRAD_REL}
+    if bad:
+        raise RuntimeError(f"depth-2 LoRA gradients off: {bad}")
+    return result
+
+
+def train_slice(torch, seed: int) -> dict:
+    """LoRA finetuning of full-width TinyLlama-1.1B-Chat through
+    `cli.finetune_ger.run_training`, then the checkpoint's reload and one
+    decode from it, then one step under torch.profiler."""
+    from dualhyp_tpu_torch.ckpt.convert import params_from_jax
+    from dualhyp_tpu_torch.ckpt.io import load_params
+    from dualhyp_tpu_torch.cli.finetune_ger import run_training
+    from dualhyp_tpu_torch.cli.inference_ger import run_inference
+    from dualhyp_tpu_torch.data import collate, hypotheses, prompts, synthetic
+    from dualhyp_tpu_torch.models.gpt import GPT
+    from dualhyp_tpu_torch.train import TrainConfig
+    from dualhyp_tpu_torch.utils.monitor import estimate_train_flops_per_token
+
+    cfg = lora_config(22, lora_dropout=0.05)
+    model = GPT(cfg, device="cuda", dtype=torch.bfloat16)
+    model.init_weights(torch.Generator(device="cuda").manual_seed(seed))
+    tcfg = TrainConfig(batch_size=32, micro_batch_size=8, num_epochs=2,
+                       frozen_dtype="bfloat16", remat=True, seed=seed,
+                       log_interval=32, save_interval=10**6)
+    template_words = " ".join(prompts.DualHyp_PROMPTS.values()).split()
+    tok = WordTokenizer(sorted(set(synthetic.word_vocabulary()) | set(template_words)))
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    lora = set(model.trainable_parameters())
+
+    step_ends = []
+    step_tokens = []
+
+    def on_step(opt_step, loss, lr):
+        torch.cuda.synchronize()
+        step_ends.append(time.perf_counter())
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for name, n, s in (("train", 64, seed), ("val", 16, seed + 1), ("test", 1, seed + 2)):
+            synthetic.write_json(tmp / f"{name}.json",
+                                 synthetic.make_records(n_uids=n, n_hyps=5, seed=s))
+
+        def dataset(split):
+            return hypotheses.DualHypothesesDataset(
+                split, str(tmp / f"{split}.json"), tokenizer=tok,
+                prompts_format="DualHyp", max_input_length=1024, seed=seed)
+
+        train_ds, val_ds = dataset("train"), dataset("val")
+        # the padded shape of each step, from a twin of the seeded batching
+        for epoch in range(tcfg.num_epochs):
+            for batch in collate.epoch_batches(dataset("train"), tcfg.batch_size,
+                                               shuffle=True, seed=tcfg.seed,
+                                               epoch=epoch, length_sorted=True):
+                step_tokens.append(batch["input_ids"].shape)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = run_training(model, tok, train_ds, val_ds, tcfg, tmp / "run",
+                           generator=torch.Generator().manual_seed(seed),
+                           on_step=on_step)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        losses = [float(x) for x in out["losses"]]
+
+        changed = [n for n in lora if not torch.equal(before[n], model.get_parameter(n))]
+        moved_frozen = [n for n, p in model.named_parameters() if n not in lora
+                        and not torch.equal(before[n].to(p.dtype), p.detach())]
+        del before
+        saved = sorted(f.name for f in (tmp / "run").iterdir())
+
+        tree = load_params(tmp / "run" / "model_lora_finetuned.npz")
+        reloaded = params_from_jax(tree, cfg, device="cuda", dtype=torch.bfloat16)
+        del tree
+        mismatch = [n for n, p in reloaded.named_parameters()
+                    if not torch.equal(p, model.get_parameter(n).to(p.dtype))]
+        records, _ = run_inference(reloaded, tok, dataset("test"), decode_batch=1,
+                                   max_new_tokens=8)
+        del reloaded
+        torch.cuda.empty_cache()
+
+        # one more step (the first epoch's first batch) under torch.profiler
+        from torch.profiler import ProfilerActivity, profile
+
+        trainer = out["trainer"]
+        batch = next(collate.epoch_batches(train_ds, tcfg.batch_size, shuffle=True,
+                                           seed=tcfg.seed, epoch=0, length_sorted=True))
+        gen = torch.Generator().manual_seed(seed)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            trainer.train_step(batch, out["max_iters"], out["warmup_steps"], gen)
+            torch.cuda.synchronize()
+            prof_wall_ms = (time.perf_counter() - t1) * 1e3
+    emit({"phase": "train_slice_profile", "step_shape": list(batch["input_ids"].shape),
+          **profile_summary(prof, prof_wall_ms, top_n=15)})
+
+    step_s = [b - a for a, b in zip([t0] + step_ends[:-1], step_ends)]
+    tokens = [shape[0] * shape[1] for shape in step_tokens]
+    flops = sum(n * estimate_train_flops_per_token(cfg, shape[1])
+                for n, shape in zip(tokens, step_tokens))
+    train_s = step_ends[-1] - t0
+    result = {"phase": "train_slice", "model": cfg.name, "n_layer": cfg.n_layer,
+              "lora_r": cfg.lora_r, "lora_dropout": cfg.lora_dropout, "remat": True,
+              "batch_size": tcfg.batch_size, "micro_batch_size": tcfg.micro_batch_size,
+              "optimizer_steps": len(losses), "step_shapes": [list(x) for x in step_tokens],
+              "losses": losses, "val_loss": out["best_val"], "step_s": step_s,
+              "tokens_per_s": sum(tokens) / train_s,
+              "mfu": flops / train_s / BF16_TENSOR_FLOPS,
+              "wall_s": wall, "peak_mem_gb": peak_gb, "launches": launches,
+              "lora_leaves_changed": f"{len(changed)}/{len(lora)}",
+              "frozen_leaves_moved": moved_frozen, "saved": saved,
+              "reload_mismatch": mismatch, "decoded": records[0]}
+    emit(result)
+    if len(losses) != 4 or not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"training losses {losses}")
+    if len(changed) != len(lora) or moved_frozen:
+        raise RuntimeError(f"leaves: {len(changed)}/{len(lora)} LoRA changed, "
+                           f"frozen moved {moved_frozen}")
+    if mismatch or not isinstance(records[0]["inference"], str):
+        raise RuntimeError(f"the saved checkpoint did not reload and decode: {mismatch}")
     missing = [name for name, n in launches.items() if n <= 0]
     if missing:
-        raise RuntimeError(f"kernels never launched on the main path: {missing}")
+        raise RuntimeError(f"kernels never launched on the training path: {missing}")
     return result
+
+
+def train_step_1024(torch, seed: int) -> dict:
+    """`bench.py`'s training shape on the card: full TinyLlama-1.1B + LoRA
+    (dropout 0.05), micro batch 8, T=1024, half the labels masked, accum 1;
+    2 warm-up steps and 5 timed steps, remat on and off."""
+    import numpy as np
+
+    from dualhyp_tpu_torch.models.gpt import GPT
+    from dualhyp_tpu_torch.train import TrainConfig, Trainer
+    from dualhyp_tpu_torch.utils.monitor import estimate_train_flops_per_token
+
+    cfg = lora_config(22, lora_dropout=0.05)
+    model = GPT(cfg, device="cuda", dtype=torch.bfloat16)
+    model.init_weights(torch.Generator(device="cuda").manual_seed(seed))
+    mb, t = 8, 1024
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(1, cfg.vocab_size, size=(mb, t)).astype(np.int32)
+    labels = ids.copy()
+    labels[:, : t // 2] = -1
+    batch = {"input_ids": ids, "labels": labels}
+    flops_per_step = mb * t * estimate_train_flops_per_token(cfg, t)
+    results = {}
+    for remat in (True, False):
+        tcfg = TrainConfig(batch_size=mb, micro_batch_size=mb, frozen_dtype="bfloat16",
+                           lm_head_chunk_size=128, remat=remat)
+        trainer = Trainer(cfg, tcfg, model)
+        gen = torch.Generator().manual_seed(seed)
+        for _ in range(2):
+            trainer.train_step(batch, max_iters=1000, warmup_steps=10, generator=gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            loss, _ = trainer.train_step(batch, max_iters=1000, warmup_steps=10,
+                                         generator=gen)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        med = sorted(times)[len(times) // 2]
+        results["remat" if remat else "no_remat"] = {
+            "step_s": times, "median_step_s": med, "tokens_per_s": mb * t / med,
+            "mfu": flops_per_step / med / BF16_TENSOR_FLOPS,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "loss": float(loss)}
+        if remat:  # where the device time of one such step goes
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                trainer.train_step(batch, max_iters=1000, warmup_steps=10, generator=gen)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            emit({"phase": "train_step_1024_profile", "remat": True,
+                  **profile_summary(prof, wall_ms, top_n=15)})
+        del trainer
+    emit({"phase": "train_step_1024", "micro_batch": mb, "seq_len": t,
+          "flops_per_token": estimate_train_flops_per_token(cfg, t), **results})
+    if not all(math.isfinite(r["loss"]) for r in results.values()):
+        raise RuntimeError(f"non-finite loss at the training shape: {results}")
+    del model
+    torch.cuda.empty_cache()
+    return results
 
 
 def main(argv=None) -> int:
@@ -455,26 +891,48 @@ def main(argv=None) -> int:
     kernels = kernel_phases(torch, args.seed)
     depth2_check(torch, args.seed)
     sliced = slice_run(torch, args.seed)
+    kernels["flash_attention_bwd"] = {"train": flash_bwd_phase(torch, args.seed)}
+    train_shapes = training_shape_phase(torch, args.seed)
+    depth2_train_check(torch, args.seed)
+    trained = train_slice(torch, args.seed)
+    train_step_1024(torch, args.seed)
 
     sources = {"rms_norm": ("rmsnorm.cu", "dualhyp_tpu/ops/pallas/rmsnorm_kernel.py:26"),
                "apply_rope": ("rope.cu", "dualhyp_tpu/ops/pallas/rope_kernel.py:29"),
                "flash_attention_fwd": ("flash_attention.cu",
                                        "dualhyp_tpu/ops/pallas/flash_vjp.py:77"),
+               "flash_attention_bwd": ("flash_attention_bwd.cu",
+                                       "dualhyp_tpu/ops/pallas/flash_vjp.py:121"),
                "swiglu_mlp": ("swiglu.cu", "dualhyp_tpu/ops/pallas/swiglu_kernel.py:37")}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "device_ms", "shape")
+    train_rows = {"rms_norm": train_shapes["rms_norm"],
+                  "apply_rope": train_shapes["apply_rope_forward"],
+                  "swiglu_mlp": train_shapes["swiglu_mlp"]}
     line = []
     for name in KERNELS:
         src, replaces = sources[name]
-        main_shape = kernels[name]["prefill"]
-        line.append({
+        main_shape = kernels[name].get("prefill", kernels[name].get("train"))
+        launches = {"decode_slice": sliced["launches"][name],
+                    "train_slice": trained["launches"][name]}
+        if name == "apply_rope":
+            launches["train_slice_transpose"] = trained["launches"]["apply_rope_transpose"]
+        entry = {
             "name": name, "route": "cuda", "source": f"dualhyp_tpu_torch/csrc/{src}",
-            "replaces": replaces, "launches": sliced["launches"][name],
-            "path": "cli.inference_ger.run_inference -> infer.decode.generate -> GPT."
-                    + ("prefill" if name in ("apply_rope", "flash_attention_fwd")
-                       else "prefill/decode_step"),
-            **{k: main_shape[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                          "bound_by", "library_ms", "device_ms", "shape")},
+            "replaces": replaces, "launches": trained["launches"][name],
+            "launches_by_path": launches,
+            "path": "cli.finetune_ger.run_training -> train.Trainer.train_step -> "
+                    "GPT.forward (+ backward); cli.inference_ger.run_inference -> "
+                    "GPT.prefill/decode_step",
+            **{k: main_shape[k] for k in keys},
             **({"decode": kernels[name]["decode"]} if "decode" in kernels[name] else {}),
-        })
+        }
+        if name in train_rows:
+            entry["train_rows"] = {k: train_rows[name][k] for k in keys}
+        if name == "apply_rope":
+            entry["train_rows_transpose"] = {
+                k: train_shapes["apply_rope_transpose"][k] for k in keys}
+        line.append(entry)
     emit({"kernels": line})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,10 @@ The tree is nested dicts of arrays: what `dualhyp_tpu.ckpt.io.load_params`
 and this package's `ckpt.io.load_params` return, or `gpt.init` of the JAX
 package after `np.asarray` on each leaf. Leaf `a/b/c` loads into parameter
 `a.b.c`; leaves under `blocks` are stacked over layers and load slice `i`
-into `blocks.i.*`. Matrices are cast to the model's compute dtype; norm
-scales stay fp32, as the JAX ops read them.
+into `blocks.i.*`. Each leaf is cast to its parameter's dtype: frozen
+matrices to the model's compute dtype, LoRA leaves and norm scales to fp32.
+
+`tree_from_model` is the inverse: the model's parameters as such a tree.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dualhyp_tpu_torch.ckpt.io import bf16_from_bits
+from dualhyp_tpu_torch.ckpt.io import SEP, bf16_from_bits, unflatten
 from dualhyp_tpu_torch.config import GPTConfig
 from dualhyp_tpu_torch.models.gpt import GPT
 
@@ -73,3 +75,44 @@ def params_from_jax(tree: dict, cfg: GPTConfig, *, device=None,
     model = GPT(cfg, device=device, dtype=dtype)
     load_tree(model, tree, strict=True)
     return model
+
+
+def flat_from_named(named: dict, n_layer: int) -> dict:
+    """{parameter name: tensor} -> {`::`-joined tree key: tensor}: the
+    tensors of `blocks.i.*` stacked over the layers on axis 0, as the JAX
+    package keeps them."""
+    flat, per_layer = {}, {}
+    for name, t in named.items():
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            per_layer.setdefault(SEP.join(parts[2:]), [None] * n_layer)[int(parts[1])] = t
+        else:
+            flat[SEP.join(parts)] = t
+    for rest, layers in per_layer.items():
+        flat[f"blocks{SEP}{rest}"] = torch.stack([t.detach() for t in layers])
+    return flat
+
+
+def named_from_flat(flat: dict, n_layer: int) -> dict:
+    """The inverse of `flat_from_named`: stacked leaves are split per layer."""
+    named = {}
+    for key, t in flat.items():
+        parts = key.split(SEP)
+        if parts[0] == "blocks":
+            for i in range(n_layer):
+                named[".".join(["blocks", str(i), *parts[1:]])] = t[i]
+        else:
+            named[".".join(parts)] = t
+    return named
+
+
+@torch.no_grad()
+def tree_from_model(model: GPT) -> dict:
+    """The model's parameters as the JAX package's tree, the inverse of
+    `load_tree`: nested dicts, per-layer leaves stacked on axis 0, numpy
+    arrays on the host (a bf16 leaf stays a torch bf16 tensor, as
+    `ckpt.io.load_params` returns it)."""
+    flat = flat_from_named(dict(model.named_parameters()), model.cfg.n_layer)
+    return unflatten({
+        key: t.cpu() if t.dtype == torch.bfloat16 else t.cpu().numpy()
+        for key, t in flat.items()})

@@ -7,7 +7,9 @@
   * a bf16 leaf stored as its uint16 bit pattern under a `@bf16` suffix.
 
 `load_params` returns the nested dict of numpy arrays; bf16 leaves come back
-as torch bf16 tensors, since numpy has no bfloat16.
+as torch bf16 tensors, since numpy has no bfloat16. `save_params` writes
+such a tree (numpy arrays or torch tensors as leaves), so the JAX package's
+`load_params` reads what the port saves.
 """
 
 from __future__ import annotations
@@ -24,6 +26,28 @@ BF16_TAG = "@bf16"
 def bf16_from_bits(bits: np.ndarray) -> torch.Tensor:
     """uint16 bit patterns -> a torch bfloat16 tensor."""
     return torch.from_numpy(np.ascontiguousarray(bits).view(np.int16)).view(torch.bfloat16)
+
+
+def bits_from_bf16(t: torch.Tensor) -> np.ndarray:
+    """A torch bfloat16 tensor -> its uint16 bit patterns."""
+    return t.detach().cpu().contiguous().view(torch.int16).numpy().view(np.uint16)
+
+
+def flatten(tree: dict, prefix: str = "") -> dict:
+    """Nested dict -> {`::`-joined key: numpy array}; a bf16 leaf becomes
+    its bit pattern under key + `@bf16`."""
+    flat = {}
+    for key, value in tree.items():
+        path = f"{prefix}{SEP}{key}" if prefix else str(key)
+        if isinstance(value, dict):
+            flat.update(flatten(value, path))
+        elif isinstance(value, torch.Tensor) and value.dtype == torch.bfloat16:
+            flat[path + BF16_TAG] = bits_from_bf16(value)
+        elif isinstance(value, torch.Tensor):
+            flat[path] = value.detach().cpu().numpy()
+        else:
+            flat[path] = np.asarray(value)
+    return flat
 
 
 def unflatten(flat: dict) -> dict:
@@ -44,3 +68,11 @@ def load_params(path) -> dict:
     with np.load(path if path.suffix == ".npz" else path.with_suffix(".npz")) as z:
         flat = {k: z[k] for k in z.files}
     return unflatten(flat)
+
+
+def save_params(path, tree: dict) -> None:
+    """Write a parameter tree as the JAX package's npz
+    (`dualhyp_tpu/ckpt/io.py:save_params`)."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, **flatten(tree))

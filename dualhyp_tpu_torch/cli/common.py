@@ -1,10 +1,12 @@
 """Shared CLI plumbing (the parts of `dualhyp_tpu/cli/common.py` that the
-correction-decoding entry point needs): the model and data flags, the model
-config, the tokenizer, the dataset class and the weights."""
+finetuning and correction-decoding entry points need): the model and data
+flags, the model config, the checkpoint checks, the tokenizer, the dataset
+class and the weights."""
 
 from __future__ import annotations
 
 import argparse
+import json
 from pathlib import Path
 
 import torch
@@ -39,6 +41,11 @@ def add_data_args(parser: argparse.ArgumentParser):
     parser.add_argument("--prompts_format", type=str, default="GER")
     parser.add_argument("--apply_chat_template", action="store_true")
     parser.add_argument("--language", type=str, default=None)
+    # accepted for the JAX package's flag surface; the text-only GER and
+    # DualHyp paths load no waveforms or mouth ROIs, so there is nothing
+    # to corrupt
+    parser.add_argument("--audio_corruption_disabled", action="store_true")
+    parser.add_argument("--visual_corruption_disabled", action="store_true")
 
 
 def model_config_from_args(args):
@@ -61,6 +68,40 @@ def model_config_from_args(args):
     elif args.mode == "full":
         overrides.update(lora_r=0)
     return config_from_checkpoint(Path(args.llm_checkpoint), **overrides)
+
+
+def max_input_length_from_checkpoint(checkpoint_dir, default: int = 1024) -> int:
+    """(ref: finetune/ger.py:421-425)"""
+    cfg_path = Path(checkpoint_dir) / "tokenizer_config.json"
+    if cfg_path.is_file():
+        with open(cfg_path, encoding="utf-8") as fp:
+            tok_cfg = json.load(fp)
+        value = tok_cfg.get("model_max_length")
+        if isinstance(value, int) and value < 10**9:
+            return value
+    return default
+
+
+def check_valid_checkpoint_dir(checkpoint_dir) -> None:
+    """Actionable error listing what is missing (== ger/utils.py:239-270)."""
+    checkpoint_dir = Path(checkpoint_dir)
+    problems = []
+    if not checkpoint_dir.is_dir():
+        problems.append(f"checkpoint dir {checkpoint_dir} does not exist")
+    else:
+        if not ((checkpoint_dir / "dualhyp_model.npz").is_file()
+                or list(checkpoint_dir.glob("*.safetensors"))):
+            problems.append("no weights: expected dualhyp_model.npz (converted) or HF "
+                            "*.safetensors files")
+        if not ((checkpoint_dir / "tokenizer.json").is_file()
+                or (checkpoint_dir / "tokenizer_config.json").is_file()):
+            problems.append("no tokenizer files (tokenizer.json / tokenizer_config.json)")
+    if problems:
+        raise FileNotFoundError(
+            f"invalid checkpoint dir {str(checkpoint_dir)!r}:\n  - "
+            + "\n  - ".join(problems)
+            + "\n\nDownload + convert one with:\n  python -m dualhyp_tpu.cli."
+            "download --repo_id <org>/<name>")
 
 
 def load_tokenizer(checkpoint_dir):

@@ -1,13 +1,19 @@
-"""Prompt-length buckets.
+"""Bucketed batching.
 
-A copy of `bucket_length` and `DEFAULT_BUCKETS` from
-`dualhyp_tpu/data/collate.py`: a decode batch pads its prompts to the next
-bucket boundary, so a handful of prompt shapes cover the whole dataset.
+A copy of `dualhyp_tpu/data/collate.py` without its prefetching producer
+thread: batches pad to bucket boundaries, so a handful of shapes cover the
+whole dataset (a decode batch pads its prompts the same way). Pad values
+follow the reference (ids -> 0, labels -> -1).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import random
+from typing import Iterable, List, Sequence
+
+import numpy as np
+
+IGNORE_INDEX = -1
 
 DEFAULT_BUCKETS = (64, 128, 192, 256, 384, 512, 640, 768, 896, 1024)
 
@@ -17,3 +23,90 @@ def bucket_length(n: int, buckets: Sequence[int] = DEFAULT_BUCKETS) -> int:
         if n <= b:
             return b
     return buckets[-1]
+
+
+def pad_batch(examples, buckets: Sequence[int] = DEFAULT_BUCKETS,
+              max_len: int | None = None) -> dict:
+    """Pack PackedExamples into fixed-shape numpy arrays.
+
+    Sequences longer than the top bucket (or `max_len`) are truncated, like
+    the reference's max_input_length clamp (ref: av_dataset.py:138-140).
+    """
+    longest = max(len(e.input_ids) for e in examples)
+    target = bucket_length(longest, buckets)
+    if max_len is not None:
+        target = min(target, max_len)
+    b = len(examples)
+    input_ids = np.zeros((b, target), np.int32)
+    labels = np.full((b, target), IGNORE_INDEX, np.int32)
+    lengths = np.zeros((b,), np.int32)
+    prompt_lengths = np.zeros((b,), np.int32)
+    for i, ex in enumerate(examples):
+        ids = ex.input_ids[:target]
+        lab = ex.labels[:target]
+        input_ids[i, : len(ids)] = ids
+        labels[i, : len(lab)] = lab
+        lengths[i] = len(ids)
+        prompt_lengths[i] = min(len(ex.input_ids_no_response), target)
+    return {
+        "input_ids": input_ids,
+        "labels": labels,
+        "lengths": lengths,
+        "prompt_lengths": prompt_lengths,
+        "uids": [e.uid for e in examples],
+        "ground_truths": [e.ground_truth for e in examples],
+        "examples": examples,
+    }
+
+
+def epoch_batches(dataset, batch_size: int, *, shuffle: bool, seed: int,
+                  epoch: int, buckets: Sequence[int] = DEFAULT_BUCKETS,
+                  drop_last: bool = False,
+                  length_sorted: bool = False,
+                  process_index: int = 0,
+                  process_count: int = 1) -> Iterable[dict]:
+    """Yield padded batches for one epoch.
+
+    `length_sorted=True` groups similarly-sized examples (after a seeded
+    shuffle of group order) to minimise padding waste.
+
+    Multi-host: every process shuffles with the SAME seed (deterministic),
+    then takes its `process_index::process_count` slice (reference seeds
+    1337+rank per process, ref: finetune/ger.py:135).
+    """
+    order = list(range(len(dataset)))
+    rng = random.Random(seed + epoch)
+    if shuffle:
+        rng.shuffle(order)
+    if process_count > 1:
+        order = order[process_index::process_count]
+    examples = [dataset[i] for i in order]
+    if length_sorted:
+        examples.sort(key=lambda e: len(e.input_ids))
+        chunks = [
+            examples[i : i + batch_size] for i in range(0, len(examples), batch_size)
+        ]
+        rng.shuffle(chunks)
+        flat: List = [e for chunk in chunks for e in chunk]
+        examples = flat
+    for i in range(0, len(examples), batch_size):
+        chunk = examples[i : i + batch_size]
+        if drop_last and len(chunk) < batch_size:
+            break
+        yield assemble_batch(chunk, batch_size, buckets)
+
+
+def assemble_batch(chunk, batch_size: int, buckets: Sequence[int]) -> dict:
+    """Pad one chunk of examples to a static batch; a short final chunk
+    repeat-pads with zero-loss rows (labels -> IGNORE_INDEX, valid=0)."""
+    if len(chunk) < batch_size:
+        pad = [chunk[-1]] * (batch_size - len(chunk))
+        batch = pad_batch(chunk + pad, buckets)
+        batch["labels"][len(chunk):] = IGNORE_INDEX  # no loss on repeats
+        batch["valid"] = np.asarray(
+            [1] * len(chunk) + [0] * (batch_size - len(chunk)), np.int32
+        )
+        return batch
+    batch = pad_batch(chunk, buckets)
+    batch["valid"] = np.ones((batch_size,), np.int32)
+    return batch

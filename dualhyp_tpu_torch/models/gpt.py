@@ -1,6 +1,6 @@
-"""Decoder-only GPT of the LLaMA family, with LoRA, for correction decoding.
+"""Decoder-only GPT of the LLaMA family, with LoRA: finetuning and decoding.
 
-Counterpart of `dualhyp_tpu/models/gpt.py` for inference: RMSNorm, the
+Counterpart of `dualhyp_tpu/models/gpt.py`: RMSNorm, the
 LLaMA (silu) or Gemma (tanh-gelu) gated MLP, grouped-query attention, full
 or partial rotary embeddings, no bias; LoRA on the fused QKV projection and
 on `proj` (and on the head when asked), gated by `lora_start_layer`.
@@ -17,8 +17,16 @@ module (`blocks.3.attn.qkv.lora_A` is leaf `blocks/attn/qkv/lora_A`[3]):
 Where the JAX package runs one `lax.scan` over stacked layers, this module
 loops over a `ModuleList` of blocks. The KV cache is a list of per-layer
 (k, v) tensors of shape (B, G, S, D) in the compute dtype, updated in place.
-Matrices are stored in the compute dtype, norm scales in fp32. Dropout is
-off: this module serves; training is not ported yet.
+Frozen matrices are stored in the compute dtype, norm scales in fp32 (a
+trainer may round them to its frozen dtype). The LoRA leaves are fp32
+masters, cast to the activation dtype at each use as the JAX package casts
+its leaves: an AdamW step of ~1e-4 x lr would round away in bf16.
+
+`forward` is the training and evaluation pass (grad enabled; LoRA-input
+dropout from a generator; whole-block rematerialisation with
+`torch.utils.checkpoint`); `prefill` and `decode_step` serve, without grad.
+Every parameter is created with requires_grad False; a trainer turns it on
+for `trainable_parameters()`.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from dualhyp_tpu_torch.config import GPTConfig
 from dualhyp_tpu_torch.device import resolve_device
@@ -87,6 +96,15 @@ def _param(shape, dtype, device):
                         requires_grad=False)
 
 
+def _dropout(x, rate: float, generator):
+    """LoRA-input dropout (`_dropout` of the JAX package): each element kept
+    with probability 1 - rate and scaled by 1 / (1 - rate)."""
+    if generator is None or rate <= 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
+
+
 class Norm(nn.Module):
     def __init__(self, d, device):
         super().__init__()
@@ -102,23 +120,27 @@ class Embedding(nn.Module):
 class Linear(nn.Module):
     """torch-layout linear with an optional LoRA branch.
 
-    The branch casts nothing: A and B are stored in the compute dtype, the
-    two products run in it, and then come the scaling and the layer gate,
-    as `_apply_linear` of the JAX package does."""
+    As `_apply_linear` of the JAX package: the fp32 A and B are cast to x's
+    dtype, the two products run in it on the dropped-out input, and then
+    come the scaling and the layer gate (a gated-off layer skips the branch,
+    whose leaves then get no gradient: zero, as the JAX gate's)."""
 
     def __init__(self, in_f, out_f, cfg: GPTConfig, with_lora: bool, dtype, device):
         super().__init__()
         self.scaling = cfg.lora_scaling
+        self.dropout = cfg.lora_dropout
         self.weight = _param((out_f, in_f), dtype, device)
         self.with_lora = with_lora and cfg.lora_r > 0
         if self.with_lora:
-            self.lora_A = _param((cfg.lora_r, in_f), dtype, device)
-            self.lora_B = _param((out_f, cfg.lora_r), dtype, device)
+            self.lora_A = _param((cfg.lora_r, in_f), torch.float32, device)
+            self.lora_B = _param((out_f, cfg.lora_r), torch.float32, device)
 
-    def forward(self, x, lora_on: bool = True):
+    def forward(self, x, lora_on: bool = True, generator=None):
         y = mlp_ops.linear(x, self.weight)
         if self.with_lora and lora_on:
-            y = y + ((x @ self.lora_A.t()) @ self.lora_B.t()) * self.scaling
+            xin = _dropout(x, self.dropout, generator)
+            delta = (xin @ self.lora_A.to(x.dtype).t()) @ self.lora_B.to(x.dtype).t()
+            y = y + delta * self.scaling
         return y
 
 
@@ -134,22 +156,24 @@ class QKV(nn.Module):
         self.shapes = lora_qkv_shapes(cfg) if cfg.lora_r > 0 else ()
         self.with_lora = bool(self.shapes)
         if self.with_lora:
-            self.lora_A = _param((cfg.lora_r * len(self.shapes), d), dtype, device)
-            self.lora_B = _param((sum(self.shapes), cfg.lora_r), dtype, device)
+            self.lora_A = _param((cfg.lora_r * len(self.shapes), d), torch.float32, device)
+            self.lora_B = _param((sum(self.shapes), cfg.lora_r), torch.float32, device)
             if len(self.shapes) < 3:
                 self.register_buffer("rows", lora_qkv_row_index(cfg).to(device),
                                      persistent=False)
 
-    def forward(self, x, lora_on: bool = True):
+    def forward(self, x, lora_on: bool = True, generator=None):
         y = mlp_ops.linear(x, self.weight)
         if not (self.with_lora and lora_on):
             return y
         r = self.cfg.lora_r
-        after_a = x @ self.lora_A.t()
+        xin = _dropout(x, self.cfg.lora_dropout, generator)
+        after_a = xin @ self.lora_A.to(x.dtype).t()
+        lora_b = self.lora_B.to(x.dtype)
         outs = []
         row = 0
         for i, extent in enumerate(self.shapes):
-            b_i = self.lora_B[row:row + extent]
+            b_i = lora_b[row:row + extent]
             outs.append(after_a[..., i * r:(i + 1) * r] @ b_i.t())
             row += extent
         delta = torch.cat(outs, dim=-1) * self.cfg.lora_scaling
@@ -213,15 +237,22 @@ class Block(nn.Module):
         return norm_ops.rms_norm(x, norm.scale, self.cfg.norm_eps)
 
     def forward(self, x, cos, sin, cache_kv=None, positions=None,
-                kv_length=None, active=None):
+                kv_length=None, active=None, seed=None):
         """x: (B, T, d). cache_kv: this layer's (k, v) cache, written in
         place: at slot 0 in prefill (positions None), at `positions` in a
-        decode step (T == 1), for the rows where `active` holds."""
+        decode step (T == 1), for the rows where `active` holds. seed: the
+        LoRA dropout masks of this block come from a generator seeded with
+        it, so a rematerialised pass draws the same masks (None: no
+        dropout)."""
         cfg = self.cfg
         b, t, _ = x.shape
         nh, hs = cfg.n_head, cfg.head_size
+        generator = None
+        if seed is not None:
+            generator = torch.Generator(device=x.device)
+            generator.manual_seed(seed)
         n1 = self._norm(self.norm_1, x)
-        qkv = self.attn.qkv(n1, self.lora_on)
+        qkv = self.attn.qkv(n1, self.lora_on, generator)
         q, k, v = split_heads(cfg, qkv)
         if positions is None:
             q = rope_ops.apply_rope(q, cos[:t], sin[:t]).reshape(b, nh, t, hs)
@@ -256,7 +287,7 @@ class Block(nn.Module):
             y = attn_ops.decode_attention(q, ck, cv, kv_length)
 
         y = y.transpose(1, 2).reshape(b, t, nh * hs)
-        h = self.attn.proj(y, self.lora_on)
+        h = self.attn.proj(y, self.lora_on, generator)
         if cfg.parallel_residual:
             n2 = n1 if cfg.shared_attention_norm else self._norm(self.norm_2, x)
             return x + h + self.mlp(n2)
@@ -345,15 +376,44 @@ class GPT(nn.Module):
             for _ in range(cfg.n_layer)
         ]
 
-    @torch.no_grad()
-    def forward(self, idx):
-        """idx: (B, T) token ids. Returns logits (B, T, padded_vocab) fp32."""
+    def trainable_parameters(self) -> dict:
+        """The LoRA leaves (`trainable_mask` of the JAX package in mode
+        "lora"), by parameter name."""
+        return {name: p for name, p in self.named_parameters()
+                if name.rsplit(".", 1)[-1].startswith("lora_")}
+
+    def count_params(self, trainable_only: bool = False) -> int:
+        params = (self.trainable_parameters().values() if trainable_only
+                  else self.parameters())
+        return sum(p.numel() for p in params)
+
+    def forward(self, idx, *, generator=None, remat=False, return_hidden=False):
+        """Training and evaluation pass, grad enabled. idx: (B, T) token ids.
+
+        generator: draws one seed per block for the LoRA-input dropout (a
+        CPU generator keeps the draw off the card's queue); None means no
+        dropout. remat: True or "full" rematerialises each block in the
+        backward (`torch.utils.checkpoint`). Returns logits
+        (B, T, padded_vocab) fp32, or the final normed hidden states
+        (B, T, d) in the compute dtype when `return_hidden`."""
         t = idx.shape[1]
         if t > self.cfg.block_size:
             raise ValueError(f"sequence {t} exceeds block_size {self.cfg.block_size}")
+        if remat not in (False, True, "full"):
+            raise NotImplementedError(f"remat={remat!r} is not ported yet")
+        seeds = [None] * self.cfg.n_layer
+        if generator is not None and self.cfg.lora_dropout > 0:
+            seeds = torch.randint(0, 2**62, (self.cfg.n_layer,), generator=generator,
+                                  device=generator.device).tolist()
         x = self._embed(idx)
-        for block in self.blocks:
-            x = block(x, self.cos, self.sin)
+        for block, seed in zip(self.blocks, seeds):
+            if remat and torch.is_grad_enabled():
+                x = checkpoint(block, x, self.cos, self.sin, seed=seed,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = block(x, self.cos, self.sin, seed=seed)
+        if return_hidden:
+            return norm_ops.rms_norm(x, self.ln_f.scale, self.cfg.norm_eps)
         return self._head(x)
 
     @torch.no_grad()

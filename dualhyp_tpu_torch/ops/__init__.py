@@ -5,9 +5,9 @@ for CUDA tensors and runs the plain version for CPU tensors; on the card
 there is no fallback.
 """
 
-from dualhyp_tpu_torch.ops.attention import FLASH_FWD
+from dualhyp_tpu_torch.ops.attention import FLASH_BWD, FLASH_FWD
 from dualhyp_tpu_torch.ops.rmsnorm import RMS_NORM
-from dualhyp_tpu_torch.ops.rope import ROPE
+from dualhyp_tpu_torch.ops.rope import ROPE, ROPE_T
 from dualhyp_tpu_torch.ops.swiglu import SWIGLU
 
 # every hand-written kernel of the port, by the name of its wrapper
@@ -15,5 +15,9 @@ KERNELS = {
     "rms_norm": RMS_NORM,
     "apply_rope": ROPE,
     "flash_attention_fwd": FLASH_FWD,
+    "flash_attention_bwd": FLASH_BWD,
     "swiglu_mlp": SWIGLU,
 }
+# launches of a kernel above in its transposed direction (the backward),
+# counted apart
+TRANSPOSED = {"apply_rope": ROPE_T}

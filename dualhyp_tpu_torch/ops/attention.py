@@ -6,7 +6,9 @@ the grouped broadcast happens inside the kernel or the einsum.
 
   * `causal_attention`: prefill and full-sequence path. It launches kernel
     K1's forward (`csrc/flash_attention.cu`) on CUDA tensors and runs the
-    plain version on CPU tensors.
+    plain version on CPU tensors. With grad enabled it goes through
+    `FlashAttention`, whose backward launches K1's backward
+    (`csrc/flash_attention_bwd.cu`), or runs the plain pair on the CPU.
   * `decode_attention`: one step against the KV cache, masked by each row's
     valid length (plain PyTorch; the JAX package leaves it to XLA too).
 """
@@ -28,6 +30,15 @@ FLASH_FWD = _lib.Kernel(
     [_lib.C_PTR] * 5 + [_lib.C_INT] * 4 + [_lib.C_F32] + [_lib.C_I64] * 12,
 )
 
+# K1 backward: replaces dualhyp_tpu/ops/pallas/flash_vjp.py `_bwd_kernel`.
+# Bound by operations (five products per causal pair); one block per
+# (batch, KV group, 64-key tile) keeps dK/dV on chip and sums the group's
+# heads there; dQ is added with fp32 atomics. See csrc/flash_attention_bwd.cu.
+FLASH_BWD = _lib.Kernel(
+    "dh_flash_attention_bwd",
+    [_lib.C_PTR] * 10 + [_lib.C_INT] * 4 + [_lib.C_F32] + [_lib.C_I64] * 21,
+)
+
 FLASH_HEAD_SIZE = 64
 
 
@@ -40,17 +51,74 @@ def causal_attention_plain(q, k, v, scale: float | None = None):
     """The plain PyTorch version of K1's forward (`_causal_attention_xla` of
     the JAX package): fp32 logits and softmax, probabilities rounded to the
     query dtype before the PV product. Returns (B, Hq, T, D)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return _softmax_times_v(_masked_logits(q, k, scale), q, v)
+
+
+def _softmax_times_v(logits, q, v):
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.matmul(probs, v[:, :, None].to(q.dtype)).reshape(q.shape)
+
+
+def _acc_dtype(dtype):
+    """fp32 for bf16 and fp32 inputs, fp64 for fp64 (gradcheck)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _masked_logits(q, k, scale):
+    """(B, G, q_per_kv, T, T) causal logits in the accumulation dtype."""
     b, hq, tq, d = q.shape
     g, tk = k.shape[1], k.shape[2]
-    if scale is None:
-        scale = 1.0 / math.sqrt(d)
-    qg = _grouped(q, g).float()
-    logits = torch.matmul(qg, k.float()[:, :, None].transpose(-1, -2)) * scale
+    acc = _acc_dtype(q.dtype)
+    logits = torch.matmul(_grouped(q, g).to(acc),
+                          k.to(acc)[:, :, None].transpose(-1, -2)) * scale
     causal = torch.ones((tq, tk), dtype=torch.bool, device=q.device).tril(tk - tq)
-    logits = logits.masked_fill(~causal, float("-inf"))
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    out = torch.matmul(probs, v[:, :, None].to(q.dtype))
-    return out.reshape(b, hq, tq, d)
+    return logits.masked_fill(~causal, float("-inf"))
+
+
+def causal_attention_plain_lse(q, k, v, scale: float):
+    """`causal_attention_plain` that also returns the row logsumexp L
+    (B, Hq, T) in fp32, as K1's forward does: the plain forward that feeds
+    `flash_attention_bwd_plain`."""
+    logits = _masked_logits(q, k, scale)
+    return _softmax_times_v(logits, q, v), torch.logsumexp(logits, dim=-1).reshape(q.shape[:3])
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, scale: float):
+    """The plain PyTorch version of K1's backward: the explicit formula in
+    fp32 (`_bwd_kernel` of the JAX package, without its blocking).
+
+    Delta = rowsum(dO * O), P = exp(S * scale - L), dV = P^T dO,
+    dS = P * (dO V^T - Delta), dQ = dS K * scale, dK = dS^T Q * scale; dK
+    and dV are summed over the q_per_kv heads of each KV group. lse:
+    (B, Hq, T). Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    b, hq, t, d = q.shape
+    g = k.shape[1]
+    acc = _acc_dtype(q.dtype)
+    qg = _grouped(q, g).to(acc)
+    dog = _grouped(do, g).to(acc)
+    kf = k.to(acc)[:, :, None]
+    vf = v.to(acc)[:, :, None]
+    lse_g = lse.reshape(b, g, hq // g, t, 1).to(acc)
+    delta = (dog * _grouped(o, g).to(acc)).sum(-1, keepdim=True)
+    p = torch.exp(_masked_logits(q, k, scale) - lse_g)
+    dv = torch.matmul(p.transpose(-1, -2), dog).sum(2)
+    dp = torch.matmul(dog, vf.transpose(-1, -2))
+    ds = p * (dp - delta)
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qg).sum(2) * scale
+    return (dq.reshape(b, hq, t, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+
+
+def _aligned_rows(x) -> bool:
+    return x.stride(-1) == 1 and not any(s % 8 for s in x.stride()[:3]) and not x.data_ptr() % 16
+
+
+def _check_rows(name, x):
+    if not _aligned_rows(x):
+        raise ValueError(
+            f"flash kernel needs 16-byte aligned rows of {name}: strides {x.stride()}")
 
 
 def _flash_fwd(q, k, v, scale):
@@ -67,10 +135,7 @@ def _flash_fwd(q, k, v, scale):
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.dtype != torch.bfloat16:
             raise TypeError(f"flash kernel takes bfloat16 {name}, got {x.dtype}")
-        if x.stride(-1) != 1 or any(s % 8 for s in x.stride()[:3]) or x.data_ptr() % 16:
-            raise ValueError(
-                f"flash kernel needs 16-byte aligned rows of {name}: "
-                f"strides {x.stride()}")
+        _check_rows(name, x)
     o = torch.empty((b, t, hq, d), dtype=q.dtype, device=device).transpose(1, 2)
     lse = torch.empty((b, hq, t), dtype=torch.float32, device=device)
     if o.numel():
@@ -80,10 +145,76 @@ def _flash_fwd(q, k, v, scale):
     return o, lse
 
 
+def flash_attention_bwd(q, k, v, o, lse, do, scale: float):
+    """Launch K1's backward. q, o, do: (B, Hq, T, 64); k, v: (B, G, T, 64),
+    all bf16 with any (batch, head, token) strides and a unit channel
+    stride (O as the forward's (B, T, Hq, D) view, dO as autograd hands it:
+    neither is copied); lse: (B, Hq, T) fp32. Returns (dq, dk, dv)."""
+    device = _lib.check_cuda(q, k, v, o, lse, do)
+    b, hq, t, d = q.shape
+    g = k.shape[1]
+    if d != FLASH_HEAD_SIZE:
+        raise ValueError(f"flash kernel takes head size {FLASH_HEAD_SIZE}, got {d}")
+    if (k.shape != (b, g, t, d) or v.shape != (b, g, t, d) or hq % g
+            or o.shape != q.shape or do.shape != q.shape or lse.shape != (b, hq, t)):
+        raise ValueError(
+            f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}, "
+            f"o {tuple(o.shape)}, do {tuple(do.shape)}, lse {tuple(lse.shape)}")
+    for name, x in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+        if x.dtype != torch.bfloat16:
+            raise TypeError(f"flash kernel takes bfloat16 {name}, got {x.dtype}")
+    if lse.dtype != torch.float32:
+        raise TypeError(f"flash kernel takes fp32 lse, got {lse.dtype}")
+    if not _aligned_rows(do):
+        do = do.contiguous()
+    for name, x in (("q", q), ("k", k), ("v", v), ("o", o)):
+        _check_rows(name, x)
+    lse = lse.contiguous()
+    dq32 = torch.zeros((b, hq, t, d), dtype=torch.float32, device=device)
+    delta = torch.empty((b, hq, t), dtype=torch.float32, device=device)
+    dk = torch.empty((b, g, t, d), dtype=k.dtype, device=device)
+    dv = torch.empty((b, g, t, d), dtype=v.dtype, device=device)
+    if q.numel():
+        FLASH_BWD(device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                  do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq32.data_ptr(),
+                  dk.data_ptr(), dv.data_ptr(), b, hq, g, t, float(scale),
+                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                  *o.stride()[:3], *do.stride()[:3], *dk.stride()[:3],
+                  *dv.stride()[:3])
+    return dq32.to(q.dtype), dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Causal GQA attention with K1's forward and backward (the custom VJP of
+    `flash_vjp.flash_attention`). On CPU tensors it runs the plain pair,
+    `causal_attention_plain_lse` and `flash_attention_bwd_plain`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        if q.device.type == "cpu":
+            o, lse = causal_attention_plain_lse(q, k, v, scale)
+        else:
+            o, lse = _flash_fwd(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        bwd = flash_attention_bwd_plain if q.device.type == "cpu" else flash_attention_bwd
+        dq, dk, dv = bwd(q, k, v, o, lse, do, ctx.scale)
+        return dq, dk, dv, None
+
+
 def causal_attention(q, k, v, scale: float | None = None):
-    """q: (B, Hq, T, D); k, v: (B, G, T, D) with G = n_query_groups."""
+    """q: (B, Hq, T, D); k, v: (B, G, T, D) with G = n_query_groups. With
+    grad enabled and an input that needs it, the autograd op
+    `FlashAttention`; else the forward alone."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, scale)
     if q.device.type == "cpu":
         return causal_attention_plain(q, k, v, scale)
     return _flash_fwd(q, k, v, scale)[0]

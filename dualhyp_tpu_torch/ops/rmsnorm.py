@@ -6,7 +6,9 @@ inside the sqrt, no mean subtraction, no unit offset; the statistic is taken
 in fp32 whatever the activation dtype.
 
 `rms_norm` launches kernel K2 (`csrc/rmsnorm.cu`) on a CUDA tensor and runs
-the plain version on a CPU tensor.
+the plain version on a CPU tensor. With grad enabled it goes through
+`RMSNorm`, whose backward is the analytic formula of the JAX package's
+custom VJP (`rmsnorm_kernel._bwd`, jnp there, plain PyTorch here).
 """
 
 from __future__ import annotations
@@ -27,14 +29,53 @@ RMS_NORM = _lib.Kernel(
 
 def rms_norm_plain(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5):
     """The plain PyTorch version of K2 (`_rms_norm_xla` of the JAX package)."""
-    x32 = x.float()
+    acc = torch.promote_types(x.dtype, torch.float32)
+    x32 = x.to(acc)
     ms = (x32 * x32).mean(dim=-1, keepdim=True)
     normed = x32 * torch.reciprocal(torch.sqrt(ms + eps))
-    return (scale.float() * normed).to(x.dtype)
+    return (scale.to(acc) * normed).to(x.dtype)
+
+
+def rms_norm_bwd(x, scale, g, eps: float = 1e-5, need_scale: bool = True):
+    """Gradients of `rms_norm` (`rmsnorm_kernel._bwd`), in fp32:
+    dx = r*gs - x*r^3*sum(gs*x)/D with r = rsqrt(mean(x^2) + eps) and
+    gs = g*scale; dscale = sum over rows of g*x*r (None unless asked)."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    x32, g32, s32 = x.to(acc), g.to(acc), scale.to(acc)
+    r = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
+    gs = g32 * s32
+    dot = (gs * x32).sum(dim=-1, keepdim=True)
+    dx = r * gs - x32 * r ** 3 * dot / x.shape[-1]
+    dscale = None
+    if need_scale:
+        dscale = (g32 * x32 * r).reshape(-1, x.shape[-1]).sum(0).to(scale.dtype)
+    return dx.to(x.dtype), dscale
+
+
+class RMSNorm(torch.autograd.Function):
+    """K2 forward; the analytic backward in plain PyTorch."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _rms_norm(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rms_norm_bwd(x, scale, g, ctx.eps, ctx.needs_input_grad[1])
+        return dx, dscale, None
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5):
     """RMSNorm over the last axis. x: (..., d) bf16 or fp32; scale: (d,)."""
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return RMSNorm.apply(x, scale, eps)
+    return _rms_norm(x, scale, eps)
+
+
+def _rms_norm(x, scale, eps):
     if x.device.type == "cpu":
         return rms_norm_plain(x, scale, eps)
     device = _lib.check_cuda(x, scale)

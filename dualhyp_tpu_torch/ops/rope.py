@@ -7,7 +7,9 @@ rotate-half application roped = x*cos + cat(-x2, x1)*sin on the leading
 n_elem channels (partial rotary: the rest pass through).
 
 `apply_rope` launches kernel K3 (`csrc/rope.cu`) on a CUDA tensor and runs
-the plain version on a CPU tensor. `apply_rope_gathered` is the decode
+the plain version on a CPU tensor. With grad enabled it goes through `RoPE`,
+whose backward is K3 with `transpose=True` (the inverse rotation), as in
+the JAX package's custom VJP. `apply_rope_gathered` is the decode
 step's per-row position path, which the JAX package also keeps outside its
 kernel.
 """
@@ -27,6 +29,9 @@ ROPE = _lib.Kernel(
      _lib.C_INT, _lib.C_INT, _lib.C_INT, _lib.C_INT, _lib.C_I64, _lib.C_I64,
      _lib.C_I64, _lib.C_I64, _lib.C_INT, _lib.C_INT],
 )
+# the same kernel launched with transpose=True (the backward), counted apart
+# so a run shows both directions
+ROPE_T = _lib.Kernel("dh_rope", ROPE.argtypes)
 
 
 def build_rope_cache(seq_len: int, n_elem: int, base: int = 10000,
@@ -51,12 +56,27 @@ def apply_rope_plain(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     transpose=True applies the inverse rotation (the backward)."""
     n_elem = cos.shape[-1]
     half = n_elem // 2
-    x32 = x.float()
+    acc = torch.promote_types(x.dtype, torch.float32)
+    x32 = x.to(acc)
     head = x32[..., :n_elem]
     x1, x2 = head[..., :half], head[..., half:]
     rotated = torch.cat([x2, -x1] if transpose else [-x2, x1], dim=-1)
-    roped = head * cos.float() + rotated * sin.float()
+    roped = head * cos.to(acc) + rotated * sin.to(acc)
     return torch.cat([roped, x32[..., n_elem:]], dim=-1).to(x.dtype)
+
+
+class RoPE(torch.autograd.Function):
+    """K3 forward; the backward is K3 transposed (`rope_kernel._bwd`)."""
+
+    @staticmethod
+    def forward(ctx, x, cos, sin):
+        ctx.save_for_backward(cos, sin)
+        return _rope(x, cos, sin, False)
+
+    @staticmethod
+    def backward(ctx, g):
+        cos, sin = ctx.saved_tensors
+        return _rope(g, cos, sin, True), None, None
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
@@ -65,10 +85,18 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
 
     x: (..., T, head_size); on CUDA any strides with a unit channel stride
     (up to five dimensions are read in place); cos, sin: (T, n_elem) in x's
-    dtype. Returns a new contiguous tensor."""
-    n_elem = cos.shape[-1]
-    if n_elem == 0:
+    dtype. Returns a new contiguous tensor. With grad enabled and an x that
+    needs it, the autograd op `RoPE`, whose gradient reaches x through its
+    strides (the fused QKV projection's output)."""
+    if cos.shape[-1] == 0:
         return x
+    if not transpose and torch.is_grad_enabled() and x.requires_grad:
+        return RoPE.apply(x, cos, sin)
+    return _rope(x, cos, sin, transpose)
+
+
+def _rope(x, cos, sin, transpose):
+    n_elem = cos.shape[-1]
     if x.device.type == "cpu":
         return apply_rope_plain(x, cos, sin, transpose)
     device = _lib.check_cuda(x, cos, sin)
@@ -89,9 +117,10 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     out = torch.empty(x5.shape, dtype=x.dtype, device=device)
     if out.numel():
         n0, n1, n2 = x5.shape[:3]
-        ROPE(device, x5.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(),
-             n0, n1, n2, t, d, n_elem, *x5.stride()[:4], int(transpose),
-             _lib.dtype_code(x5))
+        kernel = ROPE_T if transpose else ROPE
+        kernel(device, x5.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(),
+               n0, n1, n2, t, d, n_elem, *x5.stride()[:4], int(transpose),
+               _lib.dtype_code(x5))
     return out.reshape(x.shape)
 
 

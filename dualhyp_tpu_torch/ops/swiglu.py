@@ -4,11 +4,14 @@ Counterpart of `dualhyp_tpu/ops/swiglu.py`. Weights keep torch's
 (out_features, in_features) layout. `swiglu_mlp` launches kernel K4
 (`csrc/swiglu.cu`) on a CUDA tensor and runs the plain version on a CPU
 tensor; its weights are in x's dtype, as on the JAX package's XLA path,
-which casts them to x's dtype.
+which casts them to x's dtype. With grad enabled it goes through `SwiGLU`,
+whose backward is the JAX package's rematerialising formula
+(`swiglu_kernel._bwd`) in fp32.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -37,12 +40,80 @@ def swiglu_mlp_plain(x, w1, w2, w3, gate: str = "silu"):
     """The plain PyTorch version of K4, in the kernel's arithmetic: the two
     gate products accumulate in fp32, h is rounded to x's dtype, and the
     down projection accumulates in fp32 before the final rounding."""
-    x32 = x.float()
-    a = x32 @ w1.float().t()
-    b = x32 @ w2.float().t()
+    acc = torch.promote_types(x.dtype, torch.float32)
+    x32 = x.to(acc)
+    a = x32 @ w1.to(acc).t()
+    b = x32 @ w2.to(acc).t()
     act = F.silu(a) if gate == "silu" else _gelu_tanh(a)
     h = (act * b).to(x.dtype)
-    return (h.float() @ w3.float().t()).to(x.dtype)
+    return (h.to(acc) @ w3.to(acc).t()).to(x.dtype)
+
+
+@contextlib.contextmanager
+def _full_fp32_matmuls():
+    """fp32 products in full fp32 on the card: TF32 off for the duration (the
+    JAX package's backward runs its einsums at Precision.HIGHEST)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def swiglu_mlp_bwd(x, w1, w2, w3, g, gate: str = "silu", needs=(True,) * 4):
+    """Gradients of `swiglu_mlp` (`swiglu_kernel._bwd`): the gate is
+    recomputed from x in fp32 and every product runs in fp32 with TF32 off.
+    `needs` says which of (dx, dw1, dw2, dw3) to compute (frozen weights
+    need none: the JAX package's jit drops them as dead code); the others
+    come back None."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    d = x.shape[-1]
+    with _full_fp32_matmuls():
+        xd = x.reshape(-1, d).to(acc)
+        w1f, w2f, w3f = w1.to(acc), w2.to(acc), w3.to(acc)
+        a = xd @ w1f.t()
+        b = xd @ w2f.t()
+        if gate == "silu":
+            sg = torch.sigmoid(a)
+            act = a * sg
+            dact = sg * (1 + a * (1 - sg))
+        else:
+            c = math.sqrt(2.0 / math.pi)
+            th = torch.tanh(c * (a + 0.044715 * a ** 3))
+            act = 0.5 * a * (1.0 + th)
+            dact = 0.5 * (1.0 + th) + 0.5 * a * (1.0 - th * th) * c * (
+                1.0 + 3 * 0.044715 * a * a)
+        g32 = g.reshape(-1, d).to(acc)
+        dh = g32 @ w3f
+        da = dh * b * dact
+        db = dh * act
+        dx = dw1 = dw2 = dw3 = None
+        if needs[0]:
+            dx = (da @ w1f + db @ w2f).to(x.dtype).reshape(x.shape)
+        if needs[1]:
+            dw1 = (da.t() @ xd).to(w1.dtype)
+        if needs[2]:
+            dw2 = (db.t() @ xd).to(w2.dtype)
+        if needs[3]:
+            dw3 = (g32.t() @ (act * b)).to(w3.dtype)
+    return dx, dw1, dw2, dw3
+
+
+class SwiGLU(torch.autograd.Function):
+    """K4 forward; the fp32 rematerialising backward in plain PyTorch."""
+
+    @staticmethod
+    def forward(ctx, x, w1, w2, w3, gate):
+        ctx.save_for_backward(x, w1, w2, w3)
+        ctx.gate = gate
+        return _swiglu(x, w1, w2, w3, gate)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w1, w2, w3 = ctx.saved_tensors
+        return (*swiglu_mlp_bwd(x, w1, w2, w3, g, ctx.gate, ctx.needs_input_grad[:4]),
+                None)
 
 
 def swiglu_mlp(x, w1, w2, w3, gate: str = "silu"):
@@ -51,6 +122,12 @@ def swiglu_mlp(x, w1, w2, w3, gate: str = "silu"):
     x: (..., d); w1, w2: (inter, d); w3: (d, inter), all in x's dtype."""
     if gate not in GATES:
         raise ValueError(f"gate {gate!r} not in {GATES}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w1, w2, w3)):
+        return SwiGLU.apply(x, w1, w2, w3, gate)
+    return _swiglu(x, w1, w2, w3, gate)
+
+
+def _swiglu(x, w1, w2, w3, gate):
     if x.device.type == "cpu":
         return swiglu_mlp_plain(x, w1, w2, w3, gate)
     device = _lib.check_cuda(x, w1, w2, w3)

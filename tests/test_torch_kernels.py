@@ -2,15 +2,18 @@
 
 Edge cases the main path's shapes do not reach: ragged sequence lengths and
 row counts, partial rotary, the inverse rotation, a ragged intermediate
-size, the gelu gate, strided inputs, fp32 where a kernel takes it, and the
-wrappers' refusals. Every test needs an NVIDIA card and skips without one.
+size, the gelu gate, strided inputs, fp32 where a kernel takes it, the
+wrappers' refusals, and the autograd ops of the training path. Every test needs an NVIDIA card and skips without one.
 On the card's machine (no JAX there) run them without the suite's conftest:
 
     python -m pytest tests/test_torch_kernels.py --noconftest -q
 
 Tolerances are elementwise |kernel - plain| <= atol + rtol * |plain|: bf16
 outputs may round apart by a bf16 ulp or two (rtol 2^-7 or 2^-6), fp32
-outputs differ by summation order only.
+outputs differ by summation order only. The K1 backward's atol is 2^-4 of
+the gradient's RMS plus 2^-10: it rounds P and dS to bf16 before sums over
+up to q_per_kv * T terms, and where the exact gradient is zero (dQ and dK
+at T=1) both sides hold fp32 noise (see chip_smoke.py's FLASH_BWD_TOL).
 """
 
 import pytest
@@ -176,3 +179,90 @@ def test_small_model_on_the_card_matches_the_cpu(dev):
     want = cpu.decode_step(tok, lengths, cache_cpu)
     got = card.decode_step(tok.to(dev), lengths.to(dev), cache_card).cpu()
     assert float((got - want).abs().max()) < tol
+
+
+def _close_bwd(got, want):
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    want = want.float()
+    diff = (got.float() - want).abs()
+    bound = (2.0 ** -10 + 2.0 ** -4 * float(want.pow(2).mean().sqrt())
+             + 2.0 ** -6 * want.abs())
+    assert bool((diff <= bound).all()), f"max abs err {float(diff.max())}"
+
+
+def _flash_inputs(gen, b, hq, g, t):
+    q = _randn(gen, b, hq, t, 64)
+    k = _randn(gen, b, g, t, 64)
+    v = _randn(gen, b, g, t, 64)
+    o, lse = attention._flash_fwd(q, k, v, 0.125)
+    return q, k, v, o, lse
+
+
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 200, 1024])
+@pytest.mark.parametrize("hq,g", [(4, 4), (16, 2)])
+def test_flash_attention_bwd(dev, gen, t, hq, g):
+    """q_per_kv 1 and 8; O as the forward's (B, T, H, D) view."""
+    q, k, v, o, lse = _flash_inputs(gen, 2, hq, g, t)
+    assert o.stride()[1] == 64  # heads adjacent: the (B, T, H, D) buffer
+    do = _randn(gen, 2, hq, t, 64)
+    got = attention.flash_attention_bwd(q, k, v, o, lse, do, 0.125)
+    want = attention.flash_attention_bwd_plain(q, k, v, o, lse, do, 0.125)
+    for x, y in zip(got, want):
+        _close_bwd(x, y)
+
+
+def test_flash_attention_bwd_takes_strided_grad(dev, gen):
+    q, k, v, o, lse = _flash_inputs(gen, 2, 8, 2, 130)
+    do = _randn(gen, 2, 130, 8, 128)[..., :64].transpose(1, 2)  # (B, H, T, D) view
+    got = attention.flash_attention_bwd(q, k, v, o, lse, do, 0.125)
+    want = attention.flash_attention_bwd_plain(q, k, v, o, lse, do, 0.125)
+    for x, y in zip(got, want):
+        _close_bwd(x, y)
+
+
+def test_flash_attention_bwd_refuses_what_it_does_not_take(dev, gen):
+    q, k, v, o, lse = _flash_inputs(gen, 1, 4, 2, 16)
+    with pytest.raises(TypeError, match="bfloat16"):
+        attention.flash_attention_bwd(q, k, v, o, lse, o.float(), 0.125)
+    with pytest.raises(TypeError, match="fp32 lse"):
+        attention.flash_attention_bwd(q, k, v, o, lse.bfloat16(), o, 0.125)
+    small = [_randn(gen, 1, h, 16, 32) for h in (4, 2, 2, 4, 4)]
+    with pytest.raises(ValueError, match="head size"):
+        attention.flash_attention_bwd(*small[:4], lse, small[4], 0.125)
+
+
+def test_autograd_ops_on_the_card_match_the_plain_pair(dev, gen):
+    """causal_attention, apply_rope, rms_norm and swiglu_mlp with grad: the
+    kernels forward and backward against the same ops on CPU copies (plain
+    versions), in bf16; rope's transposed launches are counted apart."""
+    from dualhyp_tpu_torch.ops import rope as rope_ops
+
+    def leaf(x):
+        return x.detach().requires_grad_()
+
+    qkv = _randn(gen, 2, 70, 8 * 64 + 2 * 2 * 64, std=0.5)
+    cfg = GPTConfig(n_embd=512, n_head=8, n_query_groups=2, intermediate_size=256,
+                    mlp_class="LLaMAMLP")
+    cos, sin = rope.build_rope_cache(70, 64, dtype=torch.bfloat16, device=dev)
+    scale = 1.0 + _randn(gen, 512, dtype=torch.float32, std=0.1)
+    w1, w2 = (_randn(gen, 256, 512, std=0.05) for _ in range(2))
+    w3 = _randn(gen, 512, 256, std=0.05)
+    grads = {}
+    for where in ("cuda", "cpu"):
+        x = leaf(qkv.to(where))
+        ws = [leaf(w.to(where)) for w in (w1, w2, w3)]
+        s = leaf(scale.to(where))
+        q5, k, v = split_heads(cfg, x)
+        c, sn = cos.to(where), sin.to(where)
+        q = rope.apply_rope(q5, c, sn).reshape(2, 8, 70, 64)
+        y = attention.causal_attention(q, rope.apply_rope(k, c, sn), v)
+        h = rmsnorm.rms_norm(y.transpose(1, 2).reshape(2, 70, 512), s)
+        out = swiglu.swiglu_mlp(h, *ws)
+        before = rope_ops.ROPE_T.launches
+        out.float().square().mean().backward()
+        if where == "cuda":
+            assert rope_ops.ROPE_T.launches == before + 2
+        grads[where] = [t.grad.float().cpu() for t in (x, s, *ws)]
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        assert float((got - want).norm() / want.norm()) < 0.05

@@ -22,9 +22,9 @@ prints one JSON line; a failed phase raises and the script exits non-zero.
      requests through `cli.inference_ger.run_inference` (lockstep greedy,
      decode batch 8, 32 new tokens); the launch count of each kernel of that
      path is read around this run and must be > 0;
-  5. the K1 backward kernel against its plain version (B=8, Hq=32, G=4,
-     T=1024 and a ragged T=200), and K2, K3 (both directions) and K4 at the
-     training shape of 8192 rows;
+  5. K1's forward (O and the row logsumexp L) and backward kernels against
+     the plain pair (B=8, Hq=32, G=4, T=1024 and a ragged T=200), and K2,
+     K3 (both directions) and K4 at the training shape of 8192 rows;
   6. a depth-2, full-width TinyLlama + LoRA training step: the loss and
      every LoRA gradient on the card (kernels, bf16) against the CPU (plain
      versions, fp32);
@@ -79,6 +79,12 @@ TOLERANCES = {
     # atomics in no fixed order; h may round apart by one bf16 ulp.
     "swiglu_mlp": (1e-2, 2.0 ** -6),
 }
+# flash forward's row logsumexp (fp32 on both sides, from the same exact
+# bf16 products summed in another order): |kernel - plain| <= 1e-4 +
+# 1e-5 * |plain|. A mask fault that adds or drops one key of row t moves
+# that row's L by log(1 +- e^s / Z), ~1e-3 and more for the rows of a tail
+# tile (t < 1024, Z ~ t * e^(1/2) for unit-variance logits).
+LSE_TOL = (1e-4, 1e-5)
 # flash backward: |kernel - plain| <= F + A * rms(plain) + R * |plain|. The
 # kernel rounds P and dS to bf16 (2^-9 relative each) before products that
 # sum up to q_per_kv * T terms, dQ's in no fixed order (atomics), so its
@@ -88,6 +94,16 @@ TOLERANCES = {
 # fp32 noise (F, 2^-10). A fault (a wrong mask, a lost head) moves elements
 # by about the RMS itself.
 FLASH_BWD_TOL = (2.0 ** -10, 2.0 ** -4, 2.0 ** -6)
+# the forward-plus-backward pair against the plain pair: Delta = rowsum(dO *
+# O) also carries O's forward error (the kernel rounds unnormalised P to
+# bf16), and in the first rows, where attention falls on a few keys and O is
+# as large as V, that moves single elements of dQ by more than
+# FLASH_BWD_TOL's share of the RMS, which the many late rows with small
+# gradients set. So the pair is held to a relative L2 error of 2^-6 per
+# gradient (~0.003 measured); a fault in one 64-row tile of T=1024 (1/16 of
+# the rows) gives ~0.25. Each kernel alone is held elementwise (LSE_TOL, the
+# forward's tolerance, FLASH_BWD_TOL).
+FLASH_PAIR_REL_L2 = 2.0 ** -6
 # depth-2 training step, card bf16 vs CPU fp32: the loss (~ln 32000 = 10.4)
 # moves by the logits' bf16 error (~0.03 at most, averaged over tokens), so
 # |loss difference| <= 0.05; each LoRA gradient passes ~20 bf16 roundings
@@ -101,6 +117,8 @@ TRAIN_GRAD_REL = 0.05
 # moves them by about that much, while bf16 weights and activations through
 # two blocks move them by a few bf16 ulps of the largest logits (~0.03).
 DEPTH2_ATOL = 0.1
+# more than the H100's 50 MB L2 cache: read before each cold-cache call (device_ms)
+L2_FLUSH_BYTES = 256 << 20
 # depth of the decode slice (full width); the training slice keeps all 22
 DECODE_LAYERS = 22
 
@@ -145,19 +163,30 @@ def device_kernel_times(prof) -> dict:
     return out
 
 
-def device_ms(fn, torch, iters: int = 20):
-    """Device time of one call of `fn` (all the kernels it launches), from
-    torch.profiler; None when the profiler sees no device time."""
-    from torch.profiler import ProfilerActivity, profile
+def l2_flush(torch):
+    """A read of L2_FLUSH_BYTES: after it the L2 cache holds none of a
+    kernel's inputs."""
+    buf = torch.ones(L2_FLUSH_BYTES // 4, dtype=torch.int32, device="cuda")
+    return buf.sum
 
+
+def device_ms(fn, torch, iters: int = 20) -> float:
+    """Device time of one call of `fn` with the L2 cache cold: before each
+    call an `l2_flush` evicts the L2, so the call reads its inputs from HBM
+    as `bound_ms` assumes. CUDA events bracket the call alone on the stream;
+    the host enqueues it while the flush runs, so no launch gap counts."""
+    flush = l2_flush(torch)
     fn()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(iters)]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    times = device_kernel_times(prof)
-    return sum(us for us, _ in times.values()) / iters / 1e3 if times else None
+    for start, end in events:
+        flush()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in events) / iters
 
 
 def bound(bytes_moved: float, flops: float, flop_rate: float) -> tuple:
@@ -505,9 +534,12 @@ def slice_run(torch, seed: int) -> dict:
 
 
 def flash_bwd_phase(torch, seed: int) -> dict:
-    """K1 backward against its plain version at the training shape
-    (B=8, Hq=32, G=4, T=1024, D=64) and a ragged T=200, with O as the
-    forward's (B, T, H, D) view; times at T=1024 beside SDPA's backward."""
+    """K1's forward-plus-backward pair against the plain pair at the training
+    shape (B=8, Hq=32, G=4, T=1024, D=64) and a ragged T=200: the kernel's
+    (O, L) against `causal_attention_plain_lse`; the backward kernel, fed
+    the kernel's O (the forward's (B, T, H, D) view) and L, against the
+    plain backward fed the same, and against the plain backward fed the
+    plain forward's; times at T=1024 beside SDPA's backward."""
     import torch.nn.functional as F
 
     from dualhyp_tpu_torch.ops import attention
@@ -524,14 +556,28 @@ def flash_bwd_phase(torch, seed: int) -> dict:
     for t in (200, 1024):
         q, k, v = randn(b, nh, t, hs), randn(b, g, t, hs), randn(b, g, t, hs)
         o, lse = attention._flash_fwd(q, k, v, scale)
+        o_plain, lse_plain = attention.causal_attention_plain_lse(q, k, v, scale)
+        fwd = {"o_max_abs_err": compare("flash_attention_fwd", o, o_plain, torch),
+               "lse_max_abs_err": float((lse - lse_plain).abs().max())}
+        if not bool(((lse - lse_plain).abs()
+                     <= LSE_TOL[0] + LSE_TOL[1] * lse_plain.abs()).all()):
+            raise RuntimeError(f"flash_attention_fwd lse T={t}: kernel disagrees with "
+                               f"its plain version: {fwd}, tolerance {LSE_TOL}")
         do = randn(b, nh, t, hs)
         got = attention.flash_attention_bwd(q, k, v, o, lse, do, scale)
+        # the backward alone (both fed the kernel's O and L), then the pair
         want = attention.flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
         checks = {name: compare_scaled(f"flash_attention_bwd d{name} T={t}", x, y, torch)
                   for name, x, y in zip("qkv", got, want)}
+        want = attention.flash_attention_bwd_plain(q, k, v, o_plain, lse_plain, do, scale)
+        pair = {f"d{name}_rel_l2_err": float((x.float() - y.float()).norm() / y.float().norm())
+                for name, x, y in zip("qkv", got, want)}
+        if not all(e <= FLASH_PAIR_REL_L2 for e in pair.values()):
+            raise RuntimeError(f"flash_attention fwd+bwd T={t}: the kernels' pair disagrees "
+                               f"with the plain pair: {pair}, tolerance {FLASH_PAIR_REL_L2}")
         del got, want
-        entry[f"T{t}"] = checks
-    # q, k, v, o, do, lse of the T=1024 case stay for the times
+        entry[f"T{t}"] = {"forward": fwd, **checks, "pair": pair}
+    # the T=1024 case's tensors stay for the times
     bwd = lambda: attention.flash_attention_bwd(q, k, v, o, lse, do, scale)  # noqa: E731
     qr, kr, vr = (z.detach().requires_grad_() for z in (q, k, v))
     out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True, enable_gqa=True)
@@ -545,11 +591,15 @@ def flash_bwd_phase(torch, seed: int) -> dict:
         shape=[b, nh, g, t, hs], max_abs_err=max(c["max_abs_err"] for c in checks.values()),
         ms=time_ms(bwd, torch), device_ms=device_ms(bwd, torch),
         plain_ms=time_ms(lambda: attention.flash_attention_bwd_plain(
-            q, k, v, o, lse, do, scale), torch, warmup=1, iters=5),
+            q, k, v, o_plain, lse_plain, do, scale), torch, warmup=1, iters=5),
         library_ms=time_ms(lib, torch), library="SDPA backward (autograd.grad)",
         bound_ms=bms, bound_by=by)
     emit({"phase": "kernel", "name": "flash_attention_bwd",
           "tolerance": dict(zip(("atol", "atol_of_rms", "rtol"), FLASH_BWD_TOL)),
+          "pair_tolerance": {"rel_l2": FLASH_PAIR_REL_L2},
+          "forward_tolerance": {"o": dict(zip(("atol", "rtol"),
+                                              TOLERANCES["flash_attention_fwd"])),
+                                "lse": dict(zip(("atol", "rtol"), LSE_TOL))},
           **entry})
     return entry
 
@@ -887,6 +937,7 @@ def main(argv=None) -> int:
     lib = _lib.build(verbose=True)
     emit({"phase": "build", "library": str(lib.relative_to(REPO)),
           "seconds": time.perf_counter() - t0})
+    emit({"phase": "l2_flush", "bytes": L2_FLUSH_BYTES, "ms": time_ms(l2_flush(torch), torch)})
 
     kernels = kernel_phases(torch, args.seed)
     depth2_check(torch, args.seed)

@@ -116,7 +116,6 @@ def run_training(model, tokenizer, train_ds, val_ds, tcfg: TrainConfig, out_dir,
 
     best_val = float("inf")
     losses, lrs = [], []
-    window_losses = []
     t_start = time.perf_counter()
     state_path = out_dir / "train_state.npz"
     start_epoch = 0
@@ -141,13 +140,11 @@ def run_training(model, tokenizer, train_ds, val_ds, tcfg: TrainConfig, out_dir,
             opt_step += 1
             losses.append(loss)
             lrs.append(lr)
-            window_losses.append(loss)
             if on_step is not None:
                 on_step(opt_step, loss, lr)
             if opt_step % log_every == 0:
                 stats = monitor.stats()
-                avg = float(sum(window_losses)) / len(window_losses)
-                window_losses.clear()
+                avg = step_logger.rows[opt_step]["loss"]  # train_step's window mean
                 if not math.isfinite(avg):
                     # stop with the resume state intact instead of burning
                     # epochs on NaN

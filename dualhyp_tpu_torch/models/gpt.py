@@ -392,14 +392,14 @@ class GPT(nn.Module):
 
         generator: draws one seed per block for the LoRA-input dropout (a
         CPU generator keeps the draw off the card's queue); None means no
-        dropout. remat: True or "full" rematerialises each block in the
+        dropout. remat: True rematerialises each block in the
         backward (`torch.utils.checkpoint`). Returns logits
         (B, T, padded_vocab) fp32, or the final normed hidden states
         (B, T, d) in the compute dtype when `return_hidden`."""
         t = idx.shape[1]
         if t > self.cfg.block_size:
             raise ValueError(f"sequence {t} exceeds block_size {self.cfg.block_size}")
-        if remat not in (False, True, "full"):
+        if not isinstance(remat, bool):
             raise NotImplementedError(f"remat={remat!r} is not ported yet")
         seeds = [None] * self.cfg.n_layer
         if generator is not None and self.cfg.lora_dropout > 0:

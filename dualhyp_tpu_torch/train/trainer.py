@@ -73,8 +73,7 @@ class TrainConfig:
     seed: int = 1337
     compute_dtype: str = "bfloat16"
     frozen_dtype: str = ""  # e.g. "bfloat16": store frozen base leaves low-p
-    remat: bool | str = False  # False | True/"full" (whole block)
-    reference_loss_norm: bool = True  # mean-over-all-tokens training quirk
+    remat: bool = False  # whole-block rematerialisation
     mode: str = "lora"  # only "lora" is ported
 
     @property
@@ -134,7 +133,7 @@ class Trainer:
         # shift: logits[t] predicts labels[t+1] (ref: finetune/ger.py:279-281)
         hidden = hidden[:, :-1]
         targets = labels[:, 1:]
-        mean_all = self.cfg.reference_loss_norm if train else False
+        mean_all = train  # the reference's mean over all tokens in training
         lm_head = self.model.lm_head
         if lm_head.with_lora:
             # a LoRA head needs the full head transform

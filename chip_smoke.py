@@ -37,10 +37,27 @@ prints one JSON line; a failed phase raises and the script exits non-zero.
      and that all five kernels (K3 in both directions) launched; then one
      step under torch.profiler;
   8. the headline training step (`bench.py`'s shape: micro batch 8, T=1024,
-     half the labels masked), remat on and off: median step time, tokens/s,
-     MFU and peak memory;
-  9. the `{"kernels": [...]}` line, the card's name and power limit, and the
-     last line `{"ok": true, "device": {...}}`.
+     half the labels masked), remat on and off, and with the fused LoRA
+     linear (K5) with remat on: median step time, tokens/s, MFU and peak
+     memory (the fused-vs-composition A/B);
+  9. K8 (int4 weights times activations) at decode (8) and prefill (3072)
+     rows for fc_1, mlp.proj and lm_head, and K5 (the fused LoRA linear) at
+     8, 3072 and 8192 rows for the fused QKV (rank 48) and proj (rank 16),
+     with the LoRA input x itself and a separate one: each against its plain
+     version, timed beside its bound and the cuBLAS yardstick (a bf16
+     matmul on the dequantised weight; the three-call LoRA composition);
+ 10. depth-2, full-width checks, card (kernels, bf16) against CPU (plain,
+     fp32) on the same seeded numpy weights: int4 prefill logits (weights
+     merged and quantized by the port, so both sides hold the same bytes),
+     and a fused-LoRA training step's loss and LoRA gradients;
+ 11. the quantized and fused decode slices, full-width and 22 layers, the
+     decode slice's traffic: (a) LoRA merged, --quantize int4 (K8 launches,
+     K4 and K5 do not); (b) merged, --quantize int8 --kv_quant int8; (c)
+     unmerged with the fused LoRA linear (K5 launches): p50 latency,
+     tokens/s, peak memory and greedy-token agreement with the bf16 slice;
+ 12. the `{"kernels": [...]}` line (all seven kernels, launches by path),
+     the card's name and power limit, and the last line
+     `{"ok": true, "device": {...}}`.
 
 Exits non-zero without printing a result when no CUDA card is present or
 when the port's package is not beside the script.
@@ -78,6 +95,17 @@ TOLERANCES = {
     # swiglu: sums of 2048 and 5632 fp32 products in another order and with
     # atomics in no fixed order; h may round apart by one bf16 ulp.
     "swiglu_mlp": (1e-2, 2.0 ** -6),
+    # q4_matmul: the same exact bf16 x nibble products as the plain version,
+    # summed in fp32 in another order (split K: partials added apart), each
+    # group scaled after its sum, rounded once to bf16 on both sides: one or
+    # two bf16 ulps apart. A wrong nibble, group or scale moves an output by
+    # a whole term (~|x| |w|, 0.02 and more).
+    "q4_matmul": (1e-2, 2.0 ** -6),
+    # lora_linear: the base and rank sums in another fp32 order; the rank
+    # tile rounds to bf16 on both sides and may do so one ulp apart (2^-8 of
+    # s * delta); the output rounds once. A lost or transposed LoRA branch
+    # moves outputs by s * delta (~0.1 here).
+    "lora_linear": (1e-2, 2.0 ** -6),
 }
 # flash forward's row logsumexp (fp32 on both sides, from the same exact
 # bf16 products summed in another order): |kernel - plain| <= 1e-4 +
@@ -121,6 +149,10 @@ DEPTH2_ATOL = 0.1
 L2_FLUSH_BYTES = 256 << 20
 # depth of the decode slice (full width); the training slice keeps all 22
 DECODE_LAYERS = 22
+# TinyLlama-1.1B's linears that K8 and K5 see: (name, out, in)
+Q4_SHAPES = (("fc_1", 5632, 2048), ("mlp_proj", 2048, 5632), ("lm_head", 32000, 2048))
+LORA_SHAPES = (("qkv", 2560, 2048, 3), ("proj", 2048, 2048, 1))  # (name, O, D, blocks of r)
+LORA_RANK = 16
 
 
 def emit(obj) -> None:
@@ -330,6 +362,78 @@ def kernel_phases(torch, seed: int) -> dict:
     return results
 
 
+def q4_lora_phase(torch, seed: int) -> dict:
+    """K8 and K5 at the shapes of TinyLlama-1.1B's linears, each against its
+    plain version, timed beside its bound and its cuBLAS yardstick."""
+    from dualhyp_tpu_torch.ops import int4, lora, quant
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 13)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, std=1.0, dtype=bf16):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+    q4 = {}
+    for name, n, k in Q4_SHAPES:
+        packed, scales = quant.quantize_weight_int4(randn(n, k, std=0.02, dtype=torch.float32))
+        w_deq = quant.dequantize_weight_int4(packed, scales, bf16)  # the yardstick's weight
+        for label, rows in (("decode", 8), ("prefill", 3072)):
+            x = randn(rows, k)
+            err = compare("q4_matmul", int4.q4_matmul(x, packed, scales),
+                          int4.q4_matmul_plain(x, packed, scales), torch)
+            bms, by = bound(rows * k * 2 + n * k // 2 + n * (k // 128) * 4 + rows * n * 2,
+                            2 * rows * n * k, BF16_TENSOR_FLOPS)
+            q4[f"{label}_{name}"] = dict(
+                shape=[rows, n, k], split_k=list(int4.split_k(rows, n, k // 128)),
+                max_abs_err=err,
+                ms=time_ms(lambda: int4.q4_matmul(x, packed, scales), torch),
+                device_ms=device_ms(lambda: int4.q4_matmul(x, packed, scales), torch),
+                plain_ms=time_ms(lambda: int4.q4_matmul_plain(x, packed, scales), torch,
+                                 warmup=1, iters=3),
+                library_ms=time_ms(lambda: x @ w_deq.t(), torch),
+                library="cuBLAS bf16 matmul on the dequantised weight",
+                bound_ms=bms, bound_by=by)
+        del w_deq
+    emit({"phase": "kernel", "name": "q4_matmul",
+          "tolerance": dict(zip(("atol", "rtol"), TOLERANCES["q4_matmul"])), **q4})
+
+    lo = {}
+    r = LORA_RANK
+    for name, o, d, blocks in LORA_SHAPES:
+        w = randn(o, d, std=0.02)
+        a = randn(blocks * r, d, std=1 / math.sqrt(d))
+        b_small = randn(o, r, std=0.02)
+        shapes = (d, (o - d) // 2, (o - d) // 2) if blocks == 3 else (o,)
+        b = lora.lora_qkv_block_b(b_small, shapes, r)
+        s = 1.0  # lora_alpha / lora_r of the slice
+        for rows in (8, 3072, 8192):
+            for separate in (False, True):
+                x = randn(rows, d)
+                xin = randn(rows, d) if separate else None
+                xb = x if xin is None else xin
+                err = compare("lora_linear", lora.lora_linear(x, w, a, b, s, xin=xin),
+                              lora.lora_linear_plain(x, w, a, b, s, xin), torch)
+                n_x = rows * d * (2 if separate else 1)
+                bms, by = bound((n_x + o * d + blocks * r * d + o * blocks * r + rows * o) * 2,
+                                2 * rows * o * d + 2 * rows * blocks * r * d + 2 * rows * o * r,
+                                BF16_TENSOR_FLOPS)
+                lo[f"{name}_{rows}{'_xin' if separate else ''}"] = dict(
+                    shape=[rows, o, d, blocks * r], separate_xin=separate, max_abs_err=err,
+                    ms=time_ms(lambda: lora.lora_linear(x, w, a, b, s, xin=xin), torch),
+                    device_ms=device_ms(lambda: lora.lora_linear(x, w, a, b, s, xin=xin),
+                                        torch),
+                    plain_ms=time_ms(lambda: lora.lora_linear_plain(x, w, a, b, s, xin),
+                                     torch, warmup=1, iters=3),
+                    library_ms=time_ms(lambda: x @ w.t() + s * ((xb @ a.t()) @ b.t()), torch),
+                    library="cuBLAS x W^T + s (xin A^T) B^T, three products and an add",
+                    bound_ms=bms, bound_by=by)
+    emit({"phase": "kernel", "name": "lora_linear",
+          "tolerance": dict(zip(("atol", "rtol"), TOLERANCES["lora_linear"])), **lo})
+    torch.cuda.empty_cache()
+    return {"q4_matmul": q4, "lora_linear": lo}
+
+
 def lora_config(n_layer: int, lora_dropout: float = 0.0):
     from dualhyp_tpu_torch import config_from_name
 
@@ -409,6 +513,49 @@ def depth2_check(torch, seed: int) -> dict:
     return result
 
 
+def depth2_int4_check(torch, seed: int) -> dict:
+    """Depth-2 int4 prefill logits, card (K8, bf16) against CPU (plain, fp32):
+    the seeded numpy weights merged with their LoRA deltas and quantized by
+    the port once, so both sides hold the same packed bytes and scales."""
+    import numpy as np
+
+    from dualhyp_tpu_torch.ckpt.convert import params_from_jax, tree_from_model
+    from dualhyp_tpu_torch.models.gpt import merge_lora
+    from dualhyp_tpu_torch.ops import quant
+
+    cfg = lora_config(2)
+    merged = merge_lora(params_from_jax(numpy_tree(cfg, seed), cfg, device="cpu",
+                                        dtype=torch.float32))
+    qtree = quant.quantize_tree(tree_from_model(merged), "int4")
+    del merged
+    card = params_from_jax(qtree, cfg, device="cuda", dtype=torch.bfloat16)
+    cpu = params_from_jax(qtree, cfg, device="cpu", dtype=torch.float32)
+    del qtree
+    rng = np.random.default_rng(seed + 3)
+    t = 96
+    ids = torch.from_numpy(rng.integers(3, cfg.vocab_size, size=(4, t)))
+    lengths = torch.tensor([96, 80, 50, 33])
+    for i, n in enumerate(lengths.tolist()):
+        ids[i, n:] = 0
+    reset_counts()
+    got = card.prefill(ids.cuda(), lengths.cuda(), card.init_cache(4, t)).cpu()
+    launches = read_counts()
+    want = cpu.prefill(ids, lengths, cpu.init_cache(4, t))
+    err = float((got - want).abs().max())
+    result = {"phase": "depth2_int4_card_vs_cpu", "shape": [4, t], "max_abs_err": err,
+              "tolerance": DEPTH2_ATOL, "logit_std": float(want.std()),
+              "argmax_agree": float((got.argmax(-1) == want.argmax(-1)).float().mean()),
+              "launches": launches}
+    emit(result)
+    if not err <= DEPTH2_ATOL:
+        raise RuntimeError(f"depth-2 int4 logits: card vs CPU max_abs_err {err} > {DEPTH2_ATOL}")
+    if launches["q4_matmul"] <= 0 or launches["swiglu_mlp"] != 0:
+        raise RuntimeError(f"depth-2 int4 prefill launches {launches}")
+    del card, cpu
+    torch.cuda.empty_cache()
+    return result
+
+
 def profile_summary(prof, wall_ms: float, top_n: int = 12) -> dict:
     """Device busy time, idle share of the wall, and the top kernels by
     device time of a torch.profiler run."""
@@ -445,6 +592,22 @@ class WordTokenizer:
 
 
 DECODE_PATH = ("rms_norm", "apply_rope", "flash_attention_fwd", "swiglu_mlp")
+TRAIN_PATH = ("rms_norm", "apply_rope", "flash_attention_fwd", "flash_attention_bwd",
+              "swiglu_mlp", "apply_rope_transpose")
+# the decode slice's variants: how the model is built and served, which
+# kernels must launch on it and which must not
+SLICES = {
+    "bf16": dict(lora_impl="xla", quantize=None, kv_quant=None, profile=True,
+                 launch=DECODE_PATH, idle=("lora_linear", "q4_matmul")),
+    "int4": dict(lora_impl="fused", quantize="int4", kv_quant=None, profile=True,
+                 launch=("rms_norm", "apply_rope", "flash_attention_fwd", "q4_matmul"),
+                 idle=("swiglu_mlp", "lora_linear")),
+    "int8_kv8": dict(lora_impl="xla", quantize="int8", kv_quant="int8", profile=False,
+                     launch=("rms_norm", "apply_rope", "flash_attention_fwd"),
+                     idle=("swiglu_mlp", "lora_linear", "q4_matmul")),
+    "fused": dict(lora_impl="fused", quantize=None, kv_quant=None, profile=False,
+                  launch=DECODE_PATH + ("lora_linear",), idle=("q4_matmul",)),
+}
 
 
 def reset_counts():
@@ -463,13 +626,31 @@ def read_counts() -> dict:
     return counts
 
 
-def slice_run(torch, seed: int) -> dict:
+def token_agreement(records, reference) -> dict:
+    """Greedy-output agreement with a reference run of the same requests:
+    the share of answer words (one word one token here) equal position by
+    position, and the share of identical answers."""
+    ref = {r["uid"]: r["inference"].split() for r in reference}
+    same = total = exact = 0
+    for r in records:
+        got, want = r["inference"].split(), ref[r["uid"]]
+        same += sum(a == b for a, b in zip(got, want))
+        total += max(len(got), len(want), 1)
+        exact += got == want
+    return {"token_agreement": same / total, "exact_answers": exact / len(records)}
+
+
+def slice_run(torch, seed: int, variant: str = "bf16", reference=None) -> dict:
+    """The decode slice (SLICES[variant]): the model is built from --seed,
+    LoRA merged and quantized where the variant says, and serves the 16
+    requests once with the launch counts reset before and read after."""
     from dualhyp_tpu_torch.cli.inference_ger import run_inference
     from dualhyp_tpu_torch.data import hypotheses, prompts, synthetic
-    from dualhyp_tpu_torch.models.gpt import GPT
+    from dualhyp_tpu_torch.models.gpt import GPT, merge_lora, quantize_model
 
+    spec = SLICES[variant]
     cfg = lora_config(DECODE_LAYERS)
-    model = GPT(cfg, device="cuda", dtype=torch.bfloat16)
+    model = GPT(cfg, device="cuda", dtype=torch.bfloat16, lora_impl=spec["lora_impl"])
     gen = torch.Generator(device="cuda").manual_seed(seed)
     model.init_weights(gen)
     with torch.no_grad():  # a finetuned adapter's lora_B is not zero
@@ -477,6 +658,10 @@ def slice_run(torch, seed: int) -> dict:
             for mod in (block.attn.qkv, block.attn.proj):
                 mod.lora_B.copy_(torch.randn(mod.lora_B.shape, generator=gen,
                                              device="cuda") * 0.02)
+    if spec["quantize"]:  # the CLI's --quantize: merge, then quantize
+        quantize_model(merge_lora(model), spec["quantize"])
+    serve = dict(decode_batch=8, max_new_tokens=32, temperature=0.2, top_k=1,
+                 kv_quant=spec["kv_quant"])
 
     records = synthetic.make_records(n_uids=16, n_hyps=5, seed=seed)
     template_words = " ".join(prompts.DualHyp_PROMPTS.values()).split()
@@ -496,40 +681,51 @@ def slice_run(torch, seed: int) -> dict:
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         t0 = time.perf_counter()
-        out_records, metrics = run_inference(
-            model, tok, dataset(), decode_batch=8, max_new_tokens=32,
-            temperature=0.2, top_k=1, collect_latency=True)
+        out_records, metrics = run_inference(model, tok, dataset(), collect_latency=True,
+                                             **serve)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_counts()
 
-        # the same traffic again under torch.profiler: where the device time
-        # goes, and how much of the wall the device is idle
-        from torch.profiler import ProfilerActivity, profile
+        if spec["profile"]:
+            # the same traffic again under torch.profiler: where the device
+            # time goes, and how much of the wall the device is idle
+            from torch.profiler import ProfilerActivity, profile
 
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t1 = time.perf_counter()
-            run_inference(model, tok, dataset(), decode_batch=8, max_new_tokens=32,
-                          temperature=0.2, top_k=1)
-            torch.cuda.synchronize()
-            prof_wall_ms = (time.perf_counter() - t1) * 1e3
-    emit({"phase": "slice_profile", **profile_summary(prof, prof_wall_ms)})
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                run_inference(model, tok, dataset(), **serve)
+                torch.cuda.synchronize()
+                prof_wall_ms = (time.perf_counter() - t1) * 1e3
+            emit({"phase": "slice_profile", "variant": variant,
+                  **profile_summary(prof, prof_wall_ms)})
 
-    result = {"phase": "slice", "model": cfg.name, "n_layer": cfg.n_layer,
-              "lora_r": cfg.lora_r, "requests": len(out_records),
+    result = {"phase": "slice", "variant": variant, "model": cfg.name,
+              "n_layer": cfg.n_layer, "lora_r": cfg.lora_r,
+              "lora_impl": spec["lora_impl"], "quantize": spec["quantize"],
+              "kv_quant": spec["kv_quant"], "requests": len(out_records),
               "prompt_tokens": [min(prompt_lengths), max(prompt_lengths)],
               "decode_batch": 8, "max_new_tokens": 32, "wall_s": wall,
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "weight_gb": sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9,
               "metrics": metrics, "launches": launches,
               "sample": out_records[0]}
+    if reference is not None:
+        result["vs_bf16_slice"] = token_agreement(out_records, reference["records"])
     emit(result)
+    result["records"] = out_records
+    del model
+    torch.cuda.empty_cache()
     if len(out_records) != 16 or not all(isinstance(r["inference"], str) for r in out_records):
         raise RuntimeError("the slice did not answer every request")
     if not all(math.isfinite(metrics[k]) for k in ("WER", "post_ST_wer")):
         raise RuntimeError(f"non-finite metrics {metrics}")
-    missing = [name for name in DECODE_PATH if launches[name] <= 0]
+    missing = [name for name in spec["launch"] if launches[name] <= 0]
     if missing:
-        raise RuntimeError(f"kernels never launched on the decode path: {missing}")
+        raise RuntimeError(f"kernels never launched on the {variant} decode path: {missing}")
+    stray = [name for name in spec["idle"] if launches[name] != 0]
+    if stray:
+        raise RuntimeError(f"kernels launched off the {variant} decode path: {stray}")
     return result
 
 
@@ -680,12 +876,15 @@ def training_shape_phase(torch, seed: int) -> dict:
     return out
 
 
-def depth2_train_check(torch, seed: int) -> dict:
+def depth2_train_check(torch, seed: int, lora_impl: str = "xla") -> dict:
     """One Trainer step of a depth-2, full-width TinyLlama + LoRA model from
     seeded numpy weights, dropout off: the loss and every LoRA leaf's
-    gradient, card bf16 against CPU fp32."""
+    gradient, card bf16 against CPU fp32. lora_impl "fused": the LoRA
+    linears through K5 on the card and its plain version on the CPU."""
     import numpy as np
 
+    from dualhyp_tpu_torch.ckpt.convert import load_tree
+    from dualhyp_tpu_torch.models.gpt import GPT
     from dualhyp_tpu_torch.train import TrainConfig, Trainer
 
     cfg = lora_config(2)
@@ -701,15 +900,22 @@ def depth2_train_check(torch, seed: int) -> dict:
         tcfg = TrainConfig(batch_size=2, micro_batch_size=2, compute_dtype=dtype,
                            frozen_dtype="bfloat16" if device == "cuda" else "",
                            lm_head_chunk_size=128)
-        trainer = Trainer(cfg, tcfg, tree, device=device)
+        model = GPT(cfg, device=device, dtype=getattr(torch, dtype), lora_impl=lora_impl)
+        load_tree(model, tree)
+        trainer = Trainer(cfg, tcfg, model)
+        if device == "cuda":
+            reset_counts()
         loss, _ = trainer.train_step(batch, max_iters=100, warmup_steps=10)
+        if device == "cuda":
+            launches = read_counts()
         results[device] = (float(loss), {n: p.grad.detach().float().cpu()
                                          for n, p in trainer.trainable.items()})
-        del trainer
+        del trainer, model
     torch.cuda.empty_cache()
     (loss_card, g_card), (loss_cpu, g_cpu) = results["cuda"], results["cpu"]
     rel = {n: float((g_card[n] - g_cpu[n]).norm() / g_cpu[n].norm()) for n in g_cpu}
-    result = {"phase": "depth2_train_card_vs_cpu", "shape": [2, t],
+    result = {"phase": "depth2_train_card_vs_cpu", "lora_impl": lora_impl,
+              "launches": launches, "shape": [2, t],
               "loss_card": loss_card, "loss_cpu": loss_cpu,
               "loss_abs_err": abs(loss_card - loss_cpu), "loss_atol": TRAIN_LOSS_ATOL,
               "grad_rel_l2_err": rel, "grad_rel_tol": TRAIN_GRAD_REL}
@@ -719,6 +925,8 @@ def depth2_train_check(torch, seed: int) -> dict:
     bad = {n: e for n, e in rel.items() if not e <= TRAIN_GRAD_REL}
     if bad:
         raise RuntimeError(f"depth-2 LoRA gradients off: {bad}")
+    if (launches["lora_linear"] > 0) != (lora_impl == "fused"):
+        raise RuntimeError(f"depth-2 {lora_impl} training step launches {launches}")
     return result
 
 
@@ -841,7 +1049,7 @@ def train_slice(torch, seed: int) -> dict:
                            f"frozen moved {moved_frozen}")
     if mismatch or not isinstance(records[0]["inference"], str):
         raise RuntimeError(f"the saved checkpoint did not reload and decode: {mismatch}")
-    missing = [name for name, n in launches.items() if n <= 0]
+    missing = [name for name in TRAIN_PATH if launches[name] <= 0]
     if missing:
         raise RuntimeError(f"kernels never launched on the training path: {missing}")
     return result
@@ -850,7 +1058,9 @@ def train_slice(torch, seed: int) -> dict:
 def train_step_1024(torch, seed: int) -> dict:
     """`bench.py`'s training shape on the card: full TinyLlama-1.1B + LoRA
     (dropout 0.05), micro batch 8, T=1024, half the labels masked, accum 1;
-    2 warm-up steps and 5 timed steps, remat on and off."""
+    2 warm-up steps and 5 timed steps, remat on and off with the LoRA
+    composition, then remat on with the fused LoRA linear (K5): the A/B
+    that sets the LoRA default. Launch counts are read around each run."""
     import numpy as np
 
     from dualhyp_tpu_torch.models.gpt import GPT
@@ -858,8 +1068,6 @@ def train_step_1024(torch, seed: int) -> dict:
     from dualhyp_tpu_torch.utils.monitor import estimate_train_flops_per_token
 
     cfg = lora_config(22, lora_dropout=0.05)
-    model = GPT(cfg, device="cuda", dtype=torch.bfloat16)
-    model.init_weights(torch.Generator(device="cuda").manual_seed(seed))
     mb, t = 8, 1024
     rng = np.random.default_rng(seed)
     ids = rng.integers(1, cfg.vocab_size, size=(mb, t)).astype(np.int32)
@@ -868,7 +1076,14 @@ def train_step_1024(torch, seed: int) -> dict:
     batch = {"input_ids": ids, "labels": labels}
     flops_per_step = mb * t * estimate_train_flops_per_token(cfg, t)
     results = {}
-    for remat in (True, False):
+    model = None
+    for label, remat, impl in (("remat", True, "xla"), ("no_remat", False, "xla"),
+                               ("fused_remat", True, "fused")):
+        if model is None or model.lora_impl != impl:
+            del model
+            torch.cuda.empty_cache()
+            model = GPT(cfg, device="cuda", dtype=torch.bfloat16, lora_impl=impl)
+            model.init_weights(torch.Generator(device="cuda").manual_seed(seed))
         tcfg = TrainConfig(batch_size=mb, micro_batch_size=mb, frozen_dtype="bfloat16",
                            lm_head_chunk_size=128, remat=remat)
         trainer = Trainer(cfg, tcfg, model)
@@ -877,6 +1092,7 @@ def train_step_1024(torch, seed: int) -> dict:
             trainer.train_step(batch, max_iters=1000, warmup_steps=10, generator=gen)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        reset_counts()
         times = []
         for _ in range(5):
             t0 = time.perf_counter()
@@ -885,11 +1101,12 @@ def train_step_1024(torch, seed: int) -> dict:
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         med = sorted(times)[len(times) // 2]
-        results["remat" if remat else "no_remat"] = {
+        results[label] = {
+            "lora_impl": impl, "remat": remat,
             "step_s": times, "median_step_s": med, "tokens_per_s": mb * t / med,
             "mfu": flops_per_step / med / BF16_TENSOR_FLOPS,
             "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "loss": float(loss)}
+            "loss": float(loss), "launches": read_counts()}
         if remat:  # where the device time of one such step goes
             from torch.profiler import ProfilerActivity, profile
 
@@ -898,13 +1115,15 @@ def train_step_1024(torch, seed: int) -> dict:
                 trainer.train_step(batch, max_iters=1000, warmup_steps=10, generator=gen)
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t0) * 1e3
-            emit({"phase": "train_step_1024_profile", "remat": True,
+            emit({"phase": "train_step_1024_profile", "remat": True, "lora_impl": impl,
                   **profile_summary(prof, wall_ms, top_n=15)})
         del trainer
     emit({"phase": "train_step_1024", "micro_batch": mb, "seq_len": t,
           "flops_per_token": estimate_train_flops_per_token(cfg, t), **results})
     if not all(math.isfinite(r["loss"]) for r in results.values()):
         raise RuntimeError(f"non-finite loss at the training shape: {results}")
+    if results["fused_remat"]["launches"]["lora_linear"] <= 0:
+        raise RuntimeError("the fused training step never launched K5")
     del model
     torch.cuda.empty_cache()
     return results
@@ -940,13 +1159,18 @@ def main(argv=None) -> int:
     emit({"phase": "l2_flush", "bytes": L2_FLUSH_BYTES, "ms": time_ms(l2_flush(torch), torch)})
 
     kernels = kernel_phases(torch, args.seed)
+    kernels.update(q4_lora_phase(torch, args.seed))
     depth2_check(torch, args.seed)
+    depth2_int4_check(torch, args.seed)
     sliced = slice_run(torch, args.seed)
+    slices = {variant: slice_run(torch, args.seed, variant, reference=sliced)
+              for variant in ("int4", "int8_kv8", "fused")}
     kernels["flash_attention_bwd"] = {"train": flash_bwd_phase(torch, args.seed)}
     train_shapes = training_shape_phase(torch, args.seed)
     depth2_train_check(torch, args.seed)
+    depth2_train_check(torch, args.seed, lora_impl="fused")
     trained = train_slice(torch, args.seed)
-    train_step_1024(torch, args.seed)
+    stepped = train_step_1024(torch, args.seed)
 
     sources = {"rms_norm": ("rmsnorm.cu", "dualhyp_tpu/ops/pallas/rmsnorm_kernel.py:26"),
                "apply_rope": ("rope.cu", "dualhyp_tpu/ops/pallas/rope_kernel.py:29"),
@@ -954,7 +1178,15 @@ def main(argv=None) -> int:
                                        "dualhyp_tpu/ops/pallas/flash_vjp.py:77"),
                "flash_attention_bwd": ("flash_attention_bwd.cu",
                                        "dualhyp_tpu/ops/pallas/flash_vjp.py:121"),
-               "swiglu_mlp": ("swiglu.cu", "dualhyp_tpu/ops/pallas/swiglu_kernel.py:37")}
+               "swiglu_mlp": ("swiglu.cu", "dualhyp_tpu/ops/pallas/swiglu_kernel.py:37"),
+               "lora_linear": ("lora_linear.cu", "dualhyp_tpu/ops/pallas/lora_kernel.py:42"),
+               "q4_matmul": ("int4_matmul.cu", "dualhyp_tpu/ops/pallas/int4_kernel.py:36")}
+    # each kernel's main path, and the shape of its row in the line
+    main_path = {"lora_linear": ("fused_slice", "qkv_3072"),
+                 "q4_matmul": ("int4_slice", "decode_fc_1")}
+    paths = {"decode_slice": sliced["launches"], "train_slice": trained["launches"],
+             **{f"{v}_slice": slices[v]["launches"] for v in slices},
+             **{f"train_step_1024_{k}": r["launches"] for k, r in stepped.items()}}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "device_ms", "shape")
     train_rows = {"rms_norm": train_shapes["rms_norm"],
@@ -963,14 +1195,15 @@ def main(argv=None) -> int:
     line = []
     for name in KERNELS:
         src, replaces = sources[name]
-        main_shape = kernels[name].get("prefill", kernels[name].get("train"))
-        launches = {"decode_slice": sliced["launches"][name],
-                    "train_slice": trained["launches"][name]}
+        path, shape = main_path.get(name, ("train_slice", None))
+        main_shape = (kernels[name][shape] if shape else
+                      kernels[name].get("prefill", kernels[name].get("train")))
+        launches = {p: counts[name] for p, counts in paths.items()}
         if name == "apply_rope":
             launches["train_slice_transpose"] = trained["launches"]["apply_rope_transpose"]
         entry = {
             "name": name, "route": "cuda", "source": f"dualhyp_tpu_torch/csrc/{src}",
-            "replaces": replaces, "launches": trained["launches"][name],
+            "replaces": replaces, "launches": launches[path], "main_path": path,
             "launches_by_path": launches,
             "path": "cli.finetune_ger.run_training -> train.Trainer.train_step -> "
                     "GPT.forward (+ backward); cli.inference_ger.run_inference -> "
@@ -978,6 +1211,9 @@ def main(argv=None) -> int:
             **{k: main_shape[k] for k in keys},
             **({"decode": kernels[name]["decode"]} if "decode" in kernels[name] else {}),
         }
+        if shape:  # K5, K8: every measured shape beside the main one
+            entry["shapes"] = {k: {key: v[key] for key in keys}
+                               for k, v in kernels[name].items()}
         if name in train_rows:
             entry["train_rows"] = {k: train_rows[name][k] for k in keys}
         if name == "apply_rope":

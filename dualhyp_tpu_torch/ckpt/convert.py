@@ -7,6 +7,12 @@ package after `np.asarray` on each leaf. Leaf `a/b/c` loads into parameter
 into `blocks.i.*`. Each leaf is cast to its parameter's dtype: frozen
 matrices to the model's compute dtype, LoRA leaves and norm scales to fp32.
 
+A tree after `quantize_tree` (of either package) loads too: where it holds
+`weight_q8`/`weight_scale` or `weight_q4`/`weight_scale4` in place of a
+linear's `weight`, that linear of the model takes the quantized leaves
+(int8 codes or packed bytes and fp32 scales, copied as they are), beside
+the zeroed LoRA leaves a merge leaves behind.
+
 `tree_from_model` is the inverse: the model's parameters as such a tree.
 """
 
@@ -18,6 +24,7 @@ import torch
 from dualhyp_tpu_torch.ckpt.io import SEP, bf16_from_bits, unflatten
 from dualhyp_tpu_torch.config import GPTConfig
 from dualhyp_tpu_torch.models.gpt import GPT
+from dualhyp_tpu_torch.ops import quant
 
 
 def _leaves(tree: dict, prefix=()):
@@ -37,13 +44,52 @@ def _tensor(value) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+def _module_names(path: tuple, n_layer: int) -> list:
+    """The model's module names for the tree node at `path`."""
+    if path[0] == "blocks":
+        return [f"blocks.{i}.{'.'.join(path[1:])}" for i in range(n_layer)]
+    return [".".join(path)]
+
+
+def _quantize_like(model: GPT, tree: dict) -> None:
+    """Give each linear whose tree node holds quantized leaves the same
+    quantized parameters (empty, to be copied into). A node that is no
+    linear of the model is left to `load_tree`, which raises for it."""
+    modules = dict(model.named_modules())
+    for path, _ in _leaves(tree):
+        key = path[-1]
+        if key not in (quant.Q_KEY, quant.Q4_KEY):
+            continue
+        node = tree
+        for part in path[:-1]:
+            node = node[part]
+        scale_key = quant.SCALE_KEY if key == quant.Q_KEY else quant.SCALE4_KEY
+        if scale_key not in node:
+            continue
+        stacked = path[0] == "blocks"
+        shapes = {k: tuple(np.shape(node[k]))[int(stacked):] for k in (key, scale_key)}
+        mode = "int8" if key == quant.Q_KEY else "int4"
+        for name in _module_names(path[:-1], model.cfg.n_layer):
+            mod = modules.get(name)
+            if not hasattr(mod, "set_quantized") or mod.quant == mode:
+                continue
+            if mod.quant is not None:
+                raise ValueError(f"{name} is quantized {mod.quant}, the checkpoint {mode}")
+            device = mod.weight.device
+            mod.set_quantized({
+                key: torch.empty(shapes[key], dtype=torch.int8, device=device),
+                scale_key: torch.empty(shapes[scale_key], dtype=torch.float32,
+                                       device=device)})
+
+
 @torch.no_grad()
 def load_tree(model: GPT, tree: dict, strict: bool = True) -> None:
     """Copy the tree's leaves into `model` in place.
 
     strict: every parameter of the model must be in the tree. A leaf the
-    model has no parameter for always raises (a quantized or adapter leaf
-    of a variant that is not ported)."""
+    model has no parameter for always raises (an adapter leaf of a variant
+    that is not ported)."""
+    _quantize_like(model, tree)
     params = dict(model.named_parameters())
     seen = set()
     n_layer = model.cfg.n_layer

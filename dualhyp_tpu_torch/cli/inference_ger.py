@@ -12,6 +12,11 @@ temperature 0.2, top_k 1 (greedy), max_new 150, EOS stop, prompt-prefix
 strip + first line; metrics WER, exact matches, post-normalised WER;
 predictions JSON written next to the checkpoint. Decoding is batched
 (--decode_batch, default 8). Runs on the card unless --device names another.
+
+--quantize int8|int4 merges the LoRA deltas into the weights, then
+quantizes them (int4 runs kernel K8); --kv_quant int8 decodes against an
+int8 KV cache. DUALHYP_LORA_IMPL=fused runs the unmerged LoRA linears
+through kernel K5.
 """
 
 from __future__ import annotations
@@ -29,8 +34,7 @@ from dualhyp_tpu_torch.data.collate import bucket_length
 from dualhyp_tpu_torch.device import resolve_device
 from dualhyp_tpu_torch.infer.decode import generate
 from dualhyp_tpu_torch.infer.evaluate import evaluate_predictions, extract_response
-
-NOT_PORTED = ("quantize", "kv_quant", "speculative")
+from dualhyp_tpu_torch.models.gpt import merge_lora, quantize_model
 
 
 def build_parser():
@@ -48,9 +52,12 @@ def build_parser():
     parser.add_argument("--temperature", type=float, default=0.2)
     parser.add_argument("--top_k", type=int, default=1)
     parser.add_argument("--quantize", choices=[None, "int8", "int4"], default=None,
-                        help="not ported yet")
+                        help="weight quantization after merging LoRA: int8 "
+                             "per row, int4 group-wise (lossy: validate WER "
+                             "before serving with it)")
     parser.add_argument("--kv_quant", choices=[None, "int8"], default=None,
-                        help="not ported yet")
+                        help="int8 KV cache with per-slot scales (outputs may "
+                             "shift within the quantization's rounding)")
     parser.add_argument("--speculative", nargs="?", const="lookup",
                         choices=["lookup", "anchored"], default=None,
                         help="not ported yet")
@@ -64,14 +71,15 @@ def build_parser():
 
 def run_inference(model, tokenizer, dataset, *, decode_batch=8,
                   max_new_tokens=150, temperature=0.2, top_k=1,
-                  collect_latency=False, generator=None):
+                  collect_latency=False, generator=None, kv_quant=None):
     """Batched correction over a dataset. Returns (records, metrics).
 
     Prompts are sorted by length and decoded `decode_batch` at a time,
     right-padded to the next length bucket; a short last batch repeats its
     last prompt and drops the repeats. Latency is per batch, shared by its
     prompts. collect_latency adds p50/p90 latency, the generated tokens (EOS
-    not counted, repeats dropped) and their rate over the decode time."""
+    not counted, repeats dropped) and their rate over the decode time.
+    kv_quant: "int8" decodes against an int8 KV cache."""
     cfg = model.cfg
     eos_id = getattr(tokenizer, "eos_token_id", None)
     examples = [dataset[i] for i in range(len(dataset))]
@@ -97,7 +105,7 @@ def run_inference(model, tokenizer, dataset, *, decode_batch=8,
         tokens, total_lengths = generate(
             model, torch.from_numpy(ids), torch.from_numpy(lengths),
             max_new_tokens=max_new_tokens, temperature=temperature,
-            top_k=top_k, eos_id=eos_id, generator=generator,
+            top_k=top_k, eos_id=eos_id, generator=generator, kv_quant=kv_quant,
         )
         tokens = tokens.cpu().numpy()
         total_lengths = total_lengths.cpu().numpy()
@@ -128,9 +136,8 @@ def run_inference(model, tokenizer, dataset, *, decode_batch=8,
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    for flag in NOT_PORTED:
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag} is not ported yet")
+    if args.speculative:
+        raise NotImplementedError("--speculative is not ported yet")
     if args.scheduler != "lockstep":
         raise NotImplementedError("--scheduler continuous is not ported yet")
     device = resolve_device(args.device)
@@ -140,6 +147,10 @@ def main(argv=None):
     model_cfg = common.model_config_from_args(args)
     model = common.load_model(checkpoint_dir, model_cfg, device=device,
                               seed=args.seed, finetuned=args.model_path)
+    if args.quantize:
+        if model_cfg.any_lora:
+            merge_lora(model)
+        quantize_model(model, args.quantize)
     dataset = common.dataset_class_for(args)(
         "test",
         args.test_path,
@@ -161,6 +172,7 @@ def main(argv=None):
         top_k=args.top_k,
         collect_latency=True,
         generator=generator,
+        kv_quant=args.kv_quant,
     )
     predict_dir = Path(args.model_path).parent / "predictions"
     predict_dir.mkdir(parents=True, exist_ok=True)

@@ -42,8 +42,10 @@ def sample_token(logits, *, temperature: float, top_k: Optional[int],
 def generate(model: GPT, prompt_ids, prompt_lengths, *, max_new_tokens: int = 150,
              temperature: float = 1.0, top_k: Optional[int] = None,
              eos_id: Optional[int] = None,
-             generator: Optional[torch.Generator] = None):
-    """prompt_ids: (B, T) right-padded; prompt_lengths: (B,).
+             generator: Optional[torch.Generator] = None,
+             kv_quant: Optional[str] = None):
+    """prompt_ids: (B, T) right-padded; prompt_lengths: (B,). kv_quant:
+    "int8" decodes against an int8 KV cache (`GPT.init_cache`).
 
     Returns (tokens (B, T + max_new_tokens), total_lengths (B,)), int64 on
     the model's device; total_lengths counts the prompt and the generated
@@ -57,7 +59,7 @@ def generate(model: GPT, prompt_ids, prompt_lengths, *, max_new_tokens: int = 15
         raise ValueError(f"{max_seq} exceeds block_size {model.cfg.block_size}")
     rows = torch.arange(b, device=device)
 
-    cache = model.init_cache(b, max_seq)
+    cache = model.init_cache(b, max_seq, quantize=kv_quant)
     logits = model.prefill(prompt_ids, prompt_lengths, cache)
     tokens = torch.zeros((b, max_seq), dtype=torch.long, device=device)
     tokens[:, :t] = prompt_ids

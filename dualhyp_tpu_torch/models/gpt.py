@@ -27,19 +27,33 @@ dropout from a generator; whole-block rematerialisation with
 `torch.utils.checkpoint`); `prefill` and `decode_step` serve, without grad.
 Every parameter is created with requires_grad False; a trainer turns it on
 for `trainable_parameters()`.
+
+Decoding variants of the JAX package:
+  * `quantize_model` replaces the big linear weights by int8 or int4 leaves
+    (`weight_q8`/`weight_scale`, `weight_q4`/`weight_scale4`); a quantized
+    MLP takes the unfused act(fc_1(x)) * fc_2(x) branch, so K4 does not run
+    on it; `merge_lora` folds the LoRA deltas into the weights first;
+  * `init_cache(..., quantize="int8")`: int8 K/V with fp32 per-slot scales;
+  * `GPT(..., lora_impl="fused")`: the LoRA linears run kernel K5
+    (`ops/lora`) instead of the composition (`DUALHYP_LORA_IMPL`, the JAX
+    package's switch, when None; "xla", the composition, by default).
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from dualhyp_tpu_torch.config import GPTConfig
 from dualhyp_tpu_torch.device import resolve_device
 from dualhyp_tpu_torch.ops import attention as attn_ops
+from dualhyp_tpu_torch.ops import lora as lora_ops
+from dualhyp_tpu_torch.ops import quant as quant_ops
 from dualhyp_tpu_torch.ops import rmsnorm as norm_ops
 from dualhyp_tpu_torch.ops import rope as rope_ops
 from dualhyp_tpu_torch.ops import swiglu as mlp_ops
@@ -105,6 +119,15 @@ def _dropout(x, rate: float, generator):
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
+def _fused_input(x, rate: float, generator):
+    """The fused kernel's LoRA input: x after dropout, or None (the kernel
+    then reads x once) when there is no dropout. The same generator draws as
+    `_dropout`'s, so both LoRA paths drop the same elements."""
+    if generator is None or rate <= 0.0:
+        return None
+    return _dropout(x, rate, generator)
+
+
 class Norm(nn.Module):
     def __init__(self, d, device):
         super().__init__()
@@ -117,26 +140,62 @@ class Embedding(nn.Module):
         self.weight = _param((n, d), dtype, device)
 
 
-class Linear(nn.Module):
+class _Frozen(nn.Module):
+    """The frozen weight of a linear (`_base_linear` of the JAX package):
+    `weight`, or after `set_quantized` the int8 leaves `weight_q8` and
+    `weight_scale` or the int4 leaves `weight_q4` and `weight_scale4`."""
+
+    quant = None  # None, "int8" or "int4"
+    fused = False  # the LoRA branch through kernel K5
+
+    def set_quantized(self, leaves: dict) -> None:
+        """Replace `weight` by quantized leaves ({name: tensor})."""
+        del self.weight
+        for name, t in leaves.items():
+            self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+        self.quant = "int4" if quant_ops.Q4_KEY in leaves else "int8"
+
+    def base(self, x):
+        if self.quant == "int8":
+            return quant_ops.qmatmul(x, self.weight_q8, self.weight_scale)
+        if self.quant == "int4":
+            return quant_ops.q4matmul(x, self.weight_q4, self.weight_scale4)
+        return mlp_ops.linear(x, self.weight)
+
+    def use_fused(self) -> bool:
+        """K5 runs a LoRA linear when asked for, never a quantized one
+        (`_use_fused_lora` of the JAX package)."""
+        return self.fused and self.with_lora and self.quant is None
+
+
+class Linear(_Frozen):
     """torch-layout linear with an optional LoRA branch.
 
     As `_apply_linear` of the JAX package: the fp32 A and B are cast to x's
     dtype, the two products run in it on the dropped-out input, and then
     come the scaling and the layer gate (a gated-off layer skips the branch,
-    whose leaves then get no gradient: zero, as the JAX gate's)."""
+    whose leaves then get no gradient: zero, as the JAX gate's). With
+    `fused`, kernel K5 computes the whole linear, the gate folded into its
+    scale (a gated-off layer's LoRA gradients are then zero products)."""
 
-    def __init__(self, in_f, out_f, cfg: GPTConfig, with_lora: bool, dtype, device):
+    def __init__(self, in_f, out_f, cfg: GPTConfig, with_lora: bool, dtype, device,
+                 fused: bool = False):
         super().__init__()
         self.scaling = cfg.lora_scaling
         self.dropout = cfg.lora_dropout
         self.weight = _param((out_f, in_f), dtype, device)
         self.with_lora = with_lora and cfg.lora_r > 0
+        self.fused = fused
         if self.with_lora:
             self.lora_A = _param((cfg.lora_r, in_f), torch.float32, device)
             self.lora_B = _param((out_f, cfg.lora_r), torch.float32, device)
 
     def forward(self, x, lora_on: bool = True, generator=None):
-        y = mlp_ops.linear(x, self.weight)
+        if self.use_fused():
+            return lora_ops.lora_linear(
+                x, self.weight, self.lora_A, self.lora_B, self.scaling * float(lora_on),
+                xin=_fused_input(x, self.dropout, generator))
+        y = self.base(x)
         if self.with_lora and lora_on:
             xin = _dropout(x, self.dropout, generator)
             delta = (xin @ self.lora_A.to(x.dtype).t()) @ self.lora_B.to(x.dtype).t()
@@ -144,13 +203,15 @@ class Linear(nn.Module):
         return y
 
 
-class QKV(nn.Module):
+class QKV(_Frozen):
     """Fused QKV projection with the reference's LoRA arithmetic
-    (`_apply_qkv` of the JAX package)."""
+    (`_apply_qkv` of the JAX package). With `fused` and all of q, k and v
+    enabled, kernel K5 computes it, B made block-diagonal (rank 3r)."""
 
-    def __init__(self, cfg: GPTConfig, dtype, device):
+    def __init__(self, cfg: GPTConfig, dtype, device, fused: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.fused = fused
         d = cfg.n_embd
         self.weight = _param((cfg.qkv_out_dim, d), dtype, device)
         self.shapes = lora_qkv_shapes(cfg) if cfg.lora_r > 0 else ()
@@ -163,7 +224,13 @@ class QKV(nn.Module):
                                      persistent=False)
 
     def forward(self, x, lora_on: bool = True, generator=None):
-        y = mlp_ops.linear(x, self.weight)
+        cfg = self.cfg
+        if self.use_fused() and len(self.shapes) == 3:
+            b_bd = lora_ops.lora_qkv_block_b(self.lora_B, self.shapes, cfg.lora_r)
+            return lora_ops.lora_linear(
+                x, self.weight, self.lora_A, b_bd, cfg.lora_scaling * float(lora_on),
+                xin=_fused_input(x, cfg.lora_dropout, generator))
+        y = self.base(x)
         if not (self.with_lora and lora_on):
             return y
         r = self.cfg.lora_r
@@ -187,6 +254,16 @@ class QKV(nn.Module):
         return y + padded.to(y.dtype)
 
 
+def _cache_entries(k, v, n: int):
+    """What a layer's cache of n tensors stores of k and v (.., T or no
+    token axis, D): (k, v) for a float cache; the int8 values and scales
+    (k_q, v_q, k_scale, v_scale) for an int8 one."""
+    if n == 2:
+        return k, v
+    (k_q, k_sc), (v_q, v_sc) = quant_ops.q8_rows(k), quant_ops.q8_rows(v)
+    return k_q, v_q, k_sc, v_sc
+
+
 def split_heads(cfg: GPTConfig, qkv):
     """(B, T, QKV) -> q (B, G, q_per_kv, T, D), k, v (B, G, T, D), all views.
 
@@ -201,11 +278,11 @@ def split_heads(cfg: GPTConfig, qkv):
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: GPTConfig, dtype, device):
+    def __init__(self, cfg: GPTConfig, dtype, device, fused: bool = False):
         super().__init__()
-        self.qkv = QKV(cfg, dtype, device)
+        self.qkv = QKV(cfg, dtype, device, fused)
         self.proj = Linear(cfg.n_embd, cfg.n_embd, cfg, cfg.lora_projection,
-                           dtype, device)
+                           dtype, device, fused)
 
 
 class MLP(nn.Module):
@@ -218,17 +295,23 @@ class MLP(nn.Module):
         self.proj = Linear(inter, d, cfg, False, dtype, device)
 
     def forward(self, x):
+        if self.fc_1.quant is not None:
+            # `_mlp`'s unfused branch, as the JAX package takes it for
+            # quantized leaves: K4 does not run
+            h1 = self.fc_1(x)
+            act = F.silu(h1) if self.gate == "silu" else F.gelu(h1, approximate="tanh")
+            return self.proj(act * self.fc_2(x))
         return mlp_ops.swiglu_mlp(x, self.fc_1.weight, self.fc_2.weight,
                                   self.proj.weight, gate=self.gate)
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: GPTConfig, layer_idx: int, dtype, device):
+    def __init__(self, cfg: GPTConfig, layer_idx: int, dtype, device, fused: bool = False):
         super().__init__()
         self.cfg = cfg
         self.lora_on = layer_idx >= cfg.lora_start_layer
         self.norm_1 = Norm(cfg.n_embd, device)
-        self.attn = Attention(cfg, dtype, device)
+        self.attn = Attention(cfg, dtype, device, fused)
         if not cfg.shared_attention_norm:
             self.norm_2 = Norm(cfg.n_embd, device)
         self.mlp = MLP(cfg, dtype, device)
@@ -238,9 +321,11 @@ class Block(nn.Module):
 
     def forward(self, x, cos, sin, cache_kv=None, positions=None,
                 kv_length=None, active=None, seed=None):
-        """x: (B, T, d). cache_kv: this layer's (k, v) cache, written in
-        place: at slot 0 in prefill (positions None), at `positions` in a
-        decode step (T == 1), for the rows where `active` holds. seed: the
+        """x: (B, T, d). cache_kv: this layer's (k, v) cache, or (k, v,
+        k_scale, v_scale) for an int8 cache, written in place: at slot 0 in
+        prefill (positions None), at `positions` in a decode step (T == 1),
+        for the rows where `active` holds. An int8 cache takes K/V rounded
+        by `q8_rows` over D; prefill attends the exact K/V. seed: the
         LoRA dropout masks of this block come from a generator seeded with
         it, so a rematerialised pass draws the same masks (None: no
         dropout)."""
@@ -268,23 +353,22 @@ class Block(nn.Module):
         elif positions is None:
             # prefill: the whole prompt goes to slot 0; attention reads the
             # exact k, v
-            ck, cv = cache_kv
-            ck[:, :, :t] = k
-            cv[:, :, :t] = v
+            for c, new in zip(cache_kv, _cache_entries(k, v, len(cache_kv))):
+                c[:, :, :t] = new.to(c.dtype)
             y = attn_ops.causal_attention(q, k, v)
         else:
-            ck, cv = cache_kv
             rows = torch.arange(b, device=x.device)
-            k_new, v_new = k[:, :, 0].to(ck.dtype), v[:, :, 0].to(cv.dtype)
-            if active is not None:
-                # an inactive row writes back what its slot holds (a blend,
-                # not a boolean index: no wait on the device)
-                keep = ~active[:, None, None]
-                k_new = torch.where(keep, ck[rows, :, positions], k_new)
-                v_new = torch.where(keep, cv[rows, :, positions], v_new)
-            ck[rows, :, positions] = k_new
-            cv[rows, :, positions] = v_new
-            y = attn_ops.decode_attention(q, ck, cv, kv_length)
+            for c, new in zip(cache_kv, _cache_entries(k[:, :, 0], v[:, :, 0], len(cache_kv))):
+                new = new.to(c.dtype)
+                if active is not None:
+                    # an inactive row writes back what its slot holds (a
+                    # blend, not a boolean index: no wait on the device)
+                    keep = ~active.view(-1, *([1] * (new.dim() - 1)))
+                    new = torch.where(keep, c[rows, :, positions], new)
+                c[rows, :, positions] = new
+            scales = cache_kv[2:] if len(cache_kv) == 4 else (None, None)
+            y = attn_ops.decode_attention(q, cache_kv[0], cache_kv[1], kv_length,
+                                          k_scale=scales[0], v_scale=scales[1])
 
         y = y.transpose(1, 2).reshape(b, t, nh * hs)
         h = self.attn.proj(y, self.lora_on, generator)
@@ -295,21 +379,35 @@ class Block(nn.Module):
         return x + self.mlp(self._norm(self.norm_2, x))
 
 
-class GPT(nn.Module):
-    """The model. `device=None` means the card, and raises without one."""
+# the LoRA linears' two implementations: "xla" the composition (the JAX
+# package's default name for it), "fused" kernel K5
+LORA_IMPLS = ("xla", "fused")
 
-    def __init__(self, cfg: GPTConfig, *, device=None, dtype=torch.bfloat16):
+
+class GPT(nn.Module):
+    """The model. `device=None` means the card, and raises without one.
+    `lora_impl`: "xla" (the composition) or "fused" (kernel K5); None reads
+    `DUALHYP_LORA_IMPL`, "xla" when unset."""
+
+    def __init__(self, cfg: GPTConfig, *, device=None, dtype=torch.bfloat16,
+                 lora_impl=None):
         super().__init__()
         check_supported(cfg)
         device = resolve_device(device)
+        if lora_impl is None:
+            lora_impl = os.environ.get("DUALHYP_LORA_IMPL", "xla")
+        if lora_impl not in LORA_IMPLS:
+            raise ValueError(f"lora_impl {lora_impl!r} not in {LORA_IMPLS}")
+        fused = lora_impl == "fused"
         self.cfg = cfg
         self.dtype = dtype
+        self.lora_impl = lora_impl
         self.wte = Embedding(cfg.effective_padded_vocab_size, cfg.n_embd, dtype, device)
         self.blocks = nn.ModuleList(
-            Block(cfg, i, dtype, device) for i in range(cfg.n_layer))
+            Block(cfg, i, dtype, device, fused) for i in range(cfg.n_layer))
         self.ln_f = Norm(cfg.n_embd, device)
         self.lm_head = Linear(cfg.n_embd, cfg.padded_vocab_size, cfg,
-                              cfg.lora_head, dtype, device)
+                              cfg.lora_head, dtype, device, fused)
         cos, sin = rope_ops.build_rope_cache(
             cfg.block_size, cfg.rope_n_elem, base=cfg.rope_base,
             condense_ratio=cfg.rope_condense_ratio, dtype=dtype, device=device)
@@ -366,15 +464,21 @@ class GPT(nn.Module):
         x = norm_ops.rms_norm(x, self.ln_f.scale, self.cfg.norm_eps)
         return self.lm_head(x).float()
 
-    def init_cache(self, batch_size: int, max_seq: int) -> list:
+    def init_cache(self, batch_size: int, max_seq: int, quantize=None) -> list:
         """Per-layer [k, v] caches, each (B, G, S, D) zeros in the compute
-        dtype. Only the n_query_groups KV heads are stored."""
+        dtype. Only the n_query_groups KV heads are stored. quantize="int8":
+        per-layer [k, v, k_scale, v_scale], int8 K/V and fp32 (B, G, S)
+        per-slot scales."""
         cfg = self.cfg
         shape = (batch_size, cfg.n_query_groups, max_seq, cfg.head_size)
-        return [
-            [torch.zeros(shape, dtype=self.dtype, device=self.device) for _ in range(2)]
-            for _ in range(cfg.n_layer)
-        ]
+        if quantize is None:
+            dtypes = [(shape, self.dtype)] * 2
+        elif quantize == "int8":
+            dtypes = [(shape, torch.int8)] * 2 + [(shape[:-1], torch.float32)] * 2
+        else:
+            raise ValueError(f"unsupported KV-cache quantization: {quantize}")
+        return [[torch.zeros(s, dtype=dt, device=self.device) for s, dt in dtypes]
+                for _ in range(cfg.n_layer)]
 
     def trainable_parameters(self) -> dict:
         """The LoRA leaves (`trainable_mask` of the JAX package in mode
@@ -439,3 +543,55 @@ class GPT(nn.Module):
             x = block(x, self.cos, self.sin, cache_kv=kv, positions=positions,
                       kv_length=kv_length, active=active)
         return self._head(x[:, 0])
+
+
+@torch.no_grad()
+def merge_lora(model: GPT) -> GPT:
+    """Fold the LoRA deltas into the base weights in place and zero lora_B
+    (`merge_lora` of the JAX package): the output is the same whether the
+    LoRA branch runs afterwards or not. Block deltas are gated by
+    `lora_start_layer`; the head's is not."""
+    cfg = model.cfg
+
+    def fold(mod, delta):
+        if mod.quant is not None:
+            raise ValueError("merge_lora needs the float weights: merge before quantizing")
+        mod.weight.copy_((mod.weight.float() + delta).to(mod.weight.dtype))
+        mod.lora_B.zero_()
+
+    for i, block in enumerate(model.blocks):
+        gate = float(i >= cfg.lora_start_layer)
+        qkv = block.attn.qkv
+        if qkv.with_lora:
+            r = cfg.lora_r
+            outs, row = [], 0
+            for j, extent in enumerate(qkv.shapes):
+                outs.append(qkv.lora_B[row:row + extent] @ qkv.lora_A[j * r:(j + 1) * r])
+                row += extent
+            delta = torch.cat(outs) * cfg.lora_scaling
+            if len(qkv.shapes) < 3:
+                full = torch.zeros(qkv.weight.shape, dtype=delta.dtype, device=delta.device)
+                full[qkv.rows] = delta
+                delta = full
+            fold(qkv, delta * gate)
+        proj = block.attn.proj
+        if proj.with_lora:
+            fold(proj, (proj.lora_B @ proj.lora_A) * cfg.lora_scaling * gate)
+    if model.lm_head.with_lora:
+        fold(model.lm_head, (model.lm_head.lora_B @ model.lm_head.lora_A) * cfg.lora_scaling)
+    return model
+
+
+@torch.no_grad()
+def quantize_model(model: GPT, mode: str) -> GPT:
+    """Quantize the model's big linear weights in place (`quantize_tree` of
+    the JAX package on its tree): "int8" per row, "int4" group-wise where the
+    input width is a multiple of 128 (int8 elsewhere); the embedding, the
+    norms and matrices under 256 wide stay as they are."""
+    if mode not in ("int8", "int4"):
+        raise ValueError(f"quantization mode {mode!r} not in ('int8', 'int4')")
+    for mod in model.modules():
+        if (isinstance(mod, _Frozen) and mod.quant is None
+                and quant_ops._should_quantize("weight", mod.weight)):
+            mod.set_quantized(quant_ops.quantize_pair(mod.weight, mode))
+    return model

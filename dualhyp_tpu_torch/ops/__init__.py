@@ -6,6 +6,8 @@ there is no fallback.
 """
 
 from dualhyp_tpu_torch.ops.attention import FLASH_BWD, FLASH_FWD
+from dualhyp_tpu_torch.ops.int4 import Q4_MATMUL
+from dualhyp_tpu_torch.ops.lora import LORA_LINEAR
 from dualhyp_tpu_torch.ops.rmsnorm import RMS_NORM
 from dualhyp_tpu_torch.ops.rope import ROPE, ROPE_T
 from dualhyp_tpu_torch.ops.swiglu import SWIGLU
@@ -17,6 +19,8 @@ KERNELS = {
     "flash_attention_fwd": FLASH_FWD,
     "flash_attention_bwd": FLASH_BWD,
     "swiglu_mlp": SWIGLU,
+    "lora_linear": LORA_LINEAR,
+    "q4_matmul": Q4_MATMUL,
 }
 # launches of a kernel above in its transposed direction (the backward),
 # counted apart

@@ -10,7 +10,8 @@ the grouped broadcast happens inside the kernel or the einsum.
     `FlashAttention`, whose backward launches K1's backward
     (`csrc/flash_attention_bwd.cu`), or runs the plain pair on the CPU.
   * `decode_attention`: one step against the KV cache, masked by each row's
-    valid length (plain PyTorch; the JAX package leaves it to XLA too).
+    valid length, with the per-slot scales of an int8 cache (plain PyTorch;
+    the JAX package leaves it to XLA too).
 """
 
 from __future__ import annotations
@@ -220,21 +221,31 @@ def causal_attention(q, k, v, scale: float | None = None):
     return _flash_fwd(q, k, v, scale)[0]
 
 
-def decode_attention(q, k_cache, v_cache, kv_length, scale: float | None = None):
+def decode_attention(q, k_cache, v_cache, kv_length, scale: float | None = None,
+                     k_scale=None, v_scale=None):
     """One decode step against a fixed-size cache.
 
     q: (B, Hq, 1, D); k_cache, v_cache: (B, G, S, D); kv_length: (B,) valid
     cache slots per row (slots >= kv_length are masked). The logits take
     exact fp32 products of the cached values, the softmax runs in fp32, and
-    the probabilities are rounded to q's dtype before the PV product."""
+    the probabilities are rounded to q's dtype before the PV product.
+    k_scale, v_scale: the (B, G, S) per-slot scales of an int8 cache
+    (`_dequant_cache` of the JAX package): the K scale multiplies the
+    logits and the V scale the probabilities, slot by slot, so the int8
+    values enter the products as they are."""
     b, hq, _, d = q.shape
     g, s = k_cache.shape[1], k_cache.shape[2]
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     qg = _grouped(q, g).float()  # (B, G, Qh, 1, D)
     logits = torch.matmul(qg, k_cache.float()[:, :, None].transpose(-1, -2)) * scale
+    if k_scale is not None:
+        logits = logits * k_scale[:, :, None, None, :].float()
     valid = torch.arange(s, device=q.device)[None, :] < kv_length[:, None]
     logits = logits.masked_fill(~valid[:, None, None, None, :], float("-inf"))
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    probs = torch.softmax(logits, dim=-1)
+    if v_scale is not None:
+        probs = probs * v_scale[:, :, None, None, :].float()
+    probs = probs.to(q.dtype)
     out = torch.matmul(probs, v_cache[:, :, None].to(q.dtype))
     return out.reshape(b, hq, 1, d)

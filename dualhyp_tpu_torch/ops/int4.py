@@ -1,0 +1,120 @@
+"""Group-wise int4 weights times activations: kernel K8.
+
+Counterpart of `dualhyp_tpu/ops/pallas/int4_kernel.py` `q4_matmul`.
+`q4_matmul` launches K8 (`csrc/int4_matmul.cu`) on a CUDA tensor and runs
+`q4_matmul_plain` on a CPU tensor. Forward only: the quantized path serves,
+it does not train.
+
+Layout (`ops/quant.quantize_weight_int4`): packed int8 (N, K / 2) holds
+columns (2c, 2c + 1) of row n in byte c, the low nibble the even column;
+scales fp32 (N, K / group), one per group of `group` input columns.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from dualhyp_tpu_torch.ops import _lib
+
+# K8: replaces dualhyp_tpu/ops/pallas/int4_kernel.py `_kernel`. Bound by the
+# packed weight bytes in decode (8 rows) and by operations in prefill
+# (thousands of rows); the packed bytes unpack in registers, into the
+# tensor-core operands, and no dequantised value is stored. See
+# csrc/int4_matmul.cu.
+Q4_MATMUL = _lib.Kernel(
+    "dh_q4_matmul",
+    [_lib.C_PTR, _lib.C_I64, _lib.C_PTR, _lib.C_PTR, _lib.C_PTR, _lib.C_PTR,
+     _lib.C_INT, _lib.C_INT, _lib.C_INT, _lib.C_INT, _lib.C_INT],
+)
+
+KERNEL_GROUP = 128  # the only group size the kernel takes
+# rows at or below which the kernel takes its one-m16-tile (decode) shape
+DECODE_ROWS = 16
+# the kernel's output tile: (64 rows, 64 columns) in prefill, (16, 64) in decode
+_TILE_N = 64
+# blocks that keep every SM of the card busy with copies in flight (four an
+# SM): below it the kernel splits K
+_MIN_BLOCKS = 528
+
+
+def unpack_int4(packed: torch.Tensor):
+    """Packed int8 (..., K // 2) -> the sign-extended (low, high) nibbles
+    as int32, each (..., K // 2): the even and the odd columns."""
+    w = packed.to(torch.int32)
+    return (w << 28) >> 28, w >> 4
+
+
+def q4_matmul_plain(x, packed, scales, group: int = 128):
+    """The plain PyTorch version of K8, in the Pallas kernel's arithmetic:
+    the nibbles sign-extended to x's dtype (exact for [-7, 7]), x's even and
+    odd columns against the low and high planes, each group's product
+    summed in fp32 and multiplied by the group's scale after the product,
+    one rounding to x's dtype at the end. (`dequantize_weight_int4` and a
+    matmul round q * s to x's dtype first; in bf16 the two differ.)"""
+    k = x.shape[-1]
+    n = packed.shape[0]
+    if k % group or k % 2 or packed.shape[1] * 2 != k or scales.shape != (n, k // group):
+        raise ValueError(f"x {tuple(x.shape)}, packed {tuple(packed.shape)}, "
+                         f"scales {tuple(scales.shape)}, group {group}")
+    acc_t = torch.promote_types(x.dtype, torch.float32)
+    lo, hi = (v.to(x.dtype).to(acc_t) for v in unpack_int4(packed))
+    x2 = x.reshape(-1, k)
+    xe = x2[:, 0::2].to(acc_t)
+    xo = x2[:, 1::2].to(acc_t)
+    rep = group // 2  # packed columns per group
+    acc = torch.zeros((x2.shape[0], n), dtype=acc_t, device=x.device)
+    for g in range(k // group):
+        sl = slice(g * rep, (g + 1) * rep)
+        partial = xe[:, sl] @ lo[:, sl].t() + xo[:, sl] @ hi[:, sl].t()
+        acc += partial * scales[:, g].to(acc_t)
+    return acc.to(x.dtype).reshape(*x.shape[:-1], n)
+
+
+def split_k(rows: int, n: int, groups: int) -> tuple:
+    """(splits, groups per split) of K8's launch: the K loop is split
+    across blocks when the output tiles alone cannot fill the card (decode
+    rows against a narrow N); the splits' fp32 partials then sum in a fixed
+    order."""
+    tile_m = DECODE_ROWS if rows <= DECODE_ROWS else 64
+    tiles = -(-rows // tile_m) * -(-n // _TILE_N)
+    if tiles >= _MIN_BLOCKS:
+        return 1, groups
+    per = -(-groups // min(groups, -(-_MIN_BLOCKS // tiles)))
+    return -(-groups // per), per
+
+
+def q4_matmul(x, packed, scales, group: int = 128):
+    """x (..., K) @ dequant4(packed (N, K // 2), scales (N, K // group)).T.
+
+    Returns (..., N) in x's dtype. On the card x is bfloat16, K a multiple
+    of 128 and group 128; rows and N are arbitrary."""
+    if x.device.type == "cpu":
+        return q4_matmul_plain(x, packed, scales, group)
+    device = _lib.check_cuda(x, packed, scales)
+    k = x.shape[-1]
+    n = packed.shape[0]
+    if group != KERNEL_GROUP:
+        raise ValueError(f"int4 kernel takes group {KERNEL_GROUP}, got {group}")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"int4 kernel takes bfloat16 activations, got {x.dtype}")
+    if packed.dtype != torch.int8 or scales.dtype != torch.float32:
+        raise TypeError(f"int4 kernel takes int8 packed weights and fp32 scales, "
+                        f"got {packed.dtype}, {scales.dtype}")
+    if k % KERNEL_GROUP or packed.shape != (n, k // 2) or scales.shape != (n, k // group):
+        raise ValueError(f"x {tuple(x.shape)}, packed {tuple(packed.shape)}, "
+                         f"scales {tuple(scales.shape)}: K must be a multiple of "
+                         f"{KERNEL_GROUP}")
+    x2 = x.reshape(-1, k)
+    if x2.stride(-1) != 1 or x2.stride(0) % 8 or x2.data_ptr() % 16:
+        x2 = x2.contiguous()
+    packed, scales = packed.contiguous(), scales.contiguous()
+    rows = x2.shape[0]
+    out = torch.empty((rows, n), dtype=x.dtype, device=device)
+    if rows and n:
+        splits, per = split_k(rows, n, k // KERNEL_GROUP)
+        ws = (torch.empty((splits, rows, n), dtype=torch.float32, device=device)
+              if splits > 1 else out)
+        Q4_MATMUL(device, x2.data_ptr(), x2.stride(0), packed.data_ptr(),
+                  scales.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                  rows, n, k, splits, per)
+    return out.reshape(*x.shape[:-1], n)

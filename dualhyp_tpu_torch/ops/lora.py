@@ -1,0 +1,142 @@
+"""The fused LoRA linear: kernel K5.
+
+Counterpart of `dualhyp_tpu/ops/pallas/lora_kernel.py`:
+y = x W^T + s * (xin A^T) B^T in one kernel, where xin is the LoRA branch's
+input (x after dropout, or x itself) and s = lora_scaling times the
+`lora_start_layer` gate. `lora_linear` launches K5 (`csrc/lora_linear.cu`)
+on a CUDA tensor and runs `lora_linear_plain` on a CPU tensor. With grad
+enabled it goes through `LoRALinear`, whose backward is the JAX package's
+`_bwd` in plain PyTorch (the JAX package leaves it to XLA, outside any
+kernel): dx, dxin, dA and dB, no dW (the base weight is frozen).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from dualhyp_tpu_torch.ops import _lib
+from dualhyp_tpu_torch.ops.swiglu import _full_fp32_matmuls
+
+# K5: replaces dualhyp_tpu/ops/pallas/lora_kernel.py `_kernel`. Bound by the
+# base product's operations at prefill and training rows and by W's bytes at
+# decode rows; the (rows, r) and (rows, O) intermediates stay on chip. See
+# the source note in csrc/lora_linear.cu.
+LORA_LINEAR = _lib.Kernel(
+    "dh_lora_linear",
+    [_lib.C_PTR] * 6 + [_lib.C_F32] + [_lib.C_INT] * 4,
+)
+
+MAX_RANK = 64  # the kernel's largest padded rank
+
+
+def lora_linear_plain(x, w, a, b, s, xin=None):
+    """The plain PyTorch version of K5, in the fused kernel's arithmetic: the
+    base product and xin A^T each summed in fp32; the (rows, r) result
+    rounded to x's dtype, then multiplied by B^T in fp32; acc + s * delta
+    rounded once. (`gpt.Linear`'s composition rounds after every product.)"""
+    acc_t = torch.promote_types(x.dtype, torch.float32)
+    xin = x if xin is None else xin
+    w, a, b = (t.to(x.dtype).to(acc_t) for t in (w, a, b))
+    base = x.to(acc_t) @ w.t()
+    h = (xin.to(acc_t) @ a.t()).to(x.dtype).to(acc_t)
+    return (base + s * (h @ b.t())).to(x.dtype)
+
+
+def lora_qkv_block_b(b, shapes, r: int):
+    """The fused-QKV LoRA B (sum(shapes), r) as one block-diagonal
+    (sum(shapes), len(shapes) * r) matrix, so the [q | k | v] delta is one
+    product of rank len(shapes) * r."""
+    blocks = []
+    row = 0
+    for extent in shapes:
+        blocks.append(b[row:row + extent])
+        row += extent
+    return torch.block_diag(*blocks)
+
+
+def _launch(x, xin, w, a, b, s):
+    device = _lib.check_cuda(x, w, a, b, *(() if xin is None else (xin,)))
+    d = x.shape[-1]
+    o, r = b.shape
+    if w.shape != (o, d) or a.shape != (r, d) or (xin is not None and xin.shape != x.shape):
+        raise ValueError(f"x {tuple(x.shape)}, w {tuple(w.shape)}, a {tuple(a.shape)}, "
+                         f"b {tuple(b.shape)}"
+                         + ("" if xin is None else f", xin {tuple(xin.shape)}"))
+    for t in (x, w, a, b, *(() if xin is None else (xin,))):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"lora kernel takes bfloat16, got {t.dtype}")
+    if d % 8 or not 0 < r <= MAX_RANK:
+        raise ValueError(f"lora kernel needs in_features % 8 == 0 and 0 < rank <= "
+                         f"{MAX_RANK}, got {d}, {r}")
+    x2 = x.reshape(-1, d).contiguous()
+    xin2 = x2 if xin is None else xin.reshape(-1, d).contiguous()
+    w, a, b = w.contiguous(), a.contiguous(), b.contiguous()
+    rows = x2.shape[0]
+    out = torch.empty((rows, o), dtype=x.dtype, device=device)
+    if rows and o:
+        LORA_LINEAR(device, x2.data_ptr(), xin2.data_ptr(), w.data_ptr(), a.data_ptr(),
+                    b.data_ptr(), out.data_ptr(), float(s), rows, o, d, r)
+    return out.reshape(*x.shape[:-1], o)
+
+
+def _forward(x, xin, w, a, b, s):
+    if x.device.type == "cpu":
+        return lora_linear_plain(x, w, a, b, s, xin)
+    return _launch(x, xin, w, a, b, s)
+
+
+class LoRALinear(torch.autograd.Function):
+    """K5 forward; the JAX package's `_bwd` in plain PyTorch. w, a and b come
+    in x's dtype (the caller casts the fp32 LoRA masters, and autograd casts
+    their gradients back); dA and dB are summed in fp32, multiplied by s,
+    then rounded to that dtype, as in JAX."""
+
+    @staticmethod
+    def forward(ctx, x, xin, w, a, b, s):
+        ctx.save_for_backward(x, xin, w, a, b)
+        ctx.s = s
+        return _forward(x, xin, w, a, b, s)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, xin, w, a, b = ctx.saved_tensors
+        s = ctx.s
+        d, o = x.shape[-1], w.shape[0]
+        dy = g.to(x.dtype).reshape(-1, o)
+        x2 = x.reshape(-1, d)
+        xin2 = x2 if xin is None else xin.reshape(-1, d)
+        dy_b = dy @ b  # (rows, r)
+        dx = dy @ w if ctx.needs_input_grad[0] else None
+        dxin = None
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            dxin = torch.tensor(s, dtype=dy.dtype, device=dy.device) * (dy_b @ a)
+        da = db = None
+        acc_t = torch.promote_types(dy.dtype, torch.float32)
+        with _full_fp32_matmuls():
+            if ctx.needs_input_grad[3]:
+                da = (s * (dy_b.to(acc_t).t() @ xin2.to(acc_t))).to(a.dtype)
+            if ctx.needs_input_grad[4]:
+                h = xin2 @ a.t()  # (rows, r), recomputed
+                db = (s * (dy.to(acc_t).t() @ h.to(acc_t))).to(b.dtype)
+        dxin_out = None
+        if xin is None:
+            if dx is not None:
+                dx = dx + dxin
+        else:
+            dxin_out = dxin.reshape(xin.shape) if ctx.needs_input_grad[1] else None
+        if dx is not None:
+            dx = dx.reshape(x.shape)
+        return dx, dxin_out, None, da, db, None
+
+
+def lora_linear(x, w, a, b, s, *, xin=None):
+    """x W^T + s * (xin A^T) B^T. x: (..., D); w: (O, D); a: (r, D); b:
+    (O, r); s a float (LoRA scaling times the layer gate). xin: the branch's
+    input, x when None (read once). w, a and b are cast to x's dtype, as the
+    JAX package casts them before its kernel."""
+    w, a, b = (t.to(x.dtype) for t in (w, a, b))
+    s = float(s)
+    tensors = (x, w, a, b) if xin is None else (x, xin, w, a, b)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return LoRALinear.apply(x, xin, w, a, b, s)
+    return _forward(x, xin, w, a, b, s)

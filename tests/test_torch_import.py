@@ -79,14 +79,77 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-@pytest.mark.parametrize("flag", [["--speculative"], ["--quantize", "int8"],
-                                  ["--kv_quant", "int8"], ["--scheduler", "continuous"]])
+@pytest.mark.parametrize("flag", [["--speculative"], ["--scheduler", "continuous"]])
 def test_unported_cli_options_raise(tmp_path, flag):
     from dualhyp_tpu_torch.cli import inference_ger
 
     with pytest.raises(NotImplementedError, match="not ported yet"):
         inference_ger.main(["--test_path", "t.json", "--model_path", "m.npz",
                             "--device", "cpu", *flag])
+
+
+@pytest.mark.parametrize("flag", [["--quantize", "int8"], ["--quantize", "int4"],
+                                  ["--kv_quant", "int8"]])
+def test_quantized_cli_options_run(tmp_path, flag):
+    """Each quantization flag of the correction CLI on a tiny CPU model
+    (widths 256 and 512, the smallest that are quantized): the predictions
+    JSON holds what `run_inference` gives on the model merged and quantized
+    by hand."""
+    from dualhyp_tpu_torch.ckpt.convert import tree_from_model
+    from dualhyp_tpu_torch.ckpt.io import save_params
+    from dualhyp_tpu_torch.cli import common, inference_ger
+    from dualhyp_tpu_torch.config import GPTConfig
+    from dualhyp_tpu_torch.data import hypotheses, synthetic
+    from dualhyp_tpu_torch.models.gpt import GPT, merge_lora, quantize_model
+    from dualhyp_tpu_torch.registry import config_from_checkpoint
+    from tests.test_torch_decode import _write_tokenizer
+
+    ckpt = tmp_path / "tiny-llama-test"
+    ckpt.mkdir()
+    vocab = _write_tokenizer(ckpt)
+    cfg = GPTConfig(name="tiny-llama-test", block_size=640, vocab_size=vocab,
+                    padding_multiple=128, n_layer=2, n_head=8, n_query_groups=2,
+                    n_embd=256, rotary_percentage=1.0, parallel_residual=False, bias=False,
+                    norm_class="RMSNorm", mlp_class="LLaMAMLP", intermediate_size=512)
+    (ckpt / "dualhyp_config.json").write_text(cfg.to_json())
+    lora = dict(lora_r=4, lora_alpha=8, lora_query=True, lora_key=True, lora_value=True,
+                lora_projection=True)
+    cfg = config_from_checkpoint(ckpt, lora_dropout=0.05, lora_mlp=False, lora_head=False,
+                                 **lora)
+    finetuned = GPT(cfg, device="cpu", dtype=torch.float32)
+    finetuned.init_weights(torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        for block in finetuned.blocks:
+            for mod in (block.attn.qkv, block.attn.proj):
+                mod.lora_B.normal_(0.0, 0.2, generator=torch.Generator().manual_seed(4))
+    attn = tree_from_model(finetuned)["blocks"]["attn"]
+    save_params(tmp_path / "run" / "best_model.npz",
+                {"blocks": {"attn": {m: {k: attn[m][k] for k in ("lora_A", "lora_B")}
+                                     for m in ("qkv", "proj")}}})
+    data = tmp_path / "test.json"
+    synthetic.write_json(data, synthetic.make_records(n_uids=3, seed=4))
+    inference_ger.main(["--test_path", str(data),
+                        "--model_path", str(tmp_path / "run" / "best_model.npz"),
+                        "--llm_checkpoint", str(ckpt), "--dual_hypotheses",
+                        "--prompts_format", "DualHyp", "--decode_batch", "2",
+                        "--max_new_tokens", "3", "--device", "cpu", "--lora_r", "4",
+                        "--lora_alpha", "8", *flag])
+    rows = json.loads((tmp_path / "run" / "predictions" / "best_model.json").read_text())
+
+    model = common.load_model(ckpt, cfg, device="cpu", seed=1337,
+                              finetuned=tmp_path / "run" / "best_model.npz")
+    if flag[0] == "--quantize":
+        quantize_model(merge_lora(model), flag[1])
+        assert model.blocks[0].attn.qkv.quant == flag[1]
+    tok = common.load_tokenizer(ckpt)
+    dataset = hypotheses.DualHypothesesDataset("test", str(data), tokenizer=tok,
+                                               prompts_format="DualHyp", seed=1337)
+    records, metrics = inference_ger.run_inference(
+        model, tok, dataset, decode_batch=2, max_new_tokens=3,
+        kv_quant=flag[1] if flag[0] == "--kv_quant" else None)
+    assert rows[:-1] == records and len(records) == 3
+    assert {k: rows[-1][k] for k in metrics} == metrics
+    assert rows[-1]["generated_tokens"] > 0
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -3,7 +3,10 @@
 Edge cases the main path's shapes do not reach: ragged sequence lengths and
 row counts, partial rotary, the inverse rotation, a ragged intermediate
 size, the gelu gate, strided inputs, fp32 where a kernel takes it, the
-wrappers' refusals, and the autograd ops of the training path. Every test needs an NVIDIA card and skips without one.
+wrappers' refusals, the autograd ops of the training path, K8 at ragged
+rows and N with split K, and K5 at ragged rows and O, ranks 16 and 48, a
+zero scale and a separate LoRA input. Every test needs an NVIDIA card and
+skips without one.
 On the card's machine (no JAX there) run them without the suite's conftest:
 
     python -m pytest tests/test_torch_kernels.py --noconftest -q
@@ -21,7 +24,7 @@ import torch
 
 from dualhyp_tpu_torch.config import GPTConfig
 from dualhyp_tpu_torch.models.gpt import GPT, split_heads
-from dualhyp_tpu_torch.ops import attention, rmsnorm, rope, swiglu
+from dualhyp_tpu_torch.ops import attention, int4, lora, quant, rmsnorm, rope, swiglu
 
 pytestmark = pytest.mark.cuda
 
@@ -266,3 +269,79 @@ def test_autograd_ops_on_the_card_match_the_plain_pair(dev, gen):
         grads[where] = [t.grad.float().cpu() for t in (x, s, *ws)]
     for got, want in zip(grads["cuda"], grads["cpu"]):
         assert float((got - want).norm() / want.norm()) < 0.05
+
+
+# K8 and K5 round once to bf16 from fp32 sums taken in another order than the
+# plain version's: one or two bf16 ulps (rtol 2^-6), atol for outputs near 0
+Q4_TOL = (2e-3, 2.0 ** -6)
+
+
+@pytest.mark.parametrize("rows", [1, 8, 17, 3072])
+@pytest.mark.parametrize("n", [100, 320])
+def test_q4_matmul(dev, gen, rows, n):
+    w = _randn(gen, n, 640, dtype=torch.float32, std=0.05)
+    packed, scales = quant.quantize_weight_int4(w)
+    x = _randn(gen, rows, 640)
+    got = int4.q4_matmul(x, packed, scales)
+    _close(got, int4.q4_matmul_plain(x, packed, scales), *Q4_TOL)
+
+
+def test_q4_matmul_splits_k_and_reads_strided_rows(dev, gen):
+    w = _randn(gen, 256, 2048, dtype=torch.float32, std=0.05)
+    packed, scales = quant.quantize_weight_int4(w)
+    assert int4.split_k(8, 256, 16)[0] > 1
+    x = _randn(gen, 8, 4096)[:, 1024:3072]  # a row stride of 4096 elements
+    _close(int4.q4_matmul(x, packed, scales), int4.q4_matmul_plain(x, packed, scales),
+           *Q4_TOL)
+
+
+def test_q4_matmul_refuses_what_it_does_not_take(dev, gen):
+    packed, scales = quant.quantize_weight_int4(_randn(gen, 64, 256, dtype=torch.float32))
+    with pytest.raises(TypeError, match="bfloat16"):
+        int4.q4_matmul(_randn(gen, 4, 256, dtype=torch.float32), packed, scales)
+    with pytest.raises(ValueError, match="group"):
+        int4.q4_matmul(_randn(gen, 4, 256), packed, scales, group=64)
+
+
+@pytest.mark.parametrize("rows,o,d", [(1, 100, 64), (8, 2560, 256), (37, 130, 264),
+                                      (300, 200, 512)])
+@pytest.mark.parametrize("r", [16, 48])
+@pytest.mark.parametrize("s", [2.0, 0.0])
+@pytest.mark.parametrize("separate", [False, True])
+def test_lora_linear(dev, gen, rows, o, d, r, s, separate):
+    x = _randn(gen, rows, d)
+    xin = _randn(gen, rows, d) if separate else None
+    w = _randn(gen, o, d, std=0.05)
+    a = _randn(gen, r, d, std=0.05)
+    b = _randn(gen, o, r, std=0.05)
+    got = lora.lora_linear(x, w, a, b, s, xin=xin)
+    _close(got, lora.lora_linear_plain(x, w, a, b, s, xin), *Q4_TOL)
+
+
+def test_lora_linear_autograd_on_the_card_matches_the_cpu(dev, gen):
+    x, xin = _randn(gen, 70, 256), _randn(gen, 70, 256)
+    w = _randn(gen, 96, 256, std=0.05)
+    a = _randn(gen, 16, 256, dtype=torch.float32, std=0.05)
+    b = _randn(gen, 96, 16, dtype=torch.float32, std=0.05)
+    grads = {}
+    for where in ("cuda", "cpu"):
+        leaves = [t.to(where).detach().requires_grad_() for t in (x, xin, a, b)]
+        before = lora.LORA_LINEAR.launches
+        out = lora.lora_linear(leaves[0], w.to(where), leaves[2], leaves[3], 2.0,
+                               xin=leaves[1])
+        out.float().square().mean().backward()
+        if where == "cuda":
+            assert lora.LORA_LINEAR.launches == before + 1
+        grads[where] = [t.grad.float().cpu() for t in leaves]
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        assert float((got - want).norm() / want.norm()) < 0.02
+
+
+def test_lora_linear_refuses_what_it_does_not_take(dev, gen):
+    x = _randn(gen, 4, 64)
+    w, b = _randn(gen, 32, 64), _randn(gen, 32, 80)
+    with pytest.raises(ValueError, match="rank"):
+        lora.lora_linear(x, w, _randn(gen, 80, 64), b, 1.0)
+    with pytest.raises(ValueError, match="% 8"):
+        lora.lora_linear(_randn(gen, 4, 60), _randn(gen, 32, 60), _randn(gen, 4, 60),
+                         _randn(gen, 32, 4), 1.0)

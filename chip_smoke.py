@@ -55,7 +55,26 @@ prints one JSON line; a failed phase raises and the script exits non-zero.
      K4 and K5 do not); (b) merged, --quantize int8 --kv_quant int8; (c)
      unmerged with the fused LoRA linear (K5 launches): p50 latency,
      tokens/s, peak memory and greedy-token agreement with the bf16 slice;
- 12. the `{"kernels": [...]}` line (all seven kernels, launches by path),
+ 12. K6 (bidirectional flash-attention forward, the Whisper encoder's
+     attention) in fp32 at B=1 H=20 T=S=280 (an utterance of the RelPrompt
+     slice), B=1 and B=8 at T=S=1500 (a 30-s window), T=280 against S=1500,
+     and in bf16 at B=8 T=S=1500; K7 (its causal flag) in bf16 at B=8 Hq=32
+     G=4 T=1024 and a ragged T=200: each against its plain version, timed
+     beside its bound and SDPA;
+ 13. a depth-2, full-width (1280, 20 heads, 128 mels) Whisper encoder from
+     seeded numpy weights, card (K6, fp32, TF32 off) against CPU (plain,
+     fp32), on a 3-s mel and a 30-s `pad_or_trim` mel;
+ 14. the RelPrompt slice: a random Whisper-large-v3 encoder (all 32 layers,
+     written as `config.json` + an F16 `model.safetensors`) and full-width
+     TinyLlama-1.1B-Chat + LoRA r=16 with the two classifiers and the 3
+     mask-token rows, 16 synthetic RelPrompt requests whose WAVs are written
+     from seeded noise: (a) `cli.precompute_features.main` on all 16, (b)
+     `cli.inference_relprompt.run_relprompt` with the encoder on the card
+     (`--whisper_checkpoint`), decode batch 8, 32 new tokens, greedy, (c) the
+     same from (a)'s `--feature_dir`: the mask tokens of (b) and (c) must
+     agree; launch counts around (a) and (b), where K6 runs 32 times an
+     utterance;
+ 15. the `{"kernels": [...]}` line (all nine kernels, launches by path),
      the card's name and power limit, and the last line
      `{"ok": true, "device": {...}}`.
 
@@ -145,6 +164,16 @@ TRAIN_GRAD_REL = 0.05
 # moves them by about that much, while bf16 weights and activations through
 # two blocks move them by a few bf16 ulps of the largest logits (~0.03).
 DEPTH2_ATOL = 0.1
+# K6/K7 (flash_fwd) against their plain versions on unit-normal inputs: fp32
+# sums in another order (~1e-6 measured on the card's edge-case tests);
+# bf16 rounds P to bf16 before the PV product and the output once (K1's
+# forward reads ~0.016).
+FLASH_FWD_ATOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# depth-2 Whisper encoder, card (K6, fp32 products with TF32 off) against the
+# CPU (plain, fp32): the same fp32 arithmetic summed in another order, held
+# to 1e-4 of the largest feature (~5 after the final LayerNorm). One pass of
+# TF32 (~1e-3) or a wrong mask of the ragged key tile fails it.
+ENCODER_REL_TOL = 1e-4
 # more than the H100's 50 MB L2 cache: read before each cold-cache call (device_ms)
 L2_FLUSH_BYTES = 256 << 20
 # depth of the decode slice (full width); the training slice keeps all 22
@@ -570,22 +599,43 @@ def profile_summary(prof, wall_ms: float, top_n: int = 12) -> dict:
 
 class WordTokenizer:
     """Whitespace word-level tokenizer over a fixed vocabulary (the card's
-    machine has no `tokenizers`)."""
+    machine has no `tokenizers`). `add_special_tokens` adds tokens that are
+    split out of a run of text wherever they occur, as an HF tokenizer's
+    added special tokens are, with ids from `special_base` on: the RelPrompt
+    mask tokens then take the embedding rows above the model's vocabulary."""
 
     eos_token = "</s>"
 
-    def __init__(self, words):
+    def __init__(self, words, special_base: int = 32000):
         self.vocab = {"<unk>": 0, "</s>": 1, "<s>": 2}
         for w in words:
             self.vocab.setdefault(w, len(self.vocab))
         self.words = {i: w for w, i in self.vocab.items()}
         self.eos_token_id = 1
+        self.special_base = special_base
+        self.special = {}
 
     def __len__(self):
         return len(self.vocab)
 
+    def add_special_tokens(self, tokens):
+        if isinstance(tokens, dict):
+            tokens = tokens["additional_special_tokens"]
+        for t in tokens:
+            i = self.special.setdefault(t, self.special_base + len(self.special))
+            self.words[i] = t
+
+    def _word(self, w):
+        if not self.special:
+            return [self.vocab.get(w, 0)]
+        import re
+
+        pattern = "(" + "|".join(re.escape(t) for t in self.special) + ")"
+        return [self.special[p] if p in self.special else self.vocab.get(p, 0)
+                for p in re.split(pattern, w) if p]
+
     def encode(self, text):
-        return [self.vocab.get(w, 0) for w in text.split()]
+        return [i for w in text.split() for i in self._word(w)]
 
     def decode(self, ids):
         return " ".join(self.words.get(int(i), f"<{int(i)}>") for i in ids)
@@ -1129,6 +1179,398 @@ def train_step_1024(torch, seed: int) -> dict:
     return results
 
 
+def flash_fwd_phase(torch, seed: int) -> dict:
+    """K6 and K7 against their plain versions at the encoder's and the
+    prefill's shapes, timed beside their bound and SDPA. K7 has no
+    production call site, so its driven run is this phase's: the launch
+    counts are reset before and read after one call at each K7 shape."""
+    import torch.nn.functional as F
+
+    from dualhyp_tpu_torch.ops import attention, flash_fwd
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 17)
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def check(label, got, want, dtype_name):
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        if not err <= FLASH_FWD_ATOL[dtype_name]:
+            raise RuntimeError(f"{label}: kernel disagrees with its plain version: "
+                               f"max_abs_err {err} > {FLASH_FWD_ATOL[dtype_name]}")
+        return err
+
+    full = {}
+    for label, b, t, s_len, dtype in (("b1_t280_f32", 1, 280, 280, torch.float32),
+                                      ("b1_t1500_f32", 1, 1500, 1500, torch.float32),
+                                      ("b8_t1500_f32", 8, 1500, 1500, torch.float32),
+                                      ("b1_t280_s1500_f32", 1, 280, 1500, torch.float32),
+                                      ("b8_t1500_bf16", 8, 1500, 1500, torch.bfloat16)):
+        h, hs = 20, 64
+        name = str(dtype).split(".")[-1]
+        q = randn(b, h, t, hs, dtype=dtype)
+        k, v = (randn(b, h, s_len, hs, dtype=dtype) for _ in range(2))
+        fn = lambda: flash_fwd.full_attention_fwd(q, k, v)  # noqa: E731
+        plain = lambda: flash_fwd.full_attention_plain(q, k, v)  # noqa: E731
+        err = check(f"full_attention_fwd {label}", fn(), plain(), name)
+        elem = q.element_size()
+        bms, by = bound((2 * b * h * t * hs + 2 * b * h * s_len * hs) * elem,
+                        4 * b * h * t * s_len * hs,
+                        FP32_FLOPS if dtype == torch.float32 else BF16_TENSOR_FLOPS)
+        full[label] = dict(
+            shape=[b, h, t, s_len, hs], dtype=name, max_abs_err=err,
+            ms=time_ms(fn, torch), device_ms=device_ms(fn, torch),
+            plain_ms=time_ms(plain, torch, warmup=1, iters=5),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v), torch),
+            library="SDPA (non-causal)", bound_ms=bms, bound_by=by)
+        del q, k, v
+    emit({"phase": "kernel", "name": "full_attention_fwd",
+          "tolerance": {"max_abs_err": FLASH_FWD_ATOL}, **full})
+
+    causal = {}
+    reset_counts()
+    for t in (200, 1024):
+        b, hq, g, hs = 8, 32, 4, 64
+        q = randn(b, hq, t, hs, dtype=torch.bfloat16)
+        k, v = (randn(b, g, t, hs, dtype=torch.bfloat16) for _ in range(2))
+        got = flash_fwd.causal_attention_fwd(q, k, v)
+        causal[f"T{t}"] = (q, k, v, got)
+    launches = read_counts()
+    for label, (q, k, v, got) in causal.items():
+        b, hq, t, hs = q.shape
+        g = k.shape[1]
+        fn = lambda: flash_fwd.causal_attention_fwd(q, k, v)  # noqa: E731
+        plain = lambda: attention.causal_attention_plain(q, k, v)  # noqa: E731
+        err = check(f"causal_attention_fwd {label}", got, plain(), "bfloat16")
+        ke, ve = (z.repeat_interleave(hq // g, dim=1) for z in (k, v))
+        pairs = b * hq * t * (t + 1) // 2
+        bms, by = bound((2 * b * hq * t * hs + 2 * b * g * t * hs) * 2, 4 * pairs * hs,
+                        BF16_TENSOR_FLOPS)
+        # K1's forward on the same inputs: the same tiles and masks in WMMA
+        # through shared memory, and the row logsumexp written too
+        k1 = lambda: attention._flash_fwd(q, k, v, 1.0 / math.sqrt(hs))  # noqa: E731
+        causal[label] = dict(
+            shape=[b, hq, g, t, hs], dtype="bfloat16", max_abs_err=err,
+            ms=time_ms(fn, torch), device_ms=device_ms(fn, torch),
+            k1_forward_device_ms=device_ms(k1, torch),
+            plain_ms=time_ms(plain, torch, warmup=1, iters=5),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, ke, ve, is_causal=True),
+                               torch),
+            library="SDPA (causal, K/V expanded to the query heads)", bound_ms=bms, bound_by=by)
+    emit({"phase": "kernel", "name": "causal_attention_fwd",
+          "tolerance": {"max_abs_err": FLASH_FWD_ATOL["bfloat16"]},
+          "launches": launches["causal_attention_fwd"], **causal})
+    if launches["causal_attention_fwd"] != 2:
+        raise RuntimeError(f"K7's driven run launched {launches}")
+    torch.cuda.empty_cache()
+    return {"full_attention_fwd": full, "causal_attention_fwd": causal,
+            "causal_launches": launches}
+
+
+def numpy_encoder_tree(cfg, seed: int) -> dict:
+    """A Whisper encoder tree in the JAX package's layout, drawn with numpy:
+    weights N(0, 1/n_state) as the JAX init draws them, and small non-zero
+    biases and LayerNorm offsets so that each leaf counts."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    s, n = cfg.n_state, cfg.n_layer
+    std = 1.0 / math.sqrt(s)
+
+    def normal(*shape, scale=std, loc=0.0):
+        return (loc + rng.standard_normal(shape, dtype=np.float32) * np.float32(scale))
+
+    def lin(out_f, in_f, bias=True):
+        leaf = {"weight": normal(n, out_f, in_f)}
+        if bias:
+            leaf["bias"] = normal(n, out_f, scale=0.02)
+        return leaf
+
+    def ln(*shape):
+        return {"scale": normal(*shape, scale=0.1, loc=1.0), "bias": normal(*shape, scale=0.02)}
+
+    return {
+        "conv1": {"weight": normal(s, cfg.n_mels, 3), "bias": normal(s, scale=0.02)},
+        "conv2": {"weight": normal(s, s, 3), "bias": normal(s, scale=0.02)},
+        "blocks": {"attn_ln": ln(n, s),
+                   "attn": {"query": lin(s, s), "key": lin(s, s, bias=False),
+                            "value": lin(s, s), "out": lin(s, s)},
+                   "mlp_ln": ln(n, s),
+                   "mlp": {"fc1": lin(4 * s, s), "fc2": lin(s, 4 * s)}},
+        "ln_post": ln(s),
+    }
+
+
+def depth2_encoder_check(torch, seed: int) -> dict:
+    """A depth-2, full-width Whisper-large-v3 encoder from seeded numpy
+    weights: features on the card (K6, fp32) against the CPU (plain, fp32)
+    for a 3-s mel and a 30-s pad_or_trim mel."""
+    import dataclasses
+
+    import numpy as np
+
+    from dualhyp_tpu_torch.ckpt.convert import encoder_from_jax
+    from dualhyp_tpu_torch.models import whisper as w
+
+    cfg = dataclasses.replace(w.WHISPER_LARGE_V3, n_layer=2)
+    tree = numpy_encoder_tree(cfg, seed + 19)
+    card, cpu = encoder_from_jax(tree, device="cuda"), encoder_from_jax(tree, device="cpu")
+    del tree
+    audio = np.random.default_rng(seed + 23).standard_normal(3 * w.SAMPLE_RATE).astype(
+        np.float32) * 0.1
+    out = {}
+    for label, wave in (("3s", audio), ("30s", w.pad_or_trim(audio))):
+        mel = torch.from_numpy(w.log_mel_spectrogram(wave, cfg.n_mels)[None])
+        reset_counts()
+        got = w.encode(card, cfg, mel.cuda()).cpu()
+        launches = read_counts()["full_attention_fwd"]
+        want = w.encode(cpu, cfg, mel)
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        out[label] = {"mel_frames": mel.shape[-1], "features": list(want.shape),
+                      "max_abs_err": err, "max_abs_feature": scale,
+                      "rel_err": err / scale, "k6_launches": launches}
+        if not (err <= ENCODER_REL_TOL * scale and launches == cfg.n_layer):
+            raise RuntimeError(f"depth-2 encoder {label}: card vs CPU {out[label]}, "
+                               f"tolerance {ENCODER_REL_TOL} of the largest feature")
+    result = {"phase": "depth2_encoder_card_vs_cpu", "n_state": cfg.n_state,
+              "n_head": cfg.n_head, "n_mels": cfg.n_mels, "n_layer": cfg.n_layer,
+              "rel_tolerance": ENCODER_REL_TOL, **out}
+    emit(result)
+    del card, cpu
+    torch.cuda.empty_cache()
+    return result
+
+
+def write_safetensors(path, tensors: dict) -> None:
+    """{name: CPU tensor} as a safetensors file (F32, F16 or BF16), with no
+    package: an 8-byte little-endian header length, the JSON header, the
+    raw little-endian data."""
+    import torch
+
+    names = {torch.float32: "F32", torch.float16: "F16", torch.bfloat16: "BF16"}
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as fp:
+        fp.write(len(raw).to_bytes(8, "little"))
+        fp.write(raw)
+        for t in tensors.values():
+            fp.write(t.contiguous().view(torch.uint8).numpy().tobytes())
+
+
+def write_whisper_checkpoint(torch, path: Path, seed: int) -> None:
+    """A random Whisper-large-v3 encoder as a HF directory: `config.json` and
+    an F16 `model.safetensors`, as openai/whisper-large-v3 ships it. Weights
+    N(0, 1/n_state) as the JAX init draws them (drawn on the card from
+    `seed`), small random biases, LayerNorm scales near 1."""
+    from dualhyp_tpu_torch.models.whisper import WHISPER_LARGE_V3 as cfg
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    s = cfg.n_state
+
+    def normal(*shape, scale=1.0 / math.sqrt(s), loc=0.0):
+        t = torch.randn(shape, generator=gen, device="cuda") * scale + loc
+        return t.half().cpu()
+
+    tensors = {"model.encoder.conv1.weight": normal(s, cfg.n_mels, 3),
+               "model.encoder.conv1.bias": normal(s, scale=0.02),
+               "model.encoder.conv2.weight": normal(s, s, 3),
+               "model.encoder.conv2.bias": normal(s, scale=0.02),
+               "model.encoder.layer_norm.weight": normal(s, scale=0.1, loc=1.0),
+               "model.encoder.layer_norm.bias": normal(s, scale=0.02)}
+    linears = {"self_attn.q_proj": (s, s, True), "self_attn.k_proj": (s, s, False),
+               "self_attn.v_proj": (s, s, True), "self_attn.out_proj": (s, s, True),
+               "fc1": (4 * s, s, True), "fc2": (s, 4 * s, True)}
+    for i in range(cfg.n_layer):
+        pre = f"model.encoder.layers.{i}."
+        for name, (o, d, bias) in linears.items():
+            tensors[pre + name + ".weight"] = normal(o, d)
+            if bias:
+                tensors[pre + name + ".bias"] = normal(o, scale=0.02)
+        for name in ("self_attn_layer_norm", "final_layer_norm"):
+            tensors[pre + name + ".weight"] = normal(s, scale=0.1, loc=1.0)
+            tensors[pre + name + ".bias"] = normal(s, scale=0.02)
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "config.json").write_text(json.dumps({
+        "num_mel_bins": cfg.n_mels, "max_source_positions": cfg.n_ctx,
+        "d_model": cfg.n_state, "encoder_attention_heads": cfg.n_head,
+        "encoder_layers": cfg.n_layer}))
+    write_safetensors(path / "model.safetensors", tensors)
+
+
+RELPROMPT_PATH = ("full_attention_fwd", "rms_norm", "apply_rope", "flash_attention_fwd",
+                  "swiglu_mlp")
+RELPROMPT_IDLE = ("lora_linear", "causal_attention_fwd", "q4_matmul")
+
+
+def relprompt_slice(torch, seed: int) -> dict:
+    """The RelPrompt slice: (a) precompute_features on the 16 requests, (b)
+    run_relprompt with the encoder on the card, (c) the same from (a)'s
+    features. Launch counts around (a) and (b)."""
+    import argparse as ap
+
+    import numpy as np
+    from scipy.io import wavfile
+
+    from dualhyp_tpu_torch.cli import inference_relprompt, precompute_features
+    from dualhyp_tpu_torch.cli.finetune_relprompt import feature_loader
+    from dualhyp_tpu_torch.data import hypotheses, prompts, synthetic
+    from dualhyp_tpu_torch.models import whisper as w
+    from dualhyp_tpu_torch.models.relprompt import init_relprompt_params
+
+    cfg = lora_config(DECODE_LAYERS).replace(use_relprompt=True, n_extra_tokens=3)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = init_relprompt_params(cfg, gen, device="cuda", dtype=torch.bfloat16)
+    with torch.no_grad():  # a finetuned adapter's lora_B and classifier biases are not zero
+        for block in model.blocks:
+            for mod in (block.attn.qkv, block.attn.proj):
+                mod.lora_B.copy_(torch.randn(mod.lora_B.shape, generator=gen,
+                                             device="cuda") * 0.02)
+        for clf in (model.audio_noise_classifier, model.visual_noise_classifier):
+            for layer in clf.children():
+                layer.bias.copy_(torch.randn(layer.bias.shape, generator=gen,
+                                             device="cuda") * 0.1)
+    template_words = " ".join(prompts.RelPrompt_PROMPTS.values()).split()
+    tok = WordTokenizer(sorted(set(synthetic.word_vocabulary()) | set(template_words)),
+                        special_base=cfg.padded_vocab_size)
+    inference_relprompt.add_mask_tokens(tok)
+    serve = dict(seed=seed, decode_batch=8, max_new_tokens=32, temperature=0.2, top_k=1)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        write_whisper_checkpoint(torch, tmp / "whisper", seed + 29)
+        write_s = time.perf_counter() - t0
+        records = synthetic.make_records(n_uids=16, n_hyps=5, seed=seed)
+        rng = np.random.default_rng(seed)
+        for rec in records:
+            n = rec["Audio_Corruption"]["total_len"]
+            rec["Clean_Wav"] = str(tmp / f"{rec['Uid']}_clean.wav")
+            rec["Noise_Wav"] = str(tmp / f"{rec['Uid']}_noise.wav")
+            wavfile.write(rec["Clean_Wav"], 16000, (rng.standard_normal(n) * 3000).astype(np.int16))
+            wavfile.write(rec["Noise_Wav"], 16000,
+                          (rng.standard_normal(n // 3) * 3000).astype(np.int16))
+        path = tmp / "test.json"
+        synthetic.write_json(path, records)
+
+        def dataset():
+            return hypotheses.DualHypothesesMaskDataset(
+                "test", str(path), tokenizer=tok, prompts_format="RelPrompt", seed=seed,
+                leave_masks=True)
+
+        # (a) the features of every request, written by the CLI
+        reset_counts()
+        t0 = time.perf_counter()
+        written = precompute_features.main(["--json", str(path), "--out_dir",
+                                            str(tmp / "feats"), "--whisper_checkpoint",
+                                            str(tmp / "whisper"), "--device", "cuda"])
+        torch.cuda.synchronize()
+        precompute_s = time.perf_counter() - t0
+        launches_a = read_counts()
+        if written != 16:
+            raise RuntimeError(f"precompute_features wrote {written} of 16 feature files")
+
+        # (b) the encoder on the card, feature by feature, timed per utterance
+        args = ap.Namespace(whisper_checkpoint=str(tmp / "whisper"), feature_dir=None,
+                            synthetic_features=False, device="cuda")
+        load = feature_loader(args, cfg)
+        feature_ms = []
+
+        def timed(example, rng_):
+            t1 = time.perf_counter()
+            out = load(example, rng_)
+            feature_ms.append((time.perf_counter() - t1) * 1e3)
+            return out
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        records_b, metrics_b, masks_b = inference_relprompt.run_relprompt(
+            model, tok, dataset(), timed, **serve)
+        torch.cuda.synchronize()
+        wall_b = time.perf_counter() - t0
+        launches_b = read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+        # the encoder alone on the longest utterance (B=1), CUDA-event time
+        from dualhyp_tpu_torch.cli.make_json_asr import load_whisper
+        from dualhyp_tpu_torch.cli.finetune_relprompt import replayed_waveform
+
+        (enc, enc_cfg), _, _ = load_whisper(tmp / "whisper", device="cuda")
+        longest = max(records, key=lambda r: r["Audio_Corruption"]["total_len"])
+        mel = torch.from_numpy(w.log_mel_spectrogram(replayed_waveform(longest),
+                                                     enc_cfg.n_mels)[None]).cuda()
+        encoder_ms = time_ms(lambda: w.encode(enc, enc_cfg, mel), torch, warmup=2, iters=10)
+        # where the encoder's device time goes, and how much of its wall is idle
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            w.encode(enc, enc_cfg, mel)
+            torch.cuda.synchronize()
+            prof_wall_ms = (time.perf_counter() - t1) * 1e3
+        emit({"phase": "relprompt_encoder_profile", "mel_frames": int(mel.shape[-1]),
+              **profile_summary(prof, prof_wall_ms)})
+        del enc
+
+        # (c) the features that (a) wrote
+        args = ap.Namespace(whisper_checkpoint=None, feature_dir=str(tmp / "feats"),
+                            synthetic_features=False, device="cuda")
+        records_c, metrics_c, masks_c = inference_relprompt.run_relprompt(
+            model, tok, dataset(), feature_loader(args, cfg), **serve)
+        # (c) once more: what the card's decoding alone changes between runs
+        # on the same prompts (K4 adds its fp32 partials with atomics, in no
+        # fixed order)
+        records_c2, _, _ = inference_relprompt.run_relprompt(
+            model, tok, dataset(), feature_loader(args, cfg), **serve)
+
+    timeless = {k: v for k, v in metrics_b.items()
+                if "latency" not in k and k != "tokens_per_s"}
+    n_layers = w.WHISPER_LARGE_V3.n_layer
+    result = {"phase": "relprompt_slice", "model": cfg.name, "n_layer": cfg.n_layer,
+              "lora_r": cfg.lora_r, "encoder": "whisper-large-v3 (random, F16 on disk, fp32)",
+              "encoder_layers": n_layers, "requests": len(records_b),
+              "mel_frames": [min(r["Audio_Corruption"]["total_len"] for r in records) // 160,
+                             max(r["Audio_Corruption"]["total_len"] for r in records) // 160],
+              "decode_batch": 8, "max_new_tokens": 32, "checkpoint_write_s": write_s,
+              "precompute_s": precompute_s, "wall_s": wall_b, "peak_mem_gb": peak_gb,
+              "feature_ms_per_utterance": sorted(feature_ms)[len(feature_ms) // 2],
+              "encoder_ms_longest_utterance": encoder_ms,
+              "encoder_mel_frames_longest": int(mel.shape[-1]),
+              "metrics": metrics_b, "metrics_from_feature_dir": metrics_c,
+              "masks_agree": masks_b == masks_c,
+              "answers_vs_feature_dir": token_agreement(records_c, records_b),
+              "answers_feature_dir_twice": token_agreement(records_c2, records_c),
+              "launches_precompute": launches_a, "launches": launches_b,
+              "sample": records_b[0], "sample_masks": masks_b[records_b[0]["uid"]]}
+    emit(result)
+    del model
+    torch.cuda.empty_cache()
+    if len(records_b) != 16 or not all(isinstance(r["inference"], str) for r in records_b):
+        raise RuntimeError("the RelPrompt slice did not answer every request")
+    if not all(math.isfinite(v) for v in timeless.values() if isinstance(v, float)):
+        raise RuntimeError(f"non-finite metrics {metrics_b}")
+    if masks_b != masks_c:
+        raise RuntimeError("--whisper_checkpoint and --feature_dir gave other mask tokens")
+    if launches_b["full_attention_fwd"] != n_layers * 16 or launches_a["full_attention_fwd"] <= 0:
+        raise RuntimeError(f"K6 launches: (a) {launches_a['full_attention_fwd']}, "
+                           f"(b) {launches_b['full_attention_fwd']} for {n_layers} x 16")
+    missing = [name for name in RELPROMPT_PATH if launches_b[name] <= 0]
+    stray = [name for name in RELPROMPT_IDLE if launches_b[name] != 0]
+    if missing or stray:
+        raise RuntimeError(f"RelPrompt slice launches: never {missing}, off the path {stray}")
+    return result
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1160,11 +1602,15 @@ def main(argv=None) -> int:
 
     kernels = kernel_phases(torch, args.seed)
     kernels.update(q4_lora_phase(torch, args.seed))
+    fwd = flash_fwd_phase(torch, args.seed)
+    kernels.update({k: fwd[k] for k in ("full_attention_fwd", "causal_attention_fwd")})
     depth2_check(torch, args.seed)
     depth2_int4_check(torch, args.seed)
+    depth2_encoder_check(torch, args.seed)
     sliced = slice_run(torch, args.seed)
     slices = {variant: slice_run(torch, args.seed, variant, reference=sliced)
               for variant in ("int4", "int8_kv8", "fused")}
+    relprompt = relprompt_slice(torch, args.seed)
     kernels["flash_attention_bwd"] = {"train": flash_bwd_phase(torch, args.seed)}
     train_shapes = training_shape_phase(torch, args.seed)
     depth2_train_check(torch, args.seed)
@@ -1180,13 +1626,29 @@ def main(argv=None) -> int:
                                        "dualhyp_tpu/ops/pallas/flash_vjp.py:121"),
                "swiglu_mlp": ("swiglu.cu", "dualhyp_tpu/ops/pallas/swiglu_kernel.py:37"),
                "lora_linear": ("lora_linear.cu", "dualhyp_tpu/ops/pallas/lora_kernel.py:42"),
-               "q4_matmul": ("int4_matmul.cu", "dualhyp_tpu/ops/pallas/int4_kernel.py:36")}
+               "q4_matmul": ("int4_matmul.cu", "dualhyp_tpu/ops/pallas/int4_kernel.py:36"),
+               "full_attention_fwd": ("flash_fwd.cu", "dualhyp_tpu/ops/pallas/flash_fwd.py:118"),
+               "causal_attention_fwd": ("flash_fwd.cu",
+                                        "dualhyp_tpu/ops/pallas/flash_fwd.py:179")}
     # each kernel's main path, and the shape of its row in the line
     main_path = {"lora_linear": ("fused_slice", "qkv_3072"),
-                 "q4_matmul": ("int4_slice", "decode_fc_1")}
+                 "q4_matmul": ("int4_slice", "decode_fc_1"),
+                 "full_attention_fwd": ("relprompt_slice", "b1_t280_f32"),
+                 "causal_attention_fwd": ("causal_attention_fwd_phase", "T1024")}
+    call_paths = {
+        "full_attention_fwd": "cli.inference_relprompt.run_relprompt -> "
+                              "cli.finetune_relprompt feature loader -> models.whisper.encode "
+                              "-> _mha, each of 32 layers; cli.precompute_features.main -> "
+                              "the same encode",
+        "causal_attention_fwd": "no production call site (the JAX package calls "
+                                "causal_attention_fwd from its tests only): this script's "
+                                "K7 kernel phase"}
     paths = {"decode_slice": sliced["launches"], "train_slice": trained["launches"],
              **{f"{v}_slice": slices[v]["launches"] for v in slices},
-             **{f"train_step_1024_{k}": r["launches"] for k, r in stepped.items()}}
+             **{f"train_step_1024_{k}": r["launches"] for k, r in stepped.items()},
+             "relprompt_slice": relprompt["launches"],
+             "relprompt_precompute": relprompt["launches_precompute"],
+             "causal_attention_fwd_phase": fwd["causal_launches"]}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "device_ms", "shape")
     train_rows = {"rms_norm": train_shapes["rms_norm"],
@@ -1205,13 +1667,14 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": f"dualhyp_tpu_torch/csrc/{src}",
             "replaces": replaces, "launches": launches[path], "main_path": path,
             "launches_by_path": launches,
-            "path": "cli.finetune_ger.run_training -> train.Trainer.train_step -> "
-                    "GPT.forward (+ backward); cli.inference_ger.run_inference -> "
-                    "GPT.prefill/decode_step",
+            "path": call_paths.get(
+                name, "cli.finetune_ger.run_training -> train.Trainer.train_step -> "
+                      "GPT.forward (+ backward); cli.inference_ger.run_inference -> "
+                      "GPT.prefill/decode_step"),
             **{k: main_shape[k] for k in keys},
             **({"decode": kernels[name]["decode"]} if "decode" in kernels[name] else {}),
         }
-        if shape:  # K5, K8: every measured shape beside the main one
+        if shape:  # K5, K6, K7, K8: every measured shape beside the main one
             entry["shapes"] = {k: {key: v[key] for key in keys}
                                for k, v in kernels[name].items()}
         if name in train_rows:

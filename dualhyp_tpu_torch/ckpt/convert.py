@@ -13,7 +13,13 @@ linear's `weight`, that linear of the model takes the quantized leaves
 (int8 codes or packed bytes and fp32 scales, copied as they are), beside
 the zeroed LoRA leaves a merge leaves behind.
 
+A RelPrompt tree loads into a RelPrompt `GPT` (`use_relprompt`,
+`n_extra_tokens`): its `audio_noise_classifier` and `visual_noise_classifier`
+leaves into the model's two classifiers, its `wte` with the extra rows.
+
 `tree_from_model` is the inverse: the model's parameters as such a tree.
+`encoder_from_jax` takes the JAX package's Whisper encoder tree to the
+port's (`models/whisper`), which is the same tree as torch tensors.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import torch
 
 from dualhyp_tpu_torch.ckpt.io import SEP, bf16_from_bits, unflatten
 from dualhyp_tpu_torch.config import GPTConfig
+from dualhyp_tpu_torch.device import resolve_device
 from dualhyp_tpu_torch.models.gpt import GPT
 from dualhyp_tpu_torch.ops import quant
 
@@ -150,6 +157,17 @@ def named_from_flat(flat: dict, n_layer: int) -> dict:
         else:
             named[".".join(parts)] = t
     return named
+
+
+def encoder_from_jax(tree: dict, *, device=None, dtype=torch.float32) -> dict:
+    """The JAX package's Whisper encoder tree (numpy or JAX arrays, as
+    `init_encoder` or `convert_hf_whisper_encoder` give it, or tensors) as
+    the port's encoder parameters: the same nested dict, each leaf a tensor
+    on `device` (the card when None) in `dtype`."""
+    device = resolve_device(device)
+    return {key: encoder_from_jax(value, device=device, dtype=dtype)
+            if isinstance(value, dict) else _tensor(value).to(device, dtype)
+            for key, value in tree.items()}
 
 
 @torch.no_grad()

@@ -10,10 +10,14 @@
 as torch bf16 tensors, since numpy has no bfloat16. `save_params` writes
 such a tree (numpy arrays or torch tensors as leaves), so the JAX package's
 `load_params` reads what the port saves.
+
+`load_safetensors` reads a HF `*.safetensors` file (the Whisper checkpoints)
+without the `safetensors` package, which the card's machine does not have.
 """
 
 from __future__ import annotations
 
+import json
 from pathlib import Path
 
 import numpy as np
@@ -76,3 +80,40 @@ def save_params(path, tree: dict) -> None:
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     np.savez(path, **flatten(tree))
+
+
+# safetensors element types this reader takes, by their header name
+_SAFETENSORS_DTYPES = {
+    "F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
+    "BF16": torch.bfloat16, "I64": torch.int64, "I32": torch.int32,
+    "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8, "BOOL": torch.bool,
+}
+
+
+def load_safetensors(path) -> dict:
+    """{name: tensor} of a `*.safetensors` file, read without the
+    `safetensors` package: an 8-byte little-endian header length, a JSON
+    header ({name: {dtype, shape, data_offsets}}, offsets into the data that
+    follows it), then the raw little-endian tensors. The tensors are copies
+    on the CPU in their stored dtype."""
+    path = Path(path)
+    with open(path, "rb") as fp:
+        n_header = int.from_bytes(fp.read(8), "little")
+        header = json.loads(fp.read(n_header))
+    data = np.memmap(path, dtype=np.uint8, mode="r", offset=8 + n_header)
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        if info["dtype"] not in _SAFETENSORS_DTYPES:
+            raise ValueError(f"{path}: tensor {name} has dtype {info['dtype']}, which "
+                             "this reader does not take")
+        begin, end = info["data_offsets"]
+        dtype = _SAFETENSORS_DTYPES[info["dtype"]]
+        if begin == end:
+            out[name] = torch.empty(info["shape"], dtype=dtype)
+            continue
+        raw = torch.from_numpy(np.array(data[begin:end]))
+        out[name] = raw.view(dtype).reshape(info["shape"])
+    del data
+    return out

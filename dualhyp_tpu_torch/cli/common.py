@@ -1,7 +1,7 @@
 """Shared CLI plumbing (the parts of `dualhyp_tpu/cli/common.py` that the
 finetuning and correction-decoding entry points need): the model and data
-flags, the model config, the checkpoint checks, the tokenizer, the dataset
-class and the weights."""
+flags, the model config (RelPrompt's too), the checkpoint checks, the
+tokenizer, the dataset class and the weights."""
 
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ import torch
 from dualhyp_tpu_torch.ckpt.convert import load_tree
 from dualhyp_tpu_torch.ckpt.io import load_params
 from dualhyp_tpu_torch.models.gpt import GPT
+from dualhyp_tpu_torch.models.relprompt import extend_embeddings
 
 
 def add_model_args(parser: argparse.ArgumentParser):
@@ -41,14 +42,16 @@ def add_data_args(parser: argparse.ArgumentParser):
     parser.add_argument("--prompts_format", type=str, default="GER")
     parser.add_argument("--apply_chat_template", action="store_true")
     parser.add_argument("--language", type=str, default=None)
-    # accepted for the JAX package's flag surface; the text-only GER and
-    # DualHyp paths load no waveforms or mouth ROIs, so there is nothing
-    # to corrupt
+    # RelPrompt's mask dataset: whether the recorded corruption counts when
+    # the ground-truth masks are built (the text-only GER and DualHyp
+    # datasets load no waveforms or mouth ROIs and ignore them)
     parser.add_argument("--audio_corruption_disabled", action="store_true")
     parser.add_argument("--visual_corruption_disabled", action="store_true")
 
 
-def model_config_from_args(args):
+def model_config_from_args(args, relprompt: bool = False):
+    """The checkpoint's config with the flags' LoRA (or adapter) settings;
+    relprompt: the two classifiers and the three mask-token rows too."""
     from dualhyp_tpu_torch.registry import config_from_checkpoint
 
     overrides = dict(
@@ -67,6 +70,8 @@ def model_config_from_args(args):
                          use_adapter_v2=(args.mode == "adapter_v2"))
     elif args.mode == "full":
         overrides.update(lora_r=0)
+    if relprompt:
+        overrides.update(use_relprompt=True, n_extra_tokens=3)
     return config_from_checkpoint(Path(args.llm_checkpoint), **overrides)
 
 
@@ -135,7 +140,7 @@ def dataset_class_for(args):
 
     if args.dual_hypotheses:
         if args.prompts_format == "RelPrompt":
-            raise NotImplementedError("RelPrompt is not ported yet")
+            return hypotheses.DualHypothesesMaskDataset
         return hypotheses.DualHypothesesDataset
     return hypotheses.HypothesesDataset
 
@@ -146,7 +151,10 @@ def load_model(checkpoint_dir, cfg, *, device, seed: int, dtype=torch.bfloat16,
     has them (`dualhyp_model.npz`), else random weights from `seed` with a
     warning; then the finetuned leaves (`finetuned`, an npz path) over them.
     Leaves a checkpoint lacks keep their initial values, as the reference's
-    strict=False load does."""
+    strict=False load does. A RelPrompt config (`n_extra_tokens`) takes base
+    weights saved without the extra rows and appends them
+    (`relprompt.extend_embeddings`), as the JAX package loads its base
+    weights with `n_extra_tokens=0` and then extends them."""
     checkpoint_dir = Path(checkpoint_dir)
     model = GPT(cfg, device=device, dtype=dtype)
     generator = torch.Generator(device=model.device)
@@ -154,7 +162,10 @@ def load_model(checkpoint_dir, cfg, *, device, seed: int, dtype=torch.bfloat16,
     model.init_weights(generator)
     npz = checkpoint_dir / "dualhyp_model.npz"
     if npz.is_file():
-        load_tree(model, load_params(npz), strict=False)
+        tree = load_params(npz)
+        if cfg.n_extra_tokens and len(tree["wte"]["weight"]) == cfg.padded_vocab_size:
+            tree = extend_embeddings(tree, generator, cfg.n_extra_tokens)
+        load_tree(model, tree, strict=False)
     elif list(checkpoint_dir.glob("*.safetensors")):
         raise NotImplementedError(
             f"{checkpoint_dir} holds HF safetensors: their conversion is not "

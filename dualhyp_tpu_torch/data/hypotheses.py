@@ -1,7 +1,7 @@
 """Hypotheses JSON datasets + prompt packing.
 
-A copy of the GER and DualHyp datasets of `dualhyp_tpu/data/hypotheses.py`;
-RelPrompt's mask dataset is not ported yet.
+A copy of the GER, DualHyp and RelPrompt (mask) datasets of
+`dualhyp_tpu/data/hypotheses.py`.
 
 Host-side (numpy/python) data pipeline with the same record semantics as the
 reference datasets (ref: data/av_dataset.py:21-647):
@@ -261,3 +261,93 @@ class DualHypothesesDataset(HypothesesDataset):
             "<<<VSR_NHYPS>>>", "\n".join(vsr_others)
         )
         return p1 + p2 + self.prompt_3
+
+
+class DualHypothesesMaskDataset(DualHypothesesDataset):
+    """RelPrompt: DualHyp + ground-truth reliability masks injected into the
+    prompt (training) or left as placeholders (inference)
+    (ref: av_dataset.py:432-647)."""
+
+    prompts_format_default = "RelPrompt"
+
+    def __init__(
+        self,
+        *args,
+        leave_masks: bool = False,
+        mask_threshold: Optional[float] = None,
+        time_window: float = 0.4,
+        audio_corruption_enabled: bool = True,
+        visual_corruption_enabled: bool = True,
+        **kwargs,
+    ):
+        super().__init__(*args, **kwargs)
+        self.leave_masks = leave_masks
+        self.mask_threshold = mask_threshold
+        # 16 kHz audio / 25 fps video (ref: av_dataset.py:444-445)
+        self.audio_chunk_size = int(16000 * time_window)
+        self.video_chunk_size = int(25 * time_window)
+        self.audio_corruption_enabled = audio_corruption_enabled
+        self.visual_corruption_enabled = visual_corruption_enabled
+
+    def __getitem__(self, idx) -> PackedExample:
+        from dualhyp_tpu_torch.data import masks as mask_lib
+
+        uid = self.idx2uid[idx]
+        rec_asr, rec_vsr = self._draw(uid)
+
+        if self.audio_corruption_enabled:
+            audio_mask = mask_lib.frame_noise_mask(
+                rec_asr["Audio_Corruption"], self.mask_threshold
+            )
+        else:
+            audio_mask = ["C"] * rec_asr["Audio_Corruption"]["total_len"]
+        if self.visual_corruption_enabled:
+            vc = dict(rec_vsr["Visual_Corruption"])
+            vc["snr"] = -100  # video corruption always counts as noise
+            video_mask = mask_lib.frame_noise_mask(vc, self.mask_threshold)
+        else:
+            video_mask = ["C"] * rec_vsr["Visual_Corruption"]["total_len"]
+
+        _, audio_bins = mask_lib.chunk_reliability(audio_mask, self.audio_chunk_size)
+        _, video_bins = mask_lib.chunk_reliability(video_mask, self.video_chunk_size)
+
+        prompt_no_response = self.build_mask_prompt(
+            (rec_asr, rec_vsr), audio_bins, video_bins
+        )
+        caption = rec_asr.get("Caption", "")
+        toks = pack_tokens(
+            self.tokenizer,
+            prompt_no_response,
+            caption,
+            self.eos_token,
+            self.max_input_length,
+            self.apply_chat_template,
+        )
+        return PackedExample(
+            uid=rec_asr.get("Uid", ""),
+            ground_truth=caption,
+            prompt=prompt_no_response + caption + self.eos_token,
+            prompt_no_response=prompt_no_response,
+            audio_bin_labels=audio_bins,
+            video_bin_labels=video_bins,
+            records=(rec_asr, rec_vsr),
+            **toks,
+        )
+
+    def build_mask_prompt(self, records, audio_bins, video_bins) -> str:
+        rec_asr, rec_vsr = records
+        asr = rec_asr[self.nhyps_key_asr]["hyps"]
+        vsr = rec_vsr[self.nhyps_key_vsr]["hyps"]
+        asr_others = self._other_hyps(asr)
+        vsr_others = self._other_hyps(vsr)
+        prompt = (
+            self.prompt_1.replace("<<<ASR_BEST_NHYPS>>>", asr[0])
+            .replace("<<<VSR_BEST_NHYPS>>>", vsr[0])
+            .replace("<<<ASR_NHYPS>>>", "\n".join(asr_others))
+            .replace("<<<VSR_NHYPS>>>", "\n".join(vsr_others))
+        )
+        if not self.leave_masks:
+            prompt = prompt.replace("<<<ASR_MASKS>>>", "".join(audio_bins)).replace(
+                "<<<VSR_MASKS>>>", "".join(video_bins)
+            )
+        return prompt + self.prompt_3

@@ -8,6 +8,8 @@ kernel and is what the tests name.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -20,3 +22,20 @@ def resolve_device(device=None) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+@contextlib.contextmanager
+def exact_fp32():
+    """fp32 products and convolutions in full fp32 on the card for the
+    duration: cuDNN runs an fp32 convolution in TF32 by default, and TF32
+    keeps ~1e-3 where the Whisper encoder and the RelPrompt classifiers are
+    held to ~1e-4. Restores both switches after, so the rest of the process
+    keeps its own."""
+    matmul, cudnn = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+        torch.backends.cudnn.allow_tf32 = cudnn

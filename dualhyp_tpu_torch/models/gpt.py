@@ -28,6 +28,10 @@ dropout from a generator; whole-block rematerialisation with
 Every parameter is created with requires_grad False; a trainer turns it on
 for `trainable_parameters()`.
 
+A RelPrompt config (`use_relprompt`) adds the two reliability classifiers
+(`models/relprompt.NoiseClassifier`) and `n_extra_tokens` embedding rows
+above `lm_head`'s vocabulary: the mask tokens are read, never emitted.
+
 Decoding variants of the JAX package:
   * `quantize_model` replaces the big linear weights by int8 or int4 leaves
     (`weight_q8`/`weight_scale`, `weight_q4`/`weight_scale4`); a quantized
@@ -51,6 +55,7 @@ from torch.utils.checkpoint import checkpoint
 
 from dualhyp_tpu_torch.config import GPTConfig
 from dualhyp_tpu_torch.device import resolve_device
+from dualhyp_tpu_torch.models.relprompt import NoiseClassifier
 from dualhyp_tpu_torch.ops import attention as attn_ops
 from dualhyp_tpu_torch.ops import lora as lora_ops
 from dualhyp_tpu_torch.ops import quant as quant_ops
@@ -72,8 +77,6 @@ def check_supported(cfg: GPTConfig) -> None:
         missing.append("adapters")
     if cfg.lora_r > 0 and cfg.lora_mlp:
         missing.append("LoRA on the MLP")
-    if cfg.use_relprompt:
-        missing.append("RelPrompt")
     if missing:
         raise NotImplementedError(
             f"config {cfg.name!r} asks for what is not ported yet: {', '.join(missing)}"
@@ -408,6 +411,12 @@ class GPT(nn.Module):
         self.ln_f = Norm(cfg.n_embd, device)
         self.lm_head = Linear(cfg.n_embd, cfg.padded_vocab_size, cfg,
                               cfg.lora_head, dtype, device, fused)
+        if cfg.use_relprompt:
+            # the reliability classifiers over the audio and visual features
+            self.audio_noise_classifier = NoiseClassifier(
+                cfg.whisper_dim, cfg.classifier_hidden_dim, device)
+            self.visual_noise_classifier = NoiseClassifier(
+                cfg.raven_dim, cfg.classifier_hidden_dim, device)
         cos, sin = rope_ops.build_rope_cache(
             cfg.block_size, cfg.rope_n_elem, base=cfg.rope_base,
             condense_ratio=cfg.rope_condense_ratio, dtype=dtype, device=device)
@@ -453,6 +462,9 @@ class GPT(nn.Module):
             normal(block.mlp.fc_1.weight, std)
             normal(block.mlp.fc_2.weight, std)
             normal(block.mlp.proj.weight, proj_std)
+        if cfg.use_relprompt:
+            self.audio_noise_classifier.init_weights(generator)
+            self.visual_noise_classifier.init_weights(generator)
 
     def _embed(self, idx):
         x = self.wte.weight[idx]

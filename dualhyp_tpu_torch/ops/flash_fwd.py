@@ -1,0 +1,112 @@
+"""Flash-attention forward without a backward: bidirectional and causal.
+
+Counterpart of `dualhyp_tpu/ops/pallas/flash_fwd.py`:
+
+  * `full_attention_fwd`: bidirectional multi-head attention, keys at or
+    past `kv_valid` masked. The Whisper encoder's self-attention. It
+    launches kernel K6 (`csrc/flash_fwd.cu`) on CUDA tensors and runs
+    `full_attention_plain` on CPU tensors.
+  * `causal_attention_fwd`: causal grouped-query attention, forward only.
+    It launches kernel K7 (the same source, with its causal flag) on CUDA
+    tensors and runs `attention.causal_attention_plain` on CPU tensors.
+
+Both kernels take fp32 and bf16, head size 64, and q, k, v in any (batch,
+head, token) strides with a unit channel stride and 16-byte aligned rows.
+The output is a (B, H, T, 64) view of a (B, T, H, 64) buffer, so
+`o.transpose(1, 2).reshape(B, T, H * 64)` costs no copy.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from dualhyp_tpu_torch.ops import _lib
+from dualhyp_tpu_torch.ops.attention import causal_attention_plain
+
+_ARGS = [_lib.C_PTR] * 4 + [_lib.C_INT] * 6 + [_lib.C_F32] + [_lib.C_I64] * 12
+
+# K6: replaces dualhyp_tpu/ops/pallas/flash_fwd.py `_kernel` as
+# `full_attention_fwd` calls it. Bound by operations (fp32 on the CUDA cores
+# at the encoder's dtype); K/V tiles through shared memory, online softmax.
+# See the source note in csrc/flash_fwd.cu.
+FLASH_FULL = _lib.Kernel("dh_full_attention_fwd", _ARGS)
+# K7: the same `_kernel` as `causal_attention_fwd` calls it (causal=True).
+FLASH_CAUSAL = _lib.Kernel("dh_causal_attention_fwd", _ARGS)
+
+HEAD_SIZE = 64
+
+
+def full_attention_plain(q, k, v, scale: float | None = None, kv_valid: int | None = None):
+    """The plain PyTorch version of K6: fp32 logits from fp32 q and k, keys at
+    or past `kv_valid` masked, fp32 softmax, fp32 P v (v cast to fp32, as the
+    Pallas kernel casts it), cast to q's dtype. q: (B, H, T, D); k, v:
+    (B, H, S, D)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    acc = torch.promote_types(q.dtype, torch.float32)
+    logits = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * scale
+    s_len = k.shape[2]
+    if kv_valid is not None and kv_valid < s_len:
+        keys = torch.arange(s_len, device=q.device)
+        logits = logits.masked_fill(keys >= kv_valid, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    return torch.matmul(probs, v.to(acc)).to(q.dtype)
+
+
+def _check(q, k, v, causal: bool):
+    b, hq, t, d = q.shape
+    g, s_len = k.shape[1], k.shape[2]
+    if d != HEAD_SIZE:
+        raise ValueError(f"flash_fwd kernel takes head size {HEAD_SIZE}, got {d}")
+    if (k.shape != (b, g, s_len, d) or v.shape != k.shape or hq % g
+            or (causal and s_len != t) or (not causal and g != hq)):
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} "
+                         f"({'causal' if causal else 'full'} attention)")
+    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise TypeError(f"flash_fwd kernel takes fp32 or bf16 q, k, v of one dtype, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    vec = 16 // q.element_size()
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.stride(-1) != 1 or any(s % vec for s in x.stride()[:3]) or x.data_ptr() % 16:
+            raise ValueError(
+                f"flash_fwd kernel needs 16-byte aligned rows of {name}: strides {x.stride()}")
+
+
+def _launch(kernel, q, k, v, scale: float, s_valid: int, causal: bool):
+    device = _lib.check_cuda(q, k, v)
+    _check(q, k, v, causal)
+    b, hq, t, d = q.shape
+    o = torch.empty((b, t, hq, d), dtype=q.dtype, device=device).transpose(1, 2)
+    if o.numel():
+        kernel(device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+               b, hq, k.shape[1], t, s_valid, _lib.dtype_code(q), float(scale),
+               *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3])
+    return o
+
+
+def full_attention_fwd(q, k, v, scale: float | None = None, kv_valid: int | None = None):
+    """Bidirectional attention. q: (B, H, T, 64); k, v: (B, H, S, 64), S may
+    differ from T; keys at or past `kv_valid` (default S) are masked.
+    Returns (B, H, T, 64) in q's dtype."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return full_attention_plain(q, k, v, scale, kv_valid)
+    s_len = k.shape[2]
+    s_valid = s_len if kv_valid is None else min(int(kv_valid), s_len)
+    if s_valid < 1 and q.numel():
+        raise ValueError(f"kv_valid {kv_valid}: no key to attend")
+    return _launch(FLASH_FULL, q, k, v, scale, s_valid, causal=False)
+
+
+def causal_attention_fwd(q, k, v, scale: float | None = None):
+    """Causal grouped-query attention, forward only. q: (B, Hq, T, 64); k, v:
+    (B, G, T, 64), Hq a multiple of G. Returns (B, Hq, T, 64)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cpu":
+        return causal_attention_plain(q, k, v, scale)
+    return _launch(FLASH_CAUSAL, q, k, v, scale, k.shape[2], causal=True)

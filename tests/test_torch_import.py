@@ -31,7 +31,14 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["bad"] == []
     for module in ("dualhyp_tpu_torch.ops.attention", "dualhyp_tpu_torch.models.gpt",
-                   "dualhyp_tpu_torch.cli.inference_ger", "dualhyp_tpu_torch.ckpt.convert"):
+                   "dualhyp_tpu_torch.cli.inference_ger", "dualhyp_tpu_torch.ckpt.convert",
+                   "dualhyp_tpu_torch.ops.flash_fwd", "dualhyp_tpu_torch.models.whisper",
+                   "dualhyp_tpu_torch.models.relprompt", "dualhyp_tpu_torch.data.masks",
+                   "dualhyp_tpu_torch.data.corruption",
+                   "dualhyp_tpu_torch.cli.inference_relprompt",
+                   "dualhyp_tpu_torch.cli.finetune_relprompt",
+                   "dualhyp_tpu_torch.cli.precompute_features",
+                   "dualhyp_tpu_torch.cli.make_json_asr"):
         assert module in result["imported"]
 
 
@@ -79,6 +86,23 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+def test_relprompt_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    from dualhyp_tpu_torch.ckpt.convert import encoder_from_jax
+    from dualhyp_tpu_torch.cli import inference_relprompt, precompute_features
+    from dualhyp_tpu_torch.cli.make_json_asr import load_whisper
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        inference_relprompt.main(["--test_path", str(tmp_path / "t.json"),
+                                  "--model_path", str(tmp_path / "m.npz")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        precompute_features.main(["--json", str(tmp_path / "t.json"), "--out_dir",
+                                  str(tmp_path / "f"), "--whisper_checkpoint", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_whisper(tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        encoder_from_jax({})
+
+
 @pytest.mark.parametrize("flag", [["--speculative"], ["--scheduler", "continuous"]])
 def test_unported_cli_options_raise(tmp_path, flag):
     from dualhyp_tpu_torch.cli import inference_ger
@@ -86,6 +110,24 @@ def test_unported_cli_options_raise(tmp_path, flag):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         inference_ger.main(["--test_path", "t.json", "--model_path", "m.npz",
                             "--device", "cpu", *flag])
+
+
+@pytest.mark.parametrize("flag", [["--speculative"], ["--scheduler", "continuous"]])
+def test_unported_relprompt_options_raise(flag):
+    from dualhyp_tpu_torch.cli import inference_relprompt
+
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        inference_relprompt.main(["--test_path", "t.json", "--model_path", "m.npz",
+                                  "--device", "cpu", *flag])
+
+
+def test_precompute_features_refuses_the_visual_encoder(tmp_path):
+    from dualhyp_tpu_torch.cli import precompute_features
+
+    with pytest.raises(NotImplementedError, match="slice 7"):
+        precompute_features.main(["--json", "t.json", "--out_dir", str(tmp_path),
+                                  "--whisper_checkpoint", str(tmp_path), "--device", "cpu",
+                                  "--raven_checkpoint", "braven.npz"])
 
 
 @pytest.mark.parametrize("flag", [["--quantize", "int8"], ["--quantize", "int4"],

@@ -4,9 +4,10 @@ Edge cases the main path's shapes do not reach: ragged sequence lengths and
 row counts, partial rotary, the inverse rotation, a ragged intermediate
 size, the gelu gate, strided inputs, fp32 where a kernel takes it, the
 wrappers' refusals, the autograd ops of the training path, K8 at ragged
-rows and N with split K, and K5 at ragged rows and O, ranks 16 and 48, a
-zero scale and a separate LoRA input. Every test needs an NVIDIA card and
-skips without one.
+rows and N with split K, K5 at ragged rows and O, ranks 16 and 48, a
+zero scale and a separate LoRA input, and K6/K7 in fp32 and bf16 at T or
+S of 1, 63, 64, 65 and 1500, S != T, kv_valid and strided inputs. Every
+test needs an NVIDIA card and skips without one.
 On the card's machine (no JAX there) run them without the suite's conftest:
 
     python -m pytest tests/test_torch_kernels.py --noconftest -q
@@ -24,7 +25,8 @@ import torch
 
 from dualhyp_tpu_torch.config import GPTConfig
 from dualhyp_tpu_torch.models.gpt import GPT, split_heads
-from dualhyp_tpu_torch.ops import attention, int4, lora, quant, rmsnorm, rope, swiglu
+from dualhyp_tpu_torch.ops import (attention, flash_fwd, int4, lora, quant, rmsnorm, rope,
+                                   swiglu)
 
 pytestmark = pytest.mark.cuda
 
@@ -142,6 +144,85 @@ def test_swiglu_refuses_unaligned_width(dev, gen):
     w = _randn(gen, 64, 96)
     with pytest.raises(ValueError, match="d % 64"):
         swiglu.swiglu_mlp(x, w, w, _randn(gen, 96, 64))
+
+
+# K6/K7 (flash_fwd): fp32 against the fp32 plain version (sums in another
+# order, expf against torch.exp: ~1e-6 on unit-normal inputs; 1e-4 as
+# chip_smoke.py holds it); bf16 rounds P to bf16 before the PV product and
+# the output once (2e-2, as chip_smoke.py; K1's forward reads ~0.016).
+FWD_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (2e-2, 0.0)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,s", [(1, 1), (63, 63), (64, 64), (65, 65), (1500, 1500),
+                                 (65, 1), (1, 200), (200, 63), (300, 1500)])
+def test_full_attention_fwd(dev, gen, dtype, t, s):
+    q, k, v = _randn(gen, 2, 3, t, 64, dtype=dtype), *(
+        _randn(gen, 2, 3, s, 64, dtype=dtype) for _ in range(2))
+    before = flash_fwd.FLASH_FULL.launches
+    got = flash_fwd.full_attention_fwd(q, k, v)
+    assert flash_fwd.FLASH_FULL.launches == before + 1
+    _close(got, flash_fwd.full_attention_plain(q, k, v), *FWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_full_attention_fwd_masks_keys_past_kv_valid(dev, gen, dtype):
+    q, k, v = (_randn(gen, 1, 2, 130, 64, dtype=dtype) for _ in range(3))
+    for kv_valid in (1, 64, 100):
+        _close(flash_fwd.full_attention_fwd(q, k, v, kv_valid=kv_valid),
+               flash_fwd.full_attention_plain(q, k, v, kv_valid=kv_valid), *FWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_full_attention_fwd_reads_the_encoder_projections_in_place(dev, gen, dtype):
+    """q, k, v as the (B, H, T, 64) views of (B, T, H*64) projections, the
+    output as a view of a (B, T, H, 64) buffer."""
+    b, t, h = 2, 150, 4
+    q, k, v = (_randn(gen, b, t, h * 64, dtype=dtype).view(b, t, h, 64).transpose(1, 2)
+               for _ in range(3))
+    got = flash_fwd.full_attention_fwd(q, k, v, scale=0.125)
+    assert got.transpose(1, 2).is_contiguous()
+    _close(got, flash_fwd.full_attention_plain(q, k, v, scale=0.125), *FWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 200, 1500])
+@pytest.mark.parametrize("hq,g", [(4, 4), (8, 2)])
+def test_causal_attention_fwd(dev, gen, dtype, t, hq, g):
+    q = _randn(gen, 2, hq, t, 64, dtype=dtype)
+    k, v = (_randn(gen, 2, g, t, 64, dtype=dtype) for _ in range(2))
+    before = flash_fwd.FLASH_CAUSAL.launches
+    got = flash_fwd.causal_attention_fwd(q, k, v)
+    assert flash_fwd.FLASH_CAUSAL.launches == before + 1
+    _close(got, attention.causal_attention_plain(q, k, v), *FWD_TOL[dtype])
+
+
+def test_flash_fwd_refuses_what_it_does_not_take(dev, gen):
+    x = _randn(gen, 1, 2, 8, 32, dtype=torch.float32)
+    with pytest.raises(ValueError, match="head size"):
+        flash_fwd.full_attention_fwd(x, x, x)
+    with pytest.raises(ValueError, match="head size"):
+        flash_fwd.causal_attention_fwd(x, x, x)
+    x = _randn(gen, 1, 2, 8, 64, dtype=torch.float16)
+    with pytest.raises(TypeError, match="fp32 or bf16"):
+        flash_fwd.full_attention_fwd(x, x, x)
+    q = _randn(gen, 1, 2, 8, 64, dtype=torch.float32)
+    k = _randn(gen, 1, 2, 9, 64, dtype=torch.float32)
+    with pytest.raises(ValueError, match="causal"):
+        flash_fwd.causal_attention_fwd(q, k, k)
+    with pytest.raises(ValueError, match="aligned"):
+        odd = _randn(gen, 1, 2, 8, 65, dtype=torch.float32)[..., :64]
+        flash_fwd.full_attention_fwd(odd, odd, odd)
+
+
+def test_flash_fwd_runs_the_plain_version_on_a_cpu_tensor(dev, gen):
+    q, k, v = (_randn(gen, 1, 2, 70, 64, dtype=torch.float32).cpu() for _ in range(3))
+    before = (flash_fwd.FLASH_FULL.launches, flash_fwd.FLASH_CAUSAL.launches)
+    assert torch.equal(flash_fwd.full_attention_fwd(q, k, v),
+                       flash_fwd.full_attention_plain(q, k, v))
+    assert torch.equal(flash_fwd.causal_attention_fwd(q, k, v),
+                       attention.causal_attention_plain(q, k, v))
+    assert (flash_fwd.FLASH_FULL.launches, flash_fwd.FLASH_CAUSAL.launches) == before
 
 
 def test_launch_counts(dev, gen):

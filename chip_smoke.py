@@ -74,9 +74,24 @@ prints one JSON line; a failed phase raises and the script exits non-zero.
      same from (a)'s `--feature_dir`: the mask tokens of (b) and (c) must
      agree; launch counts around (a) and (b), where K6 runs 32 times an
      utterance;
- 15. the `{"kernels": [...]}` line (all nine kernels, launches by path),
-     the card's name and power limit, and the last line
-     `{"ok": true, "device": {...}}`.
+ 15. L2 (the grouped matmul of the MoE) against its plain version at the
+     Mixtral slice's shapes (decode 16 rows and prefill 6144 rows, for
+     fc_1/fc_2 and proj), with skewed and with empty experts, timed beside
+     its bound and torch._grouped_mm (or a per-expert cuBLAS loop); K1's
+     forward at head size 128 (B=8 Hq=32 G=8, T=384 and a ragged T=200);
+ 16. one Mixtral MoE layer at the decode and the prefill shape under
+     torch.cuda.set_sync_debug_mode("error"): no host sync on that path;
+ 17. a depth-2, full-width Mixtral-8x7B + LoRA model, card (L2, K1 at
+     D=128, bf16) against CPU (plain, fp32): the share of (token, layer)
+     routes that agree, and the prefill logits of the rows routed alike;
+ 18. the Mixtral slice: 16 of 32 layers of Mixtral-8x7B-Instruct at full
+     width (47 GB of bf16 weights), LoRA r=16 on q/k/v/proj, random weights
+     from --seed, serving the decode slice's 16 requests with moe_impl
+     "megablox" (L2, the main path; then under torch.profiler) and "dense":
+     p50, tokens/s, peak memory, launches, greedy agreement;
+ 19. the seconds of each phase, the `{"kernels": [...]}` line (all ten
+     kernels, launches by path), the card's name and power limit, and the
+     last line `{"ok": true, "device": {...}}`.
 
 Exits non-zero without printing a result when no CUDA card is present or
 when the port's package is not beside the script.
@@ -125,6 +140,11 @@ TOLERANCES = {
     # s * delta); the output rounds once. A lost or transposed LoRA branch
     # moves outputs by s * delta (~0.1 here).
     "lora_linear": (1e-2, 2.0 ** -6),
+    # grouped_matmul (L2): the same exact bf16 products as the plain version,
+    # summed in fp32 in another order and rounded once: one or two bf16 ulps
+    # (as q4_matmul). A wrong group or row moves an output by a whole product
+    # (~0.1 here).
+    "grouped_matmul": (1e-2, 2.0 ** -6),
 }
 # flash forward's row logsumexp (fp32 on both sides, from the same exact
 # bf16 products summed in another order): |kernel - plain| <= 1e-4 +
@@ -690,28 +710,14 @@ def token_agreement(records, reference) -> dict:
     return {"token_agreement": same / total, "exact_answers": exact / len(records)}
 
 
-def slice_run(torch, seed: int, variant: str = "bf16", reference=None) -> dict:
-    """The decode slice (SLICES[variant]): the model is built from --seed,
-    LoRA merged and quantized where the variant says, and serves the 16
-    requests once with the launch counts reset before and read after."""
+def serve_requests(torch, model, seed: int, serve: dict, profile_label=None) -> tuple:
+    """The decode slice's traffic: 16 synthetic DualHyp requests through
+    `cli.inference_ger.run_inference` with the launch counts reset before
+    and read after; with `profile_label`, the same traffic again under
+    torch.profiler. Returns (records, metrics, wall_s, launches, [shortest,
+    longest prompt])."""
     from dualhyp_tpu_torch.cli.inference_ger import run_inference
     from dualhyp_tpu_torch.data import hypotheses, prompts, synthetic
-    from dualhyp_tpu_torch.models.gpt import GPT, merge_lora, quantize_model
-
-    spec = SLICES[variant]
-    cfg = lora_config(DECODE_LAYERS)
-    model = GPT(cfg, device="cuda", dtype=torch.bfloat16, lora_impl=spec["lora_impl"])
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    model.init_weights(gen)
-    with torch.no_grad():  # a finetuned adapter's lora_B is not zero
-        for block in model.blocks:
-            for mod in (block.attn.qkv, block.attn.proj):
-                mod.lora_B.copy_(torch.randn(mod.lora_B.shape, generator=gen,
-                                             device="cuda") * 0.02)
-    if spec["quantize"]:  # the CLI's --quantize: merge, then quantize
-        quantize_model(merge_lora(model), spec["quantize"])
-    serve = dict(decode_batch=8, max_new_tokens=32, temperature=0.2, top_k=1,
-                 kv_quant=spec["kv_quant"])
 
     records = synthetic.make_records(n_uids=16, n_hyps=5, seed=seed)
     template_words = " ".join(prompts.DualHyp_PROMPTS.values()).split()
@@ -719,6 +725,7 @@ def slice_run(torch, seed: int, variant: str = "bf16", reference=None) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "test.json"
         synthetic.write_json(path, records)
+
         def dataset():
             return hypotheses.DualHypothesesDataset(
                 "test", str(path), tokenizer=tok, prompts_format="DualHyp", seed=seed)
@@ -737,7 +744,7 @@ def slice_run(torch, seed: int, variant: str = "bf16", reference=None) -> dict:
         wall = time.perf_counter() - t0
         launches = read_counts()
 
-        if spec["profile"]:
+        if profile_label:
             # the same traffic again under torch.profiler: where the device
             # time goes, and how much of the wall the device is idle
             from torch.profiler import ProfilerActivity, profile
@@ -747,14 +754,59 @@ def slice_run(torch, seed: int, variant: str = "bf16", reference=None) -> dict:
                 run_inference(model, tok, dataset(), **serve)
                 torch.cuda.synchronize()
                 prof_wall_ms = (time.perf_counter() - t1) * 1e3
-            emit({"phase": "slice_profile", "variant": variant,
-                  **profile_summary(prof, prof_wall_ms)})
+            summary = profile_summary(prof, prof_wall_ms)
+            emit({"phase": "slice_profile", "variant": profile_label,
+                  "profile_s": time.perf_counter() - t1, **summary})
+    return out_records, metrics, wall, launches, [min(prompt_lengths), max(prompt_lengths)]
 
+
+def random_lora_b(torch, model, gen) -> None:
+    """A finetuned adapter's lora_B is not zero: N(0, 0.02) on q/k/v/proj."""
+    with torch.no_grad():
+        for block in model.blocks:
+            for mod in (block.attn.qkv, block.attn.proj):
+                mod.lora_B.copy_(torch.randn(mod.lora_B.shape, generator=gen,
+                                             device="cuda") * 0.02)
+
+
+def check_served(records, metrics, launches, launch, idle, label) -> None:
+    """Every request answered, finite metrics, the path's kernels launched
+    and the kernels off the path not."""
+    if len(records) != 16 or not all(isinstance(r["inference"], str) for r in records):
+        raise RuntimeError(f"the {label} slice did not answer every request")
+    if not all(math.isfinite(metrics[k]) for k in ("WER", "post_ST_wer")):
+        raise RuntimeError(f"non-finite metrics {metrics}")
+    missing = [name for name in launch if launches[name] <= 0]
+    if missing:
+        raise RuntimeError(f"kernels never launched on the {label} path: {missing}")
+    stray = [name for name in idle if launches[name] != 0]
+    if stray:
+        raise RuntimeError(f"kernels launched off the {label} path: {stray}")
+
+
+def slice_run(torch, seed: int, variant: str = "bf16", reference=None) -> dict:
+    """The decode slice (SLICES[variant]): the model is built from --seed,
+    LoRA merged and quantized where the variant says, and serves the 16
+    requests once with the launch counts reset before and read after."""
+    from dualhyp_tpu_torch.models.gpt import GPT, merge_lora, quantize_model
+
+    spec = SLICES[variant]
+    cfg = lora_config(DECODE_LAYERS)
+    model = GPT(cfg, device="cuda", dtype=torch.bfloat16, lora_impl=spec["lora_impl"])
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model.init_weights(gen)
+    random_lora_b(torch, model, gen)
+    if spec["quantize"]:  # the CLI's --quantize: merge, then quantize
+        quantize_model(merge_lora(model), spec["quantize"])
+    serve = dict(decode_batch=8, max_new_tokens=32, temperature=0.2, top_k=1,
+                 kv_quant=spec["kv_quant"])
+    out_records, metrics, wall, launches, prompt_tokens = serve_requests(
+        torch, model, seed, serve, variant if spec["profile"] else None)
     result = {"phase": "slice", "variant": variant, "model": cfg.name,
               "n_layer": cfg.n_layer, "lora_r": cfg.lora_r,
               "lora_impl": spec["lora_impl"], "quantize": spec["quantize"],
               "kv_quant": spec["kv_quant"], "requests": len(out_records),
-              "prompt_tokens": [min(prompt_lengths), max(prompt_lengths)],
+              "prompt_tokens": prompt_tokens,
               "decode_batch": 8, "max_new_tokens": 32, "wall_s": wall,
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
               "weight_gb": sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9,
@@ -766,16 +818,7 @@ def slice_run(torch, seed: int, variant: str = "bf16", reference=None) -> dict:
     result["records"] = out_records
     del model
     torch.cuda.empty_cache()
-    if len(out_records) != 16 or not all(isinstance(r["inference"], str) for r in out_records):
-        raise RuntimeError("the slice did not answer every request")
-    if not all(math.isfinite(metrics[k]) for k in ("WER", "post_ST_wer")):
-        raise RuntimeError(f"non-finite metrics {metrics}")
-    missing = [name for name in spec["launch"] if launches[name] <= 0]
-    if missing:
-        raise RuntimeError(f"kernels never launched on the {variant} decode path: {missing}")
-    stray = [name for name in spec["idle"] if launches[name] != 0]
-    if stray:
-        raise RuntimeError(f"kernels launched off the {variant} decode path: {stray}")
+    check_served(out_records, metrics, launches, spec["launch"], spec["idle"], variant)
     return result
 
 
@@ -1429,11 +1472,8 @@ def relprompt_slice(torch, seed: int) -> dict:
     cfg = lora_config(DECODE_LAYERS).replace(use_relprompt=True, n_extra_tokens=3)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     model = init_relprompt_params(cfg, gen, device="cuda", dtype=torch.bfloat16)
-    with torch.no_grad():  # a finetuned adapter's lora_B and classifier biases are not zero
-        for block in model.blocks:
-            for mod in (block.attn.qkv, block.attn.proj):
-                mod.lora_B.copy_(torch.randn(mod.lora_B.shape, generator=gen,
-                                             device="cuda") * 0.02)
+    random_lora_b(torch, model, gen)
+    with torch.no_grad():  # a trained classifier's biases are not zero
         for clf in (model.audio_noise_classifier, model.visual_noise_classifier):
             for layer in clf.children():
                 layer.bias.copy_(torch.randn(layer.bias.shape, generator=gen,
@@ -1571,6 +1611,336 @@ def relprompt_slice(torch, seed: int) -> dict:
     return result
 
 
+MIXTRAL = "Mixtral-8x7B-Instruct-v0.1"
+# depth of the Mixtral slice (full width): 16 of 32 layers are 47.0 GB of
+# bf16 weights; all 32 (93.4 GB) need more than one 80 GB card
+MIXTRAL_LAYERS = 16
+# L2 at the Mixtral slice's shapes: (name, rows M, N, K). Decode: 8 tokens x
+# top 2; prefill: 8 prompts x 384 tokens x top 2 (the longest prompt
+# bucket of the kernel phases; the slice's own prompts are shorter)
+GMM_SHAPES = (("decode_fc_1", 16, 14336, 4096), ("decode_proj", 16, 4096, 14336),
+              ("prefill_fc_1", 6144, 14336, 4096), ("prefill_proj", 6144, 4096, 14336))
+# the Mixtral slice's MoE paths: which kernels must launch and which must not
+MOE_PATH = ("grouped_matmul", "flash_attention_fwd", "rms_norm", "apply_rope")
+MOE_IDLE = ("swiglu_mlp", "lora_linear", "q4_matmul", "full_attention_fwd",
+            "causal_attention_fwd")
+# depth-2 Mixtral, card bf16 vs CPU fp32: at least this share of the (token,
+# layer) top-2 expert sets must agree (a near tie of two router logits may
+# pick another expert under bf16; ~1-2% of routes at these widths), and at
+# least half of the prompt rows must agree at every token and layer
+ROUTE_AGREEMENT = 0.9
+
+
+def mixtral_config(n_layer: int):
+    from dualhyp_tpu_torch import config_from_name
+
+    return config_from_name(
+        MIXTRAL, n_layer=n_layer, lora_r=16, lora_alpha=16, lora_query=True,
+        lora_key=True, lora_value=True, lora_projection=True)
+
+
+def seeded_group_sizes(torch, rows: int, n_expert: int, seed: int, case: str):
+    """The group sizes of `rows` expert slots (rows / 2 tokens, top 2) from
+    a seeded draw of router logits: "skewed" adds a falling bias over the
+    experts (expert 0 the most popular), "empty" never routes to experts 2
+    and 5."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    logits = torch.randn(rows // 2, n_expert, generator=gen, device="cuda")
+    if case == "skewed":
+        logits += torch.linspace(2.0, -2.0, n_expert, device="cuda")
+    else:
+        logits[:, [2, 5]] = float("-inf")
+    ids = logits.topk(2, dim=-1).indices.reshape(-1)
+    sizes = torch.zeros(n_expert, dtype=torch.int64, device="cuda")
+    return sizes.scatter_add_(0, ids, torch.ones_like(ids)).to(torch.int32)
+
+
+def grouped_mm_library(torch, lhs, w, sizes):
+    """One PyTorch call for L2's function, as a yardstick: torch._grouped_mm
+    where this PyTorch has it and takes these inputs, else a per-expert
+    cuBLAS loop whose host read of the group sizes is part of its time."""
+    offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+    if hasattr(torch, "_grouped_mm"):
+        def grouped():
+            return torch._grouped_mm(lhs, w.transpose(1, 2), offs=offs,
+                                     out_dtype=torch.bfloat16)
+        try:
+            grouped()
+            return grouped, "torch._grouped_mm"
+        except (RuntimeError, TypeError, ValueError):
+            pass
+
+    def loop():
+        out = torch.empty((lhs.shape[0], w.shape[1]), dtype=lhs.dtype, device=lhs.device)
+        start = 0
+        for e, end in enumerate(offs.tolist()):  # a host sync
+            if end > start:
+                torch.matmul(lhs[start:end], w[e].t(), out=out[start:end])
+            start = end
+        return out
+    return loop, "per-expert cuBLAS loop (its host sync of the group sizes included)"
+
+
+def gmm_phase(torch, seed: int) -> dict:
+    """L2 against its plain version at the Mixtral slice's four shapes, each
+    with skewed and with empty experts, timed beside its bound and the
+    library yardstick."""
+    from dualhyp_tpu_torch.ops import gmm
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 37)
+    n_expert = 8
+    weights = {}
+    out = {}
+    for name, rows, n, k in GMM_SHAPES:
+        if (n, k) not in weights:
+            weights[(n, k)] = (torch.randn((n_expert, n, k), generator=gen, device="cuda")
+                               * 0.02).to(torch.bfloat16)
+        w = weights[(n, k)]
+        for case in ("skewed", "empty"):
+            lhs = torch.randn((rows, k), generator=gen, device="cuda").to(torch.bfloat16)
+            sizes = seeded_group_sizes(torch, rows, n_expert, seed + len(out), case)
+            fn = lambda: gmm.grouped_matmul(lhs, w, sizes)  # noqa: E731
+            plain = lambda: gmm.grouped_matmul_plain(lhs, w, sizes)  # noqa: E731
+            err = compare("grouped_matmul", fn(), plain(), torch)
+            lib, lib_name = grouped_mm_library(torch, lhs, w, sizes)
+            busy = int((sizes > 0).sum())
+            bms, by = bound(rows * k * 2 + busy * n * k * 2 + rows * n * 2 + n_expert * 4,
+                            2 * rows * n * k, BF16_TENSOR_FLOPS)
+            out[f"{name}_{case}"] = dict(
+                shape=[rows, n, k], group_sizes=sizes.tolist(), max_abs_err=err, ms=time_ms(fn, torch), device_ms=device_ms(fn, torch),
+                plain_ms=time_ms(plain, torch, warmup=1, iters=3),
+                library_ms=time_ms(lib, torch), library=lib_name,
+                library_max_abs_err=float((lib().float() - plain().float()).abs().max()),
+                bound_ms=bms, bound_by=by)
+            del lhs
+    del weights
+    torch.cuda.empty_cache()
+    emit({"phase": "kernel", "name": "grouped_matmul",
+          "tolerance": dict(zip(("atol", "rtol"), TOLERANCES["grouped_matmul"])), **out})
+    return out
+
+
+def flash_d128_phase(torch, seed: int) -> dict:
+    """K1's forward at Mixtral's head size: B8 Hq32 G8 D128 at T=384 and a
+    ragged T=200, O and L against the plain pair, timed beside SDPA."""
+    import torch.nn.functional as F
+
+    from dualhyp_tpu_torch.ops import attention
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 41)
+    b, hq, g, hs = 8, 32, 8, 128
+    scale = 1.0 / math.sqrt(hs)
+    out = {}
+    for t in (200, 384):
+        q = torch.randn((b, hq, t, hs), generator=gen, device="cuda").to(torch.bfloat16)
+        k, v = (torch.randn((b, g, t, hs), generator=gen, device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        o, lse = attention._flash_fwd(q, k, v, scale)
+        o_plain, lse_plain = attention.causal_attention_plain_lse(q, k, v, scale)
+        err = compare("flash_attention_fwd", o, o_plain, torch)
+        lse_err = float((lse - lse_plain).abs().max())
+        if not bool(((lse - lse_plain).abs() <= LSE_TOL[0] + LSE_TOL[1] * lse_plain.abs()).all()):
+            raise RuntimeError(f"flash_attention_fwd D128 T={t} lse: max abs err {lse_err}, "
+                               f"tolerance {LSE_TOL}")
+        fn = lambda: attention.causal_attention(q, k, v)  # noqa: E731
+        pairs = b * hq * t * (t + 1) // 2
+        bms, by = bound((2 * b * hq * t * hs + 2 * b * g * t * hs) * 2 + b * hq * t * 4,
+                        4 * pairs * hs, BF16_TENSOR_FLOPS)
+        out[f"T{t}"] = dict(
+            shape=[b, hq, g, t, hs], max_abs_err=err, lse_max_abs_err=lse_err,
+            ms=time_ms(fn, torch), device_ms=device_ms(fn, torch),
+            plain_ms=time_ms(lambda: attention.causal_attention_plain(q, k, v), torch,
+                             warmup=1, iters=5),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), torch),
+            library="SDPA (causal, enable_gqa)", bound_ms=bms, bound_by=by)
+        del q, k, v, o, o_plain
+    emit({"phase": "kernel", "name": "flash_attention_fwd", "head_size": hs,
+          "tolerance": {"o": dict(zip(("atol", "rtol"), TOLERANCES["flash_attention_fwd"])),
+                        "lse": dict(zip(("atol", "rtol"), LSE_TOL))}, **out})
+    return out
+
+
+def fill_random(torch, models, cfg, gen) -> None:
+    """The same random values into every model of `models` (each on its own
+    device and dtype), drawn in fp32 on the card from `gen` one parameter
+    at a time: weights N(0, std) with the JAX init's stds, norm scales near
+    1, uniform lora_A and N(0, 0.02) lora_B so that every leaf counts."""
+    d = cfg.n_embd
+    std = math.sqrt(2.0 / 5 / d)
+    proj_std = 1.0 / math.sqrt(d) / cfg.n_layer
+    params = [dict(m.named_parameters()) for m in models]
+    with torch.no_grad():
+        for name, p in params[0].items():
+            x = torch.randn(p.shape, generator=gen, device="cuda")
+            if name.endswith("scale"):
+                x = 1.0 + 0.1 * x
+            elif name.endswith("lora_A"):
+                bound_ = 1.0 / math.sqrt(p.shape[-1])
+                x = (torch.rand(p.shape, generator=gen, device="cuda") * 2 - 1) * bound_
+            elif name.endswith("lora_B"):
+                x = 0.02 * x
+            elif name.endswith("proj.weight"):
+                x = proj_std * x
+            else:
+                x = std * x
+            for other in params:
+                other[name].copy_(x.to(other[name].device))
+            del x
+
+
+def prefill_with_routes(torch, model, ids, lengths):
+    """Prefill logits and each block's top-k expert sets (L, B, T, k), from
+    the MoE inputs captured by forward pre-hooks."""
+    from dualhyp_tpu_torch.models.gpt import moe_top_k
+
+    inputs = []
+    hooks = [block.mlp.register_forward_pre_hook(lambda mod, args: inputs.append(args[0]))
+             for block in model.blocks]
+    logits = model.prefill(ids, lengths, model.init_cache(*ids.shape))
+    for hook in hooks:
+        hook.remove()
+    routes = [moe_top_k((x @ block.mlp.gate.weight.t()).float(), block.mlp.top_k)[1]
+              for x, block in zip(inputs, model.blocks)]
+    return logits, torch.stack(routes).sort(dim=-1).values
+
+
+def depth2_mixtral_check(torch, seed: int) -> dict:
+    """A depth-2, full-width Mixtral-8x7B + LoRA model: prefill logits on the
+    card (L2, K1 at D=128, bf16) against the CPU (plain versions, fp32), on
+    the same random weights (drawn on the card, one parameter at a time).
+    The routes of both sides are compared; the rows routed alike at every
+    token and layer hold their last logits to DEPTH2_ATOL."""
+    import numpy as np
+
+    from dualhyp_tpu_torch.models.gpt import GPT
+
+    cfg = mixtral_config(2)
+    card = GPT(cfg, device="cuda", dtype=torch.bfloat16, moe_impl="megablox")
+    cpu = GPT(cfg, device="cpu", dtype=torch.float32, moe_impl="megablox")
+    fill_random(torch, (card, cpu), cfg, torch.Generator(device="cuda").manual_seed(seed + 43))
+    # many short rows: a row is held only if all its routes agree
+    lengths = torch.tensor([72, 40, 24, 16] + [2 + i % 7 for i in range(20)])
+    t = int(lengths.max())  # not a multiple of K1's 64-row tile
+    rng = np.random.default_rng(seed + 47)
+    ids = torch.from_numpy(rng.integers(3, cfg.vocab_size, size=(len(lengths), t)))
+    valid = torch.arange(t)[None, :] < lengths[:, None]
+    ids[~valid] = 0
+    reset_counts()
+    got, got_routes = prefill_with_routes(torch, card, ids.cuda(), lengths.cuda())
+    launches = read_counts()
+    got, got_routes = got.cpu(), got_routes.cpu()
+    t0 = time.perf_counter()
+    want, want_routes = prefill_with_routes(torch, cpu, ids, lengths)
+    cpu_s = time.perf_counter() - t0
+    agree = (got_routes == want_routes).all(-1) | ~valid  # (L, B, T)
+    share = float(agree[:, valid].float().mean())
+    held = agree.all(0).all(-1)
+    err = float((got - want)[held].abs().max()) if bool(held.any()) else float("nan")
+    result = {"phase": "depth2_mixtral_card_vs_cpu", "model": cfg.name,
+              "n_layer": cfg.n_layer, "rows": len(lengths), "prompt_tokens": lengths.tolist(),
+              "route_agreement": share, "route_agreement_min": ROUTE_AGREEMENT,
+              "rows_held": int(held.sum()), "max_abs_err_held": err,
+              "tolerance": DEPTH2_ATOL, "logit_std": float(want.std()),
+              "argmax_agree_held": float((got.argmax(-1) == want.argmax(-1))[held]
+                                         .float().mean()),
+              "cpu_prefill_s": cpu_s, "launches": launches}
+    emit(result)
+    del card, cpu
+    torch.cuda.empty_cache()
+    if not share >= ROUTE_AGREEMENT:
+        raise RuntimeError(f"depth-2 Mixtral: {share} of the routes agree, < {ROUTE_AGREEMENT}")
+    if not 2 * int(held.sum()) >= len(lengths):
+        raise RuntimeError(f"depth-2 Mixtral: only {int(held.sum())} of {len(lengths)} rows "
+                           f"routed alike")
+    if not err <= DEPTH2_ATOL:
+        raise RuntimeError(f"depth-2 Mixtral logits: card vs CPU max_abs_err {err} > "
+                           f"{DEPTH2_ATOL}")
+    if launches["grouped_matmul"] != 3 * cfg.n_layer or launches["flash_attention_fwd"] != 2:
+        raise RuntimeError(f"depth-2 Mixtral prefill launches {launches}")
+    return result
+
+
+def moe_nosync_check(torch, seed: int) -> dict:
+    """One Mixtral MoE layer forward (megablox: the router, the sort, L2 x 3,
+    the combine) at the decode shape (8 tokens) and at the prefill shape (8
+    x 384) under torch.cuda.set_sync_debug_mode("error"): a host sync on
+    that path raises."""
+    from dualhyp_tpu_torch.models.gpt import MoE
+
+    cfg = mixtral_config(1)
+    moe = MoE(cfg, torch.bfloat16, torch.device("cuda"), "megablox")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 53)
+    with torch.no_grad():
+        for p in moe.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen, device="cuda") * 0.01)
+    out = {}
+    for label, shape in (("decode", (8, 1, cfg.n_embd)), ("prefill", (8, 384, cfg.n_embd))):
+        x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        with torch.no_grad():
+            moe(x)  # the first call loads the kernel library
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                y = moe(x)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        out[label] = {"shape": list(shape), "finite": bool(torch.isfinite(y).all())}
+    emit({"phase": "moe_no_host_sync", "sync_debug_mode": "error", **out})
+    del moe
+    torch.cuda.empty_cache()
+    if not all(v["finite"] for v in out.values()):
+        raise RuntimeError(f"MoE layer output not finite: {out}")
+    return out
+
+
+def mixtral_slice(torch, seed: int) -> dict:
+    """The Mixtral slice: 16 of 32 layers of Mixtral-8x7B-Instruct at full
+    width, LoRA r=16 on q/k/v/proj, random weights from --seed, serving the
+    decode slice's 16 requests with moe_impl "megablox" (L2, the main path,
+    then profiled) and "dense" (plain einsums), one model alive at a time."""
+    from dualhyp_tpu_torch.models.gpt import GPT
+
+    cfg = mixtral_config(MIXTRAL_LAYERS)
+    serve = dict(decode_batch=8, max_new_tokens=32, temperature=0.2, top_k=1)
+    runs = {}
+    for impl in ("megablox", "dense"):
+        t0 = time.perf_counter()
+        model = GPT(cfg, device="cuda", dtype=torch.bfloat16, moe_impl=impl)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        model.init_weights(gen)
+        random_lora_b(torch, model, gen)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        records, metrics, wall, launches, prompt_tokens = serve_requests(
+            torch, model, seed, serve, f"mixtral_{impl}" if impl == "megablox" else None)
+        runs[impl] = dict(
+            moe_impl=impl, build_s=build_s, wall_s=wall,
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+            weight_gb=sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9,
+            metrics=metrics, launches=launches, sample=records[0], records=records)
+        del model
+        torch.cuda.empty_cache()
+        launch = MOE_PATH if impl == "megablox" else MOE_PATH[1:]
+        idle = MOE_IDLE if impl == "megablox" else MOE_IDLE + ("grouped_matmul",)
+        check_served(records, metrics, launches, launch, idle, f"mixtral {impl}")
+    forwards = runs["megablox"]["launches"]["grouped_matmul"] / (3 * cfg.n_layer)
+    result = {"phase": "mixtral_slice", "model": cfg.name, "n_layer": cfg.n_layer,
+              "n_layer_published": 32, "n_expert": cfg.n_expert,
+              "n_expert_per_token": cfg.n_expert_per_token, "head_size": cfg.head_size,
+              "lora_r": cfg.lora_r, "requests": 16, "prompt_tokens": prompt_tokens,
+              "decode_batch": 8, "max_new_tokens": 32, "forwards": forwards,
+              **{impl: {k: v for k, v in r.items() if k != "records"}
+                 for impl, r in runs.items()},
+              "megablox_vs_dense": token_agreement(runs["megablox"]["records"],
+                                                   runs["dense"]["records"])}
+    emit(result)
+    if forwards != int(forwards):
+        raise RuntimeError(f"L2 launched {forwards} times 3 x {cfg.n_layer} a forward")
+    return result
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1600,23 +1970,37 @@ def main(argv=None) -> int:
           "seconds": time.perf_counter() - t0})
     emit({"phase": "l2_flush", "bytes": L2_FLUSH_BYTES, "ms": time_ms(l2_flush(torch), torch)})
 
-    kernels = kernel_phases(torch, args.seed)
-    kernels.update(q4_lora_phase(torch, args.seed))
-    fwd = flash_fwd_phase(torch, args.seed)
+    seconds = {}
+
+    def run(label, fn, *a, **kw):
+        t1 = time.perf_counter()
+        out = fn(torch, args.seed, *a, **kw)
+        seconds[label] = time.perf_counter() - t1
+        return out
+
+    kernels = run("kernel_phases", kernel_phases)
+    kernels.update(run("q4_lora_phase", q4_lora_phase))
+    fwd = run("flash_fwd_phase", flash_fwd_phase)
     kernels.update({k: fwd[k] for k in ("full_attention_fwd", "causal_attention_fwd")})
-    depth2_check(torch, args.seed)
-    depth2_int4_check(torch, args.seed)
-    depth2_encoder_check(torch, args.seed)
-    sliced = slice_run(torch, args.seed)
-    slices = {variant: slice_run(torch, args.seed, variant, reference=sliced)
+    kernels["grouped_matmul"] = run("gmm_phase", gmm_phase)
+    kernels["flash_attention_fwd"]["d128"] = run("flash_d128_phase", flash_d128_phase)
+    run("depth2_check", depth2_check)
+    run("depth2_int4_check", depth2_int4_check)
+    run("depth2_encoder_check", depth2_encoder_check)
+    sliced = run("decode_slice", slice_run)
+    slices = {variant: run(f"{variant}_slice", slice_run, variant, reference=sliced)
               for variant in ("int4", "int8_kv8", "fused")}
-    relprompt = relprompt_slice(torch, args.seed)
-    kernels["flash_attention_bwd"] = {"train": flash_bwd_phase(torch, args.seed)}
-    train_shapes = training_shape_phase(torch, args.seed)
-    depth2_train_check(torch, args.seed)
-    depth2_train_check(torch, args.seed, lora_impl="fused")
-    trained = train_slice(torch, args.seed)
-    stepped = train_step_1024(torch, args.seed)
+    relprompt = run("relprompt_slice", relprompt_slice)
+    kernels["flash_attention_bwd"] = {"train": run("flash_bwd_phase", flash_bwd_phase)}
+    train_shapes = run("training_shape_phase", training_shape_phase)
+    run("depth2_train_check", depth2_train_check)
+    run("depth2_train_check_fused", depth2_train_check, lora_impl="fused")
+    trained = run("train_slice", train_slice)
+    stepped = run("train_step_1024", train_step_1024)
+    run("moe_nosync_check", moe_nosync_check)
+    depth2_moe = run("depth2_mixtral_check", depth2_mixtral_check)
+    mixtral = run("mixtral_slice", mixtral_slice)
+    emit({"phase": "phase_seconds", **seconds})
 
     sources = {"rms_norm": ("rmsnorm.cu", "dualhyp_tpu/ops/pallas/rmsnorm_kernel.py:26"),
                "apply_rope": ("rope.cu", "dualhyp_tpu/ops/pallas/rope_kernel.py:29"),
@@ -1629,12 +2013,16 @@ def main(argv=None) -> int:
                "q4_matmul": ("int4_matmul.cu", "dualhyp_tpu/ops/pallas/int4_kernel.py:36"),
                "full_attention_fwd": ("flash_fwd.cu", "dualhyp_tpu/ops/pallas/flash_fwd.py:118"),
                "causal_attention_fwd": ("flash_fwd.cu",
-                                        "dualhyp_tpu/ops/pallas/flash_fwd.py:179")}
+                                        "dualhyp_tpu/ops/pallas/flash_fwd.py:179"),
+               "grouped_matmul": ("grouped_matmul.cu",
+                                  "jax/experimental/pallas/ops/tpu/megablox/gmm.py:526 "
+                                  "(megablox gmm, called at dualhyp_tpu/models/gpt.py:516)")}
     # each kernel's main path, and the shape of its row in the line
     main_path = {"lora_linear": ("fused_slice", "qkv_3072"),
                  "q4_matmul": ("int4_slice", "decode_fc_1"),
                  "full_attention_fwd": ("relprompt_slice", "b1_t280_f32"),
-                 "causal_attention_fwd": ("causal_attention_fwd_phase", "T1024")}
+                 "causal_attention_fwd": ("causal_attention_fwd_phase", "T1024"),
+                 "grouped_matmul": ("mixtral_slice", "decode_fc_1_skewed")}
     call_paths = {
         "full_attention_fwd": "cli.inference_relprompt.run_relprompt -> "
                               "cli.finetune_relprompt feature loader -> models.whisper.encode "
@@ -1642,13 +2030,18 @@ def main(argv=None) -> int:
                               "the same encode",
         "causal_attention_fwd": "no production call site (the JAX package calls "
                                 "causal_attention_fwd from its tests only): this script's "
-                                "K7 kernel phase"}
+                                "K7 kernel phase",
+        "grouped_matmul": "cli.inference_ger.run_inference -> GPT.prefill/decode_step -> "
+                          "MoE._sparse (moe_impl megablox), 3 launches a layer a forward"}
     paths = {"decode_slice": sliced["launches"], "train_slice": trained["launches"],
              **{f"{v}_slice": slices[v]["launches"] for v in slices},
              **{f"train_step_1024_{k}": r["launches"] for k, r in stepped.items()},
              "relprompt_slice": relprompt["launches"],
              "relprompt_precompute": relprompt["launches_precompute"],
-             "causal_attention_fwd_phase": fwd["causal_launches"]}
+             "causal_attention_fwd_phase": fwd["causal_launches"],
+             "mixtral_slice": mixtral["megablox"]["launches"],
+             "mixtral_dense_slice": mixtral["dense"]["launches"],
+             "depth2_mixtral": depth2_moe["launches"]}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "device_ms", "shape")
     train_rows = {"rms_norm": train_shapes["rms_norm"],
@@ -1682,6 +2075,8 @@ def main(argv=None) -> int:
         if name == "apply_rope":
             entry["train_rows_transpose"] = {
                 k: train_shapes["apply_rope_transpose"][k] for k in keys}
+        if name == "flash_attention_fwd":  # Mixtral's head size
+            entry["d128"] = {k: kernels[name]["d128"]["T384"][k] for k in keys}
         line.append(entry)
     emit({"kernels": line})
     print(smi, flush=True)

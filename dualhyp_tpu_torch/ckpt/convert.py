@@ -13,6 +13,12 @@ linear's `weight`, that linear of the model takes the quantized leaves
 (int8 codes or packed bytes and fp32 scales, copied as they are), beside
 the zeroed LoRA leaves a merge leaves behind.
 
+An MoE tree (`mlp_class="LLaMAMoE"`) loads as it is: its router
+`blocks/mlp/gate/weight` (L, E, d) and expert stacks `blocks/mlp/{fc_1,
+fc_2,proj}/weight` (L, E, out, in) into each block's `MoE` stacks. A
+quantized MoE tree does not: the port, like the JAX package, runs the
+expert stacks' float weights only.
+
 A RelPrompt tree loads into a RelPrompt `GPT` (`use_relprompt`,
 `n_extra_tokens`): its `audio_noise_classifier` and `visual_noise_classifier`
 leaves into the model's two classifiers, its `wte` with the extra rows.

@@ -3,9 +3,9 @@
 //
 // Replaces dualhyp_tpu/ops/pallas/flash_vjp.py `_fwd_kernel` (the Pallas
 // call in `_forward`). What bounds it on the H100: at the prefill shapes
-// (T up to 1024, D = 64) the causal QK^T and PV products are ~T/2 MACs per
-// loaded byte of q, so it is bound by operations once they run on the
-// tensor cores, and by bytes (q, k, v, o) at short T. Design:
+// (T up to 1024, D = 64 or 128) the causal QK^T and PV products are ~T/2
+// MACs per loaded byte of q, so it is bound by operations once they run on
+// the tensor cores, and by bytes (q, k, v, o) at short T. Design:
 //   * one block of 4 warps owns one (batch, query head, 64-row query tile);
 //     each warp owns 16 query rows;
 //   * GQA is an index: the block reads KV head h / q_per_kv, K/V are never
@@ -18,7 +18,11 @@
 //     shared memory; P is rounded to bf16 for the PV product, as the plain
 //     version rounds its probabilities to the query dtype;
 //   * the fp32 O accumulator lives in shared memory, so the per-row rescale
-//     by exp(m_old - m_new) needs no knowledge of the fragment layout.
+//     by exp(m_old - m_new) needs no knowledge of the fragment layout;
+//   * the head size D is a template parameter (64: TinyLlama; 128: Mixtral):
+//     the S tile (64 keys) and the O tile (D columns) have their own row
+//     strides, and each instance opts in to its own shared memory (70.8 KB
+//     at D = 64, 110.8 KB at D = 128: two blocks an SM either way).
 // All q, k, v, o take (batch, head, token) strides with D contiguous, so the
 // heads of the fused QKV projection and a (B, T, H, D) output need no copy.
 #include <mma.h>
@@ -31,25 +35,32 @@ using namespace nvcuda;
 
 constexpr int kBQ = 64;        // query rows per block
 constexpr int kBKV = 64;       // keys per tile
-constexpr int kD = 64;         // head size
 constexpr int kThreads = 128;  // 4 warps x 16 query rows
-constexpr int kLdb = kD + 8;   // bf16 row stride of the Q/K/V/P tiles
-constexpr int kLdf = kBKV + 4; // fp32 row stride of the S and O tiles
-static_assert(kBKV == kD, "S and O tiles share one row stride");
+constexpr int kLdp = kBKV + 8; // bf16 row stride of the P tile
+constexpr int kLds = kBKV + 4; // fp32 row stride of the S tile
 
-constexpr size_t kTileB = sizeof(bf16) * kBQ * kLdb;     // 9216 bytes
-constexpr size_t kTileF = sizeof(float) * kBQ * kLdf;    // 17408 bytes
-constexpr size_t kSmem = 4 * kTileB + 2 * kTileF + 3 * sizeof(float) * kBQ;
+// The shared-memory layout of the instance for head size kD.
+template <int kD>
+struct Layout {
+  static constexpr int kLdb = kD + 8;  // bf16 row stride of the Q/K/V tiles
+  static constexpr int kLdo = kD + 4;  // fp32 row stride of the O tile
+  static constexpr size_t kSmem = sizeof(bf16) * (kBQ + 2 * kBKV) * kLdb +
+                                  sizeof(bf16) * kBQ * kLdp +
+                                  sizeof(float) * kBQ * (kLds + kLdo) +
+                                  3 * sizeof(float) * kBQ;
+};
 
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBT;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
 
-// Copies rows [r0, r0 + 64) of a (T, 64) bf16 matrix with row stride `ld`
+// Copies rows [r0, r0 + 64) of a (T, kD) bf16 matrix with row stride `ld`
 // into a shared tile; rows at or past T are zero.
+template <int kD>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long ld,
                                           int r0, int t) {
+  constexpr int kLdb = Layout<kD>::kLdb;
   for (int i = threadIdx.x; i < kBQ * (kD / 8); i += kThreads) {
     const int r = i / (kD / 8);
     const int c = (i % (kD / 8)) * 8;
@@ -59,6 +70,7 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long 
   }
 }
 
+template <int kD>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o,
@@ -67,14 +79,16 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  long long ksb, long long ksh, long long kst, long long vsb,
                  long long vsh, long long vst, long long osb, long long osh,
                  long long ost) {
+  constexpr int kLdb = Layout<kD>::kLdb;
+  constexpr int kLdo = Layout<kD>::kLdo;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* q_s = reinterpret_cast<bf16*>(smem);
   bf16* k_s = q_s + kBQ * kLdb;
   bf16* v_s = k_s + kBKV * kLdb;
   bf16* p_s = v_s + kBKV * kLdb;
-  float* s_s = reinterpret_cast<float*>(p_s + kBQ * kLdb);
-  float* o_s = s_s + kBQ * kLdf;
-  float* m_s = o_s + kBQ * kLdf;
+  float* s_s = reinterpret_cast<float*>(p_s + kBQ * kLdp);
+  float* o_s = s_s + kBQ * kLds;
+  float* m_s = o_s + kBQ * kLdo;
   float* l_s = m_s + kBQ;
   float* a_s = l_s + kBQ;
 
@@ -91,8 +105,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kb = k + b * ksb + g * ksh;
   const bf16* vb = v + b * vsb + g * vsh;
 
-  load_tile(q_s, qb, qst, q0, t);
-  for (int i = threadIdx.x; i < kBQ * kLdf; i += kThreads) o_s[i] = 0.f;
+  load_tile<kD>(q_s, qb, qst, q0, t);
+  for (int i = threadIdx.x; i < kBQ * kLdo; i += kThreads) o_s[i] = 0.f;
   if (threadIdx.x < kBQ) {
     m_s[threadIdx.x] = -INFINITY;
     l_s[threadIdx.x] = 0.f;
@@ -103,8 +117,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int j = 0; j < n_kv; ++j) {
     const int k0 = j * kBKV;
     __syncthreads();  // previous tile's readers are done with k_s / v_s
-    load_tile(k_s, kb, kst, k0, t);
-    load_tile(v_s, vb, vst, k0, t);
+    load_tile<kD>(k_s, kb, kst, k0, t);
+    load_tile<kD>(v_s, vb, vst, k0, t);
     __syncthreads();
 
     // S = Q K^T for this warp's 16 rows
@@ -125,7 +139,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
 #pragma unroll
       for (int n = 0; n < kBKV / 16; ++n)
-        wmma::store_matrix_sync(s_s + wr * kLdf + n * 16, acc[n], kLdf,
+        wmma::store_matrix_sync(s_s + wr * kLds + n * 16, acc[n], kLds,
                                 wmma::mem_row_major);
     }
     __syncwarp();
@@ -134,7 +148,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int r = 0; r < 16; ++r) {
       const int row = wr + r;
       const int qpos = q0 + row;
-      const float* srow = s_s + row * kLdf;
+      const float* srow = s_s + row * kLds;
       const int kp0 = k0 + lane;
       const int kp1 = k0 + lane + 32;
       const float s0 = (kp0 <= qpos && kp0 < t) ? srow[lane] * scale : -INFINITY;
@@ -144,8 +158,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const float p0 = expf(s0 - m_new);
       const float p1 = expf(s1 - m_new);
       const float sum = warp_sum(p0 + p1);
-      p_s[row * kLdb + lane] = __float2bfloat16(p0);
-      p_s[row * kLdb + lane + 32] = __float2bfloat16(p1);
+      p_s[row * kLdp + lane] = __float2bfloat16(p0);
+      p_s[row * kLdp + lane + 32] = __float2bfloat16(p1);
       __syncwarp();
       if (lane == 0) {
         const float alpha = expf(m_prev - m_new);
@@ -159,19 +173,19 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // O = O * alpha + P V for this warp's rows
     for (int i = lane; i < 16 * kD; i += 32) {
       const int row = wr + i / kD;
-      o_s[row * kLdf + i % kD] *= a_s[row];
+      o_s[row * kLdo + i % kD] *= a_s[row];
     }
     __syncwarp();
     {
       FragC acc[kD / 16];
 #pragma unroll
       for (int n = 0; n < kD / 16; ++n)
-        wmma::load_matrix_sync(acc[n], o_s + wr * kLdf + n * 16, kLdf,
+        wmma::load_matrix_sync(acc[n], o_s + wr * kLdo + n * 16, kLdo,
                                wmma::mem_row_major);
 #pragma unroll
       for (int kk = 0; kk < kBKV; kk += 16) {
         FragA a;
-        wmma::load_matrix_sync(a, p_s + wr * kLdb + kk, kLdb);
+        wmma::load_matrix_sync(a, p_s + wr * kLdp + kk, kLdp);
 #pragma unroll
         for (int n = 0; n < kD / 16; ++n) {
           FragB bv;
@@ -181,7 +195,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
 #pragma unroll
       for (int n = 0; n < kD / 16; ++n)
-        wmma::store_matrix_sync(o_s + wr * kLdf + n * 16, acc[n], kLdf,
+        wmma::store_matrix_sync(o_s + wr * kLdo + n * 16, acc[n], kLdo,
                                 wmma::mem_row_major);
     }
   }
@@ -192,7 +206,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int row = wr + i / kD;
     const int c = i % kD;
     if (q0 + row < t)
-      ob[(q0 + row) * ost + c] = __float2bfloat16(o_s[row * kLdf + c] / l_s[row]);
+      ob[(q0 + row) * ost + c] = __float2bfloat16(o_s[row * kLdo + c] / l_s[row]);
   }
   if (lane < 16) {
     const int row = wr + lane;
@@ -202,26 +216,43 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-}  // namespace
-
-// q: (B, H, T, 64); k, v: (B, G, T, 64), each with (batch, head, token)
-// element strides and unit channel stride, 16-byte aligned rows; o: the same
-// for (B, H, T, 64); lse: contiguous (B, H, T) fp32.
-DH_EXPORT int dh_flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, void* lse, int b,
-    int n_head, int n_kv_head, int t, float scale, long long qsb, long long qsh,
-    long long qst, long long ksb, long long ksh, long long kst, long long vsb,
-    long long vsh, long long vst, long long osb, long long osh, long long ost,
-    void* stream) {
+template <int kD>
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, int b,
+           int n_head, int n_kv_head, int t, float scale, long long qsb, long long qsh,
+           long long qst, long long ksb, long long ksh, long long kst, long long vsb,
+           long long vsh, long long vst, long long osb, long long osh, long long ost,
+           cudaStream_t stream) {
+  constexpr size_t smem = Layout<kD>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmem));
+      flash_fwd_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((t + kBQ - 1) / kBQ, n_head, b);
-  flash_fwd_kernel<<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
+  flash_fwd_kernel<kD><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o),
       static_cast<float*>(lse), n_head, n_head / n_kv_head, t, scale, qsb, qsh,
       qst, ksb, ksh, kst, vsb, vsh, vst, osb, osh, ost);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// q: (B, H, T, D); k, v: (B, G, T, D), each with (batch, head, token)
+// element strides and unit channel stride, 16-byte aligned rows; o: the same
+// for (B, H, T, D); lse: contiguous (B, H, T) fp32. D is 64 or 128.
+DH_EXPORT int dh_flash_attention_fwd(
+    const void* q, const void* k, const void* v, void* o, void* lse, int b,
+    int n_head, int n_kv_head, int t, int d, float scale, long long qsb,
+    long long qsh, long long qst, long long ksb, long long ksh, long long kst,
+    long long vsb, long long vsh, long long vst, long long osb, long long osh,
+    long long ost, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == 64)
+    return launch<64>(q, k, v, o, lse, b, n_head, n_kv_head, t, scale, qsb, qsh, qst,
+                      ksb, ksh, kst, vsb, vsh, vst, osb, osh, ost, s);
+  if (d == 128)
+    return launch<128>(q, k, v, o, lse, b, n_head, n_kv_head, t, scale, qsb, qsh, qst,
+                       ksb, ksh, kst, vsb, vsh, vst, osb, osh, ost, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,0 +1,205 @@
+// L2 forward: the MoE grouped matrix product over expert row groups,
+//   out[m] = lhs[m] . W[e(m)]^T,  rows [off[e], off[e] + group_sizes[e]) in group e,
+// bf16 in and out, fp32 sums, rounded once.
+//
+// Replaces megablox `gmm` (jax/experimental/pallas/ops/tpu/megablox/gmm.py,
+// its pallas_call), which dualhyp_tpu/models/gpt.py `_moe_mlp_sparse` calls
+// under DUALHYP_MOE_IMPL=megablox (and `jax.lax.ragged_dot`, the same
+// function, under =sparse). W stays in the port's stored (E, N, K) layout,
+// megablox's transpose_rhs=True form: a row of W[e] holds its K values,
+// which is exactly the column-major B operand of mma.sync, so no expert
+// stack is ever transposed or copied. What bounds it on the H100: in decode
+// (16 rows: 8 tokens x top-2) the expert weights, N * K * 2 bytes for each
+// group that holds a row (up to 8 x 117 MB at Mixtral's width); in prefill
+// (6144 rows) the 2 * M * N * K operations. Design:
+//   * the schedule is found on the device, as megablox's
+//     `make_group_metadata` finds it on the TPU: the grid is fixed by M, N
+//     and E alone, (ceil(M / BM) + E + 1) row visits x ceil(N / BN) column
+//     tiles; each block reads the E group sizes and walks them to its
+//     (group, row tile). A row tile that straddles groups is visited once
+//     per group, each visit masking its loads and stores to its own rows,
+//     so no two blocks write one element. Rows past the last group (when
+//     the sizes sum to less than M) get one more visit that writes zeros,
+//     as ragged_dot leaves them. Visits past the last, and empty groups,
+//     exit at once; nothing is read back to the host;
+//   * tiles of lhs and W stream through shared memory by cp.async, two
+//     K steps in flight; the products run on the tensor cores (mma.sync
+//     m16n8k16, fp32 sums in registers);
+//   * two tile shapes: 128 x 128 with 8 warps for prefill rows, and one m16
+//     row tile by 64 columns with 4 warps for decode rows, where a visit
+//     holds a couple of rows and the weight bytes, not the products, set
+//     the time (more, smaller blocks keep more bytes in flight).
+// Ragged N is masked; K must be a multiple of 8 (16-byte rows).
+#include "mma.cuh"
+
+namespace {
+
+// WM x WN warps; a warp owns MT m16 tiles by NT n8 tiles; BK columns of K a
+// step.
+template <int WM, int WN, int MT, int NT, int BK>
+__global__ void __launch_bounds__(WM * WN * 32)
+gmm_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ w,
+           const int* __restrict__ group_sizes, bf16* __restrict__ out, int m, int n,
+           int k, int n_groups) {
+  constexpr int kThreads = WM * WN * 32;
+  constexpr int BM = WM * MT * 16;
+  constexpr int BN = WN * NT * 8;
+  constexpr int kLd = BK + 8;      // bf16 row stride of the tiles
+  constexpr int kChunks = BK / 8;  // 16-byte copies a tile row
+  __shared__ __align__(16) bf16 a_s[2][BM * kLd];
+  __shared__ __align__(16) bf16 b_s[2][BN * kLd];
+  __shared__ int visit[4];  // group (n_groups: the zero rows), tile row, first row, end row
+
+  if (threadIdx.x == 0) {
+    int v = blockIdx.y;
+    int start = 0;
+    int found = -1, t0 = 0, r_begin = 0, r_end = 0;
+    for (int e = 0; e <= n_groups; ++e) {
+      const int end = e < n_groups ? min(m, start + max(group_sizes[e], 0)) : m;
+      if (end > start) {
+        const int first = start / BM;
+        const int count = (end - 1) / BM - first + 1;
+        if (v < count) {
+          found = e;
+          t0 = (first + v) * BM;
+          r_begin = max(t0, start);
+          r_end = min(t0 + BM, end);
+          break;
+        }
+        v -= count;
+      }
+      start = end;
+    }
+    visit[0] = found;
+    visit[1] = t0;
+    visit[2] = r_begin;
+    visit[3] = r_end;
+  }
+  __syncthreads();
+  const int e = visit[0];
+  if (e < 0) return;
+  const int t0 = visit[1];
+  const int r_begin = visit[2];
+  const int r_end = visit[3];
+  const int n0 = blockIdx.x * BN;
+
+  if (e == n_groups) {  // rows that no group holds
+    for (int i = threadIdx.x; i < (r_end - r_begin) * BN; i += kThreads) {
+      const int r = r_begin + i / BN;
+      const int c = n0 + i % BN;
+      if (c < n) out[static_cast<long long>(r) * n + c] = __float2bfloat16(0.f);
+    }
+    return;
+  }
+
+  const bf16* wb = w + static_cast<long long>(e) * n * k;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int wm = warp / WN;
+  const int wn = warp % WN;
+
+  // K step at k0 into buffer `st`; rows outside the group, past N or past K
+  // copy zeros
+  auto load = [&](int st, int k0) {
+    for (int i = threadIdx.x; i < BM * kChunks; i += kThreads) {
+      const int r = i / kChunks;
+      const int c = (i % kChunks) * 8;
+      const int row = t0 + r;
+      const bool ok = row >= r_begin && row < r_end && k0 + c < k;
+      cp_async(&a_s[st][r * kLd + c], ok ? lhs + static_cast<long long>(row) * k + k0 + c : lhs,
+               ok);
+    }
+    for (int i = threadIdx.x; i < BN * kChunks; i += kThreads) {
+      const int r = i / kChunks;
+      const int c = (i % kChunks) * 8;
+      const bool ok = n0 + r < n && k0 + c < k;
+      cp_async(&b_s[st][r * kLd + c], ok ? wb + static_cast<long long>(n0 + r) * k + k0 + c : wb,
+               ok);
+    }
+  };
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+
+  const int steps = (k + BK - 1) / BK;
+  if (steps > 0) load(0, 0);
+  cp_async_commit();
+  for (int s = 0; s < steps; ++s) {
+    const int st = s & 1;
+    if (s + 1 < steps) load(st ^ 1, (s + 1) * BK);
+    cp_async_commit();
+    cp_async_wait<1>();  // step s's copies have landed
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      uint32_t a[MT][4];
+      uint32_t b[NT][2];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) load_frag_a(a[i], a_s[st], kLd, (wm * MT + i) * 16, kk, lane);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) load_frag_b(b[j], b_s[st], kLd, (wn * NT + j) * 8, kk, lane);
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_bf16_16816(acc[i][j], a[i], b[j]);
+    }
+    __syncthreads();  // every warp is done with buffer st before it refills
+  }
+
+  const bool pairs = (n % 2) == 0;
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int row = t0 + (wm * MT + i) * 16 + (lane >> 2);
+      const int col = n0 + (wn * NT + j) * 8 + (lane & 3) * 2;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int rr = row + h * 8;
+        if (rr < r_begin || rr >= r_end) continue;
+        bf16* o = out + static_cast<long long>(rr) * n + col;
+        if (pairs && col + 1 < n) {
+          *reinterpret_cast<uint32_t*>(o) = pack_bf16x2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+        } else {
+          if (col < n) o[0] = __float2bfloat16(acc[i][j][2 * h]);
+          if (col + 1 < n) o[1] = __float2bfloat16(acc[i][j][2 * h + 1]);
+        }
+      }
+    }
+  }
+}
+
+// rows at or below which the decode tile shape runs
+constexpr int kDecodeRows = 64;
+
+template <int WM, int WN, int MT, int NT, int BK>
+int launch(const bf16* lhs, const bf16* w, const int* sizes, bf16* out, int m, int n, int k,
+           int n_groups, cudaStream_t s) {
+  constexpr int BM = WM * MT * 16;
+  constexpr int BN = WN * NT * 8;
+  dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM + n_groups + 1);
+  gmm_kernel<WM, WN, MT, NT, BK><<<grid, WM * WN * 32, 0, s>>>(lhs, w, sizes, out, m, n, k,
+                                                                n_groups);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// lhs: contiguous (m, k) bf16; w: contiguous (n_groups, n, k) bf16; sizes:
+// (n_groups,) int32 on the device; out: contiguous (m, n) bf16. k a multiple
+// of 8, all pointers 16-byte aligned.
+DH_EXPORT int dh_grouped_matmul(const void* lhs, const void* w, const void* sizes, void* out,
+                                int m, int n, int k, int n_groups, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16* lp = static_cast<const bf16*>(lhs);
+  const bf16* wp = static_cast<const bf16*>(w);
+  const int* sp = static_cast<const int*>(sizes);
+  bf16* op = static_cast<bf16*>(out);
+  if (m <= kDecodeRows) return launch<1, 4, 1, 2, 64>(lp, wp, sp, op, m, n, k, n_groups, s);
+  return launch<2, 4, 4, 4, 32>(lp, wp, sp, op, m, n, k, n_groups, s);
+}

@@ -41,6 +41,17 @@ Decoding variants of the JAX package:
   * `GPT(..., lora_impl="fused")`: the LoRA linears run kernel K5
     (`ops/lora`) instead of the composition (`DUALHYP_LORA_IMPL`, the JAX
     package's switch, when None; "xla", the composition, by default).
+
+A Mixtral-style MoE config (`mlp_class="LLaMAMoE"`) puts an `MoE` in each
+block where the dense configs have an `MLP`: a router and three frozen
+(E, out, in) expert stacks, top-`n_expert_per_token` routing.
+`GPT(..., moe_impl=)` picks `_moe_mlp`'s dense einsums ("dense", the
+default) or `_moe_mlp_sparse`'s sorted rows through the grouped matmul L2
+(`ops/gmm`; "sparse" and "megablox", the JAX package's ragged_dot and
+megablox gmm, which compute the same function); None reads
+`DUALHYP_MOE_IMPL`. LoRA stays on attention: the JAX expert stacks carry
+none, and the JAX package cannot run a quantized MoE, so `quantize_model`
+refuses one.
 """
 
 from __future__ import annotations
@@ -57,6 +68,7 @@ from dualhyp_tpu_torch.config import GPTConfig
 from dualhyp_tpu_torch.device import resolve_device
 from dualhyp_tpu_torch.models.relprompt import NoiseClassifier
 from dualhyp_tpu_torch.ops import attention as attn_ops
+from dualhyp_tpu_torch.ops import gmm as gmm_ops
 from dualhyp_tpu_torch.ops import lora as lora_ops
 from dualhyp_tpu_torch.ops import quant as quant_ops
 from dualhyp_tpu_torch.ops import rmsnorm as norm_ops
@@ -69,8 +81,10 @@ def check_supported(cfg: GPTConfig) -> None:
     missing = []
     if cfg.norm_class != "RMSNorm":
         missing.append(f"norm_class={cfg.norm_class}")
-    if cfg.mlp_class not in ("LLaMAMLP", "GemmaMLP"):
+    if cfg.mlp_class not in ("LLaMAMLP", "GemmaMLP", "LLaMAMoE"):
         missing.append(f"mlp_class={cfg.mlp_class}")
+    if cfg.mlp_class == "LLaMAMoE" and not (cfg.n_expert > 0 and cfg.n_expert_per_token > 0):
+        raise ValueError(f"config {cfg.name!r}: an MoE needs n_expert and n_expert_per_token")
     if cfg.bias or cfg.lm_head_bias:
         missing.append("bias")
     if cfg.use_adapter or cfg.use_adapter_v2:
@@ -308,8 +322,89 @@ class MLP(nn.Module):
                                   self.proj.weight, gate=self.gate)
 
 
+class Stack(nn.Module):
+    """A frozen stack of expert matrices, `weight` (E, out, in) in the
+    compute dtype, or the router's (E, d)."""
+
+    def __init__(self, shape, dtype, device):
+        super().__init__()
+        self.weight = _param(shape, dtype, device)
+
+
+def moe_top_k(router, k: int):
+    """The k largest of each row of fp32 router logits (..., E) and their
+    expert ids, ties toward the lower id as `jax.lax.top_k` breaks them: a
+    stable descending sort (torch.topk promises no order among equal values
+    on the card, and bf16 router logits tie often)."""
+    values, ids = torch.sort(router, dim=-1, descending=True, stable=True)
+    return values[..., :k], ids[..., :k]
+
+
+class MoE(nn.Module):
+    """Mixtral-style sparse MoE (`_moe_mlp` and `_moe_mlp_sparse` of the JAX
+    package): the router `gate` (E, d), the expert stacks `fc_1`, `fc_2` (E,
+    inter, d) and `proj` (E, d, inter), silu gate; each token mixes its top
+    k experts with softmax weights over their logits.
+
+    impl "dense" runs every expert on every token and mixes with zero
+    weights elsewhere (the JAX default; plain einsums, as XLA runs them
+    there). "sparse" and "megablox" sort the token slots by expert and run
+    the three grouped products through L2 (`ops/gmm.grouped_matmul`): no
+    host sync, so a decode step keeps its one."""
+
+    def __init__(self, cfg: GPTConfig, dtype, device, impl: str):
+        super().__init__()
+        e, d, inter = cfg.n_expert, cfg.n_embd, cfg.intermediate_size
+        self.top_k = cfg.n_expert_per_token
+        self.impl = impl
+        self.gate = Stack((e, d), dtype, device)
+        self.fc_1 = Stack((e, inter, d), dtype, device)
+        self.fc_2 = Stack((e, inter, d), dtype, device)
+        self.proj = Stack((e, d, inter), dtype, device)
+
+    def forward(self, x):
+        if self.impl == "dense":
+            return self._dense(x)
+        return self._sparse(x)
+
+    def _dense(self, x):
+        router = (x @ self.gate.weight.t()).float()
+        top_vals, top_ids = moe_top_k(router, self.top_k)
+        top_w = torch.softmax(top_vals, dim=-1)
+        # one weight an expert: the top-k softmax at its ids, zero elsewhere
+        weights = torch.zeros(router.shape, dtype=router.dtype, device=x.device)
+        weights = weights.scatter(-1, top_ids, top_w).to(x.dtype)
+        h1 = torch.einsum("...d,eod->...eo", x, self.fc_1.weight)
+        h2 = torch.einsum("...d,eod->...eo", x, self.fc_2.weight)
+        h = F.silu(h1) * h2
+        out = torch.einsum("...eo,edo->...ed", h, self.proj.weight)
+        return torch.einsum("...ed,...e->...d", out, weights)
+
+    def _sparse(self, x):
+        e, k = self.gate.weight.shape[0], self.top_k
+        shape = x.shape
+        xf = x.reshape(-1, shape[-1])
+        n = xf.shape[0]
+        router = (xf @ self.gate.weight.t()).float()
+        top_vals, top_ids = moe_top_k(router, k)
+        weights = torch.softmax(top_vals, dim=-1).to(x.dtype)
+        ef = top_ids.reshape(-1)  # (N*K,) the expert of each flat slot
+        order = torch.sort(ef, stable=True).indices  # ties keep token order
+        iota = torch.arange(n * k, device=x.device)
+        inv = torch.empty_like(order).scatter_(0, order, iota)
+        xr = xf.index_select(0, order // k)  # (N*K, d) sorted by expert
+        group_sizes = torch.zeros(e, dtype=torch.int64, device=x.device)
+        group_sizes = group_sizes.scatter_add_(0, ef, torch.ones_like(ef)).to(torch.int32)
+        g1 = gmm_ops.grouped_matmul(xr, self.fc_1.weight, group_sizes)
+        g2 = gmm_ops.grouped_matmul(xr, self.fc_2.weight, group_sizes)
+        out = gmm_ops.grouped_matmul(F.silu(g1) * g2, self.proj.weight, group_sizes)
+        out = out.index_select(0, inv).reshape(n, k, -1)
+        return (out * weights[..., None]).sum(dim=1).reshape(shape)
+
+
 class Block(nn.Module):
-    def __init__(self, cfg: GPTConfig, layer_idx: int, dtype, device, fused: bool = False):
+    def __init__(self, cfg: GPTConfig, layer_idx: int, dtype, device, fused: bool = False,
+                 moe_impl: str = "dense"):
         super().__init__()
         self.cfg = cfg
         self.lora_on = layer_idx >= cfg.lora_start_layer
@@ -317,7 +412,10 @@ class Block(nn.Module):
         self.attn = Attention(cfg, dtype, device, fused)
         if not cfg.shared_attention_norm:
             self.norm_2 = Norm(cfg.n_embd, device)
-        self.mlp = MLP(cfg, dtype, device)
+        if cfg.mlp_class == "LLaMAMoE":
+            self.mlp = MoE(cfg, dtype, device, moe_impl)
+        else:
+            self.mlp = MLP(cfg, dtype, device)
 
     def _norm(self, norm: Norm, x):
         return norm_ops.rms_norm(x, norm.scale, self.cfg.norm_eps)
@@ -385,15 +483,20 @@ class Block(nn.Module):
 # the LoRA linears' two implementations: "xla" the composition (the JAX
 # package's default name for it), "fused" kernel K5
 LORA_IMPLS = ("xla", "fused")
+# the MoE's: "dense" the einsums over every expert (the JAX default);
+# "sparse" and "megablox" the grouped matmul L2 over sorted rows
+MOE_IMPLS = ("dense", "sparse", "megablox")
 
 
 class GPT(nn.Module):
     """The model. `device=None` means the card, and raises without one.
     `lora_impl`: "xla" (the composition) or "fused" (kernel K5); None reads
-    `DUALHYP_LORA_IMPL`, "xla" when unset."""
+    `DUALHYP_LORA_IMPL`, "xla" when unset. `moe_impl` (an MoE config):
+    "dense", "sparse" or "megablox" (the grouped matmul L2); None reads
+    `DUALHYP_MOE_IMPL`, "dense" when unset."""
 
     def __init__(self, cfg: GPTConfig, *, device=None, dtype=torch.bfloat16,
-                 lora_impl=None):
+                 lora_impl=None, moe_impl=None):
         super().__init__()
         check_supported(cfg)
         device = resolve_device(device)
@@ -401,13 +504,18 @@ class GPT(nn.Module):
             lora_impl = os.environ.get("DUALHYP_LORA_IMPL", "xla")
         if lora_impl not in LORA_IMPLS:
             raise ValueError(f"lora_impl {lora_impl!r} not in {LORA_IMPLS}")
+        if moe_impl is None:
+            moe_impl = os.environ.get("DUALHYP_MOE_IMPL") or "dense"
+        if moe_impl not in MOE_IMPLS:
+            raise ValueError(f"moe_impl {moe_impl!r} not in {MOE_IMPLS}")
         fused = lora_impl == "fused"
         self.cfg = cfg
         self.dtype = dtype
         self.lora_impl = lora_impl
+        self.moe_impl = moe_impl
         self.wte = Embedding(cfg.effective_padded_vocab_size, cfg.n_embd, dtype, device)
         self.blocks = nn.ModuleList(
-            Block(cfg, i, dtype, device, fused) for i in range(cfg.n_layer))
+            Block(cfg, i, dtype, device, fused, moe_impl) for i in range(cfg.n_layer))
         self.ln_f = Norm(cfg.n_embd, device)
         self.lm_head = Linear(cfg.n_embd, cfg.padded_vocab_size, cfg,
                               cfg.lora_head, dtype, device, fused)
@@ -430,7 +538,8 @@ class GPT(nn.Module):
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
         """Random init with the JAX package's distributions (`gpt.init`):
-        normal weights (GPT-NeoX std), uniform lora_A, zero lora_B, unit
+        normal weights (GPT-NeoX std; an MoE's router and fc stacks too, its
+        proj stack at the projection std), uniform lora_A, zero lora_B, unit
         norm scales. Draws in fp32 from `generator`, then casts."""
         cfg = self.cfg
         d = cfg.n_embd
@@ -459,6 +568,8 @@ class GPT(nn.Module):
             lora(block.attn.qkv)
             normal(block.attn.proj.weight, proj_std)
             lora(block.attn.proj)
+            if isinstance(block.mlp, MoE):
+                normal(block.mlp.gate.weight, std)
             normal(block.mlp.fc_1.weight, std)
             normal(block.mlp.fc_2.weight, std)
             normal(block.mlp.proj.weight, proj_std)
@@ -599,9 +710,15 @@ def quantize_model(model: GPT, mode: str) -> GPT:
     """Quantize the model's big linear weights in place (`quantize_tree` of
     the JAX package on its tree): "int8" per row, "int4" group-wise where the
     input width is a multiple of 128 (int8 elsewhere); the embedding, the
-    norms and matrices under 256 wide stay as they are."""
+    norms and matrices under 256 wide stay as they are. An MoE model raises:
+    the JAX package's `quantize_tree` quantizes the expert stacks, but its
+    `_moe_mlp` and `_moe_mlp_sparse` read only their float weights."""
     if mode not in ("int8", "int4"):
         raise ValueError(f"quantization mode {mode!r} not in ('int8', 'int4')")
+    if model.cfg.mlp_class == "LLaMAMoE":
+        raise NotImplementedError(
+            "a quantized MoE is not supported: the JAX package's MoE reads only the "
+            "expert stacks' float weights (gpt._moe_mlp, _moe_mlp_sparse)")
     for mod in model.modules():
         if (isinstance(mod, _Frozen) and mod.quant is None
                 and quant_ops._should_quantize("weight", mod.weight)):

@@ -7,6 +7,7 @@ there is no fallback.
 
 from dualhyp_tpu_torch.ops.attention import FLASH_BWD, FLASH_FWD
 from dualhyp_tpu_torch.ops.flash_fwd import FLASH_CAUSAL, FLASH_FULL
+from dualhyp_tpu_torch.ops.gmm import GROUPED_MATMUL
 from dualhyp_tpu_torch.ops.int4 import Q4_MATMUL
 from dualhyp_tpu_torch.ops.lora import LORA_LINEAR
 from dualhyp_tpu_torch.ops.rmsnorm import RMS_NORM
@@ -24,6 +25,7 @@ KERNELS = {
     "q4_matmul": Q4_MATMUL,
     "full_attention_fwd": FLASH_FULL,
     "causal_attention_fwd": FLASH_CAUSAL,
+    "grouped_matmul": GROUPED_MATMUL,
 }
 # launches of a kernel above in its transposed direction (the backward),
 # counted apart

@@ -25,10 +25,11 @@ from dualhyp_tpu_torch.ops import _lib
 # K1 forward: replaces dualhyp_tpu/ops/pallas/flash_vjp.py `_fwd_kernel`.
 # Bound by operations at long prompts and by q/k/v/o bytes at short ones;
 # K/V tiles stream through shared memory, products on the tensor cores,
-# online softmax in fp32. See the source note in csrc/flash_attention.cu.
+# online softmax in fp32; one instance per head size. See the source note in
+# csrc/flash_attention.cu.
 FLASH_FWD = _lib.Kernel(
     "dh_flash_attention_fwd",
-    [_lib.C_PTR] * 5 + [_lib.C_INT] * 4 + [_lib.C_F32] + [_lib.C_I64] * 12,
+    [_lib.C_PTR] * 5 + [_lib.C_INT] * 5 + [_lib.C_F32] + [_lib.C_I64] * 12,
 )
 
 # K1 backward: replaces dualhyp_tpu/ops/pallas/flash_vjp.py `_bwd_kernel`.
@@ -40,7 +41,9 @@ FLASH_BWD = _lib.Kernel(
     [_lib.C_PTR] * 10 + [_lib.C_INT] * 4 + [_lib.C_F32] + [_lib.C_I64] * 21,
 )
 
-FLASH_HEAD_SIZE = 64
+# head sizes K1's forward takes (TinyLlama 64, Mixtral 128), and its backward
+FLASH_HEAD_SIZES = (64, 128)
+FLASH_BWD_HEAD_SIZE = 64
 
 
 def _grouped(q, n_groups):
@@ -123,13 +126,13 @@ def _check_rows(name, x):
 
 
 def _flash_fwd(q, k, v, scale):
-    """Launch K1's forward. Returns (o (B, Hq, T, D) as a view of a
-    (B, T, Hq, D) buffer, lse (B, Hq, T) fp32)."""
+    """Launch K1's forward (head size 64 or 128). Returns (o (B, Hq, T, D)
+    as a view of a (B, T, Hq, D) buffer, lse (B, Hq, T) fp32)."""
     device = _lib.check_cuda(q, k, v)
     b, hq, t, d = q.shape
     g = k.shape[1]
-    if d != FLASH_HEAD_SIZE:
-        raise ValueError(f"flash kernel takes head size {FLASH_HEAD_SIZE}, got {d}")
+    if d not in FLASH_HEAD_SIZES:
+        raise ValueError(f"flash kernel takes head size {FLASH_HEAD_SIZES}, got {d}")
     if k.shape != (b, g, t, d) or v.shape != (b, g, t, d) or hq % g:
         raise ValueError(
             f"q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
@@ -141,7 +144,7 @@ def _flash_fwd(q, k, v, scale):
     lse = torch.empty((b, hq, t), dtype=torch.float32, device=device)
     if o.numel():
         FLASH_FWD(device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                  lse.data_ptr(), b, hq, g, t, float(scale),
+                  lse.data_ptr(), b, hq, g, t, d, float(scale),
                   *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3])
     return o, lse
 
@@ -154,8 +157,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale: float):
     device = _lib.check_cuda(q, k, v, o, lse, do)
     b, hq, t, d = q.shape
     g = k.shape[1]
-    if d != FLASH_HEAD_SIZE:
-        raise ValueError(f"flash kernel takes head size {FLASH_HEAD_SIZE}, got {d}")
+    if d != FLASH_BWD_HEAD_SIZE:
+        raise ValueError(f"flash backward kernel takes head size {FLASH_BWD_HEAD_SIZE}, "
+                         f"got {d}")
     if (k.shape != (b, g, t, d) or v.shape != (b, g, t, d) or hq % g
             or o.shape != q.shape or do.shape != q.shape or lse.shape != (b, hq, t)):
         raise ValueError(

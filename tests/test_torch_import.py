@@ -38,7 +38,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                    "dualhyp_tpu_torch.cli.inference_relprompt",
                    "dualhyp_tpu_torch.cli.finetune_relprompt",
                    "dualhyp_tpu_torch.cli.precompute_features",
-                   "dualhyp_tpu_torch.cli.make_json_asr"):
+                   "dualhyp_tpu_torch.cli.make_json_asr", "dualhyp_tpu_torch.ops.gmm"):
         assert module in result["imported"]
 
 

@@ -6,8 +6,11 @@ size, the gelu gate, strided inputs, fp32 where a kernel takes it, the
 wrappers' refusals, the autograd ops of the training path, K8 at ragged
 rows and N with split K, K5 at ragged rows and O, ranks 16 and 48, a
 zero scale and a separate LoRA input, and K6/K7 in fp32 and bf16 at T or
-S of 1, 63, 64, 65 and 1500, S != T, kv_valid and strided inputs. Every
-test needs an NVIDIA card and skips without one.
+S of 1, 63, 64, 65 and 1500, S != T, kv_valid and strided inputs, L2
+(the grouped matmul) at M of 0, 1, 16, 17, 64, 65, 300 and 6144 with
+empty, straddling and single groups and a ragged N, K1's forward at head
+size 128, and a small MoE model card against CPU. Every test needs an
+NVIDIA card and skips without one.
 On the card's machine (no JAX there) run them without the suite's conftest:
 
     python -m pytest tests/test_torch_kernels.py --noconftest -q
@@ -23,10 +26,11 @@ at T=1) both sides hold fp32 noise (see chip_smoke.py's FLASH_BWD_TOL).
 import pytest
 import torch
 
+from chip_smoke import prefill_with_routes
 from dualhyp_tpu_torch.config import GPTConfig
 from dualhyp_tpu_torch.models.gpt import GPT, split_heads
-from dualhyp_tpu_torch.ops import (attention, flash_fwd, int4, lora, quant, rmsnorm, rope,
-                                   swiglu)
+from dualhyp_tpu_torch.ops import (attention, flash_fwd, gmm, int4, lora, quant, rmsnorm,
+                                   rope, swiglu)
 
 pytestmark = pytest.mark.cuda
 
@@ -426,3 +430,121 @@ def test_lora_linear_refuses_what_it_does_not_take(dev, gen):
     with pytest.raises(ValueError, match="% 8"):
         lora.lora_linear(_randn(gen, 4, 60), _randn(gen, 32, 60), _randn(gen, 4, 60),
                          _randn(gen, 32, 4), 1.0)
+
+
+# L2 (grouped matmul): bf16 products summed in fp32 in another order than the
+# plain version's, rounded once: one or two bf16 ulps (as K8)
+GMM_TOL = (1e-2, 2.0 ** -6)
+GMM_GROUPS = {
+    # 8 groups over m rows: ragged, with empty groups first, in the middle
+    # and last, and groups that straddle the kernel's 16- and 128-row tiles
+    "ragged": lambda m: [m // 8] * 7 + [m - 7 * (m // 8)],
+    "empty": lambda m: [0, m // 3, 0, 0, m // 5, m - m // 3 - m // 5 - m // 7, m // 7, 0],
+    "one": lambda m: [0, 0, 0, m, 0, 0, 0, 0],
+}
+
+
+def _group_sizes(case, m, dev):
+    sizes = GMM_GROUPS[case](m)
+    assert sum(sizes) == m and min(sizes) >= 0
+    return torch.tensor(sizes, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("m", [0, 1, 16, 17, 64, 65, 300, 6144])
+@pytest.mark.parametrize("case", list(GMM_GROUPS))
+@pytest.mark.parametrize("n,k", [(200, 256), (128, 40)])
+def test_grouped_matmul(dev, gen, m, case, n, k):
+    lhs = _randn(gen, m, k)
+    w = _randn(gen, 8, n, k, std=0.05)
+    sizes = _group_sizes(case, m, dev)
+    before = gmm.GROUPED_MATMUL.launches
+    got = gmm.grouped_matmul(lhs, w, sizes)
+    assert gmm.GROUPED_MATMUL.launches == before + (1 if m else 0)
+    _close(got, gmm.grouped_matmul_plain(lhs, w, sizes), *GMM_TOL)
+
+
+def test_grouped_matmul_zeroes_rows_past_the_groups(dev, gen):
+    lhs, w = _randn(gen, 300, 64), _randn(gen, 3, 72, 64, std=0.05)
+    sizes = torch.tensor([100, 0, 90], dtype=torch.int32, device=dev)
+    got = gmm.grouped_matmul(lhs, w, sizes)
+    assert not bool(got[190:].any())
+    _close(got, gmm.grouped_matmul_plain(lhs, w, sizes), *GMM_TOL)
+
+
+def test_grouped_matmul_refuses_what_it_does_not_take(dev, gen):
+    w = _randn(gen, 2, 32, 64)
+    sizes = torch.tensor([3, 1], dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError, match="bfloat16"):
+        gmm.grouped_matmul(_randn(gen, 4, 64, dtype=torch.float32), w, sizes)
+    with pytest.raises(TypeError, match="int32"):
+        gmm.grouped_matmul(_randn(gen, 4, 64), w, sizes.long())
+    with pytest.raises(ValueError, match="K % 8"):
+        gmm.grouped_matmul(_randn(gen, 4, 60), _randn(gen, 2, 32, 60), sizes)
+    with pytest.raises(ValueError, match="contiguous"):
+        gmm.grouped_matmul(_randn(gen, 4, 64), _randn(gen, 2, 64, 32).transpose(1, 2), sizes)
+    with pytest.raises(NotImplementedError, match="backward"):
+        gmm.grouped_matmul(_randn(gen, 4, 64).requires_grad_(), w, sizes)
+
+
+def test_grouped_matmul_runs_the_plain_version_on_a_cpu_tensor(dev, gen):
+    lhs, w = _randn(gen, 9, 64, dtype=torch.float32).cpu(), _randn(gen, 2, 8, 64).cpu()
+    sizes = torch.tensor([4, 5], dtype=torch.int32)
+    before = gmm.GROUPED_MATMUL.launches
+    assert torch.equal(gmm.grouped_matmul(lhs, w, sizes),
+                       gmm.grouped_matmul_plain(lhs, w, sizes))
+    assert gmm.GROUPED_MATMUL.launches == before
+
+
+@pytest.mark.parametrize("t", [1, 63, 64, 200, 384])
+def test_flash_attention_head_size_128(dev, gen, t):
+    """K1's forward at Mixtral's head size (8 query heads a KV group)."""
+    scale = 128 ** -0.5
+    q = _randn(gen, 2, 16, t, 128)
+    k, v = _randn(gen, 2, 2, t, 128), _randn(gen, 2, 2, t, 128)
+    o, lse = attention._flash_fwd(q, k, v, scale)
+    want_o, want_lse = attention.causal_attention_plain_lse(q, k, v, scale)
+    _close(o, want_o, 1e-2, 2.0 ** -6)
+    _close(lse, want_lse, 1e-4, 1e-5)
+
+
+def test_small_moe_model_on_the_card_matches_the_cpu(dev):
+    """A 2-layer MoE model (head size 128, 8 experts, top 2, LoRA): prefill
+    with the grouped matmul on the card (bf16) against the CPU (fp32, plain
+    versions). A near tie of router logits may send a token to another
+    expert under bf16, which moves its output by about the logits' spread:
+    so at least 0.9 of the (layer, token) routes must agree, and the rows
+    whose routes all agree hold their logits to 0.15 of the spread (bf16
+    rounding gives a few percent, a wiring fault about the spread)."""
+    cfg = GPTConfig(name="small-moe", block_size=128, vocab_size=256, padding_multiple=64,
+                    n_layer=2, n_head=8, n_query_groups=2, n_embd=1024,
+                    rotary_percentage=1.0, parallel_residual=False, bias=False,
+                    norm_class="RMSNorm", mlp_class="LLaMAMoE", intermediate_size=512,
+                    n_expert=8, n_expert_per_token=2, rope_base=1000000, lora_r=4,
+                    lora_alpha=8, lora_query=True, lora_key=True, lora_value=True,
+                    lora_projection=True)
+    cpu = GPT(cfg, device="cpu", dtype=torch.float32, moe_impl="megablox")
+    cpu.init_weights(torch.Generator().manual_seed(0))
+    card = GPT(cfg, device=dev, dtype=torch.bfloat16, moe_impl="megablox")
+    card.load_state_dict({k: v.to(dev) for k, v in cpu.state_dict().items()})
+    ids = torch.randint(3, 256, (6, 20), generator=torch.Generator().manual_seed(1))
+    lengths = torch.tensor([20, 12, 8, 5, 3, 2])
+    before = gmm.GROUPED_MATMUL.launches
+    got, got_routes = prefill_with_routes(torch, card, ids.to(dev), lengths.to(dev))
+    assert gmm.GROUPED_MATMUL.launches == before + 3 * cfg.n_layer
+    want, want_routes = prefill_with_routes(torch, cpu, ids, lengths)
+    valid = torch.arange(20)[None, :] < lengths[:, None]
+    agree = (got_routes.cpu() == want_routes).all(-1) | ~valid  # (L, B, T)
+    assert float(agree[:, valid].float().mean()) >= 0.9
+    held = agree.all(0).all(-1)
+    assert int(held.sum()) >= 3
+    err = (got.cpu() - want)[held].abs().max()
+    assert float(err) <= 0.15 * float(want.std())
+
+
+def test_grouped_matmul_reads_a_strided_or_unaligned_lhs(dev, gen):
+    w = _randn(gen, 3, 40, 64, std=0.05)
+    sizes = torch.tensor([5, 0, 12], dtype=torch.int32, device=dev)
+    flat = _randn(gen, 17 * 64 + 3)
+    for lhs in (_randn(gen, 17, 128)[:, 32:96], flat[3:].view(17, 64)):
+        _close(gmm.grouped_matmul(lhs, w, sizes), gmm.grouped_matmul_plain(lhs, w, sizes),
+               *GMM_TOL)

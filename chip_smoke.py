@@ -89,7 +89,25 @@ prints one JSON line; a failed phase raises and the script exits non-zero.
      from --seed, serving the decode slice's 16 requests with moe_impl
      "megablox" (L2, the main path; then under torch.profiler) and "dense":
      p50, tokens/s, peak memory, launches, greedy agreement;
- 19. the seconds of each phase, the `{"kernels": [...]}` line (all ten
+ 19. L2's gradients at Mixtral's training rows (8 x 1024 tokens x top 2 =
+     16384) for fc_1 and proj, skewed, with empty experts and in a single
+     group: dlhs and drhs against their plain versions, timed beside their
+     bound and torch._grouped_mm; K1's backward at head size 128 (B8 Hq32
+     G8, T=1024 and a ragged T=200); the MoE layer's backward without host
+     syncs, with frozen stacks (dlhs) and trainable ones (drhs too);
+ 20. a depth-2, full-width Mixtral-8x7B + LoRA training step, card under
+     megablox and dense against the CPU (plain, fp32): the share of routes
+     that agree, then the loss and LoRA gradients on the rows routed alike;
+ 21. K2 and K3 (both directions) at Mixtral's training shape: 8192 rows of
+     width 4096, q of 32 heads in 8 groups at head size 128, rope base 1e6;
+ 22. the Mixtral training slice: the 16-layer Mixtral with LoRA r=16 through
+     `cli.finetune_ger.run_training` (megablox, remat, 4 optimizer steps,
+     checkpoints of the LoRA leaves as --save_adapter_only writes them, the
+     best one read back and 4 requests decoded), then the 8 x 1024 step
+     with remat on and remat "moe" (profiled) and with the dense einsums:
+     step time, tokens/s, MFU from the active parameters, peak memory,
+     launches (L2 forward, dlhs, K1 both ways, K2, K3 > 0; drhs and K4 = 0);
+ 23. the seconds of each phase, the `{"kernels": [...]}` line (all twelve
      kernels, launches by path), the card's name and power limit, and the
      last line `{"ok": true, "device": {...}}`.
 
@@ -145,6 +163,13 @@ TOLERANCES = {
     # (as q4_matmul). A wrong group or row moves an output by a whole product
     # (~0.1 here).
     "grouped_matmul": (1e-2, 2.0 ** -6),
+    # L2's gradients: dlhs as the forward (the same exact bf16 products, fp32
+    # sums in another order, one rounding); drhs sums up to 16384 such
+    # products a weight element in fp32 (order moves it by ~1e-6 of its
+    # size) and rounds once: one or two bf16 ulps too. A wrong group, row or
+    # transpose moves an element by a whole product sum.
+    "grouped_matmul_dlhs": (1e-2, 2.0 ** -6),
+    "grouped_matmul_drhs": (1e-2, 2.0 ** -6),
 }
 # flash forward's row logsumexp (fp32 on both sides, from the same exact
 # bf16 products summed in another order): |kernel - plain| <= 1e-4 +
@@ -179,6 +204,17 @@ FLASH_PAIR_REL_L2 = 2.0 ** -6
 # gradient path, a transposed factor) gives a relative error of ~1.
 TRAIN_LOSS_ATOL = 0.05
 TRAIN_GRAD_REL = 0.05
+# the depth-2 Mixtral training step, card bf16 vs CPU fp32: a near tie of two
+# router logits may send a token to another expert under bf16 (ROUTE_AGREEMENT;
+# 1-2.5% of the routes measured); at random init the MoE output
+# dominates the residual stream (embeddings ~0.01, expert outputs ~0.2), so
+# one token routed elsewhere moves the LoRA gradients by 10-20% (measured:
+# 0.11-0.18 relative L2 with 1 route of 256 apart, under megablox and dense
+# alike). So the step is taken on the rows routed alike at every token and
+# layer (the other rows' labels masked on both sides), whose LoRA gradients
+# are held to TRAIN_GRAD_REL as TinyLlama's (measured 0.012-0.019). Short
+# rows keep most of them whole (10 of 16 rows of 16 tokens measured); at
+# least a quarter of the rows must be held.
 # depth-2 logits, card bf16 vs CPU fp32. The logits' spread is ~0.6 here: a
 # wiring fault (a transposed head, a wrong cache slot, a lost LoRA branch)
 # moves them by about that much, while bf16 weights and activations through
@@ -822,20 +858,21 @@ def slice_run(torch, seed: int, variant: str = "bf16", reference=None) -> dict:
     return result
 
 
-def flash_bwd_phase(torch, seed: int) -> dict:
+def flash_bwd_phase(torch, seed: int, g: int = 4, hs: int = 64) -> dict:
     """K1's forward-plus-backward pair against the plain pair at the training
-    shape (B=8, Hq=32, G=4, T=1024, D=64) and a ragged T=200: the kernel's
-    (O, L) against `causal_attention_plain_lse`; the backward kernel, fed
-    the kernel's O (the forward's (B, T, H, D) view) and L, against the
-    plain backward fed the same, and against the plain backward fed the
-    plain forward's; times at T=1024 beside SDPA's backward."""
+    shape (B=8, Hq=32, T=1024; TinyLlama's G=4, D=64 or Mixtral's G=8,
+    D=128) and a ragged T=200: the kernel's (O, L) against
+    `causal_attention_plain_lse`; the backward kernel, fed the kernel's O
+    (the forward's (B, T, H, D) view) and L, against the plain backward fed
+    the same, and against the plain backward fed the plain forward's; times
+    at T=1024 beside SDPA's backward."""
     import torch.nn.functional as F
 
     from dualhyp_tpu_torch.ops import attention
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 7)
-    b, nh, g, hs = 8, 32, 4, 64
+    b, nh = 8, 32
     scale = 1.0 / math.sqrt(hs)
 
     def randn(*shape):
@@ -883,7 +920,9 @@ def flash_bwd_phase(torch, seed: int) -> dict:
             q, k, v, o_plain, lse_plain, do, scale), torch, warmup=1, iters=5),
         library_ms=time_ms(lib, torch), library="SDPA backward (autograd.grad)",
         bound_ms=bms, bound_by=by)
-    emit({"phase": "kernel", "name": "flash_attention_bwd",
+    del q, k, v, o, o_plain, lse, lse_plain, do, qr, kr, vr, out
+    torch.cuda.empty_cache()
+    emit({"phase": "kernel", "name": "flash_attention_bwd", "head_size": hs,
           "tolerance": dict(zip(("atol", "atol_of_rms", "rtol"), FLASH_BWD_TOL)),
           "pair_tolerance": {"rel_l2": FLASH_PAIR_REL_L2},
           "forward_tolerance": {"o": dict(zip(("atol", "rtol"),
@@ -893,19 +932,28 @@ def flash_bwd_phase(torch, seed: int) -> dict:
     return entry
 
 
-def training_shape_phase(torch, seed: int) -> dict:
-    """K2, K3 (forward and transposed) and K4 at the training shape of one
-    micro batch: 8 x 1024 = 8192 rows, checked and timed."""
+def training_shape_phase(torch, seed: int, cfg=None) -> dict:
+    """K2, K3 (forward and transposed) and, for a dense MLP, K4 at the
+    training shape of one micro batch, 8 x 1024 = 8192 rows of `cfg`'s
+    width, checked and timed. cfg: TinyLlama-1.1B's shapes by default (width
+    2048, 32 heads, 4 groups, head 64); Mixtral-8x7B's give K2 at width 4096
+    and K3 at 8 groups, head 128, rope base 1e6 (its MoE bypasses K4)."""
     import torch.nn.functional as F
 
     from dualhyp_tpu_torch.config import GPTConfig
     from dualhyp_tpu_torch.models.gpt import split_heads
     from dualhyp_tpu_torch.ops import rmsnorm, rope, swiglu
 
+    if cfg is None:
+        cfg = GPTConfig(name="tiny-llama-1.1b-chat", n_embd=2048, n_head=32,
+                        n_query_groups=4, rotary_percentage=1.0, intermediate_size=5632,
+                        mlp_class="LLaMAMLP")
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 11)
     bf16 = torch.bfloat16
-    b, t, d, inter, nh, g, hs = 8, 1024, 2048, 5632, 32, 4, 64
+    b, t = 8, 1024
+    d, inter, nh, g, hs = (cfg.n_embd, cfg.intermediate_size, cfg.n_head,
+                           cfg.n_query_groups, cfg.head_size)
     rows = b * t
 
     def randn(*shape, std=1.0, dtype=bf16):
@@ -925,11 +973,10 @@ def training_shape_phase(torch, seed: int) -> dict:
         library_ms=time_ms(lambda: F.rms_norm(x, (d,), scale_bf16, 1e-5), torch),
         bound_ms=bms, bound_by=by)
 
-    cfg = GPTConfig(n_embd=d, n_head=nh, n_query_groups=g, rotary_percentage=1.0,
-                    intermediate_size=inter, mlp_class="LLaMAMLP")
     q5, _, _ = split_heads(cfg, randn(b, t, cfg.qkv_out_dim))
     dq = randn(b, g, nh // g, t, hs)  # the gradient of the roped q, contiguous
-    cos, sin = rope.build_rope_cache(t, hs, dtype=bf16, device=dev)
+    cos, sin = rope.build_rope_cache(t, cfg.rope_n_elem, base=cfg.rope_base, dtype=bf16,
+                                     device=dev)
     n_q = b * nh * t * hs
     bms, by = bound(2 * n_q * 2 + 2 * t * hs * 2, 4 * n_q, FP32_FLOPS)
     for label, xin, tr in (("forward", q5, False), ("transpose", dq, True)):
@@ -941,6 +988,13 @@ def training_shape_phase(torch, seed: int) -> dict:
             device_ms=device_ms(lambda: rope.apply_rope(xin, cos, sin, tr), torch),
             plain_ms=time_ms(lambda: rope.apply_rope_plain(xin, cos, sin, tr), torch),
             library_ms=None, bound_ms=bms, bound_by=by)
+    dense = cfg.mlp_class == "LLaMAMLP"
+    tolerance = {k: dict(zip(("atol", "rtol"), TOLERANCES[k]))
+                 for k in ("rms_norm", "apply_rope") + ("swiglu_mlp",) * dense}
+    if not dense:
+        emit({"phase": "training_shape_kernels", "model": cfg.name, "rows": rows,
+              "tolerance": tolerance, **out})
+        return out
 
     w1, w2 = randn(inter, d, std=0.02), randn(inter, d, std=0.02)
     w3 = randn(d, inter, std=0.02)
@@ -963,9 +1017,8 @@ def training_shape_phase(torch, seed: int) -> dict:
                                                   needs=(True, False, False, False)),
                    torch, warmup=1, iters=5),
         bound_ms=bound(0, 5 * 2 * rows * d * inter, FP32_FLOPS)[0], bound_by="operations")
-    emit({"phase": "training_shape_kernels", "rows": rows,
-          "tolerance": {k: dict(zip(("atol", "rtol"), TOLERANCES[k]))
-                        for k in ("rms_norm", "apply_rope", "swiglu_mlp")}, **out})
+    emit({"phase": "training_shape_kernels", "model": cfg.name, "rows": rows,
+          "tolerance": tolerance, **out})
     return out
 
 
@@ -1643,7 +1696,11 @@ def seeded_group_sizes(torch, rows: int, n_expert: int, seed: int, case: str):
     """The group sizes of `rows` expert slots (rows / 2 tokens, top 2) from
     a seeded draw of router logits: "skewed" adds a falling bias over the
     experts (expert 0 the most popular), "empty" never routes to experts 2
-    and 5."""
+    and 5; "single" puts every slot in expert 3."""
+    if case == "single":
+        sizes = [0] * n_expert
+        sizes[3] = rows
+        return torch.tensor(sizes, dtype=torch.int32, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(seed)
     logits = torch.randn(rows // 2, n_expert, generator=gen, device="cuda")
     if case == "skewed":
@@ -1865,7 +1922,11 @@ def moe_nosync_check(torch, seed: int) -> dict:
     """One Mixtral MoE layer forward (megablox: the router, the sort, L2 x 3,
     the combine) at the decode shape (8 tokens) and at the prefill shape (8
     x 384) under torch.cuda.set_sync_debug_mode("error"): a host sync on
-    that path raises."""
+    that path raises. Then its forward and backward at the prefill shape,
+    the same way: with the expert stacks frozen (LoRA training: L2's dlhs),
+    and with stacks that take gradients (drhs too: the driven run of drhs,
+    which LoRA training never launches); the launch counts are read around
+    each."""
     from dualhyp_tpu_torch.models.gpt import MoE
 
     cfg = mixtral_config(1)
@@ -1887,11 +1948,35 @@ def moe_nosync_check(torch, seed: int) -> dict:
                 torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         out[label] = {"shape": list(shape), "finite": bool(torch.isfinite(y).all())}
+    x = x.detach().requires_grad_()
+    stacks = (moe.fc_1.weight, moe.fc_2.weight, moe.proj.weight)
+    for label in ("backward_frozen_stacks", "backward_trainable_stacks"):
+        for w in stacks:
+            w.requires_grad_(label == "backward_trainable_stacks")
+            w.grad = None
+        x.grad = None
+        moe(x).float().square().mean().backward()  # warm: the backward kernels load
+        torch.cuda.synchronize()
+        reset_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            moe(x).float().square().mean().backward()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        grads = [x.grad] + [w.grad for w in stacks if w.requires_grad]
+        out[label] = {"shape": list(x.shape), "launches": read_counts(),
+                      "finite": all(bool(torch.isfinite(g).all()) for g in grads)}
     emit({"phase": "moe_no_host_sync", "sync_debug_mode": "error", **out})
-    del moe
+    del moe, x, stacks
     torch.cuda.empty_cache()
     if not all(v["finite"] for v in out.values()):
         raise RuntimeError(f"MoE layer output not finite: {out}")
+    frozen = out["backward_frozen_stacks"]["launches"]
+    full = out["backward_trainable_stacks"]["launches"]
+    if not (frozen["grouped_matmul_dlhs"] == 3 and frozen["grouped_matmul_drhs"] == 0
+            and full["grouped_matmul_dlhs"] == 3 and full["grouped_matmul_drhs"] == 3):
+        raise RuntimeError(f"MoE layer backward launches: frozen {frozen}, trainable {full}")
     return out
 
 
@@ -1941,6 +2026,416 @@ def mixtral_slice(torch, seed: int) -> dict:
     return result
 
 
+# L2's gradients at Mixtral's training shapes: (name, rows M, N, K); M = 8 x
+# 1024 tokens x top 2
+GMM_BWD_SHAPES = (("fc_1", 16384, 14336, 4096), ("proj", 16384, 4096, 14336))
+# the Mixtral training slice's path: which kernels must launch and which must
+# not (the expert stacks are frozen: no weight gradient; no dense MLP)
+MOE_TRAIN_PATH = ("grouped_matmul", "grouped_matmul_dlhs", "flash_attention_fwd",
+                  "flash_attention_bwd", "rms_norm", "apply_rope", "apply_rope_transpose")
+MOE_TRAIN_IDLE = ("grouped_matmul_drhs", "swiglu_mlp", "lora_linear", "q4_matmul",
+                  "full_attention_fwd", "causal_attention_fwd")
+
+
+def first_that_runs(candidates):
+    """The first (fn, name) of `candidates` that runs on these inputs (a
+    library yardstick that this PyTorch may lack or refuse), else (None,
+    None)."""
+    for fn, name in candidates:
+        try:
+            fn()
+            return fn, name
+        except (RuntimeError, TypeError, ValueError, AttributeError):
+            continue
+    return None, None
+
+
+def gmm_bwd_phase(torch, seed: int) -> dict:
+    """L2's two gradients at Mixtral's training rows (16384) for fc_1 and
+    proj, each with a skewed draw, empty experts and a single group: dlhs
+    and drhs against their plain versions; the skewed draw timed beside the
+    bound and torch._grouped_mm (dlhs: the (E, N, K) stack as it is; drhs:
+    the 2-D x 2-D form with the offsets on the reduction axis)."""
+    from dualhyp_tpu_torch.ops import gmm
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 61)
+    n_expert = 8
+    out = {"grouped_matmul_dlhs": {}, "grouped_matmul_drhs": {}}
+    for name, rows, n, k in GMM_BWD_SHAPES:
+        w = (torch.randn((n_expert, n, k), generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+        for case in ("skewed", "empty", "single"):
+            g = torch.randn((rows, n), generator=gen, device="cuda").to(torch.bfloat16)
+            lhs = torch.randn((rows, k), generator=gen, device="cuda").to(torch.bfloat16)
+            sizes = seeded_group_sizes(torch, rows, n_expert, seed + 67 + len(out), case)
+            offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+            busy = int((sizes > 0).sum())
+            flops = 2 * rows * n * k
+            kernels = {
+                "grouped_matmul_dlhs": (
+                    lambda: gmm.grouped_matmul_dlhs(g, w, sizes),
+                    lambda: gmm.grouped_matmul_dlhs_plain(g, w, sizes),
+                    [(lambda: torch._grouped_mm(g, w, offs=offs, out_dtype=torch.bfloat16),
+                      "torch._grouped_mm (M, N) x (E, N, K)")],
+                    (rows * n + busy * n * k + rows * k) * 2 + n_expert * 4),
+                "grouped_matmul_drhs": (
+                    lambda: gmm.grouped_matmul_drhs(g, lhs, sizes),
+                    lambda: gmm.grouped_matmul_drhs_plain(g, lhs, sizes),
+                    [(lambda: torch._grouped_mm(g.t(), lhs, offs=offs, out_dtype=torch.bfloat16),
+                      "torch._grouped_mm (N, M) x (M, K), offsets on M"),
+                     (lambda: torch._grouped_mm(g.t().contiguous(), lhs, offs=offs,
+                                                out_dtype=torch.bfloat16),
+                      "torch._grouped_mm (N, M) x (M, K), offsets on M, g transposed by a copy")],
+                    (rows * n + rows * k + n_expert * n * k) * 2 + n_expert * 4)}
+            for kname, (fn, plain, libs, nbytes) in kernels.items():
+                err = compare(kname, fn(), plain(), torch)
+                entry = dict(shape=[rows, n, k], group_sizes=sizes.tolist(), max_abs_err=err)
+                if case == "skewed":
+                    lib, lib_name = first_that_runs(libs)
+                    bms, by = bound(nbytes, flops, BF16_TENSOR_FLOPS)
+                    entry.update(
+                        ms=time_ms(fn, torch, iters=10), device_ms=device_ms(fn, torch, iters=10),
+                        plain_ms=time_ms(plain, torch, warmup=1, iters=2),
+                        library_ms=time_ms(lib, torch, iters=10) if lib else None,
+                        library=lib_name, bound_ms=bms, bound_by=by)
+                    if lib:
+                        entry["library_max_abs_err"] = float(
+                            (lib().float() - plain().float()).abs().max())
+                out[kname][f"{name}_{case}"] = entry
+            del g, lhs
+            torch.cuda.empty_cache()
+        del w
+    torch.cuda.empty_cache()
+    for kname, entries in out.items():
+        emit({"phase": "kernel", "name": kname,
+              "tolerance": dict(zip(("atol", "rtol"), TOLERANCES[kname])), **entries})
+    return out
+
+
+def mixtral_routes(torch, model, ids):
+    """Each block's top-k expert sets (L, B, T, k) of one forward without
+    grad, from the MoE inputs captured by forward pre-hooks."""
+    from dualhyp_tpu_torch.models.gpt import moe_top_k
+
+    inputs = []
+    hooks = [block.mlp.register_forward_pre_hook(lambda mod, args: inputs.append(args[0]))
+             for block in model.blocks]
+    with torch.no_grad():
+        model(ids)
+    for hook in hooks:
+        hook.remove()
+    routes = [moe_top_k((x @ block.mlp.gate.weight.t()).float(), block.mlp.top_k)[1]
+              for x, block in zip(inputs, model.blocks)]
+    return torch.stack(routes).sort(dim=-1).values
+
+
+def depth2_mixtral_train_check(torch, seed: int) -> dict:
+    """One LoRA Trainer step of a depth-2, full-width Mixtral-8x7B + LoRA
+    model at B16 T16 (half the labels masked), on the card (bf16, frozen
+    leaves bf16) under moe_impl megablox (L2 and its dlhs, remat "moe") and
+    dense (remat on), against the CPU (plain versions, fp32, megablox, no
+    remat), on the same random weights: the share of (layer, token) routes
+    that agree, then the loss and every LoRA gradient's relative L2 error of
+    a step on the rows routed alike under both card paths."""
+    import numpy as np
+
+    from dualhyp_tpu_torch.models.gpt import GPT
+    from dualhyp_tpu_torch.train import TrainConfig, Trainer
+
+    cfg = mixtral_config(2)
+    cpu = GPT(cfg, device="cpu", dtype=torch.float32, moe_impl="megablox")
+    cards = {impl: GPT(cfg, device="cuda", dtype=torch.bfloat16, moe_impl=impl)
+             for impl in ("megablox", "dense")}
+    fill_random(torch, (cpu, *cards.values()), cfg,
+                torch.Generator(device="cuda").manual_seed(seed + 71))
+    rng = np.random.default_rng(seed + 73)
+    b, t = 16, 16
+    ids = rng.integers(3, cfg.vocab_size, size=(b, t)).astype(np.int32)
+    # the trainers first: they round the card's frozen leaves (norm scales
+    # included) to bf16, which moves router logits, so the routes are read
+    # from the models as they train
+    trainers = {impl: Trainer(cfg, TrainConfig(batch_size=b, micro_batch_size=b,
+                                               frozen_dtype="bfloat16", lm_head_chunk_size=128,
+                                               remat="moe" if impl == "megablox" else True),
+                              model)
+                for impl, model in cards.items()}
+    t0 = time.perf_counter()
+    want_routes = mixtral_routes(torch, cpu, torch.from_numpy(ids).long())
+    routes = {impl: mixtral_routes(torch, model, torch.from_numpy(ids).long().cuda()).cpu()
+              for impl, model in cards.items()}
+    agree = {impl: (r == want_routes).all(-1) for impl, r in routes.items()}  # (L, B, T)
+    held = (agree["megablox"] & agree["dense"]).all(0).all(-1)  # (B,)
+    labels = ids.copy()
+    labels[:, : t // 2] = -1
+    labels[~held.numpy()] = -1
+    batch = {"input_ids": ids, "labels": labels}
+    trainer = Trainer(cfg, TrainConfig(batch_size=b, micro_batch_size=b, compute_dtype="float32",
+                                       lm_head_chunk_size=128), cpu)
+    loss_cpu = float(trainer.train_step(batch, max_iters=100, warmup_steps=10)[0])
+    g_cpu = {n: p.grad.detach().float() for n, p in trainer.trainable.items()}
+    cpu_s = time.perf_counter() - t0
+    del trainer, cpu
+    result = {"phase": "depth2_mixtral_train_card_vs_cpu", "model": cfg.name,
+              "n_layer": cfg.n_layer, "shape": [b, t], "rows_held": int(held.sum()),
+              "loss_cpu": loss_cpu, "loss_atol": TRAIN_LOSS_ATOL,
+              "grad_rel_tol": TRAIN_GRAD_REL, "route_agreement_min": ROUTE_AGREEMENT,
+              "cpu_s": cpu_s}
+    for impl, trainer in trainers.items():
+        remat = trainer.cfg.remat
+        reset_counts()
+        loss = float(trainer.train_step(batch, max_iters=100, warmup_steps=10)[0])
+        launches = read_counts()
+        rel = {n: float((p.grad.detach().float().cpu() - g_cpu[n]).norm() / g_cpu[n].norm())
+               for n, p in trainer.trainable.items()}
+        result[impl] = {"remat": remat, "loss_card": loss, "loss_abs_err": abs(loss - loss_cpu),
+                        "route_agreement": float(agree[impl].float().mean()),
+                        "grad_rel_l2_err_max": max(rel.values()), "grad_rel_l2_err": rel,
+                        "launches": launches}
+    del trainers, trainer, cards
+    torch.cuda.empty_cache()
+    emit(result)
+    if not 4 * int(held.sum()) >= b:
+        raise RuntimeError(f"depth-2 Mixtral training: only {int(held.sum())} of {b} rows "
+                           f"routed alike")
+    for impl in ("megablox", "dense"):
+        r = result[impl]
+        if not r["loss_abs_err"] <= TRAIN_LOSS_ATOL:
+            raise RuntimeError(f"depth-2 Mixtral {impl} train loss: {r}")
+        if not r["route_agreement"] >= ROUTE_AGREEMENT:
+            raise RuntimeError(f"depth-2 Mixtral {impl}: routes agree {r['route_agreement']}")
+        bad = {n: e for n, e in r["grad_rel_l2_err"].items() if not e <= TRAIN_GRAD_REL}
+        if bad:
+            raise RuntimeError(f"depth-2 Mixtral {impl} LoRA gradients off: {bad}")
+    got = result["megablox"]["launches"]
+    if not (got["grouped_matmul"] > 0 and got["grouped_matmul_dlhs"] == 3 * cfg.n_layer
+            and got["grouped_matmul_drhs"] == 0 and got["flash_attention_bwd"] == cfg.n_layer):
+        raise RuntimeError(f"depth-2 Mixtral megablox training launches {got}")
+    if result["dense"]["launches"]["grouped_matmul_dlhs"] != 0:
+        raise RuntimeError(f"depth-2 Mixtral dense training launches {result['dense']}")
+    return result
+
+
+def active_flops_per_token(cfg, seq_len: int) -> float:
+    """Training flops per token of an MoE counted by its active parameters:
+    `estimate_train_flops_per_token` (the JAX package's count, which takes
+    2 d inter for any MLP) with each layer's MLP counted as the router's E d
+    and k experts of 3 d inter each instead."""
+    from dualhyp_tpu_torch.utils.monitor import estimate_train_flops_per_token
+
+    d, inter = cfg.n_embd, cfg.intermediate_size
+    extra = cfg.n_expert * d + 3 * cfg.n_expert_per_token * d * inter - 2 * d * inter
+    return estimate_train_flops_per_token(cfg, seq_len) + 3 * 2 * cfg.n_layer * extra
+
+
+def mixtral_step_1024(torch, model, cfg, seed: int, remat, profile: bool) -> dict:
+    """Training steps at 8 x 1024 (half the labels masked) of `model` as it
+    stands: one warm-up, two timed (the launch counts read around them),
+    then one under torch.profiler. A step that does not fit the card runs
+    at 8 x 512 instead, and says so."""
+    import numpy as np
+
+    from dualhyp_tpu_torch.train import TrainConfig, Trainer
+
+    for t in (1024, 512):
+        rng = np.random.default_rng(seed)
+        ids = rng.integers(1, cfg.vocab_size, size=(8, t)).astype(np.int32)
+        labels = ids.copy()
+        labels[:, : t // 2] = -1
+        batch = {"input_ids": ids, "labels": labels}
+        trainer = Trainer(cfg, TrainConfig(batch_size=8, micro_batch_size=8,
+                                           frozen_dtype="bfloat16", lm_head_chunk_size=128,
+                                           remat=remat), model)
+        gen = torch.Generator().manual_seed(seed)
+        try:
+            trainer.train_step(batch, max_iters=1000, warmup_steps=10, generator=gen)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            times = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                loss, _ = trainer.train_step(batch, max_iters=1000, warmup_steps=10,
+                                             generator=gen)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        except torch.cuda.OutOfMemoryError as exc:
+            del trainer
+            model.zero_grad(set_to_none=True)
+            torch.cuda.empty_cache()
+            emit({"phase": "mixtral_train_step_oom", "remat": remat, "seq_len": t,
+                  "error": str(exc).splitlines()[0][:200]})
+            continue
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        step = min(times)
+        out = {"remat": remat, "moe_impl": model.moe_impl, "shape": [8, t], "step_s": times,
+               "tokens_per_s": 8 * t / step,
+               "mfu_active": 8 * t * active_flops_per_token(cfg, t) / step / BF16_TENSOR_FLOPS,
+               "peak_mem_gb": peak, "loss": float(loss), "launches": launches}
+        if profile:
+            from torch.profiler import ProfilerActivity, profile as torch_profile
+
+            with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                trainer.train_step(batch, max_iters=1000, warmup_steps=10, generator=gen)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            out["profile"] = profile_summary(prof, wall_ms, top_n=8)
+            del prof
+        del trainer
+        model.zero_grad(set_to_none=True)
+        torch.cuda.empty_cache()
+        return out
+    raise RuntimeError(f"a Mixtral training step with remat={remat!r} fits neither 8 x 1024 "
+                       f"nor 8 x 512")
+
+
+def mixtral_train_slice(torch, seed: int) -> dict:
+    """LoRA finetuning of Mixtral-8x7B-Instruct, 16 of 32 layers at full
+    width (47 GB of random bf16 weights from --seed), moe_impl megablox,
+    through `cli.finetune_ger.run_training` with the CLI's settings (frozen
+    leaves bf16, LoRA r=16 alpha=16 dropout 0.05, remat): batch 16 of micro
+    batches 8, 32 synthetic DualHyp train records and 8 val records, 2
+    epochs = 4 optimizer steps, the checkpoints holding the LoRA leaves
+    alone (`adapter_only`, the CLI's --save_adapter_only: the whole tree is
+    47 GB a file); then the best checkpoint is read back into the model and
+    4 requests are decoded
+    from it. Then the 8 x 1024 step with remat on and with remat "moe" (each
+    profiled), and dense once."""
+    from dualhyp_tpu_torch.ckpt.convert import load_tree
+    from dualhyp_tpu_torch.ckpt.io import load_params
+    from dualhyp_tpu_torch.cli.finetune_ger import run_training
+    from dualhyp_tpu_torch.cli.inference_ger import run_inference
+    from dualhyp_tpu_torch.data import collate, hypotheses, prompts, synthetic
+    from dualhyp_tpu_torch import config_from_name
+    from dualhyp_tpu_torch.models.gpt import GPT
+    from dualhyp_tpu_torch.train import TrainConfig
+    from dualhyp_tpu_torch.utils.monitor import estimate_train_flops_per_token
+
+    cfg = config_from_name(MIXTRAL, n_layer=MIXTRAL_LAYERS, lora_r=16, lora_alpha=16,
+                           lora_dropout=0.05, lora_query=True, lora_key=True, lora_value=True,
+                           lora_projection=True)
+    t0 = time.perf_counter()
+    model = GPT(cfg, device="cuda", dtype=torch.bfloat16, moe_impl="megablox")
+    model.init_weights(torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    tcfg = TrainConfig(batch_size=16, micro_batch_size=8, num_epochs=2,
+                       frozen_dtype="bfloat16", remat=True, seed=seed,
+                       log_interval=16, save_interval=10**6)
+    template_words = " ".join(prompts.DualHyp_PROMPTS.values()).split()
+    tok = WordTokenizer(sorted(set(synthetic.word_vocabulary()) | set(template_words)))
+    lora = sorted(model.trainable_parameters())
+    before = {n: model.get_parameter(n).detach().clone() for n in lora}
+    step_ends, step_shapes = [], []
+
+    def on_step(opt_step, loss, lr):
+        torch.cuda.synchronize()
+        step_ends.append(time.perf_counter())
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for name, n, s in (("train", 32, seed), ("val", 8, seed + 1), ("test", 4, seed + 2)):
+            synthetic.write_json(tmp / f"{name}.json",
+                                 synthetic.make_records(n_uids=n, n_hyps=5, seed=s))
+
+        def dataset(split):
+            return hypotheses.DualHypothesesDataset(
+                split, str(tmp / f"{split}.json"), tokenizer=tok,
+                prompts_format="DualHyp", max_input_length=1024, seed=seed)
+
+        train_ds, val_ds = dataset("train"), dataset("val")
+        for epoch in range(tcfg.num_epochs):
+            for batch in collate.epoch_batches(dataset("train"), tcfg.batch_size, shuffle=True,
+                                               seed=tcfg.seed, epoch=epoch, length_sorted=True):
+                step_shapes.append(batch["input_ids"].shape)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = run_training(model, tok, train_ds, val_ds, tcfg, tmp / "run",
+                           generator=torch.Generator().manual_seed(seed), on_step=on_step,
+                           adapter_only=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        losses = [float(x) for x in out["losses"]]
+        changed = [n for n in lora if not torch.equal(before[n], model.get_parameter(n))]
+        del before, out
+        model.zero_grad(set_to_none=True)
+        torch.cuda.empty_cache()
+        saved = {f.name: f.stat().st_size for f in (tmp / "run").iterdir()}
+
+        # the best checkpoint read back into the model: its LoRA leaves are
+        # the trained ones, then 4 requests decode from it
+        t1 = time.perf_counter()
+        tree = load_params(tmp / "run" / "best_model.npz")
+        trained = {n: model.get_parameter(n).detach().clone() for n in lora}
+        load_tree(model, tree, strict=False)
+        del tree
+        reload_s = time.perf_counter() - t1
+        mismatch = [n for n in lora if not torch.equal(trained[n], model.get_parameter(n))]
+        del trained
+        records, metrics = run_inference(model, tok, dataset("test"), decode_batch=4,
+                                         max_new_tokens=16, top_k=1)
+    step_s = [b - a for a, b in zip([t0] + step_ends[:-1], step_ends)]
+    tokens = [shape[0] * shape[1] for shape in step_shapes]
+    train_s = step_ends[-1] - t0
+    flops_jax = sum(n * estimate_train_flops_per_token(cfg, shape[1])
+                    for n, shape in zip(tokens, step_shapes))
+    flops_active = sum(n * active_flops_per_token(cfg, shape[1])
+                       for n, shape in zip(tokens, step_shapes))
+    result = {"phase": "mixtral_train_slice", "model": cfg.name, "n_layer": cfg.n_layer,
+              "n_layer_published": 32, "moe_impl": "megablox", "lora_r": cfg.lora_r,
+              "lora_dropout": cfg.lora_dropout, "remat": True, "build_s": build_s,
+              "batch_size": tcfg.batch_size, "micro_batch_size": tcfg.micro_batch_size,
+              "optimizer_steps": len(losses), "step_shapes": [list(x) for x in step_shapes],
+              "losses": losses, "step_s": step_s, "tokens_per_s": sum(tokens) / train_s,
+              "mfu_jax_count": flops_jax / train_s / BF16_TENSOR_FLOPS,
+              "mfu_active": flops_active / train_s / BF16_TENSOR_FLOPS,
+              "active_flops_note": "router E d plus k = 2 experts of 3 d inter a layer",
+              "wall_s": wall, "peak_mem_gb": peak_gb, "launches": launches,
+              "lora_leaves_changed": f"{len(changed)}/{len(lora)}", "saved_bytes": saved,
+              "reload_s": reload_s, "reload_mismatch": mismatch, "decoded": records[0],
+              "decode_metrics": metrics}
+    emit(result)
+    if len(losses) != 4 or not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"Mixtral training losses {losses}")
+    if len(changed) != len(lora) or mismatch:
+        raise RuntimeError(f"Mixtral LoRA leaves: {len(changed)}/{len(lora)} changed, "
+                           f"reload mismatch {mismatch}")
+    if len(records) != 4 or not all(isinstance(r["inference"], str) for r in records):
+        raise RuntimeError("the Mixtral checkpoint did not decode every request")
+    missing = [name for name in MOE_TRAIN_PATH if launches[name] <= 0]
+    stray = [name for name in MOE_TRAIN_IDLE if launches[name] != 0]
+    if missing or stray:
+        raise RuntimeError(f"Mixtral training slice launches: never {missing}, "
+                           f"off the path {stray}")
+
+    steps = {}
+    for label, remat in (("remat", True), ("remat_moe", "moe")):
+        steps[label] = mixtral_step_1024(torch, model, cfg, seed, remat, profile=True)
+        emit({"phase": "mixtral_train_step_1024", "label": label, **steps[label]})
+    for block in model.blocks:  # the same weights through the dense einsums
+        block.mlp.impl = "dense"
+    model.moe_impl = "dense"
+    steps["dense_remat"] = mixtral_step_1024(torch, model, cfg, seed, True, profile=False)
+    emit({"phase": "mixtral_train_step_1024", "label": "dense_remat", **steps["dense_remat"]})
+    del model
+    torch.cuda.empty_cache()
+    for label, r in steps.items():
+        got = r["launches"]
+        if not math.isfinite(r["loss"]) or got["grouped_matmul_drhs"] or got["swiglu_mlp"]:
+            raise RuntimeError(f"Mixtral 8 x 1024 step {label}: {r}")
+        if (got["grouped_matmul_dlhs"] > 0) != (label != "dense_remat"):
+            raise RuntimeError(f"Mixtral 8 x 1024 step {label} launches {got}")
+    forwards = {label: steps[label]["launches"]["grouped_matmul"] / (3 * cfg.n_layer)
+                for label in ("remat", "remat_moe")}
+    result["step_1024"] = steps
+    result["l2_forwards_per_step"] = forwards
+    return result
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1984,6 +2479,7 @@ def main(argv=None) -> int:
     kernels.update({k: fwd[k] for k in ("full_attention_fwd", "causal_attention_fwd")})
     kernels["grouped_matmul"] = run("gmm_phase", gmm_phase)
     kernels["flash_attention_fwd"]["d128"] = run("flash_d128_phase", flash_d128_phase)
+    kernels.update(run("gmm_bwd_phase", gmm_bwd_phase))
     run("depth2_check", depth2_check)
     run("depth2_int4_check", depth2_int4_check)
     run("depth2_encoder_check", depth2_encoder_check)
@@ -1992,14 +2488,20 @@ def main(argv=None) -> int:
               for variant in ("int4", "int8_kv8", "fused")}
     relprompt = run("relprompt_slice", relprompt_slice)
     kernels["flash_attention_bwd"] = {"train": run("flash_bwd_phase", flash_bwd_phase)}
+    kernels["flash_attention_bwd"]["d128"] = run("flash_bwd_d128_phase", flash_bwd_phase,
+                                                 g=8, hs=128)
     train_shapes = run("training_shape_phase", training_shape_phase)
+    train_shapes_moe = run("training_shape_mixtral_phase", training_shape_phase,
+                           cfg=mixtral_config(MIXTRAL_LAYERS))
     run("depth2_train_check", depth2_train_check)
     run("depth2_train_check_fused", depth2_train_check, lora_impl="fused")
     trained = run("train_slice", train_slice)
     stepped = run("train_step_1024", train_step_1024)
-    run("moe_nosync_check", moe_nosync_check)
+    nosync = run("moe_nosync_check", moe_nosync_check)
     depth2_moe = run("depth2_mixtral_check", depth2_mixtral_check)
+    depth2_moe_train = run("depth2_mixtral_train_check", depth2_mixtral_train_check)
     mixtral = run("mixtral_slice", mixtral_slice)
+    mixtral_train = run("mixtral_train_slice", mixtral_train_slice)
     emit({"phase": "phase_seconds", **seconds})
 
     sources = {"rms_norm": ("rmsnorm.cu", "dualhyp_tpu/ops/pallas/rmsnorm_kernel.py:26"),
@@ -2016,13 +2518,22 @@ def main(argv=None) -> int:
                                         "dualhyp_tpu/ops/pallas/flash_fwd.py:179"),
                "grouped_matmul": ("grouped_matmul.cu",
                                   "jax/experimental/pallas/ops/tpu/megablox/gmm.py:526 "
-                                  "(megablox gmm, called at dualhyp_tpu/models/gpt.py:516)")}
+                                  "(megablox gmm, called at dualhyp_tpu/models/gpt.py:516)"),
+               "grouped_matmul_dlhs": ("grouped_matmul.cu",
+                                       "jax/experimental/pallas/ops/tpu/megablox/ops.py:80 "
+                                       "(_gmm_bwd's gmm with the other transpose, pallas_call "
+                                       "gmm.py:526)"),
+               "grouped_matmul_drhs": ("grouped_matmul.cu",
+                                       "jax/experimental/pallas/ops/tpu/megablox/gmm.py:763 "
+                                       "(tgmm, called by _gmm_bwd at ops.py:90)")}
     # each kernel's main path, and the shape of its row in the line
     main_path = {"lora_linear": ("fused_slice", "qkv_3072"),
                  "q4_matmul": ("int4_slice", "decode_fc_1"),
                  "full_attention_fwd": ("relprompt_slice", "b1_t280_f32"),
                  "causal_attention_fwd": ("causal_attention_fwd_phase", "T1024"),
-                 "grouped_matmul": ("mixtral_slice", "decode_fc_1_skewed")}
+                 "grouped_matmul": ("mixtral_slice", "decode_fc_1_skewed"),
+                 "grouped_matmul_dlhs": ("mixtral_train_slice", "fc_1_skewed"),
+                 "grouped_matmul_drhs": ("moe_layer_weight_grads", "fc_1_skewed")}
     call_paths = {
         "full_attention_fwd": "cli.inference_relprompt.run_relprompt -> "
                               "cli.finetune_relprompt feature loader -> models.whisper.encode "
@@ -2032,7 +2543,15 @@ def main(argv=None) -> int:
                                 "causal_attention_fwd from its tests only): this script's "
                                 "K7 kernel phase",
         "grouped_matmul": "cli.inference_ger.run_inference -> GPT.prefill/decode_step -> "
-                          "MoE._sparse (moe_impl megablox), 3 launches a layer a forward"}
+                          "MoE._sparse (moe_impl megablox), 3 launches a layer a forward; "
+                          "cli.finetune_ger.run_training -> GPT.forward (+ remat)",
+        "grouped_matmul_dlhs": "cli.finetune_ger.run_training -> train.Trainer.train_step -> "
+                               "GPT.forward + backward -> MoE (moe_impl megablox) -> "
+                               "GroupedMatmul.backward, 3 launches a layer a micro step",
+        "grouped_matmul_drhs": "GroupedMatmul.backward when an expert stack takes gradients "
+                               "(mode full, not ported): no production call site, and LoRA "
+                               "training launches it 0 times; this script's MoE layer backward "
+                               "with trainable stacks"}
     paths = {"decode_slice": sliced["launches"], "train_slice": trained["launches"],
              **{f"{v}_slice": slices[v]["launches"] for v in slices},
              **{f"train_step_1024_{k}": r["launches"] for k, r in stepped.items()},
@@ -2041,12 +2560,22 @@ def main(argv=None) -> int:
              "causal_attention_fwd_phase": fwd["causal_launches"],
              "mixtral_slice": mixtral["megablox"]["launches"],
              "mixtral_dense_slice": mixtral["dense"]["launches"],
-             "depth2_mixtral": depth2_moe["launches"]}
+             "depth2_mixtral": depth2_moe["launches"],
+             "mixtral_train_slice": mixtral_train["launches"],
+             **{f"mixtral_train_1024_{k}": r["launches"]
+                for k, r in mixtral_train["step_1024"].items()},
+             **{f"depth2_mixtral_train_{k}": depth2_moe_train[k]["launches"]
+                for k in ("megablox", "dense")},
+             "moe_layer_lhs_grads": nosync["backward_frozen_stacks"]["launches"],
+             "moe_layer_weight_grads": nosync["backward_trainable_stacks"]["launches"]}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "device_ms", "shape")
     train_rows = {"rms_norm": train_shapes["rms_norm"],
                   "apply_rope": train_shapes["apply_rope_forward"],
                   "swiglu_mlp": train_shapes["swiglu_mlp"]}
+    moe_train_rows = {"rms_norm": {"mixtral_train_rows": "rms_norm"},
+                      "apply_rope": {"mixtral_train_rows": "apply_rope_forward",
+                                     "mixtral_train_rows_transpose": "apply_rope_transpose"}}
     line = []
     for name in KERNELS:
         src, replaces = sources[name]
@@ -2068,15 +2597,19 @@ def main(argv=None) -> int:
             **({"decode": kernels[name]["decode"]} if "decode" in kernels[name] else {}),
         }
         if shape:  # K5, K6, K7, K8: every measured shape beside the main one
-            entry["shapes"] = {k: {key: v[key] for key in keys}
+            entry["shapes"] = {k: {key: v[key] for key in keys if key in v}
                                for k, v in kernels[name].items()}
         if name in train_rows:
             entry["train_rows"] = {k: train_rows[name][k] for k in keys}
         if name == "apply_rope":
             entry["train_rows_transpose"] = {
                 k: train_shapes["apply_rope_transpose"][k] for k in keys}
+        for key, row in moe_train_rows.get(name, {}).items():  # width 4096, head 128
+            entry[key] = {k: train_shapes_moe[row][k] for k in keys}
         if name == "flash_attention_fwd":  # Mixtral's head size
             entry["d128"] = {k: kernels[name]["d128"]["T384"][k] for k in keys}
+        if name == "flash_attention_bwd":
+            entry["d128"] = {k: kernels[name]["d128"][k] for k in keys}
         line.append(entry)
     emit({"kernels": line})
     print(smi, flush=True)

@@ -136,19 +136,21 @@ def params_from_jax(tree: dict, cfg: GPTConfig, *, device=None,
     return model
 
 
-def flat_from_named(named: dict, n_layer: int) -> dict:
+def flat_from_named(named: dict, n_layer: int, device=None) -> dict:
     """{parameter name: tensor} -> {`::`-joined tree key: tensor}: the
     tensors of `blocks.i.*` stacked over the layers on axis 0, as the JAX
-    package keeps them."""
+    package keeps them. device: where the stacks are made (None: where the
+    tensors are); tensors are moved there one leaf at a time."""
     flat, per_layer = {}, {}
     for name, t in named.items():
         parts = name.split(".")
         if parts[0] == "blocks":
             per_layer.setdefault(SEP.join(parts[2:]), [None] * n_layer)[int(parts[1])] = t
         else:
-            flat[SEP.join(parts)] = t
+            flat[SEP.join(parts)] = t.detach().to(device or t.device)
     for rest, layers in per_layer.items():
-        flat[f"blocks{SEP}{rest}"] = torch.stack([t.detach() for t in layers])
+        flat[f"blocks{SEP}{rest}"] = torch.stack([t.detach().to(device or t.device)
+                                                  for t in layers])
     return flat
 
 
@@ -181,8 +183,9 @@ def tree_from_model(model: GPT) -> dict:
     """The model's parameters as the JAX package's tree, the inverse of
     `load_tree`: nested dicts, per-layer leaves stacked on axis 0, numpy
     arrays on the host (a bf16 leaf stays a torch bf16 tensor, as
-    `ckpt.io.load_params` returns it)."""
-    flat = flat_from_named(dict(model.named_parameters()), model.cfg.n_layer)
-    return unflatten({
-        key: t.cpu() if t.dtype == torch.bfloat16 else t.cpu().numpy()
-        for key, t in flat.items()})
+    `ckpt.io.load_params` returns it). The stacks are made on the host, so
+    the card never holds a second copy of the weights (a Mixtral expert
+    stack of 16 layers is 15 GB)."""
+    flat = flat_from_named(dict(model.named_parameters()), model.cfg.n_layer, device="cpu")
+    return unflatten({key: t if t.dtype == torch.bfloat16 else t.numpy()
+                      for key, t in flat.items()})

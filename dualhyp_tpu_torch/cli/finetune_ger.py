@@ -9,11 +9,20 @@ Counterpart of `dualhyp_tpu/cli/finetune_ger.py` on one card:
 
 The same flags as the JAX package's, without the mesh flags (multi-device
 training is not ported yet), plus --device (default: the CUDA card; raises
-without one). bf16 compute, frozen leaves in bf16, remat on by default.
+without one) and --save_adapter_only. bf16 compute, frozen leaves in bf16,
+remat on by default (whole blocks; `TrainConfig.remat` also takes "mlp"
+and "moe"). An MoE
+checkpoint trains through the path `DUALHYP_MOE_IMPL` picks, as `GPT`
+reads it ("megablox" or "sparse": the grouped matmul L2 and its gradient).
 Writes runs/<exp_name>/: `best_model.npz` on the best validation loss, the
 final `model_lora_finetuned.npz` (the reference's best/final pair, ref:
 finetune/ger.py:207-209,302-317), `train_state.npz` at each epoch's end for
 --resume, and `train_state_diverged.npz` if the loss stops being finite.
+The best and final files hold the whole tree, as the JAX package's CLI
+writes them; --save_adapter_only writes the trainable (LoRA) leaves alone,
+as the JAX package's `ckpt.io.save_adapter_only` does, and they load over
+the base checkpoint through --model_path the same way (the whole tree of a
+16-layer Mixtral is 47 GB a file, its LoRA leaves 27 MB).
 """
 
 from __future__ import annotations
@@ -52,6 +61,9 @@ def build_parser():
     parser.add_argument("--remat", action=argparse.BooleanOptionalAction,
                         default=True,
                         help="activation rematerialisation of whole blocks")
+    parser.add_argument("--save_adapter_only", action="store_true",
+                        help="best_model.npz and model_lora_finetuned.npz hold "
+                             "the trainable leaves alone (default: the whole tree)")
     parser.add_argument("--resume", action="store_true",
                         help="resume from runs/<exp>/train_state.npz "
                              "(optimizer moments + LR clock; exact resume)")
@@ -65,14 +77,18 @@ def build_parser():
     return parser
 
 
-def _validate_and_save(trainer, val_ds, tcfg, out_dir, best_val, logger):
+def _saved_tree(trainer, adapter_only: bool) -> dict:
+    return trainer.trainable_params if adapter_only else trainer.params
+
+
+def _validate_and_save(trainer, val_ds, tcfg, out_dir, best_val, logger, adapter_only):
     batches = collate.epoch_batches(
         val_ds, tcfg.micro_batch_size, shuffle=False, seed=0, epoch=0)
     val_loss = trainer.evaluate(batches)
     logger.info(f"val loss {val_loss:.4f}")
     if val_loss < best_val:
         best_val = val_loss
-        save_params(out_dir / "best_model.npz", trainer.params)
+        save_params(out_dir / "best_model.npz", _saved_tree(trainer, adapter_only))
         logger.info("best model saved")
     return best_val
 
@@ -83,7 +99,7 @@ def _vocab_size(tokenizer):
 
 def run_training(model, tokenizer, train_ds, val_ds, tcfg: TrainConfig, out_dir, *,
                  generator: torch.Generator, resume: bool = False, logger=None,
-                 on_step=None) -> dict:
+                 on_step=None, adapter_only: bool = False) -> dict:
     """The finetuning loop of the JAX package's `main`, on `model`'s device.
 
     Epochs of length-sorted, seeded batches (`collate.epoch_batches`); a
@@ -94,8 +110,10 @@ def run_training(model, tokenizer, train_ds, val_ds, tcfg: TrainConfig, out_dir,
     run repeats the uninterrupted run's masks. Raises SystemExit, with the
     state saved to `train_state_diverged.npz`, when a logged loss is not
     finite. on_step(opt_step, loss, lr): called after each optimizer step.
-    Returns {"trainer", "losses" (device scalars), "lrs", "best_val",
-    "max_iters", "warmup_steps"}."""
+    adapter_only (--save_adapter_only): the best and final files hold the
+    trainable leaves alone, not the whole tree. Returns {"trainer",
+    "losses" (device scalars), "lrs", "best_val", "max_iters",
+    "warmup_steps"}."""
     out_dir = Path(out_dir)
     if logger is None:
         logger = setup_run_logger(out_dir)
@@ -161,13 +179,14 @@ def run_training(model, tokenizer, train_ds, val_ds, tcfg: TrainConfig, out_dir,
                     f"mfu {stats.get('mfu', 0):.3f}")
             if opt_step % save_every == 0:
                 best_val = _validate_and_save(trainer, val_ds, tcfg, out_dir,
-                                              best_val, logger)
+                                              best_val, logger, adapter_only)
         step_logger.save()
         # epoch-boundary resume point (optimizer moments + LR clock)
         trainer.save_train_state(state_path, extra={"epoch": epoch})
 
-    best_val = _validate_and_save(trainer, val_ds, tcfg, out_dir, best_val, logger)
-    save_params(out_dir / "model_lora_finetuned.npz", trainer.params)
+    best_val = _validate_and_save(trainer, val_ds, tcfg, out_dir, best_val, logger,
+                                  adapter_only)
+    save_params(out_dir / "model_lora_finetuned.npz", _saved_tree(trainer, adapter_only))
     logger.info(f"training done in {time.perf_counter() - t_start:.1f}s; "
                 f"best val loss {best_val:.4f}")
     step_logger.save()
@@ -226,7 +245,8 @@ def main(argv=None):
     val_ds = dataset_cls("val", args.val_path, **ds_kwargs)
     generator = torch.Generator().manual_seed(args.seed)
     run_training(model, tokenizer, train_ds, val_ds, tcfg, out_dir,
-                 generator=generator, resume=args.resume, logger=logger)
+                 generator=generator, resume=args.resume, logger=logger,
+                 adapter_only=args.save_adapter_only)
 
 
 if __name__ == "__main__":

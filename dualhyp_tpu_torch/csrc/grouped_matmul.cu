@@ -1,6 +1,9 @@
-// L2 forward: the MoE grouped matrix product over expert row groups,
-//   out[m] = lhs[m] . W[e(m)]^T,  rows [off[e], off[e] + group_sizes[e]) in group e,
-// bf16 in and out, fp32 sums, rounded once.
+// L2: the MoE grouped matrix product over expert row groups and its two
+// gradients, bf16 in and out, fp32 sums, rounded once; rows [off[e], off[e] +
+// group_sizes[e]) form group e:
+//   forward  out[m]  = lhs[m] . W[e(m)]^T          (M, K) x (E, N, K) -> (M, N)
+//   dlhs     dlhs[m] = g[m] . W[e(m)]              (M, N) x (E, N, K) -> (M, K)
+//   drhs     dW[e]   = sum over group e of g[m]^T lhs[m]    -> (E, N, K)
 //
 // Replaces megablox `gmm` (jax/experimental/pallas/ops/tpu/megablox/gmm.py,
 // its pallas_call), which dualhyp_tpu/models/gpt.py `_moe_mlp_sparse` calls
@@ -30,13 +33,33 @@
 //     holds a couple of rows and the weight bytes, not the products, set
 //     the time (more, smaller blocks keep more bytes in flight).
 // Ragged N is masked; K must be a multiple of 8 (16-byte rows).
+//
+// The backward replaces megablox `_gmm_bwd` (jax/experimental/pallas/ops/
+// tpu/megablox/ops.py): dlhs is its `gmm` with the other transpose, drhs its
+// `tgmm` (gmm.py, pallas_call in `tgmm`). Both are bound by operations at
+// the training rows (2 M N K each, M = 16384 at Mixtral's 8 x 1024 step).
+//   * dlhs is the forward's kernel and schedule with W[e] read along its
+//     stored rows: a (BK, BN) tile of W[e] is a row-major (K, N) operand,
+//     whose B fragments `ldmatrix.trans` gives (load_frag_b_kmajor), so the
+//     stack is never transposed or copied (a copy would be 940 MB a call at
+//     Mixtral's width);
+//   * drhs grids over (K tile, N tile, expert): each block finds its group's
+//     rows from the group sizes on the device and walks them, BR rows a
+//     step, summing g^T lhs in fp32 registers; both operands are k-major
+//     (the rows of the group are the contraction), read by ldmatrix.trans.
+//     The output is written once, in the stored (E, N, K) layout, so no
+//     swap of axes follows (megablox swaps its output, ops.py); an empty
+//     group writes zeros. No atomics: a block owns its output tile.
+// Both take N and K multiples of 8 (16-byte rows of g, lhs and W).
 #include "mma.cuh"
 
 namespace {
 
-// WM x WN warps; a warp owns MT m16 tiles by NT n8 tiles; BK columns of K a
-// step.
-template <int WM, int WN, int MT, int NT, int BK>
+// out (m, n) = lhs (m, k) times W[e] by row group, summed over k. WM x WN
+// warps; a warp owns MT m16 tiles by NT n8 tiles; BK of the k axis a step.
+// kTransW false: W[e] is (n, k), the forward; true: W[e] is (k, n), read
+// along its rows (dlhs: the stack (E, N, K) with n = K and k = N).
+template <int WM, int WN, int MT, int NT, int BK, bool kTransW>
 __global__ void __launch_bounds__(WM * WN * 32)
 gmm_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ w,
            const int* __restrict__ group_sizes, bf16* __restrict__ out, int m, int n,
@@ -44,10 +67,12 @@ gmm_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ w,
   constexpr int kThreads = WM * WN * 32;
   constexpr int BM = WM * MT * 16;
   constexpr int BN = WN * NT * 8;
-  constexpr int kLd = BK + 8;      // bf16 row stride of the tiles
+  constexpr int kLd = BK + 8;      // bf16 row stride of the lhs tile (and of W's, forward)
   constexpr int kChunks = BK / 8;  // 16-byte copies a tile row
+  constexpr int kLdW = kTransW ? BN + 8 : kLd;  // row stride of the W tile
+  static_assert(!kTransW || NT % 2 == 0, "W's k-major fragments come in n-tile pairs");
   __shared__ __align__(16) bf16 a_s[2][BM * kLd];
-  __shared__ __align__(16) bf16 b_s[2][BN * kLd];
+  __shared__ __align__(16) bf16 b_s[2][(kTransW ? BK : BN) * kLdW];
   __shared__ int visit[4];  // group (n_groups: the zero rows), tile row, first row, end row
 
   if (threadIdx.x == 0) {
@@ -109,12 +134,22 @@ gmm_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ w,
       cp_async(&a_s[st][r * kLd + c], ok ? lhs + static_cast<long long>(row) * k + k0 + c : lhs,
                ok);
     }
-    for (int i = threadIdx.x; i < BN * kChunks; i += kThreads) {
-      const int r = i / kChunks;
-      const int c = (i % kChunks) * 8;
-      const bool ok = n0 + r < n && k0 + c < k;
-      cp_async(&b_s[st][r * kLd + c], ok ? wb + static_cast<long long>(n0 + r) * k + k0 + c : wb,
-               ok);
+    if constexpr (kTransW) {  // BK rows of W[e] (k), BN of their n values each
+      for (int i = threadIdx.x; i < BK * (BN / 8); i += kThreads) {
+        const int r = i / (BN / 8);
+        const int c = (i % (BN / 8)) * 8;
+        const bool ok = k0 + r < k && n0 + c < n;
+        cp_async(&b_s[st][r * kLdW + c],
+                 ok ? wb + static_cast<long long>(k0 + r) * n + n0 + c : wb, ok);
+      }
+    } else {
+      for (int i = threadIdx.x; i < BN * kChunks; i += kThreads) {
+        const int r = i / kChunks;
+        const int c = (i % kChunks) * 8;
+        const bool ok = n0 + r < n && k0 + c < k;
+        cp_async(&b_s[st][r * kLd + c],
+                 ok ? wb + static_cast<long long>(n0 + r) * k + k0 + c : wb, ok);
+      }
     }
   };
 
@@ -141,8 +176,14 @@ gmm_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ w,
       uint32_t b[NT][2];
 #pragma unroll
       for (int i = 0; i < MT; ++i) load_frag_a(a[i], a_s[st], kLd, (wm * MT + i) * 16, kk, lane);
+      if constexpr (kTransW) {
 #pragma unroll
-      for (int j = 0; j < NT; ++j) load_frag_b(b[j], b_s[st], kLd, (wn * NT + j) * 8, kk, lane);
+        for (int j = 0; j < NT; j += 2)
+          load_frag_b_kmajor(b[j], b[j + 1], b_s[st], kLdW, kk, (wn * NT + j) * 8, lane);
+      } else {
+#pragma unroll
+        for (int j = 0; j < NT; ++j) load_frag_b(b[j], b_s[st], kLd, (wn * NT + j) * 8, kk, lane);
+      }
 #pragma unroll
       for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -174,18 +215,139 @@ gmm_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ w,
   }
 }
 
+// drhs: dW[e] (n, k) = sum over group e's rows of g[r]^T lhs[r], g (m, n) and
+// lhs (m, k). WM x WN warps over a (BN_ = WM MT 16) x (BK_ = WN NT 8) tile of
+// dW[e]; BR rows of the group a step. Grid: (k tiles, n tiles, experts).
+template <int WM, int WN, int MT, int NT, int BR>
+__global__ void __launch_bounds__(WM * WN * 32)
+tgmm_kernel(const bf16* __restrict__ g, const bf16* __restrict__ lhs,
+            const int* __restrict__ group_sizes, bf16* __restrict__ dw, int m, int n, int k,
+            int n_groups) {
+  constexpr int kThreads = WM * WN * 32;
+  constexpr int BN_ = WM * MT * 16;  // rows of the dW tile (n)
+  constexpr int BK_ = WN * NT * 8;   // columns of the dW tile (k)
+  constexpr int kLdG = BN_ + 8;      // bf16 row stride of the g tile
+  constexpr int kLdX = BK_ + 8;      // bf16 row stride of the lhs tile
+  static_assert(NT % 2 == 0 && BR % 16 == 0, "fragment pairs, 16-row steps");
+  __shared__ __align__(16) bf16 g_s[2][BR * kLdG];
+  __shared__ __align__(16) bf16 x_s[2][BR * kLdX];
+  __shared__ int span[2];  // the group's rows [span[0], span[1])
+
+  const int e = blockIdx.z;
+  if (threadIdx.x == 0) {
+    int start = 0;
+    for (int i = 0; i < e; ++i) start = min(m, start + max(group_sizes[i], 0));
+    span[0] = start;
+    span[1] = min(m, start + max(group_sizes[e], 0));
+  }
+  __syncthreads();
+  const int r_begin = span[0];
+  const int r_end = span[1];
+  const int k0 = blockIdx.x * BK_;
+  const int n0 = blockIdx.y * BN_;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int wm = warp / WN;
+  const int wn = warp % WN;
+
+  // BR rows of the group from r0 into buffer `st`; rows past the group and
+  // columns past N or K copy zeros
+  auto load = [&](int st, int r0) {
+    for (int i = threadIdx.x; i < BR * (BN_ / 8); i += kThreads) {
+      const int r = i / (BN_ / 8);
+      const int c = (i % (BN_ / 8)) * 8;
+      const bool ok = r0 + r < r_end && n0 + c < n;
+      cp_async(&g_s[st][r * kLdG + c], ok ? g + static_cast<long long>(r0 + r) * n + n0 + c : g,
+               ok);
+    }
+    for (int i = threadIdx.x; i < BR * (BK_ / 8); i += kThreads) {
+      const int r = i / (BK_ / 8);
+      const int c = (i % (BK_ / 8)) * 8;
+      const bool ok = r0 + r < r_end && k0 + c < k;
+      cp_async(&x_s[st][r * kLdX + c],
+               ok ? lhs + static_cast<long long>(r0 + r) * k + k0 + c : lhs, ok);
+    }
+  };
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
+
+  const int steps = (r_end - r_begin + BR - 1) / BR;
+  if (steps > 0) load(0, r_begin);
+  cp_async_commit();
+  for (int s = 0; s < steps; ++s) {
+    const int st = s & 1;
+    if (s + 1 < steps) load(st ^ 1, r_begin + (s + 1) * BR);
+    cp_async_commit();
+    cp_async_wait<1>();  // step s's copies have landed
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BR; kk += 16) {
+      uint32_t a[MT][4];
+      uint32_t b[NT][2];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+        load_frag_a_kmajor(a[i], g_s[st], kLdG, (wm * MT + i) * 16, kk, lane);
+#pragma unroll
+      for (int j = 0; j < NT; j += 2)
+        load_frag_b_kmajor(b[j], b[j + 1], x_s[st], kLdX, kk, (wn * NT + j) * 8, lane);
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_bf16_16816(acc[i][j], a[i], b[j]);
+    }
+    __syncthreads();  // every warp is done with buffer st before it refills
+  }
+
+  bf16* dwe = dw + static_cast<long long>(e) * n * k;
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int row = n0 + (wm * MT + i) * 16 + (lane >> 2);
+      const int col = k0 + (wn * NT + j) * 8 + (lane & 3) * 2;
+      if (col >= k) continue;  // k % 8 == 0: a pair is in or out whole
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int rr = row + h * 8;
+        if (rr < n)
+          *reinterpret_cast<uint32_t*>(dwe + static_cast<long long>(rr) * k + col) =
+              pack_bf16x2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      }
+    }
+  }
+}
+
 // rows at or below which the decode tile shape runs
 constexpr int kDecodeRows = 64;
 
-template <int WM, int WN, int MT, int NT, int BK>
+template <int WM, int WN, int MT, int NT, int BK, bool kTransW>
 int launch(const bf16* lhs, const bf16* w, const int* sizes, bf16* out, int m, int n, int k,
            int n_groups, cudaStream_t s) {
   constexpr int BM = WM * MT * 16;
   constexpr int BN = WN * NT * 8;
   dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM + n_groups + 1);
-  gmm_kernel<WM, WN, MT, NT, BK><<<grid, WM * WN * 32, 0, s>>>(lhs, w, sizes, out, m, n, k,
-                                                                n_groups);
+  gmm_kernel<WM, WN, MT, NT, BK, kTransW><<<grid, WM * WN * 32, 0, s>>>(lhs, w, sizes, out, m,
+                                                                         n, k, n_groups);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kTransW>
+int launch_gmm(const void* lhs, const void* w, const void* sizes, void* out, int m, int n,
+               int k, int n_groups, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf16* lp = static_cast<const bf16*>(lhs);
+  const bf16* wp = static_cast<const bf16*>(w);
+  const int* sp = static_cast<const int*>(sizes);
+  bf16* op = static_cast<bf16*>(out);
+  if (m <= kDecodeRows)
+    return launch<1, 4, 1, 2, 64, kTransW>(lp, wp, sp, op, m, n, k, n_groups, s);
+  return launch<2, 4, 4, 4, 32, kTransW>(lp, wp, sp, op, m, n, k, n_groups, s);
 }
 
 }  // namespace
@@ -195,11 +357,30 @@ int launch(const bf16* lhs, const bf16* w, const int* sizes, bf16* out, int m, i
 // of 8, all pointers 16-byte aligned.
 DH_EXPORT int dh_grouped_matmul(const void* lhs, const void* w, const void* sizes, void* out,
                                 int m, int n, int k, int n_groups, void* stream) {
+  return launch_gmm<false>(lhs, w, sizes, out, m, n, k, n_groups, stream);
+}
+
+// dlhs (m, k) = g (m, n) times W[e] (n, k) by row group: g contiguous (m, n)
+// bf16, w contiguous (n_groups, n, k) bf16, out contiguous (m, k) bf16; n and
+// k multiples of 8, pointers 16-byte aligned. Rows past the last group are 0.
+DH_EXPORT int dh_grouped_matmul_dlhs(const void* g, const void* w, const void* sizes, void* out,
+                                     int m, int n, int k, int n_groups, void* stream) {
+  // the kernel's output columns are k, its contraction n
+  return launch_gmm<true>(g, w, sizes, out, m, k, n, n_groups, stream);
+}
+
+// dW (n_groups, n, k) = per group, g (m, n)^T times lhs (m, k) over the
+// group's rows: g, lhs contiguous bf16, dw contiguous bf16 (every element
+// written); n and k multiples of 8, pointers 16-byte aligned.
+DH_EXPORT int dh_grouped_matmul_drhs(const void* g, const void* lhs, const void* sizes, void* dw,
+                                     int m, int n, int k, int n_groups, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16* lp = static_cast<const bf16*>(lhs);
-  const bf16* wp = static_cast<const bf16*>(w);
-  const int* sp = static_cast<const int*>(sizes);
-  bf16* op = static_cast<bf16*>(out);
-  if (m <= kDecodeRows) return launch<1, 4, 1, 2, 64>(lp, wp, sp, op, m, n, k, n_groups, s);
-  return launch<2, 4, 4, 4, 32>(lp, wp, sp, op, m, n, k, n_groups, s);
+  constexpr int WM = 2, WN = 4, MT = 4, NT = 4, BR = 32;
+  constexpr int BN_ = WM * MT * 16;
+  constexpr int BK_ = WN * NT * 8;
+  dim3 grid((k + BK_ - 1) / BK_, (n + BN_ - 1) / BN_, n_groups);
+  tgmm_kernel<WM, WN, MT, NT, BR><<<grid, WM * WN * 32, 0, s>>>(
+      static_cast<const bf16*>(g), static_cast<const bf16*>(lhs),
+      static_cast<const int*>(sizes), static_cast<bf16*>(dw), m, n, k, n_groups);
+  return static_cast<int>(cudaGetLastError());
 }

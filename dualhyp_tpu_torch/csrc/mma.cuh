@@ -40,6 +40,42 @@ __device__ __forceinline__ void load_frag_b(uint32_t (&b)[2], const bf16* tile, 
   b[1] = *reinterpret_cast<const uint32_t*>(p + 8);
 }
 
+// Four 8x8 bf16 matrices from shared memory, transposed (ldmatrix .trans):
+// lane l gives the address of row l % 8 of matrix l / 8 (16-byte aligned),
+// and r[i] receives, for matrix i, the elements (2 (l % 4), l / 4) and
+// (2 (l % 4) + 1, l / 4): the fragment layout of the matrix's transpose.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* row) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// The B fragments (16 k by 8 n) of the two n tiles at n0 and n0 + 8, k0
+// deep, of a tile stored k-major: row k holds its n values, as a row-major
+// (K, N) operand does (an expert stack read along its output rows, or the
+// activations of a weight gradient). ld a multiple of 8.
+__device__ __forceinline__ void load_frag_b_kmajor(uint32_t (&b0)[2], uint32_t (&b1)[2],
+                                                   const bf16* tile, int ld, int k0, int n0,
+                                                   int lane) {
+  const int mat = lane >> 3;
+  uint32_t r[4];
+  ldmatrix_x4_trans(r, tile + (k0 + (mat & 1) * 8 + (lane & 7)) * ld + n0 + (mat >> 1) * 8);
+  b0[0] = r[0];
+  b0[1] = r[1];
+  b1[0] = r[2];
+  b1[1] = r[3];
+}
+
+// The A fragment of the 16x16 block at (r0, k0) of A = tile^T, the tile
+// stored k-major: row k holds the values of A's rows at that k (a gradient
+// (M, N) read as the (N, M) operand of a weight gradient). ld a multiple of 8.
+__device__ __forceinline__ void load_frag_a_kmajor(uint32_t (&a)[4], const bf16* tile, int ld,
+                                                   int r0, int k0, int lane) {
+  const int mat = lane >> 3;
+  ldmatrix_x4_trans(a, tile + (k0 + (mat >> 1) * 8 + (lane & 7)) * ld + r0 + (mat & 1) * 8);
+}
+
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);

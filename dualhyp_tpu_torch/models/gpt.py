@@ -23,8 +23,10 @@ masters, cast to the activation dtype at each use as the JAX package casts
 its leaves: an AdamW step of ~1e-4 x lr would round away in bf16.
 
 `forward` is the training and evaluation pass (grad enabled; LoRA-input
-dropout from a generator; whole-block rematerialisation with
-`torch.utils.checkpoint`); `prefill` and `decode_step` serve, without grad.
+dropout from a generator; rematerialisation with `torch.utils.checkpoint`
+of whole blocks, of the MLP alone, or of a block but its MoE up products:
+the JAX package's `remat` True, "mlp" and "moe"); `prefill` and
+`decode_step` serve, without grad.
 Every parameter is created with requires_grad False; a trainer turns it on
 for `trainable_parameters()`.
 
@@ -48,10 +50,10 @@ block where the dense configs have an `MLP`: a router and three frozen
 `GPT(..., moe_impl=)` picks `_moe_mlp`'s dense einsums ("dense", the
 default) or `_moe_mlp_sparse`'s sorted rows through the grouped matmul L2
 (`ops/gmm`; "sparse" and "megablox", the JAX package's ragged_dot and
-megablox gmm, which compute the same function); None reads
-`DUALHYP_MOE_IMPL`. LoRA stays on attention: the JAX expert stacks carry
-none, and the JAX package cannot run a quantized MoE, so `quantize_model`
-refuses one.
+megablox gmm, which compute the same function), whose backward runs L2's
+gradient kernels; None reads `DUALHYP_MOE_IMPL`. LoRA stays on attention:
+the JAX expert stacks carry none, and the JAX package cannot run a
+quantized MoE, so `quantize_model` refuses one.
 """
 
 from __future__ import annotations
@@ -125,6 +127,16 @@ def lora_qkv_row_index(cfg: GPTConfig) -> torch.Tensor:
 def _param(shape, dtype, device):
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
+
+
+def _generator(seed, device):
+    """The LoRA dropout's generator of one block pass, seeded with `seed`
+    (None: no dropout), so a rematerialised pass draws the same masks."""
+    if seed is None:
+        return None
+    generator = torch.Generator(device=device)
+    generator.manual_seed(seed)
+    return generator
 
 
 def _dropout(x, rate: float, generator):
@@ -331,6 +343,28 @@ class Stack(nn.Module):
         self.weight = _param(shape, dtype, device)
 
 
+class PermuteRows(torch.autograd.Function):
+    """`x.index_select(0, perm)` whose backward is the inverse gather
+    `grad.index_select(0, inv)` (`_permute_rows` of the JAX package): for a
+    permutation that is the whole gradient, where index_select's own
+    backward would scatter-add it with atomics."""
+
+    @staticmethod
+    def forward(ctx, x, perm, inv):
+        ctx.save_for_backward(inv)
+        return x.index_select(0, perm)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (inv,) = ctx.saved_tensors
+        return grad.index_select(0, inv), None, None
+
+
+def permute_rows(x, perm, inv):
+    """Rows of x in the order `perm`, whose inverse permutation is `inv`."""
+    return PermuteRows.apply(x, perm, inv)
+
+
 def moe_top_k(router, k: int):
     """The k largest of each row of fp32 router logits (..., E) and their
     expert ids, ties toward the lower id as `jax.lax.top_k` breaks them: a
@@ -349,8 +383,11 @@ class MoE(nn.Module):
     impl "dense" runs every expert on every token and mixes with zero
     weights elsewhere (the JAX default; plain einsums, as XLA runs them
     there). "sparse" and "megablox" sort the token slots by expert and run
-    the three grouped products through L2 (`ops/gmm.grouped_matmul`): no
-    host sync, so a decode step keeps its one."""
+    the three grouped products through L2 (`ops/gmm.grouped_matmul`), in
+    three steps that remat="moe" checkpoints apart: `route` (the router,
+    the sort, the sorted rows xr), `up` (g1, g2) and `down` (the proj
+    product, the unsort, the mix). No host sync, forward or backward, so a
+    decode step keeps its one."""
 
     def __init__(self, cfg: GPTConfig, dtype, device, impl: str):
         super().__init__()
@@ -380,11 +417,16 @@ class MoE(nn.Module):
         out = torch.einsum("...eo,edo->...ed", h, self.proj.weight)
         return torch.einsum("...ed,...e->...d", out, weights)
 
-    def _sparse(self, x):
+    def route(self, x):
+        """The sparse path's routing of x (.., d): (xr (N*K, d), the token
+        slots' rows sorted by expert; the top-k softmax weights (N, K); the
+        sort order and its inverse; the group sizes (E,) int32). Each row is
+        replicated k times by an explicit broadcast (its backward a sum over
+        k) and sorted by `permute_rows` (its backward the inverse gather),
+        as `_moe_mlp_sparse` does."""
         e, k = self.gate.weight.shape[0], self.top_k
-        shape = x.shape
-        xf = x.reshape(-1, shape[-1])
-        n = xf.shape[0]
+        xf = x.reshape(-1, x.shape[-1])
+        n, d = xf.shape
         router = (xf @ self.gate.weight.t()).float()
         top_vals, top_ids = moe_top_k(router, k)
         weights = torch.softmax(top_vals, dim=-1).to(x.dtype)
@@ -392,14 +434,27 @@ class MoE(nn.Module):
         order = torch.sort(ef, stable=True).indices  # ties keep token order
         iota = torch.arange(n * k, device=x.device)
         inv = torch.empty_like(order).scatter_(0, order, iota)
-        xr = xf.index_select(0, order // k)  # (N*K, d) sorted by expert
+        xr = permute_rows(xf[:, None].expand(n, k, d).reshape(n * k, d), order, inv)
         group_sizes = torch.zeros(e, dtype=torch.int64, device=x.device)
         group_sizes = group_sizes.scatter_add_(0, ef, torch.ones_like(ef)).to(torch.int32)
-        g1 = gmm_ops.grouped_matmul(xr, self.fc_1.weight, group_sizes)
-        g2 = gmm_ops.grouped_matmul(xr, self.fc_2.weight, group_sizes)
+        return xr, weights, order, inv, group_sizes
+
+    def up(self, xr, group_sizes):
+        """g1, g2: the two up products of the sorted rows."""
+        return (gmm_ops.grouped_matmul(xr, self.fc_1.weight, group_sizes),
+                gmm_ops.grouped_matmul(xr, self.fc_2.weight, group_sizes))
+
+    def down(self, g1, g2, weights, order, inv, group_sizes):
+        """The proj product of silu(g1) * g2, unsorted and mixed by each
+        token's weights: (N, d)."""
         out = gmm_ops.grouped_matmul(F.silu(g1) * g2, self.proj.weight, group_sizes)
-        out = out.index_select(0, inv).reshape(n, k, -1)
-        return (out * weights[..., None]).sum(dim=1).reshape(shape)
+        out = permute_rows(out, inv, order).reshape(*weights.shape, -1)
+        return (out * weights[..., None]).sum(dim=1)
+
+    def _sparse(self, x):
+        xr, weights, order, inv, group_sizes = self.route(x)
+        g1, g2 = self.up(xr, group_sizes)
+        return self.down(g1, g2, weights, order, inv, group_sizes).reshape(x.shape)
 
 
 class Block(nn.Module):
@@ -421,7 +476,7 @@ class Block(nn.Module):
         return norm_ops.rms_norm(x, norm.scale, self.cfg.norm_eps)
 
     def forward(self, x, cos, sin, cache_kv=None, positions=None,
-                kv_length=None, active=None, seed=None):
+                kv_length=None, active=None, seed=None, mlp_remat=False):
         """x: (B, T, d). cache_kv: this layer's (k, v) cache, or (k, v,
         k_scale, v_scale) for an int8 cache, written in place: at slot 0 in
         prefill (positions None), at `positions` in a decode step (T == 1),
@@ -429,14 +484,43 @@ class Block(nn.Module):
         by `q8_rows` over D; prefill attends the exact K/V. seed: the
         LoRA dropout masks of this block come from a generator seeded with
         it, so a rematerialised pass draws the same masks (None: no
-        dropout)."""
+        dropout). mlp_remat: the MLP is rematerialised in the backward
+        (remat="mlp")."""
+        res, n2 = self._attend(x, cos, sin, _generator(seed, x.device), cache_kv,
+                               positions, kv_length, active)
+        if mlp_remat:
+            return res + checkpoint(self.mlp, n2, use_reentrant=False, preserve_rng_state=False)
+        return res + self.mlp(n2)
+
+    def forward_moe_remat(self, x, cos, sin, seed=None):
+        """The training pass under remat="moe" for a sparse MoE block (the
+        JAX package's policy that saves only `moe_xr`, `moe_g1`, `moe_g2`
+        across the block's remat boundary). Three pieces: the attention half
+        and the routing, rematerialised from x; the up products g1, g2, kept;
+        the down product and the mix, rematerialised from g1 and g2. So the
+        backward re-runs one forward grouped product (proj, whose output the
+        mix's gradient reads) of three. xr is kept only where a product's
+        backward reads it, which is when the expert stacks take gradients:
+        under LoRA they do not, and the backward re-gathers it."""
+
+        def attend_and_route(x):
+            res, n2 = self._attend(x, cos, sin, _generator(seed, x.device))
+            return (res, *self.mlp.route(n2))
+
+        res, xr, weights, order, inv, group_sizes = checkpoint(
+            attend_and_route, x, use_reentrant=False, preserve_rng_state=False)
+        g1, g2 = self.mlp.up(xr, group_sizes)
+        y = checkpoint(self.mlp.down, g1, g2, weights, order, inv, group_sizes,
+                       use_reentrant=False, preserve_rng_state=False)
+        return res + y.reshape(res.shape)
+
+    def _attend(self, x, cos, sin, generator, cache_kv=None, positions=None,
+                kv_length=None, active=None):
+        """The attention half of the block: (x + the attention output, the
+        MLP's normed input)."""
         cfg = self.cfg
         b, t, _ = x.shape
         nh, hs = cfg.n_head, cfg.head_size
-        generator = None
-        if seed is not None:
-            generator = torch.Generator(device=x.device)
-            generator.manual_seed(seed)
         n1 = self._norm(self.norm_1, x)
         qkv = self.attn.qkv(n1, self.lora_on, generator)
         q, k, v = split_heads(cfg, qkv)
@@ -475,9 +559,9 @@ class Block(nn.Module):
         h = self.attn.proj(y, self.lora_on, generator)
         if cfg.parallel_residual:
             n2 = n1 if cfg.shared_attention_norm else self._norm(self.norm_2, x)
-            return x + h + self.mlp(n2)
+            return x + h, n2
         x = x + h
-        return x + self.mlp(self._norm(self.norm_2, x))
+        return x, self._norm(self.norm_2, x)
 
 
 # the LoRA linears' two implementations: "xla" the composition (the JAX
@@ -486,6 +570,9 @@ LORA_IMPLS = ("xla", "fused")
 # the MoE's: "dense" the einsums over every expert (the JAX default);
 # "sparse" and "megablox" the grouped matmul L2 over sorted rows
 MOE_IMPLS = ("dense", "sparse", "megablox")
+# `GPT.forward`'s rematerialisation: none, whole blocks, the MLP alone, or a
+# block but its MoE up products (the JAX package's `remat` values)
+REMAT_MODES = (False, True, "mlp", "moe")
 
 
 class GPT(nn.Module):
@@ -619,26 +706,32 @@ class GPT(nn.Module):
 
         generator: draws one seed per block for the LoRA-input dropout (a
         CPU generator keeps the draw off the card's queue); None means no
-        dropout. remat: True rematerialises each block in the
-        backward (`torch.utils.checkpoint`). Returns logits
-        (B, T, padded_vocab) fp32, or the final normed hidden states
-        (B, T, d) in the compute dtype when `return_hidden`."""
+        dropout. remat (`torch.utils.checkpoint` in the backward): True
+        rematerialises each block, "mlp" each block's MLP alone, "moe" each
+        block but the up products of a sparse MoE (`Block.forward_moe_remat`;
+        whole blocks where no MoE runs L2, as the JAX policy degrades).
+        Returns logits (B, T, padded_vocab) fp32, or the final normed hidden
+        states (B, T, d) in the compute dtype when `return_hidden`."""
         t = idx.shape[1]
         if t > self.cfg.block_size:
             raise ValueError(f"sequence {t} exceeds block_size {self.cfg.block_size}")
-        if not isinstance(remat, bool):
-            raise NotImplementedError(f"remat={remat!r} is not ported yet")
+        if not (isinstance(remat, bool) or remat in REMAT_MODES[2:]):
+            raise ValueError(f"remat {remat!r} not in {REMAT_MODES}")
         seeds = [None] * self.cfg.n_layer
         if generator is not None and self.cfg.lora_dropout > 0:
             seeds = torch.randint(0, 2**62, (self.cfg.n_layer,), generator=generator,
                                   device=generator.device).tolist()
         x = self._embed(idx)
         for block, seed in zip(self.blocks, seeds):
-            if remat and torch.is_grad_enabled():
+            if not (remat and torch.is_grad_enabled()):
+                x = block(x, self.cos, self.sin, seed=seed)
+            elif remat == "mlp":
+                x = block(x, self.cos, self.sin, seed=seed, mlp_remat=True)
+            elif remat == "moe" and getattr(block.mlp, "impl", "dense") != "dense":
+                x = block.forward_moe_remat(x, self.cos, self.sin, seed)
+            else:
                 x = checkpoint(block, x, self.cos, self.sin, seed=seed,
                                use_reentrant=False, preserve_rng_state=False)
-            else:
-                x = block(x, self.cos, self.sin, seed=seed)
         if return_hidden:
             return norm_ops.rms_norm(x, self.ln_f.scale, self.cfg.norm_eps)
         return self._head(x)

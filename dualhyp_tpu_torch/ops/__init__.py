@@ -7,7 +7,8 @@ there is no fallback.
 
 from dualhyp_tpu_torch.ops.attention import FLASH_BWD, FLASH_FWD
 from dualhyp_tpu_torch.ops.flash_fwd import FLASH_CAUSAL, FLASH_FULL
-from dualhyp_tpu_torch.ops.gmm import GROUPED_MATMUL
+from dualhyp_tpu_torch.ops.gmm import (GROUPED_MATMUL, GROUPED_MATMUL_DLHS,
+                                       GROUPED_MATMUL_DRHS)
 from dualhyp_tpu_torch.ops.int4 import Q4_MATMUL
 from dualhyp_tpu_torch.ops.lora import LORA_LINEAR
 from dualhyp_tpu_torch.ops.rmsnorm import RMS_NORM
@@ -26,6 +27,8 @@ KERNELS = {
     "full_attention_fwd": FLASH_FULL,
     "causal_attention_fwd": FLASH_CAUSAL,
     "grouped_matmul": GROUPED_MATMUL,
+    "grouped_matmul_dlhs": GROUPED_MATMUL_DLHS,
+    "grouped_matmul_drhs": GROUPED_MATMUL_DRHS,
 }
 # launches of a kernel above in its transposed direction (the backward),
 # counted apart

@@ -9,6 +9,7 @@ the grouped broadcast happens inside the kernel or the einsum.
     plain version on CPU tensors. With grad enabled it goes through
     `FlashAttention`, whose backward launches K1's backward
     (`csrc/flash_attention_bwd.cu`), or runs the plain pair on the CPU.
+    Both kernels take head size 64 (TinyLlama) and 128 (Mixtral).
   * `decode_attention`: one step against the KV cache, masked by each row's
     valid length, with the per-slot scales of an int8 cache (plain PyTorch;
     the JAX package leaves it to XLA too).
@@ -35,15 +36,15 @@ FLASH_FWD = _lib.Kernel(
 # K1 backward: replaces dualhyp_tpu/ops/pallas/flash_vjp.py `_bwd_kernel`.
 # Bound by operations (five products per causal pair); one block per
 # (batch, KV group, 64-key tile) keeps dK/dV on chip and sums the group's
-# heads there; dQ is added with fp32 atomics. See csrc/flash_attention_bwd.cu.
+# heads there; dQ is added with fp32 atomics; one instance per head size.
+# See csrc/flash_attention_bwd.cu.
 FLASH_BWD = _lib.Kernel(
     "dh_flash_attention_bwd",
-    [_lib.C_PTR] * 10 + [_lib.C_INT] * 4 + [_lib.C_F32] + [_lib.C_I64] * 21,
+    [_lib.C_PTR] * 10 + [_lib.C_INT] * 5 + [_lib.C_F32] + [_lib.C_I64] * 21,
 )
 
-# head sizes K1's forward takes (TinyLlama 64, Mixtral 128), and its backward
+# head sizes K1's forward and backward take (TinyLlama 64, Mixtral 128)
 FLASH_HEAD_SIZES = (64, 128)
-FLASH_BWD_HEAD_SIZE = 64
 
 
 def _grouped(q, n_groups):
@@ -150,15 +151,16 @@ def _flash_fwd(q, k, v, scale):
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, scale: float):
-    """Launch K1's backward. q, o, do: (B, Hq, T, 64); k, v: (B, G, T, 64),
-    all bf16 with any (batch, head, token) strides and a unit channel
-    stride (O as the forward's (B, T, Hq, D) view, dO as autograd hands it:
-    neither is copied); lse: (B, Hq, T) fp32. Returns (dq, dk, dv)."""
+    """Launch K1's backward (head size 64 or 128). q, o, do: (B, Hq, T, D);
+    k, v: (B, G, T, D), all bf16 with any (batch, head, token) strides and a
+    unit channel stride (O as the forward's (B, T, Hq, D) view, dO as
+    autograd hands it: neither is copied); lse: (B, Hq, T) fp32. Returns
+    (dq, dk, dv)."""
     device = _lib.check_cuda(q, k, v, o, lse, do)
     b, hq, t, d = q.shape
     g = k.shape[1]
-    if d != FLASH_BWD_HEAD_SIZE:
-        raise ValueError(f"flash backward kernel takes head size {FLASH_BWD_HEAD_SIZE}, "
+    if d not in FLASH_HEAD_SIZES:
+        raise ValueError(f"flash backward kernel takes head size {FLASH_HEAD_SIZES}, "
                          f"got {d}")
     if (k.shape != (b, g, t, d) or v.shape != (b, g, t, d) or hq % g
             or o.shape != q.shape or do.shape != q.shape or lse.shape != (b, hq, t)):
@@ -182,7 +184,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale: float):
     if q.numel():
         FLASH_BWD(device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                   do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq32.data_ptr(),
-                  dk.data_ptr(), dv.data_ptr(), b, hq, g, t, float(scale),
+                  dk.data_ptr(), dv.data_ptr(), b, hq, g, t, d, float(scale),
                   *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                   *o.stride()[:3], *do.stride()[:3], *dk.stride()[:3],
                   *dv.stride()[:3])

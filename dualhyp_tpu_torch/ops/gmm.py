@@ -1,11 +1,15 @@
-"""Grouped matrix product over expert row groups: kernel L2.
+"""Grouped matrix product over expert row groups, and its gradients: kernel L2.
 
 Counterpart of the grouped GEMM `gdot` of `dualhyp_tpu/models/gpt.py`
 `_moe_mlp_sparse`: megablox `gmm` under DUALHYP_MOE_IMPL=megablox and
-`jax.lax.ragged_dot` under =sparse, which compute the same function.
-`grouped_matmul` launches L2 (`csrc/grouped_matmul.cu`) on a CUDA tensor
-and runs `grouped_matmul_plain` on a CPU tensor. Forward only: the MoE path
-serves; its backward (megablox `tgmm`) waits for MoE training.
+`jax.lax.ragged_dot` under =sparse, which compute the same function, with
+megablox's custom VJP `_gmm_bwd` (`gmm` with the other transpose for the
+gradient of lhs, `tgmm` for the weight's). `grouped_matmul` launches L2's
+forward (`csrc/grouped_matmul.cu`) on a CUDA tensor and runs
+`grouped_matmul_plain` on a CPU tensor; with grad it goes through
+`GroupedMatmul`, whose backward launches `grouped_matmul_dlhs` when lhs
+needs a gradient and `grouped_matmul_drhs` only when the weight does (the
+expert stacks are frozen under LoRA, so LoRA training never runs it).
 
 Layout: lhs (M, K) with its rows sorted by group; weight (E, N, K), the
 port's stored (out, in) layout of an expert stack, which is megablox's
@@ -13,7 +17,7 @@ port's stored (out, in) layout of an expert stack, which is megablox's
 N) instead; here no stack is ever transposed or copied); group_sizes (E,)
 int32: rows [off[e], off[e] + group_sizes[e]) use weight[e], with off the
 exclusive cumulative sum. Rows past the last group are zero, as ragged_dot
-leaves them.
+leaves them, and so are their gradients.
 """
 
 from __future__ import annotations
@@ -31,6 +35,32 @@ GROUPED_MATMUL = _lib.Kernel(
     "dh_grouped_matmul",
     [_lib.C_PTR] * 4 + [_lib.C_INT] * 4,
 )
+# L2's gradient of lhs: replaces megablox `_gmm_bwd`'s `gmm` with the other
+# transpose (ops.py). The forward's kernel and schedule, with the stack read
+# along its stored rows (ldmatrix.trans): bound by operations at the
+# training rows.
+GROUPED_MATMUL_DLHS = _lib.Kernel(
+    "dh_grouped_matmul_dlhs",
+    [_lib.C_PTR] * 4 + [_lib.C_INT] * 4,
+)
+# L2's gradient of the weight: replaces megablox `tgmm` (gmm.py). One block
+# per (K tile, N tile, expert) walks its group's rows, found on the device,
+# and writes its tile of the (E, N, K) stack once. Bound by operations.
+GROUPED_MATMUL_DRHS = _lib.Kernel(
+    "dh_grouped_matmul_drhs",
+    [_lib.C_PTR] * 4 + [_lib.C_INT] * 4,
+)
+
+
+def _groups(group_sizes, m: int):
+    """(e, start, end) of each non-empty group, clamped to m rows, read on
+    the host (the plain versions' loop)."""
+    start = 0
+    for e, size in enumerate(group_sizes.tolist()):
+        end = min(m, start + max(int(size), 0))
+        if end > start:
+            yield e, start, end
+        start = end
 
 
 def grouped_matmul_plain(lhs, weight, group_sizes):
@@ -38,14 +68,32 @@ def grouped_matmul_plain(lhs, weight, group_sizes):
     in fp32 (fp64 for fp64 inputs), rounded once to lhs's dtype. It reads
     the group sizes on the host."""
     acc_t = torch.promote_types(lhs.dtype, torch.float32)
-    m = lhs.shape[0]
-    out = torch.zeros((m, weight.shape[1]), dtype=acc_t, device=lhs.device)
-    start = 0
-    for e, size in enumerate(group_sizes.tolist()):
-        end = min(m, start + max(int(size), 0))
-        if end > start:
-            out[start:end] = lhs[start:end].to(acc_t) @ weight[e].to(acc_t).t()
-        start = end
+    out = torch.zeros((lhs.shape[0], weight.shape[1]), dtype=acc_t, device=lhs.device)
+    for e, start, end in _groups(group_sizes, lhs.shape[0]):
+        out[start:end] = lhs[start:end].to(acc_t) @ weight[e].to(acc_t).t()
+    return out.to(lhs.dtype)
+
+
+def grouped_matmul_dlhs_plain(grad, weight, group_sizes):
+    """The plain version of L2's lhs gradient: grad (M, N) times weight[e]
+    (N, K) by row group, in fp32 (fp64 for fp64), rounded once to grad's
+    dtype; rows past the last group are zero."""
+    acc_t = torch.promote_types(grad.dtype, torch.float32)
+    out = torch.zeros((grad.shape[0], weight.shape[2]), dtype=acc_t, device=grad.device)
+    for e, start, end in _groups(group_sizes, grad.shape[0]):
+        out[start:end] = grad[start:end].to(acc_t) @ weight[e].to(acc_t)
+    return out.to(grad.dtype)
+
+
+def grouped_matmul_drhs_plain(grad, lhs, group_sizes):
+    """The plain version of L2's weight gradient: dW[e] (N, K) = grad^T lhs
+    over group e's rows, in fp32 (fp64 for fp64), rounded once to lhs's
+    dtype; an empty group's is zero. Returns (E, N, K)."""
+    acc_t = torch.promote_types(lhs.dtype, torch.float32)
+    out = torch.zeros((group_sizes.shape[0], grad.shape[1], lhs.shape[1]), dtype=acc_t,
+                      device=lhs.device)
+    for e, start, end in _groups(group_sizes, lhs.shape[0]):
+        out[e] = grad[start:end].to(acc_t).t() @ lhs[start:end].to(acc_t)
     return out.to(lhs.dtype)
 
 
@@ -53,25 +101,35 @@ def _aligned(t) -> bool:
     return t.is_contiguous() and not t.data_ptr() % 16
 
 
-def grouped_matmul(lhs, weight, group_sizes):
-    """lhs (M, K) @ weight[e(m)] (E, N, K) transposed, by row group: (M, N)
-    in lhs's dtype, summed in fp32.
+def _rows(t):
+    """t itself when its rows can be read in place, else a fresh contiguous
+    (so 16-byte aligned) copy."""
+    return t if _aligned(t) else t.clone(memory_format=torch.contiguous_format)
 
-    On the card lhs and weight are bfloat16, group_sizes int32, K a multiple
-    of 8 and weight contiguous (it is never copied); M, N, empty groups and
-    groups that are not aligned to the kernel's tiles are arbitrary."""
+
+def _check(name: str, group_sizes, *mats) -> torch.device:
+    """The kernels' common refusals: CUDA bfloat16 matrices, int32 sizes."""
+    device = _lib.check_cuda(*mats, group_sizes)
+    for t in mats:
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{name} kernel takes bfloat16 matrices, got {t.dtype}")
+    if group_sizes.dtype != torch.int32:
+        raise TypeError(f"{name} kernel takes int32 group sizes, got {group_sizes.dtype}")
+    return device
+
+
+def _check_weight(name: str, weight, what: str) -> None:
+    if not _aligned(weight):
+        raise ValueError(f"{name} kernel takes a contiguous, 16-byte aligned {what}, got "
+                         f"strides {weight.stride()}")
+
+
+def _grouped_matmul(lhs, weight, group_sizes):
+    """L2's forward alone: the kernel on the card, the plain version on the
+    CPU."""
     if lhs.device.type == "cpu":
         return grouped_matmul_plain(lhs, weight, group_sizes)
-    device = _lib.check_cuda(lhs, weight, group_sizes)
-    if torch.is_grad_enabled() and (lhs.requires_grad or weight.requires_grad):
-        raise NotImplementedError(
-            "grouped_matmul's backward (megablox tgmm) is not ported yet")
-    if lhs.dtype != torch.bfloat16 or weight.dtype != torch.bfloat16:
-        raise TypeError(f"grouped matmul kernel takes bfloat16 lhs and weight, "
-                        f"got {lhs.dtype}, {weight.dtype}")
-    if group_sizes.dtype != torch.int32:
-        raise TypeError(f"grouped matmul kernel takes int32 group sizes, got "
-                        f"{group_sizes.dtype}")
+    device = _check("grouped matmul", group_sizes, lhs, weight)
     if (lhs.dim() != 2 or weight.dim() != 3 or weight.shape[2] != lhs.shape[1]
             or group_sizes.shape != (weight.shape[0],)):
         raise ValueError(f"lhs {tuple(lhs.shape)}, weight {tuple(weight.shape)}, "
@@ -81,14 +139,111 @@ def grouped_matmul(lhs, weight, group_sizes):
     if k % 8:
         raise ValueError(f"grouped matmul kernel takes K % 8 == 0 (16-byte rows), got "
                          f"lhs {tuple(lhs.shape)}, weight {tuple(weight.shape)}")
-    if not _aligned(weight):
-        raise ValueError(f"grouped matmul kernel takes a contiguous, 16-byte aligned "
-                         f"weight (E, N, K), got strides {weight.stride()}")
-    if not _aligned(lhs):  # a fresh contiguous copy is 16-byte aligned
-        lhs = lhs.clone(memory_format=torch.contiguous_format)
+    _check_weight("grouped matmul", weight, "weight (E, N, K)")
+    lhs = _rows(lhs)
     group_sizes = group_sizes.contiguous()
     out = torch.empty((m, n), dtype=lhs.dtype, device=device)
     if m and n:
         GROUPED_MATMUL(device, lhs.data_ptr(), weight.data_ptr(), group_sizes.data_ptr(),
                        out.data_ptr(), m, n, k, e)
     return out
+
+
+def _check_backward(name, grad, other, group_sizes, n, k):
+    """The backward kernels read grad's and the stack's or lhs's rows by
+    16-byte copies: N and K multiples of 8."""
+    if grad.dim() != 2 or grad.shape[1] != n or group_sizes.dim() != 1:
+        raise ValueError(f"grad {tuple(grad.shape)}, {name} {tuple(other.shape)}, "
+                         f"group_sizes {tuple(group_sizes.shape)}")
+    if n % 8 or k % 8:
+        raise ValueError(f"grouped matmul backward kernels take N % 8 == 0 and K % 8 == 0 "
+                         f"(16-byte rows), got N {n}, K {k}")
+
+
+def grouped_matmul_dlhs(grad, weight, group_sizes):
+    """The gradient of `grouped_matmul` with respect to lhs: grad (M, N)
+    times weight[e(m)] (N, K), (M, K) in grad's dtype, summed in fp32.
+
+    On the card grad and weight are bfloat16, group_sizes int32, N and K
+    multiples of 8, weight contiguous (read in place, never transposed)."""
+    if grad.device.type == "cpu":
+        return grouped_matmul_dlhs_plain(grad, weight, group_sizes)
+    device = _check("grouped matmul dlhs", group_sizes, grad, weight)
+    if weight.dim() != 3 or group_sizes.shape != (weight.shape[0],):
+        raise ValueError(f"weight {tuple(weight.shape)}, group_sizes "
+                         f"{tuple(group_sizes.shape)}")
+    e, n, k = weight.shape
+    _check_backward("weight", grad, weight, group_sizes, n, k)
+    _check_weight("grouped matmul dlhs", weight, "weight (E, N, K)")
+    grad = _rows(grad)
+    group_sizes = group_sizes.contiguous()
+    m = grad.shape[0]
+    out = torch.empty((m, k), dtype=grad.dtype, device=device)
+    if m:
+        GROUPED_MATMUL_DLHS(device, grad.data_ptr(), weight.data_ptr(), group_sizes.data_ptr(),
+                            out.data_ptr(), m, n, k, e)
+    return out
+
+
+def grouped_matmul_drhs(grad, lhs, group_sizes):
+    """The gradient of `grouped_matmul` with respect to the weight: dW[e] =
+    grad^T lhs over group e's rows, (E, N, K) in lhs's dtype (the stack's
+    stored layout), summed in fp32; an empty group's is zero.
+
+    On the card grad (M, N) and lhs (M, K) are bfloat16, group_sizes (E,)
+    int32, N and K multiples of 8."""
+    if lhs.device.type == "cpu":
+        return grouped_matmul_drhs_plain(grad, lhs, group_sizes)
+    device = _check("grouped matmul drhs", group_sizes, grad, lhs)
+    if lhs.dim() != 2 or lhs.shape[0] != grad.shape[0]:
+        raise ValueError(f"grad {tuple(grad.shape)}, lhs {tuple(lhs.shape)}")
+    m, k = lhs.shape
+    n = grad.shape[1]
+    _check_backward("lhs", grad, lhs, group_sizes, n, k)
+    grad, lhs = _rows(grad), _rows(lhs)
+    group_sizes = group_sizes.contiguous()
+    e = group_sizes.shape[0]
+    out = torch.empty((e, n, k), dtype=lhs.dtype, device=device)
+    if out.numel():
+        GROUPED_MATMUL_DRHS(device, grad.data_ptr(), lhs.data_ptr(), group_sizes.data_ptr(),
+                            out.data_ptr(), m, n, k, e)
+    return out
+
+
+class GroupedMatmul(torch.autograd.Function):
+    """`grouped_matmul` with megablox's VJP (`_gmm_bwd`): the lhs gradient
+    by `grouped_matmul_dlhs`, the weight's by `grouped_matmul_drhs`, each
+    only where its input needs one. lhs is kept for the backward only when
+    the weight takes a gradient, the weight only when lhs does."""
+
+    @staticmethod
+    def forward(ctx, lhs, weight, group_sizes):
+        need_lhs, need_weight = ctx.needs_input_grad[:2]
+        ctx.save_for_backward(lhs if need_weight else None, weight if need_lhs else None,
+                              group_sizes)
+        ctx.weight_dtype = weight.dtype
+        return _grouped_matmul(lhs, weight, group_sizes)
+
+    @staticmethod
+    def backward(ctx, grad):
+        lhs, weight, group_sizes = ctx.saved_tensors
+        dlhs = dweight = None
+        if ctx.needs_input_grad[0]:
+            dlhs = grouped_matmul_dlhs(grad, weight, group_sizes)
+        if ctx.needs_input_grad[1]:
+            dweight = grouped_matmul_drhs(grad, lhs, group_sizes).to(ctx.weight_dtype)
+        return dlhs, dweight, None
+
+
+def grouped_matmul(lhs, weight, group_sizes):
+    """lhs (M, K) @ weight[e(m)] (E, N, K) transposed, by row group: (M, N)
+    in lhs's dtype, summed in fp32. With grad enabled and an input that
+    needs it, the autograd op `GroupedMatmul`.
+
+    On the card lhs and weight are bfloat16, group_sizes int32, K a multiple
+    of 8 (N too under grad) and weight contiguous (it is never copied); M,
+    N, empty groups and groups that are not aligned to the kernel's tiles
+    are arbitrary."""
+    if torch.is_grad_enabled() and (lhs.requires_grad or weight.requires_grad):
+        return GroupedMatmul.apply(lhs, weight, group_sizes)
+    return _grouped_matmul(lhs, weight, group_sizes)

@@ -73,7 +73,7 @@ class TrainConfig:
     seed: int = 1337
     compute_dtype: str = "bfloat16"
     frozen_dtype: str = ""  # e.g. "bfloat16": store frozen base leaves low-p
-    remat: bool = False  # whole-block rematerialisation
+    remat: bool | str = False  # False, True (whole blocks), "mlp" or "moe" (GPT.forward)
     mode: str = "lora"  # only "lora" is ported
 
     @property
@@ -238,6 +238,15 @@ class Trainer:
         """The model's parameter tree in the JAX package's layout (what
         `ckpt.io.save_params` writes)."""
         return tree_from_model(self.model)
+
+    @property
+    def trainable_params(self) -> dict:
+        """The trainable leaves alone, as a tree in the same layout (what
+        the JAX package's `ckpt.io.save_adapter_only` writes): they load
+        over the base weights as the full tree does (`load_tree` with
+        strict=False; the JAX package's `_overlay`)."""
+        return ckpt_io.unflatten({k: t.cpu().numpy()
+                                  for k, t in self._flat(self.trainable).items()})
 
     # ---- exact-resume checkpointing ----
     def _flat(self, named: dict) -> dict:

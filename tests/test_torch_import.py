@@ -42,6 +42,21 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         assert module in result["imported"]
 
 
+def test_kernel_list_names_every_wrapper():
+    """`ops.KERNELS`: the twelve hand-written kernels, each a `_lib.Kernel`
+    with its own C entry point and launch count."""
+    from dualhyp_tpu_torch.ops import KERNELS, TRANSPOSED, _lib
+
+    assert sorted(KERNELS) == sorted([
+        "rms_norm", "apply_rope", "flash_attention_fwd", "flash_attention_bwd", "swiglu_mlp",
+        "lora_linear", "q4_matmul", "full_attention_fwd", "causal_attention_fwd",
+        "grouped_matmul", "grouped_matmul_dlhs", "grouped_matmul_drhs"])
+    kernels = [*KERNELS.values(), *TRANSPOSED.values()]
+    assert all(isinstance(k, _lib.Kernel) and isinstance(k.launches, int) for k in kernels)
+    assert len({id(k) for k in kernels}) == len(kernels)
+    assert len({k.symbol for k in KERNELS.values()}) == len(KERNELS)
+
+
 def _imported_roots(path):
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):

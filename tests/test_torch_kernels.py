@@ -8,9 +8,10 @@ rows and N with split K, K5 at ragged rows and O, ranks 16 and 48, a
 zero scale and a separate LoRA input, and K6/K7 in fp32 and bf16 at T or
 S of 1, 63, 64, 65 and 1500, S != T, kv_valid and strided inputs, L2
 (the grouped matmul) at M of 0, 1, 16, 17, 64, 65, 300 and 6144 with
-empty, straddling and single groups and a ragged N, K1's forward at head
-size 128, and a small MoE model card against CPU. Every test needs an
-NVIDIA card and skips without one.
+empty, straddling and single groups and a ragged N, its two gradients
+(dlhs, drhs) at M from 0 to 16384, K1's forward and backward at head size
+128, and a small MoE model card against CPU, in prefill and in a LoRA
+training step. Every test needs an NVIDIA card and skips without one.
 On the card's machine (no JAX there) run them without the suite's conftest:
 
     python -m pytest tests/test_torch_kernels.py --noconftest -q
@@ -89,6 +90,19 @@ def test_apply_rope_on_fused_qkv_heads(dev, gen, dtype, atol, rtol, n_elem, tran
         got = rope.apply_rope(x, cos, sin, transpose=transpose)
         assert got.is_contiguous()
         _close(got, rope.apply_rope_plain(x, cos, sin, transpose), atol, rtol)
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+def test_apply_rope_at_head_size_128(dev, gen, transpose):
+    """K3 on Mixtral's heads (head size 128, 4 query heads a group, rope
+    base 1e6), both directions."""
+    cfg = GPTConfig(n_embd=1024, n_head=8, n_query_groups=2, intermediate_size=256,
+                    mlp_class="LLaMAMLP")
+    q5, k4, _ = split_heads(cfg, _randn(gen, 2, 70, cfg.qkv_out_dim))
+    cos, sin = rope.build_rope_cache(70, 128, base=1000000, dtype=torch.bfloat16, device=dev)
+    for x in (q5, k4):
+        _close(rope.apply_rope(x, cos, sin, transpose=transpose),
+               rope.apply_rope_plain(x, cos, sin, transpose), *BF16[1:])
 
 
 def test_rope_transpose_inverts(dev, gen):
@@ -279,11 +293,11 @@ def _close_bwd(got, want):
     assert bool((diff <= bound).all()), f"max abs err {float(diff.max())}"
 
 
-def _flash_inputs(gen, b, hq, g, t):
-    q = _randn(gen, b, hq, t, 64)
-    k = _randn(gen, b, g, t, 64)
-    v = _randn(gen, b, g, t, 64)
-    o, lse = attention._flash_fwd(q, k, v, 0.125)
+def _flash_inputs(gen, b, hq, g, t, d=64):
+    q = _randn(gen, b, hq, t, d)
+    k = _randn(gen, b, g, t, d)
+    v = _randn(gen, b, g, t, d)
+    o, lse = attention._flash_fwd(q, k, v, d ** -0.5)
     return q, k, v, o, lse
 
 
@@ -296,6 +310,21 @@ def test_flash_attention_bwd(dev, gen, t, hq, g):
     do = _randn(gen, 2, hq, t, 64)
     got = attention.flash_attention_bwd(q, k, v, o, lse, do, 0.125)
     want = attention.flash_attention_bwd_plain(q, k, v, o, lse, do, 0.125)
+    for x, y in zip(got, want):
+        _close_bwd(x, y)
+
+
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 200, 1024])
+@pytest.mark.parametrize("hq,g", [(4, 4), (16, 4)])
+def test_flash_attention_bwd_head_size_128(dev, gen, t, hq, g):
+    """K1's backward at Mixtral's head size (q_per_kv 1 and 4, Mixtral's)."""
+    scale = 128 ** -0.5
+    q, k, v, o, lse = _flash_inputs(gen, 2, hq, g, t, d=128)
+    do = _randn(gen, 2, hq, t, 128)
+    before = attention.FLASH_BWD.launches
+    got = attention.flash_attention_bwd(q, k, v, o, lse, do, scale)
+    assert attention.FLASH_BWD.launches == before + 1
+    want = attention.flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
     for x, y in zip(got, want):
         _close_bwd(x, y)
 
@@ -482,8 +511,19 @@ def test_grouped_matmul_refuses_what_it_does_not_take(dev, gen):
         gmm.grouped_matmul(_randn(gen, 4, 60), _randn(gen, 2, 32, 60), sizes)
     with pytest.raises(ValueError, match="contiguous"):
         gmm.grouped_matmul(_randn(gen, 4, 64), _randn(gen, 2, 64, 32).transpose(1, 2), sizes)
-    with pytest.raises(NotImplementedError, match="backward"):
-        gmm.grouped_matmul(_randn(gen, 4, 64).requires_grad_(), w, sizes)
+    # under grad the forward runs; the backward kernels also need N % 8
+    out = gmm.grouped_matmul(_randn(gen, 4, 64).requires_grad_(), w, sizes)
+    assert out.grad_fn is not None and "GroupedMatmul" in type(out.grad_fn).__name__
+    with pytest.raises(ValueError, match="N % 8"):
+        gmm.grouped_matmul_dlhs(_randn(gen, 4, 36), _randn(gen, 2, 36, 64), sizes)
+    with pytest.raises(ValueError, match="K % 8"):
+        gmm.grouped_matmul_drhs(_randn(gen, 4, 32), _randn(gen, 4, 60), sizes)
+    with pytest.raises(ValueError, match="contiguous"):
+        gmm.grouped_matmul_dlhs(_randn(gen, 4, 32), _randn(gen, 2, 64, 32).transpose(1, 2),
+                                sizes)
+    with pytest.raises(TypeError, match="bfloat16"):
+        gmm.grouped_matmul_drhs(_randn(gen, 4, 32), _randn(gen, 4, 64, dtype=torch.float32),
+                                sizes)
 
 
 def test_grouped_matmul_runs_the_plain_version_on_a_cpu_tensor(dev, gen):
@@ -548,3 +588,124 @@ def test_grouped_matmul_reads_a_strided_or_unaligned_lhs(dev, gen):
     for lhs in (_randn(gen, 17, 128)[:, 32:96], flat[3:].view(17, 64)):
         _close(gmm.grouped_matmul(lhs, w, sizes), gmm.grouped_matmul_plain(lhs, w, sizes),
                *GMM_TOL)
+
+
+# L2's gradients: dlhs as the forward (one or two bf16 ulps); drhs sums up to
+# M products in fp32 in another order than the plain version's and rounds
+# once, so the same tolerance holds (fp32 order moves a sum by ~1e-6 of it)
+@pytest.mark.parametrize("m", [0, 1, 16, 17, 64, 65, 300, 6144, 16384])
+@pytest.mark.parametrize("case", list(GMM_GROUPS))
+@pytest.mark.parametrize("n,k", [(200, 256), (128, 40)])
+def test_grouped_matmul_dlhs(dev, gen, m, case, n, k):
+    g = _randn(gen, m, n)
+    w = _randn(gen, 8, n, k, std=0.05)
+    sizes = _group_sizes(case, m, dev)
+    before = gmm.GROUPED_MATMUL_DLHS.launches
+    got = gmm.grouped_matmul_dlhs(g, w, sizes)
+    assert gmm.GROUPED_MATMUL_DLHS.launches == before + (1 if m else 0)
+    _close(got, gmm.grouped_matmul_dlhs_plain(g, w, sizes), *GMM_TOL)
+
+
+@pytest.mark.parametrize("m", [0, 1, 16, 17, 64, 65, 300, 6144, 16384])
+@pytest.mark.parametrize("case", list(GMM_GROUPS))
+@pytest.mark.parametrize("n,k", [(200, 256), (128, 40)])
+def test_grouped_matmul_drhs(dev, gen, m, case, n, k):
+    g, lhs = _randn(gen, m, n, std=0.1), _randn(gen, m, k)
+    sizes = _group_sizes(case, m, dev)
+    before = gmm.GROUPED_MATMUL_DRHS.launches
+    got = gmm.grouped_matmul_drhs(g, lhs, sizes)
+    assert gmm.GROUPED_MATMUL_DRHS.launches == before + 1
+    want = gmm.grouped_matmul_drhs_plain(g, lhs, sizes)
+    _close(got, want, *GMM_TOL)
+    for e, size in enumerate(sizes.tolist()):
+        if not size:
+            assert not bool(got[e].any())
+
+
+def test_grouped_matmul_backward_reads_strided_grads_and_unaligned_lhs(dev, gen):
+    """A grad that is a column slice, an lhs at an odd offset (both copied
+    once), and rows past the last group (their gradient is zero)."""
+    w = _randn(gen, 3, 40, 64, std=0.05)
+    sizes = torch.tensor([5, 0, 10], dtype=torch.int32, device=dev)
+    g = _randn(gen, 17, 80)[:, 16:56]
+    flat = _randn(gen, 17 * 64 + 3)
+    lhs = flat[3:].view(17, 64)
+    dlhs = gmm.grouped_matmul_dlhs(g, w, sizes)
+    assert not bool(dlhs[15:].any())
+    _close(dlhs, gmm.grouped_matmul_dlhs_plain(g, w, sizes), *GMM_TOL)
+    _close(gmm.grouped_matmul_drhs(g, lhs, sizes), gmm.grouped_matmul_drhs_plain(g, lhs, sizes),
+           *GMM_TOL)
+
+
+def test_grouped_matmul_autograd_on_the_card_matches_the_cpu(dev, gen):
+    """GroupedMatmul forward and backward on the card against CPU copies:
+    dlhs only for a frozen stack (drhs never launches), both when the stack
+    takes a gradient."""
+    lhs, g = _randn(gen, 300, 64), _randn(gen, 300, 72)
+    w = _randn(gen, 4, 72, 64, std=0.05)
+    sizes = torch.tensor([100, 0, 150, 50], dtype=torch.int32, device=dev)
+    for w_grad in (False, True):
+        grads = {}
+        for where in ("cuda", "cpu"):
+            x = lhs.to(where).float().requires_grad_()
+            ww = w.to(where).float().requires_grad_(w_grad)
+            if where == "cuda":
+                x, ww = (t.detach().bfloat16().requires_grad_(t.requires_grad) for t in (x, ww))
+                before = (gmm.GROUPED_MATMUL_DLHS.launches, gmm.GROUPED_MATMUL_DRHS.launches)
+            gmm.grouped_matmul(x, ww, sizes.to(where)).backward(g.to(where).to(x.dtype))
+            if where == "cuda":
+                assert gmm.GROUPED_MATMUL_DLHS.launches == before[0] + 1
+                assert gmm.GROUPED_MATMUL_DRHS.launches == before[1] + int(w_grad)
+            grads[where] = [t.grad.float().cpu() for t in (x, ww) if t.requires_grad]
+        for got, want in zip(grads["cuda"], grads["cpu"]):
+            assert float((got - want).norm() / want.norm()) < 0.01
+
+
+def test_small_moe_training_step_on_the_card_matches_the_cpu(dev):
+    """One LoRA Trainer step of a 2-layer MoE (head size 128, 8 experts, top
+    2, megablox), card bf16 against CPU fp32: the loss within 0.05 and each
+    LoRA gradient within 0.1 relative L2 (bf16 rounding gives ~1-2%; a near
+    tie of router logits that sends a token elsewhere under bf16 moves the
+    gradients by a few percent more; a wiring fault by ~1). K1's backward at
+    D=128 and L2's dlhs launch, its drhs does not (the stacks are frozen)."""
+    from dualhyp_tpu_torch.train import TrainConfig, Trainer
+
+    cfg = GPTConfig(name="small-moe-train", block_size=128, vocab_size=256,
+                    padding_multiple=64, n_layer=2, n_head=8, n_query_groups=2, n_embd=1024,
+                    rotary_percentage=1.0, parallel_residual=False, bias=False,
+                    norm_class="RMSNorm", mlp_class="LLaMAMoE", intermediate_size=512,
+                    n_expert=8, n_expert_per_token=2, rope_base=1000000, lora_r=4,
+                    lora_alpha=8, lora_query=True, lora_key=True, lora_value=True,
+                    lora_projection=True)
+    cpu = GPT(cfg, device="cpu", dtype=torch.float32, moe_impl="megablox")
+    cpu.init_weights(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for block in cpu.blocks:
+            for mod in (block.attn.qkv, block.attn.proj):
+                mod.lora_B.normal_(0.0, 0.2)
+    card = GPT(cfg, device=dev, dtype=torch.bfloat16, moe_impl="megablox")
+    card.load_state_dict({k: v.to(dev) for k, v in cpu.state_dict().items()})
+    ids = torch.randint(3, 256, (2, 40), generator=torch.Generator().manual_seed(1)).numpy()
+    labels = ids.copy()
+    labels[:, :20] = -1
+    batch = {"input_ids": ids, "labels": labels}
+    results = {}
+    for where, model in (("cuda", card), ("cpu", cpu)):
+        dtype = "bfloat16" if where == "cuda" else "float32"
+        trainer = Trainer(cfg, TrainConfig(batch_size=2, micro_batch_size=2, compute_dtype=dtype,
+                                           lm_head_chunk_size=0, remat="moe"), model)
+        before = {n: k.launches for n, k in (("dlhs", gmm.GROUPED_MATMUL_DLHS),
+                                               ("drhs", gmm.GROUPED_MATMUL_DRHS),
+                                               ("bwd", attention.FLASH_BWD))}
+        loss, _ = trainer.train_step(batch, 100, 10)
+        if where == "cuda":
+            # fc_1, fc_2 and proj of each layer
+            assert gmm.GROUPED_MATMUL_DLHS.launches - before["dlhs"] == 3 * cfg.n_layer
+            assert gmm.GROUPED_MATMUL_DRHS.launches == before["drhs"]
+            assert attention.FLASH_BWD.launches - before["bwd"] == cfg.n_layer
+        results[where] = (float(loss), {n: p.grad.float().cpu()
+                                        for n, p in trainer.trainable.items()})
+    (loss_card, g_card), (loss_cpu, g_cpu) = results["cuda"], results["cpu"]
+    assert abs(loss_card - loss_cpu) < 0.05
+    for name, want in g_cpu.items():
+        assert float((g_card[name] - want).norm() / want.norm()) < 0.1, name

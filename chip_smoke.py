@@ -107,7 +107,25 @@ prints one JSON line; a failed phase raises and the script exits non-zero.
      with remat on and remat "moe" (profiled) and with the dense einsums:
      step time, tokens/s, MFU from the active parameters, peak memory,
      launches (L2 forward, dlhs, K1 both ways, K2, K3 > 0; drhs and K4 = 0);
- 23. the seconds of each phase, the `{"kernels": [...]}` line (all twelve
+ 23. L1 (splash attention), after the other kernels' phases: its forward,
+     dQ and dK/dV kernels against their plain versions at B8 Hq32 G4 T1024
+     (training) and T384 (prefill), an unaligned T192 (the scale inside the
+     kernels) and Mixtral's B8 Hq32 G8 T1024 D128, timed beside their bound
+     and SDPA's forward and backward, with each instance's registers and
+     spills from the build's -Xptxas -v;
+ 24. after the depth-2 training checks, the same step with
+     DUALHYP_ATTN_IMPL=splash at T=256 (q rounded with the bf16 scale) and
+     T=160 (the scale inside the kernels): L1 launches, K1 does not;
+ 25. after the 8 x 1024 step, the splash slice: full-width TinyLlama-1.1B
+     written as a random HF-layout checkpoint (2.2 GB of bf16 safetensors in
+     two shards), converted by `cli.common.load_model` (held against the
+     written tensors), then with DUALHYP_ATTN_IMPL=splash the training
+     slice's 4 optimizer steps through `run_training`, the best checkpoint
+     read back and the decode slice's 16 requests served from it: L1's three
+     kernels, K2, K3 and K4 launch, K1 never; then the 8 x 1024 step with
+     remat, "own" (K1) against "splash" (L1) in turns own, splash, splash,
+     own, one profiled step each;
+ 26. the seconds of each phase, the `{"kernels": [...]}` line (all fifteen
      kernels, launches by path), the card's name and power limit, and the
      last line `{"ok": true, "device": {...}}`.
 
@@ -118,9 +136,11 @@ when the port's package is not beside the script.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import importlib.util
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -170,6 +190,12 @@ TOLERANCES = {
     # transpose moves an element by a whole product sum.
     "grouped_matmul_dlhs": (1e-2, 2.0 ** -6),
     "grouped_matmul_drhs": (1e-2, 2.0 ** -6),
+    # splash_attention_fwd (L1): the kernel's P V is the sum of two bf16
+    # products of P's hi and lo halves (P to 2^-16 of itself), the plain
+    # version's an fp32 product; both round O once: one bf16 ulp apart at
+    # most (rtol 2^-7), and near-zero outputs of cancelling terms differ by
+    # the fp32 sums' order (atol). A dropped key or head moves O by ~0.1.
+    "splash_attention_fwd": (1e-3, 2.0 ** -7),
 }
 # flash forward's row logsumexp (fp32 on both sides, from the same exact
 # bf16 products summed in another order): |kernel - plain| <= 1e-4 +
@@ -186,6 +212,9 @@ LSE_TOL = (1e-4, 1e-5)
 # fp32 noise (F, 2^-10). A fault (a wrong mask, a lost head) moves elements
 # by about the RMS itself.
 FLASH_BWD_TOL = (2.0 ** -10, 2.0 ** -4, 2.0 ** -6)
+# L1's dQ and dK/dV (splash) are held to the same: they round P and dS to
+# bf16 on both sides before sums of up to q_per_kv * T terms, and an fp32
+# S or dP summed in another order may round them one ulp apart.
 # the forward-plus-backward pair against the plain pair: Delta = rowsum(dO *
 # O) also carries O's forward error (the kernel rounds unnormalised P to
 # bf16), and in the first rows, where attention falls on a few keys and O is
@@ -1022,11 +1051,15 @@ def training_shape_phase(torch, seed: int, cfg=None) -> dict:
     return out
 
 
-def depth2_train_check(torch, seed: int, lora_impl: str = "xla") -> dict:
+def depth2_train_check(torch, seed: int, lora_impl: str = "xla", attn: str = "own",
+                       t: int = 160) -> dict:
     """One Trainer step of a depth-2, full-width TinyLlama + LoRA model from
     seeded numpy weights, dropout off: the loss and every LoRA leaf's
     gradient, card bf16 against CPU fp32. lora_impl "fused": the LoRA
-    linears through K5 on the card and its plain version on the CPU."""
+    linears through K5 on the card and its plain version on the CPU. attn
+    "splash": DUALHYP_ATTN_IMPL=splash on both sides, so L1's kernels run on
+    the card (and K1's must not) and its plain versions on the CPU; at T %
+    128 == 0 with q rounded to bf16 times the rounded scale on the card."""
     import numpy as np
 
     from dualhyp_tpu_torch.ckpt.convert import load_tree
@@ -1036,7 +1069,7 @@ def depth2_train_check(torch, seed: int, lora_impl: str = "xla") -> dict:
     cfg = lora_config(2)
     tree = numpy_tree(cfg, seed)
     rng = np.random.default_rng(seed + 2)
-    t = 160  # not a multiple of the flash kernels' 64-row tiles
+    # t = 160: not a multiple of the flash kernels' 64-row tiles
     ids = rng.integers(3, cfg.vocab_size, size=(2, t)).astype(np.int32)
     labels = ids.copy()
     labels[:, : t // 2] = -1
@@ -1051,7 +1084,8 @@ def depth2_train_check(torch, seed: int, lora_impl: str = "xla") -> dict:
         trainer = Trainer(cfg, tcfg, model)
         if device == "cuda":
             reset_counts()
-        loss, _ = trainer.train_step(batch, max_iters=100, warmup_steps=10)
+        with attn_impl(attn):
+            loss, _ = trainer.train_step(batch, max_iters=100, warmup_steps=10)
         if device == "cuda":
             launches = read_counts()
         results[device] = (float(loss), {n: p.grad.detach().float().cpu()
@@ -1061,7 +1095,7 @@ def depth2_train_check(torch, seed: int, lora_impl: str = "xla") -> dict:
     (loss_card, g_card), (loss_cpu, g_cpu) = results["cuda"], results["cpu"]
     rel = {n: float((g_card[n] - g_cpu[n]).norm() / g_cpu[n].norm()) for n in g_cpu}
     result = {"phase": "depth2_train_card_vs_cpu", "lora_impl": lora_impl,
-              "launches": launches, "shape": [2, t],
+              "attn_impl": attn, "launches": launches, "shape": [2, t],
               "loss_card": loss_card, "loss_cpu": loss_cpu,
               "loss_abs_err": abs(loss_card - loss_cpu), "loss_atol": TRAIN_LOSS_ATOL,
               "grad_rel_l2_err": rel, "grad_rel_tol": TRAIN_GRAD_REL}
@@ -1073,7 +1107,73 @@ def depth2_train_check(torch, seed: int, lora_impl: str = "xla") -> dict:
         raise RuntimeError(f"depth-2 LoRA gradients off: {bad}")
     if (launches["lora_linear"] > 0) != (lora_impl == "fused"):
         raise RuntimeError(f"depth-2 {lora_impl} training step launches {launches}")
+    used, unused = ((SPLASH_KERNELS, ("flash_attention_fwd", "flash_attention_bwd"))
+                    if attn == "splash" else
+                    (("flash_attention_fwd", "flash_attention_bwd"), SPLASH_KERNELS))
+    if any(launches[n] <= 0 for n in used) or any(launches[n] for n in unused):
+        raise RuntimeError(f"depth-2 training step under attn {attn} launches {launches}")
     return result
+
+
+def dualhyp_data(tmp: Path, seed: int):
+    """The training slices' data: the word tokenizer and seeded synthetic
+    DualHyp records (64 train, 16 val, 1 test) written under `tmp`. Returns
+    (tokenizer, dataset(split))."""
+    from dualhyp_tpu_torch.data import hypotheses, prompts, synthetic
+
+    template_words = " ".join(prompts.DualHyp_PROMPTS.values()).split()
+    tok = WordTokenizer(sorted(set(synthetic.word_vocabulary()) | set(template_words)))
+    for name, n, s in (("train", 64, seed), ("val", 16, seed + 1), ("test", 1, seed + 2)):
+        synthetic.write_json(tmp / f"{name}.json",
+                             synthetic.make_records(n_uids=n, n_hyps=5, seed=s))
+
+    def dataset(split):
+        return hypotheses.DualHypothesesDataset(
+            split, str(tmp / f"{split}.json"), tokenizer=tok,
+            prompts_format="DualHyp", max_input_length=1024, seed=seed)
+
+    return tok, dataset
+
+
+def timed_training(torch, model, tcfg, tok, dataset, out_dir: Path, seed: int) -> dict:
+    """`cli.finetune_ger.run_training` on the card with the launch counts
+    reset before and read after: tokens/s over the padded batches, MFU
+    (the JAX package's count), step times, peak memory, losses."""
+    from dualhyp_tpu_torch.cli.finetune_ger import run_training
+    from dualhyp_tpu_torch.data import collate
+    from dualhyp_tpu_torch.utils.monitor import estimate_train_flops_per_token
+
+    cfg = model.cfg
+    step_ends, step_tokens = [], []
+
+    def on_step(opt_step, loss, lr):
+        torch.cuda.synchronize()
+        step_ends.append(time.perf_counter())
+
+    # the padded shape of each step, from a twin of the seeded batching
+    for epoch in range(tcfg.num_epochs):
+        for batch in collate.epoch_batches(dataset("train"), tcfg.batch_size, shuffle=True,
+                                           seed=tcfg.seed, epoch=epoch, length_sorted=True):
+            step_tokens.append(batch["input_ids"].shape)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = run_training(model, tok, dataset("train"), dataset("val"), tcfg, out_dir,
+                       generator=torch.Generator().manual_seed(seed), on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    step_s = [b - a for a, b in zip([t0] + step_ends[:-1], step_ends)]
+    tokens = [shape[0] * shape[1] for shape in step_tokens]
+    flops = sum(n * estimate_train_flops_per_token(cfg, shape[1])
+                for n, shape in zip(tokens, step_tokens))
+    train_s = step_ends[-1] - t0
+    return {"out": out, "losses": [float(x) for x in out["losses"]],
+            "step_shapes": [list(x) for x in step_tokens], "step_s": step_s,
+            "tokens_per_s": sum(tokens) / train_s, "mfu": flops / train_s / BF16_TENSOR_FLOPS,
+            "wall_s": wall, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": launches}
 
 
 def train_slice(torch, seed: int) -> dict:
@@ -1082,12 +1182,10 @@ def train_slice(torch, seed: int) -> dict:
     decode from it, then one step under torch.profiler."""
     from dualhyp_tpu_torch.ckpt.convert import params_from_jax
     from dualhyp_tpu_torch.ckpt.io import load_params
-    from dualhyp_tpu_torch.cli.finetune_ger import run_training
     from dualhyp_tpu_torch.cli.inference_ger import run_inference
-    from dualhyp_tpu_torch.data import collate, hypotheses, prompts, synthetic
+    from dualhyp_tpu_torch.data import collate
     from dualhyp_tpu_torch.models.gpt import GPT
     from dualhyp_tpu_torch.train import TrainConfig
-    from dualhyp_tpu_torch.utils.monitor import estimate_train_flops_per_token
 
     cfg = lora_config(22, lora_dropout=0.05)
     model = GPT(cfg, device="cuda", dtype=torch.bfloat16)
@@ -1095,49 +1193,14 @@ def train_slice(torch, seed: int) -> dict:
     tcfg = TrainConfig(batch_size=32, micro_batch_size=8, num_epochs=2,
                        frozen_dtype="bfloat16", remat=True, seed=seed,
                        log_interval=32, save_interval=10**6)
-    template_words = " ".join(prompts.DualHyp_PROMPTS.values()).split()
-    tok = WordTokenizer(sorted(set(synthetic.word_vocabulary()) | set(template_words)))
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     lora = set(model.trainable_parameters())
 
-    step_ends = []
-    step_tokens = []
-
-    def on_step(opt_step, loss, lr):
-        torch.cuda.synchronize()
-        step_ends.append(time.perf_counter())
-
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        for name, n, s in (("train", 64, seed), ("val", 16, seed + 1), ("test", 1, seed + 2)):
-            synthetic.write_json(tmp / f"{name}.json",
-                                 synthetic.make_records(n_uids=n, n_hyps=5, seed=s))
-
-        def dataset(split):
-            return hypotheses.DualHypothesesDataset(
-                split, str(tmp / f"{split}.json"), tokenizer=tok,
-                prompts_format="DualHyp", max_input_length=1024, seed=seed)
-
-        train_ds, val_ds = dataset("train"), dataset("val")
-        # the padded shape of each step, from a twin of the seeded batching
-        for epoch in range(tcfg.num_epochs):
-            for batch in collate.epoch_batches(dataset("train"), tcfg.batch_size,
-                                               shuffle=True, seed=tcfg.seed,
-                                               epoch=epoch, length_sorted=True):
-                step_tokens.append(batch["input_ids"].shape)
-
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        t0 = time.perf_counter()
-        out = run_training(model, tok, train_ds, val_ds, tcfg, tmp / "run",
-                           generator=torch.Generator().manual_seed(seed),
-                           on_step=on_step)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = read_counts()
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        losses = [float(x) for x in out["losses"]]
+        tok, dataset = dualhyp_data(tmp, seed)
+        trained = timed_training(torch, model, tcfg, tok, dataset, tmp / "run", seed)
+        out, losses, launches = trained.pop("out"), trained["losses"], trained["launches"]
 
         changed = [n for n in lora if not torch.equal(before[n], model.get_parameter(n))]
         moved_frozen = [n for n, p in model.named_parameters() if n not in lora
@@ -1159,7 +1222,7 @@ def train_slice(torch, seed: int) -> dict:
         from torch.profiler import ProfilerActivity, profile
 
         trainer = out["trainer"]
-        batch = next(collate.epoch_batches(train_ds, tcfg.batch_size, shuffle=True,
+        batch = next(collate.epoch_batches(dataset("train"), tcfg.batch_size, shuffle=True,
                                            seed=tcfg.seed, epoch=0, length_sorted=True))
         gen = torch.Generator().manual_seed(seed)
         torch.cuda.synchronize()
@@ -1171,19 +1234,10 @@ def train_slice(torch, seed: int) -> dict:
     emit({"phase": "train_slice_profile", "step_shape": list(batch["input_ids"].shape),
           **profile_summary(prof, prof_wall_ms, top_n=15)})
 
-    step_s = [b - a for a, b in zip([t0] + step_ends[:-1], step_ends)]
-    tokens = [shape[0] * shape[1] for shape in step_tokens]
-    flops = sum(n * estimate_train_flops_per_token(cfg, shape[1])
-                for n, shape in zip(tokens, step_tokens))
-    train_s = step_ends[-1] - t0
     result = {"phase": "train_slice", "model": cfg.name, "n_layer": cfg.n_layer,
               "lora_r": cfg.lora_r, "lora_dropout": cfg.lora_dropout, "remat": True,
               "batch_size": tcfg.batch_size, "micro_batch_size": tcfg.micro_batch_size,
-              "optimizer_steps": len(losses), "step_shapes": [list(x) for x in step_tokens],
-              "losses": losses, "val_loss": out["best_val"], "step_s": step_s,
-              "tokens_per_s": sum(tokens) / train_s,
-              "mfu": flops / train_s / BF16_TENSOR_FLOPS,
-              "wall_s": wall, "peak_mem_gb": peak_gb, "launches": launches,
+              "optimizer_steps": len(losses), **trained, "val_loss": out["best_val"],
               "lora_leaves_changed": f"{len(changed)}/{len(lora)}",
               "frozen_leaves_moved": moved_frozen, "saved": saved,
               "reload_mismatch": mismatch, "decoded": records[0]}
@@ -1273,6 +1327,377 @@ def train_step_1024(torch, seed: int) -> dict:
     del model
     torch.cuda.empty_cache()
     return results
+
+
+# L1 (splash attention) at the shapes of its paths: (label, B, Hq, G, T, D).
+# "train" is the 8 x 1024 training step's, "prefill" the decode slices' prompt
+# bucket, "unaligned" a bucket the JAX package leaves to XLA (the scale goes
+# into the kernels), "d128" Mixtral's training step.
+SPLASH_SHAPES = (("train", 8, 32, 4, 1024, 64), ("prefill", 8, 32, 4, 384, 64),
+                 ("unaligned", 8, 32, 4, 192, 64), ("d128", 8, 32, 8, 1024, 128))
+SPLASH_KERNELS = ("splash_attention_fwd", "splash_attention_dq", "splash_attention_dkv")
+# the splash slice: what must launch in its training and in its decoding,
+# and what must not (K1 both ways above all)
+SPLASH_TRAIN_PATH = SPLASH_KERNELS + ("rms_norm", "apply_rope", "apply_rope_transpose",
+                                      "swiglu_mlp")
+SPLASH_DECODE_PATH = ("splash_attention_fwd", "rms_norm", "apply_rope", "swiglu_mlp")
+SPLASH_IDLE = ("flash_attention_fwd", "flash_attention_bwd", "lora_linear", "q4_matmul")
+
+
+@contextlib.contextmanager
+def attn_impl(name: str):
+    """DUALHYP_ATTN_IMPL set to `name` for the block (read at each call)."""
+    old = os.environ.get("DUALHYP_ATTN_IMPL")
+    os.environ["DUALHYP_ATTN_IMPL"] = name
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["DUALHYP_ATTN_IMPL"]
+        else:
+            os.environ["DUALHYP_ATTN_IMPL"] = old
+
+
+def ptxas_report(source: str):
+    """{kernel instance: registers and spill bytes} of a source's splash
+    kernels, read from the verbose build's `-Xptxas -v` output; None when
+    this process did not compile the library (it was already built)."""
+    import re
+
+    from dualhyp_tpu_torch.ops import _lib
+
+    log = _lib.BUILD_LOGS.get(source)
+    if not log:
+        return None
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?\d+(splash_\w+?)ILi(\d+)EE", line)
+        if m:
+            name = f"{m[1]}<{m[2]}>"
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out.setdefault(name, {}).update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.setdefault(name, {})["registers"] = int(m[1])
+    return out
+
+
+def sdpa_gqa(F, q, k, v, scale):
+    """One causal GQA call of scaled_dot_product_attention (the yardstick):
+    enable_gqa where torch has it, else K/V expanded beforehand."""
+    try:
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True, scale=scale,
+                                              enable_gqa=True)
+    except TypeError:
+        rep = q.shape[1] // k.shape[1]
+        return F.scaled_dot_product_attention(q, k.repeat_interleave(rep, dim=1),
+                                              v.repeat_interleave(rep, dim=1),
+                                              is_causal=True, scale=scale)
+
+
+def splash_phase(torch, seed: int) -> dict:
+    """L1's forward, dQ and dK/dV kernels against their plain versions at
+    SPLASH_SHAPES, with q and the scale as `ops.splash.causal_attention`
+    passes them (q * the bf16 scale and scale 1 at T % 128 == 0, the raw q
+    and the scale at other T): O and lse against `splash_fwd_plain`, dQ and
+    dK/dV against theirs fed the kernel's O, lse and di. Times beside the
+    bound, the plain version and SDPA (forward; its backward, which computes
+    dQ, dK and dV together, beside dQ and dK/dV)."""
+    import torch.nn.functional as F
+
+    from dualhyp_tpu_torch.ops import splash
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 23)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    out = {name: {} for name in SPLASH_KERNELS}
+    for label, b, nh, g, t, hs in SPLASH_SHAPES:
+        scale = 1.0 / math.sqrt(hs)
+        q, k, v, do = randn(b, nh, t, hs), randn(b, g, t, hs), randn(b, g, t, hs), \
+            randn(b, nh, t, hs)
+        if splash.aligned(t):
+            q = q * torch.tensor(scale, dtype=torch.bfloat16)
+            scale = 1.0
+        o, lse = splash.splash_fwd(q, k, v, scale)
+        o_plain, lse_plain = splash.splash_fwd_plain(q, k, v, scale)
+        checks = {"splash_attention_fwd": {
+            "max_abs_err": compare("splash_attention_fwd", o, o_plain, torch),
+            "lse_max_abs_err": float((lse - lse_plain).abs().max())}}
+        if not bool(((lse - lse_plain).abs() <= LSE_TOL[0] + LSE_TOL[1] * lse_plain.abs()).all()):
+            raise RuntimeError(f"splash_attention_fwd lse {label}: kernel disagrees with its "
+                               f"plain version: {checks}, tolerance {LSE_TOL}")
+        del o_plain, lse_plain
+        di = splash.row_dot(o, do)
+        args = (q, k, v, lse, do, di, scale)
+        checks["splash_attention_dq"] = compare_scaled(
+            f"splash_attention_dq {label}", splash.splash_dq(*args),
+            splash.splash_dq_plain(*args), torch)
+        got, want = splash.splash_dkv(*args), splash.splash_dkv_plain(*args)
+        dkv = {f"d{n}": compare_scaled(f"splash_attention_dkv d{n} {label}", x, y, torch)
+               for n, x, y in zip("kv", got, want)}
+        checks["splash_attention_dkv"] = {
+            "max_abs_err": max(c["max_abs_err"] for c in dkv.values()), **dkv}
+        del got, want
+        torch.cuda.empty_cache()
+
+        qr, kr, vr = (z.detach().requires_grad_() for z in (q, k, v))
+        sdpa_out = sdpa_gqa(F, qr, kr, vr, scale)
+        sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(sdpa_out, (qr, kr, vr), do,
+                                                          retain_graph=True), torch)
+        pairs = b * nh * t * (t + 1) // 2
+        n_q, n_kv, n_rows = b * nh * t * hs, b * g * t * hs, b * nh * t
+        runs = {
+            # (kernel, plain, SDPA ms, bytes: each input read once and each
+            # output written once, operations: 2 flops a MAC a causal pair)
+            "splash_attention_fwd": (
+                lambda: splash.splash_fwd(q, k, v, scale),
+                lambda: splash.splash_fwd_plain(q, k, v, scale),
+                time_ms(lambda: sdpa_gqa(F, q, k, v, scale), torch),
+                (2 * n_q + 2 * n_kv) * 2 + n_rows * 4, 4 * hs * pairs),
+            "splash_attention_dq": (
+                lambda: splash.splash_dq(*args), lambda: splash.splash_dq_plain(*args),
+                sdpa_bwd_ms, (3 * n_q + 2 * n_kv) * 2 + 2 * n_rows * 4, 6 * hs * pairs),
+            "splash_attention_dkv": (
+                lambda: splash.splash_dkv(*args), lambda: splash.splash_dkv_plain(*args),
+                sdpa_bwd_ms, (2 * n_q + 4 * n_kv) * 2 + 2 * n_rows * 4, 8 * hs * pairs)}
+        for name, (fn, plain, lib_ms, n_bytes, flops) in runs.items():
+            bms, by = bound(n_bytes, flops, BF16_TENSOR_FLOPS)
+            out[name][label] = dict(
+                shape=[b, nh, g, t, hs], scale=scale, **checks[name],
+                ms=time_ms(fn, torch), device_ms=device_ms(fn, torch),
+                plain_ms=time_ms(plain, torch, warmup=1, iters=5), library_ms=lib_ms,
+                library=("SDPA forward (enable_gqa)" if name == "splash_attention_fwd" else
+                         "SDPA backward (dQ, dK, dV together; autograd.grad)"),
+                bound_ms=bms, bound_by=by)
+        del q, k, v, do, o, lse, di, args, qr, kr, vr, sdpa_out
+        torch.cuda.empty_cache()
+    ptxas = ptxas_report("splash_attention.cu")
+    for name in SPLASH_KERNELS:
+        short = name.replace("splash_attention_", "splash_")
+        emit({"phase": "kernel", "name": name,
+              "tolerance": (dict(zip(("atol", "rtol"), TOLERANCES[name]), lse=LSE_TOL)
+                            if name == "splash_attention_fwd" else
+                            dict(zip(("atol", "atol_of_rms", "rtol"), FLASH_BWD_TOL))),
+              "ptxas": {k: v for k, v in (ptxas or {}).items() if k.startswith(short + "<")}
+              if ptxas is not None else "not measured (library built before this run)",
+              **out[name]})
+    return out
+
+
+def write_hf_llama(torch, path: Path, cfg, seed: int) -> dict:
+    """A random HF-layout LLaMA checkpoint of `cfg` (bf16 safetensors in two
+    shards, drawn on the card from `seed`: std 0.02 matrices, norm weights
+    near 1) and its `config.json`. Returns a few written tensors (CPU) to
+    hold the conversion against."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    d, hs, inter = cfg.n_embd, cfg.head_size, cfg.intermediate_size
+
+    def w(*shape, std=0.02, mean=0.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * std + mean).to(
+            torch.bfloat16).cpu()
+
+    path.mkdir(parents=True)
+    half = cfg.n_layer // 2
+    shards = [{"model.embed_tokens.weight": w(cfg.vocab_size, d)}, {}]
+    for i in range(cfg.n_layer):
+        shard, p = shards[i >= half], f"model.layers.{i}."
+        shard[p + "self_attn.q_proj.weight"] = w(cfg.n_head * hs, d)
+        shard[p + "self_attn.k_proj.weight"] = w(cfg.n_query_groups * hs, d)
+        shard[p + "self_attn.v_proj.weight"] = w(cfg.n_query_groups * hs, d)
+        shard[p + "self_attn.o_proj.weight"] = w(d, cfg.n_head * hs)
+        shard[p + "mlp.gate_proj.weight"] = w(inter, d)
+        shard[p + "mlp.up_proj.weight"] = w(inter, d)
+        shard[p + "mlp.down_proj.weight"] = w(d, inter)
+        shard[p + "input_layernorm.weight"] = w(d, std=0.1, mean=1.0)
+        shard[p + "post_attention_layernorm.weight"] = w(d, std=0.1, mean=1.0)
+    shards[1]["model.norm.weight"] = w(d, std=0.1, mean=1.0)
+    shards[1]["lm_head.weight"] = w(cfg.vocab_size, d)
+    for i, shard in enumerate(shards):
+        write_safetensors(path / f"model-0000{i + 1}-of-00002.safetensors", shard)
+    (path / "config.json").write_text(json.dumps({
+        "architectures": ["LlamaForCausalLM"], "hidden_size": d,
+        "intermediate_size": inter, "num_attention_heads": cfg.n_head,
+        "num_hidden_layers": cfg.n_layer, "num_key_value_heads": cfg.n_query_groups,
+        "vocab_size": cfg.vocab_size, "torch_dtype": "bfloat16"}))
+    p = "model.layers.1.self_attn."
+    return {"layer1_qkv": [shards[0][p + f"{x}_proj.weight"] for x in "qkv"],
+            "lm_head": shards[1]["lm_head.weight"],
+            "norm_2_last": shards[1][f"model.layers.{cfg.n_layer - 1}."
+                                     "post_attention_layernorm.weight"]}
+
+
+def splash_slice(torch, seed: int) -> dict:
+    """The splash path from an HF-layout checkpoint: full-width TinyLlama-1.1B
+    (22 layers, random bf16 weights from --seed) written as safetensors,
+    converted by `cli.common.load_model`, then with DUALHYP_ATTN_IMPL=splash
+    LoRA finetuning through `cli.finetune_ger.run_training` (the training
+    slice's settings: 4 optimizer steps of batch 32 in micro batches of 8),
+    the best checkpoint read back, and the decode slice's 16 requests served
+    from it. L1's forward, dQ and dK/dV, K2, K3 and K4 must launch, K1 not."""
+    from dualhyp_tpu_torch.ckpt.convert import params_from_jax
+    from dualhyp_tpu_torch.ckpt.convert_hf import interleave_qkv
+    from dualhyp_tpu_torch.ckpt.io import load_params
+    from dualhyp_tpu_torch.cli.common import load_model
+    from dualhyp_tpu_torch.train import TrainConfig
+
+    cfg = lora_config(22, lora_dropout=0.05)
+    result = {"phase": "splash_slice", "model": cfg.name, "n_layer": cfg.n_layer,
+              "lora_r": cfg.lora_r, "attn_impl": "splash"}
+    with tempfile.TemporaryDirectory() as tmp, attn_impl("splash"):
+        tmp = Path(tmp)
+        hf_dir = tmp / "TinyLlama-1.1B-Chat-v1.0"
+        t0 = time.perf_counter()
+        written = write_hf_llama(torch, hf_dir, cfg, seed)
+        result["hf_checkpoint_gb"] = sum(f.stat().st_size for f in hf_dir.iterdir()) / 1e9
+        result["write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        model = load_model(hf_dir, cfg, device="cuda", seed=seed, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        result["load_model_s"] = time.perf_counter() - t0
+        shutil.rmtree(hf_dir)
+        converted = {
+            "layer1_qkv": torch.equal(model.blocks[1].attn.qkv.weight.cpu(),
+                                      interleave_qkv(*written["layer1_qkv"], cfg)),
+            "lm_head": torch.equal(model.lm_head.weight.cpu(), written["lm_head"]),
+            "norm_2_last": torch.equal(model.blocks[-1].norm_2.scale.cpu(),
+                                       written["norm_2_last"].float())}
+        del written
+        result["converted_equal"] = converted
+        if not all(converted.values()):
+            raise RuntimeError(f"load_model did not convert the HF checkpoint: {converted}")
+
+        tcfg = TrainConfig(batch_size=32, micro_batch_size=8, num_epochs=2,
+                           frozen_dtype="bfloat16", remat=True, seed=seed,
+                           log_interval=32, save_interval=10**6)
+        tok, dataset = dualhyp_data(tmp, seed)
+        trained = timed_training(torch, model, tcfg, tok, dataset, tmp / "run", seed)
+        out = trained.pop("out")
+        result.update(batch_size=tcfg.batch_size, micro_batch_size=tcfg.micro_batch_size,
+                      remat=True, val_loss=out["best_val"], **trained)
+        del out
+        best = load_params(tmp / "run" / "best_model.npz")
+        reloaded = params_from_jax(best, cfg, device="cuda", dtype=torch.bfloat16)
+        del best
+        result["reload_mismatch"] = [
+            n for n, p in reloaded.named_parameters()
+            if not torch.equal(p, model.get_parameter(n).to(p.dtype))]
+        del model
+        torch.cuda.empty_cache()
+        serve = dict(decode_batch=8, max_new_tokens=32, temperature=0.2, top_k=1,
+                     kv_quant=None)
+        records, metrics, wall, launches, prompt_tokens = serve_requests(
+            torch, reloaded, seed, serve)
+        del reloaded
+        torch.cuda.empty_cache()
+    result.update(decode_wall_s=wall, decode_metrics=metrics, decode_launches=launches,
+                  decode_prompt_tokens=prompt_tokens, sample=records[0])
+    emit(result)
+    losses = result["losses"]
+    if len(losses) != 4 or not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"splash training losses {losses}")
+    if result["reload_mismatch"]:
+        raise RuntimeError(f"the best checkpoint did not reload: {result['reload_mismatch']}")
+    missing = [n for n in SPLASH_TRAIN_PATH if result["launches"][n] <= 0]
+    stray = [n for n in SPLASH_IDLE if result["launches"][n] != 0]
+    if missing or stray:
+        raise RuntimeError(f"splash training: never launched {missing}, launched {stray}")
+    check_served(records, metrics, launches, SPLASH_DECODE_PATH,
+                 SPLASH_IDLE + ("splash_attention_dq", "splash_attention_dkv"), "splash")
+    return result
+
+
+def attn_ab_1024(torch, seed: int) -> dict:
+    """The 8 x 1024 training step (remat on, LoRA composition) with
+    DUALHYP_ATTN_IMPL "own" (K1) against "splash" (L1), in turns own,
+    splash, splash, own on one model: 2 warm-up and 5 timed steps a turn;
+    the first turn of each under torch.profiler for one more step (idle
+    share, the attention kernels' device ms)."""
+    import numpy as np
+
+    from dualhyp_tpu_torch.models.gpt import GPT
+    from dualhyp_tpu_torch.train import TrainConfig, Trainer
+    from dualhyp_tpu_torch.utils.monitor import estimate_train_flops_per_token
+
+    cfg = lora_config(22, lora_dropout=0.05)
+    mb, t = 8, 1024
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(1, cfg.vocab_size, size=(mb, t)).astype(np.int32)
+    labels = ids.copy()
+    labels[:, : t // 2] = -1
+    batch = {"input_ids": ids, "labels": labels}
+    flops_per_step = mb * t * estimate_train_flops_per_token(cfg, t)
+    model = GPT(cfg, device="cuda", dtype=torch.bfloat16)
+    model.init_weights(torch.Generator(device="cuda").manual_seed(seed))
+    results = {"own": [], "splash": []}
+    profiles = {}
+    for impl in ("own", "splash", "splash", "own"):
+        with attn_impl(impl):
+            tcfg = TrainConfig(batch_size=mb, micro_batch_size=mb, frozen_dtype="bfloat16",
+                               lm_head_chunk_size=128, remat=True)
+            trainer = Trainer(cfg, tcfg, model)
+            gen = torch.Generator().manual_seed(seed)
+            for _ in range(2):
+                trainer.train_step(batch, max_iters=1000, warmup_steps=10, generator=gen)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                loss, _ = trainer.train_step(batch, max_iters=1000, warmup_steps=10,
+                                             generator=gen)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            med = sorted(times)[len(times) // 2]
+            results[impl].append({
+                "step_s": times, "median_step_s": med, "tokens_per_s": mb * t / med,
+                "mfu": flops_per_step / med / BF16_TENSOR_FLOPS,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "loss": float(loss), "launches": read_counts()})
+            if impl not in profiles:
+                from torch.profiler import ProfilerActivity, profile
+
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    trainer.train_step(batch, max_iters=1000, warmup_steps=10, generator=gen)
+                    torch.cuda.synchronize()
+                    wall_ms = (time.perf_counter() - t0) * 1e3
+                attention_ms = {name[:80]: us / 1e3
+                                for name, (us, _) in device_kernel_times(prof).items()
+                                if "splash_" in name or "flash_fwd_kernel" in name
+                                or "flash_bwd_kernel" in name or "delta_kernel" in name}
+                summary = profile_summary(prof, wall_ms, top_n=8)
+                profiles[impl] = {"wall_ms": wall_ms, "idle_share": summary["idle_share"],
+                                  "device_busy_ms": summary["device_busy_ms"],
+                                  "attention_kernels_ms": attention_ms,
+                                  "attention_ms": sum(attention_ms.values()),
+                                  "top_kernels": summary["kernels"]}
+            del trainer
+    del model
+    torch.cuda.empty_cache()
+    summary = {impl: {"median_step_s": [r["median_step_s"] for r in runs],
+                      "tokens_per_s": [r["tokens_per_s"] for r in runs],
+                      "mfu": [r["mfu"] for r in runs],
+                      "peak_mem_gb": [r["peak_mem_gb"] for r in runs],
+                      "launches": runs[0]["launches"], "profile": profiles[impl]}
+               for impl, runs in results.items()}
+    emit({"phase": "attn_ab_1024", "micro_batch": mb, "seq_len": t, "remat": True,
+          "order": ["own", "splash", "splash", "own"], **summary,
+          "runs": {impl: [{k: r[k] for k in ("step_s", "loss")} for r in runs]
+                   for impl, runs in results.items()}})
+    if not all(math.isfinite(r["loss"]) for runs in results.values() for r in runs):
+        raise RuntimeError(f"non-finite loss in the attention A/B: {results}")
+    own, spl = summary["own"]["launches"], summary["splash"]["launches"]
+    if (own["flash_attention_bwd"] <= 0 or any(own[n] for n in SPLASH_KERNELS)
+            or any(spl[n] <= 0 for n in SPLASH_KERNELS)
+            or spl["flash_attention_fwd"] or spl["flash_attention_bwd"]):
+        raise RuntimeError(f"the A/B ran the wrong attention: own {own}, splash {spl}")
+    return summary
 
 
 def flash_fwd_phase(torch, seed: int) -> dict:
@@ -2480,6 +2905,7 @@ def main(argv=None) -> int:
     kernels["grouped_matmul"] = run("gmm_phase", gmm_phase)
     kernels["flash_attention_fwd"]["d128"] = run("flash_d128_phase", flash_d128_phase)
     kernels.update(run("gmm_bwd_phase", gmm_bwd_phase))
+    kernels.update(run("splash_phase", splash_phase))
     run("depth2_check", depth2_check)
     run("depth2_int4_check", depth2_int4_check)
     run("depth2_encoder_check", depth2_encoder_check)
@@ -2495,8 +2921,12 @@ def main(argv=None) -> int:
                            cfg=mixtral_config(MIXTRAL_LAYERS))
     run("depth2_train_check", depth2_train_check)
     run("depth2_train_check_fused", depth2_train_check, lora_impl="fused")
+    depth2_splash = {t: run(f"depth2_train_check_splash_T{t}", depth2_train_check,
+                            attn="splash", t=t) for t in (256, 160)}
     trained = run("train_slice", train_slice)
     stepped = run("train_step_1024", train_step_1024)
+    splashed = run("splash_slice", splash_slice)
+    attn_ab = run("attn_ab_1024", attn_ab_1024)
     nosync = run("moe_nosync_check", moe_nosync_check)
     depth2_moe = run("depth2_mixtral_check", depth2_mixtral_check)
     depth2_moe_train = run("depth2_mixtral_train_check", depth2_mixtral_train_check)
@@ -2525,7 +2955,15 @@ def main(argv=None) -> int:
                                        "gmm.py:526)"),
                "grouped_matmul_drhs": ("grouped_matmul.cu",
                                        "jax/experimental/pallas/ops/tpu/megablox/gmm.py:763 "
-                                       "(tgmm, called by _gmm_bwd at ops.py:90)")}
+                                       "(tgmm, called by _gmm_bwd at ops.py:90)"),
+               **{name: ("splash_attention.cu",
+                         "jax/experimental/pallas/ops/tpu/splash_attention/"
+                         f"splash_attention_kernel.py:{line} ({fn}, reached from "
+                         "dualhyp_tpu/ops/pallas/flash_attention.py:66)")
+                  for name, line, fn in (
+                      ("splash_attention_fwd", 1137, "flash_attention_kernel :696"),
+                      ("splash_attention_dq", 1635, "_flash_attention_dq_kernel :1307"),
+                      ("splash_attention_dkv", 2196, "_flash_attention_dkv_kernel :1669"))}}
     # each kernel's main path, and the shape of its row in the line
     main_path = {"lora_linear": ("fused_slice", "qkv_3072"),
                  "q4_matmul": ("int4_slice", "decode_fc_1"),
@@ -2533,7 +2971,10 @@ def main(argv=None) -> int:
                  "causal_attention_fwd": ("causal_attention_fwd_phase", "T1024"),
                  "grouped_matmul": ("mixtral_slice", "decode_fc_1_skewed"),
                  "grouped_matmul_dlhs": ("mixtral_train_slice", "fc_1_skewed"),
-                 "grouped_matmul_drhs": ("moe_layer_weight_grads", "fc_1_skewed")}
+                 "grouped_matmul_drhs": ("moe_layer_weight_grads", "fc_1_skewed"),
+                 "splash_attention_fwd": ("splash_slice", "prefill"),
+                 "splash_attention_dq": ("splash_slice", "train"),
+                 "splash_attention_dkv": ("splash_slice", "train")}
     call_paths = {
         "full_attention_fwd": "cli.inference_relprompt.run_relprompt -> "
                               "cli.finetune_relprompt feature loader -> models.whisper.encode "
@@ -2551,7 +2992,12 @@ def main(argv=None) -> int:
         "grouped_matmul_drhs": "GroupedMatmul.backward when an expert stack takes gradients "
                                "(mode full, not ported): no production call site, and LoRA "
                                "training launches it 0 times; this script's MoE layer backward "
-                               "with trainable stacks"}
+                               "with trainable stacks",
+        **{name: "DUALHYP_ATTN_IMPL=splash: cli.finetune_ger.run_training -> "
+                 "train.Trainer.train_step -> GPT.forward (+ remat, + backward) -> "
+                 "ops.attention.causal_attention -> ops.splash.SplashAttention; "
+                 "cli.inference_ger.run_inference -> GPT.prefill (forward only)"
+           for name in SPLASH_KERNELS}}
     paths = {"decode_slice": sliced["launches"], "train_slice": trained["launches"],
              **{f"{v}_slice": slices[v]["launches"] for v in slices},
              **{f"train_step_1024_{k}": r["launches"] for k, r in stepped.items()},
@@ -2567,7 +3013,11 @@ def main(argv=None) -> int:
              **{f"depth2_mixtral_train_{k}": depth2_moe_train[k]["launches"]
                 for k in ("megablox", "dense")},
              "moe_layer_lhs_grads": nosync["backward_frozen_stacks"]["launches"],
-             "moe_layer_weight_grads": nosync["backward_trainable_stacks"]["launches"]}
+             "moe_layer_weight_grads": nosync["backward_trainable_stacks"]["launches"],
+             "splash_slice": splashed["launches"],
+             "splash_slice_decode": splashed["decode_launches"],
+             **{f"depth2_train_splash_T{t}": r["launches"] for t, r in depth2_splash.items()},
+             **{f"attn_ab_1024_{k}": r["launches"] for k, r in attn_ab.items()}}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "device_ms", "shape")
     train_rows = {"rms_norm": train_shapes["rms_norm"],
@@ -2610,6 +3060,10 @@ def main(argv=None) -> int:
             entry["d128"] = {k: kernels[name]["d128"]["T384"][k] for k in keys}
         if name == "flash_attention_bwd":
             entry["d128"] = {k: kernels[name]["d128"][k] for k in keys}
+        if name in SPLASH_KERNELS:
+            entry["launches"] = launches["splash_slice"] + (
+                launches["splash_slice_decode"] if name == "splash_attention_fwd" else 0)
+            entry["main_path"] = "splash_slice (training + decode)"
         line.append(entry)
     emit({"kernels": line})
     print(smi, flush=True)

@@ -12,6 +12,7 @@ from pathlib import Path
 import torch
 
 from dualhyp_tpu_torch.ckpt.convert import load_tree
+from dualhyp_tpu_torch.ckpt.convert_hf import convert_hf_checkpoint
 from dualhyp_tpu_torch.ckpt.io import load_params
 from dualhyp_tpu_torch.models.gpt import GPT
 from dualhyp_tpu_torch.models.relprompt import extend_embeddings
@@ -147,14 +148,16 @@ def dataset_class_for(args):
 
 def load_model(checkpoint_dir, cfg, *, device, seed: int, dtype=torch.bfloat16,
                finetuned=None) -> GPT:
-    """The model with converted base weights when the checkpoint directory
-    has them (`dualhyp_model.npz`), else random weights from `seed` with a
-    warning; then the finetuned leaves (`finetuned`, an npz path) over them.
-    Leaves a checkpoint lacks keep their initial values, as the reference's
-    strict=False load does. A RelPrompt config (`n_extra_tokens`) takes base
-    weights saved without the extra rows and appends them
-    (`relprompt.extend_embeddings`), as the JAX package loads its base
-    weights with `n_extra_tokens=0` and then extends them."""
+    """The model with the checkpoint directory's base weights: converted
+    ones (`dualhyp_model.npz`) if it has them, else HF `*.safetensors`
+    shards converted on the fly (`ckpt.convert_hf`, LLaMA family), as
+    `dualhyp_tpu/cli/common.py:load_base_params` does; else random weights
+    from `seed` with a warning. Then the finetuned leaves (`finetuned`, an
+    npz path) over them. Leaves a checkpoint lacks keep their initial
+    values, as the reference's strict=False load does. A RelPrompt config
+    (`n_extra_tokens`) takes base weights without the extra rows and
+    appends them (`relprompt.extend_embeddings`), as the JAX package loads
+    its base weights with `n_extra_tokens=0` and then extends them."""
     checkpoint_dir = Path(checkpoint_dir)
     model = GPT(cfg, device=device, dtype=dtype)
     generator = torch.Generator(device=model.device)
@@ -163,17 +166,17 @@ def load_model(checkpoint_dir, cfg, *, device, seed: int, dtype=torch.bfloat16,
     npz = checkpoint_dir / "dualhyp_model.npz"
     if npz.is_file():
         tree = load_params(npz)
+    elif list(checkpoint_dir.glob("*.safetensors")):
+        tree = convert_hf_checkpoint(checkpoint_dir, cfg.name)
+    else:
+        tree = None
+        print(f"WARNING: no weights found under {checkpoint_dir}; random init "
+              f"from seed {seed}")
+    if tree is not None:
         if cfg.n_extra_tokens and len(tree["wte"]["weight"]) == cfg.padded_vocab_size:
             tree = extend_embeddings(tree, generator, cfg.n_extra_tokens)
         load_tree(model, tree, strict=False)
-    elif list(checkpoint_dir.glob("*.safetensors")):
-        raise NotImplementedError(
-            f"{checkpoint_dir} holds HF safetensors: their conversion is not "
-            "ported yet; convert them to dualhyp_model.npz with "
-            "`python -m dualhyp_tpu.cli.download` first")
-    else:
-        print(f"WARNING: no weights found under {checkpoint_dir}; random init "
-              f"from seed {seed}")
+        del tree
     if finetuned is not None:
         load_tree(model, load_params(finetuned), strict=False)
     return model

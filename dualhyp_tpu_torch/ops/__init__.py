@@ -13,6 +13,7 @@ from dualhyp_tpu_torch.ops.int4 import Q4_MATMUL
 from dualhyp_tpu_torch.ops.lora import LORA_LINEAR
 from dualhyp_tpu_torch.ops.rmsnorm import RMS_NORM
 from dualhyp_tpu_torch.ops.rope import ROPE, ROPE_T
+from dualhyp_tpu_torch.ops.splash import SPLASH_DKV, SPLASH_DQ, SPLASH_FWD
 from dualhyp_tpu_torch.ops.swiglu import SWIGLU
 
 # every hand-written kernel of the port, by the name of its wrapper
@@ -29,6 +30,9 @@ KERNELS = {
     "grouped_matmul": GROUPED_MATMUL,
     "grouped_matmul_dlhs": GROUPED_MATMUL_DLHS,
     "grouped_matmul_drhs": GROUPED_MATMUL_DRHS,
+    "splash_attention_fwd": SPLASH_FWD,
+    "splash_attention_dq": SPLASH_DQ,
+    "splash_attention_dkv": SPLASH_DKV,
 }
 # launches of a kernel above in its transposed direction (the backward),
 # counted apart

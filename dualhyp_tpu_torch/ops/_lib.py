@@ -36,6 +36,9 @@ LIB_NAME = "libdualhyp_kernels.so"
 
 _lock = threading.Lock()
 _library: ctypes.CDLL | None = None
+# {source name: nvcc's output} of the last verbose build in this process
+# (`-Xptxas -v`: each kernel instance's registers, shared memory and spills)
+BUILD_LOGS: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -89,6 +92,7 @@ def build(verbose: bool = False) -> Path:
     for src, _, proc in procs:
         log, _ = proc.communicate()
         if verbose and log:
+            BUILD_LOGS[src.name] = log
             print(f"[nvcc {src.name}]\n{log}", file=sys.stderr, flush=True)
         if proc.returncode != 0:
             failures.append(f"{src.name}:\n{log}")

@@ -4,12 +4,15 @@ Counterpart of `dualhyp_tpu/ops/attention.py`. The scale is 1/sqrt(head
 size) and the softmax runs in fp32. K/V carry only the n_query_groups heads;
 the grouped broadcast happens inside the kernel or the einsum.
 
-  * `causal_attention`: prefill and full-sequence path. It launches kernel
-    K1's forward (`csrc/flash_attention.cu`) on CUDA tensors and runs the
-    plain version on CPU tensors. With grad enabled it goes through
-    `FlashAttention`, whose backward launches K1's backward
-    (`csrc/flash_attention_bwd.cu`), or runs the plain pair on the CPU.
-    Both kernels take head size 64 (TinyLlama) and 128 (Mixtral).
+  * `causal_attention`: prefill and full-sequence path. It reads
+    `DUALHYP_ATTN_IMPL` at each call, as the JAX package does: "own" (the
+    default) launches kernel K1's forward (`csrc/flash_attention.cu`) on
+    CUDA tensors and runs the plain version on CPU tensors; with grad
+    enabled it goes through `FlashAttention`, whose backward launches K1's
+    backward (`csrc/flash_attention_bwd.cu`), or runs the plain pair on the
+    CPU. Any other value ("splash") runs L1, `ops/splash.causal_attention`:
+    its own forward, dQ and dK/dV kernels (`csrc/splash_attention.cu`).
+    All take head size 64 (TinyLlama) and 128 (Mixtral).
   * `decode_attention`: one step against the KV cache, masked by each row's
     valid length, with the per-slot scales of an int8 cache (plain PyTorch;
     the JAX package leaves it to XLA too).
@@ -18,6 +21,7 @@ the grouped broadcast happens inside the kernel or the einsum.
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 
@@ -215,11 +219,18 @@ class FlashAttention(torch.autograd.Function):
 
 
 def causal_attention(q, k, v, scale: float | None = None):
-    """q: (B, Hq, T, D); k, v: (B, G, T, D) with G = n_query_groups. With
-    grad enabled and an input that needs it, the autograd op
-    `FlashAttention`; else the forward alone."""
+    """q: (B, Hq, T, D); k, v: (B, G, T, D) with G = n_query_groups.
+    `DUALHYP_ATTN_IMPL`, read at each call: "own" (the default) runs K1,
+    with grad enabled and an input that needs it through the autograd op
+    `FlashAttention`, else the forward alone; any other value runs L1
+    (`ops/splash.causal_attention`), as the JAX function sends any value
+    other than "own" to splash."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
+    if os.environ.get("DUALHYP_ATTN_IMPL", "own") != "own":
+        from dualhyp_tpu_torch.ops import splash
+
+        return splash.causal_attention(q, k, v, scale)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttention.apply(q, k, v, scale)
     if q.device.type == "cpu":

@@ -38,19 +38,21 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                    "dualhyp_tpu_torch.cli.inference_relprompt",
                    "dualhyp_tpu_torch.cli.finetune_relprompt",
                    "dualhyp_tpu_torch.cli.precompute_features",
-                   "dualhyp_tpu_torch.cli.make_json_asr", "dualhyp_tpu_torch.ops.gmm"):
+                   "dualhyp_tpu_torch.cli.make_json_asr", "dualhyp_tpu_torch.ops.gmm",
+                   "dualhyp_tpu_torch.ops.splash", "dualhyp_tpu_torch.ckpt.convert_hf"):
         assert module in result["imported"]
 
 
 def test_kernel_list_names_every_wrapper():
-    """`ops.KERNELS`: the twelve hand-written kernels, each a `_lib.Kernel`
+    """`ops.KERNELS`: the fifteen hand-written kernels, each a `_lib.Kernel`
     with its own C entry point and launch count."""
     from dualhyp_tpu_torch.ops import KERNELS, TRANSPOSED, _lib
 
     assert sorted(KERNELS) == sorted([
         "rms_norm", "apply_rope", "flash_attention_fwd", "flash_attention_bwd", "swiglu_mlp",
         "lora_linear", "q4_matmul", "full_attention_fwd", "causal_attention_fwd",
-        "grouped_matmul", "grouped_matmul_dlhs", "grouped_matmul_drhs"])
+        "grouped_matmul", "grouped_matmul_dlhs", "grouped_matmul_drhs",
+        "splash_attention_fwd", "splash_attention_dq", "splash_attention_dkv"])
     kernels = [*KERNELS.values(), *TRANSPOSED.values()]
     assert all(isinstance(k, _lib.Kernel) and isinstance(k.launches, int) for k in kernels)
     assert len({id(k) for k in kernels}) == len(kernels)

@@ -10,8 +10,11 @@ S of 1, 63, 64, 65 and 1500, S != T, kv_valid and strided inputs, L2
 (the grouped matmul) at M of 0, 1, 16, 17, 64, 65, 300 and 6144 with
 empty, straddling and single groups and a ragged N, its two gradients
 (dlhs, drhs) at M from 0 to 16384, K1's forward and backward at head size
-128, and a small MoE model card against CPU, in prefill and in a LoRA
-training step. Every test needs an NVIDIA card and skips without one.
+128, a small MoE model card against CPU, in prefill and in a LoRA
+training step, and L1 (splash attention: forward, dQ, dK/dV) at T of 1,
+63, 128, 200 and 1024, head sizes 64 and 128, 4 and 8 KV groups, strided
+views, refusals, and its autograd op card against CPU. Every test needs an
+NVIDIA card and skips without one.
 On the card's machine (no JAX there) run them without the suite's conftest:
 
     python -m pytest tests/test_torch_kernels.py --noconftest -q
@@ -31,7 +34,7 @@ from chip_smoke import prefill_with_routes
 from dualhyp_tpu_torch.config import GPTConfig
 from dualhyp_tpu_torch.models.gpt import GPT, split_heads
 from dualhyp_tpu_torch.ops import (attention, flash_fwd, gmm, int4, lora, quant, rmsnorm,
-                                   rope, swiglu)
+                                   rope, splash, swiglu)
 
 pytestmark = pytest.mark.cuda
 
@@ -709,3 +712,101 @@ def test_small_moe_training_step_on_the_card_matches_the_cpu(dev):
     assert abs(loss_card - loss_cpu) < 0.05
     for name, want in g_cpu.items():
         assert float((g_card[name] - want).norm() / want.norm()) < 0.1, name
+
+
+# ---- L1: splash attention (forward, dQ, dK/dV) ----
+
+def _splash_inputs(gen, b, hq, g, t, d):
+    q, do = _randn(gen, b, hq, t, d), _randn(gen, b, hq, t, d)
+    k, v = _randn(gen, b, g, t, d), _randn(gen, b, g, t, d)
+    return q, k, v, do
+
+
+def _splash_check_bwd(q, k, v, o, lse, do, scale):
+    """L1's dQ and dK/dV kernels against their plain versions, fed the same
+    O, lse and di."""
+    di = splash.row_dot(o, do)
+    want_dq = splash.splash_dq_plain(q, k, v, lse, do, di, scale)
+    want_dk, want_dv = splash.splash_dkv_plain(q, k, v, lse, do, di, scale)
+    _close_bwd(splash.splash_dq(q, k, v, lse, do, di, scale), want_dq)
+    got_dk, got_dv = splash.splash_dkv(q, k, v, lse, do, di, scale)
+    _close_bwd(got_dk, want_dk)
+    _close_bwd(got_dv, want_dv)
+
+
+@pytest.mark.parametrize("t", [1, 63, 128, 200, 1024])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("g", [4, 8])
+def test_splash_kernels(dev, gen, t, d, g):
+    """L1's forward (O and lse), dQ and dK/dV against their plain versions:
+    q_per_kv 4 and 2, scale 1 (a rounded q_hat) at T % 128 == 0 and the
+    softmax scale at other T, as `splash.causal_attention` passes them."""
+    q, k, v, do = _splash_inputs(gen, 2, 16, g, t, d)
+    scale = 1.0 if splash.aligned(t) else d ** -0.5
+    before = [x.launches for x in (splash.SPLASH_FWD, splash.SPLASH_DQ, splash.SPLASH_DKV)]
+    o, lse = splash.splash_fwd(q, k, v, scale)
+    want_o, want_lse = splash.splash_fwd_plain(q, k, v, scale)
+    _close(o, want_o, *BF16[1:])
+    _close(lse, want_lse, 1e-4, 1e-5)
+    _splash_check_bwd(q, k, v, o, lse, do, scale)
+    after = [x.launches for x in (splash.SPLASH_FWD, splash.SPLASH_DQ, splash.SPLASH_DKV)]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+
+
+def test_splash_kernels_read_strided_views(dev, gen):
+    """q, k, v as views of a fused QKV projection, dO as a (B, T, H, D)
+    transpose, O as the forward's (B, T, H, D) view, at a ragged T."""
+    cfg = GPTConfig(n_embd=512, n_head=8, n_query_groups=2, intermediate_size=256,
+                    mlp_class="LLaMAMLP")
+    q5, k, v = split_heads(cfg, _randn(gen, 2, 70, cfg.qkv_out_dim))
+    q = q5.reshape(2, 8, 70, 64)
+    do = _randn(gen, 2, 70, 8, 64).transpose(1, 2)
+    o, lse = splash.splash_fwd(q, k, v, 0.125)
+    assert o.stride()[1] == 64
+    want_o, want_lse = splash.splash_fwd_plain(q, k, v, 0.125)
+    _close(o, want_o, *BF16[1:])
+    _close(lse, want_lse, 1e-4, 1e-5)
+    _splash_check_bwd(q, k, v, o, lse, do, 0.125)
+
+
+def test_splash_kernels_refuse_what_they_do_not_take(dev, gen):
+    q, k, v, do = _splash_inputs(gen, 1, 4, 2, 16, 64)
+    with pytest.raises(TypeError, match="bfloat16"):
+        splash.splash_fwd(q.float(), k, v)
+    with pytest.raises(ValueError, match="head size"):
+        splash.splash_fwd(*(x[..., :32] for x in (q, k, v)))
+    o, lse = splash.splash_fwd(q, k, v)
+    di = splash.row_dot(o, do)
+    with pytest.raises(TypeError, match="fp32 lse"):
+        splash.splash_dq(q, k, v, lse.bfloat16(), do, di)
+    with pytest.raises(TypeError, match="bfloat16"):
+        splash.splash_dkv(q, k, v, lse, do.float(), di)
+    with pytest.raises(ValueError, match="lse"):
+        splash.splash_dkv(q, k, v, lse[:, :, :8], do, di)
+    unaligned = torch.empty(1 * 4 * 16 * 64 + 1, dtype=torch.bfloat16, device=dev)[1:]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        splash.splash_fwd(unaligned.view(1, 4, 16, 64), k, v)
+
+
+@pytest.mark.parametrize("t", [128, 70])
+def test_splash_autograd_op_on_the_card_matches_the_cpu(dev, gen, monkeypatch, t):
+    """`ops.attention.causal_attention` under DUALHYP_ATTN_IMPL=splash with
+    grad: the kernels on the card against the plain versions on CPU copies
+    of the same bf16 inputs; L1 launches its three kernels and K1 none."""
+    monkeypatch.setenv("DUALHYP_ATTN_IMPL", "splash")
+    q, k, v, do = _splash_inputs(gen, 2, 8, 2, t, 64)
+    kernels = (splash.SPLASH_FWD, splash.SPLASH_DQ, splash.SPLASH_DKV,
+               attention.FLASH_FWD, attention.FLASH_BWD)
+    results = {}
+    for where in ("cuda", "cpu"):
+        leaves = [x.to(where).detach().requires_grad_() for x in (q, k, v)]
+        before = [x.launches for x in kernels]
+        out = attention.causal_attention(*leaves)
+        out.backward(do.to(where))
+        if where == "cuda":
+            assert [x.launches - b for x, b in zip(kernels, before)] == [1, 1, 1, 0, 0]
+        results[where] = [out.detach(), *(x.grad for x in leaves)]
+    (o, *grads), (want_o, *want_grads) = results["cuda"], results["cpu"]
+    _close(o, want_o.to(dev), *BF16[1:])
+    for x, y in zip(grads, want_grads):
+        _close_bwd(x, y.to(dev))

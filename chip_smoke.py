@@ -8,12 +8,17 @@ CUDA toolkit. It imports nothing of JAX or of the JAX package. Each phase
 prints one JSON line; a failed phase raises and the script exits non-zero.
 
   1. device: the card, its power limit, whether nvcc and triton exist; then
-     the kernel library is built from `dualhyp_tpu_torch/csrc/*.cu`;
+     the kernel library is built from `dualhyp_tpu_torch/csrc/*.cu`, and the
+     registers, static shared memory and spills of the wgmma/TMA kernels
+     (K1's forward, K4) are printed from `-Xptxas -v`;
   2. one phase per kernel, at the main path's shapes (bf16, batch 8, prompt
      384, decode rows 8): the kernel against its plain PyTorch version on the
      same inputs, within a stated tolerance, then CUDA-event times of the
      kernel, the plain version and one PyTorch library call where there is
-     one, beside the least time the card could take (`bound_ms`);
+     one, beside the least time the card could take (`bound_ms`); K4 must
+     give bitwise-equal outputs on two calls; the host microseconds of a K1
+     forward, K4 and K2 call at tiny shapes (K1 and K4 encode TMA tensor
+     maps on every call);
   3. a depth-2, full-width TinyLlama + LoRA model from seeded numpy weights:
      prefill logits on the card (kernels, bf16) against the CPU (plain
      versions, fp32);
@@ -23,8 +28,10 @@ prints one JSON line; a failed phase raises and the script exits non-zero.
      decode batch 8, 32 new tokens); the launch count of each kernel of that
      path is read around this run and must be > 0;
   5. K1's forward (O and the row logsumexp L) and backward kernels against
-     the plain pair (B=8, Hq=32, G=4, T=1024 and a ragged T=200), and K2,
-     K3 (both directions) and K4 at the training shape of 8192 rows;
+     the plain pair (B=8, Hq=32, G=4, T=1024 and a ragged T=200), both
+     timed at T=1024 beside SDPA's forward and backward, and K2, K3 (both
+     directions) and K4 (bitwise repeatable) at the training shape of 8192
+     rows;
   6. a depth-2, full-width TinyLlama + LoRA training step: the loss and
      every LoRA gradient on the card (kernels, bf16) against the CPU (plain
      versions, fp32);
@@ -39,7 +46,8 @@ prints one JSON line; a failed phase raises and the script exits non-zero.
   8. the headline training step (`bench.py`'s shape: micro batch 8, T=1024,
      half the labels masked), remat on and off, and with the fused LoRA
      linear (K5) with remat on: median step time, tokens/s, MFU and peak
-     memory (the fused-vs-composition A/B);
+     memory (the fused-vs-composition A/B), and the device ms of K1's
+     forward, its backward and K4 in a profiled step;
   9. K8 (int4 weights times activations) at decode (8) and prefill (3072)
      rows for fc_1, mlp.proj and lm_head, and K5 (the fused LoRA linear) at
      8, 3072 and 8192 rows for the fused QKV (rank 48) and proj (rank 16),
@@ -164,8 +172,8 @@ TOLERANCES = {
     # flash: the kernel rounds unnormalised P to bf16, the plain version the
     # normalised probabilities; sums run in another order.
     "flash_attention_fwd": (1e-2, 2.0 ** -6),
-    # swiglu: sums of 2048 and 5632 fp32 products in another order and with
-    # atomics in no fixed order; h may round apart by one bf16 ulp.
+    # swiglu: sums of 2048 and 5632 fp32 products in another order; h may
+    # round apart by one bf16 ulp.
     "swiglu_mlp": (1e-2, 2.0 ** -6),
     # q4_matmul: the same exact bf16 x nibble products as the plain version,
     # summed in fp32 in another order (split K: partials added apart), each
@@ -457,7 +465,7 @@ def kernel_phases(torch, seed: int) -> dict:
     entry = {}
     for label, n in (("prefill", rows), ("decode", b)):
         x = randn(n, d)
-        err = compare("swiglu_mlp", swiglu.swiglu_mlp(x, w1, w2, w3),
+        err = compare("swiglu_mlp", swiglu_repeatable(swiglu, x, w1, w2, w3, torch),
                       swiglu.swiglu_mlp_plain(x, w1, w2, w3), torch)
         bms, by = bound((2 * n * d + 3 * inter * d) * 2, 6 * n * d * inter,
                         BF16_TENSOR_FLOPS)
@@ -473,7 +481,43 @@ def kernel_phases(torch, seed: int) -> dict:
     for name, entry in results.items():
         emit({"phase": "kernel", "name": name,
               "tolerance": dict(zip(("atol", "rtol"), TOLERANCES[name])), **entry})
+
+    # host microseconds a call at tiny shapes, where the card waits on the
+    # host: K1's forward and K4 encode their TMA tensor maps (4 and 5-7) on
+    # every call, K2 encodes none (the yardstick of one ctypes launch)
+    xs, ws = randn(8, 128), randn(256, 128, std=0.05)
+    w3s = randn(128, 256, std=0.05)
+    qt, kt = randn(1, 8, 16, hs), randn(1, 2, 16, hs)
+    emit({"phase": "host_cost", "shapes": {"rms_norm": [8, 128], "swiglu_mlp": [8, 128, 256],
+                                           "flash_attention_fwd": [1, 8, 2, 16, hs]},
+          "host_us": {
+              "rms_norm": host_us(lambda: rmsnorm.rms_norm(xs, scale[:128]), torch),
+              "swiglu_mlp": host_us(lambda: swiglu.swiglu_mlp(xs, ws, ws, w3s), torch),
+              "flash_attention_fwd": host_us(lambda: attention._flash_fwd(qt, kt, kt, 0.125),
+                                             torch)}})
     return results
+
+
+def swiglu_repeatable(swiglu, x, w1, w2, w3, torch):
+    """K4 on the inputs twice; raises unless the two outputs are bitwise
+    equal (it sums in a fixed order: no atomics). Returns the output."""
+    first = swiglu.swiglu_mlp(x, w1, w2, w3)
+    if not torch.equal(first, swiglu.swiglu_mlp(x, w1, w2, w3)):
+        raise RuntimeError(f"swiglu_mlp: two calls on the same {tuple(x.shape)} input differ")
+    return first
+
+
+def host_us(fn, torch, n: int = 200) -> float:
+    """Host microseconds a call of `fn`, enqueued back to back after a
+    synchronise (at shapes whose device time is shorter than the host's)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / n * 1e6
 
 
 def q4_lora_phase(torch, seed: int) -> dict:
@@ -668,6 +712,20 @@ def depth2_int4_check(torch, seed: int) -> dict:
     del card, cpu
     torch.cuda.empty_cache()
     return result
+
+
+# substrings of the kernel names of K1's forward, K1's backward and K4 in a
+# profile (their device ms a step)
+STEP_KERNELS = {"k1_fwd": ("flash_fwd_kernel",), "k1_bwd": ("flash_bwd_kernel", "delta_kernel"),
+                "k4": ("swiglu_",)}
+
+
+def step_kernel_ms(prof) -> dict:
+    """Device ms of K1's forward, K1's backward and K4 in a profiled step."""
+    times = device_kernel_times(prof)
+    return {f"{key}_ms": sum(us for name, (us, _) in times.items()
+                             if any(p in name for p in parts)) / 1e3
+            for key, parts in STEP_KERNELS.items()}
 
 
 def profile_summary(prof, wall_ms: float, top_n: int = 12) -> dict:
@@ -894,7 +952,8 @@ def flash_bwd_phase(torch, seed: int, g: int = 4, hs: int = 64) -> dict:
     `causal_attention_plain_lse`; the backward kernel, fed the kernel's O
     (the forward's (B, T, H, D) view) and L, against the plain backward fed
     the same, and against the plain backward fed the plain forward's; times
-    at T=1024 beside SDPA's backward."""
+    at T=1024 beside SDPA's backward, and of the forward beside SDPA's
+    forward (`forward_T1024`)."""
     import torch.nn.functional as F
 
     from dualhyp_tpu_torch.ops import attention
@@ -933,13 +992,23 @@ def flash_bwd_phase(torch, seed: int, g: int = 4, hs: int = 64) -> dict:
         del got, want
         entry[f"T{t}"] = {"forward": fwd, **checks, "pair": pair}
     # the T=1024 case's tensors stay for the times
+    t = 1024
+    pairs = b * nh * t * (t + 1) // 2
+    n_q, n_kv = b * nh * t * hs, b * g * t * hs
+    fwd = lambda: attention._flash_fwd(q, k, v, scale)  # noqa: E731
+    bms, by = bound((2 * n_q + 2 * n_kv) * 2 + b * nh * t * 4, 4 * pairs * hs, BF16_TENSOR_FLOPS)
+    forward_t1024 = dict(
+        shape=[b, nh, g, t, hs], max_abs_err=entry["T1024"]["forward"]["o_max_abs_err"],
+        lse_max_abs_err=entry["T1024"]["forward"]["lse_max_abs_err"],
+        ms=time_ms(fwd, torch), device_ms=device_ms(fwd, torch),
+        plain_ms=time_ms(lambda: attention.causal_attention_plain(q, k, v, scale), torch,
+                         warmup=1, iters=5),
+        library_ms=time_ms(lambda: sdpa_gqa(F, q, k, v, scale), torch),
+        library="SDPA (causal, enable_gqa)", bound_ms=bms, bound_by=by)
     bwd = lambda: attention.flash_attention_bwd(q, k, v, o, lse, do, scale)  # noqa: E731
     qr, kr, vr = (z.detach().requires_grad_() for z in (q, k, v))
     out = F.scaled_dot_product_attention(qr, kr, vr, is_causal=True, enable_gqa=True)
     lib = lambda: torch.autograd.grad(out, (qr, kr, vr), do, retain_graph=True)  # noqa: E731
-    t = 1024
-    pairs = b * nh * t * (t + 1) // 2
-    n_q, n_kv = b * nh * t * hs, b * g * t * hs
     bms, by = bound((3 * n_q + 2 * n_kv) * 2 + (n_q + 2 * n_kv) * 2 + 2 * b * nh * t * 4,
                     10 * hs * pairs, BF16_TENSOR_FLOPS)
     entry.update(
@@ -948,7 +1017,7 @@ def flash_bwd_phase(torch, seed: int, g: int = 4, hs: int = 64) -> dict:
         plain_ms=time_ms(lambda: attention.flash_attention_bwd_plain(
             q, k, v, o_plain, lse_plain, do, scale), torch, warmup=1, iters=5),
         library_ms=time_ms(lib, torch), library="SDPA backward (autograd.grad)",
-        bound_ms=bms, bound_by=by)
+        bound_ms=bms, bound_by=by, forward_T1024=forward_t1024)
     del q, k, v, o, o_plain, lse, lse_plain, do, qr, kr, vr, out
     torch.cuda.empty_cache()
     emit({"phase": "kernel", "name": "flash_attention_bwd", "head_size": hs,
@@ -1027,7 +1096,7 @@ def training_shape_phase(torch, seed: int, cfg=None) -> dict:
 
     w1, w2 = randn(inter, d, std=0.02), randn(inter, d, std=0.02)
     w3 = randn(d, inter, std=0.02)
-    err = compare("swiglu_mlp", swiglu.swiglu_mlp(x, w1, w2, w3),
+    err = compare("swiglu_mlp", swiglu_repeatable(swiglu, x, w1, w2, w3, torch),
                   swiglu.swiglu_mlp_plain(x, w1, w2, w3), torch)
     bms, by = bound((2 * rows * d + 3 * inter * d) * 2, 6 * rows * d * inter,
                     BF16_TENSOR_FLOPS)
@@ -1315,8 +1384,10 @@ def train_step_1024(torch, seed: int) -> dict:
                 trainer.train_step(batch, max_iters=1000, warmup_steps=10, generator=gen)
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t0) * 1e3
+            results[label]["profile"] = {**step_kernel_ms(prof),
+                                         **profile_summary(prof, wall_ms, top_n=15)}
             emit({"phase": "train_step_1024_profile", "remat": True, "lora_impl": impl,
-                  **profile_summary(prof, wall_ms, top_n=15)})
+                  **results[label]["profile"]})
         del trainer
     emit({"phase": "train_step_1024", "micro_batch": mb, "seq_len": t,
           "flops_per_token": estimate_train_flops_per_token(cfg, t), **results})
@@ -1358,10 +1429,27 @@ def attn_impl(name: str):
             os.environ["DUALHYP_ATTN_IMPL"] = old
 
 
+def kernel_instance(mangled: str) -> str:
+    """`name<args>` of a mangled kernel symbol (`_ZN<len><id>...I<args>E...`):
+    the last name component and its integer template arguments."""
+    import re
+
+    rest, parts = mangled.removeprefix("_ZN"), []
+    while (m := re.match(r"(\d+)", rest)):
+        n = int(m[1])
+        parts.append(rest[len(m[1]):len(m[1]) + n])
+        rest = rest[len(m[1]) + n:]
+    m = re.match(r"I((?:L[ib]\d+E)+)E", rest)
+    args = re.findall(r"L[ib](\d+)E", m[1]) if m else []
+    name = parts[-1] if parts else mangled
+    return f"{name}<{', '.join(args)}>" if args else name
+
+
 def ptxas_report(source: str):
-    """{kernel instance: registers and spill bytes} of a source's splash
-    kernels, read from the verbose build's `-Xptxas -v` output; None when
-    this process did not compile the library (it was already built)."""
+    """{kernel instance: registers, spill bytes and static shared memory} of
+    a source's kernels, read from the verbose build's `-Xptxas -v` output;
+    None when this process did not compile the library (it was already
+    built). Dynamic shared memory is chosen at launch and is not in it."""
     import re
 
     from dualhyp_tpu_torch.ops import _lib
@@ -1371,9 +1459,9 @@ def ptxas_report(source: str):
         return None
     out, name = {}, None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*?\d+(splash_\w+?)ILi(\d+)EE", line)
+        m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = f"{m[1]}<{m[2]}>"
+            name = kernel_instance(m[1])
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
@@ -1381,6 +1469,8 @@ def ptxas_report(source: str):
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             out.setdefault(name, {})["registers"] = int(m[1])
+            m = re.search(r"(\d+) bytes smem", line)
+            out[name]["static_smem_bytes"] = int(m[1]) if m else 0
     return out
 
 
@@ -2704,7 +2794,7 @@ def mixtral_step_1024(torch, model, cfg, seed: int, remat, profile: bool) -> dic
                 trainer.train_step(batch, max_iters=1000, warmup_steps=10, generator=gen)
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t0) * 1e3
-            out["profile"] = profile_summary(prof, wall_ms, top_n=8)
+            out["profile"] = {**step_kernel_ms(prof), **profile_summary(prof, wall_ms, top_n=8)}
             del prof
         del trainer
         model.zero_grad(set_to_none=True)
@@ -2888,6 +2978,9 @@ def main(argv=None) -> int:
     lib = _lib.build(verbose=True)
     emit({"phase": "build", "library": str(lib.relative_to(REPO)),
           "seconds": time.perf_counter() - t0})
+    # registers, static shared memory and spills of the wgmma/TMA kernels
+    emit({"phase": "ptxas", **{src: ptxas_report(src) or "not measured (built before this run)"
+                               for src in ("flash_attention.cu", "swiglu.cu")}})
     emit({"phase": "l2_flush", "bytes": L2_FLUSH_BYTES, "ms": time_ms(l2_flush(torch), torch)})
 
     seconds = {}
@@ -3056,8 +3149,11 @@ def main(argv=None) -> int:
                 k: train_shapes["apply_rope_transpose"][k] for k in keys}
         for key, row in moe_train_rows.get(name, {}).items():  # width 4096, head 128
             entry[key] = {k: train_shapes_moe[row][k] for k in keys}
-        if name == "flash_attention_fwd":  # Mixtral's head size
+        if name == "flash_attention_fwd":  # Mixtral's head size; both training shapes
             entry["d128"] = {k: kernels[name]["d128"]["T384"][k] for k in keys}
+            for key, head in (("train_T1024", "train"), ("d128_train_T1024", "d128")):
+                row = kernels["flash_attention_bwd"][head]["forward_T1024"]
+                entry[key] = {k: row[k] for k in keys}
         if name == "flash_attention_bwd":
             entry["d128"] = {k: kernels[name]["d128"][k] for k in keys}
         if name in SPLASH_KERNELS:

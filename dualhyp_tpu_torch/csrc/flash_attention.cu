@@ -2,218 +2,269 @@
 // logsumexp L.
 //
 // Replaces dualhyp_tpu/ops/pallas/flash_vjp.py `_fwd_kernel` (the Pallas
-// call in `_forward`). What bounds it on the H100: at the prefill shapes
-// (T up to 1024, D = 64 or 128) the causal QK^T and PV products are ~T/2
-// MACs per loaded byte of q, so it is bound by operations once they run on
-// the tensor cores, and by bytes (q, k, v, o) at short T. Design:
-//   * one block of 4 warps owns one (batch, query head, 64-row query tile);
-//     each warp owns 16 query rows;
-//   * GQA is an index: the block reads KV head h / q_per_kv, K/V are never
+// call in `_forward`). What bounds it on the H100: at the prefill and
+// training shapes (T 384 to 1024, D = 64 or 128) the causal QK^T and PV
+// products are ~T/2 MACs per loaded byte of q, so it is bound by the tensor
+// cores' operations (B8 Hq32 T1024 D64: 0.0348 ms at 989 TFLOP/s), and by
+// the bytes of q, k, v and o at short T. Design (Hopper, sm_90a):
+//   * a block owns 64 query rows (D = 64) or 128 (D = 128) of one (batch,
+//     query head): one or two consumer warpgroups of 64 rows, and one
+//     producer warp; GQA is an index (KV head h / q_per_kv), K/V are never
 //     expanded in device memory;
-//   * K/V stream through shared memory in 64-row tiles; tiles above the
-//     diagonal are skipped, and the ragged tail (T not a multiple of 64) is
-//     masked, so every T >= 1 runs (the TPU kernel needed T % 128 == 0);
-//   * QK^T and PV run on the tensor cores (WMMA bf16 x bf16 -> fp32); the
-//     online softmax (running max m, sum l) runs in fp32 on the S tile in
-//     shared memory; P is rounded to bf16 for the PV product, as the plain
-//     version rounds its probabilities to the query dtype;
-//   * the fp32 O accumulator lives in shared memory, so the per-row rescale
-//     by exp(m_old - m_new) needs no knowledge of the fragment layout;
-//   * the head size D is a template parameter (64: TinyLlama; 128: Mixtral):
-//     the S tile (64 keys) and the O tile (D columns) have their own row
-//     strides, and each instance opts in to its own shared memory (70.8 KB
-//     at D = 64, 110.8 KB at D = 128: two blocks an SM either way).
-// All q, k, v, o take (batch, head, token) strides with D contiguous, so the
-// heads of the fused QKV projection and a (B, T, H, D) output need no copy.
-#include <mma.h>
-
-#include "common.cuh"
+//   * the producer keeps a ring of two K/V stages (64 keys each) in flight
+//     with TMA, each completion reported to an mbarrier; the consumers free
+//     a stage through a second mbarrier once their products have read it.
+//     Q, K and V arrive as 128-byte swizzled (rows, 64) boxes of 4-D tensor
+//     maps over (D, T, head, batch), so the strided views of the fused QKV
+//     projection are read in place, and TMA writes zeros past T;
+//   * S = Q K^T is a wgmma m64n64k16 with both operands in shared memory;
+//     the online softmax (running max m, sum l, in fp32, base 2) works on
+//     the accumulator registers: a row's values sit in 4 lanes, so its max
+//     and sum take two shuffles; only the diagonal and ragged tiles are
+//     masked, and tiles above the diagonal are never loaded;
+//   * P is rounded to bf16 in registers (as the plain version rounds the
+//     probabilities to the query dtype) and is the register A operand of the
+//     PV wgmma (m64n64k16 per 64 columns of D); V is the B operand from
+//     shared memory, read MN-major, so it needs no transpose; O stays in
+//     registers and is rescaled there;
+//   * O = acc / l goes out through shared memory and a TMA store of the
+//     (B, T, H, D) view (rows past T are not written); L = m + log l;
+//   * the grid puts the longest query tiles (most key tiles) first;
+//   * one instance per head size (64: TinyLlama, 128: Mixtral).
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00 W: 0.147
+// ms at B8 Hq32 G4 T1024 D64 (bound 0.035, SDPA 0.112) and 0.229 ms at G8
+// D128 (bound 0.070, SDPA 0.148), where the WMMA kernel this design
+// replaced took 0.969 and ~1.83 ms (PERF.md).
+#include "hopper.cuh"
 
 namespace {
 
-using namespace nvcuda;
+constexpr int kBKV = 64;    // keys a tile
+constexpr int kStages = 2;  // K/V tiles in flight
+constexpr float kLog2e = 1.4426950408889634f;
 
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kBKV = 64;       // keys per tile
-constexpr int kThreads = 128;  // 4 warps x 16 query rows
-constexpr int kLdp = kBKV + 8; // bf16 row stride of the P tile
-constexpr int kLds = kBKV + 4; // fp32 row stride of the S tile
-
-// The shared-memory layout of the instance for head size kD.
 template <int kD>
 struct Layout {
-  static constexpr int kLdb = kD + 8;  // bf16 row stride of the Q/K/V tiles
-  static constexpr int kLdo = kD + 4;  // fp32 row stride of the O tile
-  static constexpr size_t kSmem = sizeof(bf16) * (kBQ + 2 * kBKV) * kLdb +
-                                  sizeof(bf16) * kBQ * kLdp +
-                                  sizeof(float) * kBQ * (kLds + kLdo) +
-                                  3 * sizeof(float) * kBQ;
+  // consumer warpgroups of 64 query rows: one at D = 64, two (sharing each
+  // K/V tile) at D = 128, the faster of the two on the card at T 384 and
+  // 1024 (see PERF.md)
+  static constexpr int kWG = kD == 64 ? 1 : 2;
+  static constexpr int kBQ = 64 * kWG;                 // query rows a block
+  static constexpr int kThreads = kWG * 128 + 32;      // + the producer warp
+  static constexpr int kCols = kD / 64;                 // 64-column (128-byte) blocks
+  static constexpr int kQBytes = kBQ * kD * 2;
+  static constexpr int kKVBytes = kBKV * kD * 2;       // one K or V tile
+  static constexpr int kBarOffset = kQBytes + 2 * kStages * kKVBytes;
+  // + the barriers, + slack to align the base to 1024 bytes
+  static constexpr int kSmem = kBarOffset + 64 + 1024;
 };
 
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBT;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-// Copies rows [r0, r0 + 64) of a (T, kD) bf16 matrix with row stride `ld`
-// into a shared tile; rows at or past T are zero.
 template <int kD>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long ld,
-                                          int r0, int t) {
-  constexpr int kLdb = Layout<kD>::kLdb;
-  for (int i = threadIdx.x; i < kBQ * (kD / 8); i += kThreads) {
-    const int r = i / (kD / 8);
-    const int c = (i % (kD / 8)) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < t) v = *reinterpret_cast<const uint4*>(src + (r0 + r) * ld + c);
-    *reinterpret_cast<uint4*>(dst + r * kLdb + c) = v;
+__global__ void __launch_bounds__(Layout<kD>::kThreads, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
+                 const __grid_constant__ CUtensorMap map_k,
+                 const __grid_constant__ CUtensorMap map_v,
+                 const __grid_constant__ CUtensorMap map_o, float* __restrict__ lse,
+                 int n_head, int q_per_kv, int t, float scale) {
+  using L = Layout<kD>;
+  constexpr int kWG = L::kWG;
+  constexpr int kBQ = L::kBQ;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  bf16* q_s = reinterpret_cast<bf16*>(smem);  // [kCols][kBQ][64]
+  auto k_tile = [&](int s) {
+    return reinterpret_cast<bf16*>(smem + L::kQBytes + s * L::kKVBytes);
+  };
+  auto v_tile = [&](int s) {
+    return reinterpret_cast<bf16*>(smem + L::kQBytes + (kStages + s) * L::kKVBytes);
+  };
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBarOffset);
+  uint64_t* q_bar = bars;
+  uint64_t* full = bars + 1;               // [kStages]: a K/V tile has landed
+  uint64_t* empty = bars + 1 + kStages;    // [kStages]: its readers are done
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int qt = gridDim.z - 1 - blockIdx.z;  // the longest rows first
+  const int g = h / q_per_kv;
+  const int q0 = qt * kBQ;
+  const int n_kv = min((t + kBKV - 1) / kBKV, (q0 + kBQ + kBKV - 1) / kBKV);
+  const int warp = threadIdx.x >> 5;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * kWG);  // lane 0 of each consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * kWG) {  // ---- producer ----
+    if (threadIdx.x == 4 * kWG * 32) {
+      mbar_expect_tx(q_bar, L::kQBytes);
+      for (int c = 0; c < L::kCols; ++c)
+        tma_load_4d(q_s + c * kBQ * 64, &map_q, q_bar, c * 64, q0, h, b);
+      for (int j = 0; j < n_kv; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) mbar_wait(&empty[s], ((j / kStages) - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * L::kKVBytes);
+        for (int c = 0; c < L::kCols; ++c) {
+          tma_load_4d(k_tile(s) + c * kBKV * 64, &map_k, &full[s], c * 64, j * kBKV, g, b);
+          tma_load_4d(v_tile(s) + c * kBKV * 64, &map_v, &full[s], c * 64, j * kBKV, g, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns query rows q0 + 64 wg + [0, 64) ----
+  const int wg = warp >> 2;
+  const int tid = threadIdx.x & 127;
+  const int lane = threadIdx.x & 31;
+  const int first = q0 + 64 * wg;                       // the warpgroup's first row
+  const int row0 = first + (tid >> 5) * 16 + (lane >> 2);  // this thread's rows: row0, row0 + 8
+  const int col = 2 * (lane & 3);                        // and columns 8 j + col (+ 1)
+  const float scale2 = scale * kLog2e;                   // logits in base 2
+
+  float o[L::kCols][32];
+#pragma unroll
+  for (int c = 0; c < L::kCols; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};  // this thread's share of each row's sum
+
+  mbar_wait(q_bar, 0);
+  const bf16* q_wg = q_s + 64 * wg * 64;  // the warpgroup's rows of column block 0
+
+  for (int j = 0; j < n_kv; ++j) {
+    const int s = j % kStages;
+    const int k0 = j * kBKV;
+    mbar_wait(&full[s], (j / kStages) & 1);
+    if (k0 <= first + 63) {  // else every key of the tile is above this warpgroup's rows
+      const bf16* k_s = k_tile(s);
+      const bf16* v_s = v_tile(s);
+      float sc[kBKV / 2];
+      fence_regs(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        const int c = kk / 4;                  // column block
+        const int off = (kk % 4) * 16;         // 16 columns = 32 bytes into the swizzled row
+        Wgmma<kBKV>::ss(sc, sw128_desc(q_wg + c * kBQ * 64 + off),
+                        sw128_desc(k_s + c * kBKV * 64 + off), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+
+      // scale, mask (the diagonal tile and the ragged tail only), new maxima
+      const bool masked = k0 + kBKV - 1 > first || k0 + kBKV > t;
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int i = 0; i < kBKV / 2; ++i) {
+        const int half = (i >> 1) & 1;
+        float v = sc[i] * scale2;
+        if (masked) {
+          const int key = k0 + 8 * (i >> 2) + col + (i & 1);
+          if (key > row0 + 8 * half || key >= t) v = -INFINITY;
+        }
+        sc[i] = v;
+        mx[half] = fmaxf(mx[half], v);
+      }
+      float alpha[2], base[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        base[r] = mx[r] == -INFINITY ? 0.f : mx[r];  // a row with no key yet
+        alpha[r] = exp2f(m[r] - base[r]);
+        m[r] = mx[r];
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int i = 0; i < kBKV / 2; ++i) {
+        const int half = (i >> 1) & 1;
+        const float p = exp2f(sc[i] - base[half]);
+        sc[i] = p;
+        l[half] += p;
+      }
+#pragma unroll
+      for (int c = 0; c < L::kCols; ++c)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[c][i] *= alpha[(i >> 1) & 1];
+
+      // O += P V: P's accumulator layout is the A fragment layout of wgmma
+      uint32_t pa[kBKV / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBKV / 16; ++kk) {
+        pa[kk][0] = pack_bf16x2(sc[8 * kk + 0], sc[8 * kk + 1]);
+        pa[kk][1] = pack_bf16x2(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pa[kk][2] = pack_bf16x2(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pa[kk][3] = pack_bf16x2(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+#pragma unroll
+      for (int c = 0; c < L::kCols; ++c) fence_regs(o[c]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBKV / 16; ++kk)
+#pragma unroll
+        for (int c = 0; c < L::kCols; ++c)
+          wgmma_rs_n64_tb(o[c], pa[kk], sw128_desc(v_s + c * kBKV * 64 + kk * 16 * 64));
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int c = 0; c < L::kCols; ++c) fence_regs(o[c]);
+    }
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  // ---- epilogue: O = acc / l through the warpgroup's Q rows, then TMA ----
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    inv[r] = 1.f / l[r];
+    const int row = row0 + 8 * r;
+    if ((lane & 3) == 0 && row < t)
+      lse[(static_cast<long long>(blockIdx.y) * n_head + h) * t + row] =
+          m[r] / kLog2e + logf(l[r]);
+  }
+  const int rr = (tid >> 5) * 16 + (lane >> 2);  // row0 within the warpgroup's 64
+#pragma unroll
+  for (int c = 0; c < L::kCols; ++c) {
+    unsigned char* box = reinterpret_cast<unsigned char*>(q_s + c * kBQ * 64 + 64 * wg * 64);
+#pragma unroll
+    for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<uint32_t*>(box + swizzled_offset(rr + 8 * r, 8 * jn + col)) =
+            pack_bf16x2(o[c][4 * jn + 2 * r] * inv[r], o[c][4 * jn + 2 * r + 1] * inv[r]);
+  }
+  fence_async_smem();
+  named_barrier<128>(1 + wg);
+  if (tid == 0 && first < t) {
+    for (int c = 0; c < L::kCols; ++c)
+      tma_store_4d(&map_o, q_s + c * kBQ * 64 + 64 * wg * 64, c * 64, first, h, b);
+    tma_store_drain();
   }
 }
 
-template <int kD>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
-                 float* __restrict__ lse, int n_head, int q_per_kv, int t,
-                 float scale, long long qsb, long long qsh, long long qst,
-                 long long ksb, long long ksh, long long kst, long long vsb,
-                 long long vsh, long long vst, long long osb, long long osh,
-                 long long ost) {
-  constexpr int kLdb = Layout<kD>::kLdb;
-  constexpr int kLdo = Layout<kD>::kLdo;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* k_s = q_s + kBQ * kLdb;
-  bf16* v_s = k_s + kBKV * kLdb;
-  bf16* p_s = v_s + kBKV * kLdb;
-  float* s_s = reinterpret_cast<float*>(p_s + kBQ * kLdp);
-  float* o_s = s_s + kBQ * kLds;
-  float* m_s = o_s + kBQ * kLdo;
-  float* l_s = m_s + kBQ;
-  float* a_s = l_s + kBQ;
-
-  const int qt = blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int g = h / q_per_kv;
-  const int q0 = qt * kBQ;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int wr = warp * 16;  // this warp's first row in the tile
-
-  const bf16* qb = q + b * qsb + h * qsh;
-  const bf16* kb = k + b * ksb + g * ksh;
-  const bf16* vb = v + b * vsb + g * vsh;
-
-  load_tile<kD>(q_s, qb, qst, q0, t);
-  for (int i = threadIdx.x; i < kBQ * kLdo; i += kThreads) o_s[i] = 0.f;
-  if (threadIdx.x < kBQ) {
-    m_s[threadIdx.x] = -INFINITY;
-    l_s[threadIdx.x] = 0.f;
-  }
-
-  // causal: key tile j is needed while its first key <= the tile's last query
-  const int n_kv = min((t + kBKV - 1) / kBKV, qt + 1);
-  for (int j = 0; j < n_kv; ++j) {
-    const int k0 = j * kBKV;
-    __syncthreads();  // previous tile's readers are done with k_s / v_s
-    load_tile<kD>(k_s, kb, kst, k0, t);
-    load_tile<kD>(v_s, vb, vst, k0, t);
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows
-    {
-      FragC acc[kBKV / 16];
-#pragma unroll
-      for (int n = 0; n < kBKV / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
-#pragma unroll
-      for (int kk = 0; kk < kD; kk += 16) {
-        FragA a;
-        wmma::load_matrix_sync(a, q_s + wr * kLdb + kk, kLdb);
-#pragma unroll
-        for (int n = 0; n < kBKV / 16; ++n) {
-          FragBT bt;
-          wmma::load_matrix_sync(bt, k_s + n * 16 * kLdb + kk, kLdb);
-          wmma::mma_sync(acc[n], a, bt, acc[n]);
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < kBKV / 16; ++n)
-        wmma::store_matrix_sync(s_s + wr * kLds + n * 16, acc[n], kLds,
-                                wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // online softmax over this tile, one row at a time, two keys per lane
-    for (int r = 0; r < 16; ++r) {
-      const int row = wr + r;
-      const int qpos = q0 + row;
-      const float* srow = s_s + row * kLds;
-      const int kp0 = k0 + lane;
-      const int kp1 = k0 + lane + 32;
-      const float s0 = (kp0 <= qpos && kp0 < t) ? srow[lane] * scale : -INFINITY;
-      const float s1 = (kp1 <= qpos && kp1 < t) ? srow[lane + 32] * scale : -INFINITY;
-      const float m_prev = m_s[row];
-      const float m_new = fmaxf(m_prev, warp_max(fmaxf(s0, s1)));
-      const float p0 = expf(s0 - m_new);
-      const float p1 = expf(s1 - m_new);
-      const float sum = warp_sum(p0 + p1);
-      p_s[row * kLdp + lane] = __float2bfloat16(p0);
-      p_s[row * kLdp + lane + 32] = __float2bfloat16(p1);
-      __syncwarp();
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        m_s[row] = m_new;
-        l_s[row] = l_s[row] * alpha + sum;
-        a_s[row] = alpha;
-      }
-      __syncwarp();
-    }
-
-    // O = O * alpha + P V for this warp's rows
-    for (int i = lane; i < 16 * kD; i += 32) {
-      const int row = wr + i / kD;
-      o_s[row * kLdo + i % kD] *= a_s[row];
-    }
-    __syncwarp();
-    {
-      FragC acc[kD / 16];
-#pragma unroll
-      for (int n = 0; n < kD / 16; ++n)
-        wmma::load_matrix_sync(acc[n], o_s + wr * kLdo + n * 16, kLdo,
-                               wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < kBKV; kk += 16) {
-        FragA a;
-        wmma::load_matrix_sync(a, p_s + wr * kLdp + kk, kLdp);
-#pragma unroll
-        for (int n = 0; n < kD / 16; ++n) {
-          FragB bv;
-          wmma::load_matrix_sync(bv, v_s + kk * kLdb + n * 16, kLdb);
-          wmma::mma_sync(acc[n], a, bv, acc[n]);
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < kD / 16; ++n)
-        wmma::store_matrix_sync(o_s + wr * kLdo + n * 16, acc[n], kLdo,
-                                wmma::mem_row_major);
-    }
-  }
-  __syncwarp();
-
-  bf16* ob = o + b * osb + h * osh;
-  for (int i = lane; i < 16 * kD; i += 32) {
-    const int row = wr + i / kD;
-    const int c = i % kD;
-    if (q0 + row < t)
-      ob[(q0 + row) * ost + c] = __float2bfloat16(o_s[row * kLdo + c] / l_s[row]);
-  }
-  if (lane < 16) {
-    const int row = wr + lane;
-    if (q0 + row < t)
-      lse[(static_cast<long long>(b) * n_head + h) * t + q0 + row] =
-          m_s[row] + logf(l_s[row]);
-  }
+// The 4-D map of a (batch, head, token, D) bf16 view with element strides
+// sb, sh, st (D contiguous), in boxes of (rows, 64).
+int head_map(CUtensorMap* map, const void* p, int b, int heads, int t, int d, long long sb,
+             long long sh, long long st, int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(t),
+                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st) * 2,
+                                 static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  return make_tensor_map(map, p, 4, dims, strides, box);
 }
 
 template <int kD>
@@ -222,25 +273,29 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int 
            long long qst, long long ksb, long long ksh, long long kst, long long vsb,
            long long vsh, long long vst, long long osb, long long osh, long long ost,
            cudaStream_t stream) {
-  constexpr size_t smem = Layout<kD>::kSmem;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((t + kBQ - 1) / kBQ, n_head, b);
-  flash_fwd_kernel<kD><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      static_cast<float*>(lse), n_head, n_head / n_kv_head, t, scale, qsb, qsh,
-      qst, ksb, ksh, kst, vsb, vsh, vst, osb, osh, ost);
+  using L = Layout<kD>;
+  CUtensorMap mq, mk, mv, mo;
+  int err = head_map(&mq, q, b, n_head, t, kD, qsb, qsh, qst, L::kBQ);
+  if (!err) err = head_map(&mk, k, b, n_kv_head, t, kD, ksb, ksh, kst, kBKV);
+  if (!err) err = head_map(&mv, v, b, n_kv_head, t, kD, vsb, vsh, vst, kBKV);
+  if (!err) err = head_map(&mo, o, b, n_head, t, kD, osb, osh, ost, 64);
+  if (err) return err;
+  constexpr int smem = L::kSmem;
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<kD>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid(n_head, b, (t + L::kBQ - 1) / L::kBQ);
+  flash_fwd_kernel<kD><<<grid, L::kThreads, smem, stream>>>(
+      mq, mk, mv, mo, static_cast<float*>(lse), n_head, n_head / n_kv_head, t, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q: (B, H, T, D); k, v: (B, G, T, D), each with (batch, head, token)
-// element strides and unit channel stride, 16-byte aligned rows; o: the same
-// for (B, H, T, D); lse: contiguous (B, H, T) fp32. D is 64 or 128.
+// element strides that are multiples of 8 and unit channel stride, 16-byte
+// aligned; o: the same for (B, H, T, D); lse: contiguous (B, H, T) fp32.
+// D is 64 or 128.
 DH_EXPORT int dh_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse, int b,
     int n_head, int n_kv_head, int t, int d, float scale, long long qsb,

@@ -1,202 +1,397 @@
-// K4: fused SwiGLU MLP, out = (act(x W1^T) * (x W2^T)) W3^T.
+// K4: fused SwiGLU MLP, out = bf16(sum(bf16(act(x W1^T) * (x W2^T)) W3^T)).
 //
 // Replaces dualhyp_tpu/ops/pallas/swiglu_kernel.py `_kernel` (the Pallas
-// call in `_forward`). What bounds it on the H100: in prefill (thousands of
-// rows) the three products are bound by operations; in decode (8 rows) by
-// the bytes of W1, W2 and W3, which are read once per call. The TPU kernel
-// carries a fp32 (rows, d) accumulator across a sequential grid axis over
-// the intermediate dimension; blocks on the card run in no order, so here
-// the intermediate dimension is split across blocks instead:
-//   * a block of 4 warps owns (a 64-row tile of x, a 64-wide slab of the
-//     intermediate dimension); each warp owns 16 rows;
-//   * it computes a = x W1_slab^T and b = x W2_slab^T on the tensor cores
-//     (WMMA bf16 -> fp32), h = act(a) * b in fp32, rounds h to bf16 (as the
-//     TPU kernel does) and keeps it in shared memory: the (rows, inter)
-//     gate never reaches device memory;
-//   * it multiplies h by W3's slab, 64 output columns at a time, and adds
-//     the partial products into a fp32 (rows, d) buffer with atomics;
-//   * a last pass casts that buffer to bf16.
-// The atomic order differs from run to run, so the output is not bitwise
-// deterministic (the sum of inter/64 fp32 partials per element).
-#include <mma.h>
-
-#include "common.cuh"
+// call in `_forward`). What bounds it on the H100: in prefill and training
+// (thousands of rows) the three products, 6 rows d inter operations (8192
+// rows of TinyLlama: 0.573 ms at 989 TFLOP/s); in decode (8 rows) the bytes
+// of W1, W2 and W3, read once (69 MB, 0.0207 ms at 3.35 TB/s). The TPU
+// kernel keeps a fp32 (rows, d) sum in VMEM across a sequential grid axis
+// over the intermediate dimension; an SM cannot hold it, so here the gate
+// h = bf16(act(x W1^T) * (x W2^T)) goes through device memory once (a
+// (rows, inter) bf16 buffer the wrapper allocates) between two products
+// that share one mainloop:
+//   * a producer warp keeps a ring of 128-byte swizzled tiles (64 deep in
+//     the contraction) in flight with TMA, each stage reported to an
+//     mbarrier and freed by its consumers through a second one; consumer
+//     warpgroups run wgmma (both operands K-major in shared memory) with
+//     fp32 sums in registers, one group kept in flight;
+//   * stage 1, the dual gate product: a block owns 128 rows x 128 columns of
+//     h; one x tile feeds two accumulators (x W1^T and x W2^T); the
+//     epilogue applies the gate (silu or tanh-gelu), rounds h to bf16 (as
+//     the TPU kernel does) and stores it with TMA;
+//   * stage 2, the down product h W3^T: a block owns a 128 x 128 output
+//     tile, sums over all of `inter` in registers and writes it once in
+//     bf16. No atomics, no memset, no cast pass: the output is bitwise
+//     repeatable;
+//   * decode rows (at most 64) swap the operands: the weights fill wgmma's
+//     64-row side and the tokens are its N (8, 16, 32 or 64), with an
+//     eight-stage ring of weight tiles per block; stage 2 also splits
+//     `inter` over up to `max_splits` blocks a 64-row slab of W3 (so some
+//     two blocks an SM stream weights), and a last pass sums the fp32
+//     partials in a fixed order.
+// Ragged row counts and a ragged `inter` (a multiple of 8) need no masks
+// in the products: TMA reads zeros past the edges and does not store past
+// them. Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00 W:
+// 1.064 ms at 8192 rows of TinyLlama (bound 0.573, cuBLAS x3 0.860), 0.346
+// at 3072 rows (cuBLAS x3 0.331), 0.0645 at 8 (0.0887), where the atomic
+// kernel this design replaced took 5.718, 1.918 and 0.170 ms (PERF.md).
+#include "hopper.cuh"
 
 namespace {
 
-using namespace nvcuda;
+constexpr int kBK = 64;  // contraction depth of one stage (one swizzled row)
 
-constexpr int kBM = 64;        // rows of x per block
-constexpr int kBI = 64;        // intermediate slab per block
-constexpr int kBK = 64;        // depth of one step over d
-constexpr int kBN = 64;        // output columns per step of the second product
-constexpr int kThreads = 128;  // 4 warps x 16 rows
-constexpr int kLdb = 64 + 8;   // bf16 row stride of the shared tiles
-constexpr int kLdf = 64 + 4;   // fp32 row stride of the shared tiles
+enum Mode { kSilu = 0, kGelu = 1, kDown = 2 };  // the two gates, or the down product
 
-constexpr int kTileB = kBM * kLdb;  // elements of one bf16 tile
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBT;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-// Copies the 64x64 tile at (r0, c0) of a row-major matrix with `ld`
-// elements per row into shared memory; rows >= rmax or columns >= cmax
-// (cmax a multiple of 8) are zero.
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long ld,
-                                          int r0, int rmax, int c0, int cmax) {
-  for (int i = threadIdx.x; i < 64 * 8; i += kThreads) {
-    const int r = i >> 3;
-    const int c = (i & 7) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < rmax && c0 + c < cmax)
-      v = *reinterpret_cast<const uint4*>(src + (r0 + r) * ld + c0 + c);
-    *reinterpret_cast<uint4*>(dst + r * kLdb + c) = v;
-  }
-}
-
-template <bool kGelu>
-__device__ __forceinline__ float gate(float a) {
-  if (kGelu) {
+template <int kMode>
+__device__ __forceinline__ float gated(float a, float b) {
+  if (kMode == kGelu) {
     const float inner = 0.7978845608028654f * (a + 0.044715f * a * a * a);
-    return 0.5f * a * (1.f + tanhf(inner));
+    return 0.5f * a * (1.f + tanhf(inner)) * b;
   }
-  return a / (1.f + expf(-a));
+  return a / (1.f + expf(-a)) * b;
 }
 
-template <bool kGelu>
-__global__ void __launch_bounds__(kThreads)
-swiglu_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
-              const bf16* __restrict__ w2, const bf16* __restrict__ w3,
-              float* __restrict__ acc_out, int m, int d, int inter) {
-  // phase 1 uses x_s, w1_s, w2_s; the same bytes then hold the fp32 h
-  // staging tile, and in phase 2 the W3 tile and the fp32 partial tile
-  __shared__ __align__(128) bf16 work[3 * kTileB];
-  __shared__ __align__(128) bf16 h_s[kTileB];
-  bf16* x_s = work;
-  bf16* w1_s = work + kTileB;
-  bf16* w2_s = work + 2 * kTileB;
-  float* stage = reinterpret_cast<float*>(work);       // (64, kLdf) fp32
-  bf16* w3_s = work;                                   // phase 2
-  float* c_s = reinterpret_cast<float*>(work + kTileB);  // phase 2, (64, kLdf)
+// ---- prefill and training rows: x (or h) on wgmma's M side -----------------
 
-  const int r0 = blockIdx.x * kBM;
-  const int i0 = blockIdx.y * kBI;
+constexpr int kBM = 128;  // rows a block: two consumer warpgroups of 64
+constexpr int kBN = 128;  // output columns a block
+constexpr int kRowThreads = 2 * 128 + 32;
+
+template <int kMode>
+struct RowsLayout {
+  static constexpr bool kDual = kMode != kDown;
+  static constexpr int kStages = kDual ? 3 : 4;
+  static constexpr int kATile = kBM * kBK * 2;
+  static constexpr int kBTile = kBN * kBK * 2;
+  static constexpr int kStageBytes = kATile + (kDual ? 2 : 1) * kBTile;
+  static constexpr int kEpiOffset = kStages * kStageBytes;  // the bf16 output tile
+  static constexpr int kBarOffset = kEpiOffset + kBM * kBN * 2;
+  static constexpr int kSmem = kBarOffset + 2 * kStages * 8 + 1024;
+};
+
+// C (m, n) = A (m, k) B^T for B (n, k); stage 1 (kMode a gate): B = W1 and
+// W2, C = h; stage 2 (kDown): A = h, B = W3, C = out.
+template <int kMode>
+__global__ void __launch_bounds__(kRowThreads, 1)
+swiglu_rows_kernel(const __grid_constant__ CUtensorMap map_a,
+                   const __grid_constant__ CUtensorMap map_b1,
+                   const __grid_constant__ CUtensorMap map_b2,
+                   const __grid_constant__ CUtensorMap map_c, int m, int n, int k) {
+  using L = RowsLayout<kMode>;
+  constexpr int kS = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBarOffset);
+  uint64_t* empty = full + kS;
+  const int m0 = blockIdx.x * kBM;
+  const int n0 = blockIdx.y * kBN;
+  const int nk = (k + kBK - 1) / kBK;
   const int warp = threadIdx.x >> 5;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // ---- producer ----
+    if ((threadIdx.x & 31) == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % kS;
+        if (kt >= kS) mbar_wait(&empty[s], ((kt / kS) - 1) & 1);
+        unsigned char* st = smem + s * L::kStageBytes;
+        mbar_expect_tx(&full[s], L::kStageBytes);
+        tma_load_2d(st, &map_a, &full[s], kt * kBK, m0);
+        tma_load_2d(st + L::kATile, &map_b1, &full[s], kt * kBK, n0);
+        if constexpr (L::kDual)
+          tma_load_2d(st + L::kATile + L::kBTile, &map_b2, &full[s], kt * kBK, n0);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns rows m0 + 64 wg + [0, 64) ----
+  const int wg = warp >> 2;
+  const int tid = threadIdx.x & 127;
   const int lane = threadIdx.x & 31;
-  const int wr = warp * 16;
-
-  FragC fa[kBI / 16], fb[kBI / 16];
+  float acc1[kBN / 2], acc2[L::kDual ? kBN / 2 : 1];
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % kS;
+    const unsigned char* st = smem + s * L::kStageBytes;
+    const bf16* a = reinterpret_cast<const bf16*>(st) + 64 * wg * kBK;
+    const bf16* b1 = reinterpret_cast<const bf16*>(st + L::kATile);
+    const bf16* b2 = reinterpret_cast<const bf16*>(st + L::kATile + L::kBTile);
+    mbar_wait(&full[s], (kt / kS) & 1);
+    fence_regs(acc1);
+    if constexpr (L::kDual) fence_regs(acc2);
+    wgmma_fence();
 #pragma unroll
-  for (int n = 0; n < kBI / 16; ++n) {
-    wmma::fill_fragment(fa[n], 0.f);
-    wmma::fill_fragment(fb[n], 0.f);
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const uint64_t da = sw128_desc(a + kk * 16);
+      Wgmma<kBN>::ss(acc1, da, sw128_desc(b1 + kk * 16), kt > 0 || kk > 0);
+      if constexpr (L::kDual)
+        Wgmma<kBN>::ss(acc2, da, sw128_desc(b2 + kk * 16), kt > 0 || kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous stage's products are done: free it
+    fence_regs(acc1);
+    if constexpr (L::kDual) fence_regs(acc2);
+    if (kt > 0 && lane == 0) mbar_arrive(&empty[(kt - 1) % kS]);
   }
-  for (int k0 = 0; k0 < d; k0 += kBK) {
-    load_tile(x_s, x, d, r0, m, k0, d);
-    load_tile(w1_s, w1 + static_cast<long long>(i0) * d, d, 0, inter - i0, k0, d);
-    load_tile(w2_s, w2 + static_cast<long long>(i0) * d, d, 0, inter - i0, k0, d);
-    __syncthreads();
+  wgmma_wait<0>();
+  fence_regs(acc1);
+  if constexpr (L::kDual) fence_regs(acc2);
+
+  // ---- epilogue: bf16 through shared memory, then TMA (clipped at m, n) ----
+  unsigned char* epi = smem + L::kEpiOffset;  // [2 column blocks][128 rows][64]
+  const int rr = (tid >> 5) * 16 + (lane >> 2);
+  const int col = 2 * (lane & 3);
 #pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      FragA a;
-      wmma::load_matrix_sync(a, x_s + wr * kLdb + kk, kLdb);
+  for (int jn = 0; jn < kBN / 8; ++jn) {
+    unsigned char* box = epi + (jn / 8) * (kBM * 128) + wg * (64 * 128);
 #pragma unroll
-      for (int n = 0; n < kBI / 16; ++n) {
-        FragBT b1, b2;
-        wmma::load_matrix_sync(b1, w1_s + n * 16 * kLdb + kk, kLdb);
-        wmma::load_matrix_sync(b2, w2_s + n * 16 * kLdb + kk, kLdb);
-        wmma::mma_sync(fa[n], a, b1, fa[n]);
-        wmma::mma_sync(fb[n], a, b2, fb[n]);
+    for (int r = 0; r < 2; ++r) {
+      const int i = 4 * jn + 2 * r;
+      float v0 = acc1[i], v1 = acc1[i + 1];
+      if constexpr (L::kDual) {
+        v0 = gated<kMode>(v0, acc2[i]);
+        v1 = gated<kMode>(v1, acc2[i + 1]);
       }
+      *reinterpret_cast<uint32_t*>(box + swizzled_offset(rr + 8 * r, 8 * (jn % 8) + col)) =
+          pack_bf16x2(v0, v1);
     }
-    __syncthreads();
   }
-
-  // h = act(a) * b: fa and fb share one fragment layout, so the product is
-  // elementwise on the fragments; then round to bf16 through shared memory
-#pragma unroll
-  for (int n = 0; n < kBI / 16; ++n) {
-#pragma unroll
-    for (int e = 0; e < fa[n].num_elements; ++e)
-      fa[n].x[e] = gate<kGelu>(fa[n].x[e]) * fb[n].x[e];
-    wmma::store_matrix_sync(stage + wr * kLdf + n * 16, fa[n], kLdf,
-                            wmma::mem_row_major);
-  }
-  __syncwarp();
-  for (int i = lane; i < 16 * kBI; i += 32) {
-    const int row = wr + i / kBI;
-    const int c = i % kBI;
-    h_s[row * kLdb + c] = __float2bfloat16(stage[row * kLdf + c]);
-  }
-  __syncthreads();  // every warp is done with `stage` before W3 overwrites it
-
-  // out[rows, n0:n0+64] += h W3[n0:n0+64, i0:i0+64]^T
-  for (int n0 = 0; n0 < d; n0 += kBN) {
-    load_tile(w3_s, w3, inter, n0, d, i0, inter);
-    __syncthreads();
-    FragC fc[kBN / 16];
-#pragma unroll
-    for (int n = 0; n < kBN / 16; ++n) wmma::fill_fragment(fc[n], 0.f);
-#pragma unroll
-    for (int kk = 0; kk < kBI; kk += 16) {
-      FragA a;
-      wmma::load_matrix_sync(a, h_s + wr * kLdb + kk, kLdb);
-#pragma unroll
-      for (int n = 0; n < kBN / 16; ++n) {
-        FragBT b3;
-        wmma::load_matrix_sync(b3, w3_s + n * 16 * kLdb + kk, kLdb);
-        wmma::mma_sync(fc[n], a, b3, fc[n]);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < kBN / 16; ++n)
-      wmma::store_matrix_sync(c_s + wr * kLdf + n * 16, fc[n], kLdf,
-                              wmma::mem_row_major);
-    __syncwarp();
-    for (int i = lane; i < 16 * kBN; i += 32) {
-      const int row = wr + i / kBN;
-      const int c = i % kBN;
-      if (r0 + row < m && n0 + c < d)
-        atomicAdd(acc_out + static_cast<long long>(r0 + row) * d + n0 + c,
-                  c_s[row * kLdf + c]);
-    }
-    __syncthreads();  // before the next W3 tile overwrites w3_s
+  fence_async_smem();
+  named_barrier<128>(1 + wg);
+  if (tid == 0 && m0 + 64 * wg < m) {
+    for (int c = 0; c < kBN / 64; ++c)
+      if (n0 + 64 * c < n)
+        tma_store_2d(&map_c, epi + c * (kBM * 128) + wg * (64 * 128), n0 + 64 * c,
+                     m0 + 64 * wg);
+    tma_store_drain();
   }
 }
 
-__global__ void cast_kernel(const float* __restrict__ src, bf16* __restrict__ dst,
-                            long long n) {
-  const long long i = blockIdx.x * 256LL + threadIdx.x;
-  if (i < n) dst[i] = __float2bfloat16(src[i]);
+// ---- decode rows (m <= 64): weights on wgmma's M side, tokens as N ----------
+
+constexpr int kSwapStages = 8;
+constexpr int kSwapThreads = 128 + 32;
+
+template <int kN, int kMode>
+struct SwapLayout {
+  static constexpr bool kDual = kMode != kDown;
+  static constexpr int kXTile = kN * kBK * 2;   // a multiple of 1024
+  static constexpr int kWTile = 64 * kBK * 2;
+  static constexpr int kStageBytes = kXTile + (kDual ? 2 : 1) * kWTile;
+  static constexpr int kBarOffset = kSwapStages * kStageBytes;
+  static constexpr int kSmem = kBarOffset + 2 * kSwapStages * 8 + 1024;
+};
+
+// Block (slab, split) computes C^T rows w0 + [0, 64) (W rows) by tokens
+// [0, kN) over contraction tiles [split * per, (split + 1) * per). Stage 1
+// (a gate): W = W1, W2 (n_w = inter), X = x; it writes h (m, inter) bf16.
+// Stage 2 (kDown): W = W3 (n_w = d), X = h; it writes the fp32 partial
+// (split, n_w, m).
+template <int kN, int kMode>
+__global__ void __launch_bounds__(kSwapThreads, 1)
+swiglu_swap_kernel(const __grid_constant__ CUtensorMap map_w1,
+                   const __grid_constant__ CUtensorMap map_w2,
+                   const __grid_constant__ CUtensorMap map_x, bf16* __restrict__ h,
+                   float* __restrict__ partial, int m, int n_w, int k, int per) {
+  using L = SwapLayout<kN, kMode>;
+  constexpr int kS = kSwapStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBarOffset);
+  uint64_t* empty = full + kS;
+  const int w0 = blockIdx.x * 64;
+  const int kt0 = blockIdx.y * per;
+  const int nk = min((k + kBK - 1) / kBK, kt0 + per) - kt0;  // >= 1
+  const int warp = threadIdx.x >> 5;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // ---- producer ----
+    if ((threadIdx.x & 31) == 0) {
+      for (int i = 0; i < nk; ++i) {
+        const int s = i % kS;
+        const int kc = (kt0 + i) * kBK;
+        if (i >= kS) mbar_wait(&empty[s], ((i / kS) - 1) & 1);
+        unsigned char* st = smem + s * L::kStageBytes;
+        mbar_expect_tx(&full[s], L::kStageBytes);
+        tma_load_2d(st, &map_x, &full[s], kc, 0);
+        tma_load_2d(st + L::kXTile, &map_w1, &full[s], kc, w0);
+        if constexpr (L::kDual) tma_load_2d(st + L::kXTile + L::kWTile, &map_w2, &full[s], kc, w0);
+      }
+    }
+    return;
+  }
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  float acc1[kN / 2], acc2[L::kDual ? kN / 2 : 1];
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % kS;
+    const unsigned char* st = smem + s * L::kStageBytes;
+    const bf16* x = reinterpret_cast<const bf16*>(st);
+    const bf16* w1 = reinterpret_cast<const bf16*>(st + L::kXTile);
+    const bf16* w2 = reinterpret_cast<const bf16*>(st + L::kXTile + L::kWTile);
+    mbar_wait(&full[s], (i / kS) & 1);
+    fence_regs(acc1);
+    if constexpr (L::kDual) fence_regs(acc2);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const uint64_t dx = sw128_desc(x + kk * 16);
+      Wgmma<kN>::ss(acc1, sw128_desc(w1 + kk * 16), dx, i > 0 || kk > 0);
+      if constexpr (L::kDual)
+        Wgmma<kN>::ss(acc2, sw128_desc(w2 + kk * 16), dx, i > 0 || kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(acc1);
+    if constexpr (L::kDual) fence_regs(acc2);
+    if (i > 0 && lane == 0) mbar_arrive(&empty[(i - 1) % kS]);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc1);
+  if constexpr (L::kDual) fence_regs(acc2);
+
+  // accumulator (W row, token); few bytes, written directly
+  const int r0 = w0 + (tid >> 5) * 16 + (lane >> 2);
+  const int col = 2 * (lane & 3);
+#pragma unroll
+  for (int i = 0; i < kN / 2; ++i) {
+    const int r = r0 + 8 * ((i >> 1) & 1);
+    const int c = 8 * (i >> 2) + col + (i & 1);
+    if (c >= m || r >= n_w) continue;
+    if constexpr (L::kDual) {
+      h[static_cast<long long>(c) * n_w + r] = __float2bfloat16(gated<kMode>(acc1[i], acc2[i]));
+    } else {
+      partial[(static_cast<long long>(blockIdx.y) * n_w + r) * m + c] = acc1[i];
+    }
+  }
+}
+
+// out (m, d) = bf16 of the splits' partials (splits, d, m), summed in order.
+__global__ void swiglu_sum_splits_kernel(const float* __restrict__ partial,
+                                         bf16* __restrict__ out, int m, int d, int splits) {
+  const int e = blockIdx.x * 256 + threadIdx.x;
+  if (e >= m * d) return;
+  const int row = e / d;
+  const int c = e - row * d;
+  float s = 0.f;
+  for (int i = 0; i < splits; ++i) s += partial[(static_cast<long long>(i) * d + c) * m + row];
+  out[e] = __float2bfloat16(s);
+}
+
+template <typename Kernel>
+int prepare(Kernel kernel, int smem) {
+  return static_cast<int>(
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+}
+
+template <int kMode>
+int launch_rows(const CUtensorMap& a, const CUtensorMap& b1, const CUtensorMap& b2,
+                const CUtensorMap& c, int m, int n, int k, cudaStream_t stream) {
+  constexpr int smem = RowsLayout<kMode>::kSmem;
+  int err = prepare(swiglu_rows_kernel<kMode>, smem);
+  if (err) return err;
+  dim3 grid((m + kBM - 1) / kBM, (n + kBN - 1) / kBN);
+  swiglu_rows_kernel<kMode><<<grid, kRowThreads, smem, stream>>>(a, b1, b2, c, m, n, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kN, int kMode>
+int launch_swap(const CUtensorMap& w1, const CUtensorMap& w2, const CUtensorMap& x, bf16* h,
+                float* partial, int m, int n_w, int k, int splits, int per,
+                cudaStream_t stream) {
+  constexpr int smem = SwapLayout<kN, kMode>::kSmem;
+  int err = prepare(swiglu_swap_kernel<kN, kMode>, smem);
+  if (err) return err;
+  dim3 grid(n_w / 64 + (n_w % 64 != 0), splits);
+  swiglu_swap_kernel<kN, kMode><<<grid, kSwapThreads, smem, stream>>>(w1, w2, x, h, partial,
+                                                                      m, n_w, k, per);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kN>
+int decode(const void* x, const void* w1, const void* w2, const void* w3, bf16* h,
+           float* partial, bf16* out, int m, int d, int inter, int gelu, int max_splits,
+           cudaStream_t stream) {
+  CUtensorMap mx, m1, m2, m3, mh;
+  int err = make_matrix_map(&mx, x, m, d, d, kN);
+  if (!err) err = make_matrix_map(&m1, w1, inter, d, d, 64);
+  if (!err) err = make_matrix_map(&m2, w2, inter, d, d, 64);
+  if (!err) err = make_matrix_map(&m3, w3, d, inter, inter, 64);
+  if (!err) err = make_matrix_map(&mh, h, m, inter, inter, kN);
+  if (err) return err;
+  const int nk1 = d / kBK;
+  err = gelu ? launch_swap<kN, kGelu>(m1, m2, mx, h, nullptr, m, inter, d, 1, nk1, stream)
+             : launch_swap<kN, kSilu>(m1, m2, mx, h, nullptr, m, inter, d, 1, nk1, stream);
+  if (err) return err;
+  // enough blocks to stream W3 on every SM, each with at least one tile
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int nk2 = (inter + kBK - 1) / kBK;
+  const int slabs = d / 64;
+  int splits = min(max_splits, min(nk2, (2 * sms + slabs - 1) / slabs));
+  splits = max(splits, 1);
+  const int per = (nk2 + splits - 1) / splits;
+  splits = (nk2 + per - 1) / per;  // no empty split
+  err = launch_swap<kN, kDown>(m3, m3, mh, nullptr, partial, m, d, inter, splits, per, stream);
+  if (err) return err;
+  const int n = m * d;
+  swiglu_sum_splits_kernel<<<(n + 255) / 256, 256, 0, stream>>>(partial, out, m, d, splits);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // x: contiguous (m, d) bf16; w1, w2: contiguous (inter, d); w3: contiguous
-// (d, inter); acc: (m, d) fp32 scratch; out: contiguous (m, d) bf16.
-// d must be a multiple of 64 and inter a multiple of 8.
-DH_EXPORT int dh_swiglu_mlp(const void* x, const void* w1, const void* w2,
-                            const void* w3, void* acc, void* out, int m, int d,
-                            int inter, int gelu, void* stream) {
+// (d, inter); h: (m, inter) bf16 scratch (the gate); out: contiguous (m, d)
+// bf16; all 16-byte aligned, d a multiple of 64, inter of 8. Given
+// `partial`, (max_splits, d, m) fp32 scratch, it runs the decode path (m at
+// most 64), else the row-tile path.
+DH_EXPORT int dh_swiglu_mlp(const void* x, const void* w1, const void* w2, const void* w3,
+                            void* h, void* partial, void* out, int m, int d, int inter,
+                            int gelu, int max_splits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long n = static_cast<long long>(m) * d;
-  cudaError_t err = cudaMemsetAsync(acc, 0, sizeof(float) * n, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((m + kBM - 1) / kBM, (inter + kBI - 1) / kBI);
-  const bf16* xp = static_cast<const bf16*>(x);
-  const bf16* p1 = static_cast<const bf16*>(w1);
-  const bf16* p2 = static_cast<const bf16*>(w2);
-  const bf16* p3 = static_cast<const bf16*>(w3);
-  float* ap = static_cast<float*>(acc);
-  if (gelu) {
-    swiglu_kernel<true><<<grid, kThreads, 0, s>>>(xp, p1, p2, p3, ap, m, d, inter);
-  } else {
-    swiglu_kernel<false><<<grid, kThreads, 0, s>>>(xp, p1, p2, p3, ap, m, d, inter);
+  bf16* hp = static_cast<bf16*>(h);
+  bf16* op = static_cast<bf16*>(out);
+  float* pp = static_cast<float*>(partial);
+  if (pp != nullptr) {
+    if (m <= 8) return decode<8>(x, w1, w2, w3, hp, pp, op, m, d, inter, gelu, max_splits, s);
+    if (m <= 16) return decode<16>(x, w1, w2, w3, hp, pp, op, m, d, inter, gelu, max_splits, s);
+    if (m <= 32) return decode<32>(x, w1, w2, w3, hp, pp, op, m, d, inter, gelu, max_splits, s);
+    if (m <= 64) return decode<64>(x, w1, w2, w3, hp, pp, op, m, d, inter, gelu, max_splits, s);
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cast_kernel<<<static_cast<unsigned int>((n + 255) / 256), 256, 0, s>>>(
-      ap, static_cast<bf16*>(out), n);
-  return static_cast<int>(cudaGetLastError());
+  CUtensorMap mx, m1, m2, mh_out, mh_in, m3, mo;
+  int err = make_matrix_map(&mx, x, m, d, d, kBM);
+  if (!err) err = make_matrix_map(&m1, w1, inter, d, d, kBN);
+  if (!err) err = make_matrix_map(&m2, w2, inter, d, d, kBN);
+  if (!err) err = make_matrix_map(&mh_out, h, m, inter, inter, 64);
+  if (!err) err = make_matrix_map(&mh_in, h, m, inter, inter, kBM);
+  if (!err) err = make_matrix_map(&m3, w3, d, inter, inter, kBN);
+  if (!err) err = make_matrix_map(&mo, out, m, d, d, 64);
+  if (err) return err;
+  err = gelu ? launch_rows<kGelu>(mx, m1, m2, mh_out, m, inter, d, s)
+             : launch_rows<kSilu>(mx, m1, m2, mh_out, m, inter, d, s);
+  if (err) return err;
+  return launch_rows<kDown>(mh_in, m3, m3, mo, m, d, inter, s);
 }

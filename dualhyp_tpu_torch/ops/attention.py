@@ -28,10 +28,13 @@ import torch
 from dualhyp_tpu_torch.ops import _lib
 
 # K1 forward: replaces dualhyp_tpu/ops/pallas/flash_vjp.py `_fwd_kernel`.
-# Bound by operations at long prompts and by q/k/v/o bytes at short ones;
-# K/V tiles stream through shared memory, products on the tensor cores,
-# online softmax in fp32; one instance per head size. See the source note in
-# csrc/flash_attention.cu.
+# Bound by operations at long prompts and by q/k/v/o bytes at short ones.
+# A producer warp streams K/V tiles by TMA (4-D tensor maps over the strided
+# views, encoded at each call) through an mbarrier ring; consumer warpgroups
+# run QK^T and PV on wgmma with S, P and O in registers and the online
+# softmax in fp32; one instance per head size. On an NVIDIA H100 80GB HBM3
+# at 700.00 W: 0.147 ms at B8 Hq32 G4 T1024 D64 (SDPA 0.112), 0.229 at G8
+# D128 (SDPA 0.148). See the source note in csrc/flash_attention.cu.
 FLASH_FWD = _lib.Kernel(
     "dh_flash_attention_fwd",
     [_lib.C_PTR] * 5 + [_lib.C_INT] * 5 + [_lib.C_F32] + [_lib.C_I64] * 12,

@@ -11,10 +11,13 @@ S of 1, 63, 64, 65 and 1500, S != T, kv_valid and strided inputs, L2
 empty, straddling and single groups and a ragged N, its two gradients
 (dlhs, drhs) at M from 0 to 16384, K1's forward and backward at head size
 128, a small MoE model card against CPU, in prefill and in a LoRA
-training step, and L1 (splash attention: forward, dQ, dK/dV) at T of 1,
+training step, L1 (splash attention: forward, dQ, dK/dV) at T of 1,
 63, 128, 200 and 1024, head sizes 64 and 128, 4 and 8 KV groups, strided
-views, refusals, and its autograd op card against CPU. Every test needs an
-NVIDIA card and skips without one.
+views, refusals, and its autograd op card against CPU, and the wgmma/TMA
+designs of K1's forward (T from 1 to 1024 around its tile edges, head sizes
+64 and 128, GQA ratios 1, 4, 8, fused-QKV views) and K4 (1 to 3072 rows at
+widths 128 and 2048, inter 200, 256 and 5632, both gates, bitwise repeats,
+an unaligned input). Every test needs an NVIDIA card and skips without one.
 On the card's machine (no JAX there) run them without the suite's conftest:
 
     python -m pytest tests/test_torch_kernels.py --noconftest -q
@@ -26,6 +29,8 @@ the gradient's RMS plus 2^-10: it rounds P and dS to bf16 before sums over
 up to q_per_kv * T terms, and where the exact gradient is zero (dQ and dK
 at T=1) both sides hold fp32 noise (see chip_smoke.py's FLASH_BWD_TOL).
 """
+
+import math
 
 import pytest
 import torch
@@ -115,29 +120,41 @@ def test_rope_transpose_inverts(dev, gen):
     _close(back, x, 1e-5, 1e-5)
 
 
-@pytest.mark.parametrize("t", [1, 17, 64, 65, 200])
-@pytest.mark.parametrize("hq,g", [(8, 2), (4, 4)])
-def test_flash_attention(dev, gen, t, hq, g):
-    q = _randn(gen, 2, hq, t, 64)
-    k = _randn(gen, 2, g, t, 64)
-    v = _randn(gen, 2, g, t, 64)
-    o, lse = attention._flash_fwd(q, k, v, 0.125)
-    _close(o, attention.causal_attention_plain(q, k, v, 0.125), 1e-2, 2.0 ** -6)
-    logits = torch.matmul(q.float().reshape(2, g, hq // g, t, 64),
-                          k.float()[:, :, None].transpose(-1, -2)) * 0.125
+# K1's forward: T on both sides of its 64-row warpgroup and 64-key tile
+# edges, head sizes 64 and 128, GQA ratios 4, 1 and 8.
+@pytest.mark.parametrize("t", [1, 17, 63, 64, 65, 127, 128, 129, 200, 1024])
+@pytest.mark.parametrize("hq,g", [(8, 2), (4, 4), (8, 8), (8, 1)])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention(dev, gen, t, hq, g, d):
+    q = _randn(gen, 2, hq, t, d)
+    k = _randn(gen, 2, g, t, d)
+    v = _randn(gen, 2, g, t, d)
+    scale = 1.0 / math.sqrt(d)
+    before = attention.FLASH_FWD.launches
+    o, lse = attention._flash_fwd(q, k, v, scale)
+    assert attention.FLASH_FWD.launches == before + 1
+    _close(o, attention.causal_attention_plain(q, k, v, scale), 1e-2, 2.0 ** -6)
+    logits = torch.matmul(q.float().reshape(2, g, hq // g, t, d),
+                          k.float()[:, :, None].transpose(-1, -2)) * scale
     causal = torch.ones((t, t), dtype=torch.bool, device=dev).tril()
     want_lse = torch.logsumexp(logits.masked_fill(~causal, float("-inf")), dim=-1)
     _close(lse, want_lse.reshape(2, hq, t), 1e-4, 1e-5)
 
 
-def test_flash_attention_reads_fused_qkv_views(dev, gen):
-    cfg = GPTConfig(n_embd=512, n_head=8, n_query_groups=2, intermediate_size=256,
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("groups", [2, 8])
+def test_flash_attention_reads_fused_qkv_views(dev, gen, d, groups):
+    """k and v (and q, at one query head a group) as strided views of the
+    fused QKV projection; O comes back as a view of a (B, T, H, D) buffer."""
+    cfg = GPTConfig(n_embd=8 * d, n_head=8, n_query_groups=groups, intermediate_size=256,
                     mlp_class="LLaMAMLP")
     qkv = _randn(gen, 2, 70, cfg.qkv_out_dim)
     q5, k, v = split_heads(cfg, qkv)
-    q = q5.reshape(2, 8, 70, 64)
-    _close(attention.causal_attention(q, k, v),
-           attention.causal_attention_plain(q, k, v), 1e-2, 2.0 ** -6)
+    q = q5.reshape(2, 8, 70, d)
+    assert not k.is_contiguous() and q.is_contiguous() == (groups != 8)
+    got = attention.causal_attention(q, k, v)
+    assert got.transpose(1, 2).is_contiguous()
+    _close(got, attention.causal_attention_plain(q, k, v), 1e-2, 2.0 ** -6)
 
 
 def test_flash_attention_refuses_what_it_does_not_take(dev, gen):
@@ -148,16 +165,43 @@ def test_flash_attention_refuses_what_it_does_not_take(dev, gen):
                                      for _ in range(3)))
 
 
-@pytest.mark.parametrize("rows", [1, 8, 130])
-@pytest.mark.parametrize("inter", [256, 200])
+# K4: decode rows (operands swapped, the down product split over `inter`)
+# up to the 64-row edge of that path, prefill rows past a 128-row tile, a
+# ragged and a full `inter`, TinyLlama's width and a narrow one, both gates.
+@pytest.mark.parametrize("rows", [1, 8, 63, 64, 65, 130, 3072])
+@pytest.mark.parametrize("inter", [256, 200, 5632])
 @pytest.mark.parametrize("gate", ["silu", "gelu"])
-def test_swiglu(dev, gen, rows, inter, gate):
-    d = 128
+@pytest.mark.parametrize("d,std", [(128, 0.05), (2048, 0.02)])
+def test_swiglu(dev, gen, rows, inter, gate, d, std):
     x = _randn(gen, rows, d)
-    w1, w2 = (_randn(gen, inter, d, std=0.05) for _ in range(2))
-    w3 = _randn(gen, d, inter, std=0.05)
-    _close(swiglu.swiglu_mlp(x, w1, w2, w3, gate),
-           swiglu.swiglu_mlp_plain(x, w1, w2, w3, gate), 1e-2, 2.0 ** -6)
+    w1, w2 = (_randn(gen, inter, d, std=std) for _ in range(2))
+    w3 = _randn(gen, d, inter, std=std)
+    before = swiglu.SWIGLU.launches
+    got = swiglu.swiglu_mlp(x, w1, w2, w3, gate)
+    assert swiglu.SWIGLU.launches == before + 1
+    _close(got, swiglu.swiglu_mlp_plain(x, w1, w2, w3, gate), 1e-2, 2.0 ** -6)
+
+
+@pytest.mark.parametrize("rows", [8, 65, 3072])
+def test_swiglu_repeats_bitwise(dev, gen, rows):
+    """No atomics: two calls on the same inputs give the same bits."""
+    x = _randn(gen, rows, 2048)
+    w1, w2 = (_randn(gen, 5632, 2048, std=0.02) for _ in range(2))
+    w3 = _randn(gen, 2048, 5632, std=0.02)
+    assert torch.equal(swiglu.swiglu_mlp(x, w1, w2, w3), swiglu.swiglu_mlp(x, w1, w2, w3))
+
+
+def test_swiglu_takes_an_unaligned_batched_input(dev, gen):
+    """x of shape (B, T, d) starting 2 bytes past a 16-byte boundary (TMA
+    needs aligned rows: the wrapper copies it)."""
+    flat = _randn(gen, 1 + 2 * 33 * 128)
+    x = flat[1:].view(2, 33, 128)
+    assert x.data_ptr() % 16
+    w1, w2 = (_randn(gen, 200, 128, std=0.05) for _ in range(2))
+    w3 = _randn(gen, 128, 200, std=0.05)
+    got = swiglu.swiglu_mlp(x, w1, w2, w3)
+    assert got.shape == x.shape
+    _close(got, swiglu.swiglu_mlp_plain(x, w1, w2, w3), 1e-2, 2.0 ** -6)
 
 
 def test_swiglu_refuses_unaligned_width(dev, gen):

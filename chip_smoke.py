@@ -10,7 +10,8 @@ prints one JSON line; a failed phase raises and the script exits non-zero.
   1. device: the card, its power limit, whether nvcc and triton exist; then
      the kernel library is built from `dualhyp_tpu_torch/csrc/*.cu`, and the
      registers, static shared memory and spills of the wgmma/TMA kernels
-     (K1's forward, K4) are printed from `-Xptxas -v`;
+     (K1's forward and backward, L1's forward, K4) are printed from
+     `-Xptxas -v`;
   2. one phase per kernel, at the main path's shapes (bf16, batch 8, prompt
      384, decode rows 8): the kernel against its plain PyTorch version on the
      same inputs, within a stated tolerance, then CUDA-event times of the
@@ -112,11 +113,15 @@ prints one JSON line; a failed phase raises and the script exits non-zero.
      `cli.finetune_ger.run_training` (megablox, remat, 4 optimizer steps,
      checkpoints of the LoRA leaves as --save_adapter_only writes them, the
      best one read back and 4 requests decoded), then the 8 x 1024 step
-     with remat on and remat "moe" (profiled) and with the dense einsums:
-     step time, tokens/s, MFU from the active parameters, peak memory,
-     launches (L2 forward, dlhs, K1 both ways, K2, K3 > 0; drhs and K4 = 0);
- 23. L1 (splash attention), after the other kernels' phases: its forward,
-     dQ and dK/dV kernels against their plain versions at B8 Hq32 G4 T1024
+     with remat on and remat "moe" (profiled), with remat under
+     DUALHYP_ATTN_IMPL=splash (L1 at head size 128: 2 warm-up, 3 timed and
+     1 profiled steps; L1's three kernels launch, K1 does not) and with the
+     dense einsums: step time, tokens/s, MFU from the active parameters,
+     peak memory, launches (L2 forward, dlhs, K1 both ways or L1, K2, K3 >
+     0; drhs and K4 = 0);
+ 23. L1 (splash attention), after the other kernels' phases: its forward
+     (K1's forward kernel body with splash's fp32 P V), dQ and dK/dV kernels
+     against their plain versions at B8 Hq32 G4 T1024
      (training) and T384 (prefill), an unaligned T192 (the scale inside the
      kernels) and Mixtral's B8 Hq32 G8 T1024 D128, timed beside their bound
      and SDPA's forward and backward, with each instance's registers and
@@ -714,14 +719,16 @@ def depth2_int4_check(torch, seed: int) -> dict:
     return result
 
 
-# substrings of the kernel names of K1's forward, K1's backward and K4 in a
-# profile (their device ms a step)
+# substrings of the kernel names of K1's forward, K1's backward, K4 and L1's
+# forward and backward in a profile (their device ms a step)
 STEP_KERNELS = {"k1_fwd": ("flash_fwd_kernel",), "k1_bwd": ("flash_bwd_kernel", "delta_kernel"),
-                "k4": ("swiglu_",)}
+                "k4": ("swiglu_",), "l1_fwd": ("splash_fwd",),
+                "l1_bwd": ("splash_dq", "splash_dkv")}
 
 
 def step_kernel_ms(prof) -> dict:
-    """Device ms of K1's forward, K1's backward and K4 in a profiled step."""
+    """Device ms of K1's forward and backward, K4 and L1's forward and
+    backward in a profiled step."""
     times = device_kernel_times(prof)
     return {f"{key}_ms": sum(us for name, (us, _) in times.items()
                              if any(p in name for p in parts)) / 1e3
@@ -1566,7 +1573,10 @@ def splash_phase(torch, seed: int) -> dict:
                 bound_ms=bms, bound_by=by)
         del q, k, v, do, o, lse, di, args, qr, kr, vr, sdpa_out
         torch.cuda.empty_cache()
-    ptxas = ptxas_report("splash_attention.cu")
+    # the forward is K1's kernel body (flash_attention.cu), dQ and dK/dV
+    # splash_attention.cu's
+    reports = [ptxas_report(src) for src in ("flash_attention.cu", "splash_attention.cu")]
+    ptxas = None if None in reports else {**reports[0], **reports[1]}
     for name in SPLASH_KERNELS:
         short = name.replace("splash_attention_", "splash_")
         emit({"phase": "kernel", "name": name,
@@ -2741,11 +2751,12 @@ def active_flops_per_token(cfg, seq_len: int) -> float:
     return estimate_train_flops_per_token(cfg, seq_len) + 3 * 2 * cfg.n_layer * extra
 
 
-def mixtral_step_1024(torch, model, cfg, seed: int, remat, profile: bool) -> dict:
+def mixtral_step_1024(torch, model, cfg, seed: int, remat, profile: bool, warmup: int = 1,
+                      timed: int = 2) -> dict:
     """Training steps at 8 x 1024 (half the labels masked) of `model` as it
-    stands: one warm-up, two timed (the launch counts read around them),
-    then one under torch.profiler. A step that does not fit the card runs
-    at 8 x 512 instead, and says so."""
+    stands: `warmup` steps, `timed` timed (the launch counts read around
+    them), then one under torch.profiler. A step that does not fit the card
+    runs at 8 x 512 instead, and says so."""
     import numpy as np
 
     from dualhyp_tpu_torch.train import TrainConfig, Trainer
@@ -2761,12 +2772,13 @@ def mixtral_step_1024(torch, model, cfg, seed: int, remat, profile: bool) -> dic
                                            remat=remat), model)
         gen = torch.Generator().manual_seed(seed)
         try:
-            trainer.train_step(batch, max_iters=1000, warmup_steps=10, generator=gen)
+            for _ in range(warmup):
+                trainer.train_step(batch, max_iters=1000, warmup_steps=10, generator=gen)
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             reset_counts()
             times = []
-            for _ in range(2):
+            for _ in range(timed):
                 t0 = time.perf_counter()
                 loss, _ = trainer.train_step(batch, max_iters=1000, warmup_steps=10,
                                              generator=gen)
@@ -2931,6 +2943,12 @@ def mixtral_train_slice(torch, seed: int) -> dict:
     for label, remat in (("remat", True), ("remat_moe", "moe")):
         steps[label] = mixtral_step_1024(torch, model, cfg, seed, remat, profile=True)
         emit({"phase": "mixtral_train_step_1024", "label": label, **steps[label]})
+    # L1 at head size 128 on a path: the same step with remat, attention
+    # through splash (DUALHYP_ATTN_IMPL, read at each call)
+    with attn_impl("splash"):
+        steps["splash_remat"] = mixtral_step_1024(torch, model, cfg, seed, True, profile=True,
+                                                  warmup=2, timed=3)
+    emit({"phase": "mixtral_train_step_1024", "label": "splash_remat", **steps["splash_remat"]})
     for block in model.blocks:  # the same weights through the dense einsums
         block.mlp.impl = "dense"
     model.moe_impl = "dense"
@@ -2944,6 +2962,12 @@ def mixtral_train_slice(torch, seed: int) -> dict:
             raise RuntimeError(f"Mixtral 8 x 1024 step {label}: {r}")
         if (got["grouped_matmul_dlhs"] > 0) != (label != "dense_remat"):
             raise RuntimeError(f"Mixtral 8 x 1024 step {label} launches {got}")
+        splash_on = label == "splash_remat"  # L1's three kernels and K1 never, or K1 both ways
+        if (any(got[n] <= 0 for n in SPLASH_KERNELS) if splash_on else
+                any(got[n] for n in SPLASH_KERNELS)) or \
+                any((got[n] > 0) == splash_on for n in ("flash_attention_fwd",
+                                                         "flash_attention_bwd")):
+            raise RuntimeError(f"Mixtral 8 x 1024 step {label} attention launches {got}")
     forwards = {label: steps[label]["launches"]["grouped_matmul"] / (3 * cfg.n_layer)
                 for label in ("remat", "remat_moe")}
     result["step_1024"] = steps
@@ -2980,7 +3004,8 @@ def main(argv=None) -> int:
           "seconds": time.perf_counter() - t0})
     # registers, static shared memory and spills of the wgmma/TMA kernels
     emit({"phase": "ptxas", **{src: ptxas_report(src) or "not measured (built before this run)"
-                               for src in ("flash_attention.cu", "swiglu.cu")}})
+                               for src in ("flash_attention.cu", "flash_attention_bwd.cu",
+                                           "swiglu.cu")}})
     emit({"phase": "l2_flush", "bytes": L2_FLUSH_BYTES, "ms": time_ms(l2_flush(torch), torch)})
 
     seconds = {}
@@ -3049,7 +3074,8 @@ def main(argv=None) -> int:
                "grouped_matmul_drhs": ("grouped_matmul.cu",
                                        "jax/experimental/pallas/ops/tpu/megablox/gmm.py:763 "
                                        "(tgmm, called by _gmm_bwd at ops.py:90)"),
-               **{name: ("splash_attention.cu",
+               **{name: ("flash_attention.cu" if name == "splash_attention_fwd" else
+                         "splash_attention.cu",
                          "jax/experimental/pallas/ops/tpu/splash_attention/"
                          f"splash_attention_kernel.py:{line} ({fn}, reached from "
                          "dualhyp_tpu/ops/pallas/flash_attention.py:66)")

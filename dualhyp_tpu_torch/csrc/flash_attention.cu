@@ -1,12 +1,25 @@
-// K1 forward: causal grouped-query flash attention, emitting O and the row
-// logsumexp L.
+// K1 forward and L1 forward: causal grouped-query flash attention,
+// emitting O and the row logsumexp L, in one kernel body with two
+// instances of its P V arithmetic.
 //
-// Replaces dualhyp_tpu/ops/pallas/flash_vjp.py `_fwd_kernel` (the Pallas
-// call in `_forward`). What bounds it on the H100: at the prefill and
-// training shapes (T 384 to 1024, D = 64 or 128) the causal QK^T and PV
-// products are ~T/2 MACs per loaded byte of q, so it is bound by the tensor
-// cores' operations (B8 Hq32 T1024 D64: 0.0348 ms at 989 TFLOP/s), and by
-// the bytes of q, k, v and o at short T. Design (Hopper, sm_90a):
+// K1 (`flash_fwd_kernel`) replaces dualhyp_tpu/ops/pallas/flash_vjp.py
+// `_fwd_kernel` (the Pallas call in `_forward`): P is rounded to bf16
+// before the P V product, as the plain version rounds the probabilities to
+// the query dtype. L1 (`splash_fwd`) replaces splash attention's
+// `flash_attention_kernel` (splash_attention_kernel.py:696, pallas_call
+// :1137), reached from dualhyp_tpu/ops/pallas/flash_attention.py:66: splash
+// multiplies the fp32 P by V read as fp32 (:819-820), so here P = hi + lo
+// with hi = bf16(P) and lo = bf16(P - hi), and two bf16 products hi V + lo V
+// sum in fp32 (V is exact in bf16; P - hi - lo is below 2^-16 of P). Both
+// keep S = q k^T in fp32 times `scale` (1 for L1 at aligned T, where the
+// caller rounded q * scale to bf16) and the online softmax in fp32.
+//
+// What bounds it on the H100: at the prefill and training shapes (T 384 to
+// 1024, D = 64 or 128) the causal QK^T and PV products are ~T/2 MACs per
+// loaded byte of q, so it is bound by the tensor cores' operations (B8
+// Hq32 T1024 D64: 0.0348 ms at 989 TFLOP/s; L1's third product makes its
+// floor 1.5x that), and by the bytes of q, k, v and o at short T. Design
+// (Hopper, sm_90a):
 //   * a block owns 64 query rows (D = 64) or 128 (D = 128) of one (batch,
 //     query head): one or two consumer warpgroups of 64 rows, and one
 //     producer warp; GQA is an index (KV head h / q_per_kv), K/V are never
@@ -22,19 +35,21 @@
 //     the accumulator registers: a row's values sit in 4 lanes, so its max
 //     and sum take two shuffles; only the diagonal and ragged tiles are
 //     masked, and tiles above the diagonal are never loaded;
-//   * P is rounded to bf16 in registers (as the plain version rounds the
-//     probabilities to the query dtype) and is the register A operand of the
-//     PV wgmma (m64n64k16 per 64 columns of D); V is the B operand from
-//     shared memory, read MN-major, so it needs no transpose; O stays in
-//     registers and is rescaled there;
+//   * P's accumulator registers are the register A operand of the PV wgmma
+//     (m64n64k16 per 64 columns of D): one bf16 fragment for K1, the hi and
+//     lo fragments, two products, for L1; V is the B operand from shared
+//     memory, read MN-major, so it needs no transpose; O stays in registers
+//     and is rescaled there;
 //   * O = acc / l goes out through shared memory and a TMA store of the
 //     (B, T, H, D) view (rows past T are not written); L = m + log l;
 //   * the grid puts the longest query tiles (most key tiles) first;
-//   * one instance per head size (64: TinyLlama, 128: Mixtral).
-// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00 W: 0.147
-// ms at B8 Hq32 G4 T1024 D64 (bound 0.035, SDPA 0.112) and 0.229 ms at G8
-// D128 (bound 0.070, SDPA 0.148), where the WMMA kernel this design
-// replaced took 0.969 and ~1.83 ms (PERF.md).
+//   * one instance per head size (64: TinyLlama, 128: Mixtral) and P V
+//     arithmetic.
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00 W (device
+// time, PERF.md): K1 0.147 ms at B8 Hq32 G4 T1024 D64 (bound 0.035, SDPA
+// 0.110) and 0.230 ms at G8 D128 (bound 0.070, SDPA 0.149), where the WMMA
+// kernel this design replaced took 0.969 and ~1.83 ms; L1 0.195 ms at D64
+// and 0.276 ms at D128, where its mma.sync kernel took 0.312 and 0.875.
 #include "hopper.cuh"
 
 namespace {
@@ -59,13 +74,12 @@ struct Layout {
   static constexpr int kSmem = kBarOffset + 64 + 1024;
 };
 
-template <int kD>
-__global__ void __launch_bounds__(Layout<kD>::kThreads, 1)
-flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
-                 const __grid_constant__ CUtensorMap map_k,
-                 const __grid_constant__ CUtensorMap map_v,
-                 const __grid_constant__ CUtensorMap map_o, float* __restrict__ lse,
-                 int n_head, int q_per_kv, int t, float scale) {
+// The forward of one block; kSplit: P V as hi V + lo V (L1), else bf16(P) V (K1).
+template <int kD, bool kSplit>
+__device__ __forceinline__ void attention_fwd(const CUtensorMap* map_q, const CUtensorMap* map_k,
+                                              const CUtensorMap* map_v, const CUtensorMap* map_o,
+                                              float* __restrict__ lse, int n_head, int q_per_kv,
+                                              int t, float scale) {
   using L = Layout<kD>;
   constexpr int kWG = L::kWG;
   constexpr int kBQ = L::kBQ;
@@ -106,14 +120,14 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
     if (threadIdx.x == 4 * kWG * 32) {
       mbar_expect_tx(q_bar, L::kQBytes);
       for (int c = 0; c < L::kCols; ++c)
-        tma_load_4d(q_s + c * kBQ * 64, &map_q, q_bar, c * 64, q0, h, b);
+        tma_load_4d(q_s + c * kBQ * 64, map_q, q_bar, c * 64, q0, h, b);
       for (int j = 0; j < n_kv; ++j) {
         const int s = j % kStages;
         if (j >= kStages) mbar_wait(&empty[s], ((j / kStages) - 1) & 1);
         mbar_expect_tx(&full[s], 2 * L::kKVBytes);
         for (int c = 0; c < L::kCols; ++c) {
-          tma_load_4d(k_tile(s) + c * kBKV * 64, &map_k, &full[s], c * 64, j * kBKV, g, b);
-          tma_load_4d(v_tile(s) + c * kBKV * 64, &map_v, &full[s], c * 64, j * kBKV, g, b);
+          tma_load_4d(k_tile(s) + c * kBKV * 64, map_k, &full[s], c * 64, j * kBKV, g, b);
+          tma_load_4d(v_tile(s) + c * kBKV * 64, map_v, &full[s], c * 64, j * kBKV, g, b);
         }
       }
     }
@@ -198,24 +212,51 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
         for (int i = 0; i < 32; ++i) o[c][i] *= alpha[(i >> 1) & 1];
 
       // O += P V: P's accumulator layout is the A fragment layout of wgmma
-      uint32_t pa[kBKV / 16][4];
+      if constexpr (kSplit) {
+        // P = hi + lo, two bf16 products summed in fp32 (splash's fp32 P V)
+        uint32_t hi[kBKV / 16][4], lo[kBKV / 16][4];
 #pragma unroll
-      for (int kk = 0; kk < kBKV / 16; ++kk) {
-        pa[kk][0] = pack_bf16x2(sc[8 * kk + 0], sc[8 * kk + 1]);
-        pa[kk][1] = pack_bf16x2(sc[8 * kk + 2], sc[8 * kk + 3]);
-        pa[kk][2] = pack_bf16x2(sc[8 * kk + 4], sc[8 * kk + 5]);
-        pa[kk][3] = pack_bf16x2(sc[8 * kk + 6], sc[8 * kk + 7]);
+        for (int kk = 0; kk < kBKV / 16; ++kk)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p0 = sc[8 * kk + 2 * e], p1 = sc[8 * kk + 2 * e + 1];
+            hi[kk][e] = pack_bf16x2(p0, p1);
+            lo[kk][e] = pack_bf16x2(p0 - __uint_as_float(hi[kk][e] << 16),
+                                    p1 - __uint_as_float(hi[kk][e] & 0xffff0000u));
+          }
+#pragma unroll
+        for (int c = 0; c < L::kCols; ++c) fence_regs(o[c]);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBKV / 16; ++kk)
+#pragma unroll
+          for (int c = 0; c < L::kCols; ++c) {
+            const uint64_t vd = sw128_desc(v_s + c * kBKV * 64 + kk * 16 * 64);
+            wgmma_rs_n64_tb(o[c], hi[kk], vd);
+            wgmma_rs_n64_tb(o[c], lo[kk], vd);
+          }
+        wgmma_commit();
+        wgmma_wait<0>();
+      } else {
+        uint32_t pa[kBKV / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kBKV / 16; ++kk) {
+          pa[kk][0] = pack_bf16x2(sc[8 * kk + 0], sc[8 * kk + 1]);
+          pa[kk][1] = pack_bf16x2(sc[8 * kk + 2], sc[8 * kk + 3]);
+          pa[kk][2] = pack_bf16x2(sc[8 * kk + 4], sc[8 * kk + 5]);
+          pa[kk][3] = pack_bf16x2(sc[8 * kk + 6], sc[8 * kk + 7]);
+        }
+#pragma unroll
+        for (int c = 0; c < L::kCols; ++c) fence_regs(o[c]);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBKV / 16; ++kk)
+#pragma unroll
+          for (int c = 0; c < L::kCols; ++c)
+            wgmma_rs_n64_tb(o[c], pa[kk], sw128_desc(v_s + c * kBKV * 64 + kk * 16 * 64));
+        wgmma_commit();
+        wgmma_wait<0>();
       }
-#pragma unroll
-      for (int c = 0; c < L::kCols; ++c) fence_regs(o[c]);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kBKV / 16; ++kk)
-#pragma unroll
-        for (int c = 0; c < L::kCols; ++c)
-          wgmma_rs_n64_tb(o[c], pa[kk], sw128_desc(v_s + c * kBKV * 64 + kk * 16 * 64));
-      wgmma_commit();
-      wgmma_wait<0>();
 #pragma unroll
       for (int c = 0; c < L::kCols; ++c) fence_regs(o[c]);
     }
@@ -249,25 +290,30 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
   named_barrier<128>(1 + wg);
   if (tid == 0 && first < t) {
     for (int c = 0; c < L::kCols; ++c)
-      tma_store_4d(&map_o, q_s + c * kBQ * 64 + 64 * wg * 64, c * 64, first, h, b);
+      tma_store_4d(map_o, q_s + c * kBQ * 64 + 64 * wg * 64, c * 64, first, h, b);
     tma_store_drain();
   }
 }
 
-// The 4-D map of a (batch, head, token, D) bf16 view with element strides
-// sb, sh, st (D contiguous), in boxes of (rows, 64).
-int head_map(CUtensorMap* map, const void* p, int b, int heads, int t, int d, long long sb,
-             long long sh, long long st, int rows) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(t),
-                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(b)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st) * 2,
-                                 static_cast<cuuint64_t>(sh) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
-  return make_tensor_map(map, p, 4, dims, strides, box);
+template <int kD>
+__global__ void __launch_bounds__(Layout<kD>::kThreads, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
+                 const __grid_constant__ CUtensorMap map_k,
+                 const __grid_constant__ CUtensorMap map_v,
+                 const __grid_constant__ CUtensorMap map_o, float* __restrict__ lse,
+                 int n_head, int q_per_kv, int t, float scale) {
+  attention_fwd<kD, false>(&map_q, &map_k, &map_v, &map_o, lse, n_head, q_per_kv, t, scale);
 }
 
 template <int kD>
+__global__ void __launch_bounds__(Layout<kD>::kThreads, 1)
+splash_fwd(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+           const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_o,
+           float* __restrict__ lse, int n_head, int q_per_kv, int t, float scale) {
+  attention_fwd<kD, true>(&map_q, &map_k, &map_v, &map_o, lse, n_head, q_per_kv, t, scale);
+}
+
+template <int kD, bool kSplit>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse, int b,
            int n_head, int n_kv_head, int t, float scale, long long qsb, long long qsh,
            long long qst, long long ksb, long long ksh, long long kst, long long vsb,
@@ -281,13 +327,30 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int 
   if (!err) err = head_map(&mo, o, b, n_head, t, kD, osb, osh, ost, 64);
   if (err) return err;
   constexpr int smem = L::kSmem;
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<kD>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  auto kernel = kSplit ? splash_fwd<kD> : flash_fwd_kernel<kD>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid(n_head, b, (t + L::kBQ - 1) / L::kBQ);
-  flash_fwd_kernel<kD><<<grid, L::kThreads, smem, stream>>>(
-      mq, mk, mv, mo, static_cast<float*>(lse), n_head, n_head / n_kv_head, t, scale);
+  kernel<<<grid, L::kThreads, smem, stream>>>(mq, mk, mv, mo, static_cast<float*>(lse), n_head,
+                                              n_head / n_kv_head, t, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kSplit>
+int dispatch(const void* q, const void* k, const void* v, void* o, void* lse, int b, int n_head,
+             int n_kv_head, int t, int d, float scale, long long qsb, long long qsh,
+             long long qst, long long ksb, long long ksh, long long kst, long long vsb,
+             long long vsh, long long vst, long long osb, long long osh, long long ost,
+             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == 64)
+    return launch<64, kSplit>(q, k, v, o, lse, b, n_head, n_kv_head, t, scale, qsb, qsh, qst,
+                              ksb, ksh, kst, vsb, vsh, vst, osb, osh, ost, s);
+  if (d == 128)
+    return launch<128, kSplit>(q, k, v, o, lse, b, n_head, n_kv_head, t, scale, qsb, qsh, qst,
+                               ksb, ksh, kst, vsb, vsh, vst, osb, osh, ost, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -295,19 +358,26 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int 
 // q: (B, H, T, D); k, v: (B, G, T, D), each with (batch, head, token)
 // element strides that are multiples of 8 and unit channel stride, 16-byte
 // aligned; o: the same for (B, H, T, D); lse: contiguous (B, H, T) fp32.
-// D is 64 or 128.
+// D is 64 or 128. S = scale * q k^T.
+
+// K1's forward: P rounded to bf16 before P V.
 DH_EXPORT int dh_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse, int b,
     int n_head, int n_kv_head, int t, int d, float scale, long long qsb,
     long long qsh, long long qst, long long ksb, long long ksh, long long kst,
     long long vsb, long long vsh, long long vst, long long osb, long long osh,
     long long ost, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64)
-    return launch<64>(q, k, v, o, lse, b, n_head, n_kv_head, t, scale, qsb, qsh, qst,
-                      ksb, ksh, kst, vsb, vsh, vst, osb, osh, ost, s);
-  if (d == 128)
-    return launch<128>(q, k, v, o, lse, b, n_head, n_kv_head, t, scale, qsb, qsh, qst,
-                       ksb, ksh, kst, vsb, vsh, vst, osb, osh, ost, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<false>(q, k, v, o, lse, b, n_head, n_kv_head, t, d, scale, qsb, qsh, qst,
+                         ksb, ksh, kst, vsb, vsh, vst, osb, osh, ost, stream);
+}
+
+// L1's forward: fp32 P times V as hi V + lo V.
+DH_EXPORT int dh_splash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+                            int b, int n_head, int n_kv_head, int t, int d, float scale,
+                            long long qsb, long long qsh, long long qst, long long ksb,
+                            long long ksh, long long kst, long long vsb, long long vsh,
+                            long long vst, long long osb, long long osh, long long ost,
+                            void* stream) {
+  return dispatch<true>(q, k, v, o, lse, b, n_head, n_kv_head, t, d, scale, qsb, qsh, qst,
+                        ksb, ksh, kst, vsb, vsh, vst, osb, osh, ost, stream);
 }

@@ -1,7 +1,8 @@
-// Hopper building blocks of the wgmma/TMA kernels (K1's forward, K4):
-// mbarriers, TMA loads and stores through tensor maps, warpgroup matrix
-// products (wgmma) with operands in 128-byte swizzled shared memory, and
-// the host-side encoding of the tensor maps.
+// Hopper building blocks of the wgmma/TMA kernels (K1's forward and
+// backward, L1's forward, K4): mbarriers, TMA loads, stores and reduce-adds
+// through tensor maps, warpgroup matrix products (wgmma) with operands in
+// 128-byte swizzled shared memory, warpgroup register hand-over
+// (setmaxnreg), and the host-side encoding of the tensor maps.
 //
 // Shared-memory tiles: TMA writes a box of (rows, 64) bf16 with
 // CU_TENSOR_MAP_SWIZZLE_128B, so row r holds its 128 bytes at r * 128 with
@@ -68,6 +69,20 @@ __device__ __forceinline__ void named_barrier(int id) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(kThreads) : "memory");
 }
 
+// Hands registers between warpgroups: every warp of a warpgroup runs the
+// same call, in branches that are warp-uniform to the compiler (a warp
+// index taken through __shfl_sync) and never reconverge; else ptxas keeps
+// the launch's count. The counts of a block's warpgroups must sum to no
+// more than the launch gave them, or the increase waits for ever.
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
 // ---- TMA ---------------------------------------------------------------------
 
 // Copies a box of a tensor map into shared memory; completion (the box's
@@ -111,10 +126,38 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void*
       : "memory");
 }
 
+// Adds a box from shared memory into the tensor (fp32: an element-wise
+// add in the L2, atomic with respect to other adds); the parts of the box
+// past the tensor's edge are not written.
+__device__ __forceinline__ void tma_reduce_add_4d(const CUtensorMap* map, const void* src,
+                                                  int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Closes this thread's group of bulk stores and reduce-adds issued so far.
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most `kPending` of this thread's committed bulk groups have
+// not yet read their shared memory (`_read`) or not yet completed.
+template <int kPending>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(kPending) : "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
 // Commits this thread's TMA stores and waits until they have read shared memory.
 __device__ __forceinline__ void tma_store_drain() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  bulk_commit();
+  bulk_wait_read<0>();
 }
 
 // Orders this thread's plain shared-memory writes before later TMA reads.
@@ -126,6 +169,11 @@ __device__ __forceinline__ void fence_async_smem() {
 // 128-byte swizzle lays it out (c even: the pair (c, c + 1) shares 4 bytes).
 __device__ __forceinline__ int swizzled_offset(int r, int c) {
   return r * 128 + ((((c >> 3) ^ r) & 7) << 4) + ((c & 7) << 1);
+}
+
+// The same for a (rows, 32) fp32 tile (c even: the pair shares 8 bytes).
+__device__ __forceinline__ int swizzled_offset_f32(int r, int c) {
+  return r * 128 + ((((c >> 2) ^ r) & 7) << 4) + ((c & 3) << 2);
 }
 
 // ---- wgmma -----------------------------------------------------------------
@@ -261,6 +309,27 @@ struct Wgmma<128> {
   }
 };
 
+// d (64 x 64 fp32) = a b (+ d when scale_d) with both operands MN-major in
+// shared memory: row k of a's tile holds its 64 M values, row k of b's its
+// 64 N values (16 k = +2048 bytes). The product of two transposed tiles,
+// such as dS K from dS^T and K as they lie.
+__device__ __forceinline__ void wgmma_ss_n64_tt(float (&d)[32], uint64_t a, uint64_t b,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 // d += a (registers) b (shared memory, MN-major: row k holds its N values)
 __device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32], const uint32_t (&a)[4],
                                                 uint64_t b) {
@@ -305,21 +374,42 @@ static inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dimensions, innermost first: dims[0]
-// contiguous elements, then dims[i] at byte strides strides[i - 1]
-// (multiples of 16); boxes of box[i] elements, 128-byte swizzled (box[0] =
-// 64). Strides need not grow with i, so a (batch, head, token) view of a
-// fused projection is mapped as it lies. Returns a cudaError_t code.
-static inline int make_tensor_map(CUtensorMap* map, const void* base, int rank,
-                                  const cuuint64_t* dims, const cuuint64_t* strides,
-                                  const cuuint32_t* box) {
+// A tensor map of `rank` dimensions, innermost first: dims[0] contiguous
+// elements, then dims[i] at byte strides strides[i - 1] (multiples of 16);
+// boxes of box[i] elements, bf16 and 128-byte swizzled (box[0] = 64) unless
+// told otherwise (an fp32 box of 128-byte rows takes box[0] = 32). Strides
+// need not grow with i, so a (batch, head, token) view of a fused
+// projection is mapped as it lies. Returns a cudaError_t code.
+static inline int make_tensor_map(
+    CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+    const cuuint64_t* strides, const cuuint32_t* box,
+    CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims,
-                  strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  CUresult r = fn(map, dtype, rank, const_cast<void*>(base), dims, strides, box, ones,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The 4-D map of a (batch, head, token, D) view with element strides sb,
+// sh, st (D contiguous), in boxes of (rows, 64) bf16 (or of (rows, 32)
+// fp32 with `fp32`).
+static inline int head_map(CUtensorMap* map, const void* p, int b, int heads, int t, int d,
+                           long long sb, long long sh, long long st, int rows,
+                           bool fp32 = false) {
+  const int esize = fp32 ? 4 : 2;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(t),
+                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st) * esize,
+                                 static_cast<cuuint64_t>(sh) * esize,
+                                 static_cast<cuuint64_t>(sb) * esize};
+  const cuuint32_t box[4] = {fp32 ? 32u : 64u, static_cast<cuuint32_t>(rows), 1, 1};
+  return make_tensor_map(map, p, 4, dims, strides, box,
+                         fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                              : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
 }
 
 // A row-major (rows, cols) bf16 matrix with `ld` elements a row, in boxes of

@@ -1,12 +1,13 @@
-// L1: splash attention, causal grouped-query attention in three kernels:
-// the forward (O and the row logsumexp), dQ, and dK/dV.
+// L1: splash attention's gradient kernels, dQ and dK/dV, of causal
+// grouped-query attention. Its forward (O and the row logsumexp) is K1's
+// forward kernel body with splash's P V arithmetic: `splash_fwd` in
+// flash_attention.cu (entry point `dh_splash_fwd`).
 //
 // Replaces the library kernels that dualhyp_tpu/ops/pallas/flash_attention.py
 // reaches through jax.experimental.pallas.ops.tpu.splash_attention
 // (`make_splash_mqa_single_device`, vmapped over batch and KV group, so each
 // call is MQA: the Hq / G query heads of one group against one K/V head):
-//   * `flash_attention_kernel` (splash_attention_kernel.py:696), the forward;
-//   * `_flash_attention_dq_kernel` (:1307), dQ;
+//   * `_flash_attention_dq_kernel` (splash_attention_kernel.py:1307), dQ;
 //   * `_flash_attention_dkv_kernel` (:1669), dK and dV, summed over the
 //     group's query heads in the kernel (`is_mqa`).
 // They compute what the splash kernels compute, in its arithmetic:
@@ -14,16 +15,9 @@
 //     caller rounded q * scale to bf16 first (the JAX wrapper at T % 128 ==
 //     0), the softmax scale itself at other T, where the port runs these
 //     kernels in place of the JAX package's XLA path;
-//   * the forward keeps an online softmax in fp32 and multiplies the fp32 P
-//     by V read as fp32 (:819-820), where K1 rounds P to bf16. Here P is
-//     split into bf16 hi = bf16(P) and lo = bf16(P - hi), and two bf16 mma
-//     products hi V + lo V sum in fp32: V is exact in bf16, and P - hi - lo
-//     is below 2^-16 of P, so the product carries ~16 bits of P where one
-//     bf16 product carries 8, at twice its cost. O = acc / l in q's dtype,
-//     lse = m + log l in fp32 (:840-843);
 //   * dQ: p = exp(S - lse), dP = dO v^T (bf16 operands, fp32 sums), dS = p
 //     (dP - di), dQ = scale * sum bf16(dS) k in fp32, written once in q's
-//     dtype; no atomics (K1's backward adds dQ with atomics);
+//     dtype; no atomics;
 //   * dK/dV: dV = sum bf16(p)^T dO, dK = scale * sum bf16(dS)^T q over every
 //     query head of the KV group and every query tile at or below the
 //     diagonal, in fp32 registers, written once in k's dtype (:1731-1736
@@ -32,20 +26,18 @@
 //   computes it outside its kernels (:2285).
 //
 // What bounds them on the H100: at the training shape (B8 Hq32 T1024, D 64
-// or 128) each loaded byte is used ~T/2 times, so all three are bound by
-// the tensor cores' operations (2, 3 and 4 products a causal pair). Design:
+// or 128) each loaded byte is used ~T/2 times, so both are bound by the
+// tensor cores' operations (3 and 4 products a causal pair). Design:
 //   * mma.sync m16n8k16 (bf16, fp32 sums) on tiles in shared memory, with
 //     the fragment layouts of mma.cuh: S, P, dP and dS stay in registers,
 //     and an fp32 accumulator tile becomes the next product's bf16 A
 //     operand in registers (no trip through shared memory);
-//   * causal block skipping: the forward and dQ walk only the 64-key tiles
-//     at or below their 64-row query tile; dK/dV walk only the query tiles
-//     at or below the diagonal of their key tile. The grid puts the blocks
-//     with the most tiles first;
-//   * the forward and dQ: one block of 4 warps per (batch, query head,
-//     64-row query tile), 16 rows a warp; the forward keeps its q fragments
-//     in registers (staged once through shared memory), dQ reads q and dO
-//     fragments from shared memory tiles;
+//   * causal block skipping: dQ walks only the 64-key tiles at or below its
+//     64-row query tile; dK/dV walk only the query tiles at or below the
+//     diagonal of their key tile. The grid puts the blocks with the most
+//     tiles first;
+//   * dQ: one block of 4 warps per (batch, query head, 64-row query tile),
+//     16 rows a warp, reading q and dO fragments from shared memory tiles;
 //   * dK/dV: one block of 4 warps per (batch, KV group, 64-key tile), 16
 //     keys a warp, dK and dV in fp32 registers (2 D / 8 x 4 a lane). At D =
 //     128 those are 128 registers a thread, so the query tile walked is 32
@@ -54,7 +46,7 @@
 //     channel stride, ragged tails (T not a multiple of 64) zero-filled and
 //     masked, so every T >= 1 runs; each head size (64, 128) is its own
 //     instance.
-// This is a first, simple kernel: one stage of tiles, no cp.async pipeline,
+// These are first, simple kernels: one stage of tiles, no cp.async pipeline,
 // no wgmma or TMA. Registers and spills of each instance are printed by the
 // build's `-Xptxas -v`.
 #include "mma.cuh"
@@ -62,7 +54,7 @@
 namespace {
 
 constexpr int kThreads = 128;  // 4 warps
-constexpr int kBQ = 64;        // query rows of a forward / dQ block
+constexpr int kBQ = 64;        // query rows of a dQ block
 constexpr int kBK = 64;        // keys of a tile
 
 // element strides of one (B, H, T, D) operand: batch, head, token
@@ -74,7 +66,7 @@ struct Args {
   const bf16* q;
   const bf16* k;
   const bf16* v;
-  bf16* out;       // forward: O; dQ: dQ; dK/dV: dK
+  bf16* out;       // dQ: dQ; dK/dV: dK
   bf16* out2;      // dK/dV: dV
   const bf16* dO;
   float* lse;      // (B, Hq, T) fp32, contiguous
@@ -108,152 +100,6 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c)[kN][
   a[1] = pack_bf16x2(c[2 * kb][2], c[2 * kb][3]);
   a[2] = pack_bf16x2(c[2 * kb + 1][0], c[2 * kb + 1][1]);
   a[3] = pack_bf16x2(c[2 * kb + 1][2], c[2 * kb + 1][3]);
-}
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-// ------------------------------------------------------------- forward ----
-
-template <int kD>
-__global__ void __launch_bounds__(kThreads) splash_fwd(Args a) {
-  constexpr int kLd = kD + 8;
-  __shared__ __align__(16) bf16 k_s[kBK * kLd];
-  __shared__ __align__(16) bf16 v_s[kBK * kLd];
-
-  const int qt = gridDim.x - 1 - blockIdx.x;  // the longest rows first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int g = h / a.q_per_kv;
-  const int q0 = qt * kBQ;
-  const int lane = threadIdx.x & 31;
-  const int wr = (threadIdx.x >> 5) * 16;
-  const int gr = lane >> 2;
-  const int tc = lane & 3;
-  const int t = a.t;
-
-  const bf16* kb = a.k + b * a.sk.b + g * a.sk.h;
-  const bf16* vb = a.v + b * a.sv.b + g * a.sv.h;
-
-  // this warp's q fragments, staged through k_s
-  load_rows<kD, kBQ>(k_s, a.q + b * a.sq.b + h * a.sq.h, a.sq.t, q0, t);
-  __syncthreads();
-  uint32_t qf[kD / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) load_frag_a(qf[kk], k_s, kLd, wr, kk * 16, lane);
-
-  const int rows[2] = {q0 + wr + gr, q0 + wr + gr + 8};
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float acc[kD / 8][4];
-#pragma unroll
-  for (int n = 0; n < kD / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  for (int tile = 0; tile <= qt; ++tile) {
-    const int k0 = tile * kBK;
-    __syncthreads();  // every warp is done with k_s, v_s
-    load_rows<kD, kBK>(k_s, kb, a.sk.t, k0, t);
-    load_rows<kD, kBK>(v_s, vb, a.sv.t, k0, t);
-    __syncthreads();
-
-    float s[kBK / 8][4];
-#pragma unroll
-    for (int n = 0; n < kBK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk)
-#pragma unroll
-      for (int n = 0; n < kBK / 8; ++n) {
-        uint32_t bb[2];
-        load_frag_b(bb, k_s, kLd, n * 8, kk * 16, lane);
-        mma_bf16_16816(s[n], qf[kk], bb);
-      }
-
-    // online softmax in fp32; a row's 64 keys lie in the 4 lanes of a quad
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < kBK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + n * 8 + 2 * tc + (e & 1);
-        const bool ok = key <= rows[e >> 1] && key < t;
-        s[n][e] = ok ? s[n][e] * a.scale : -INFINITY;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-      }
-    float m_use[2], alpha[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      m_use[r] = m_new == -INFINITY ? 0.f : m_new;
-      alpha[r] = expf(m[r] - m_use[r]);
-      m[r] = m_new;
-    }
-#pragma unroll
-    for (int n = 0; n < kBK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = expf(s[n][e] - m_use[e >> 1]);
-        sum[e >> 1] += s[n][e];
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-      sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-      l[r] = l[r] * alpha[r] + sum[r];
-    }
-#pragma unroll
-    for (int n = 0; n < kD / 8; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-    }
-
-    // O += P V with P = hi + lo, two bf16 products summed in fp32
-#pragma unroll
-    for (int kb16 = 0; kb16 < kBK / 16; ++kb16) {
-      uint32_t hi[4], lo[4];
-      acc_to_a(hi, s, kb16);
-      float rest[2][4];
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          rest[j][e] = s[2 * kb16 + j][e] - bf16_round(s[2 * kb16 + j][e]);
-      lo[0] = pack_bf16x2(rest[0][0], rest[0][1]);
-      lo[1] = pack_bf16x2(rest[0][2], rest[0][3]);
-      lo[2] = pack_bf16x2(rest[1][0], rest[1][1]);
-      lo[3] = pack_bf16x2(rest[1][2], rest[1][3]);
-#pragma unroll
-      for (int n2 = 0; n2 < kD / 16; ++n2) {
-        uint32_t b0[2], b1[2];
-        load_frag_b_kmajor(b0, b1, v_s, kLd, kb16 * 16, n2 * 16, lane);
-        mma_bf16_16816(acc[2 * n2], hi, b0);
-        mma_bf16_16816(acc[2 * n2 + 1], hi, b1);
-        mma_bf16_16816(acc[2 * n2], lo, b0);
-        mma_bf16_16816(acc[2 * n2 + 1], lo, b1);
-      }
-    }
-  }
-
-  bf16* ob = a.out + b * a.sout.b + h * a.sout.h;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (rows[r] >= t) continue;
-    const float inv = 1.f / l[r];
-    bf16* orow = ob + rows[r] * a.sout.t + 2 * tc;
-#pragma unroll
-    for (int n = 0; n < kD / 8; ++n)
-      *reinterpret_cast<uint32_t*>(orow + n * 8) =
-          pack_bf16x2(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
-    if (tc == 0)
-      a.lse[(static_cast<long long>(b) * a.n_head + h) * t + rows[r]] = m[r] + logf(l[r]);
-  }
 }
 
 // ------------------------------------------------------------------ dQ ----
@@ -497,14 +343,12 @@ __global__ void __launch_bounds__(kThreads) splash_dkv(Args a) {
 
 // ------------------------------------------------------------- launches ----
 
-enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
+enum Which { kDq = 1, kDkv = 2 };
 
 template <int kD>
 int launch(int which, const Args& a, int b, int n_kv_head, cudaStream_t stream) {
   const int n_tiles = (a.t + kBQ - 1) / kBQ;
-  if (which == kFwd) {
-    splash_fwd<kD><<<dim3(n_tiles, a.n_head, b), kThreads, 0, stream>>>(a);
-  } else if (which == kDq) {
+  if (which == kDq) {
     constexpr size_t smem = DqSmem<kD>::kBytes;
     cudaError_t err = cudaFuncSetAttribute(
         splash_dq<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -535,30 +379,6 @@ int dispatch(int which, const Args& a, int b, int n_kv_head, int d, void* stream
 // channel stride and 16-byte aligned rows: q, o, dO, dQ (B, Hq, T, D); k, v,
 // dK, dV (B, G, T, D), Hq a multiple of G; D is 64 or 128. lse and di are
 // contiguous (B, Hq, T) fp32. S = scale * q k^T.
-
-// The forward: writes O and lse.
-DH_EXPORT int dh_splash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                            int b, int n_head, int n_kv_head, int t, int d, float scale,
-                            long long qsb, long long qsh, long long qst, long long ksb,
-                            long long ksh, long long kst, long long vsb, long long vsh,
-                            long long vst, long long osb, long long osh, long long ost,
-                            void* stream) {
-  Args a{};
-  a.q = static_cast<const bf16*>(q);
-  a.k = static_cast<const bf16*>(k);
-  a.v = static_cast<const bf16*>(v);
-  a.out = static_cast<bf16*>(o);
-  a.lse = static_cast<float*>(lse);
-  a.sq = {qsb, qsh, qst};
-  a.sk = {ksb, ksh, kst};
-  a.sv = {vsb, vsh, vst};
-  a.sout = {osb, osh, ost};
-  a.n_head = n_head;
-  a.q_per_kv = n_head / n_kv_head;
-  a.t = t;
-  a.scale = scale;
-  return dispatch(kFwd, a, b, n_kv_head, d, stream);
-}
 
 // dQ from (q, k, v, lse, dO, di).
 DH_EXPORT int dh_splash_dq(const void* q, const void* k, const void* v, const void* lse,

@@ -41,10 +41,17 @@ FLASH_FWD = _lib.Kernel(
 )
 
 # K1 backward: replaces dualhyp_tpu/ops/pallas/flash_vjp.py `_bwd_kernel`.
-# Bound by operations (five products per causal pair); one block per
-# (batch, KV group, 64-key tile) keeps dK/dV on chip and sums the group's
-# heads there; dQ is added with fp32 atomics; one instance per head size.
-# See csrc/flash_attention_bwd.cu.
+# Bound by operations (five products per causal pair). A pre-pass writes
+# Delta and a copy of L, padded to 64 rows, into a scratch; one block per
+# (batch, KV group, key block) keeps dK/dV in registers and sums the group's
+# heads there; a producer warpgroup streams the query tiles' Q, dO, L and
+# Delta by TMA through an mbarrier ring; consumer warpgroups of 64 keys run
+# S^T, dP^T, dV, dK and dQ on wgmma (P^T and dS^T as register A operands;
+# dS^T through shared memory for dQ) and add each pair's fp32 dQ tile by
+# TMA reduce-adds, with no per-element atomics; one instance per head size
+# (128 keys a block at D64, 64 at D128). On an NVIDIA H100 80GB HBM3 at
+# 700.00 W: 0.466 ms at B8 Hq32 G4 T1024 D64 (SDPA's backward 0.42-0.64),
+# 1.257 at G8 D128 (SDPA 0.667). See csrc/flash_attention_bwd.cu.
 FLASH_BWD = _lib.Kernel(
     "dh_flash_attention_bwd",
     [_lib.C_PTR] * 10 + [_lib.C_INT] * 5 + [_lib.C_F32] + [_lib.C_I64] * 21,
@@ -185,12 +192,13 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale: float):
         _check_rows(name, x)
     lse = lse.contiguous()
     dq32 = torch.zeros((b, hq, t, d), dtype=torch.float32, device=device)
-    delta = torch.empty((b, hq, t), dtype=torch.float32, device=device)
+    # L and Delta, each (B, Hq, T rounded up to 64): whole 64-row TMA boxes
+    rows = torch.empty((2, b, hq, -(-t // 64) * 64), dtype=torch.float32, device=device)
     dk = torch.empty((b, g, t, d), dtype=k.dtype, device=device)
     dv = torch.empty((b, g, t, d), dtype=v.dtype, device=device)
     if q.numel():
         FLASH_BWD(device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                  do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq32.data_ptr(),
+                  do.data_ptr(), lse.data_ptr(), rows.data_ptr(), dq32.data_ptr(),
                   dk.data_ptr(), dv.data_ptr(), b, hq, g, t, d, float(scale),
                   *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                   *o.stride()[:3], *do.stride()[:3], *dk.stride()[:3],

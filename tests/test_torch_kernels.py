@@ -11,14 +11,17 @@ S of 1, 63, 64, 65 and 1500, S != T, kv_valid and strided inputs, L2
 empty, straddling and single groups and a ragged N, its two gradients
 (dlhs, drhs) at M from 0 to 16384, K1's forward and backward at head size
 128, a small MoE model card against CPU, in prefill and in a LoRA
-training step, L1 (splash attention: forward, dQ, dK/dV) at T of 1,
-63, 128, 200 and 1024, head sizes 64 and 128, 4 and 8 KV groups, strided
-views, refusals, and its autograd op card against CPU, and the wgmma/TMA
-designs of K1's forward (T from 1 to 1024 around its tile edges, head sizes
-64 and 128, GQA ratios 1, 4, 8, fused-QKV views) and K4 (1 to 3072 rows at
-widths 128 and 2048, inter 200, 256 and 5632, both gates, bitwise repeats,
-an unaligned input). Every test needs an NVIDIA card and skips without one.
-On the card's machine (no JAX there) run them without the suite's conftest:
+training step, L1 (splash attention: forward, dQ, dK/dV) at T of 1, 63,
+127, 128, 129, 200, 256 and 1024, head sizes 64 and 128, 4 and 8 KV
+groups, strided views, refusals, and its autograd op card against CPU, and
+the wgmma/TMA designs of K1's forward (T from 1 to 1024 around its tile
+edges, head sizes 64 and 128, GQA ratios 1, 4, 8, fused-QKV views), K1's
+backward and L1's forward (T 127, 128, 129 and 256 at the edges of their
+64- and 128-key blocks, an unaligned input copied, one launch a call) and
+K4 (1 to 3072 rows at widths 128 and 2048, inter 200, 256 and 5632, both
+gates, bitwise repeats, an unaligned input). Every test needs an NVIDIA
+card and skips without one. On the card's machine (no JAX there) run them
+without the suite's conftest:
 
     python -m pytest tests/test_torch_kernels.py --noconftest -q
 
@@ -348,7 +351,9 @@ def _flash_inputs(gen, b, hq, g, t, d=64):
     return q, k, v, o, lse
 
 
-@pytest.mark.parametrize("t", [1, 63, 64, 65, 200, 1024])
+# K1's backward: T on both sides of its 64-row query tiles and 64- or
+# 128-key blocks
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 127, 128, 129, 200, 256, 1024])
 @pytest.mark.parametrize("hq,g", [(4, 4), (16, 2)])
 def test_flash_attention_bwd(dev, gen, t, hq, g):
     """q_per_kv 1 and 8; O as the forward's (B, T, H, D) view."""
@@ -361,7 +366,7 @@ def test_flash_attention_bwd(dev, gen, t, hq, g):
         _close_bwd(x, y)
 
 
-@pytest.mark.parametrize("t", [1, 63, 64, 65, 200, 1024])
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 127, 128, 129, 200, 256, 1024])
 @pytest.mark.parametrize("hq,g", [(4, 4), (16, 4)])
 def test_flash_attention_bwd_head_size_128(dev, gen, t, hq, g):
     """K1's backward at Mixtral's head size (q_per_kv 1 and 4, Mixtral's)."""
@@ -778,7 +783,7 @@ def _splash_check_bwd(q, k, v, o, lse, do, scale):
     _close_bwd(got_dv, want_dv)
 
 
-@pytest.mark.parametrize("t", [1, 63, 128, 200, 1024])
+@pytest.mark.parametrize("t", [1, 63, 127, 128, 129, 200, 256, 1024])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("g", [4, 8])
 def test_splash_kernels(dev, gen, t, d, g):
@@ -827,9 +832,44 @@ def test_splash_kernels_refuse_what_they_do_not_take(dev, gen):
         splash.splash_dkv(q, k, v, lse, do.float(), di)
     with pytest.raises(ValueError, match="lse"):
         splash.splash_dkv(q, k, v, lse[:, :, :8], do, di)
+    # dQ reads q as it lies (the forward copies an input TMA cannot read)
     unaligned = torch.empty(1 * 4 * 16 * 64 + 1, dtype=torch.bfloat16, device=dev)[1:]
     with pytest.raises(ValueError, match="16-byte aligned"):
-        splash.splash_fwd(unaligned.view(1, 4, 16, 64), k, v)
+        splash.splash_dq(unaligned.view(1, 4, 16, 64), k, v, lse, do, di)
+
+
+def test_splash_fwd_reads_an_unaligned_input_through_a_copy(dev, gen):
+    q, k, v, _ = _splash_inputs(gen, 1, 4, 2, 70, 64)
+    unaligned = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device=dev)[1:].view(q.shape)
+    unaligned.copy_(q)
+    assert unaligned.data_ptr() % 16
+    o, lse = splash.splash_fwd(unaligned, k, v, 0.125)
+    want_o, want_lse = splash.splash_fwd_plain(q, k, v, 0.125)
+    _close(o, want_o, *BF16[1:])
+    _close(lse, want_lse, 1e-4, 1e-5)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_redesigned_kernels_count_one_launch_a_call(dev, gen, d):
+    """L1's forward and K1's backward, called twice on the same inputs: each
+    call adds one launch; the forward repeats bit for bit, and the
+    backward's second call matches its plain version too (its dQ adds run
+    in no fixed order)."""
+    q, k, v, o, lse = _flash_inputs(gen, 2, 8, 2, 200, d)
+    do = _randn(gen, 2, 8, 200, d)
+    scale = d ** -0.5
+    want = attention.flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
+    before = (splash.SPLASH_FWD.launches, attention.FLASH_BWD.launches)
+    outs = []
+    for n in (1, 2):
+        outs.append(splash.splash_fwd(q, k, v, scale))
+        got = attention.flash_attention_bwd(q, k, v, o, lse, do, scale)
+        assert (splash.SPLASH_FWD.launches, attention.FLASH_BWD.launches) == (
+            before[0] + n, before[1] + n)
+        for x, y in zip(got, want):
+            _close_bwd(x, y)
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
 
 
 @pytest.mark.parametrize("t", [128, 70])

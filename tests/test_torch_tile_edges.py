@@ -1,26 +1,31 @@
-"""K1's forward and K4 at the edges of their Hopper kernels' tiles, on the CPU.
+"""K1, K4 and L1 at the edges of their Hopper kernels' tiles, on the CPU.
 
 On the card the wgmma/TMA kernels (`csrc/flash_attention.cu`,
-`csrc/swiglu.cu`) are held to the plain versions (`test_torch_kernels.py`,
-`chip_smoke.py`). Here the plain versions are held to the JAX package's
-Pallas kernels in interpret mode at the shapes where the kernels change
-path or tile: K4 on both sides of its decode path (at most
-`swiglu.DECODE_ROWS` rows, operands swapped) and a ragged intermediate size
-(the JAX package's jnp path there), K1's O and row logsumexp L at head
-sizes 64 and 128 and GQA ratios 1 and 4; and the wrapper's copy of an input
-TMA cannot read.
+`csrc/flash_attention_bwd.cu`, `csrc/swiglu.cu`) are held to the plain
+versions (`test_torch_kernels.py`, `chip_smoke.py`). Here the plain versions
+are held to the JAX package's Pallas kernels in interpret mode at the shapes
+where the kernels change path or tile: K4 on both sides of its decode path
+(at most `swiglu.DECODE_ROWS` rows, operands swapped) and a ragged
+intermediate size (the JAX package's jnp path there), K1's O and row
+logsumexp L at head sizes 64 and 128 and GQA ratios 1 and 4; K1's backward
+at T = 256, two of its 128-key blocks (and four 64-row query tiles), at head
+sizes 64 and 128 and GQA ratios 1 and 4; L1's forward O and logsumexp at
+head size 128 and T = 256 against the splash kernel itself; and the
+wrappers' copies of an input TMA cannot read.
 
 Tolerances: fp32 on both sides, the same arithmetic summed in another order
-(atol 1e-5; 1e-4 for L, a log of sums over up to 256 keys).
+(atol 1e-5; 1e-4 for L, a log of sums over up to 256 keys, and for the
+backward's gradients, sums of up to 4 x 256 terms of unit-normal size).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from dualhyp_tpu.ops.pallas import flash_vjp, swiglu_kernel
-from dualhyp_tpu_torch.ops import attention, swiglu
+from dualhyp_tpu.ops.pallas import flash_attention, flash_vjp, swiglu_kernel
+from dualhyp_tpu_torch.ops import attention, splash, swiglu
 
 
 def _close(got, want, atol=1e-5):
@@ -76,3 +81,68 @@ def test_swiglu_wrapper_copies_only_an_unaligned_input():
     assert torch.equal(copy, unaligned)
     aligned = flat[:64 * 4].view(4, 64)
     assert swiglu._aligned(aligned) is aligned
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("q_per_kv", [1, 4])
+def test_flash_backward_plain_matches_pallas_across_key_blocks(rng, d, q_per_kv):
+    # T = 256: the Pallas `_bwd_kernel` (interpret mode) against the plain
+    # backward the card's kernel is held to, over two 128-key blocks
+    t = 256
+    q, do = (rng.normal(size=(1, 4, t, d)).astype(np.float32) for _ in range(2))
+    k, v = (rng.normal(size=(1, 4 // q_per_kv, t, d)).astype(np.float32) for _ in range(2))
+    scale = float(d) ** -0.5
+    _, vjp = jax.vjp(lambda a, b, c: flash_vjp.flash_attention(a, b, c, scale),
+                     *(jnp.asarray(a) for a in (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    o, lse = attention.causal_attention_plain_lse(tq, tk, tv, scale)
+    got = attention.flash_attention_bwd_plain(tq, tk, tv, o, lse, tdo, scale)
+    for x, w in zip(got, want):
+        _close(x, w, atol=1e-4)
+
+
+@pytest.mark.parametrize("q_per_kv", [1, 4])
+def test_splash_forward_plain_matches_the_splash_kernel_o_and_lse(rng, q_per_kv):
+    # the splash kernel as the JAX package builds it (`_splash_kernel`'s
+    # mask and blocks), with its logsumexp residual kept, on q already
+    # multiplied by the scale (the JAX wrapper's q_hat; the kernel's scale 1)
+    from jax.experimental.pallas.ops.tpu import splash_attention as sa
+
+    t, d, g = 256, 128, 4 // q_per_kv
+    q_hat = rng.normal(size=(1, 4, t, d)).astype(np.float32) * np.float32(d ** -0.5)
+    k, v = (rng.normal(size=(1, g, t, d)).astype(np.float32) for _ in range(2))
+    mask = sa.MultiHeadMask([sa.CausalMask((t, t)) for _ in range(q_per_kv)])
+    blocks = sa.BlockSizes(**{f: min(512, t) for f in (
+        "block_q", "block_kv", "block_kv_compute", "block_q_dkv", "block_kv_dkv",
+        "block_kv_dkv_compute", "block_q_dq", "block_kv_dq")})
+    kernel = sa.make_splash_mqa_single_device(mask, block_sizes=blocks, save_residuals=True,
+                                              interpret=True)
+    assert flash_attention._MIN_SEQ == 128
+    want_o, (want_lse,) = jax.vmap(jax.vmap(kernel))(
+        jnp.asarray(q_hat.reshape(1, g, q_per_kv, t, d)), jnp.asarray(k), jnp.asarray(v))
+    o, lse = splash.splash_fwd_plain(*(torch.from_numpy(a) for a in (q_hat, k, v)), 1.0)
+    _close(o, np.asarray(want_o).reshape(1, 4, t, d))
+    _close(lse, np.asarray(want_lse).reshape(1, 4, t), atol=1e-4)
+
+
+def _views():
+    flat = torch.arange(1 + 2 * 4 * 16 * 64, dtype=torch.float32).bfloat16()
+    wide = torch.zeros(2, 4, 16, 68, dtype=torch.bfloat16)
+    return {"unaligned_base": flat[1:].view(2, 4, 16, 64),
+            "token_stride_of_68": wide[..., :64],
+            "aligned": flat[:-1].view(2, 4, 16, 64)}
+
+
+@pytest.mark.parametrize("case", ["unaligned_base", "token_stride_of_68", "aligned"])
+def test_splash_wrapper_copies_only_an_input_tma_cannot_read(case):
+    # TMA needs a 16-byte aligned base and strides of multiples of 16 bytes;
+    # a stride of 68 bf16 (136 bytes) fails, as does a base 2 bytes in
+    x = _views()[case]
+    got = splash._tma_readable(x)
+    assert torch.equal(got, x)
+    assert got.data_ptr() % 16 == 0 and attention._aligned_rows(got)
+    if case == "aligned":
+        assert got is x
+    else:
+        assert got.data_ptr() != x.data_ptr() and got.is_contiguous()

@@ -14,33 +14,44 @@
 // stack is ever transposed or copied. What bounds it on the H100: in decode
 // (16 rows: 8 tokens x top-2) the expert weights, N * K * 2 bytes for each
 // group that holds a row (up to 8 x 117 MB at Mixtral's width); in prefill
-// (6144 rows) the 2 * M * N * K operations. Design:
+// (6144 rows) and training (16384) the 2 * M * N * K operations. Design:
 //   * the schedule is found on the device, as megablox's
 //     `make_group_metadata` finds it on the TPU: the grid is fixed by M, N
 //     and E alone, (ceil(M / BM) + E + 1) row visits x ceil(N / BN) column
 //     tiles; each block reads the E group sizes and walks them to its
 //     (group, row tile). A row tile that straddles groups is visited once
-//     per group, each visit masking its loads and stores to its own rows,
-//     so no two blocks write one element. Rows past the last group (when
-//     the sizes sum to less than M) get one more visit that writes zeros,
-//     as ragged_dot leaves them. Visits past the last, and empty groups,
-//     exit at once; nothing is read back to the host;
-//   * tiles of lhs and W stream through shared memory by cp.async, two
-//     K steps in flight; the products run on the tensor cores (mma.sync
-//     m16n8k16, fp32 sums in registers);
-//   * two tile shapes: 128 x 128 with 8 warps for prefill rows, and one m16
-//     row tile by 64 columns with 4 warps for decode rows, where a visit
-//     holds a couple of rows and the weight bytes, not the products, set
-//     the time (more, smaller blocks keep more bytes in flight).
+//     per group, each visit storing only its own rows, so no two blocks
+//     write one element. Rows past the last group (when the sizes sum to
+//     less than M) get one more visit that writes zeros, as ragged_dot
+//     leaves them. Visits past the last, and empty groups, exit at once;
+//     nothing is read back to the host;
+//   * prefill and training rows (more than kDecodeRows) run a wgmma/TMA
+//     kernel (gmm_tma_kernel): a producer warp keeps a ring of stages in
+//     flight with TMA, each a (128 rows, 64) tile of lhs and a (BN, 64)
+//     tile of W[e] through one 3-D tensor map of the (E, N, K) stack (so
+//     TMA reads zeros past an expert's own rows, never the next expert's),
+//     128-byte swizzled; two consumer warpgroups of 64 rows each run wgmma
+//     m64nBNk16 with fp32 sums in registers. A tile that straddles groups
+//     brings the neighbouring group's rows too: they are multiplied and not
+//     stored (register stores masked to the visit's rows). Blocks are
+//     ordered in bands of kRaster row visits, each band walking every
+//     column tile, so the lhs tiles and weight tiles a wave of blocks reads
+//     stay in the L2 cache;
+//   * decode rows (at most kDecodeRows) keep an mma.sync tile (gmm_kernel)
+//     of one m16 row tile by 64 columns with 4 warps, streamed by cp.async:
+//     a visit holds a couple of rows and the weight bytes, not the
+//     products, set the time (more, smaller blocks keep more bytes in
+//     flight); there it is on par with torch._grouped_mm.
 // Ragged N is masked; K must be a multiple of 8 (16-byte rows).
 //
 // The backward replaces megablox `_gmm_bwd` (jax/experimental/pallas/ops/
 // tpu/megablox/ops.py): dlhs is its `gmm` with the other transpose, drhs its
 // `tgmm` (gmm.py, pallas_call in `tgmm`). Both are bound by operations at
 // the training rows (2 M N K each, M = 16384 at Mixtral's 8 x 1024 step).
-//   * dlhs is the forward's kernel and schedule with W[e] read along its
+//   * dlhs is the forward's kernels and schedule with W[e] read along its
 //     stored rows: a (BK, BN) tile of W[e] is a row-major (K, N) operand,
-//     whose B fragments `ldmatrix.trans` gives (load_frag_b_kmajor), so the
+//     which wgmma reads MN-major from (64 rows, 64) TMA boxes (and the
+//     decode tile through `ldmatrix.trans`, load_frag_b_kmajor), so the
 //     stack is never transposed or copied (a copy would be 940 MB a call at
 //     Mixtral's width);
 //   * drhs grids over (K tile, N tile, expert): each block finds its group's
@@ -51,9 +62,37 @@
 //     swap of axes follows (megablox swaps its output, ops.py); an empty
 //     group writes zeros. No atomics: a block owns its output tile.
 // Both take N and K multiples of 8 (16-byte rows of g, lhs and W).
-#include "mma.cuh"
+#include "hopper.cuh"
 
 namespace {
+
+// The (group, tile row, first row, end row) of row visit `v` (group
+// n_groups: the rows no group holds; group -1: no such visit), from the
+// group sizes, rows [0, m) in tiles of `bm`.
+__device__ __forceinline__ void find_visit(int (&visit)[4], const int* __restrict__ group_sizes,
+                                           int v, int m, int n_groups, int bm) {
+  int start = 0;
+  visit[0] = -1;
+  for (int e = 0; e <= n_groups; ++e) {
+    const int end = e < n_groups ? min(m, start + max(group_sizes[e], 0)) : m;
+    if (end > start) {
+      const int first = start / bm;
+      const int count = (end - 1) / bm - first + 1;
+      if (v < count) {
+        const int t0 = (first + v) * bm;
+        visit[0] = e;
+        visit[1] = t0;
+        visit[2] = max(t0, start);
+        visit[3] = min(t0 + bm, end);
+        return;
+      }
+      v -= count;
+    }
+    start = end;
+  }
+}
+
+// ---- decode rows: mma.sync, cp.async ------------------------------------------
 
 // out (m, n) = lhs (m, k) times W[e] by row group, summed over k. WM x WN
 // warps; a warp owns MT m16 tiles by NT n8 tiles; BK of the k axis a step.
@@ -75,31 +114,7 @@ gmm_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ w,
   __shared__ __align__(16) bf16 b_s[2][(kTransW ? BK : BN) * kLdW];
   __shared__ int visit[4];  // group (n_groups: the zero rows), tile row, first row, end row
 
-  if (threadIdx.x == 0) {
-    int v = blockIdx.y;
-    int start = 0;
-    int found = -1, t0 = 0, r_begin = 0, r_end = 0;
-    for (int e = 0; e <= n_groups; ++e) {
-      const int end = e < n_groups ? min(m, start + max(group_sizes[e], 0)) : m;
-      if (end > start) {
-        const int first = start / BM;
-        const int count = (end - 1) / BM - first + 1;
-        if (v < count) {
-          found = e;
-          t0 = (first + v) * BM;
-          r_begin = max(t0, start);
-          r_end = min(t0 + BM, end);
-          break;
-        }
-        v -= count;
-      }
-      start = end;
-    }
-    visit[0] = found;
-    visit[1] = t0;
-    visit[2] = r_begin;
-    visit[3] = r_end;
-  }
+  if (threadIdx.x == 0) find_visit(visit, group_sizes, blockIdx.y, m, n_groups, BM);
   __syncthreads();
   const int e = visit[0];
   if (e < 0) return;
@@ -215,6 +230,147 @@ gmm_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ w,
   }
 }
 
+// ---- prefill and training rows: wgmma fed by TMA ----------------------------
+
+constexpr int kBK = 64;          // contraction depth of a stage (one swizzled row)
+constexpr int kBM = 128;         // rows a block: two consumer warpgroups of 64
+// output columns a block (both gemms: dlhs's are W's K): 256 beat 128 on the
+// card (two m64n256 accumulators, 154 registers a thread)
+constexpr int kBN = 256;
+constexpr int kTmaThreads = 2 * 128 + 32;
+constexpr int kRaster = 16;      // row visits a band of the block order
+constexpr int kStages = 4;
+constexpr int kATile = kBM * kBK * 2;
+constexpr int kBTile = kBN * kBK * 2;
+constexpr int kStageBytes = kATile + kBTile;
+constexpr int kBarOffset = kStages * kStageBytes;
+constexpr int kTmaSmem = kBarOffset + 2 * kStages * 8 + 1024;
+
+// out (m, n) = lhs (m, k) times W[e] by row group, as gmm_kernel, on a 1-D
+// grid of n_tiles x visits blocks. kTransW false: the map of W holds (kBN,
+// 64) boxes of W[e] (n, k), K-major; true: (64, 64) boxes of W[e] (k, n),
+// row k holding 64 of its n values, read MN-major.
+template <bool kTransW>
+__global__ void __launch_bounds__(kTmaThreads, 1)
+gmm_tma_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_w,
+               const int* __restrict__ group_sizes, bf16* __restrict__ out, int m, int n, int k,
+               int n_groups, int visits) {
+  constexpr int kS = kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kBarOffset);
+  uint64_t* empty = full + kS;
+  __shared__ int visit[4];
+
+  // bands of kRaster visits; inside a band the visit varies fastest
+  const int n_tiles = (n + kBN - 1) / kBN;
+  const int band = blockIdx.x / (kRaster * n_tiles);
+  const int in_band = blockIdx.x - band * kRaster * n_tiles;
+  const int band_visits = min(kRaster, visits - band * kRaster);
+  const int n0 = (in_band / band_visits) * kBN;
+  if (threadIdx.x == 0) {
+    find_visit(visit, group_sizes, band * kRaster + in_band % band_visits, m, n_groups, kBM);
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int e = visit[0];
+  if (e < 0) return;
+  const int t0 = visit[1];
+  const int r_begin = visit[2];
+  const int r_end = visit[3];
+
+  if (e == n_groups) {  // rows that no group holds
+    for (int i = threadIdx.x; i < (r_end - r_begin) * kBN; i += kTmaThreads) {
+      const int r = r_begin + i / kBN;
+      const int c = n0 + i % kBN;
+      if (c < n) out[static_cast<long long>(r) * n + c] = __float2bfloat16(0.f);
+    }
+    return;
+  }
+
+  const int nk = (k + kBK - 1) / kBK;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp == 8) {  // ---- producer ----
+    if (lane == 0) {
+      // dlhs: the (64, 64) boxes of W[e] that lie wholly past n are not
+      // loaded; their columns are never stored
+      const int boxes = kTransW ? min(kBN / 64, (n - n0 + 63) / 64) : 1;
+      const uint32_t bytes = kATile + (kTransW ? boxes * 64 * kBK * 2 : kBTile);
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % kS;
+        if (kt >= kS) mbar_wait(&empty[s], ((kt / kS) - 1) & 1);
+        unsigned char* st = smem + s * kStageBytes;
+        mbar_expect_tx(&full[s], bytes);
+        tma_load_2d(st, &map_a, &full[s], kt * kBK, t0);
+        if constexpr (kTransW) {
+          for (int j = 0; j < boxes; ++j)
+            tma_load_3d(st + kATile + j * 64 * kBK * 2, &map_w, &full[s], n0 + 64 * j,
+                        kt * kBK, e);
+        } else {
+          tma_load_3d(st + kATile, &map_w, &full[s], kt * kBK, n0, e);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns rows t0 + 64 wg + [0, 64) ----
+  const int wg = warp >> 2;
+  float acc[kBN / 2];
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % kS;
+    const unsigned char* st = smem + s * kStageBytes;
+    const bf16* a = reinterpret_cast<const bf16*>(st) + 64 * wg * kBK;
+    const bf16* b = reinterpret_cast<const bf16*>(st + kATile);
+    mbar_wait(&full[s], (kt / kS) & 1);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const uint64_t da = sw128_desc(a + kk * 16);
+      if constexpr (kTransW) {
+        Wgmma<kBN>::ss<1>(acc, da, sw128_desc(b + kk * 16 * 64, 1024, 64 * kBK * 2),
+                          kt > 0 || kk > 0);
+      } else {
+        Wgmma<kBN>::ss(acc, da, sw128_desc(b + kk * 16), kt > 0 || kk > 0);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous stage's products are done: free it
+    fence_regs(acc);
+    if (kt > 0 && lane == 0) mbar_arrive(&empty[(kt - 1) % kS]);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // ---- epilogue: the visit's rows only, straight from the registers ----
+  const bool pairs = (n % 2) == 0;
+  const int row = t0 + 64 * wg + 16 * (warp & 3) + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * (lane & 3);
+    if (col >= n) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int rr = row + 8 * h;
+      if (rr < r_begin || rr >= r_end) continue;
+      bf16* o = out + static_cast<long long>(rr) * n + col;
+      if (pairs) {
+        *reinterpret_cast<uint32_t*>(o) = pack_bf16x2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      } else {
+        o[0] = __float2bfloat16(acc[4 * j + 2 * h]);
+        if (col + 1 < n) o[1] = __float2bfloat16(acc[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+}
+
 // drhs: dW[e] (n, k) = sum over group e's rows of g[r]^T lhs[r], g (m, n) and
 // lhs (m, k). WM x WN warps over a (BN_ = WM MT 16) x (BK_ = WN NT 8) tile of
 // dW[e]; BR rows of the group a step. Grid: (k tiles, n tiles, experts).
@@ -323,31 +479,38 @@ tgmm_kernel(const bf16* __restrict__ g, const bf16* __restrict__ lhs,
   }
 }
 
-// rows at or below which the decode tile shape runs
+// rows at or below which the decode tile runs
 constexpr int kDecodeRows = 64;
-
-template <int WM, int WN, int MT, int NT, int BK, bool kTransW>
-int launch(const bf16* lhs, const bf16* w, const int* sizes, bf16* out, int m, int n, int k,
-           int n_groups, cudaStream_t s) {
-  constexpr int BM = WM * MT * 16;
-  constexpr int BN = WN * NT * 8;
-  dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM + n_groups + 1);
-  gmm_kernel<WM, WN, MT, NT, BK, kTransW><<<grid, WM * WN * 32, 0, s>>>(lhs, w, sizes, out, m,
-                                                                         n, k, n_groups);
-  return static_cast<int>(cudaGetLastError());
-}
 
 template <bool kTransW>
 int launch_gmm(const void* lhs, const void* w, const void* sizes, void* out, int m, int n,
                int k, int n_groups, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bf16* lp = static_cast<const bf16*>(lhs);
-  const bf16* wp = static_cast<const bf16*>(w);
   const int* sp = static_cast<const int*>(sizes);
   bf16* op = static_cast<bf16*>(out);
-  if (m <= kDecodeRows)
-    return launch<1, 4, 1, 2, 64, kTransW>(lp, wp, sp, op, m, n, k, n_groups, s);
-  return launch<2, 4, 4, 4, 32, kTransW>(lp, wp, sp, op, m, n, k, n_groups, s);
+  if (m <= kDecodeRows) {  // one m16 row tile by 64 columns, 4 warps
+    dim3 grid((n + 63) / 64, (m + 15) / 16 + n_groups + 1);
+    gmm_kernel<1, 4, 1, 2, 64, kTransW><<<grid, 128, 0, s>>>(
+        static_cast<const bf16*>(lhs), static_cast<const bf16*>(w), sp, op, m, n, k, n_groups);
+    return static_cast<int>(cudaGetLastError());
+  }
+  // first a runtime call, which makes the card's context current on this
+  // thread (autograd runs dlhs on a thread of its own): the tensor maps need it
+  int err = static_cast<int>(cudaFuncSetAttribute(
+      gmm_tma_kernel<kTransW>, cudaFuncAttributeMaxDynamicSharedMemorySize, kTmaSmem));
+  if (err) return err;
+  // the forward's W[e] is (n, k): boxes of (kBN, 64); dlhs's is (k, n): (64, 64)
+  CUtensorMap map_a, map_w;
+  err = make_matrix_map(&map_a, lhs, m, k, k, kBM);
+  if (!err)
+    err = kTransW ? make_stack_map(&map_w, w, n_groups, k, n, kBK)
+                  : make_stack_map(&map_w, w, n_groups, n, k, kBN);
+  if (err) return err;
+  const int visits = (m + kBM - 1) / kBM + n_groups + 1;
+  const int blocks = (n + kBN - 1) / kBN * visits;
+  gmm_tma_kernel<kTransW><<<blocks, kTmaThreads, kTmaSmem, s>>>(map_a, map_w, sp, op, m, n, k,
+                                                                n_groups, visits);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

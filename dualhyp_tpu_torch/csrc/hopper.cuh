@@ -1,8 +1,9 @@
 // Hopper building blocks of the wgmma/TMA kernels (K1's forward and
-// backward, L1's forward, K4): mbarriers, TMA loads, stores and reduce-adds
-// through tensor maps, warpgroup matrix products (wgmma) with operands in
-// 128-byte swizzled shared memory, warpgroup register hand-over
-// (setmaxnreg), and the host-side encoding of the tensor maps.
+// backward, L1's forward, K4, and the prefill paths of K8 and L2): mbarriers,
+// TMA loads, stores and reduce-adds through tensor maps, warpgroup matrix
+// products (wgmma) with operands in 128-byte swizzled shared memory or, for
+// A, in registers, warpgroup register hand-over (setmaxnreg), and the
+// host-side encoding of the tensor maps.
 //
 // Shared-memory tiles: TMA writes a box of (rows, 64) bf16 with
 // CU_TENSOR_MAP_SWIZZLE_128B, so row r holds its 128 bytes at r * 128 with
@@ -63,6 +64,14 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
   }
 }
 
+// 8 bytes of shared memory at `p` by an explicit ld.shared (a pointer the
+// compiler cannot trace to shared memory would be read by a generic load).
+__device__ __forceinline__ uint2 ld_shared_v2(const void* p) {
+  uint2 v;
+  asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n" : "=r"(v.x), "=r"(v.y) : "r"(smem_addr(p)));
+  return v;
+}
+
 // A barrier among `kThreads` threads (whole warps) under hardware id `id` (1-15).
 template <int kThreads>
 __device__ __forceinline__ void named_barrier(int id) {
@@ -93,6 +102,15 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -181,10 +199,14 @@ __device__ __forceinline__ int swizzled_offset_f32(int r, int c) {
 // The descriptor of a 128-byte swizzled operand tile at `p`: `sbo` bytes
 // between groups of eight rows (1024 for rows of 128 bytes). A K-major tile
 // (row n holds its 64 k values) advances 16 k by adding 32 bytes to `p`; an
-// MN-major one (row k holds its 64 n values) by adding 16 rows (2048 bytes).
-__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t sbo = 1024) {
+// MN-major one (row k holds its 64 n values) by adding 16 rows (2048 bytes),
+// and an MN-major operand wider than 64 lies in (rows, 64) boxes `lbo`
+// bytes apart (K-major tiles ignore it).
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t sbo = 1024,
+                                               uint32_t lbo = 16) {
   const uint32_t a = smem_addr(p);
-  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
+  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (static_cast<uint64_t>(1) << 62);
 }
 
@@ -210,11 +232,25 @@ __device__ __forceinline__ void fence_regs(float (&r)[kN]) {
   for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
+// The same for the register A operand of an `rs` product: called after the
+// wgmma_wait that covers it, it keeps the compiler from reusing the
+// registers while the asynchronous product still reads them.
+template <int kN>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
 // d (64 x N fp32, N / 2 registers a thread) = a b^T (+ d when scale_d): a
 // 64 x 16 and b N x 16, both bf16 K-major tiles in shared memory. Thread
 // t of the warpgroup holds rows 16 (t / 32) + (t % 32) / 4 (+ 8) and
 // columns 8 j + 2 (t % 4) (+ 1): d[4 j + {0, 1}] in the first row,
 // d[4 j + {2, 3}] in the second, the layout of mma.sync's accumulator.
+// At N = 256, `ss<1>` reads b MN-major (row k holds its N values, in boxes
+// of 64 columns `lbo` apart: see sw128_desc). At N = 128, `rs` takes a from
+// registers, mma.sync's A fragment of the thread's warp's 16 rows (rows
+// (t % 32) / 4 (+ 8), k pairs 2 (t % 4) (+ 1) and + 8: a[0], a[2] in the
+// first row, a[1], a[3] in the second), with b K-major in shared memory.
 template <int N>
 struct Wgmma;
 
@@ -307,6 +343,75 @@ struct Wgmma<128> {
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "l"(a), "l"(b), "r"(scale_d));
   }
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4],
+                                            uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+        "%60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Wgmma<256> {
+  template <int kTransB = 0>
+  static __device__ __forceinline__ void ss(float (&d)[128], uint64_t a, uint64_t b,
+                                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35,"
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71,"
+        "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83,"
+        "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107,"
+        "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119,"
+        "%120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+          "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+          "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+          "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+          "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+          "+f"(d[126]), "+f"(d[127])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(kTransB));
+  }
 };
 
 // d (64 x 64 fp32) = a b (+ d when scale_d) with both operands MN-major in
@@ -380,6 +485,9 @@ static inline EncodeTiledFn encode_tiled_fn() {
 // told otherwise (an fp32 box of 128-byte rows takes box[0] = 32). Strides
 // need not grow with i, so a (batch, head, token) view of a fused
 // projection is mapped as it lies. Returns a cudaError_t code.
+// cuTensorMapEncodeTiled encodes a map only on a thread where the card's
+// context is current (one that has made a runtime call, such as
+// cudaFuncSetAttribute or a launch); on another it fails.
 static inline int make_tensor_map(
     CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
     const cuuint64_t* strides, const cuuint32_t* box,
@@ -420,4 +528,30 @@ static inline int make_matrix_map(CUtensorMap* map, const void* base, long long 
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
   const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
   return make_tensor_map(map, base, 2, dims, strides, box);
+}
+
+// The 3-D map of a stack of `count` row-major (rows, cols) bf16 matrices
+// (an expert stack (E, N, K)), in boxes of (box_rows, 64) of one matrix:
+// TMA reads zeros past a matrix's own rows and columns, never the next one's.
+static inline int make_stack_map(CUtensorMap* map, const void* base, long long count,
+                                 long long rows, long long cols, int box_rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(count)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * 2,
+                                 static_cast<cuuint64_t>(rows * cols) * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  return make_tensor_map(map, base, 3, dims, strides, box);
+}
+
+// A row-major (rows, cols) matrix of bytes (packed int4 weights) with `ld`
+// bytes a row (a multiple of 16), in unswizzled boxes of (box_rows,
+// box_cols) bytes: row r of a box lies at r * box_cols in shared memory.
+static inline int make_byte_map(CUtensorMap* map, const void* base, long long rows,
+                                long long cols, long long ld, int box_rows, int box_cols) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  return make_tensor_map(map, base, 2, dims, strides, box, CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                         CU_TENSOR_MAP_SWIZZLE_NONE);
 }

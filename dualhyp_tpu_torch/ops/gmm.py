@@ -28,17 +28,18 @@ from dualhyp_tpu_torch.ops import _lib
 
 # L2: replaces megablox `gmm` (jax/experimental/pallas/ops/tpu/megablox/
 # gmm.py). Bound by the expert weight bytes in decode (16 rows) and by
-# operations in prefill (thousands of rows); each block finds its (group,
-# row tile) from the group sizes on the device, so no size is read back to
-# the host. See csrc/grouped_matmul.cu.
+# operations in prefill and training (thousands of rows); each block finds
+# its (group, row tile) from the group sizes on the device, so no size is
+# read back to the host. Above 64 rows a wgmma/TMA kernel (128 x 256 tiles),
+# at or below an mma.sync one. See csrc/grouped_matmul.cu.
 GROUPED_MATMUL = _lib.Kernel(
     "dh_grouped_matmul",
     [_lib.C_PTR] * 4 + [_lib.C_INT] * 4,
 )
 # L2's gradient of lhs: replaces megablox `_gmm_bwd`'s `gmm` with the other
-# transpose (ops.py). The forward's kernel and schedule, with the stack read
-# along its stored rows (ldmatrix.trans): bound by operations at the
-# training rows.
+# transpose (ops.py). The forward's kernels and schedule, with the stack read
+# along its stored rows (wgmma's MN-major B; ldmatrix.trans in the decode
+# tile): bound by operations at the training rows.
 GROUPED_MATMUL_DLHS = _lib.Kernel(
     "dh_grouped_matmul_dlhs",
     [_lib.C_PTR] * 4 + [_lib.C_INT] * 4,

@@ -19,8 +19,9 @@ from dualhyp_tpu_torch.ops import _lib
 # K8: replaces dualhyp_tpu/ops/pallas/int4_kernel.py `_kernel`. Bound by the
 # packed weight bytes in decode (8 rows) and by operations in prefill
 # (thousands of rows); the packed bytes unpack in registers, into the
-# tensor-core operands, and no dequantised value is stored. See
-# csrc/int4_matmul.cu.
+# tensor-core operands, and no dequantised value is stored. Prefill rows run
+# a wgmma/TMA kernel with the weights on wgmma's M side, decode rows an
+# mma.sync one. See csrc/int4_matmul.cu.
 Q4_MATMUL = _lib.Kernel(
     "dh_q4_matmul",
     [_lib.C_PTR, _lib.C_I64, _lib.C_PTR, _lib.C_PTR, _lib.C_PTR, _lib.C_PTR,
@@ -28,13 +29,17 @@ Q4_MATMUL = _lib.Kernel(
 )
 
 KERNEL_GROUP = 128  # the only group size the kernel takes
-# rows at or below which the kernel takes its one-m16-tile (decode) shape
+# rows at or below which the kernel takes its mma.sync (decode) tile
 DECODE_ROWS = 16
-# the kernel's output tile: (64 rows, 64 columns) in prefill, (16, 64) in decode
-_TILE_N = 64
-# blocks that keep every SM of the card busy with copies in flight (four an
-# SM): below it the kernel splits K
-_MIN_BLOCKS = 528
+
+
+def tile(rows: int) -> tuple:
+    """(tokens, output columns, blocks that fill the card) of K8's tile at
+    `rows`: the decode tile keeps four blocks an SM busy with copies in
+    flight, the wgmma kernel's one block an SM."""
+    if rows <= DECODE_ROWS:
+        return DECODE_ROWS, 64, 528
+    return 128, 128, 132
 
 
 def unpack_int4(packed: torch.Tensor):
@@ -75,11 +80,11 @@ def split_k(rows: int, n: int, groups: int) -> tuple:
     across blocks when the output tiles alone cannot fill the card (decode
     rows against a narrow N); the splits' fp32 partials then sum in a fixed
     order."""
-    tile_m = DECODE_ROWS if rows <= DECODE_ROWS else 64
-    tiles = -(-rows // tile_m) * -(-n // _TILE_N)
-    if tiles >= _MIN_BLOCKS:
+    tile_m, tile_n, min_blocks = tile(rows)
+    tiles = -(-rows // tile_m) * -(-n // tile_n)
+    if tiles >= min_blocks:
         return 1, groups
-    per = -(-groups // min(groups, -(-_MIN_BLOCKS // tiles)))
+    per = -(-groups // min(groups, -(-min_blocks // tiles)))
     return -(-groups // per), per
 
 
@@ -107,7 +112,9 @@ def q4_matmul(x, packed, scales, group: int = 128):
     x2 = x.reshape(-1, k)
     if x2.stride(-1) != 1 or x2.stride(0) % 8 or x2.data_ptr() % 16:
         x2 = x2.contiguous()
-    packed, scales = packed.contiguous(), scales.contiguous()
+    if not packed.is_contiguous() or packed.data_ptr() % 16:  # TMA reads it in place
+        packed = packed.clone(memory_format=torch.contiguous_format)
+    scales = scales.contiguous()
     rows = x2.shape[0]
     out = torch.empty((rows, n), dtype=x.dtype, device=device)
     if rows and n:

@@ -4,11 +4,14 @@ Edge cases the main path's shapes do not reach: ragged sequence lengths and
 row counts, partial rotary, the inverse rotation, a ragged intermediate
 size, the gelu gate, strided inputs, fp32 where a kernel takes it, the
 wrappers' refusals, the autograd ops of the training path, K8 at ragged
-rows and N with split K, K5 at ragged rows and O, ranks 16 and 48, a
-zero scale and a separate LoRA input, and K6/K7 in fp32 and bf16 at T or
+rows and N with split K (1 to 3072 rows around its 16-row decode tile
+and its 128-token tile, K of one and five groups), K8 and L2's
+forward and lhs gradient repeating bitwise at 3072 rows, K5 at ragged
+rows and O, ranks 16 and 48, a zero scale and a separate LoRA input, and K6/K7 in fp32 and bf16 at T or
 S of 1, 63, 64, 65 and 1500, S != T, kv_valid and strided inputs, L2
 (the grouped matmul) at M of 0, 1, 16, 17, 64, 65, 300 and 6144 with
-empty, straddling and single groups and a ragged N, its two gradients
+empty, straddling and single groups, groups of 127, 128 and 129 rows
+around its 128-row tile and a ragged N, its two gradients
 (dlhs, drhs) at M from 0 to 16384, K1's forward and backward at head size
 128, a small MoE model card against CPU, in prefill and in a LoRA
 training step, L1 (splash attention: forward, dQ, dK/dV) at T of 1, 63,
@@ -442,13 +445,19 @@ def test_autograd_ops_on_the_card_match_the_plain_pair(dev, gen):
 Q4_TOL = (2e-3, 2.0 ** -6)
 
 
-@pytest.mark.parametrize("rows", [1, 8, 17, 3072])
+# rows on both sides of the decode tile (16) and of the wgmma kernel's
+# 128-token tile, and a part-filled token tile (64, 65); N not a multiple
+# of its 128 weight rows; K of one group and of five (the ring holds three)
+@pytest.mark.parametrize("rows", [1, 8, 16, 17, 64, 65, 127, 128, 129, 3072])
 @pytest.mark.parametrize("n", [100, 320])
-def test_q4_matmul(dev, gen, rows, n):
-    w = _randn(gen, n, 640, dtype=torch.float32, std=0.05)
+@pytest.mark.parametrize("k", [640, 128])
+def test_q4_matmul(dev, gen, rows, n, k):
+    w = _randn(gen, n, k, dtype=torch.float32, std=0.05)
     packed, scales = quant.quantize_weight_int4(w)
-    x = _randn(gen, rows, 640)
+    x = _randn(gen, rows, k)
+    before = int4.Q4_MATMUL.launches
     got = int4.q4_matmul(x, packed, scales)
+    assert int4.Q4_MATMUL.launches == before + 1
     _close(got, int4.q4_matmul_plain(x, packed, scales), *Q4_TOL)
 
 
@@ -522,7 +531,18 @@ GMM_GROUPS = {
     "ragged": lambda m: [m // 8] * 7 + [m - 7 * (m // 8)],
     "empty": lambda m: [0, m // 3, 0, 0, m // 5, m - m // 3 - m // 5 - m // 7, m // 7, 0],
     "one": lambda m: [0, 0, 0, m, 0, 0, 0, 0],
+    # groups of 127, 128 and 129 rows (the prefill kernel's 128-row tile), a
+    # 3-row group between two large ones, the rest in one group and an
+    # empty last group (clipped to m)
+    "tile_edges": lambda m: _fill(m, (127, 128, 129, 3, 200)) + [0, 0],
 }
+
+
+def _fill(m, wants):
+    sizes = []
+    for want in wants:
+        sizes.append(min(want, m - sum(sizes)))
+    return sizes + [m - sum(sizes)]
 
 
 def _group_sizes(case, m, dev):
@@ -542,6 +562,31 @@ def test_grouped_matmul(dev, gen, m, case, n, k):
     got = gmm.grouped_matmul(lhs, w, sizes)
     assert gmm.GROUPED_MATMUL.launches == before + (1 if m else 0)
     _close(got, gmm.grouped_matmul_plain(lhs, w, sizes), *GMM_TOL)
+
+
+@pytest.mark.parametrize("kernel", ["q4_matmul", "grouped_matmul", "grouped_matmul_dlhs"])
+def test_prefill_kernels_repeat_bitwise(dev, gen, kernel):
+    """K8 at 3072 rows and L2's forward and lhs gradient at 3072 rows sum
+    in a fixed order (no atomics): two calls give the same bits, one launch
+    each."""
+    if kernel == "q4_matmul":
+        packed, scales = quant.quantize_weight_int4(
+            _randn(gen, 5632, 2048, dtype=torch.float32, std=0.02))
+        x = _randn(gen, 3072, 2048)
+        wrapper, call = int4.Q4_MATMUL, lambda: int4.q4_matmul(x, packed, scales)
+    else:
+        w = _randn(gen, 8, 640, 512, std=0.05)
+        sizes = _group_sizes("tile_edges", 3072, dev)
+        if kernel == "grouped_matmul":
+            x = _randn(gen, 3072, 512)
+            wrapper, call = gmm.GROUPED_MATMUL, lambda: gmm.grouped_matmul(x, w, sizes)
+        else:
+            g = _randn(gen, 3072, 640)
+            wrapper, call = gmm.GROUPED_MATMUL_DLHS, lambda: gmm.grouped_matmul_dlhs(g, w, sizes)
+    before = wrapper.launches
+    first, second = call(), call()
+    assert wrapper.launches == before + 2
+    assert torch.equal(first, second)
 
 
 def test_grouped_matmul_zeroes_rows_past_the_groups(dev, gen):

@@ -1,21 +1,30 @@
-"""K1, K4 and L1 at the edges of their Hopper kernels' tiles, on the CPU.
+"""K1, K4, L1, K8 and L2 at the edges of their Hopper kernels' tiles, on the CPU.
 
 On the card the wgmma/TMA kernels (`csrc/flash_attention.cu`,
-`csrc/flash_attention_bwd.cu`, `csrc/swiglu.cu`) are held to the plain
-versions (`test_torch_kernels.py`, `chip_smoke.py`). Here the plain versions
-are held to the JAX package's Pallas kernels in interpret mode at the shapes
-where the kernels change path or tile: K4 on both sides of its decode path
-(at most `swiglu.DECODE_ROWS` rows, operands swapped) and a ragged
-intermediate size (the JAX package's jnp path there), K1's O and row
-logsumexp L at head sizes 64 and 128 and GQA ratios 1 and 4; K1's backward
-at T = 256, two of its 128-key blocks (and four 64-row query tiles), at head
-sizes 64 and 128 and GQA ratios 1 and 4; L1's forward O and logsumexp at
-head size 128 and T = 256 against the splash kernel itself; and the
+`csrc/flash_attention_bwd.cu`, `csrc/swiglu.cu`, `csrc/int4_matmul.cu`,
+`csrc/grouped_matmul.cu`) are held to the plain versions
+(`test_torch_kernels.py`, `chip_smoke.py`). Here the plain versions are held
+to the JAX package's Pallas kernels in interpret mode at the shapes where
+the kernels change path or tile: K4 on both sides of its decode path (at
+most `swiglu.DECODE_ROWS` rows, operands swapped) and a ragged intermediate
+size (the JAX package's jnp path there), K1's O and row logsumexp L at head
+sizes 64 and 128 and GQA ratios 1 and 4; K1's backward at T = 256, two of
+its 128-key blocks (and four 64-row query tiles), at head sizes 64 and 128
+and GQA ratios 1 and 4; L1's forward O and logsumexp at head size 128 and
+T = 256 against the splash kernel itself; K8 (`q4_matmul`) on both sides of
+its decode tile (16 rows) and of its 128-token tile, at an N that
+is not a multiple of its 128-row weight tile, at one group (K = 128) and at
+group counts that do not divide its ring (three groups); L2's forward and
+lhs gradient against megablox `gmm` and its VJP with groups of 127, 128 and
+129 rows around its 128-row tile, a 5-row group between two large ones, an
+empty last group and K = 40 (ragged against its 64-deep stages); and the
 wrappers' copies of an input TMA cannot read.
 
 Tolerances: fp32 on both sides, the same arithmetic summed in another order
 (atol 1e-5; 1e-4 for L, a log of sums over up to 256 keys, and for the
-backward's gradients, sums of up to 4 x 256 terms of unit-normal size).
+backward's gradients, sums of up to 4 x 256 terms of unit-normal size; K8
+2e-4 as `test_torch_quant.py` holds it, sums of up to 1280 products of
+nibbles and unit-normal x scaled by ~0.01).
 """
 
 import jax
@@ -24,8 +33,11 @@ import numpy as np
 import pytest
 import torch
 
-from dualhyp_tpu.ops.pallas import flash_attention, flash_vjp, swiglu_kernel
-from dualhyp_tpu_torch.ops import attention, splash, swiglu
+from jax.experimental.pallas.ops.tpu import megablox
+
+from dualhyp_tpu.ops import quant as jquant
+from dualhyp_tpu.ops.pallas import flash_attention, flash_vjp, int4_kernel, swiglu_kernel
+from dualhyp_tpu_torch.ops import attention, gmm, int4, splash, swiglu
 
 
 def _close(got, want, atol=1e-5):
@@ -146,3 +158,67 @@ def test_splash_wrapper_copies_only_an_input_tma_cannot_read(case):
         assert got is x
     else:
         assert got.data_ptr() != x.data_ptr() and got.is_contiguous()
+
+
+@pytest.mark.parametrize("rows,n,k", [
+    (16, 200, 640), (17, 200, 640),  # the decode tile's edge
+    (127, 200, 640), (128, 200, 640), (129, 200, 640),  # the 128-token tile
+    (256, 200, 640), (257, 200, 640),  # two token tiles; a third begun
+    (65, 200, 128), (129, 136, 1280)])  # one group; ten groups (ring of three)
+def test_q4_matmul_plain_matches_pallas_at_the_tile_edges(rng, rows, n, k):
+    w = rng.normal(size=(n, k)).astype(np.float32) * 0.05
+    x = rng.normal(size=(rows, k)).astype(np.float32)
+    packed, scale = jquant.quantize_weight_int4(jnp.asarray(w))
+    want = int4_kernel.q4_matmul(jnp.asarray(x), packed, scale)
+    got = int4.q4_matmul(torch.from_numpy(x), torch.from_numpy(np.asarray(packed)),
+                         torch.from_numpy(np.asarray(scale)))
+    _close(got, want, atol=2e-4)
+    splits, per = int4.split_k(rows, n, k // int4.KERNEL_GROUP)
+    assert splits * per >= k // int4.KERNEL_GROUP > (splits - 1) * per
+
+
+def test_q4_tiles_change_at_the_decode_rows():
+    # the rows where csrc/int4_matmul.cu changes path: its C side picks the
+    # same tiles (m <= 16: mma.sync, 16 x 64; else wgmma, 128 x 128)
+    assert [int4.tile(r)[:2] for r in (16, 17, 64, 65)] == [(16, 64), (128, 128), (128, 128),
+                                                              (128, 128)]
+
+
+# L2's row groups at the edges of its 128-row tile (m a multiple of 128, the
+# tile megablox is given, so its tiles straddle the groups as the card's do)
+GMM_EDGE_GROUPS = {
+    "bm_minus_plus": [127, 128, 129],
+    "small_between_large": [200, 5, 179],
+    "empty_last": [129, 127, 0],
+}
+
+
+def _megablox(lhs, w, sizes):
+    return megablox.gmm(lhs, w, jnp.asarray(sizes), preferred_element_type=jnp.float32,
+                        tiling=(128, lhs.shape[1], w.shape[1]), transpose_rhs=True,
+                        interpret=True)
+
+
+@pytest.mark.parametrize("case", list(GMM_EDGE_GROUPS))
+def test_grouped_matmul_plain_matches_megablox_at_the_tile_edges(rng, case):
+    sizes = np.asarray(GMM_EDGE_GROUPS[case], np.int32)
+    m, n, k = int(sizes.sum()), 24, 40
+    lhs = rng.normal(size=(m, k)).astype(np.float32)
+    w = rng.normal(size=(len(sizes), n, k)).astype(np.float32)  # (E, N, K)
+    want = _megablox(jnp.asarray(lhs), jnp.asarray(w), sizes)
+    _close(gmm.grouped_matmul(torch.from_numpy(lhs), torch.from_numpy(w),
+                              torch.from_numpy(sizes)), want)
+
+
+@pytest.mark.parametrize("case", list(GMM_EDGE_GROUPS))
+def test_grouped_matmul_dlhs_plain_matches_megablox_vjp_at_the_tile_edges(rng, case):
+    # the lhs gradient's output columns are K = 40, its contraction N = 24
+    sizes = np.asarray(GMM_EDGE_GROUPS[case], np.int32)
+    m, n, k = int(sizes.sum()), 24, 40
+    lhs = rng.normal(size=(m, k)).astype(np.float32)
+    w = rng.normal(size=(len(sizes), n, k)).astype(np.float32)
+    g = rng.normal(size=(m, n)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a: _megablox(a, jnp.asarray(w), sizes), jnp.asarray(lhs))
+    (want,) = vjp(jnp.asarray(g))
+    _close(gmm.grouped_matmul_dlhs(torch.from_numpy(g), torch.from_numpy(w),
+                                   torch.from_numpy(sizes)), want)

@@ -10,8 +10,8 @@ prints one JSON line; a failed phase raises and the script exits non-zero.
   1. device: the card, its power limit, whether nvcc and triton exist; then
      the kernel library is built from `dualhyp_tpu_torch/csrc/*.cu`, and the
      registers, static shared memory and spills of the wgmma/TMA kernels
-     (K1's forward and backward, L1's forward, K4, K8 and L2) are printed
-     from `-Xptxas -v`;
+     (K1's forward and backward, L1's forward, dQ and dK/dV, K4, K8 and L2)
+     are printed from `-Xptxas -v`;
   2. one phase per kernel, at the main path's shapes (bf16, batch 8, prompt
      384, decode rows 8): the kernel against its plain PyTorch version on the
      same inputs, within a stated tolerance, then CUDA-event times of the
@@ -123,12 +123,14 @@ prints one JSON line; a failed phase raises and the script exits non-zero.
      peak memory, launches (L2 forward, dlhs, K1 both ways or L1, K2, K3 >
      0; drhs and K4 = 0);
  23. L1 (splash attention), after the other kernels' phases: its forward
-     (K1's forward kernel body with splash's fp32 P V), dQ and dK/dV kernels
+     (K1's forward kernel body with splash's fp32 P V), dQ (shaped like
+     K1's forward) and dK/dV (K1's backward body without dQ) kernels
      against their plain versions at B8 Hq32 G4 T1024
      (training) and T384 (prefill), an unaligned T192 (the scale inside the
-     kernels) and Mixtral's B8 Hq32 G8 T1024 D128, timed beside their bound
-     and SDPA's forward and backward, with each instance's registers and
-     spills from the build's -Xptxas -v;
+     kernels) and Mixtral's B8 Hq32 G8 T1024 D128, dQ and dK/dV two calls
+     bitwise equal, timed beside their bound and SDPA's forward and
+     backward, with each instance's registers and spills from the build's
+     -Xptxas -v;
  24. after the depth-2 training checks, the same step with
      DUALHYP_ATTN_IMPL=splash at T=256 (q rounded with the bf16 scale) and
      T=160 (the scale inside the kernels): L1 launches, K1 does not;
@@ -507,12 +509,14 @@ def kernel_phases(torch, seed: int) -> dict:
 
 
 def repeatable(name, fn, torch):
-    """`fn()` twice; raises unless the two outputs are bitwise equal (K4,
-    K8 and L2's forward and dlhs sum in a fixed order: no atomics). Returns
-    the output."""
-    first = fn()
-    if not torch.equal(first, fn()):
-        raise RuntimeError(f"{name}: two calls on the same {tuple(first.shape)} output differ")
+    """`fn()` twice; raises unless the two outputs (a tensor or a tuple of
+    them) are bitwise equal (K4, K8, L2's forward and dlhs and L1's dQ and
+    dK/dV sum in a fixed order: no atomics). Returns the output."""
+    first, second = fn(), fn()
+    pairs = zip(first, second) if isinstance(first, tuple) else ((first, second),)
+    for x, y in pairs:
+        if not torch.equal(x, y):
+            raise RuntimeError(f"{name}: two calls on the same {tuple(x.shape)} output differ")
     return first
 
 
@@ -728,7 +732,7 @@ def depth2_int4_check(torch, seed: int) -> dict:
 # forward and backward in a profile (their device ms a step)
 STEP_KERNELS = {"k1_fwd": ("flash_fwd_kernel",), "k1_bwd": ("flash_bwd_kernel", "delta_kernel"),
                 "k4": ("swiglu_",), "l1_fwd": ("splash_fwd",),
-                "l1_bwd": ("splash_dq", "splash_dkv")}
+                "l1_bwd": ("splash_dq", "splash_dkv", "splash_rows")}
 
 
 def step_kernel_ms(prof) -> dict:
@@ -1511,9 +1515,11 @@ def splash_phase(torch, seed: int) -> dict:
     SPLASH_SHAPES, with q and the scale as `ops.splash.causal_attention`
     passes them (q * the bf16 scale and scale 1 at T % 128 == 0, the raw q
     and the scale at other T): O and lse against `splash_fwd_plain`, dQ and
-    dK/dV against theirs fed the kernel's O, lse and di. Times beside the
-    bound, the plain version and SDPA (forward; its backward, which computes
-    dQ, dK and dV together, beside dQ and dK/dV)."""
+    dK/dV against theirs fed the kernel's O, lse and di, each of the two
+    called twice with bitwise-equal outputs. Times beside the bound, the
+    plain version and SDPA (forward; its backward, which computes dQ, dK and
+    dV together, beside dQ and dK/dV); the registers and spills of each
+    instance from the build's -Xptxas -v."""
     import torch.nn.functional as F
 
     from dualhyp_tpu_torch.ops import splash
@@ -1544,9 +1550,11 @@ def splash_phase(torch, seed: int) -> dict:
         di = splash.row_dot(o, do)
         args = (q, k, v, lse, do, di, scale)
         checks["splash_attention_dq"] = compare_scaled(
-            f"splash_attention_dq {label}", splash.splash_dq(*args),
+            f"splash_attention_dq {label}",
+            repeatable("splash_attention_dq", lambda: splash.splash_dq(*args), torch),
             splash.splash_dq_plain(*args), torch)
-        got, want = splash.splash_dkv(*args), splash.splash_dkv_plain(*args)
+        got = repeatable("splash_attention_dkv", lambda: splash.splash_dkv(*args), torch)
+        want = splash.splash_dkv_plain(*args)
         dkv = {f"d{n}": compare_scaled(f"splash_attention_dkv d{n} {label}", x, y, torch)
                for n, x, y in zip("kv", got, want)}
         checks["splash_attention_dkv"] = {
@@ -1585,9 +1593,9 @@ def splash_phase(torch, seed: int) -> dict:
                 bound_ms=bms, bound_by=by)
         del q, k, v, do, o, lse, di, args, qr, kr, vr, sdpa_out
         torch.cuda.empty_cache()
-    # the forward is K1's kernel body (flash_attention.cu), dQ and dK/dV
-    # splash_attention.cu's
-    reports = [ptxas_report(src) for src in ("flash_attention.cu", "splash_attention.cu")]
+    # the forward is K1's forward kernel body (flash_attention.cu), dK/dV
+    # K1's backward body and dQ beside it (flash_attention_bwd.cu)
+    reports = [ptxas_report(src) for src in ("flash_attention.cu", "flash_attention_bwd.cu")]
     ptxas = None if None in reports else {**reports[0], **reports[1]}
     for name in SPLASH_KERNELS:
         short = name.replace("splash_attention_", "splash_")
@@ -3108,7 +3116,7 @@ def main(argv=None) -> int:
                                        "jax/experimental/pallas/ops/tpu/megablox/gmm.py:763 "
                                        "(tgmm, called by _gmm_bwd at ops.py:90)"),
                **{name: ("flash_attention.cu" if name == "splash_attention_fwd" else
-                         "splash_attention.cu",
+                         "flash_attention_bwd.cu",
                          "jax/experimental/pallas/ops/tpu/splash_attention/"
                          f"splash_attention_kernel.py:{line} ({fn}, reached from "
                          "dualhyp_tpu/ops/pallas/flash_attention.py:66)")

@@ -1,27 +1,59 @@
-// K1 backward: gradients dQ, dK, dV of causal grouped-query flash attention
-// from Q, K, V, O, dO and the forward's row logsumexp L.
+// The backward kernels of causal grouped-query flash attention: K1's fused
+// backward (dQ, dK and dV in one kernel) and L1's two splash gradient
+// kernels (dK/dV, and dQ apart), from Q, K, V, dO, the forward's row
+// logsumexp L and Delta = rowsum(dO * O).
 //
-// Replaces dualhyp_tpu/ops/pallas/flash_vjp.py `_bwd_kernel` (the Pallas call
-// in `_bwd_rule`), with the same arithmetic (FlashAttention-2):
+// K1 (`flash_bwd_kernel`) replaces dualhyp_tpu/ops/pallas/flash_vjp.py
+// `_bwd_kernel` (the Pallas call in `_bwd_rule`), with the same arithmetic
+// (FlashAttention-2):
 //   Delta = rowsum(dO * O)          P  = exp(Q K^T * scale - L)
 //   dV   += P^T dO                  dS = P * (dO V^T - Delta)
 //   dK   += dS^T Q * scale          dQ += dS K * scale
 // P and dS are rounded to bf16 before their products; every sum is fp32.
 //
-// What bounds it on the H100: at B = 8, Hq = 32, G = 4, T = 1024, D = 64 the
-// causal (query, key) pairs number 134.3 M; five products of 2 * 64 flop
-// each give 8.6e10 flop, 0.087 ms at 989 TFLOP/s bf16, against ~153 MB of
-// q, k, v, o, dO, dq, dk, dv, L and Delta, 0.046 ms at 3.35 TB/s. At
-// Mixtral's head size (D = 128, G = 8) the products double: 1.72e11 flop,
-// 0.174 ms. It is bound by operations, so the products run on wgmma.
+// L1 replaces the library kernels that dualhyp_tpu/ops/pallas/flash_attention.py
+// reaches through jax.experimental.pallas.ops.tpu.splash_attention
+// (`make_splash_mqa_single_device`, vmapped over batch and KV group, so each
+// call is MQA: the Hq / G query heads of one group against one K/V head):
+//   * `splash_dkv` replaces `_flash_attention_dkv_kernel`
+//     (splash_attention_kernel.py:1669): dV = sum bf16(P)^T dO and dK =
+//     scale * sum bf16(dS)^T Q over every query head of the KV group and
+//     every query tile at or below the diagonal (`is_mqa`), P and dS
+//     rounded to dO's dtype, written once in k's dtype. That is K1's
+//     arithmetic without dQ, so it is K1's kernel body with its dQ half
+//     switched off at compile time (`kWithDq` false); L (splash's lse) and
+//     di = rowsum(fp32 O * fp32 dO) come from the caller, as splash computes
+//     di outside its kernels (:2285), and a pre-pass (`splash_rows`) lays
+//     them out as K1's Delta pre-pass does;
+//   * `splash_dq` replaces `_flash_attention_dq_kernel` (:1307): dS = P (dO
+//     V^T - di), dQ = scale * sum bf16(dS) K (dS rounded to k's dtype), fp32
+//     sums written once in q's dtype.
+// S = q k^T is fp32 from bf16 operands, times `scale`: 1 when the caller
+// rounded q * scale to bf16 first (the JAX wrapper at T % 128 == 0), the
+// softmax scale itself at other T, where the port runs these kernels in
+// place of the JAX package's XLA path. Splash as the JAX package configures
+// it runs dQ and dK/dV as separate kernels (`BlockSizes` in
+// dualhyp_tpu/ops/pallas/flash_attention.py leave `use_fused_bwd_kernel`
+// False); neither of L1's kernels uses atomics or reduce-adds, so their
+// outputs repeat bit for bit.
 //
-// Design (FlashAttention-3's backward, Hopper sm_90a). The TPU kernel grids
-// over query blocks and keeps all of K and V and fp32 dK/dV scratch of
-// length T in VMEM across a sequential grid axis; blocks on the card run in
-// no order, so the grid turns around:
-//   * a pre-pass (`delta_kernel`, one warp a row) writes Delta and a copy of
-//     L into a (2, B, H, T rounded up to 64) fp32 scratch, zero past T, so
-//     TMA reads them as 64-row boxes;
+// What bounds them on the H100: at B = 8, Hq = 32, G = 4, T = 1024, D = 64
+// the causal (query, key) pairs number 134.3 M; K1's five products of 2 *
+// 64 flop each give 8.6e10 flop, 0.087 ms at 989 TFLOP/s bf16, against ~153
+// MB of q, k, v, o, dO, dq, dk, dv, L and Delta, 0.046 ms at 3.35 TB/s. At
+// Mixtral's head size (D = 128, G = 8) the products double: 1.72e11 flop,
+// 0.174 ms. L1's dK/dV runs four of the five products (0.0696 ms at D64),
+// its dQ three (0.0522 ms). All are bound by operations, so the products
+// run on wgmma.
+//
+// Design of K1's backward and L1's dK/dV (FlashAttention-3's backward,
+// Hopper sm_90a). The TPU kernel grids over query blocks and keeps all of K
+// and V and fp32 dK/dV scratch of length T in VMEM across a sequential grid
+// axis; blocks on the card run in no order, so the grid turns around:
+//   * a pre-pass (`delta_kernel`, one warp a row, for K1; `splash_rows`, a
+//     copy of the caller's lse and di, for L1) writes L and Delta into a (2,
+//     B, H, T rounded up to 64) fp32 scratch, zero past T, so TMA reads them
+//     as 64-row boxes;
 //   * a block owns (batch, KV group, 64 kWG keys): kWG consumer warpgroups
 //     of 64 keys each (wgmma's M side) and one producer warpgroup. K and V
 //     of its keys load once by TMA. The producer walks every query head of
@@ -37,49 +69,89 @@
 //     and Q read MN-major, as V is in the forward). dK and dV stay in fp32
 //     registers for the whole walk and are written once, through shared
 //     memory and a TMA store, with no atomics;
-//   * dQ = dS K needs dS with queries as rows: dS^T goes to shared memory
-//     as bf16 and an SS wgmma reads it and K both MN-major
+//   * K1 only: dQ = dS K needs dS with queries as rows: dS^T goes to shared
+//     memory as bf16 and an SS wgmma reads it and K both MN-major
 //     (`wgmma_ss_n64_tt`). The pair's (64 queries, D) fp32 partial is
 //     staged in 128-byte swizzled shared memory and added into a zeroed
 //     (B, Hq, T, D) fp32 buffer by TMA reduce-adds (one (16 rows, 32
 //     columns) box a warp, `cp.reduce.async.bulk.tensor ... add`), so no
 //     thread issues a per-element atomic; the wrapper casts the buffer;
+//   * L1's instance issues S^T in a wgmma group of its own and forms P^T
+//     (by the SFU's exp, `exp2_approx`) while dP^T still runs, then dS^T;
+//     K1's waits for both products and takes exp2f, as before;
 //   * registers: dK and dV of 64 keys are D fp32 registers a thread, S^T
 //     and dP^T 64 more. At D = 64 two consumer warpgroups (128 keys a
 //     block) run beside the producer warpgroup, which hands them its
 //     registers (`setmaxnreg`: 24 against 240; the branch is made
 //     warp-uniform by a shuffle, else ptxas keeps the launch's 168 and
-//     spills); at D = 128 the consumers need ~254, so one consumer
+//     spills); at D = 128 K1's consumers need ~254, so one consumer
 //     warpgroup (64 keys a block) runs at the 255 cap with no hand-over.
-//     Each was the faster of the two on an NVIDIA H100 80GB HBM3 at 700 W
-//     (PERF.md);
+//     L1's dK/dV instance holds no dQ partial, but at D = 128 its 128
+//     registers of dK and dV, 64 of S^T and dP^T and 32 of bf16 fragments
+//     still take ~250: two warpgroups at the hand-over's 240 spill ~750
+//     bytes and took 2.1x the time of one, so it runs one too. Each choice
+//     was the faster on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md);
 //   * ragged T: TMA reads zeros past T (Q and dO rows give zero dS; keys
 //     past T are masked), the TMA adds and stores stop at T; every T >= 1
 //     runs;
 //   * one instance per head size (64: TinyLlama, 128: Mixtral).
+//
+// Design of L1's dQ (the shape of K1's forward, flash_attention.cu): a block
+// owns 64 query rows of one (batch, query head): one consumer warpgroup
+// and a producer warp. Its Q and dO tiles load once by TMA, each consumer
+// thread reads the lse and di of its two rows, and the producer streams
+// the K and V tiles (64 keys) at or below the diagonal through a two-stage
+// TMA ring. Per tile the warpgroup runs S = Q K^T and dP = dO V^T as SS
+// wgmma, forms P (the SFU's exp; the mask only on the diagonal and ragged
+// tiles) and dS = P (dP - di), rounded to bf16 as the register A operand of
+// dQ += dS K, with K read MN-major as V is in the forward's P V. dQ stays
+// in fp32 registers (D / 2 a thread) and is written once, through shared
+// memory and a TMA store. Three products a causal pair; the grid puts the
+// longest query tiles first. On the card (PERF.md): exp2f in place of the
+// SFU's exp took 2.0x the time at D = 64 (its range handling sits between
+// the products); two warpgroups a block (128 rows, nine warps: 168
+// registers) 1.2x at D = 64 and 1.08x at D = 128; a tile's dQ product kept
+// in flight across the next tile's products 1.1-1.3x; P formed while dP
+// still runs, three stages or a third block an SM gained nothing.
+//
 // Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00 W (device
-// time, PERF.md): 0.466 ms at B8 Hq32 G4 T1024 D64 (bound 0.087; SDPA's
+// time, PERF.md): K1 0.466 ms at B8 Hq32 G4 T1024 D64 (bound 0.087; SDPA's
 // backward 0.42-0.64 across calls) and 1.257 ms at G8 D128 (bound 0.174,
 // SDPA's backward 0.667), where the WMMA kernel with per-element atomics
-// that this design replaced took 2.007 and 3.762 ms.
+// that this design replaced took 2.007 and 3.762 ms. L1's dQ and dK/dV
+// (scripts/torch_splash_bwd_variants.py, PERF.md): 0.124 and 0.168 ms at
+// B8 Hq32 G4 T1024 D64 (bounds 0.052 and 0.070; SDPA's whole backward
+// 0.42), 0.219 and 0.314 ms at G8 D128 (bounds 0.104 and 0.139; SDPA's
+// 0.65), where the mma.sync kernels they replaced took 0.401 and 0.892 ms
+// at D64, 0.778 and 1.146 ms at D128.
 // q, k, v and dO take (batch, head, token) strides with D contiguous, so
 // the heads of the fused QKV projection and a transposed dO need no copy;
-// dk and dv are written with strides too.
+// dq, dk and dv are written with strides too.
 #include "hopper.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;     // query rows of a pair
-// consumer warpgroups (of 64 keys) a block at head size kD: the faster
-// choice at each on the card (PERF.md)
+constexpr int kBQ = 64;     // query rows of a pair (K1, L1 dK/dV) or an L1 dQ block
+constexpr int kBKV = 64;    // keys of an L1 dQ tile
+// consumer warpgroups (of 64 keys) a block at head size kD for K1's
+// backward and L1's dK/dV: the faster choice at each on the card (PERF.md)
 template <int kD>
 constexpr int kWarpgroups = kD == 64 ? 2 : 1;
-constexpr int kStages = 2;  // Q/dO tiles in flight
+constexpr int kStages = 2;  // Q/dO tiles (K/V tiles for L1's dQ) in flight
 constexpr float kLog2e = 1.4426950408889634f;
 
+// 2^x by the SFU's approximation (ex2.approx.ftz: ~2 ulp, subnormal results
+// flushed to zero), one instruction where exp2f adds range handling around
+// it. L1's gradient kernels take it: P is rounded to bf16 before any product.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // The shared-memory layout and register split of the instance for head
-// size kD with kWG consumer warpgroups.
-template <int kD, int kWG>
+// size kD with kWG consumer warpgroups, with or without K1's dQ half.
+template <int kD, int kWG, bool kWithDq>
 struct Layout {
   static constexpr int kBK = 64 * kWG;              // keys a block
   static constexpr int kThreads = 128 * (kWG + 1);  // + the producer warpgroup
@@ -94,8 +166,8 @@ struct Layout {
   static constexpr int kCols = kD / 64;             // 64-column (128-byte) blocks
   static constexpr int kKVBytes = kBK * kD * 2;     // the K or V tile
   static constexpr int kQBytes = kBQ * kD * 2;      // one Q or dO tile
-  static constexpr int kDsBytes = 64 * kBQ * 2;     // a warpgroup's bf16 dS^T
-  static constexpr int kDqBytes = kBQ * kD * 4;     // a warpgroup's fp32 dQ partial
+  static constexpr int kDsBytes = kWithDq ? 64 * kBQ * 2 : 0;  // a warpgroup's bf16 dS^T
+  static constexpr int kDqBytes = kWithDq ? kBQ * kD * 4 : 0;  // its fp32 dQ partial
   static constexpr int kRowBytes = 2 * kBQ * 4;     // a tile's L and Delta
   static constexpr int kV = kKVBytes;
   static constexpr int kQ = 2 * kKVBytes;
@@ -141,18 +213,27 @@ delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
   }
 }
 
-template <int kD, int kWG>
-__global__ void __launch_bounds__(Layout<kD, kWG>::kThreads, 1)
-flash_bwd_kernel(const __grid_constant__ CUtensorMap map_q,
-                 const __grid_constant__ CUtensorMap map_k,
-                 const __grid_constant__ CUtensorMap map_v,
-                 const __grid_constant__ CUtensorMap map_do,
-                 const __grid_constant__ CUtensorMap map_rows,
-                 const __grid_constant__ CUtensorMap map_dq,
-                 const __grid_constant__ CUtensorMap map_dk,
-                 const __grid_constant__ CUtensorMap map_dv, int q_per_kv, int t,
-                 float scale) {
-  using L = Layout<kD, kWG>;
+// L1's pre-pass: the caller's lse and di, contiguous (B, H, T), into the
+// (2, B, H, tp) scratch rows, zero at and past T.
+__global__ void __launch_bounds__(256)
+splash_rows(const float* __restrict__ lse, const float* __restrict__ di,
+            float* __restrict__ rows, long long n_rows, int t, int tp) {
+  const long long row = blockIdx.x * 256LL + threadIdx.x;
+  if (row >= n_rows) return;
+  const int ti = static_cast<int>(row % tp);
+  const long long src = row / tp * t + ti;
+  rows[row] = ti < t ? lse[src] : 0.f;
+  rows[n_rows + row] = ti < t ? di[src] : 0.f;
+}
+
+// The backward of one block (K1 with kWithDq; L1's dK/dV without: map_dq
+// is then not read).
+template <int kD, int kWG, bool kWithDq>
+__device__ __forceinline__ void attention_bwd(
+    const CUtensorMap* map_q, const CUtensorMap* map_k, const CUtensorMap* map_v,
+    const CUtensorMap* map_do, const CUtensorMap* map_rows, const CUtensorMap* map_dq,
+    const CUtensorMap* map_dk, const CUtensorMap* map_dv, int q_per_kv, int t, float scale) {
+  using L = Layout<kD, kWG, kWithDq>;
   constexpr int kBK = L::kBK;
   constexpr int kCols = L::kCols;
   extern __shared__ unsigned char smem_raw[];
@@ -198,8 +279,8 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap map_q,
     if (threadIdx.x == 4 * kWG * 32) {
       mbar_expect_tx(kv_bar, 2 * L::kKVBytes);
       for (int c = 0; c < kCols; ++c) {
-        tma_load_4d(k_s + c * kBK * 64, &map_k, kv_bar, c * 64, k0, g, b);
-        tma_load_4d(v_s + c * kBK * 64, &map_v, kv_bar, c * 64, k0, g, b);
+        tma_load_4d(k_s + c * kBK * 64, map_k, kv_bar, c * 64, k0, g, b);
+        tma_load_4d(v_s + c * kBK * 64, map_v, kv_bar, c * 64, k0, g, b);
       }
       int i = 0;
       for (int hh = 0; hh < q_per_kv; ++hh) {
@@ -209,11 +290,11 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap map_q,
           if (i >= kStages) mbar_wait(&empty[s], ((i / kStages) - 1) & 1);
           mbar_expect_tx(&full[s], 2 * L::kQBytes + L::kRowBytes);
           for (int c = 0; c < kCols; ++c) {
-            tma_load_4d(q_tile(s) + c * kBQ * 64, &map_q, &full[s], c * 64, qt * kBQ, h, b);
-            tma_load_4d(do_tile(s) + c * kBQ * 64, &map_do, &full[s], c * 64, qt * kBQ, h, b);
+            tma_load_4d(q_tile(s) + c * kBQ * 64, map_q, &full[s], c * 64, qt * kBQ, h, b);
+            tma_load_4d(do_tile(s) + c * kBQ * 64, map_do, &full[s], c * 64, qt * kBQ, h, b);
           }
-          tma_load_4d(row_tile(s), &map_rows, &full[s], qt * kBQ, h, b, 0);
-          tma_load_4d(row_tile(s) + kBQ, &map_rows, &full[s], qt * kBQ, h, b, 1);
+          tma_load_4d(row_tile(s), map_rows, &full[s], qt * kBQ, h, b, 0);
+          tma_load_4d(row_tile(s) + kBQ, map_rows, &full[s], qt * kBQ, h, b, 1);
         }
       }
     }
@@ -229,8 +310,9 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap map_q,
     const float scale2 = scale * kLog2e;      // logits in base 2
     bf16* k_wg = k_s + 64 * wg * 64;          // the warpgroup's keys, column block 0
     bf16* v_wg = v_s + 64 * wg * 64;
-    bf16* ds_s = reinterpret_cast<bf16*>(smem + L::kDs + wg * L::kDsBytes);  // (64 keys, 64 q)
-    // [kCols][2][kBQ][32] fp32, 128-byte swizzled (32-column boxes)
+    // K1: the warpgroup's bf16 dS^T (64 keys, 64 queries) and its fp32 dQ
+    // partial, [kCols][2][kBQ][32], 128-byte swizzled (32-column boxes)
+    bf16* ds_s = reinterpret_cast<bf16*>(smem + L::kDs + wg * L::kDsBytes);
     unsigned char* dq_s = smem + L::kDq + wg * L::kDqBytes;
 
     float dk[kCols][32], dv[kCols][32];
@@ -265,6 +347,7 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap map_q,
           const int qoff = (kk / 4) * kBQ * 64 + (kk % 4) * 16;
           Wgmma<64>::ss(st, sw128_desc(k_wg + off), sw128_desc(q_sm + qoff), kk > 0);
         }
+        if constexpr (!kWithDq) wgmma_commit();  // L1: S^T in a group of its own
 #pragma unroll
         for (int kk = 0; kk < kD / 16; ++kk) {
           const int off = (kk / 4) * kBK * 64 + (kk % 4) * 16;
@@ -272,30 +355,56 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap map_q,
           Wgmma<64>::ss(dpt, sw128_desc(v_wg + off), sw128_desc(do_sm + qoff), kk > 0);
         }
         wgmma_commit();
-        wgmma_wait<0>();
+        wgmma_wait<kWithDq ? 0 : 1>();
         fence_regs(st);
-        fence_regs(dpt);
 
         // P^T = exp(S^T scale - L), dS^T = P^T (dP^T - Delta), per query column
         const float* l_row = row_tile(s);
         const float* d_row = l_row + kBQ;
         const bool diag = q0 < kw0 + 63;  // some key of the warpgroup follows some query
+        if constexpr (kWithDq) {
+          fence_regs(dpt);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float2 lv = *reinterpret_cast<const float2*>(l_row + 8 * j + col);
-          const float2 dl = *reinterpret_cast<const float2*>(d_row + 8 * j + col);
-          const float l2[2] = {lv.x * kLog2e, lv.y * kLog2e};
-          const float delta[2] = {dl.x, dl.y};
+          for (int j = 0; j < 8; ++j) {
+            const float2 lv = *reinterpret_cast<const float2*>(l_row + 8 * j + col);
+            const float2 dl = *reinterpret_cast<const float2*>(d_row + 8 * j + col);
+            const float l2[2] = {lv.x * kLog2e, lv.y * kLog2e};
+            const float delta[2] = {dl.x, dl.y};
 #pragma unroll
-          for (int half = 0; half < 2; ++half)
+            for (int half = 0; half < 2; ++half)
 #pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int x = 4 * j + 2 * half + e;
-              float p = exp2f(fmaf(st[x], scale2, -l2[e]));
-              if (diag && kw0 + r0 + 8 * half > q0 + 8 * j + col + e) p = 0.f;
-              dpt[x] = p * (dpt[x] - delta[e]);
-              st[x] = p;
-            }
+              for (int e = 0; e < 2; ++e) {
+                const int x = 4 * j + 2 * half + e;
+                float p = exp2f(fmaf(st[x], scale2, -l2[e]));
+                if (diag && kw0 + r0 + 8 * half > q0 + 8 * j + col + e) p = 0.f;
+                dpt[x] = p * (dpt[x] - delta[e]);
+                st[x] = p;
+              }
+          }
+        } else {  // L1: P^T by the SFU's exp while dP^T runs, then dS^T
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float2 lv = *reinterpret_cast<const float2*>(l_row + 8 * j + col);
+            const float l2[2] = {lv.x * kLog2e, lv.y * kLog2e};
+#pragma unroll
+            for (int half = 0; half < 2; ++half)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int x = 4 * j + 2 * half + e;
+                float p = exp2_approx(fmaf(st[x], scale2, -l2[e]));
+                if (diag && kw0 + r0 + 8 * half > q0 + 8 * j + col + e) p = 0.f;
+                st[x] = p;
+              }
+          }
+          wgmma_wait<0>();
+          fence_regs(dpt);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float2 dl = *reinterpret_cast<const float2*>(d_row + 8 * j + col);
+#pragma unroll
+            for (int x = 4 * j; x < 4 * j + 4; ++x)
+              dpt[x] = st[x] * (dpt[x] - (x & 1 ? dl.y : dl.x));
+          }
         }
         // bf16 A fragments (the accumulator layout over 16 query columns)
         uint32_t pt[4][4], dst[4][4];
@@ -306,15 +415,17 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap map_q,
             pt[kk][e] = pack_bf16x2(st[8 * kk + 2 * e], st[8 * kk + 2 * e + 1]);
             dst[kk][e] = pack_bf16x2(dpt[8 * kk + 2 * e], dpt[8 * kk + 2 * e + 1]);
           }
-        // dS^T into shared memory for dQ: (j, half) is fragment (j / 2, 2 (j % 2) + half)
-        unsigned char* ds_b = reinterpret_cast<unsigned char*>(ds_s);
+        if constexpr (kWithDq) {
+          // dS^T into shared memory for dQ: (j, half) is fragment (j / 2, 2 (j % 2) + half)
+          unsigned char* ds_b = reinterpret_cast<unsigned char*>(ds_s);
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+          for (int j = 0; j < 8; ++j)
 #pragma unroll
-          for (int half = 0; half < 2; ++half)
-            *reinterpret_cast<uint32_t*>(ds_b + swizzled_offset(r0 + 8 * half, 8 * j + col)) =
-                dst[j >> 1][2 * (j & 1) + half];
-        fence_async_smem();
+            for (int half = 0; half < 2; ++half)
+              *reinterpret_cast<uint32_t*>(ds_b + swizzled_offset(r0 + 8 * half, 8 * j + col)) =
+                  dst[j >> 1][2 * (j & 1) + half];
+          fence_async_smem();
+        }
 
         // dV += P^T dO and dK += dS^T Q, with dO and Q read MN-major
 #pragma unroll
@@ -332,52 +443,68 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap map_q,
             wgmma_rs_n64_tb(dk[c], dst[kk], sw128_desc(q_sm + off));
           }
         wgmma_commit();
-        named_barrier<128>(1 + wg);  // the warpgroup's dS^T is in shared memory
 
-        // dQ (64 queries, D) = dS K over the warpgroup's keys, 64 columns at a
-        // time; each warp adds its 16 rows into the fp32 buffer by TMA
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) {
-          float dq[32];
-          fence_regs(dq);
-          wgmma_fence();
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-            wgmma_ss_n64_tt(dq, sw128_desc(ds_s + kk * 16 * 64),
-                            sw128_desc(k_wg + c * kBK * 64 + kk * 16 * 64), kk > 0);
-          wgmma_commit();
+        if constexpr (!kWithDq) {
           wgmma_wait<0>();
-          fence_regs(dq);
-          if (c == 0) {
 #pragma unroll
-            for (int cc = 0; cc < kCols; ++cc) {
-              fence_regs(dv[cc]);
-              fence_regs(dk[cc]);
-            }
-            if (lane == 0) {
-              mbar_arrive(&empty[s]);  // dV and dK have read the Q and dO tiles
-              bulk_wait_read<0>();     // the last pair's adds have read the staging
-            }
-            __syncwarp();
+          for (int c = 0; c < kCols; ++c) {
+            fence_regs(dv[c]);
+            fence_regs(dk[c]);
           }
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int cc = 8 * j + col;  // the column within the 64-column block
-            unsigned char* box = dq_s + (2 * c + (cc >> 5)) * (kBQ * 128);
-#pragma unroll
-            for (int half = 0; half < 2; ++half)
-              *reinterpret_cast<float2*>(box + swizzled_offset_f32(r0 + 8 * half, cc & 31)) =
-                  make_float2(dq[4 * j + 2 * half] * scale, dq[4 * j + 2 * half + 1] * scale);
+          for (int kk = 0; kk < 4; ++kk) {
+            fence_regs(pt[kk]);
+            fence_regs(dst[kk]);
           }
-        }
-        fence_async_smem();
-        __syncwarp();
-        if (lane == 0) {
+          if (lane == 0) mbar_arrive(&empty[s]);  // dV and dK have read the Q and dO tiles
+        } else {
+          named_barrier<128>(1 + wg);  // the warpgroup's dS^T is in shared memory
+
+          // dQ (64 queries, D) = dS K over the warpgroup's keys, 64 columns at a
+          // time; each warp adds its 16 rows into the fp32 buffer by TMA
 #pragma unroll
-          for (int box = 0; box < 2 * kCols; ++box)
-            tma_reduce_add_4d(&map_dq, dq_s + box * (kBQ * 128) + wq * 16 * 128, box * 32,
-                              q0 + wq * 16, h, b);
-          bulk_commit();
+          for (int c = 0; c < kCols; ++c) {
+            float dq[32];
+            fence_regs(dq);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              wgmma_ss_n64_tt(dq, sw128_desc(ds_s + kk * 16 * 64),
+                              sw128_desc(k_wg + c * kBK * 64 + kk * 16 * 64), kk > 0);
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(dq);
+            if (c == 0) {
+#pragma unroll
+              for (int cc = 0; cc < kCols; ++cc) {
+                fence_regs(dv[cc]);
+                fence_regs(dk[cc]);
+              }
+              if (lane == 0) {
+                mbar_arrive(&empty[s]);  // dV and dK have read the Q and dO tiles
+                bulk_wait_read<0>();     // the last pair's adds have read the staging
+              }
+              __syncwarp();
+            }
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const int cc = 8 * j + col;  // the column within the 64-column block
+              unsigned char* box = dq_s + (2 * c + (cc >> 5)) * (kBQ * 128);
+#pragma unroll
+              for (int half = 0; half < 2; ++half)
+                *reinterpret_cast<float2*>(box + swizzled_offset_f32(r0 + 8 * half, cc & 31)) =
+                    make_float2(dq[4 * j + 2 * half] * scale, dq[4 * j + 2 * half + 1] * scale);
+            }
+          }
+          fence_async_smem();
+          __syncwarp();
+          if (lane == 0) {
+#pragma unroll
+            for (int box = 0; box < 2 * kCols; ++box)
+              tma_reduce_add_4d(map_dq, dq_s + box * (kBQ * 128) + wq * 16 * 128, box * 32,
+                                q0 + wq * 16, h, b);
+            bulk_commit();
+          }
         }
       }
     }
@@ -402,13 +529,274 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap map_q,
     named_barrier<128>(1 + wg);
     if (tid == 0 && kw0 < t) {
       for (int c = 0; c < kCols; ++c) {
-        tma_store_4d(&map_dk, k_wg + c * kBK * 64, c * 64, kw0, g, b);
-        tma_store_4d(&map_dv, v_wg + c * kBK * 64, c * 64, kw0, g, b);
+        tma_store_4d(map_dk, k_wg + c * kBK * 64, c * 64, kw0, g, b);
+        tma_store_4d(map_dv, v_wg + c * kBK * 64, c * 64, kw0, g, b);
       }
       bulk_commit();
     }
     if (lane == 0) bulk_wait<0>();  // the adds and stores are done with shared memory
   }
+}
+
+template <int kD, int kWG>
+__global__ void __launch_bounds__(Layout<kD, kWG, true>::kThreads, 1)
+flash_bwd_kernel(const __grid_constant__ CUtensorMap map_q,
+                 const __grid_constant__ CUtensorMap map_k,
+                 const __grid_constant__ CUtensorMap map_v,
+                 const __grid_constant__ CUtensorMap map_do,
+                 const __grid_constant__ CUtensorMap map_rows,
+                 const __grid_constant__ CUtensorMap map_dq,
+                 const __grid_constant__ CUtensorMap map_dk,
+                 const __grid_constant__ CUtensorMap map_dv, int q_per_kv, int t,
+                 float scale) {
+  attention_bwd<kD, kWG, true>(&map_q, &map_k, &map_v, &map_do, &map_rows, &map_dq, &map_dk,
+                               &map_dv, q_per_kv, t, scale);
+}
+
+template <int kD, int kWG>
+__global__ void __launch_bounds__(Layout<kD, kWG, false>::kThreads, 1)
+splash_dkv(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+           const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
+           const __grid_constant__ CUtensorMap map_rows,
+           const __grid_constant__ CUtensorMap map_dk,
+           const __grid_constant__ CUtensorMap map_dv, int q_per_kv, int t, float scale) {
+  attention_bwd<kD, kWG, false>(&map_q, &map_k, &map_v, &map_do, &map_rows, nullptr, &map_dk,
+                                &map_dv, q_per_kv, t, scale);
+}
+
+// ---- L1's dQ ---------------------------------------------------------------
+
+template <int kD>
+struct DqLayout {
+  static constexpr int kThreads = 128 + 32;           // + the producer warp
+  static constexpr int kCols = kD / 64;
+  static constexpr int kQBytes = kBQ * kD * 2;        // the Q or the dO tile
+  static constexpr int kKVBytes = kBKV * kD * 2;      // one K or V tile
+  static constexpr int kDO = kQBytes;
+  static constexpr int kK = 2 * kQBytes;
+  static constexpr int kV = kK + kStages * kKVBytes;
+  static constexpr int kBars = kV + kStages * kKVBytes;
+  // + the barriers, + slack to align the base to 1024 bytes
+  static constexpr int kSmem = kBars + 8 * (1 + 2 * kStages) + 1024;
+};
+
+template <int kD>
+__global__ void __launch_bounds__(DqLayout<kD>::kThreads, 1)
+splash_dq(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+          const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
+          const __grid_constant__ CUtensorMap map_dq, const float* __restrict__ lse,
+          const float* __restrict__ di, int n_head, int q_per_kv, int t, float scale) {
+  using L = DqLayout<kD>;
+  constexpr int kCols = L::kCols;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  bf16* q_s = reinterpret_cast<bf16*>(smem);  // [kCols][kBQ][64], as is do_s
+  bf16* do_s = reinterpret_cast<bf16*>(smem + L::kDO);
+  auto k_tile = [&](int s) {  // [kCols][kBKV][64], as is the V tile
+    return reinterpret_cast<bf16*>(smem + L::kK + s * L::kKVBytes);
+  };
+  auto v_tile = [&](int s) {
+    return reinterpret_cast<bf16*>(smem + L::kV + s * L::kKVBytes);
+  };
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* q_bar = bars;
+  uint64_t* full = bars + 1;             // [kStages]: a K/V tile has landed
+  uint64_t* empty = bars + 1 + kStages;  // [kStages]: its readers are done
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int qt = gridDim.z - 1 - blockIdx.z;  // the longest rows first
+  const int g = h / q_per_kv;
+  const int q0 = qt * kBQ;
+  const int n_kv = min((t + kBKV - 1) / kBKV, (q0 + kBQ + kBKV - 1) / kBKV);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);  // lane 0 of each consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {  // ---- the producer warp ----
+    if (threadIdx.x == 128) {
+      mbar_expect_tx(q_bar, 2 * L::kQBytes);
+      for (int c = 0; c < kCols; ++c) {
+        tma_load_4d(q_s + c * kBQ * 64, &map_q, q_bar, c * 64, q0, h, b);
+        tma_load_4d(do_s + c * kBQ * 64, &map_do, q_bar, c * 64, q0, h, b);
+      }
+      for (int j = 0; j < n_kv; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) mbar_wait(&empty[s], ((j / kStages) - 1) & 1);
+        mbar_expect_tx(&full[s], 2 * L::kKVBytes);
+        for (int c = 0; c < kCols; ++c) {
+          tma_load_4d(k_tile(s) + c * kBKV * 64, &map_k, &full[s], c * 64, j * kBKV, g, b);
+          tma_load_4d(v_tile(s) + c * kBKV * 64, &map_v, &full[s], c * 64, j * kBKV, g, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroup: query rows q0 + [0, 64) ----
+  const int lane = threadIdx.x & 31;
+  const int rr = (threadIdx.x >> 5) * 16 + (lane >> 2);  // this thread's rows rr, rr + 8
+  const int row0 = q0 + rr;
+  const int col = 2 * (lane & 3);                        // and columns 8 j + col (+ 1)
+  const float scale2 = scale * kLog2e;                   // logits in base 2
+  const long long row_base = (static_cast<long long>(b) * n_head + h) * t;
+  float l2[2], dl[2];  // each row's lse (base 2) and di; 0 past T (Q and dO read 0 there)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    l2[r] = row < t ? lse[row_base + row] * kLog2e : 0.f;
+    dl[r] = row < t ? di[row_base + row] : 0.f;
+  }
+
+  float dq[kCols][32];
+#pragma unroll
+  for (int c = 0; c < kCols; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq[c][i] = 0.f;
+
+  mbar_wait(q_bar, 0);
+  for (int j = 0; j < n_kv; ++j) {
+    const int s = j % kStages;
+    const int k0 = j * kBKV;
+    mbar_wait(&full[s], (j / kStages) & 1);
+    const bf16* k_s = k_tile(s);
+    const bf16* v_s = v_tile(s);
+    // S = Q K^T and dP = dO V^T: rows queries, columns keys
+    float sc[kBKV / 2], dp[kBKV / 2];
+    fence_regs(sc);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      const int off = (kk / 4) * 64 * 64 + (kk % 4) * 16;  // column block, 16 columns
+      Wgmma<kBKV>::ss(sc, sw128_desc(q_s + off), sw128_desc(k_s + off), kk > 0);
+      Wgmma<kBKV>::ss(dp, sw128_desc(do_s + off), sw128_desc(v_s + off), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    // dS = P (dP - di) with P = exp(S scale - lse) (0 above the diagonal and
+    // past T), rounded to bf16: the register A operand of dQ += dS K, K read
+    // MN-major. Element i of a 16-key fragment kk sits at row rr + 8 (e % 2),
+    // key k0 + 8 (i / 4) + col + (i % 2), with e = (i % 8) / 2.
+    const bool masked = k0 + kBKV - 1 > q0 || k0 + kBKV > t;
+    uint32_t da[kBKV / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kBKV / 16; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float ds[2];
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const int i = 8 * kk + 2 * e + x;
+          float p = exp2_approx(fmaf(sc[i], scale2, -l2[e & 1]));
+          if (masked) {
+            const int key = k0 + 8 * (i >> 2) + col + x;
+            if (key > row0 + 8 * (e & 1) || key >= t) p = 0.f;
+          }
+          ds[x] = p * (dp[i] - dl[e & 1]);
+        }
+        da[kk][e] = pack_bf16x2(ds[0], ds[1]);
+      }
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) fence_regs(dq[c]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBKV / 16; ++kk)
+#pragma unroll
+      for (int c = 0; c < kCols; ++c)
+        wgmma_rs_n64_tb(dq[c], da[kk], sw128_desc(k_s + c * kBKV * 64 + kk * 16 * 64));
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) fence_regs(dq[c]);
+#pragma unroll
+    for (int kk = 0; kk < kBKV / 16; ++kk) fence_regs(da[kk]);
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  // ---- epilogue: dQ * scale through the Q tile, then TMA ----
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) {
+    unsigned char* box = reinterpret_cast<unsigned char*>(q_s + c * kBQ * 64);
+#pragma unroll
+    for (int jn = 0; jn < 8; ++jn)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<uint32_t*>(box + swizzled_offset(rr + 8 * r, 8 * jn + col)) =
+            pack_bf16x2(dq[c][4 * jn + 2 * r] * scale, dq[c][4 * jn + 2 * r + 1] * scale);
+  }
+  fence_async_smem();
+  named_barrier<128>(1);
+  if (threadIdx.x == 0) {
+    for (int c = 0; c < kCols; ++c) tma_store_4d(&map_dq, q_s + c * kBQ * 64, c * 64, q0, h, b);
+    tma_store_drain();
+  }
+}
+
+// The tensor map of the (2, B, H, tp) fp32 scratch rows (L, then Delta), in
+// boxes of 64.
+int rows_map(CUtensorMap* map, void* rows, int b, int n_head, int tp) {
+  const long long n_rows = static_cast<long long>(b) * n_head * tp;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(tp), static_cast<cuuint64_t>(n_head),
+                              static_cast<cuuint64_t>(b), 2};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(tp) * 4,
+                                 static_cast<cuuint64_t>(n_head) * tp * 4,
+                                 static_cast<cuuint64_t>(n_rows) * 4};
+  const cuuint32_t box[4] = {kBQ, 1, 1, 1};
+  return make_tensor_map(map, rows, 4, dims, strides, box, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                         CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
+// The tensor maps and the launch of K1's backward (kWithDq) or L1's dK/dV,
+// once a pre-pass has written `rows` (dq is not read without kWithDq).
+template <int kD, int kWG, bool kWithDq>
+int launch_bwd(const void* q, const void* k, const void* v, const void* dout, void* rows,
+               void* dq, void* dk, void* dv, int b, int n_head, int n_kv_head, int t, int tp,
+               float scale, long long qsb, long long qsh, long long qst, long long ksb,
+               long long ksh, long long kst, long long vsb, long long vsh, long long vst,
+               long long dsb, long long dsh, long long dst, long long dksb, long long dksh,
+               long long dkst, long long dvsb, long long dvsh, long long dvst, cudaStream_t s) {
+  using L = Layout<kD, kWG, kWithDq>;
+  CUtensorMap mq, mk, mv, mdo, mrows, mdq, mdk, mdv;
+  int e = head_map(&mq, q, b, n_head, t, kD, qsb, qsh, qst, kBQ);
+  if (!e) e = head_map(&mk, k, b, n_kv_head, t, kD, ksb, ksh, kst, L::kBK);
+  if (!e) e = head_map(&mv, v, b, n_kv_head, t, kD, vsb, vsh, vst, L::kBK);
+  if (!e) e = head_map(&mdo, dout, b, n_head, t, kD, dsb, dsh, dst, kBQ);
+  if (!e) e = head_map(&mdk, dk, b, n_kv_head, t, kD, dksb, dksh, dkst, 64);
+  if (!e) e = head_map(&mdv, dv, b, n_kv_head, t, kD, dvsb, dvsh, dvst, 64);
+  // dq: contiguous (B, H, T, D) fp32, in (16 rows, 32 columns) boxes
+  if (!e && kWithDq)
+    e = head_map(&mdq, dq, b, n_head, t, kD, static_cast<long long>(n_head) * t * kD,
+                 static_cast<long long>(t) * kD, kD, 16, /*fp32=*/true);
+  if (!e) e = rows_map(&mrows, rows, b, n_head, tp);
+  if (e) return e;
+  const dim3 grid(n_kv_head, b, (t + L::kBK - 1) / L::kBK);
+  cudaError_t err;
+  if constexpr (kWithDq) {
+    err = cudaFuncSetAttribute(flash_bwd_kernel<kD, kWG>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
+    if (err == cudaSuccess)
+      flash_bwd_kernel<kD, kWG><<<grid, L::kThreads, L::kSmem, s>>>(
+          mq, mk, mv, mdo, mrows, mdq, mdk, mdv, n_head / n_kv_head, t, scale);
+  } else {
+    err = cudaFuncSetAttribute(splash_dkv<kD, kWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               L::kSmem);
+    if (err == cudaSuccess)
+      splash_dkv<kD, kWG><<<grid, L::kThreads, L::kSmem, s>>>(mq, mk, mv, mdo, mrows, mdk, mdv,
+                                                            n_head / n_kv_head, t, scale);
+  }
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 template <int kD, int kWG>
@@ -419,44 +807,61 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
            long long vst, long long osb, long long osh, long long ost, long long dsb,
            long long dsh, long long dst, long long dksb, long long dksh, long long dkst,
            long long dvsb, long long dvsh, long long dvst, cudaStream_t s) {
-  using L = Layout<kD, kWG>;
   const int tp = (t + kBQ - 1) / kBQ * kBQ;
   const long long n_rows = static_cast<long long>(b) * n_head * tp;
   delta_kernel<kD><<<static_cast<unsigned int>((n_rows + 3) / 4), 128, 0, s>>>(
       static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<float*>(rows), n_rows, n_head, t, tp, osb,
       osh, ost, dsb, dsh, dst);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_bwd<kD, kWG, true>(q, k, v, dout, rows, dq, dk, dv, b, n_head, n_kv_head, t,
+                                   tp, scale, qsb, qsh, qst, ksb, ksh, kst, vsb, vsh, vst, dsb,
+                                   dsh, dst, dksb, dksh, dkst, dvsb, dvsh, dvst, s);
+}
 
-  CUtensorMap mq, mk, mv, mdo, mrows, mdq, mdk, mdv;
-  int e = head_map(&mq, q, b, n_head, t, kD, qsb, qsh, qst, kBQ);
-  if (!e) e = head_map(&mk, k, b, n_kv_head, t, kD, ksb, ksh, kst, L::kBK);
-  if (!e) e = head_map(&mv, v, b, n_kv_head, t, kD, vsb, vsh, vst, L::kBK);
-  if (!e) e = head_map(&mdo, dout, b, n_head, t, kD, dsb, dsh, dst, kBQ);
-  if (!e) e = head_map(&mdk, dk, b, n_kv_head, t, kD, dksb, dksh, dkst, 64);
-  if (!e) e = head_map(&mdv, dv, b, n_kv_head, t, kD, dvsb, dvsh, dvst, 64);
-  // dq: contiguous (B, H, T, D) fp32, in (16 rows, 32 columns) boxes
-  if (!e)
-    e = head_map(&mdq, dq, b, n_head, t, kD, static_cast<long long>(n_head) * t * kD,
-                 static_cast<long long>(t) * kD, kD, 16, /*fp32=*/true);
-  if (!e) {  // rows: (2, B, H, tp) fp32 (L, Delta), in boxes of 64
-    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(tp), static_cast<cuuint64_t>(n_head),
-                                static_cast<cuuint64_t>(b), 2};
-    const cuuint64_t strides[3] = {static_cast<cuuint64_t>(tp) * 4,
-                                   static_cast<cuuint64_t>(n_head) * tp * 4,
-                                   static_cast<cuuint64_t>(n_rows) * 4};
-    const cuuint32_t box[4] = {kBQ, 1, 1, 1};
-    e = make_tensor_map(&mrows, rows, 4, dims, strides, box, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-                        CU_TENSOR_MAP_SWIZZLE_NONE);
-  }
-  if (e) return e;
-  err = cudaFuncSetAttribute(flash_bwd_kernel<kD, kWG>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
+template <int kD, int kWG>
+int launch_splash_dkv(const void* q, const void* k, const void* v, const void* lse,
+                      const void* dout, const void* di, void* rows, void* dk, void* dv, int b,
+                      int n_head, int n_kv_head, int t, float scale, long long qsb,
+                      long long qsh, long long qst, long long ksb, long long ksh, long long kst,
+                      long long vsb, long long vsh, long long vst, long long dsb, long long dsh,
+                      long long dst, long long dksb, long long dksh, long long dkst,
+                      long long dvsb, long long dvsh, long long dvst, cudaStream_t s) {
+  const int tp = (t + kBQ - 1) / kBQ * kBQ;
+  const long long n_rows = static_cast<long long>(b) * n_head * tp;
+  splash_rows<<<static_cast<unsigned int>((n_rows + 255) / 256), 256, 0, s>>>(
+      static_cast<const float*>(lse), static_cast<const float*>(di), static_cast<float*>(rows),
+      n_rows, t, tp);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(n_kv_head, b, (t + L::kBK - 1) / L::kBK);
-  flash_bwd_kernel<kD, kWG><<<grid, L::kThreads, L::kSmem, s>>>(
-      mq, mk, mv, mdo, mrows, mdq, mdk, mdv, n_head / n_kv_head, t, scale);
+  return launch_bwd<kD, kWG, false>(q, k, v, dout, rows, nullptr, dk, dv, b, n_head, n_kv_head,
+                                    t, tp, scale, qsb, qsh, qst, ksb, ksh, kst, vsb, vsh, vst,
+                                    dsb, dsh, dst, dksb, dksh, dkst, dvsb, dvsh, dvst, s);
+}
+
+template <int kD>
+int launch_splash_dq(const void* q, const void* k, const void* v, const void* lse,
+                     const void* dout, const void* di, void* dq, int b, int n_head,
+                     int n_kv_head, int t, float scale, long long qsb, long long qsh,
+                     long long qst, long long ksb, long long ksh, long long kst, long long vsb,
+                     long long vsh, long long vst, long long dsb, long long dsh, long long dst,
+                     long long gsb, long long gsh, long long gst, cudaStream_t s) {
+  using L = DqLayout<kD>;
+  CUtensorMap mq, mk, mv, mdo, mdq;
+  int e = head_map(&mq, q, b, n_head, t, kD, qsb, qsh, qst, kBQ);
+  if (!e) e = head_map(&mk, k, b, n_kv_head, t, kD, ksb, ksh, kst, kBKV);
+  if (!e) e = head_map(&mv, v, b, n_kv_head, t, kD, vsb, vsh, vst, kBKV);
+  if (!e) e = head_map(&mdo, dout, b, n_head, t, kD, dsb, dsh, dst, kBQ);
+  if (!e) e = head_map(&mdq, dq, b, n_head, t, kD, gsb, gsh, gst, kBQ);
+  if (e) return e;
+  cudaError_t err = cudaFuncSetAttribute(splash_dq<kD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(n_head, b, (t + kBQ - 1) / kBQ);
+  splash_dq<kD><<<grid, L::kThreads, L::kSmem, s>>>(
+      mq, mk, mv, mdo, mdq, static_cast<const float*>(lse), static_cast<const float*>(di),
+      n_head, n_head / n_kv_head, t, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -489,5 +894,54 @@ DH_EXPORT int dh_flash_attention_bwd(
         q, k, v, o, dout, lse, rows, dq, dk, dv, b, n_head, n_kv_head, t, scale, qsb, qsh,
         qst, ksb, ksh, kst, vsb, vsh, vst, osb, osh, ost, dsb, dsh, dst, dksb, dksh, dkst,
         dvsb, dvsh, dvst, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// L1's kernels. q, dout: (B, Hq, T, D); k, v: (B, G, T, D), Hq a multiple
+// of G, each with (batch, head, token) element strides that are multiples
+// of 8, unit channel stride and a 16-byte aligned base; D is 64 or 128.
+// lse and di: contiguous (B, Hq, T) fp32. S = scale * q k^T.
+
+// dQ from (q, k, v, lse, dO, di) into dq (B, Hq, T, D) bf16 with strides,
+// 16-byte aligned.
+DH_EXPORT int dh_splash_dq(const void* q, const void* k, const void* v, const void* lse,
+                           const void* dout, const void* di, void* dq, int b, int n_head,
+                           int n_kv_head, int t, int d, float scale, long long qsb,
+                           long long qsh, long long qst, long long ksb, long long ksh,
+                           long long kst, long long vsb, long long vsh, long long vst,
+                           long long dsb, long long dsh, long long dst, long long gsb,
+                           long long gsh, long long gst, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == 64)
+    return launch_splash_dq<64>(
+        q, k, v, lse, dout, di, dq, b, n_head, n_kv_head, t, scale, qsb, qsh, qst, ksb, ksh,
+        kst, vsb, vsh, vst, dsb, dsh, dst, gsb, gsh, gst, s);
+  if (d == 128)
+    return launch_splash_dq<128>(
+        q, k, v, lse, dout, di, dq, b, n_head, n_kv_head, t, scale, qsb, qsh, qst, ksb, ksh,
+        kst, vsb, vsh, vst, dsb, dsh, dst, gsb, gsh, gst, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// dK and dV from (q, k, v, lse, dO, di), summed over each group's heads,
+// into dk, dv (B, G, T, D) bf16 with strides, 16-byte aligned. rows: (2, B,
+// Hq, T rounded up to 64) fp32 scratch, written here.
+DH_EXPORT int dh_splash_dkv(const void* q, const void* k, const void* v, const void* lse,
+                            const void* dout, const void* di, void* rows, void* dk, void* dv,
+                            int b, int n_head, int n_kv_head, int t, int d, float scale,
+                            long long qsb, long long qsh, long long qst, long long ksb,
+                            long long ksh, long long kst, long long vsb, long long vsh,
+                            long long vst, long long dsb, long long dsh, long long dst,
+                            long long dksb, long long dksh, long long dkst, long long dvsb,
+                            long long dvsh, long long dvst, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == 64)
+    return launch_splash_dkv<64, kWarpgroups<64>>(
+        q, k, v, lse, dout, di, rows, dk, dv, b, n_head, n_kv_head, t, scale, qsb, qsh, qst,
+        ksb, ksh, kst, vsb, vsh, vst, dsb, dsh, dst, dksb, dksh, dkst, dvsb, dvsh, dvst, s);
+  if (d == 128)
+    return launch_splash_dkv<128, kWarpgroups<128>>(
+        q, k, v, lse, dout, di, rows, dk, dv, b, n_head, n_kv_head, t, scale, qsb, qsh, qst,
+        ksb, ksh, kst, vsb, vsh, vst, dsb, dsh, dst, dksb, dksh, dkst, dvsb, dvsh, dvst, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

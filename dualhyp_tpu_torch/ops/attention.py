@@ -11,7 +11,8 @@ the grouped broadcast happens inside the kernel or the einsum.
     enabled it goes through `FlashAttention`, whose backward launches K1's
     backward (`csrc/flash_attention_bwd.cu`), or runs the plain pair on the
     CPU. Any other value ("splash") runs L1, `ops/splash.causal_attention`:
-    its own forward, dQ and dK/dV kernels (`csrc/splash_attention.cu`).
+    its own forward (`csrc/flash_attention.cu`), dQ and dK/dV kernels
+    (`csrc/flash_attention_bwd.cu`).
     All take head size 64 (TinyLlama) and 128 (Mixtral).
   * `decode_attention`: one step against the KV cache, masked by each row's
     valid length, with the per-slot scales of an int8 cache (plain PyTorch;

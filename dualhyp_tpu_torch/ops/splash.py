@@ -22,7 +22,8 @@ the splash arithmetic, which differs from K1's:
 
 On CPU tensors each wrapper runs its plain version (`splash_fwd_plain`,
 `splash_dq_plain`, `splash_dkv_plain`); on CUDA tensors it launches its
-kernel (`csrc/splash_attention.cu`) or raises.
+kernel (`csrc/flash_attention.cu` for the forward,
+`csrc/flash_attention_bwd.cu` for dQ and dK/dV) or raises.
 """
 
 from __future__ import annotations
@@ -49,17 +50,23 @@ SPLASH_FWD = _lib.Kernel(
     "dh_splash_fwd", [_lib.C_PTR] * 5 + [_lib.C_INT] * 5 + [_lib.C_F32] + [_lib.C_I64] * 12)
 
 # L1 dQ: replaces `_flash_attention_dq_kernel` (pallas_call :1635). Bound by
-# operations (3 products a causal pair); dQ stays in registers and is written
-# once, with no atomics.
+# operations (3 products a causal pair). Shaped like K1's forward
+# (csrc/flash_attention_bwd.cu, `splash_dq`): a block owns 64 query rows of
+# one head, a producer warp streams the K/V tiles at or below the diagonal
+# by TMA, a consumer warpgroup runs S = Q K^T and dP = dO V^T on wgmma and
+# dQ += bf16(dS) K with dS as the register A operand; dQ stays in registers
+# and is written once, with no atomics.
 SPLASH_DQ = _lib.Kernel(
     "dh_splash_dq", [_lib.C_PTR] * 7 + [_lib.C_INT] * 5 + [_lib.C_F32] + [_lib.C_I64] * 15)
 
 # L1 dK/dV: replaces `_flash_attention_dkv_kernel` (pallas_call :2196). Bound
-# by operations (4 products a causal pair); one block per (batch, KV group,
-# 64-key tile) sums dK and dV over every query head of the group in
-# registers and writes them once.
+# by operations (4 products a causal pair). K1's backward kernel body
+# without its dQ half (csrc/flash_attention_bwd.cu, `splash_dkv`): a block
+# owns (batch, KV group, 64 or 128 keys), a producer warpgroup streams every
+# group head's Q, dO, lse and di tiles by TMA, and dK and dV, summed over
+# the group's heads on wgmma, stay in registers and are written once.
 SPLASH_DKV = _lib.Kernel(
-    "dh_splash_dkv", [_lib.C_PTR] * 8 + [_lib.C_INT] * 5 + [_lib.C_F32] + [_lib.C_I64] * 18)
+    "dh_splash_dkv", [_lib.C_PTR] * 9 + [_lib.C_INT] * 5 + [_lib.C_F32] + [_lib.C_I64] * 18)
 
 # head sizes the kernels take (TinyLlama 64, Mixtral 128)
 HEAD_SIZES = (64, 128)
@@ -209,11 +216,14 @@ def splash_dkv(q, k, v, lse, do, di, scale: float = 1.0):
     b, hq, t, d = q.shape
     dk = torch.empty(k.shape, dtype=k.dtype, device=device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=device)
+    # lse and di, each (B, Hq, T rounded up to 64): whole 64-row TMA boxes
+    rows = torch.empty((2, b, hq, -(-t // 64) * 64), dtype=torch.float32, device=device)
     if dk.numel():
         SPLASH_DKV(device, q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(),
-                   do.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, hq,
-                   k.shape[1], t, d, float(scale), *q.stride()[:3], *k.stride()[:3],
-                   *v.stride()[:3], *do.stride()[:3], *dk.stride()[:3], *dv.stride()[:3])
+                   do.data_ptr(), di.data_ptr(), rows.data_ptr(), dk.data_ptr(),
+                   dv.data_ptr(), b, hq, k.shape[1], t, d, float(scale), *q.stride()[:3],
+                   *k.stride()[:3], *v.stride()[:3], *do.stride()[:3], *dk.stride()[:3],
+                   *dv.stride()[:3])
     return dk, dv
 
 

@@ -70,7 +70,8 @@ def _imported_roots(path):
 
 @pytest.mark.parametrize("path", sorted(
     p.relative_to(REPO).as_posix()
-    for p in [*(REPO / "dualhyp_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py"]))
+    for p in [*(REPO / "dualhyp_tpu_torch").rglob("*.py"), REPO / "chip_smoke.py",
+              *(REPO / "scripts").glob("torch_*.py")]))
 def test_no_source_file_imports_jax(path):
     roots = set(_imported_roots(REPO / path))
     assert not roots & {"jax", "jaxlib", "dualhyp_tpu"}, roots

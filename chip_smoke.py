@@ -10,8 +10,8 @@ prints one JSON line; a failed phase raises and the script exits non-zero.
   1. device: the card, its power limit, whether nvcc and triton exist; then
      the kernel library is built from `dualhyp_tpu_torch/csrc/*.cu`, and the
      registers, static shared memory and spills of the wgmma/TMA kernels
-     (K1's forward and backward, L1's forward, dQ and dK/dV, K4, K8 and L2)
-     are printed from `-Xptxas -v`;
+     (K1's forward and backward, L1's forward, dQ and dK/dV, K4, K5, K6/K7
+     at bf16, K8 and L2) are printed from `-Xptxas -v`;
   2. one phase per kernel, at the main path's shapes (bf16, batch 8, prompt
      384, decode rows 8): the kernel against its plain PyTorch version on the
      same inputs, within a stated tolerance, then CUDA-event times of the
@@ -51,10 +51,12 @@ prints one JSON line; a failed phase raises and the script exits non-zero.
      forward, its backward and K4 in a profiled step;
   9. K8 (int4 weights times activations) at decode (8) and prefill (3072)
      rows for fc_1, mlp.proj and lm_head (two calls bitwise equal), and K5 (the fused LoRA linear) at
-     8, 3072 and 8192 rows for the fused QKV (rank 48) and proj (rank 16),
-     with the LoRA input x itself and a separate one: each against its plain
-     version, timed beside its bound and the cuBLAS yardstick (a bf16
-     matmul on the dequantised weight; the three-call LoRA composition);
+     8, 1536 (the fused slice's prefill: 8 prompts at its bucket of 192),
+     3072 and 8192 rows for the fused QKV (rank 48) and proj (rank 16),
+     with the LoRA input x itself and a separate one (two calls bitwise
+     equal): each against its plain version, timed beside its bound and
+     the cuBLAS yardstick (a bf16 matmul on the dequantised weight; the
+     three-call LoRA composition);
  10. depth-2, full-width checks, card (kernels, bf16) against CPU (plain,
      fp32) on the same seeded numpy weights: int4 prefill logits (weights
      merged and quantized by the port, so both sides hold the same bytes),
@@ -68,8 +70,10 @@ prints one JSON line; a failed phase raises and the script exits non-zero.
      attention) in fp32 at B=1 H=20 T=S=280 (an utterance of the RelPrompt
      slice), B=1 and B=8 at T=S=1500 (a 30-s window), T=280 against S=1500,
      and in bf16 at B=8 T=S=1500; K7 (its causal flag) in bf16 at B=8 Hq=32
-     G=4 T=1024 and a ragged T=200: each against its plain version, timed
-     beside its bound and SDPA;
+     G=4 T=1024 and a ragged T=200: each against its plain version (the
+     Pallas kernel's fp32 P V; at bf16 also the share of elements that
+     differ, beside K1's forward, which rounds P, on K7's inputs; two calls
+     bitwise equal), timed beside its bound and SDPA;
  13. a depth-2, full-width (1280, 20 heads, 128 mels) Whisper encoder from
      seeded numpy weights, card (K6, fp32, TF32 off) against CPU (plain,
      fp32), on a 3-s mel and a 30-s `pad_or_trim` mel;
@@ -191,10 +195,11 @@ TOLERANCES = {
     # two bf16 ulps apart. A wrong nibble, group or scale moves an output by
     # a whole term (~|x| |w|, 0.02 and more).
     "q4_matmul": (1e-2, 2.0 ** -6),
-    # lora_linear: the base and rank sums in another fp32 order; the rank
-    # tile rounds to bf16 on both sides and may do so one ulp apart (2^-8 of
-    # s * delta); the output rounds once. A lost or transposed LoRA branch
-    # moves outputs by s * delta (~0.1 here).
+    # lora_linear: the base and rank sums in another fp32 order (above 16
+    # rows s is folded into the base sum, (acc / s + delta) * s, exact for
+    # s = 1); the rank tile rounds to bf16 on both sides and may do so one
+    # ulp apart (2^-8 of s * delta); the output rounds once. A lost or
+    # transposed LoRA branch moves outputs by s * delta (~0.1 here).
     "lora_linear": (1e-2, 2.0 ** -6),
     # grouped_matmul (L2): the same exact bf16 products as the plain version,
     # summed in fp32 in another order and rounded once: one or two bf16 ulps
@@ -268,10 +273,16 @@ TRAIN_GRAD_REL = 0.05
 # two blocks move them by a few bf16 ulps of the largest logits (~0.03).
 DEPTH2_ATOL = 0.1
 # K6/K7 (flash_fwd) against their plain versions on unit-normal inputs: fp32
-# sums in another order (~1e-6 measured on the card's edge-case tests);
-# bf16 rounds P to bf16 before the PV product and the output once (K1's
-# forward reads ~0.016).
-FLASH_FWD_ATOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# sums in another order (~1e-6 measured on the card's edge-case tests).
+# bf16: both keep P in fp32 for the P V product (the kernel as hi + lo, two
+# bf16 products, V exact in bf16) and round the output once, so an element
+# differs only where the two fp32 sums round apart, by one bf16 ulp: 2^-7
+# at most and on 0.2-0.3% of the elements measured (outputs below 2). A
+# kernel that rounds P to bf16 (K1's forward) reads 2^-6 at K7's shapes and
+# differs on 36-39% of the elements (PERF.md). The bound sits
+# between the two quanta.
+FLASH_FWD_ATOL = {"float32": 1e-4, "bfloat16": 1e-2}
+FLASH_FWD_DIFFER_SHARE = 0.05  # bf16: the share of elements that may differ
 # depth-2 Whisper encoder, card (K6, fp32 products with TF32 off) against the
 # CPU (plain, fp32): the same fp32 arithmetic summed in another order, held
 # to 1e-4 of the largest feature (~5 after the final LayerNorm). One pass of
@@ -579,19 +590,23 @@ def q4_lora_phase(torch, seed: int) -> dict:
         shapes = (d, (o - d) // 2, (o - d) // 2) if blocks == 3 else (o,)
         b = lora.lora_qkv_block_b(b_small, shapes, r)
         s = 1.0  # lora_alpha / lora_r of the slice
-        for rows in (8, 3072, 8192):
+        for rows in (8, 1536, 3072, 8192):
             for separate in (False, True):
                 x = randn(rows, d)
                 xin = randn(rows, d) if separate else None
                 xb = x if xin is None else xin
-                err = compare("lora_linear", lora.lora_linear(x, w, a, b, s, xin=xin),
-                              lora.lora_linear_plain(x, w, a, b, s, xin), torch)
+                got = repeatable("lora_linear", lambda: lora.lora_linear(x, w, a, b, s, xin=xin),
+                                 torch)
+                err = compare("lora_linear", got, lora.lora_linear_plain(x, w, a, b, s, xin),
+                              torch)
                 n_x = rows * d * (2 if separate else 1)
                 bms, by = bound((n_x + o * d + blocks * r * d + o * blocks * r + rows * o) * 2,
                                 2 * rows * o * d + 2 * rows * blocks * r * d + 2 * rows * o * r,
                                 BF16_TENSOR_FLOPS)
                 lo[f"{name}_{rows}{'_xin' if separate else ''}"] = dict(
                     shape=[rows, o, d, blocks * r], separate_xin=separate, max_abs_err=err,
+                    path="mma.sync" if rows <= lora.DECODE_ROWS else "wgmma",
+                    repeats_bitwise=True,
                     ms=time_ms(lambda: lora.lora_linear(x, w, a, b, s, xin=xin), torch),
                     device_ms=device_ms(lambda: lora.lora_linear(x, w, a, b, s, xin=xin),
                                         torch),
@@ -728,15 +743,15 @@ def depth2_int4_check(torch, seed: int) -> dict:
     return result
 
 
-# substrings of the kernel names of K1's forward, K1's backward, K4 and L1's
-# forward and backward in a profile (their device ms a step)
+# substrings of the kernel names of K1's forward, K1's backward, K4, K5 and
+# L1's forward and backward in a profile (their device ms a step)
 STEP_KERNELS = {"k1_fwd": ("flash_fwd_kernel",), "k1_bwd": ("flash_bwd_kernel", "delta_kernel"),
-                "k4": ("swiglu_",), "l1_fwd": ("splash_fwd",),
+                "k4": ("swiglu_",), "k5": ("lora_",), "l1_fwd": ("splash_fwd",),
                 "l1_bwd": ("splash_dq", "splash_dkv", "splash_rows")}
 
 
 def step_kernel_ms(prof) -> dict:
-    """Device ms of K1's forward and backward, K4 and L1's forward and
+    """Device ms of K1's forward and backward, K4, K5 and L1's forward and
     backward in a profiled step."""
     times = device_kernel_times(prof)
     return {f"{key}_ms": sum(us for name, (us, _) in times.items()
@@ -1835,13 +1850,19 @@ def flash_fwd_phase(torch, seed: int) -> dict:
     def randn(*shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    def check(label, got, want, dtype_name):
+    def errors(got, want):
         torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
-        if not err <= FLASH_FWD_ATOL[dtype_name]:
+        return (float((got.float() - want.float()).abs().max()),
+                float((got != want).float().mean()))
+
+    def check(label, got, want, dtype_name):
+        err, share = errors(got, want)
+        if not err <= FLASH_FWD_ATOL[dtype_name] or (
+                dtype_name == "bfloat16" and not share <= FLASH_FWD_DIFFER_SHARE):
             raise RuntimeError(f"{label}: kernel disagrees with its plain version: "
-                               f"max_abs_err {err} > {FLASH_FWD_ATOL[dtype_name]}")
-        return err
+                               f"max_abs_err {err} (tolerance {FLASH_FWD_ATOL[dtype_name]}), "
+                               f"{share} of the elements differ")
+        return err, share
 
     full = {}
     for label, b, t, s_len, dtype in (("b1_t280_f32", 1, 280, 280, torch.float32),
@@ -1855,20 +1876,23 @@ def flash_fwd_phase(torch, seed: int) -> dict:
         k, v = (randn(b, h, s_len, hs, dtype=dtype) for _ in range(2))
         fn = lambda: flash_fwd.full_attention_fwd(q, k, v)  # noqa: E731
         plain = lambda: flash_fwd.full_attention_plain(q, k, v)  # noqa: E731
-        err = check(f"full_attention_fwd {label}", fn(), plain(), name)
+        err, share = check(f"full_attention_fwd {label}",
+                           repeatable("full_attention_fwd", fn, torch), plain(), name)
         elem = q.element_size()
         bms, by = bound((2 * b * h * t * hs + 2 * b * h * s_len * hs) * elem,
                         4 * b * h * t * s_len * hs,
                         FP32_FLOPS if dtype == torch.float32 else BF16_TENSOR_FLOPS)
         full[label] = dict(
-            shape=[b, h, t, s_len, hs], dtype=name, max_abs_err=err,
+            shape=[b, h, t, s_len, hs], dtype=name, max_abs_err=err, differ_share=share,
+            repeats_bitwise=True,
             ms=time_ms(fn, torch), device_ms=device_ms(fn, torch),
             plain_ms=time_ms(plain, torch, warmup=1, iters=5),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v), torch),
             library="SDPA (non-causal)", bound_ms=bms, bound_by=by)
         del q, k, v
     emit({"phase": "kernel", "name": "full_attention_fwd",
-          "tolerance": {"max_abs_err": FLASH_FWD_ATOL}, **full})
+          "tolerance": {"max_abs_err": FLASH_FWD_ATOL,
+                        "bfloat16_differ_share": FLASH_FWD_DIFFER_SHARE}, **full})
 
     causal = {}
     reset_counts()
@@ -1883,17 +1907,25 @@ def flash_fwd_phase(torch, seed: int) -> dict:
         b, hq, t, hs = q.shape
         g = k.shape[1]
         fn = lambda: flash_fwd.causal_attention_fwd(q, k, v)  # noqa: E731
-        plain = lambda: attention.causal_attention_plain(q, k, v)  # noqa: E731
-        err = check(f"causal_attention_fwd {label}", got, plain(), "bfloat16")
+        plain = lambda: flash_fwd.causal_attention_fwd_plain(q, k, v)  # noqa: E731
+        want = plain()
+        err, share = check(f"causal_attention_fwd {label}", got, want, "bfloat16")
+        if not torch.equal(got, fn()):
+            raise RuntimeError(f"causal_attention_fwd {label}: two calls differ")
+        # K1's forward on the same inputs: the same kernel body with P rounded
+        # to bf16 before one P V product (what the tolerance tells apart from
+        # the Pallas arithmetic), and the row logsumexp written too
+        k1 = lambda: attention._flash_fwd(q, k, v, 1.0 / math.sqrt(hs))  # noqa: E731
+        k1_err, k1_share = errors(k1()[0], want)
+        del want
         ke, ve = (z.repeat_interleave(hq // g, dim=1) for z in (k, v))
         pairs = b * hq * t * (t + 1) // 2
         bms, by = bound((2 * b * hq * t * hs + 2 * b * g * t * hs) * 2, 4 * pairs * hs,
                         BF16_TENSOR_FLOPS)
-        # K1's forward on the same inputs: the same tiles and masks in WMMA
-        # through shared memory, and the row logsumexp written too
-        k1 = lambda: attention._flash_fwd(q, k, v, 1.0 / math.sqrt(hs))  # noqa: E731
         causal[label] = dict(
-            shape=[b, hq, g, t, hs], dtype="bfloat16", max_abs_err=err,
+            shape=[b, hq, g, t, hs], dtype="bfloat16", max_abs_err=err, differ_share=share,
+            repeats_bitwise=True, p_rounded_k1_max_abs_err=k1_err,
+            p_rounded_k1_differ_share=k1_share,
             ms=time_ms(fn, torch), device_ms=device_ms(fn, torch),
             k1_forward_device_ms=device_ms(k1, torch),
             plain_ms=time_ms(plain, torch, warmup=1, iters=5),
@@ -1901,7 +1933,8 @@ def flash_fwd_phase(torch, seed: int) -> dict:
                                torch),
             library="SDPA (causal, K/V expanded to the query heads)", bound_ms=bms, bound_by=by)
     emit({"phase": "kernel", "name": "causal_attention_fwd",
-          "tolerance": {"max_abs_err": FLASH_FWD_ATOL["bfloat16"]},
+          "tolerance": {"max_abs_err": FLASH_FWD_ATOL["bfloat16"],
+                        "differ_share": FLASH_FWD_DIFFER_SHARE},
           "launches": launches["causal_attention_fwd"], **causal})
     if launches["causal_attention_fwd"] != 2:
         raise RuntimeError(f"K7's driven run launched {launches}")
@@ -3046,7 +3079,7 @@ def main(argv=None) -> int:
     emit({"phase": "ptxas", **{src: ptxas_report(src) or "not measured (built before this run)"
                                for src in ("flash_attention.cu", "flash_attention_bwd.cu",
                                            "swiglu.cu", "int4_matmul.cu",
-                                           "grouped_matmul.cu")}})
+                                           "grouped_matmul.cu", "lora_linear.cu")}})
     emit({"phase": "l2_flush", "bytes": L2_FLUSH_BYTES, "ms": time_ms(l2_flush(torch), torch)})
 
     seconds = {}
@@ -3103,7 +3136,7 @@ def main(argv=None) -> int:
                "lora_linear": ("lora_linear.cu", "dualhyp_tpu/ops/pallas/lora_kernel.py:42"),
                "q4_matmul": ("int4_matmul.cu", "dualhyp_tpu/ops/pallas/int4_kernel.py:36"),
                "full_attention_fwd": ("flash_fwd.cu", "dualhyp_tpu/ops/pallas/flash_fwd.py:118"),
-               "causal_attention_fwd": ("flash_fwd.cu",
+               "causal_attention_fwd": ("flash_attention.cu",
                                         "dualhyp_tpu/ops/pallas/flash_fwd.py:179"),
                "grouped_matmul": ("grouped_matmul.cu",
                                   "jax/experimental/pallas/ops/tpu/megablox/gmm.py:526 "
@@ -3125,7 +3158,7 @@ def main(argv=None) -> int:
                       ("splash_attention_dq", 1635, "_flash_attention_dq_kernel :1307"),
                       ("splash_attention_dkv", 2196, "_flash_attention_dkv_kernel :1669"))}}
     # each kernel's main path, and the shape of its row in the line
-    main_path = {"lora_linear": ("fused_slice", "qkv_3072"),
+    main_path = {"lora_linear": ("fused_slice", "qkv_1536"),
                  "q4_matmul": ("int4_slice", "decode_fc_1"),
                  "full_attention_fwd": ("relprompt_slice", "b1_t280_f32"),
                  "causal_attention_fwd": ("causal_attention_fwd_phase", "T1024"),

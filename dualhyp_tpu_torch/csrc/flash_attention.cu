@@ -1,6 +1,11 @@
 // K1 forward and L1 forward: causal grouped-query flash attention,
 // emitting O and the row logsumexp L, in one kernel body with two
-// instances of its P V arithmetic.
+// instances of its P V arithmetic. The same body, with L's P V and no L,
+// is K6 and K7 at bf16 (`attn_fwd_bf16`, called from flash_fwd.cu's entry
+// points): dualhyp_tpu/ops/pallas/flash_fwd.py `_kernel`, which multiplies
+// the fp32 P by V upcast to fp32; K6 is its non-causal instance (every key
+// tile of every query tile, keys at or past `kv_valid` masked in the last
+// one), both take the raw q and the scale inside the kernel.
 //
 // K1 (`flash_fwd_kernel`) replaces dualhyp_tpu/ops/pallas/flash_vjp.py
 // `_fwd_kernel` (the Pallas call in `_forward`): P is rounded to bf16
@@ -49,7 +54,9 @@
 // time, PERF.md): K1 0.147 ms at B8 Hq32 G4 T1024 D64 (bound 0.035, SDPA
 // 0.110) and 0.230 ms at G8 D128 (bound 0.070, SDPA 0.149), where the WMMA
 // kernel this design replaced took 0.969 and ~1.83 ms; L1 0.195 ms at D64
-// and 0.276 ms at D128, where its mma.sync kernel took 0.312 and 0.875.
+// and 0.276 ms at D128, where its mma.sync kernel took 0.312 and 0.875;
+// K6 at bf16 0.404 ms at B8 H20 T=S=1500 (SDPA 0.246) and K7 0.172 at B8
+// Hq32 G4 T1024 (SDPA 0.109).
 #include "hopper.cuh"
 
 namespace {
@@ -74,12 +81,14 @@ struct Layout {
   static constexpr int kSmem = kBarOffset + 64 + 1024;
 };
 
-// The forward of one block; kSplit: P V as hi V + lo V (L1), else bf16(P) V (K1).
-template <int kD, bool kSplit>
+// The forward of one block; kSplit: P V as hi V + lo V (L1, K6, K7), else
+// bf16(P) V (K1); kCausal false: no diagonal mask and no tile skipped (K6).
+// Keys at or past s_valid are masked; lse (null for K6 and K7) takes L.
+template <int kD, bool kSplit, bool kCausal = true>
 __device__ __forceinline__ void attention_fwd(const CUtensorMap* map_q, const CUtensorMap* map_k,
                                               const CUtensorMap* map_v, const CUtensorMap* map_o,
                                               float* __restrict__ lse, int n_head, int q_per_kv,
-                                              int t, float scale) {
+                                              int t, int s_valid, float scale) {
   using L = Layout<kD>;
   constexpr int kWG = L::kWG;
   constexpr int kBQ = L::kBQ;
@@ -103,7 +112,8 @@ __device__ __forceinline__ void attention_fwd(const CUtensorMap* map_q, const CU
   const int qt = gridDim.z - 1 - blockIdx.z;  // the longest rows first
   const int g = h / q_per_kv;
   const int q0 = qt * kBQ;
-  const int n_kv = min((t + kBKV - 1) / kBKV, (q0 + kBQ + kBKV - 1) / kBKV);
+  const int n_kv = kCausal ? min((s_valid + kBKV - 1) / kBKV, (q0 + kBQ + kBKV - 1) / kBKV)
+                           : (s_valid + kBKV - 1) / kBKV;
   const int warp = threadIdx.x >> 5;
 
   if (threadIdx.x == 0) {
@@ -158,7 +168,8 @@ __device__ __forceinline__ void attention_fwd(const CUtensorMap* map_q, const CU
     const int s = j % kStages;
     const int k0 = j * kBKV;
     mbar_wait(&full[s], (j / kStages) & 1);
-    if (k0 <= first + 63) {  // else every key of the tile is above this warpgroup's rows
+    // causal: else every key of the tile is above this warpgroup's rows
+    if (!kCausal || k0 <= first + 63) {
       const bf16* k_s = k_tile(s);
       const bf16* v_s = v_tile(s);
       float sc[kBKV / 2];
@@ -176,7 +187,7 @@ __device__ __forceinline__ void attention_fwd(const CUtensorMap* map_q, const CU
       fence_regs(sc);
 
       // scale, mask (the diagonal tile and the ragged tail only), new maxima
-      const bool masked = k0 + kBKV - 1 > first || k0 + kBKV > t;
+      const bool masked = (kCausal && k0 + kBKV - 1 > first) || k0 + kBKV > s_valid;
       float mx[2] = {m[0], m[1]};
 #pragma unroll
       for (int i = 0; i < kBKV / 2; ++i) {
@@ -184,7 +195,7 @@ __device__ __forceinline__ void attention_fwd(const CUtensorMap* map_q, const CU
         float v = sc[i] * scale2;
         if (masked) {
           const int key = k0 + 8 * (i >> 2) + col + (i & 1);
-          if (key > row0 + 8 * half || key >= t) v = -INFINITY;
+          if ((kCausal && key > row0 + 8 * half) || key >= s_valid) v = -INFINITY;
         }
         sc[i] = v;
         mx[half] = fmaxf(mx[half], v);
@@ -271,7 +282,7 @@ __device__ __forceinline__ void attention_fwd(const CUtensorMap* map_q, const CU
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     inv[r] = 1.f / l[r];
     const int row = row0 + 8 * r;
-    if ((lane & 3) == 0 && row < t)
+    if (lse != nullptr && (lane & 3) == 0 && row < t)
       lse[(static_cast<long long>(blockIdx.y) * n_head + h) * t + row] =
           m[r] / kLog2e + logf(l[r]);
   }
@@ -302,7 +313,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                  const __grid_constant__ CUtensorMap map_v,
                  const __grid_constant__ CUtensorMap map_o, float* __restrict__ lse,
                  int n_head, int q_per_kv, int t, float scale) {
-  attention_fwd<kD, false>(&map_q, &map_k, &map_v, &map_o, lse, n_head, q_per_kv, t, scale);
+  attention_fwd<kD, false>(&map_q, &map_k, &map_v, &map_o, lse, n_head, q_per_kv, t, t, scale);
 }
 
 template <int kD>
@@ -310,7 +321,18 @@ __global__ void __launch_bounds__(Layout<kD>::kThreads, 1)
 splash_fwd(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
            const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_o,
            float* __restrict__ lse, int n_head, int q_per_kv, int t, float scale) {
-  attention_fwd<kD, true>(&map_q, &map_k, &map_v, &map_o, lse, n_head, q_per_kv, t, scale);
+  attention_fwd<kD, true>(&map_q, &map_k, &map_v, &map_o, lse, n_head, q_per_kv, t, t, scale);
+}
+
+// K6 (kCausal false) and K7 at bf16: the Pallas kernel's fp32 P V as L1's
+// hi + lo, head size 64, no L.
+template <bool kCausal>
+__global__ void __launch_bounds__(Layout<64>::kThreads, 1)
+attn_fwd_bf16(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
+              const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_o,
+              int q_per_kv, int t, int s_valid, float scale) {
+  attention_fwd<64, true, kCausal>(&map_q, &map_k, &map_v, &map_o, nullptr, 0, q_per_kv, t,
+                                   s_valid, scale);
 }
 
 template <int kD, bool kSplit>
@@ -353,7 +375,43 @@ int dispatch(const void* q, const void* k, const void* v, void* o, void* lse, in
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+template <bool kCausal>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int b, int n_head,
+                int n_kv_head, int t, int s_valid, float scale, const long long* st,
+                cudaStream_t stream) {
+  using L = Layout<64>;
+  CUtensorMap mq, mk, mv, mo;
+  int err = head_map(&mq, q, b, n_head, t, 64, st[0], st[1], st[2], L::kBQ);
+  // keys at or past s_valid: read as zeros (TMA) and masked
+  if (!err) err = head_map(&mk, k, b, n_kv_head, s_valid, 64, st[3], st[4], st[5], kBKV);
+  if (!err) err = head_map(&mv, v, b, n_kv_head, s_valid, 64, st[6], st[7], st[8], kBKV);
+  if (!err) err = head_map(&mo, o, b, n_head, t, 64, st[9], st[10], st[11], 64);
+  if (err) return err;
+  constexpr int smem = L::kSmem;
+  cudaError_t e = cudaFuncSetAttribute(attn_fwd_bf16<kCausal>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid(n_head, b, (t + L::kBQ - 1) / L::kBQ);
+  attn_fwd_bf16<kCausal><<<grid, L::kThreads, smem, stream>>>(mq, mk, mv, mo,
+                                                             n_head / n_kv_head, t, s_valid,
+                                                             scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// K6 (causal 0) and K7 (causal 1) at bf16, called by dh_full_attention_fwd
+// and dh_causal_attention_fwd (flash_fwd.cu): q, o (B, H, T, 64) and k, v
+// (B, G, S, 64) with the (batch, head, token) element strides st[0..11] of
+// q, k, v, o (multiples of 8, unit channel stride, 16-byte aligned); keys
+// at or past s_valid (<= S) masked; S = scale * q k^T.
+int attention_fwd_bf16(const void* q, const void* k, const void* v, void* o, int b, int n_head,
+                       int n_kv_head, int t, int s_valid, int causal, float scale,
+                       const long long* st, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return causal ? launch_bf16<true>(q, k, v, o, b, n_head, n_kv_head, t, s_valid, scale, st, s)
+                : launch_bf16<false>(q, k, v, o, b, n_head, n_kv_head, t, s_valid, scale, st, s);
+}
 
 // q: (B, H, T, D); k, v: (B, G, T, D), each with (batch, head, token)
 // element strides that are multiples of 8 and unit channel stride, 16-byte

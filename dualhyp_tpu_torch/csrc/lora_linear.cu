@@ -6,23 +6,44 @@
 // at decode rows; the rank-r branch adds 2 * rows * r * (D + O), a few
 // percent. The composition it replaces runs three products and an add and
 // sends the (rows, r) and (rows, O) intermediates through device memory;
-// here they stay on chip:
-//   * a block owns an output tile (64 rows x 128 columns, or 16 x 32 for
-//     at most 16 rows) and loops over D in steps of 32, accumulating the
-//     base tile x W^T and the rank tile xin A^T (the rank padded to a
-//     multiple of 16 with zero rows of A) in fp32, both on the tensor
-//     cores (mma.sync m16n8k16); when xin is x it is read once; two steps
-//     are in flight: cp.async fills one half of shared memory while the
-//     tensor cores read the other;
-//   * every block of a row tile recomputes the same rank tile (as the TPU
-//     kernel does per output block): at rank 48 and 128 columns a block,
-//     3/8 more products than the base alone;
-//   * at the end the rank tile is rounded to bf16 into shared memory (the
-//     TPU kernel's `accr.astype(x.dtype)`), multiplied by the B tile, and
-//     the block writes acc + s * delta, rounded once;
-//   * rows, O and D need not be multiples of the tiles (D a multiple of 8):
-//     the ragged edges load as zeros and are not stored.
-#include "mma.cuh"
+// here the (rows, O) one stays on chip (at decode rows both do). Two
+// designs, chosen by the wrapper by row count:
+//   * prefill and training rows: two wgmma/TMA kernels. lora_rank_kernel
+//     computes h = bf16(xin A^T) (the TPU kernel's `accr.astype(x.dtype)`)
+//     into an (m, r_pad) bf16 scratch, r_pad the rank padded to 16: one
+//     read of xin, ~1% of the products. lora_tma_kernel then owns 128 rows
+//     x 256 output columns a block: a producer warp keeps a ring of four
+//     stages in flight with TMA, each a 128-byte swizzled (rows, 64) box of
+//     x and of W, and two consumer warpgroups of 64 rows run wgmma m64n256
+//     (128 fp32 registers a thread). After the last stage the producer
+//     loads the block's h tile and (256, r) B tile into the stage the last
+//     loads freed, and the epilogue folds s into the base sum: acc = (acc /
+//     s + h B^T) * s, one more wgmma, exact when s is a power of two
+//     (lora_alpha / r is 1 or 2 in practice), one fp32 rounding of each
+//     term otherwise. At s = 0 (the layer gate off) the rank branch is
+//     skipped, which is exact. The output is rounded once and stored from
+//     the registers; no atomics, so it repeats bit for bit. h goes through
+//     device memory (m * r_pad * 2 bytes, 0.8 MB at 8192 rows and rank 48)
+//     where the TPU kernel recomputes it in every output block: recomputed
+//     beside the base product, the rank tile spilled the 168 registers
+//     that nine or more warps get (a scheduler's 16384 over three warps)
+//     at rank 32 to 64, and in a third warpgroup it added r / 256 of the
+//     tensor work (3/16 at rank 48), which left the kernel behind cuBLAS's
+//     three products (PERF.md);
+//   * decode rows (lora_kernel, mma.sync m16n8k16 with fp32 sums and
+//     cp.async double buffering): a 16 x 32 output tile a block, the base
+//     tile x W^T and the rank tile xin A^T accumulated together, the rank
+//     tile rounded to bf16 into shared memory and multiplied by the B
+//     tile. From 17 rows on the wgmma kernels take less time than any
+//     mma.sync tile measured (PERF.md).
+// Rows, O and D need not be multiples of the tiles (D a multiple of 8; for
+// the wgmma kernels r too, which the wrapper pads with zeros): the ragged
+// edges load as zeros and are not stored. Measured by chip_smoke.py on an
+// NVIDIA H100 80GB HBM3 at 700.00 W (device time, PERF.md): TinyLlama's
+// fused QKV (rank 48) 0.0775 ms at 3072 rows and 0.1747 at 8192 (cuBLAS's
+// three products and an add 0.112 and 0.234), proj (rank 16) 0.1449 at
+// 8192 (0.191).
+#include "hopper.cuh"
 
 namespace {
 
@@ -227,21 +248,291 @@ cudaError_t launch_tiles(const bf16* x, const bf16* xin, const bf16* w, const bf
   return cudaGetLastError();
 }
 
+// ---- prefill and training rows: wgmma fed by TMA -----------------------------
+
+constexpr int kTmaBK = 64;  // contraction depth of a stage (one swizzled row)
+
+// The rank tile h = bf16(xin A^T), (m, kRP) bf16: a block owns 64 rows (one
+// consumer warpgroup, m64n{kRP} with fp32 sums), a producer warp streams
+// (64, 64) boxes of xin and (kRP, 64) boxes of A by TMA through a ring of
+// kRankStages; columns past r come out zero (TMA reads zeros past A's rows).
+constexpr int kRankStages = 4;
+constexpr int kRankThreads = 128 + 32;
+
+template <int kRP>
+struct RankLayout {
+  static constexpr int kXTile = 64 * kTmaBK * 2;
+  static constexpr int kStageBytes = kXTile + kRP * kTmaBK * 2;  // a multiple of 1024
+  static constexpr int kBarOffset = kRankStages * kStageBytes;
+  static constexpr int kSmem = kBarOffset + 2 * kRankStages * 8 + 1024;
+};
+
+template <int kRP>
+__global__ void __launch_bounds__(kRankThreads, 1)
+lora_rank_kernel(const __grid_constant__ CUtensorMap map_xin,
+                 const __grid_constant__ CUtensorMap map_a, bf16* __restrict__ h, int m,
+                 int d) {
+  using L = RankLayout<kRP>;
+  constexpr int kS = kRankStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBarOffset);
+  uint64_t* empty = full + kS;
+  const int m0 = blockIdx.x * 64;
+  const int nk = (d + kTmaBK - 1) / kTmaBK;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kS; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 4);  // lane 0 of each consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 4) {  // ---- producer ----
+    if (lane == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int i = kt % kS;
+        if (kt >= kS) mbar_wait(&empty[i], ((kt / kS) - 1) & 1);
+        unsigned char* st = smem + i * L::kStageBytes;
+        mbar_expect_tx(&full[i], L::kStageBytes);
+        tma_load_2d(st, &map_xin, &full[i], kt * kTmaBK, m0);
+        tma_load_2d(st + L::kXTile, &map_a, &full[i], kt * kTmaBK, 0);
+      }
+    }
+    return;
+  }
+
+  float acc[kRP / 2];
+  for (int kt = 0; kt < nk; ++kt) {
+    const int i = kt % kS;
+    const bf16* x = reinterpret_cast<const bf16*>(smem + i * L::kStageBytes);
+    const bf16* a = x + 64 * kTmaBK;
+    mbar_wait(&full[i], (kt / kS) & 1);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTmaBK / 16; ++kk)
+      Wgmma<kRP>::ss(acc, sw128_desc(x + kk * 16), sw128_desc(a + kk * 16), kt > 0 || kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous stage's products are done: free it
+    fence_regs(acc);
+    if (kt > 0 && lane == 0) mbar_arrive(&empty[(kt - 1) % kS]);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  const int row = m0 + 16 * warp + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < kRP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      if (row + 8 * e < m)
+        *reinterpret_cast<uint32_t*>(h + static_cast<long long>(row + 8 * e) * kRP + 8 * j +
+                                     2 * (lane & 3)) =
+            pack_bf16x2(acc[4 * j + 2 * e], acc[4 * j + 2 * e + 1]);
+}
+
+// out (m, o) = x W^T + s * h B^T, h = bf16(xin A^T) from lora_rank_kernel:
+// a block owns kTmaBM rows x kTmaBN columns; two consumer warpgroups of 64
+// rows run the base product (m64n256, 128 fp32 registers a thread), one
+// producer warp streams (rows, 64) boxes of x (128 rows) and W (256) by TMA.
+// After the last stage it loads the (128, kRP) h tile and the (256, r) B
+// tile into the stage that the last loads freed; the epilogue adds h B^T
+// with s folded in (kRank; at s = 0 it is skipped).
+constexpr int kTmaBM = 128;
+constexpr int kTmaBN = 256;
+constexpr int kTmaStages = 4;
+constexpr int kTmaThreads = 2 * 128 + 32;
+
+struct TmaLayout {
+  static constexpr int kXTile = kTmaBM * kTmaBK * 2;  // x's, and after the loop h's
+  static constexpr int kWTile = kTmaBN * kTmaBK * 2;  // W's, and after the loop B's
+  static constexpr int kStageBytes = kXTile + kWTile;
+  static constexpr int kBarOffset = kTmaStages * kStageBytes;
+  // + the barriers (full, empty, the h and B tiles), + slack to align the
+  // base to 1024 bytes
+  static constexpr int kSmem = kBarOffset + (2 * kTmaStages + 1) * 8 + 1024;
+};
+
+template <int kRP, bool kRank>
+__global__ void __launch_bounds__(kTmaThreads, 1)
+lora_tma_kernel(const __grid_constant__ CUtensorMap map_x,
+                const __grid_constant__ CUtensorMap map_w,
+                const __grid_constant__ CUtensorMap map_h,
+                const __grid_constant__ CUtensorMap map_b, bf16* __restrict__ out, float s,
+                int m, int o, int d) {
+  using L = TmaLayout;
+  constexpr int kS = kTmaStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBarOffset);
+  uint64_t* empty = full + kS;
+  uint64_t* hb_bar = empty + kS;  // the h and B tiles have landed
+  const int m0 = blockIdx.x * kTmaBM;
+  const int n0 = blockIdx.y * kTmaBN;
+  const int nk = (d + kTmaBK - 1) / kTmaBK;
+  const int sb = nk % kS;  // the stage that takes the h and B tiles after the loop
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kS; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 8);  // lane 0 of each consumer warp
+    }
+    mbar_init(hb_bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // ---- producer ----
+    if (lane == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int i = kt % kS;
+        if (kt >= kS) mbar_wait(&empty[i], ((kt / kS) - 1) & 1);
+        unsigned char* st = smem + i * L::kStageBytes;
+        mbar_expect_tx(&full[i], L::kStageBytes);
+        tma_load_2d(st, &map_x, &full[i], kt * kTmaBK, m0);
+        tma_load_2d(st + L::kXTile, &map_w, &full[i], kt * kTmaBK, n0);
+      }
+      if constexpr (kRank) {  // into stage sb once every warp has freed it
+        if (nk >= kS) mbar_wait(&empty[sb], ((nk / kS) - 1) & 1);
+        unsigned char* st = smem + sb * L::kStageBytes;
+        mbar_expect_tx(hb_bar, L::kStageBytes);
+        tma_load_2d(st, &map_h, hb_bar, 0, m0);
+        tma_load_2d(st + L::kXTile, &map_b, hb_bar, 0, n0);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns rows m0 + 64 wg + [0, 64) ----
+  const int wg = warp >> 2;
+  float acc[kTmaBN / 2];
+  for (int kt = 0; kt < nk; ++kt) {
+    const int i = kt % kS;
+    const unsigned char* st = smem + i * L::kStageBytes;
+    const bf16* x = reinterpret_cast<const bf16*>(st) + 64 * wg * kTmaBK;
+    const bf16* w = reinterpret_cast<const bf16*>(st + L::kXTile);
+    mbar_wait(&full[i], (kt / kS) & 1);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTmaBK / 16; ++kk)
+      Wgmma<kTmaBN>::ss(acc, sw128_desc(x + kk * 16), sw128_desc(w + kk * 16), kt > 0 || kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous stage's products are done: free it
+    fence_regs(acc);
+    if (kt > 0 && lane == 0) mbar_arrive(&empty[(kt - 1) % kS]);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  if constexpr (kRank) {  // acc = (acc / s + h B^T) * s
+    const float inv = 1.f / s;
+#pragma unroll
+    for (int j = 0; j < kTmaBN / 2; ++j) acc[j] *= inv;
+    const unsigned char* st = smem + sb * L::kStageBytes;
+    const bf16* h_wg = reinterpret_cast<const bf16*>(st) + 64 * wg * kTmaBK;
+    const bf16* b_s = reinterpret_cast<const bf16*>(st + L::kXTile);
+    mbar_wait(hb_bar, 0);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kRP / 16; ++kk)
+      Wgmma<kTmaBN>::ss(acc, sw128_desc(h_wg + kk * 16), sw128_desc(b_s + kk * 16), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+#pragma unroll
+    for (int j = 0; j < kTmaBN / 2; ++j) acc[j] *= s;
+  }
+
+  // ---- the output, rounded once, straight from the registers ----
+  const bool pairs = (o % 2) == 0;
+  const int row = m0 + 64 * wg + 16 * (warp & 3) + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < kTmaBN / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * (lane & 3);
+    if (col >= o) continue;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int rr = row + 8 * hh;
+      if (rr >= m) continue;
+      bf16* op = out + static_cast<long long>(rr) * o + col;
+      if (pairs) {
+        *reinterpret_cast<uint32_t*>(op) =
+            pack_bf16x2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+      } else {
+        op[0] = __float2bfloat16(acc[4 * j + 2 * hh]);
+        if (col + 1 < o) op[1] = __float2bfloat16(acc[4 * j + 2 * hh + 1]);
+      }
+    }
+  }
+}
+
+template <typename Kernel>
+int prepare(Kernel kernel, int smem) {
+  return static_cast<int>(
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+}
+
+// h (m, kRP) scratch: the rank tile, then the base product and h B^T.
+template <int kRP>
+int tma(const void* x, const void* xin, const void* w, const void* a, const void* b, bf16* h,
+        bf16* out, float s, int m, int o, int d, int r, cudaStream_t stream) {
+  CUtensorMap mx, mw, mh, mb;
+  int err = make_matrix_map(&mx, x, m, d, d, kTmaBM);
+  if (!err) err = make_matrix_map(&mw, w, o, d, d, kTmaBN);
+  if (err) return err;
+  const dim3 grid((m + kTmaBM - 1) / kTmaBM, (o + kTmaBN - 1) / kTmaBN);
+  if (s == 0.f) {  // the layer gate off: x W^T alone, exactly
+    err = prepare(lora_tma_kernel<16, false>, TmaLayout::kSmem);
+    if (err) return err;
+    lora_tma_kernel<16, false><<<grid, kTmaThreads, TmaLayout::kSmem, stream>>>(
+        mx, mw, mw, mw, out, s, m, o, d);
+    return static_cast<int>(cudaGetLastError());
+  }
+  CUtensorMap mxin, ma;
+  err = make_matrix_map(&mxin, xin, m, d, d, 64);
+  if (!err) err = make_matrix_map(&ma, a, r, d, d, kRP);
+  if (!err) err = make_matrix_map(&mh, h, m, kRP, kRP, kTmaBM);
+  if (!err) err = make_matrix_map(&mb, b, o, r, r, kTmaBN);
+  if (!err) err = prepare(lora_rank_kernel<kRP>, RankLayout<kRP>::kSmem);
+  if (!err) err = prepare(lora_tma_kernel<kRP, true>, TmaLayout::kSmem);
+  if (err) return err;
+  lora_rank_kernel<kRP><<<(m + 63) / 64, kRankThreads, RankLayout<kRP>::kSmem, stream>>>(
+      mxin, ma, h, m, d);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  lora_tma_kernel<kRP, true><<<grid, kTmaThreads, TmaLayout::kSmem, stream>>>(mx, mw, mh, mb,
+                                                                            out, s, m, o, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int RP>
-cudaError_t launch(const bf16* x, const bf16* xin, const bf16* w, const bf16* a, const bf16* b,
-                   bf16* out, float s, int m, int o, int d, int r, cudaStream_t stream) {
-  if (m <= 16)
-    return launch_tiles<1, 4, 1, 1, RP>(x, xin, w, a, b, out, s, m, o, d, r, stream);
-  return launch_tiles<2, 2, 2, 8, RP>(x, xin, w, a, b, out, s, m, o, d, r, stream);
+int launch(const bf16* x, const bf16* xin, const bf16* w, const bf16* a, const bf16* b,
+           bf16* h, bf16* out, float s, int m, int o, int d, int r, cudaStream_t stream) {
+  if (h != nullptr) return tma<RP>(x, xin, w, a, b, h, out, s, m, o, d, r, stream);
+  return static_cast<int>(
+      launch_tiles<1, 4, 1, 1, RP>(x, xin, w, a, b, out, s, m, o, d, r, stream));
 }
 
 }  // namespace
 
 // x, xin: contiguous (m, d) bf16 (xin == x: the branch reads x); w:
 // contiguous (o, d); a: contiguous (r, d); b: contiguous (o, r); out:
-// contiguous (m, o) bf16. d must be a multiple of 8 and r at most 64.
+// contiguous (m, o) bf16; d a multiple of 8, r at most 64. Given h, an
+// (m, r_pad) bf16 scratch (r_pad: r rounded up to 16), it runs the
+// wgmma/TMA kernels (16-byte aligned tensors, r a multiple of 8), else the
+// mma.sync tile.
 DH_EXPORT int dh_lora_linear(const void* x, const void* xin, const void* w, const void* a,
-                             const void* b, void* out, float s, int m, int o, int d,
+                             const void* b, void* h, void* out, float s, int m, int o, int d,
                              int r, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* xp = static_cast<const bf16*>(x);
@@ -249,12 +540,14 @@ DH_EXPORT int dh_lora_linear(const void* x, const void* xin, const void* w, cons
   const bf16* wp = static_cast<const bf16*>(w);
   const bf16* ap = static_cast<const bf16*>(a);
   const bf16* bp = static_cast<const bf16*>(b);
+  bf16* hp = static_cast<bf16*>(h);
   bf16* op = static_cast<bf16*>(out);
+  if (hp != nullptr && r % 8) return static_cast<int>(cudaErrorInvalidValue);
   switch ((r + 15) / 16) {
-    case 1: return static_cast<int>(launch<16>(xp, ip, wp, ap, bp, op, s, m, o, d, r, st));
-    case 2: return static_cast<int>(launch<32>(xp, ip, wp, ap, bp, op, s, m, o, d, r, st));
-    case 3: return static_cast<int>(launch<48>(xp, ip, wp, ap, bp, op, s, m, o, d, r, st));
-    case 4: return static_cast<int>(launch<64>(xp, ip, wp, ap, bp, op, s, m, o, d, r, st));
+    case 1: return launch<16>(xp, ip, wp, ap, bp, hp, op, s, m, o, d, r, st);
+    case 2: return launch<32>(xp, ip, wp, ap, bp, hp, op, s, m, o, d, r, st);
+    case 3: return launch<48>(xp, ip, wp, ap, bp, hp, op, s, m, o, d, r, st);
+    case 4: return launch<64>(xp, ip, wp, ap, bp, hp, op, s, m, o, d, r, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

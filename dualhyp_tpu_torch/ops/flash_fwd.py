@@ -8,12 +8,17 @@ Counterpart of `dualhyp_tpu/ops/pallas/flash_fwd.py`:
     `full_attention_plain` on CPU tensors.
   * `causal_attention_fwd`: causal grouped-query attention, forward only.
     It launches kernel K7 (the same source, with its causal flag) on CUDA
-    tensors and runs `attention.causal_attention_plain` on CPU tensors.
+    tensors and runs `causal_attention_fwd_plain` on CPU tensors.
 
-Both kernels take fp32 and bf16, head size 64, and q, k, v in any (batch,
-head, token) strides with a unit channel stride and 16-byte aligned rows.
-The output is a (B, H, T, 64) view of a (B, T, H, 64) buffer, so
-`o.transpose(1, 2).reshape(B, T, H * 64)` costs no copy.
+Both follow the Pallas kernel's arithmetic at every dtype: fp32 logits
+from q times the scale in fp32 and k in fp32, an fp32 softmax, and the fp32
+probabilities times v upcast to fp32, rounded once (K1's forward,
+`attention.causal_attention_plain`, rounds the probabilities to the query
+dtype instead). At bf16 the kernels run that fp32 P V as two bf16 products
+of P's hi and lo halves. Both take fp32 and bf16, head size 64, and q, k, v
+in any (batch, head, token) strides with a unit channel stride and 16-byte
+aligned rows. The output is a (B, H, T, 64) view of a (B, T, H, 64)
+buffer, so `o.transpose(1, 2).reshape(B, T, H * 64)` costs no copy.
 """
 
 from __future__ import annotations
@@ -23,36 +28,60 @@ import math
 import torch
 
 from dualhyp_tpu_torch.ops import _lib
-from dualhyp_tpu_torch.ops.attention import causal_attention_plain
 
 _ARGS = [_lib.C_PTR] * 4 + [_lib.C_INT] * 6 + [_lib.C_F32] + [_lib.C_I64] * 12
 
 # K6: replaces dualhyp_tpu/ops/pallas/flash_fwd.py `_kernel` as
-# `full_attention_fwd` calls it. Bound by operations (fp32 on the CUDA cores
-# at the encoder's dtype); K/V tiles through shared memory, online softmax.
-# See the source note in csrc/flash_fwd.cu.
+# `full_attention_fwd` calls it. Bound by operations: fp32 (the encoder's
+# dtype) on the CUDA cores, K/V tiles through shared memory; bf16 on L1's
+# forward kernel body (wgmma, TMA, P V as hi + lo). Online softmax. On an
+# NVIDIA H100 80GB HBM3 at 700.00 W: fp32 0.482 ms at B1 H20 T=S=1500
+# (SDPA 0.436), bf16 0.404 at B8 (SDPA 0.246). See the source notes in
+# csrc/flash_fwd.cu and csrc/flash_attention.cu.
 FLASH_FULL = _lib.Kernel("dh_full_attention_fwd", _ARGS)
-# K7: the same `_kernel` as `causal_attention_fwd` calls it (causal=True).
+# K7: the same `_kernel` as `causal_attention_fwd` calls it (causal=True),
+# bf16 on the same body: 0.172 ms at B8 Hq32 G4 T1024 on an NVIDIA H100
+# 80GB HBM3 at 700.00 W (SDPA 0.109).
 FLASH_CAUSAL = _lib.Kernel("dh_causal_attention_fwd", _ARGS)
 
 HEAD_SIZE = 64
 
 
-def full_attention_plain(q, k, v, scale: float | None = None, kv_valid: int | None = None):
-    """The plain PyTorch version of K6: fp32 logits from fp32 q and k, keys at
-    or past `kv_valid` masked, fp32 softmax, fp32 P v (v cast to fp32, as the
-    Pallas kernel casts it), cast to q's dtype. q: (B, H, T, D); k, v:
-    (B, H, S, D)."""
-    if scale is None:
-        scale = 1.0 / math.sqrt(q.shape[-1])
+def _attention_plain(q, k, v, scale: float, causal: bool, kv_valid: int | None = None):
+    """The Pallas kernel's arithmetic (`flash_fwd._kernel`): fp32 logits from
+    q times the scale in fp32 and k in fp32, query i masked from keys j > i
+    when `causal` and from keys at or past `kv_valid`, fp32 softmax, fp32
+    probabilities times v upcast to fp32, rounded once to q's dtype.
+    q: (B, Hq, T, D); k, v: (B, G, S, D), Hq a multiple of G."""
+    b, hq, t, d = q.shape
+    g, s_len = k.shape[1], k.shape[2]
     acc = torch.promote_types(q.dtype, torch.float32)
-    logits = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * scale
-    s_len = k.shape[2]
+    qg = (q.to(acc) * scale).reshape(b, g, hq // g, t, d)
+    logits = torch.matmul(qg, k.to(acc)[:, :, None].transpose(-1, -2))
+    keys = torch.arange(s_len, device=q.device)
+    if causal:
+        logits = logits.masked_fill(keys > torch.arange(t, device=q.device)[:, None],
+                                    float("-inf"))
     if kv_valid is not None and kv_valid < s_len:
-        keys = torch.arange(s_len, device=q.device)
         logits = logits.masked_fill(keys >= kv_valid, float("-inf"))
     probs = torch.softmax(logits, dim=-1)
-    return torch.matmul(probs, v.to(acc)).to(q.dtype)
+    return torch.matmul(probs, v.to(acc)[:, :, None]).reshape(q.shape).to(q.dtype)
+
+
+def full_attention_plain(q, k, v, scale: float | None = None, kv_valid: int | None = None):
+    """The plain PyTorch version of K6 (`_attention_plain`, bidirectional,
+    keys at or past `kv_valid` masked). q: (B, H, T, D); k, v: (B, H, S, D)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return _attention_plain(q, k, v, scale, causal=False, kv_valid=kv_valid)
+
+
+def causal_attention_fwd_plain(q, k, v, scale: float | None = None):
+    """The plain PyTorch version of K7 (`_attention_plain`, causal, grouped
+    query heads). q: (B, Hq, T, D); k, v: (B, G, T, D)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return _attention_plain(q, k, v, scale, causal=True)
 
 
 def _check(q, k, v, causal: bool):
@@ -108,5 +137,5 @@ def causal_attention_fwd(q, k, v, scale: float | None = None):
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
-        return causal_attention_plain(q, k, v, scale)
+        return causal_attention_fwd_plain(q, k, v, scale)
     return _launch(FLASH_CAUSAL, q, k, v, scale, k.shape[2], causal=True)

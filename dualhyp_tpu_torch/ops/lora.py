@@ -19,14 +19,22 @@ from dualhyp_tpu_torch.ops.swiglu import _full_fp32_matmuls
 
 # K5: replaces dualhyp_tpu/ops/pallas/lora_kernel.py `_kernel`. Bound by the
 # base product's operations at prefill and training rows and by W's bytes at
-# decode rows; the (rows, r) and (rows, O) intermediates stay on chip. See
-# the source note in csrc/lora_linear.cu.
+# decode rows; the (rows, O) intermediate stays on chip. Above DECODE_ROWS
+# rows two wgmma/TMA kernels: h = bf16(xin A^T) into an (rows, r_pad)
+# scratch, then 128 x 256 tiles of x W^T with h B^T added in the epilogue,
+# s folded into the base sum; at decode rows an mma.sync tile that keeps
+# the (rows, r) tile on chip too. On an NVIDIA H100 80GB HBM3 at 700.00 W:
+# 0.0775 ms at 3072 rows of the fused QKV (cuBLAS x3 + add 0.112), 0.1747
+# at 8192. See the source note in csrc/lora_linear.cu.
 LORA_LINEAR = _lib.Kernel(
     "dh_lora_linear",
-    [_lib.C_PTR] * 6 + [_lib.C_F32] + [_lib.C_INT] * 4,
+    [_lib.C_PTR] * 7 + [_lib.C_F32] + [_lib.C_INT] * 4,
 )
 
 MAX_RANK = 64  # the kernel's largest padded rank
+# rows at or below which the mma.sync decode tile runs, above it the wgmma
+# kernels
+DECODE_ROWS = 16
 
 
 def lora_linear_plain(x, w, a, b, s, xin=None):
@@ -68,15 +76,30 @@ def _launch(x, xin, w, a, b, s):
     if d % 8 or not 0 < r <= MAX_RANK:
         raise ValueError(f"lora kernel needs in_features % 8 == 0 and 0 < rank <= "
                          f"{MAX_RANK}, got {d}, {r}")
-    x2 = x.reshape(-1, d).contiguous()
-    xin2 = x2 if xin is None else xin.reshape(-1, d).contiguous()
-    w, a, b = w.contiguous(), a.contiguous(), b.contiguous()
+    x2 = _aligned(x.reshape(-1, d))
+    xin2 = x2 if xin is None else _aligned(xin.reshape(-1, d))
+    w, a, b = _aligned(w), _aligned(a), _aligned(b)
     rows = x2.shape[0]
+    h = None
+    if rows > DECODE_ROWS:  # the wgmma kernels and their (rows, r_pad) scratch
+        if r % 8:  # B's rows go by TMA: 16-byte rows
+            pad = -r % 8
+            a = torch.nn.functional.pad(a, (0, 0, 0, pad))
+            b = torch.nn.functional.pad(b, (0, pad))
+            r += pad
+        h = torch.empty((rows, -(-r // 16) * 16), dtype=x.dtype, device=device)
     out = torch.empty((rows, o), dtype=x.dtype, device=device)
     if rows and o:
         LORA_LINEAR(device, x2.data_ptr(), xin2.data_ptr(), w.data_ptr(), a.data_ptr(),
-                    b.data_ptr(), out.data_ptr(), float(s), rows, o, d, r)
+                    b.data_ptr(), 0 if h is None else h.data_ptr(), out.data_ptr(),
+                    float(s), rows, o, d, r)
     return out.reshape(*x.shape[:-1], o)
+
+
+def _aligned(t):
+    """`t` contiguous and 16-byte aligned (a copy only where it is not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _forward(x, xin, w, a, b, s):
@@ -109,7 +132,10 @@ class LoRALinear(torch.autograd.Function):
         dx = dy @ w if ctx.needs_input_grad[0] else None
         dxin = None
         if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
-            dxin = torch.tensor(s, dtype=dy.dtype, device=dy.device) * (dy_b @ a)
+            # s rounded to dy's dtype, as the JAX product's; a CPU scalar
+            # tensor: one made on the card from a Python number would copy
+            # it there and hold the host until the card caught up, every call
+            dxin = torch.tensor(s, dtype=dy.dtype) * (dy_b @ a)
         da = db = None
         acc_t = torch.promote_types(dy.dtype, torch.float32)
         with _full_fp32_matmuls():

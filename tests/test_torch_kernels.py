@@ -7,7 +7,10 @@ wrappers' refusals, the autograd ops of the training path, K8 at ragged
 rows and N with split K (1 to 3072 rows around its 16-row decode tile
 and its 128-token tile, K of one and five groups), K8 and L2's
 forward and lhs gradient repeating bitwise at 3072 rows, K5 at ragged
-rows and O, ranks 16 and 48, a zero scale and a separate LoRA input, and K6/K7 in fp32 and bf16 at T or
+rows and O, ranks 4, 8, 16, 40, 48 and 64, a zero scale and a separate LoRA
+input, rows 17 to 1536 around its wgmma kernels' tiles, an unaligned
+input, bitwise repeats at 3072 rows and no host wait forward or backward,
+and K6/K7 in fp32 and bf16 at T or
 S of 1, 63, 64, 65 and 1500, S != T, kv_valid and strided inputs, L2
 (the grouped matmul) at M of 0, 1, 16, 17, 64, 65, 300 and 6144 with
 empty, straddling and single groups, groups of 127, 128 and 129 rows
@@ -226,9 +229,11 @@ def test_swiglu_refuses_unaligned_width(dev, gen):
 
 # K6/K7 (flash_fwd): fp32 against the fp32 plain version (sums in another
 # order, expf against torch.exp: ~1e-6 on unit-normal inputs; 1e-4 as
-# chip_smoke.py holds it); bf16 rounds P to bf16 before the PV product and
-# the output once (2e-2, as chip_smoke.py; K1's forward reads ~0.016).
-FWD_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (2e-2, 0.0)}
+# chip_smoke.py holds it); bf16 keeps P in fp32 for the P V product (hi + lo
+# halves, each a bf16 product) as the plain version does, and both round the
+# output once: one bf16 ulp apart at most (rtol 2^-7), near-zero outputs of
+# cancelling terms by the fp32 sums' order (atol), as L1's forward.
+FWD_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1e-3, 2.0 ** -7)}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -272,7 +277,7 @@ def test_causal_attention_fwd(dev, gen, dtype, t, hq, g):
     before = flash_fwd.FLASH_CAUSAL.launches
     got = flash_fwd.causal_attention_fwd(q, k, v)
     assert flash_fwd.FLASH_CAUSAL.launches == before + 1
-    _close(got, attention.causal_attention_plain(q, k, v), *FWD_TOL[dtype])
+    _close(got, flash_fwd.causal_attention_fwd_plain(q, k, v), *FWD_TOL[dtype])
 
 
 def test_flash_fwd_refuses_what_it_does_not_take(dev, gen):
@@ -299,7 +304,7 @@ def test_flash_fwd_runs_the_plain_version_on_a_cpu_tensor(dev, gen):
     assert torch.equal(flash_fwd.full_attention_fwd(q, k, v),
                        flash_fwd.full_attention_plain(q, k, v))
     assert torch.equal(flash_fwd.causal_attention_fwd(q, k, v),
-                       attention.causal_attention_plain(q, k, v))
+                       flash_fwd.causal_attention_fwd_plain(q, k, v))
     assert (flash_fwd.FLASH_FULL.launches, flash_fwd.FLASH_CAUSAL.launches) == before
 
 
@@ -500,6 +505,40 @@ def test_lora_linear(dev, gen, rows, o, d, r, s, separate):
     _close(got, lora.lora_linear_plain(x, w, a, b, s, xin), *Q4_TOL)
 
 
+# K5's wgmma kernels (rows above lora.DECODE_ROWS): rows around the rank
+# kernel's 64-row and the base kernel's 128-row tiles and the fused slice's
+# prefill (1536), ranks that are not multiples of 16 (8, 40) or of 8 (4:
+# the wrapper pads A and B with zeros) and the largest (64), O past two
+# 256-column tiles, D of eleven 64-deep stages, and s = 0.75 (folded into
+# the base sum: not a power of two, so one more fp32 rounding of each term)
+@pytest.mark.parametrize("rows", [17, 64, 127, 128, 129, 1536])
+@pytest.mark.parametrize("r", [4, 8, 40, 64])
+@pytest.mark.parametrize("separate", [False, True])
+def test_lora_linear_wgmma_tiles(dev, gen, rows, r, separate):
+    x = _randn(gen, rows, 704)
+    xin = _randn(gen, rows, 704) if separate else None
+    w = _randn(gen, 520, 704, std=0.05)
+    a = _randn(gen, r, 704, std=0.05)
+    b = _randn(gen, 520, r, std=0.05)
+    before = lora.LORA_LINEAR.launches
+    got = lora.lora_linear(x, w, a, b, 0.75, xin=xin)
+    assert lora.LORA_LINEAR.launches == before + 1
+    _close(got, lora.lora_linear_plain(x, w, a, b, 0.75, xin), *Q4_TOL)
+
+
+def test_lora_linear_takes_an_unaligned_batched_input(dev, gen):
+    """x of shape (B, T, d) starting 2 bytes past a 16-byte boundary (TMA
+    needs aligned rows: the wrapper copies it)."""
+    flat = _randn(gen, 1 + 2 * 40 * 256)
+    x = flat[1:].view(2, 40, 256)
+    assert x.data_ptr() % 16
+    w, a, b = _randn(gen, 96, 256, std=0.05), _randn(gen, 16, 256, std=0.05), _randn(
+        gen, 96, 16, std=0.05)
+    got = lora.lora_linear(x, w, a, b, 2.0)
+    assert got.shape == (2, 40, 96)
+    _close(got, lora.lora_linear_plain(x, w, a, b, 2.0), *Q4_TOL)
+
+
 def test_lora_linear_autograd_on_the_card_matches_the_cpu(dev, gen):
     x, xin = _randn(gen, 70, 256), _randn(gen, 70, 256)
     w = _randn(gen, 96, 256, std=0.05)
@@ -517,6 +556,24 @@ def test_lora_linear_autograd_on_the_card_matches_the_cpu(dev, gen):
         grads[where] = [t.grad.float().cpu() for t in leaves]
     for got, want in zip(grads["cuda"], grads["cpu"]):
         assert float((got - want).norm() / want.norm()) < 0.02
+
+
+@pytest.mark.parametrize("rows", [8, 300])
+def test_lora_linear_forward_and_backward_do_not_sync_the_host(dev, gen, rows):
+    """K5 and its backward enqueue work without waiting for the card (a
+    wait in every backward call left the fused training step host-bound)."""
+    x, xin = (_randn(gen, rows, 256).requires_grad_() for _ in range(2))
+    w = _randn(gen, 96, 256, std=0.05)
+    a, b = (_randn(gen, *shape, dtype=torch.float32, std=0.05).requires_grad_()
+            for shape in ((16, 256), (96, 16)))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = lora.lora_linear(x, w, a, b, 0.75, xin=xin)
+        out.float().square().mean().backward()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert all(t.grad is not None for t in (x, xin, a, b))
 
 
 def test_lora_linear_refuses_what_it_does_not_take(dev, gen):
@@ -571,12 +628,17 @@ def test_grouped_matmul(dev, gen, m, case, n, k):
     _close(got, gmm.grouped_matmul_plain(lhs, w, sizes), *GMM_TOL)
 
 
-@pytest.mark.parametrize("kernel", ["q4_matmul", "grouped_matmul", "grouped_matmul_dlhs"])
+@pytest.mark.parametrize("kernel", ["q4_matmul", "grouped_matmul", "grouped_matmul_dlhs",
+                                    "lora_linear"])
 def test_prefill_kernels_repeat_bitwise(dev, gen, kernel):
-    """K8 at 3072 rows and L2's forward and lhs gradient at 3072 rows sum
-    in a fixed order (no atomics): two calls give the same bits, one launch
-    each."""
-    if kernel == "q4_matmul":
+    """K8, L2's forward and lhs gradient and K5 at 3072 rows sum in a fixed
+    order (no atomics): two calls give the same bits, one launch each."""
+    if kernel == "lora_linear":
+        x, xin = _randn(gen, 3072, 2048), _randn(gen, 3072, 2048)
+        w, a = _randn(gen, 2560, 2048, std=0.02), _randn(gen, 48, 2048, std=0.02)
+        b = _randn(gen, 2560, 48, std=0.02)
+        wrapper, call = lora.LORA_LINEAR, lambda: lora.lora_linear(x, w, a, b, 1.0, xin=xin)
+    elif kernel == "q4_matmul":
         packed, scales = quant.quantize_weight_int4(
             _randn(gen, 5632, 2048, dtype=torch.float32, std=0.02))
         x = _randn(gen, 3072, 2048)

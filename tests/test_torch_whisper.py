@@ -5,8 +5,16 @@ The log-mel front-end is the same numpy, so it is held to equality. The
 encoder (fp32, the config of `tests/test_pallas.py`'s encoder test) is held
 to 1e-5 against `encode` on the XLA path and on the Pallas path
 (`DUALHYP_WHISPER_ATTN=flash`, K6 in interpret mode): fp32 sums in another
-order through two blocks. `full_attention_plain` and `causal_attention_plain`
-are held to 1e-5 against the Pallas kernels K6 and K7 in interpret mode.
+order through two blocks. K6's and K7's plain versions (`full_attention_plain`,
+`causal_attention_fwd_plain`) are held against the Pallas kernels K6 and K7
+in interpret mode: in fp32 to 1e-5; in bf16, where both keep the
+probabilities in fp32 for the P V product and round the output once, at
+most 1% of the elements may differ (a rounding of fp32 sums taken in
+another order), by at most one bf16 ulp of the largest output. K1's plain
+forward (`attention.causal_attention_plain`), which rounds the
+probabilities to bf16, differs on ~40% of them. At an unaligned T the JAX
+`causal_attention_fwd` takes its XLA path, which rounds the probabilities
+too: there the plain version is held to 2 bf16 ulps of the largest output.
 The safetensors reader reads a file written here with numpy, and
 `load_whisper` gives the tree that the JAX package's
 `convert_hf_whisper_encoder` gives on the same tensors, exactly.
@@ -30,6 +38,12 @@ from dualhyp_tpu_torch.ops import flash_fwd
 from dualhyp_tpu_torch.ops.attention import causal_attention_plain
 
 ATOL = 1e-5
+# bf16 plain versions against the Pallas kernels: the share of elements that
+# may differ, and the bound on a difference in bf16 ulps of the largest output
+BF16_DIFFER_SHARE = 0.01
+BF16_ULPS = 1
+# against the XLA path at unaligned T, which rounds the probabilities to bf16
+XLA_BF16_ULPS = 2
 TINY = dict(n_mels=16, n_ctx=96, n_state=128, n_head=2, n_layer=2)
 
 
@@ -109,9 +123,8 @@ def test_full_attention_plain_masks_keys_past_kv_valid(rng):
 
 @pytest.mark.parametrize("t,hq,g", [(256, 4, 2), (48, 4, 4)])
 def test_causal_attention_plain_matches_k7(rng, t, hq, g):
-    """K7's plain version against `causal_attention_fwd` (the Pallas kernel
-    in interpret mode at T=256; at T=48, not a multiple of its blocks, the
-    JAX function takes its XLA path)."""
+    """K7's plain version against `causal_attention_fwd`, the Pallas kernel
+    in interpret mode (at T=48 with blocks of 48, at T=256 of 256)."""
     q = rng.normal(size=(1, hq, t, 64)).astype(np.float32)
     k, v = (rng.normal(size=(1, g, t, 64)).astype(np.float32) for _ in range(2))
     want = np.asarray(jflash.causal_attention_fwd(jnp.asarray(q), jnp.asarray(k),
@@ -119,7 +132,70 @@ def test_causal_attention_plain_matches_k7(rng, t, hq, g):
     got = flash_fwd.causal_attention_fwd(*(torch.from_numpy(a) for a in (q, k, v)))
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
     np.testing.assert_array_equal(
-        got.numpy(), causal_attention_plain(*(torch.from_numpy(a) for a in (q, k, v))).numpy())
+        got.numpy(),
+        flash_fwd.causal_attention_fwd_plain(*(torch.from_numpy(a) for a in (q, k, v))).numpy())
+
+
+def _bf16_inputs(seed, q_shape, kv_shape):
+    """q, k, v drawn in fp32 with numpy, rounded to bf16: (JAX, torch)."""
+    rng = np.random.default_rng(seed)
+    arrays = [rng.normal(size=q_shape).astype(np.float32),
+              *(rng.normal(size=kv_shape).astype(np.float32) for _ in range(2))]
+    return ([jnp.asarray(a, jnp.bfloat16) for a in arrays],
+            [torch.from_numpy(a).to(torch.bfloat16) for a in arrays])
+
+
+def _bf16_ulp_of_max(x):
+    """One bf16 ulp (8 significant bits) of the largest |x|."""
+    return float(np.exp2(np.floor(np.log2(np.abs(x).max())) - 7))
+
+
+def _assert_bf16_close(got, want, share, ulps):
+    got = got.float().numpy()
+    want = np.asarray(want.astype(jnp.float32))
+    assert got.shape == want.shape
+    differ = float((got != want).mean())
+    worst = float(np.abs(got - want).max())
+    assert differ <= share, f"{differ:.4f} of the elements differ (max {worst})"
+    assert worst <= ulps * _bf16_ulp_of_max(want), f"max abs difference {worst}"
+
+
+@pytest.mark.parametrize("t,s", [(256, 256), (256, 170), (77, 300)])
+def test_full_attention_plain_matches_the_pallas_kernel_in_bf16(t, s):
+    """K6's plain version against `full_attention_fwd` in interpret mode, at
+    bf16 inputs: aligned T and S, and S != T (the kernel pads both and masks
+    the keys past S)."""
+    (jq, jk, jv), (tq, tk, tv) = _bf16_inputs(t + s, (2, 3, t, 64), (2, 3, s, 64))
+    want = jflash.full_attention_fwd(jq, jk, jv)
+    got = flash_fwd.full_attention_fwd(tq, tk, tv)
+    assert got.dtype == torch.bfloat16
+    _assert_bf16_close(got, want, BF16_DIFFER_SHARE, BF16_ULPS)
+
+
+@pytest.mark.parametrize("t,hq,g", [(256, 4, 2), (256, 4, 4), (48, 4, 4)])
+def test_causal_attention_plain_matches_k7_in_bf16(t, hq, g):
+    """K7's plain version against `causal_attention_fwd` in interpret mode,
+    at bf16 inputs. K1's plain forward, which rounds P to bf16 before P V
+    (the arithmetic K7's plain version had before), misses the same bound."""
+    (jq, jk, jv), (tq, tk, tv) = _bf16_inputs(t + hq + g, (1, hq, t, 64), (1, g, t, 64))
+    want = jflash.causal_attention_fwd(jq, jk, jv)
+    _assert_bf16_close(flash_fwd.causal_attention_fwd(tq, tk, tv), want, BF16_DIFFER_SHARE,
+                       BF16_ULPS)
+    with pytest.raises(AssertionError, match="of the elements differ"):
+        _assert_bf16_close(causal_attention_plain(tq, tk, tv), want, BF16_DIFFER_SHARE,
+                           BF16_ULPS)
+
+
+@pytest.mark.parametrize("t", [300, 768])
+def test_causal_attention_plain_at_unaligned_t_matches_the_jax_xla_path_in_bf16(t):
+    """At T=300 (not a multiple of the 256-row query block) and T=768 (not a
+    multiple of the 512-key block) the JAX function runs
+    `_causal_attention_xla`, which rounds the probabilities to bf16; the
+    port keeps the Pallas arithmetic at every T (one bf16 ulp of the
+    largest output measured, on ~40% of the elements)."""
+    (jq, jk, jv), (tq, tk, tv) = _bf16_inputs(t, (1, 4, t, 64), (1, 2, t, 64))
+    want = jflash.causal_attention_fwd(jq, jk, jv)
+    _assert_bf16_close(flash_fwd.causal_attention_fwd(tq, tk, tv), want, 1.0, XLA_BF16_ULPS)
 
 
 # ---- safetensors files written here with numpy ----

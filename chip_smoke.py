@@ -11,7 +11,8 @@ prints one JSON line; a failed phase raises and the script exits non-zero.
      the kernel library is built from `dualhyp_tpu_torch/csrc/*.cu`, and the
      registers, static shared memory and spills of the wgmma/TMA kernels
      (K1's forward and backward, L1's forward, dQ and dK/dV, K4, K5, K6/K7
-     at bf16, K8 and L2) are printed from `-Xptxas -v`;
+     at fp32 and bf16, K8 and L2) are printed from `-Xptxas -v`, and each
+     kernel's count of wgmma instructions (HGMMA) from `cuobjdump -sass`;
   2. one phase per kernel, at the main path's shapes (bf16, batch 8, prompt
      384, decode rows 8): the kernel against its plain PyTorch version on the
      same inputs, within a stated tolerance, then CUDA-event times of the
@@ -73,7 +74,9 @@ prints one JSON line; a failed phase raises and the script exits non-zero.
      G=4 T=1024 and a ragged T=200: each against its plain version (the
      Pallas kernel's fp32 P V; at bf16 also the share of elements that
      differ, beside K1's forward, which rounds P, on K7's inputs; two calls
-     bitwise equal), timed beside its bound and SDPA;
+     bitwise equal), timed beside its bound and SDPA; at fp32 the bound is
+     that of six bf16 tensor-core products (the kernel's three pieces of
+     each operand), beside the CUDA cores' fp32 bound;
  13. a depth-2, full-width (1280, 20 heads, 128 mels) Whisper encoder from
      seeded numpy weights, card (K6, fp32, TF32 off) against CPU (plain,
      fp32), on a 3-s mel and a 30-s `pad_or_trim` mel;
@@ -106,7 +109,7 @@ prints one JSON line; a failed phase raises and the script exits non-zero.
      p50, tokens/s, peak memory, launches, greedy agreement;
  19. L2's gradients at Mixtral's training rows (8 x 1024 tokens x top 2 =
      16384) for fc_1 and proj, skewed, with empty experts and in a single
-     group: dlhs (two calls bitwise equal) and drhs against their plain
+     group: dlhs and drhs (each two calls bitwise equal) against their plain
      versions, timed beside their
      bound and torch._grouped_mm; K1's backward at head size 128 (B8 Hq32
      G8, T=1024 and a ragged T=200); the MoE layer's backward without host
@@ -283,6 +286,9 @@ DEPTH2_ATOL = 0.1
 # between the two quanta.
 FLASH_FWD_ATOL = {"float32": 1e-4, "bfloat16": 1e-2}
 FLASH_FWD_DIFFER_SHARE = 0.05  # bf16: the share of elements that may differ
+# K6/K7 at fp32: bf16 tensor-core products a product (three pieces of each
+# operand, the pairs (i, j) with i + j <= 2)
+SPLIT_PRODUCTS = 6
 # depth-2 Whisper encoder, card (K6, fp32 products with TF32 off) against the
 # CPU (plain, fp32): the same fp32 arithmetic summed in another order, held
 # to 1e-4 of the largest feature (~5 after the final LayerNorm). One pass of
@@ -521,8 +527,8 @@ def kernel_phases(torch, seed: int) -> dict:
 
 def repeatable(name, fn, torch):
     """`fn()` twice; raises unless the two outputs (a tensor or a tuple of
-    them) are bitwise equal (K4, K8, L2's forward and dlhs and L1's dQ and
-    dK/dV sum in a fixed order: no atomics). Returns the output."""
+    them) are bitwise equal (K4, K6, K8, L2's forward and both gradients and
+    L1's dQ and dK/dV sum in a fixed order: no atomics). Returns the output."""
     first, second = fn(), fn()
     pairs = zip(first, second) if isinstance(first, tuple) else ((first, second),)
     for x, y in pairs:
@@ -1512,6 +1518,27 @@ def ptxas_report(source: str):
     return out
 
 
+def sass_counts(lib, opcode: str = "HGMMA"):
+    """{kernel instance: count of `opcode` instructions} in the SASS of the
+    built library (`cuobjdump -sass`; HGMMA is wgmma's SASS), for the
+    kernels that hold any; None where the toolkit has no cuobjdump."""
+    import re
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).is_file():
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=600, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = kernel_instance(m[1])
+        elif name and re.search(rf"\b{opcode}\b", line):
+            counts[name] = counts.get(name, 0) + 1
+    return counts
+
+
 def sdpa_gqa(F, q, k, v, scale):
     """One causal GQA call of scaled_dot_product_attention (the yardstick):
     enable_gqa where torch has it, else K/V expanded beforehand."""
@@ -1879,16 +1906,25 @@ def flash_fwd_phase(torch, seed: int) -> dict:
         err, share = check(f"full_attention_fwd {label}",
                            repeatable("full_attention_fwd", fn, torch), plain(), name)
         elem = q.element_size()
-        bms, by = bound((2 * b * h * t * hs + 2 * b * h * s_len * hs) * elem,
-                        4 * b * h * t * s_len * hs,
-                        FP32_FLOPS if dtype == torch.float32 else BF16_TENSOR_FLOPS)
+        nbytes = (2 * b * h * t * hs + 2 * b * h * s_len * hs) * elem
+        flops = 4 * b * h * t * s_len * hs
+        extra = {}
+        if dtype == torch.float32:
+            # fp32 accuracy on the tensor cores takes six bf16 products a
+            # product (three pieces of each operand): the least time is the
+            # larger of the bytes and 6 x the operations at the bf16 rate,
+            # below the CUDA cores' fp32 rate (the bound of an FFMA kernel)
+            bms, by = bound(nbytes, SPLIT_PRODUCTS * flops, BF16_TENSOR_FLOPS)
+            extra["bound_ms_cuda_cores"], _ = bound(nbytes, flops, FP32_FLOPS)
+        else:
+            bms, by = bound(nbytes, flops, BF16_TENSOR_FLOPS)
         full[label] = dict(
             shape=[b, h, t, s_len, hs], dtype=name, max_abs_err=err, differ_share=share,
             repeats_bitwise=True,
             ms=time_ms(fn, torch), device_ms=device_ms(fn, torch),
             plain_ms=time_ms(plain, torch, warmup=1, iters=5),
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v), torch),
-            library="SDPA (non-causal)", bound_ms=bms, bound_by=by)
+            library="SDPA (non-causal)", bound_ms=bms, bound_by=by, **extra)
         del q, k, v
     emit({"phase": "kernel", "name": "full_attention_fwd",
           "tolerance": {"max_abs_err": FLASH_FWD_ATOL,
@@ -2646,7 +2682,7 @@ def first_that_runs(candidates):
 def gmm_bwd_phase(torch, seed: int) -> dict:
     """L2's two gradients at Mixtral's training rows (16384) for fc_1 and
     proj, each with a skewed draw, empty experts and a single group: dlhs
-    (two calls bitwise equal) and drhs against their plain versions; the
+    and drhs (each two calls bitwise equal) against their plain versions; the
     skewed draw timed beside the bound and torch._grouped_mm (dlhs: the (E,
     N, K) stack as it is; drhs: the 2-D x 2-D form with the offsets on the
     reduction axis)."""
@@ -2681,12 +2717,11 @@ def gmm_bwd_phase(torch, seed: int) -> dict:
                       "torch._grouped_mm (N, M) x (M, K), offsets on M, g transposed by a copy")],
                     (rows * n + rows * k + n_expert * n * k) * 2 + n_expert * 4)}
             for kname, (fn, plain, libs, nbytes) in kernels.items():
-                got = repeatable(kname, fn, torch) if kname == "grouped_matmul_dlhs" else fn()
+                got = repeatable(kname, fn, torch)
                 err = compare(kname, got, plain(), torch)
                 del got
                 entry = dict(shape=[rows, n, k], group_sizes=sizes.tolist(), max_abs_err=err,
-                             **({"repeats_bitwise": True} if kname == "grouped_matmul_dlhs"
-                                else {}))
+                             repeats_bitwise=True)
                 if case == "skewed":
                     lib, lib_name = first_that_runs(libs)
                     bms, by = bound(nbytes, flops, BF16_TENSOR_FLOPS)
@@ -3078,8 +3113,10 @@ def main(argv=None) -> int:
     # registers, static shared memory and spills of the wgmma/TMA kernels
     emit({"phase": "ptxas", **{src: ptxas_report(src) or "not measured (built before this run)"
                                for src in ("flash_attention.cu", "flash_attention_bwd.cu",
-                                           "swiglu.cu", "int4_matmul.cu",
+                                           "flash_fwd.cu", "swiglu.cu", "int4_matmul.cu",
                                            "grouped_matmul.cu", "lora_linear.cu")}})
+    # the kernels on the tensor cores: wgmma (HGMMA) instructions in their SASS
+    emit({"phase": "sass", "HGMMA": sass_counts(lib)})
     emit({"phase": "l2_flush", "bytes": L2_FLUSH_BYTES, "ms": time_ms(l2_flush(torch), torch)})
 
     seconds = {}
@@ -3240,8 +3277,11 @@ def main(argv=None) -> int:
             **({"decode": kernels[name]["decode"]} if "decode" in kernels[name] else {}),
         }
         if shape:  # K5, K6, K7, K8: every measured shape beside the main one
-            entry["shapes"] = {k: {key: v[key] for key in keys if key in v}
+            entry["shapes"] = {k: {key: v[key] for key in keys + ("bound_ms_cuda_cores",)
+                                   if key in v}
                                for k, v in kernels[name].items()}
+        if name == "full_attention_fwd":  # fp32: the CUDA cores' bound beside the split one
+            entry["bound_ms_cuda_cores"] = main_shape["bound_ms_cuda_cores"]
         if name in train_rows:
             entry["train_rows"] = {k: train_rows[name][k] for k in keys}
         if name == "apply_rope":

@@ -54,13 +54,20 @@
 //     decode tile through `ldmatrix.trans`, load_frag_b_kmajor), so the
 //     stack is never transposed or copied (a copy would be 940 MB a call at
 //     Mixtral's width);
-//   * drhs grids over (K tile, N tile, expert): each block finds its group's
-//     rows from the group sizes on the device and walks them, BR rows a
-//     step, summing g^T lhs in fp32 registers; both operands are k-major
-//     (the rows of the group are the contraction), read by ldmatrix.trans.
-//     The output is written once, in the stored (E, N, K) layout, so no
-//     swap of axes follows (megablox swaps its output, ops.py); an empty
-//     group writes zeros. No atomics: a block owns its output tile.
+//   * drhs (tgmm_tma_kernel, at every row count) runs on the same ring,
+//     tile sizes and consumers with the roles turned: a block owns a (128
+//     n, 256 k) tile of one expert's dW, finds its group's rows from the
+//     group sizes on the device and walks them 64 a step, starting at the
+//     group's first row; A is g^T and B is lhs, both read MN-major from
+//     (64 rows, 64) boxes of the row-major g and lhs, so nothing is
+//     transposed or copied in device memory. The group's last step brings
+//     the next group's rows (or TMA's zeros past m): summed into dW they
+//     would be wrong, so each consumer warpgroup zeroes them in its A box
+//     first (fence.proxy.async, then its products). The output is written
+//     once, in the stored (E, N, K) layout (megablox swaps its output,
+//     ops.py), by TMA stores of the sums staged in the freed stages (8-15%
+//     faster than stores from the registers), an empty group's as zeros;
+//     no atomics: a block owns its tile, and the sums repeat bit for bit.
 // Both take N and K multiples of 8 (16-byte rows of g, lhs and W).
 #include "hopper.cuh"
 
@@ -371,111 +378,151 @@ gmm_tma_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
   }
 }
 
-// drhs: dW[e] (n, k) = sum over group e's rows of g[r]^T lhs[r], g (m, n) and
-// lhs (m, k). WM x WN warps over a (BN_ = WM MT 16) x (BK_ = WN NT 8) tile of
-// dW[e]; BR rows of the group a step. Grid: (k tiles, n tiles, experts).
-template <int WM, int WN, int MT, int NT, int BR>
-__global__ void __launch_bounds__(WM * WN * 32)
-tgmm_kernel(const bf16* __restrict__ g, const bf16* __restrict__ lhs,
-            const int* __restrict__ group_sizes, bf16* __restrict__ dw, int m, int n, int k,
-            int n_groups) {
-  constexpr int kThreads = WM * WN * 32;
-  constexpr int BN_ = WM * MT * 16;  // rows of the dW tile (n)
-  constexpr int BK_ = WN * NT * 8;   // columns of the dW tile (k)
-  constexpr int kLdG = BN_ + 8;      // bf16 row stride of the g tile
-  constexpr int kLdX = BK_ + 8;      // bf16 row stride of the lhs tile
-  static_assert(NT % 2 == 0 && BR % 16 == 0, "fragment pairs, 16-row steps");
-  __shared__ __align__(16) bf16 g_s[2][BR * kLdG];
-  __shared__ __align__(16) bf16 x_s[2][BR * kLdX];
+// drhs: dW[e] (n, k) = sum over group e's rows r of g[r]^T lhs[r], g (m, n)
+// and lhs (m, k), on the forward's ring and tile sizes with the roles
+// turned: a block owns the (kBM n, kBN k) tile (n0, k0) of one expert's dW
+// and walks the group's rows kBK a step from the group's first row (TMA
+// takes any start row). A is g^T: two (64 rows, 64 n) boxes of g, read
+// MN-major, one a consumer warpgroup; B is lhs: four (64 rows, 64 k) boxes,
+// MN-major as dlhs's stack. In the group's last step the rows past its end
+// (the next group's, or zeros past m) would be summed into dW, not merely
+// left unstored: each warpgroup zeroes them in its own A box before its
+// products read it. Blocks run expert by expert, in bands of kRaster n tiles
+// with the n tile varying fastest, so the blocks that read one group's rows
+// run together. An empty group writes zeros. One block a tile: a persistent
+// grid (the ring running on across a block's tiles, the sums stored from a
+// buffer of their own) needs a stage less, and measured 3.35-3.43 ms at
+// Mixtral's 16384 rows against this kernel's 2.79-3.18 (PERF.md).
+__global__ void __launch_bounds__(kTmaThreads, 1)
+tgmm_tma_kernel(const __grid_constant__ CUtensorMap map_g,
+                const __grid_constant__ CUtensorMap map_x,
+                const __grid_constant__ CUtensorMap map_dw, const int* __restrict__ group_sizes,
+                bf16* __restrict__ dw, int m, int n, int k) {
+  constexpr int kS = kStages;
+  constexpr int kBox = 64 * kBK * 2;  // one (64 rows, 64) bf16 box
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kBarOffset);
+  uint64_t* empty = full + kS;
   __shared__ int span[2];  // the group's rows [span[0], span[1])
 
-  const int e = blockIdx.z;
+  const int n_tiles = (n + kBM - 1) / kBM;
+  const int k_tiles = (k + kBN - 1) / kBN;
+  const int e = blockIdx.x / (n_tiles * k_tiles);
+  const int in_e = blockIdx.x - e * n_tiles * k_tiles;
+  const int band = in_e / (kRaster * k_tiles);
+  const int in_band = in_e - band * kRaster * k_tiles;
+  const int band_n = min(kRaster, n_tiles - band * kRaster);
+  const int n0 = (band * kRaster + in_band % band_n) * kBM;
+  const int k0 = (in_band / band_n) * kBN;
   if (threadIdx.x == 0) {
     int start = 0;
     for (int i = 0; i < e; ++i) start = min(m, start + max(group_sizes[i], 0));
     span[0] = start;
     span[1] = min(m, start + max(group_sizes[e], 0));
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
+    }
+    mbar_fence_init();
   }
   __syncthreads();
   const int r_begin = span[0];
   const int r_end = span[1];
-  const int k0 = blockIdx.x * BK_;
-  const int n0 = blockIdx.y * BN_;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int wm = warp / WN;
-  const int wn = warp % WN;
+  const int steps = (r_end - r_begin + kBK - 1) / kBK;
+  bf16* dwe = dw + static_cast<long long>(e) * n * k;
 
-  // BR rows of the group from r0 into buffer `st`; rows past the group and
-  // columns past N or K copy zeros
-  auto load = [&](int st, int r0) {
-    for (int i = threadIdx.x; i < BR * (BN_ / 8); i += kThreads) {
-      const int r = i / (BN_ / 8);
-      const int c = (i % (BN_ / 8)) * 8;
-      const bool ok = r0 + r < r_end && n0 + c < n;
-      cp_async(&g_s[st][r * kLdG + c], ok ? g + static_cast<long long>(r0 + r) * n + n0 + c : g,
-               ok);
+  if (steps == 0) {  // an empty group: zeros (k % 8 == 0: 16-byte chunks in or out whole)
+    for (int i = threadIdx.x; i < kBM * (kBN / 8); i += kTmaThreads) {
+      const int r = n0 + i / (kBN / 8);
+      const int c = k0 + (i % (kBN / 8)) * 8;
+      if (r < n && c < k)
+        *reinterpret_cast<uint4*>(dwe + static_cast<long long>(r) * k + c) = make_uint4(0, 0, 0, 0);
     }
-    for (int i = threadIdx.x; i < BR * (BK_ / 8); i += kThreads) {
-      const int r = i / (BK_ / 8);
-      const int c = (i % (BK_ / 8)) * 8;
-      const bool ok = r0 + r < r_end && k0 + c < k;
-      cp_async(&x_s[st][r * kLdX + c],
-               ok ? lhs + static_cast<long long>(r0 + r) * k + k0 + c : lhs, ok);
-    }
-  };
-
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
-
-  const int steps = (r_end - r_begin + BR - 1) / BR;
-  if (steps > 0) load(0, r_begin);
-  cp_async_commit();
-  for (int s = 0; s < steps; ++s) {
-    const int st = s & 1;
-    if (s + 1 < steps) load(st ^ 1, r_begin + (s + 1) * BR);
-    cp_async_commit();
-    cp_async_wait<1>();  // step s's copies have landed
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BR; kk += 16) {
-      uint32_t a[MT][4];
-      uint32_t b[NT][2];
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-        load_frag_a_kmajor(a[i], g_s[st], kLdG, (wm * MT + i) * 16, kk, lane);
-#pragma unroll
-      for (int j = 0; j < NT; j += 2)
-        load_frag_b_kmajor(b[j], b[j + 1], x_s[st], kLdX, kk, (wn * NT + j) * 8, lane);
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j) mma_bf16_16816(acc[i][j], a[i], b[j]);
-    }
-    __syncthreads();  // every warp is done with buffer st before it refills
+    return;
   }
 
-  bf16* dwe = dw + static_cast<long long>(e) * n * k;
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int row = n0 + (wm * MT + i) * 16 + (lane >> 2);
-      const int col = k0 + (wn * NT + j) * 8 + (lane & 3) * 2;
-      if (col >= k) continue;  // k % 8 == 0: a pair is in or out whole
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int rr = row + h * 8;
-        if (rr < n)
-          *reinterpret_cast<uint32_t*>(dwe + static_cast<long long>(rr) * k + col) =
-              pack_bf16x2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (warp == 8) {  // ---- producer ----
+    if (lane == 0) {
+      // boxes wholly past n or k are not loaded: their sums are never stored
+      const int a_boxes = min(kBM / 64, (n - n0 + 63) / 64);
+      const int b_boxes = min(kBN / 64, (k - k0 + 63) / 64);
+      const uint32_t bytes = (a_boxes + b_boxes) * kBox;
+      for (int step = 0; step < steps; ++step) {
+        const int s = step % kS;
+        if (step >= kS) mbar_wait(&empty[s], ((step / kS) - 1) & 1);
+        unsigned char* st = smem + s * kStageBytes;
+        const int r0 = r_begin + step * kBK;
+        mbar_expect_tx(&full[s], bytes);
+        for (int j = 0; j < a_boxes; ++j)
+          tma_load_2d(st + j * kBox, &map_g, &full[s], n0 + 64 * j, r0);
+        for (int j = 0; j < b_boxes; ++j)
+          tma_load_2d(st + kATile + j * kBox, &map_x, &full[s], k0 + 64 * j, r0);
       }
     }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns dW rows n0 + 64 wg + [0, 64) ----
+  const int wg = warp >> 2;
+  const int tid = threadIdx.x & 127;
+  float acc[kBN / 2];
+  for (int step = 0; step < steps; ++step) {
+    const int s = step % kS;
+    unsigned char* st = smem + s * kStageBytes;
+    unsigned char* a = st + wg * kBox;
+    const bf16* b = reinterpret_cast<const bf16*>(st + kATile);
+    mbar_wait(&full[s], (step / kS) & 1);
+    const int valid = r_end - (r_begin + step * kBK);
+    if (valid < kBK) {
+      // the group's last step: rows [valid, 64) of the box are zeroed (a row
+      // keeps its own 128 bytes under the swizzle), then made visible to the
+      // async proxy that wgmma reads through
+      for (int i = tid; i < (kBK - valid) * 8; i += 128)
+        *reinterpret_cast<uint4*>(a + (valid + i / 8) * 128 + (i % 8) * 16) =
+            make_uint4(0, 0, 0, 0);
+      fence_async_smem();
+      named_barrier<128>(1 + wg);
+    }
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      Wgmma<kBN>::ss<1, 1>(acc, sw128_desc(a + kk * 16 * 128),
+                           sw128_desc(b + kk * 16 * 64, 1024, kBox), step > 0 || kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous stage's products are done: free it
+    fence_regs(acc);
+    if (step > 0 && lane == 0) mbar_arrive(&empty[(step - 1) % kS]);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // ---- epilogue: through the stages, now free, as four swizzled (64, 64)
+  // boxes a warpgroup, then TMA stores (rows past n, columns past k cut):
+  // whole 128-byte lines, where stores from the registers wrote 16 bytes of
+  // a row at a time ----
+  const int r_local = 16 * (warp & 3) + (lane >> 2);  // in the warpgroup's 64 rows
+  unsigned char* out = smem + wg * (kBN / 64) * kBox;
+  named_barrier<256>(3);  // both warpgroups' last products are done with the stages
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+    const int c = 8 * j + 2 * (lane & 3);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<uint32_t*>(out + (c / 64) * kBox +
+                                   swizzled_offset(r_local + 8 * h, c % 64)) =
+          pack_bf16x2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  }
+  fence_async_smem();
+  named_barrier<128>(1 + wg);
+  if (tid == 0 && n0 + 64 * wg < n) {
+    for (int c = 0; c < kBN / 64 && k0 + 64 * c < k; ++c)
+      tma_store_3d(&map_dw, out + c * kBox, k0 + 64 * c, n0 + 64 * wg, e);
+    tma_store_drain();
   }
 }
 
@@ -537,13 +584,25 @@ DH_EXPORT int dh_grouped_matmul_dlhs(const void* g, const void* w, const void* s
 // written); n and k multiples of 8, pointers 16-byte aligned.
 DH_EXPORT int dh_grouped_matmul_drhs(const void* g, const void* lhs, const void* sizes, void* dw,
                                      int m, int n, int k, int n_groups, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  constexpr int WM = 2, WN = 4, MT = 4, NT = 4, BR = 32;
-  constexpr int BN_ = WM * MT * 16;
-  constexpr int BK_ = WN * NT * 8;
-  dim3 grid((k + BK_ - 1) / BK_, (n + BN_ - 1) / BN_, n_groups);
-  tgmm_kernel<WM, WN, MT, NT, BR><<<grid, WM * WN * 32, 0, s>>>(
-      static_cast<const bf16*>(g), static_cast<const bf16*>(lhs),
-      static_cast<const int*>(sizes), static_cast<bf16*>(dw), m, n, k, n_groups);
+  // first a runtime call, which makes the card's context current on this
+  // thread (autograd runs drhs on a thread of its own): the tensor maps need it
+  int err = static_cast<int>(cudaFuncSetAttribute(
+      tgmm_tma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTmaSmem));
+  if (err) return err;
+  // with no rows every group is empty and no map is read: both are encoded
+  // over dw, a valid base address
+  CUtensorMap map_g, map_x;
+  err = m > 0 ? make_matrix_map(&map_g, g, m, n, n, kBK)
+              : make_matrix_map(&map_g, dw, 1, k, k, kBK);
+  if (!err)
+    err = m > 0 ? make_matrix_map(&map_x, lhs, m, k, k, kBK)
+                : make_matrix_map(&map_x, dw, 1, k, k, kBK);
+  if (err) return err;
+  CUtensorMap map_dw;  // the (E, N, K) output stack, boxes of (64, 64) of one expert
+  err = make_stack_map(&map_dw, dw, n_groups, n, k, 64);
+  if (err) return err;
+  const int blocks = n_groups * ((n + kBM - 1) / kBM) * ((k + kBN - 1) / kBN);
+  tgmm_tma_kernel<<<blocks, kTmaThreads, kTmaSmem, static_cast<cudaStream_t>(stream)>>>(
+      map_g, map_x, map_dw, static_cast<const int*>(sizes), static_cast<bf16*>(dw), m, n, k);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,9 +1,10 @@
 // Hopper building blocks of the wgmma/TMA kernels (K1's forward and
-// backward, L1's forward, K4, and the prefill paths of K8 and L2): mbarriers,
-// TMA loads, stores and reduce-adds through tensor maps, warpgroup matrix
-// products (wgmma) with operands in 128-byte swizzled shared memory or, for
-// A, in registers, warpgroup register hand-over (setmaxnreg), and the
-// host-side encoding of the tensor maps.
+// backward, L1's forward and gradients, K4, K5, K6/K7, L2's gradients, and
+// the prefill paths of K8 and L2): mbarriers, TMA loads, stores and
+// reduce-adds through tensor maps, warpgroup matrix products (wgmma) with
+// operands in 128-byte swizzled shared memory or, for A, in registers,
+// warpgroup register hand-over (setmaxnreg), and the host-side encoding of
+// the tensor maps.
 //
 // Shared-memory tiles: TMA writes a box of (rows, 64) bf16 with
 // CU_TENSOR_MAP_SWIZZLE_128B, so row r holds its 128 bytes at r * 128 with
@@ -135,6 +136,15 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void*
       : "memory");
 }
 
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
                                              int c1, int c2, int c3) {
   asm volatile(
@@ -247,10 +257,12 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[kN]) {
 // columns 8 j + 2 (t % 4) (+ 1): d[4 j + {0, 1}] in the first row,
 // d[4 j + {2, 3}] in the second, the layout of mma.sync's accumulator.
 // At N = 256, `ss<1>` reads b MN-major (row k holds its N values, in boxes
-// of 64 columns `lbo` apart: see sw128_desc). At N = 128, `rs` takes a from
-// registers, mma.sync's A fragment of the thread's warp's 16 rows (rows
-// (t % 32) / 4 (+ 8), k pairs 2 (t % 4) (+ 1) and + 8: a[0], a[2] in the
-// first row, a[1], a[3] in the second), with b K-major in shared memory.
+// of 64 columns `lbo` apart: see sw128_desc), and `ss<1, 1>` a MN-major too
+// (row k of a's tile holds its 64 M values, 16 k = +2048 bytes). At N =
+// 128, `rs` takes a from registers, mma.sync's A fragment of the thread's
+// warp's 16 rows (rows (t % 32) / 4 (+ 8), k pairs 2 (t % 4) (+ 1) and + 8:
+// a[0], a[2] in the first row, a[1], a[3] in the second), with b K-major in
+// shared memory.
 template <int N>
 struct Wgmma;
 
@@ -388,7 +400,7 @@ struct Wgmma<128> {
 
 template <>
 struct Wgmma<256> {
-  template <int kTransB = 0>
+  template <int kTransB = 0, int kTransA = 0>
   static __device__ __forceinline__ void ss(float (&d)[128], uint64_t a, uint64_t b,
                                             int scale_d) {
     asm volatile(
@@ -404,7 +416,7 @@ struct Wgmma<256> {
         "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
         "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107,"
         "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119,"
-        "%120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+        "%120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p, 1, 1, %132, %131;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -427,7 +439,7 @@ struct Wgmma<256> {
           "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
           "+f"(d[126]), "+f"(d[127])
-        : "l"(a), "l"(b), "r"(scale_d), "n"(kTransB));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(kTransB), "n"(kTransA));
   }
 };
 

@@ -53,8 +53,8 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* 
 
 // The B fragments (16 k by 8 n) of the two n tiles at n0 and n0 + 8, k0
 // deep, of a tile stored k-major: row k holds its n values, as a row-major
-// (K, N) operand does (an expert stack read along its output rows, or the
-// activations of a weight gradient). ld a multiple of 8.
+// (K, N) operand does (an expert stack read along its output rows). ld a
+// multiple of 8.
 __device__ __forceinline__ void load_frag_b_kmajor(uint32_t (&b0)[2], uint32_t (&b1)[2],
                                                    const bf16* tile, int ld, int k0, int n0,
                                                    int lane) {
@@ -65,15 +65,6 @@ __device__ __forceinline__ void load_frag_b_kmajor(uint32_t (&b0)[2], uint32_t (
   b0[1] = r[1];
   b1[0] = r[2];
   b1[1] = r[3];
-}
-
-// The A fragment of the 16x16 block at (r0, k0) of A = tile^T, the tile
-// stored k-major: row k holds the values of A's rows at that k (a gradient
-// (M, N) read as the (N, M) operand of a weight gradient). ld a multiple of 8.
-__device__ __forceinline__ void load_frag_a_kmajor(uint32_t (&a)[4], const bf16* tile, int ld,
-                                                   int r0, int k0, int lane) {
-  const int mat = lane >> 3;
-  ldmatrix_x4_trans(a, tile + (k0 + (mat >> 1) * 8 + (lane & 7)) * ld + r0 + (mat & 1) * 8);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {

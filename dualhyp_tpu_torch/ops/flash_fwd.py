@@ -15,9 +15,11 @@ from q times the scale in fp32 and k in fp32, an fp32 softmax, and the fp32
 probabilities times v upcast to fp32, rounded once (K1's forward,
 `attention.causal_attention_plain`, rounds the probabilities to the query
 dtype instead). At bf16 the kernels run that fp32 P V as two bf16 products
-of P's hi and lo halves. Both take fp32 and bf16, head size 64, and q, k, v
-in any (batch, head, token) strides with a unit channel stride and 16-byte
-aligned rows. The output is a (B, H, T, 64) view of a (B, T, H, 64)
+of P's hi and lo halves; at fp32 every product as six bf16 tensor-core
+products of three bf16 pieces of each operand (q times the scale, k, v and
+P), which keeps fp32 accuracy. Both take fp32 and bf16, head size 64, and
+q, k, v in any (batch, head, token) strides with a unit channel stride and
+16-byte aligned rows. The output is a (B, H, T, 64) view of a (B, T, H, 64)
 buffer, so `o.transpose(1, 2).reshape(B, T, H * 64)` costs no copy.
 """
 
@@ -33,11 +35,12 @@ _ARGS = [_lib.C_PTR] * 4 + [_lib.C_INT] * 6 + [_lib.C_F32] + [_lib.C_I64] * 12
 
 # K6: replaces dualhyp_tpu/ops/pallas/flash_fwd.py `_kernel` as
 # `full_attention_fwd` calls it. Bound by operations: fp32 (the encoder's
-# dtype) on the CUDA cores, K/V tiles through shared memory; bf16 on L1's
-# forward kernel body (wgmma, TMA, P V as hi + lo). Online softmax. On an
-# NVIDIA H100 80GB HBM3 at 700.00 W: fp32 0.482 ms at B1 H20 T=S=1500
-# (SDPA 0.436), bf16 0.404 at B8 (SDPA 0.246). See the source notes in
-# csrc/flash_fwd.cu and csrc/flash_attention.cu.
+# dtype) on the tensor cores as six bf16 products of three pieces of each
+# operand (split in shared memory; wgmma and TMA), bf16 on L1's forward
+# kernel body (wgmma, TMA, P V as hi + lo). Online softmax. On an NVIDIA
+# H100 80GB HBM3 at 700.00 W: fp32 0.019 ms at B1 H20 T=S=280 (SDPA 0.037)
+# and 0.198 at T=S=1500 (SDPA 0.443), bf16 0.398 at B8 (SDPA 0.255). See
+# the source notes in csrc/flash_fwd.cu and csrc/flash_attention.cu.
 FLASH_FULL = _lib.Kernel("dh_full_attention_fwd", _ARGS)
 # K7: the same `_kernel` as `causal_attention_fwd` calls it (causal=True),
 # bf16 on the same body: 0.172 ms at B8 Hq32 G4 T1024 on an NVIDIA H100

@@ -44,9 +44,11 @@ GROUPED_MATMUL_DLHS = _lib.Kernel(
     "dh_grouped_matmul_dlhs",
     [_lib.C_PTR] * 4 + [_lib.C_INT] * 4,
 )
-# L2's gradient of the weight: replaces megablox `tgmm` (gmm.py). One block
-# per (K tile, N tile, expert) walks its group's rows, found on the device,
-# and writes its tile of the (E, N, K) stack once. Bound by operations.
+# L2's gradient of the weight: replaces megablox `tgmm` (gmm.py). A wgmma/TMA
+# kernel at every row count: one block per (expert, 128 N, 256 K) tile walks
+# its group's rows, found on the device, 64 a step (g^T and lhs both read
+# MN-major, the next group's rows zeroed in the last step) and writes its
+# tile of the (E, N, K) stack once. Bound by operations.
 GROUPED_MATMUL_DRHS = _lib.Kernel(
     "dh_grouped_matmul_drhs",
     [_lib.C_PTR] * 4 + [_lib.C_INT] * 4,

@@ -11,11 +11,15 @@ rows and O, ranks 4, 8, 16, 40, 48 and 64, a zero scale and a separate LoRA
 input, rows 17 to 1536 around its wgmma kernels' tiles, an unaligned
 input, bitwise repeats at 3072 rows and no host wait forward or backward,
 and K6/K7 in fp32 and bf16 at T or
-S of 1, 63, 64, 65 and 1500, S != T, kv_valid and strided inputs, L2
+S of 1, 63, 64, 65 and 1500, S != T, kv_valid and strided inputs, K6 at
+fp32 at the RelPrompt shape (B1 H20 T=S=280) repeating bitwise, K6/K7 at
+fp32 on logits up to ~130 (where TF32 or two bf16 pieces miss), L2
 (the grouped matmul) at M of 0, 1, 16, 17, 64, 65, 300 and 6144 with
 empty, straddling and single groups, groups of 127, 128 and 129 rows
 around its 128-row tile and a ragged N, its two gradients
-(dlhs, drhs) at M from 0 to 16384, K1's forward and backward at head size
+(dlhs, drhs) at M from 0 to 16384, drhs at groups of 63 to 129 rows
+around its 64-row step with rows past the last group, repeating bitwise
+at 16384 rows, K1's forward and backward at head size
 128, a small MoE model card against CPU, in prefill and in a LoRA
 training step, L1 (splash attention: forward, dQ, dK/dV) at T of 1, 63,
 64, 65, 127, 128, 129, 192, 200, 256 and 1024, head sizes 64 and 128, 4
@@ -227,9 +231,9 @@ def test_swiglu_refuses_unaligned_width(dev, gen):
         swiglu.swiglu_mlp(x, w, w, _randn(gen, 96, 64))
 
 
-# K6/K7 (flash_fwd): fp32 against the fp32 plain version (sums in another
-# order, expf against torch.exp: ~1e-6 on unit-normal inputs; 1e-4 as
-# chip_smoke.py holds it); bf16 keeps P in fp32 for the P V product (hi + lo
+# K6/K7 (flash_fwd): fp32 against the fp32 plain version (sums of the
+# three-piece bf16 products in another order, exp2f against torch.exp:
+# ~1e-6 on unit-normal inputs; 1e-4 as chip_smoke.py holds it); bf16 keeps P in fp32 for the P V product (hi + lo
 # halves, each a bf16 product) as the plain version does, and both round the
 # output once: one bf16 ulp apart at most (rtol 2^-7), near-zero outputs of
 # cancelling terms by the fp32 sums' order (atol), as L1's forward.
@@ -278,6 +282,48 @@ def test_causal_attention_fwd(dev, gen, dtype, t, hq, g):
     got = flash_fwd.causal_attention_fwd(q, k, v)
     assert flash_fwd.FLASH_CAUSAL.launches == before + 1
     _close(got, flash_fwd.causal_attention_fwd_plain(q, k, v), *FWD_TOL[dtype])
+
+
+def test_full_attention_fwd_at_the_relprompt_shape_repeats_bitwise(dev, gen):
+    """K6 at fp32 at the RelPrompt slice's shape (B1 H20 T=S=280): two calls
+    give the same bits (the pieces' products sum in a fixed order), and each
+    call counts one launch (its split pre-pass and attention kernel)."""
+    q, k, v = (_randn(gen, 1, 20, 280, 64, dtype=torch.float32) for _ in range(3))
+    before = flash_fwd.FLASH_FULL.launches
+    first, second = flash_fwd.full_attention_fwd(q, k, v), flash_fwd.full_attention_fwd(q, k, v)
+    assert flash_fwd.FLASH_FULL.launches == before + 2
+    assert torch.equal(first, second)
+    _close(first, flash_fwd.full_attention_plain(q, k, v), *FWD_TOL[torch.float32])
+
+
+def _tf32(x):
+    """x with the 13 low mantissa bits cleared: the operand of a TF32 product."""
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _two_bf16(x):
+    """x as two bf16 pieces (16 mantissa bits): the operand of a two-piece
+    split product."""
+    hi = x.to(torch.bfloat16).float()
+    return hi + (x - hi).to(torch.bfloat16).float()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_fp32_attention_keeps_fp32_accuracy_at_large_logits(dev, gen, causal):
+    """K6 and K7 at fp32 on logits up to ~130 (q * scale of std 3): the
+    kernel's three bf16 pieces of each operand keep FWD_TOL[fp32]; the same
+    arithmetic on operands cut to TF32, or to two bf16 pieces, misses it
+    (each emulated by the plain version on the cut operands)."""
+    q = _randn(gen, 1, 20, 280, 64, dtype=torch.float32, std=24.0)
+    k, v = (_randn(gen, 1, 20, 280, 64, dtype=torch.float32) for _ in range(2))
+    fwd, plain = ((flash_fwd.causal_attention_fwd, flash_fwd.causal_attention_fwd_plain)
+                  if causal else (flash_fwd.full_attention_fwd, flash_fwd.full_attention_plain))
+    want = plain(q, k, v)
+    _close(fwd(q, k, v), want, *FWD_TOL[torch.float32])
+    atol = FWD_TOL[torch.float32][0]
+    for cut in (_tf32, _two_bf16):
+        emulated = plain(cut(q * 0.125), cut(k), cut(v), scale=1.0)
+        assert float((emulated - want).abs().max()) > atol, cut.__name__
 
 
 def test_flash_fwd_refuses_what_it_does_not_take(dev, gen):
@@ -786,6 +832,44 @@ def test_grouped_matmul_drhs(dev, gen, m, case, n, k):
     for e, size in enumerate(sizes.tolist()):
         if not size:
             assert not bool(got[e].any())
+
+
+# drhs's 64-row steps and 128 x 256 tiles: groups of 63, 64, 65, 127, 128
+# and 129 rows, each but the first starting mid-step, empty groups first, in
+# the middle and last, and rows past the last group (the sizes sum to less
+# than m: those rows belong to no group)
+DRHS_GROUPS = {
+    "step_edges": ([63, 1, 64, 65, 127, 128, 129, 0], 0),
+    "empty_ends": ([0, 63, 0, 65, 64, 0, 129, 0], 0),
+    "past_last": ([5, 64, 0, 127, 0, 0, 0, 0], 37),
+}
+
+
+@pytest.mark.parametrize("layout", list(DRHS_GROUPS))
+@pytest.mark.parametrize("n,k", [(200, 256), (128, 40), (136, 264)])
+def test_grouped_matmul_drhs_at_its_step_edges(dev, gen, layout, n, k):
+    sizes, past = DRHS_GROUPS[layout]
+    m = sum(sizes) + past
+    g, lhs = _randn(gen, m, n, std=0.1), _randn(gen, m, k)
+    group_sizes = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    got = gmm.grouped_matmul_drhs(g, lhs, group_sizes)
+    _close(got, gmm.grouped_matmul_drhs_plain(g, lhs, group_sizes), *GMM_TOL)
+    for e, size in enumerate(sizes):
+        if not size:
+            assert not bool(got[e].any())
+
+
+def test_grouped_matmul_drhs_repeats_bitwise(dev, gen):
+    """drhs at 16384 rows in skewed groups sums in a fixed order (a block
+    owns its tile, no atomics): two calls give the same bits, one launch
+    each."""
+    g, lhs = _randn(gen, 16384, 640, std=0.1), _randn(gen, 16384, 512)
+    sizes = torch.tensor([6549, 4967, 2828, 1301, 506, 173, 55, 5], dtype=torch.int32, device=dev)
+    before = gmm.GROUPED_MATMUL_DRHS.launches
+    first, second = gmm.grouped_matmul_drhs(g, lhs, sizes), gmm.grouped_matmul_drhs(g, lhs, sizes)
+    assert gmm.GROUPED_MATMUL_DRHS.launches == before + 2
+    assert torch.equal(first, second)
+    _close(first, gmm.grouped_matmul_drhs_plain(g, lhs, sizes), *GMM_TOL)
 
 
 def test_grouped_matmul_backward_reads_strided_grads_and_unaligned_lhs(dev, gen):

@@ -49,12 +49,18 @@ def _jax_gmm_grads(fn, lhs, w, g):
     return [np.asarray(x) for x in vjp(jnp.asarray(g))]
 
 
-@pytest.mark.parametrize("case", GROUP_SIZES)
+# group layouts of the gradients: GROUP_SIZES, and groups that straddle the
+# card's drhs steps of 64 rows (63, 1, 64, 65 rows, then an empty group and
+# a 7-row one)
+GRAD_GROUP_SIZES = {**GROUP_SIZES, "step_edges": [63, 1, 64, 65, 0, 7]}
+
+
+@pytest.mark.parametrize("case", GRAD_GROUP_SIZES)
 def test_grouped_matmul_grads_match_megablox_and_ragged_dot(rng, case):
     """dlhs and dW of `GroupedMatmul` (N 16 != K 32) against megablox's VJP
     (transpose_rhs=True, the port's layout: its dW comes back swapped to (E,
     N, K)) and ragged_dot's on the (E, K, N) transpose."""
-    sizes = np.asarray(GROUP_SIZES[case], np.int32)
+    sizes = np.asarray(GRAD_GROUP_SIZES[case], np.int32)
     m, k, n = int(sizes.sum()), 32, 16
     lhs = rng.normal(size=(m, k)).astype(np.float32)
     w = rng.normal(size=(len(sizes), n, k)).astype(np.float32)  # (E, N, K)

@@ -102,7 +102,8 @@ def _flat(tree, prefix=""):
             yield path, value
 
 
-@pytest.mark.parametrize("t,s", [(300, 300), (300, 170), (77, 300)])
+# (280, 280): an utterance of the RelPrompt slice, the card kernel's main shape
+@pytest.mark.parametrize("t,s", [(300, 300), (300, 170), (77, 300), (280, 280)])
 def test_full_attention_plain_matches_the_pallas_kernel(rng, t, s):
     q = rng.normal(size=(2, 3, t, 64)).astype(np.float32)
     k, v = (rng.normal(size=(2, 3, s, 64)).astype(np.float32) for _ in range(2))

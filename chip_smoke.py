@@ -11,14 +11,16 @@ prints one JSON line; a failed phase raises and the script exits non-zero.
      the kernel library is built from `dualhyp_tpu_torch/csrc/*.cu`, and the
      registers, static shared memory and spills of the wgmma/TMA kernels
      (K1's forward and backward, L1's forward, dQ and dK/dV, K4, K5, K6/K7
-     at fp32 and bf16, K8 and L2) are printed from `-Xptxas -v`, and each
-     kernel's count of wgmma instructions (HGMMA) from `cuobjdump -sass`;
-  2. one phase per kernel, at the main path's shapes (bf16, batch 8, prompt
-     384, decode rows 8): the kernel against its plain PyTorch version on the
-     same inputs, within a stated tolerance, then CUDA-event times of the
-     kernel, the plain version and one PyTorch library call where there is
-     one, beside the least time the card could take (`bound_ms`); K4 must
-     give bitwise-equal outputs on two calls; the host microseconds of a K1
+     at fp32 and bf16, K8 and L2) and of the row passes K2 and K3 are
+     printed from `-Xptxas -v`, and each kernel's count of wgmma
+     instructions (HGMMA) from `cuobjdump -sass`;
+  2. after 2 s of warm-up work (`warm_up`), one phase per kernel, at the
+     main path's shapes (bf16, batch 8, prompt 384, decode rows 8): the
+     kernel against its plain PyTorch version on the same inputs, within a
+     stated tolerance, then CUDA-event times of the kernel, the plain
+     version and one PyTorch library call where there is one, beside the
+     least time the card could take (`bound_ms`); K2, K3 and K4 must give
+     bitwise-equal outputs on two calls; the host microseconds of a K1
      forward, K4 and K2 call at tiny shapes (K1 and K4 encode TMA tensor
      maps on every call);
   3. a depth-2, full-width TinyLlama + LoRA model from seeded numpy weights:
@@ -32,8 +34,8 @@ prints one JSON line; a failed phase raises and the script exits non-zero.
   5. K1's forward (O and the row logsumexp L) and backward kernels against
      the plain pair (B=8, Hq=32, G=4, T=1024 and a ragged T=200), both
      timed at T=1024 beside SDPA's forward and backward, and K2, K3 (both
-     directions) and K4 (bitwise repeatable) at the training shape of 8192
-     rows;
+     directions, on q and on k) and K4 at the training shape of 8192 rows,
+     each bitwise repeatable;
   6. a depth-2, full-width TinyLlama + LoRA training step: the loss and
      every LoRA gradient on the card (kernels, bf16) against the CPU (plain
      versions, fp32);
@@ -118,7 +120,8 @@ prints one JSON line; a failed phase raises and the script exits non-zero.
      megablox and dense against the CPU (plain, fp32): the share of routes
      that agree, then the loss and LoRA gradients on the rows routed alike;
  21. K2 and K3 (both directions) at Mixtral's training shape: 8192 rows of
-     width 4096, q of 32 heads in 8 groups at head size 128, rope base 1e6;
+     width 4096, q of 32 heads in 8 groups and k of 8 at head size 128, rope
+     base 1e6;
  22. the Mixtral training slice: the 16-layer Mixtral with LoRA r=16 through
      `cli.finetune_ger.run_training` (megablox, remat, 4 optimizer steps,
      checkpoints of the LoRA leaves as --save_adapter_only writes them, the
@@ -344,6 +347,30 @@ def device_kernel_times(prof) -> dict:
     return out
 
 
+def warm_up(torch, seconds: float = 2.0) -> dict:
+    """Keeps the card busy with bf16 products for `seconds`, then makes one
+    `device_ms` measurement, before a phase times kernels of a few
+    microseconds: the first ones otherwise run while the clocks climb out
+    of idle (the build leaves the card idle), and a process's first
+    `device_ms` call reads slow (PERF.md). Returns the SM clock and power draw
+    before and after, from nvidia-smi."""
+    def sample():
+        out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60)
+        return out.stdout.strip().splitlines()[0] if out.returncode == 0 else None
+
+    before = sample()
+    a = torch.ones(4096, 4096, dtype=torch.bfloat16, device="cuda")
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(20):
+            a @ a
+        torch.cuda.synchronize()
+    device_ms(lambda: a.add_(0), torch)
+    return {"sm_clock_power_before": before, "after": sample()}
+
+
 def l2_flush(torch):
     """A read of L2_FLUSH_BYTES: after it the L2 cache holds none of a
     kernel's inputs."""
@@ -420,13 +447,16 @@ def kernel_phases(torch, seed: int) -> dict:
         return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
 
     results = {}
+    emit({"phase": "warm_up", **warm_up(torch)})
 
     # ---- K2 rms_norm: prefill rows (B*T) and decode rows (B) ----
     scale = 1.0 + randn(d, std=0.1, dtype=torch.float32)
     entry = {}
     for label, n in (("prefill", rows), ("decode", b)):
         x = randn(n, d)
-        err = compare("rms_norm", rmsnorm.rms_norm(x, scale), rmsnorm.rms_norm_plain(x, scale), torch)
+        err = compare("rms_norm",
+                      repeatable("rms_norm", lambda: rmsnorm.rms_norm(x, scale), torch),
+                      rmsnorm.rms_norm_plain(x, scale), torch)
         scale_bf16 = scale.to(bf16)
         lib = (time_ms(lambda: F.rms_norm(x, (d,), scale_bf16, 1e-5), torch)
                if hasattr(F, "rms_norm") else None)
@@ -436,7 +466,10 @@ def kernel_phases(torch, seed: int) -> dict:
             ms=time_ms(lambda: rmsnorm.rms_norm(x, scale), torch),
             device_ms=device_ms(lambda: rmsnorm.rms_norm(x, scale), torch),
             plain_ms=time_ms(lambda: rmsnorm.rms_norm_plain(x, scale), torch),
-            library_ms=lib, bound_ms=bms, bound_by=by)
+            library_ms=lib, bound_ms=bms, bound_by=by,
+            # the yardstick as K2's device_ms is taken: one call, L2 cold
+            library_device_ms=(device_ms(lambda: F.rms_norm(x, (d,), scale_bf16, 1e-5), torch)
+                               if hasattr(F, "rms_norm") else None))
     results["rms_norm"] = entry
 
     # ---- K3 apply_rope: q and k heads read in place from a fused QKV ----
@@ -448,7 +481,8 @@ def kernel_phases(torch, seed: int) -> dict:
     qkv = randn(b, t, cfg.qkv_out_dim)
     q5, k4, _ = split_heads(cfg, qkv)
     cos, sin = rope.build_rope_cache(t, hs, dtype=bf16, device=dev)
-    err = max(compare("apply_rope", rope.apply_rope(x, cos, sin),
+    err = max(compare("apply_rope",
+                      repeatable("apply_rope", lambda: rope.apply_rope(x, cos, sin), torch),
                       rope.apply_rope_plain(x, cos, sin), torch) for x in (q5, k4))
     n_q = b * nh * t * hs
     bms, by = bound(2 * n_q * 2 + 2 * t * hs * 2, 4 * n_q, FP32_FLOPS)
@@ -1075,11 +1109,12 @@ def flash_bwd_phase(torch, seed: int, g: int = 4, hs: int = 64) -> dict:
 
 
 def training_shape_phase(torch, seed: int, cfg=None) -> dict:
-    """K2, K3 (forward and transposed) and, for a dense MLP, K4 at the
-    training shape of one micro batch, 8 x 1024 = 8192 rows of `cfg`'s
-    width, checked and timed. cfg: TinyLlama-1.1B's shapes by default (width
-    2048, 32 heads, 4 groups, head 64); Mixtral-8x7B's give K2 at width 4096
-    and K3 at 8 groups, head 128, rope base 1e6 (its MoE bypasses K4)."""
+    """K2, K3 (forward and transposed, on q and on k) and, for a dense MLP,
+    K4 at the training shape of one micro batch, 8 x 1024 = 8192 rows of
+    `cfg`'s width, checked (two calls bitwise equal) and timed. cfg:
+    TinyLlama-1.1B's shapes by default (width 2048, 32 heads, 4 groups, head
+    64); Mixtral-8x7B's give K2 at width 4096 and K3 at 8 groups, head 128,
+    rope base 1e6 (its MoE bypasses K4)."""
     import torch.nn.functional as F
 
     from dualhyp_tpu_torch.config import GPTConfig
@@ -1104,7 +1139,8 @@ def training_shape_phase(torch, seed: int, cfg=None) -> dict:
     out = {}
     x = randn(rows, d)
     scale = 1.0 + randn(d, std=0.1, dtype=torch.float32)
-    err = compare("rms_norm", rmsnorm.rms_norm(x, scale), rmsnorm.rms_norm_plain(x, scale), torch)
+    err = compare("rms_norm", repeatable("rms_norm", lambda: rmsnorm.rms_norm(x, scale), torch),
+                  rmsnorm.rms_norm_plain(x, scale), torch)
     bms, by = bound(2 * rows * d * 2 + d * 4, 4 * rows * d, FP32_FLOPS)
     scale_bf16 = scale.to(bf16)
     out["rms_norm"] = dict(
@@ -1113,23 +1149,28 @@ def training_shape_phase(torch, seed: int, cfg=None) -> dict:
         device_ms=device_ms(lambda: rmsnorm.rms_norm(x, scale), torch),
         plain_ms=time_ms(lambda: rmsnorm.rms_norm_plain(x, scale), torch),
         library_ms=time_ms(lambda: F.rms_norm(x, (d,), scale_bf16, 1e-5), torch),
-        bound_ms=bms, bound_by=by)
+        bound_ms=bms, bound_by=by,
+        library_device_ms=device_ms(lambda: F.rms_norm(x, (d,), scale_bf16, 1e-5), torch))
 
-    q5, _, _ = split_heads(cfg, randn(b, t, cfg.qkv_out_dim))
-    dq = randn(b, g, nh // g, t, hs)  # the gradient of the roped q, contiguous
-    cos, sin = rope.build_rope_cache(t, cfg.rope_n_elem, base=cfg.rope_base, dtype=bf16,
-                                     device=dev)
-    n_q = b * nh * t * hs
-    bms, by = bound(2 * n_q * 2 + 2 * t * hs * 2, 4 * n_q, FP32_FLOPS)
-    for label, xin, tr in (("forward", q5, False), ("transpose", dq, True)):
-        err = compare("apply_rope", rope.apply_rope(xin, cos, sin, tr),
-                      rope.apply_rope_plain(xin, cos, sin, tr), torch)
-        out[f"apply_rope_{label}"] = dict(
-            shape=list(xin.shape), max_abs_err=err,
-            ms=time_ms(lambda: rope.apply_rope(xin, cos, sin, tr), torch),
-            device_ms=device_ms(lambda: rope.apply_rope(xin, cos, sin, tr), torch),
-            plain_ms=time_ms(lambda: rope.apply_rope_plain(xin, cos, sin, tr), torch),
-            library_ms=None, bound_ms=bms, bound_by=by)
+    # K3 on q (B, G, q_per_kv, T, D) and k (B, G, T, D), read in place from
+    # the fused QKV forward; transposed on their gradients, contiguous
+    q5, k4, _ = split_heads(cfg, randn(b, t, cfg.qkv_out_dim))
+    grads = {"": randn(b, g, nh // g, t, hs), "_k": randn(b, g, t, hs)}
+    n_elem = cfg.rope_n_elem
+    cos, sin = rope.build_rope_cache(t, n_elem, base=cfg.rope_base, dtype=bf16, device=dev)
+    for suffix, view in (("", q5), ("_k", k4)):
+        n = view.numel()
+        bms, by = bound(2 * n * 2 + 2 * t * n_elem * 2, 4 * n, FP32_FLOPS)
+        for label, xin, tr in (("forward", view, False), ("transpose", grads[suffix], True)):
+            err = compare("apply_rope", repeatable(
+                "apply_rope", lambda: rope.apply_rope(xin, cos, sin, tr), torch),
+                rope.apply_rope_plain(xin, cos, sin, tr), torch)
+            out[f"apply_rope{suffix}_{label}"] = dict(
+                shape=list(xin.shape), max_abs_err=err,
+                ms=time_ms(lambda: rope.apply_rope(xin, cos, sin, tr), torch),
+                device_ms=device_ms(lambda: rope.apply_rope(xin, cos, sin, tr), torch),
+                plain_ms=time_ms(lambda: rope.apply_rope_plain(xin, cos, sin, tr), torch),
+                library_ms=None, bound_ms=bms, bound_by=by)
     dense = cfg.mlp_class == "LLaMAMLP"
     tolerance = {k: dict(zip(("atol", "rtol"), TOLERANCES[k]))
                  for k in ("rms_norm", "apply_rope") + ("swiglu_mlp",) * dense}
@@ -1161,6 +1202,68 @@ def training_shape_phase(torch, seed: int, cfg=None) -> dict:
         bound_ms=bound(0, 5 * 2 * rows * d * inter, FP32_FLOPS)[0], bound_by="operations")
     emit({"phase": "training_shape_kernels", "model": cfg.name, "rows": rows,
           "tolerance": tolerance, **out})
+    return out
+
+
+def training_shape_mixtral_phase(torch, seed: int) -> dict:
+    """`training_shape_phase` at Mixtral-8x7B's widths: K2 at 8192 x 4096,
+    K3 at q (8, 8, 4, 1024, 128) and k (8, 8, 1024, 128), rope base 1e6."""
+    return training_shape_phase(torch, seed, cfg=mixtral_config(MIXTRAL_LAYERS))
+
+
+def remat_steps_phase(torch, seed: int) -> dict:
+    """The two 8 x 1024 training steps with remat on that K2 and K3 serve:
+    full TinyLlama-1.1B + LoRA (2 warm-up, 5 timed steps, as
+    `train_step_1024`) and the 16-layer Mixtral-8x7B + LoRA under megablox
+    (1 warm-up, 5 timed, as `mixtral_step_1024`), each step's seconds and
+    their median, with the K2 and K3 launches of the timed steps."""
+    import numpy as np
+
+    from dualhyp_tpu_torch import config_from_name
+    from dualhyp_tpu_torch.models.gpt import GPT
+    from dualhyp_tpu_torch.train import TrainConfig, Trainer
+
+    cfg = lora_config(22, lora_dropout=0.05)
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(1, cfg.vocab_size, size=(8, 1024)).astype(np.int32)
+    labels = ids.copy()
+    labels[:, :512] = -1
+    batch = {"input_ids": ids, "labels": labels}
+    model = GPT(cfg, device="cuda", dtype=torch.bfloat16)
+    model.init_weights(torch.Generator(device="cuda").manual_seed(seed))
+    trainer = Trainer(cfg, TrainConfig(batch_size=8, micro_batch_size=8,
+                                       frozen_dtype="bfloat16", lm_head_chunk_size=128,
+                                       remat=True), model)
+    gen = torch.Generator().manual_seed(seed)
+    times = []
+    for i in range(7):
+        if i == 2:
+            reset_counts()
+        t0 = time.perf_counter()
+        trainer.train_step(batch, max_iters=1000, warmup_steps=10, generator=gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = read_counts()
+    out = {"tinyllama": {"step_s": times[2:], "median_step_s": sorted(times[2:])[2],
+                         "launches_5_steps": {k: launches[k] for k in (
+                             "rms_norm", "apply_rope", "apply_rope_transpose")}}}
+    del trainer, model
+    torch.cuda.empty_cache()
+
+    mcfg = config_from_name(MIXTRAL, n_layer=MIXTRAL_LAYERS, lora_r=16, lora_alpha=16,
+                            lora_dropout=0.05, lora_query=True, lora_key=True,
+                            lora_value=True, lora_projection=True)
+    model = GPT(mcfg, device="cuda", dtype=torch.bfloat16, moe_impl="megablox")
+    model.init_weights(torch.Generator(device="cuda").manual_seed(seed))
+    step = mixtral_step_1024(torch, model, mcfg, seed, True, profile=False, timed=5)
+    out["mixtral"] = {"shape": step["shape"], "step_s": step["step_s"],
+                      "median_step_s": sorted(step["step_s"])[2],
+                      "launches_5_steps": {k: step["launches"][k] for k in (
+                          "rms_norm", "apply_rope", "apply_rope_transpose")}}
+    del model
+    torch.cuda.empty_cache()
+    emit({"phase": "remat_steps", "micro_batch": 8, "seq_len": 1024,
+          "mixtral_layers": MIXTRAL_LAYERS, **out})
     return out
 
 
@@ -1475,7 +1578,9 @@ def attn_impl(name: str):
 
 def kernel_instance(mangled: str) -> str:
     """`name<args>` of a mangled kernel symbol (`_ZN<len><id>...I<args>E...`):
-    the last name component and its integer template arguments."""
+    the last name component and its template arguments (integers, and the
+    element types of K2 and K3: `float`, a named type such as
+    `__nv_bfloat16`); the bare name where an argument is of another kind."""
     import re
 
     rest, parts = mangled.removeprefix("_ZN"), []
@@ -1483,10 +1588,22 @@ def kernel_instance(mangled: str) -> str:
         n = int(m[1])
         parts.append(rest[len(m[1]):len(m[1]) + n])
         rest = rest[len(m[1]) + n:]
-    m = re.match(r"I((?:L[ib]\d+E)+)E", rest)
-    args = re.findall(r"L[ib](\d+)E", m[1]) if m else []
     name = parts[-1] if parts else mangled
-    return f"{name}<{', '.join(args)}>" if args else name
+    args, rest = [], rest[1:] if rest.startswith("I") else ""
+    while rest and not rest.startswith("E"):
+        if (m := re.match(r"L[ib](\d+)E", rest)):
+            args.append(m[1])
+            rest = rest[m.end():]
+        elif (m := re.match(r"(\d+)", rest)):
+            end = m.end() + int(m[1])
+            args.append(rest[m.end():end])
+            rest = rest[end:]
+        elif rest[0] == "f":
+            args.append("float")
+            rest = rest[1:]
+        else:
+            return name
+    return f"{name}<{', '.join(args)}>" if args and rest else name
 
 
 def ptxas_report(source: str):
@@ -3114,7 +3231,8 @@ def main(argv=None) -> int:
     emit({"phase": "ptxas", **{src: ptxas_report(src) or "not measured (built before this run)"
                                for src in ("flash_attention.cu", "flash_attention_bwd.cu",
                                            "flash_fwd.cu", "swiglu.cu", "int4_matmul.cu",
-                                           "grouped_matmul.cu", "lora_linear.cu")}})
+                                           "grouped_matmul.cu", "lora_linear.cu",
+                                           "rmsnorm.cu", "rope.cu")}})
     # the kernels on the tensor cores: wgmma (HGMMA) instructions in their SASS
     emit({"phase": "sass", "HGMMA": sass_counts(lib)})
     emit({"phase": "l2_flush", "bytes": L2_FLUSH_BYTES, "ms": time_ms(l2_flush(torch), torch)})
@@ -3146,8 +3264,7 @@ def main(argv=None) -> int:
     kernels["flash_attention_bwd"]["d128"] = run("flash_bwd_d128_phase", flash_bwd_phase,
                                                  g=8, hs=128)
     train_shapes = run("training_shape_phase", training_shape_phase)
-    train_shapes_moe = run("training_shape_mixtral_phase", training_shape_phase,
-                           cfg=mixtral_config(MIXTRAL_LAYERS))
+    train_shapes_moe = run("training_shape_mixtral_phase", training_shape_mixtral_phase)
     run("depth2_train_check", depth2_train_check)
     run("depth2_train_check_fused", depth2_train_check, lora_impl="fused")
     depth2_splash = {t: run(f"depth2_train_check_splash_T{t}", depth2_train_check,

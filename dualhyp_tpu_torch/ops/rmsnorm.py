@@ -18,13 +18,47 @@ import torch
 from dualhyp_tpu_torch.ops import _lib
 
 # K2: replaces dualhyp_tpu/ops/pallas/rmsnorm_kernel.py `_kernel`. Bound by
-# bytes (one read, one write per element); one block per row keeps the fp32
-# statistic on chip. See the source note in csrc/rmsnorm.cu.
+# bytes (one read, one write per element); one warp a row reads it once as
+# 16-byte vectors, keeps it in registers and reduces by shuffles. See the
+# source note in csrc/rmsnorm.cu.
 RMS_NORM = _lib.Kernel(
     "dh_rms_norm",
     [_lib.C_PTR, _lib.C_PTR, _lib.C_PTR, _lib.C_I64, _lib.C_INT, _lib.C_F32,
-     _lib.C_INT],
+     _lib.C_INT, _lib.C_INT, _lib.C_INT, _lib.C_INT, _lib.C_INT],
 )
+MAX_HELD = 16  # 16-byte vectors a lane of K2 may keep in registers (kMaxHeld)
+ROWS_PER_BLOCK = 4  # rows a block of K2, one warp each (kMaxRowsPerBlock)
+SPLIT_WARPS = 8  # warps a row below FEW_ROWS rows (kSplitWarps)
+# below this many rows K2 takes one row a block, split over SPLIT_WARPS warps
+# where the row has that many warps' vectors: the rows spread over as many
+# SMs as there are rows, a row's loads over 8 warps
+FEW_ROWS = 512
+
+
+def row_plan(rows: int, d: int, itemsize: int, *ptrs: int) -> tuple[int, int, int, int]:
+    """K2's instance for `rows` rows of width d: (width, held, rows_per_block,
+    split).
+
+    width: elements a lane loads at once, a 16-byte vector (8 bf16, 4 fp32)
+    where d is a multiple of it and every pointer (x, scale, out) is 16-byte
+    aligned, else 1. held: the vectors a lane keeps in registers so the row
+    is read once (the least power of two that holds the row), or 0 where
+    the row is wider than MAX_HELD a lane or is read one element a load: the
+    kernel then reads it twice. Below FEW_ROWS rows a block takes one row,
+    split over SPLIT_WARPS warps (split) where the row has at least one
+    vector a lane of them and at most 4, else over one warp; from FEW_ROWS
+    rows on, ROWS_PER_BLOCK rows of one warp each."""
+    few = rows < FEW_ROWS
+    per_block = 1 if few else ROWS_PER_BLOCK
+    width = 16 // itemsize
+    if d % width or any(p % 16 for p in ptrs):
+        return 1, 0, per_block, 1
+    vectors = d // width
+    lanes = 32 * SPLIT_WARPS
+    if few and lanes <= vectors <= 4 * lanes:
+        return width, next(h for h in (1, 2, 4) if lanes * h >= vectors), 1, SPLIT_WARPS
+    held = next((h for h in (1, 2, 4, 8, MAX_HELD) if 32 * h >= vectors), 0)
+    return width, held, per_block, 1
 
 
 def rms_norm_plain(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5):
@@ -89,8 +123,9 @@ def _rms_norm(x, scale, eps):
     if rows >= 2**31:
         raise ValueError(f"{rows} rows exceed the kernel's grid")
     if rows:
-        RMS_NORM(device, x2.data_ptr(), scale32.data_ptr(), out.data_ptr(), rows, d,
-                 float(eps), _lib.dtype_code(x2))
+        ptrs = (x2.data_ptr(), scale32.data_ptr(), out.data_ptr())
+        RMS_NORM(device, *ptrs, rows, d, float(eps), _lib.dtype_code(x2),
+                 *row_plan(rows, d, x2.element_size(), *ptrs))
     return out.reshape(x.shape)
 
 

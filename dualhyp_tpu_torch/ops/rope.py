@@ -22,16 +22,49 @@ from dualhyp_tpu_torch.ops import _lib
 
 # K3: replaces dualhyp_tpu/ops/pallas/rope_kernel.py `_kernel`. Bound by
 # bytes (x read once, out written once); it reads strided head views and
-# writes contiguous heads. See the source note in csrc/rope.cu.
+# writes contiguous heads, a thread 16-byte vectors of both halves. See the
+# source note in csrc/rope.cu.
 ROPE = _lib.Kernel(
     "dh_rope",
     [_lib.C_PTR, _lib.C_PTR, _lib.C_PTR, _lib.C_PTR, _lib.C_I64, _lib.C_INT,
      _lib.C_INT, _lib.C_INT, _lib.C_INT, _lib.C_INT, _lib.C_I64, _lib.C_I64,
-     _lib.C_I64, _lib.C_I64, _lib.C_INT, _lib.C_INT],
+     _lib.C_I64, _lib.C_I64, _lib.C_INT, _lib.C_INT, _lib.C_INT, _lib.C_INT,
+     _lib.C_INT, _lib.C_INT],
 )
 # the same kernel launched with transpose=True (the backward), counted apart
 # so a run shows both directions
 ROPE_T = _lib.Kernel("dh_rope", ROPE.argtypes)
+BLOCK_THREADS = 256  # threads a block of K3 at most (csrc/rope.cu kMaxThreads)
+MAX_HEADS_PER_BLOCK = 16
+# the grid K3 aims at: this many blocks an SM (about one wave of blocks of
+# 256 threads), fewer heads a block where that is short; of 2, 3, 6 and 12,
+# 3 took the least device time at the training and prefill shapes (within
+# 1% at TinyLlama's k; scripts/torch_row_pass_variants.py, PERF.md)
+BLOCKS_PER_SM = 3
+
+
+def launch_plan(heads: int, t: int, d: int, n_elem: int, itemsize: int, strides, ptrs,
+                sms: int) -> tuple[int, int, int, int]:
+    """K3's instance and block for `heads` (head, T, D) planes:
+    (width, row_threads, t_block, heads_per_block).
+
+    width: channels an access, a 16-byte vector (8 bf16, 4 fp32) where each
+    half of n_elem, D and every stride (elements) are multiples of it and
+    every pointer (x, cos, sin, out) is 16-byte aligned, else 1. A thread
+    takes `width` channels of the first half with their partners (or
+    `width` pass-through channels): row_threads threads a (head, t) row, up
+    to BLOCK_THREADS; t_block positions a block. heads_per_block: the heads
+    a thread walks at its position, as many as keep the grid at about
+    BLOCKS_PER_SM blocks an SM, between 1 and MAX_HEADS_PER_BLOCK."""
+    width = 16 // itemsize
+    if n_elem % (2 * width) or d % width or any(s % width for s in strides) or \
+            any(p % 16 for p in ptrs):
+        width = 1
+    row_threads = min((n_elem // 2 + d - n_elem) // width, BLOCK_THREADS)
+    t_block = max(1, min(t, BLOCK_THREADS // row_threads))
+    tiles = -(-t // t_block)
+    heads_per_block = max(1, min(MAX_HEADS_PER_BLOCK, heads * tiles // (BLOCKS_PER_SM * sms)))
+    return width, row_threads, t_block, heads_per_block
 
 
 def build_rope_cache(seq_len: int, n_elem: int, base: int = 10000,
@@ -117,10 +150,16 @@ def _rope(x, cos, sin, transpose):
     out = torch.empty(x5.shape, dtype=x.dtype, device=device)
     if out.numel():
         n0, n1, n2 = x5.shape[:3]
+        # a dimension of size 1 is never stepped: its stride does not count
+        strides = [s if n > 1 else 0 for n, s in zip(x5.shape[:4], x5.stride()[:4])]
+        ptrs = (x5.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr())
+        plan = launch_plan(n0 * n1 * n2, t, d, n_elem, x5.element_size(), strides, ptrs,
+                           torch.cuda.get_device_properties(device).multi_processor_count)
+        if n0 * n1 * n2 >= 2**31 or -(-t // plan[2]) > 65535:
+            raise ValueError(f"x {tuple(x.shape)} exceeds the kernel's grid")
         kernel = ROPE_T if transpose else ROPE
-        kernel(device, x5.data_ptr(), cos.data_ptr(), sin.data_ptr(), out.data_ptr(),
-               n0, n1, n2, t, d, n_elem, *x5.stride()[:4], int(transpose),
-               _lib.dtype_code(x5))
+        kernel(device, *ptrs, n0, n1, n2, t, d, n_elem, *strides, int(transpose),
+               _lib.dtype_code(x5), *plan)
     return out.reshape(x.shape)
 
 

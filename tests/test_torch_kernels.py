@@ -1,7 +1,11 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Edge cases the main path's shapes do not reach: ragged sequence lengths and
-row counts, partial rotary, the inverse rotation, a ragged intermediate
+row counts, partial rotary, the inverse rotation, K2 and K3 on each of
+their instances (rows held in registers, read twice, split over 8 warps,
+one element an access for odd widths and views offset by one element;
+n_elem 16 to 128 of cos/sin tables whose halves differ) with bitwise
+repeats, a ragged intermediate
 size, the gelu gate, strided inputs, fp32 where a kernel takes it, the
 wrappers' refusals, the autograd ops of the training path, K8 at ragged
 rows and N with split K (1 to 3072 rows around its 16-row decode tile
@@ -91,8 +95,13 @@ def _close(got, want, atol, rtol):
     assert bool((diff <= bound).all()), f"max abs err {float(diff.max())}"
 
 
+# K2: widths held in registers (64 to 4096 bf16, to 2048 fp32), read twice
+# (4096 fp32) and one element a load (1003); rows at one row a block (2048
+# and 4096 bf16, 2048 fp32: split over 8 warps) and at 4 (3077, not a
+# multiple of 4)
 @pytest.mark.parametrize("dtype,atol,rtol", [BF16, F32])
-@pytest.mark.parametrize("rows,d", [(1, 64), (8, 2048), (300, 256)])
+@pytest.mark.parametrize("rows", [1, 7, 300, 3077])
+@pytest.mark.parametrize("d", [64, 256, 1003, 2048, 4096])
 def test_rms_norm(dev, gen, dtype, atol, rtol, rows, d):
     x = _randn(gen, rows, d, dtype=dtype)
     scale = 1.0 + _randn(gen, d, dtype=torch.float32, std=0.1)
@@ -106,18 +115,70 @@ def test_rms_norm_strided_input(dev, gen):
 
 
 @pytest.mark.parametrize("dtype,atol,rtol", [BF16, F32])
-@pytest.mark.parametrize("n_elem", [64, 32])
+@pytest.mark.parametrize("d", [256, 2048])
+def test_rms_norm_reads_a_view_offset_by_one_element(dev, gen, dtype, atol, rtol, d):
+    x = _randn(gen, 37 * d + 1, dtype=dtype)[1:].view(37, d)
+    scale = 1.0 + _randn(gen, d, dtype=torch.float32, std=0.1)
+    assert rmsnorm.row_plan(37, d, x.element_size(), x.data_ptr(), scale.data_ptr(), 0)[:2] == (
+        1, 0)
+    _close(rmsnorm.rms_norm(x, scale), rmsnorm.rms_norm_plain(x, scale), atol, rtol)
+
+
+def _rope_tables(gen, t, n_elem, dtype):
+    """cos and sin of random angles: the two halves of a row differ, as
+    K3 must not assume the tables tiled twice."""
+    ang = torch.rand(t, n_elem, generator=gen, device=gen.device) * 6 - 3
+    return ang.cos().to(dtype), ang.sin().to(dtype)
+
+
+# K3: 16-byte vectors at n_elem 16, 32 and 64 of a 64-wide head (the rest
+# copied) and 128 of 128; one position, a ragged T and the training T; q and k
+# views of the fused QKV projection and a contiguous gradient
+@pytest.mark.parametrize("dtype,atol,rtol", [BF16, F32])
+@pytest.mark.parametrize("d,n_elem", [(64, 16), (64, 32), (64, 64), (128, 128)])
+@pytest.mark.parametrize("t", [1, 37, 1024])
 @pytest.mark.parametrize("transpose", [False, True])
-def test_apply_rope_on_fused_qkv_heads(dev, gen, dtype, atol, rtol, n_elem, transpose):
-    cfg = GPTConfig(n_embd=512, n_head=8, n_query_groups=2, intermediate_size=256,
+def test_apply_rope_on_fused_qkv_heads(dev, gen, dtype, atol, rtol, d, n_elem, t, transpose):
+    cfg = GPTConfig(n_embd=8 * d, n_head=8, n_query_groups=2, intermediate_size=256,
                     mlp_class="LLaMAMLP")
-    qkv = _randn(gen, 3, 37, cfg.qkv_out_dim, dtype=dtype)
+    qkv = _randn(gen, 3, t, cfg.qkv_out_dim, dtype=dtype)
     q5, k4, v4 = split_heads(cfg, qkv)
-    cos, sin = rope.build_rope_cache(37, n_elem, dtype=dtype, device=dev)
+    cos, sin = _rope_tables(gen, t, n_elem, dtype)
     for x in (q5, k4, v4.contiguous()):
         got = rope.apply_rope(x, cos, sin, transpose=transpose)
         assert got.is_contiguous()
         _close(got, rope.apply_rope_plain(x, cos, sin, transpose), atol, rtol)
+
+
+@pytest.mark.parametrize("dtype,atol,rtol", [BF16, F32])
+@pytest.mark.parametrize("transpose", [False, True])
+def test_apply_rope_reads_a_view_offset_by_one_element(dev, gen, dtype, atol, rtol, transpose):
+    x = _randn(gen, 2 * 4 * 37 * 64 + 1, dtype=dtype)[1:].view(2, 4, 37, 64)
+    cos, sin = _rope_tables(gen, 37, 64, dtype)
+    assert rope.launch_plan(8, 37, 64, 64, x.element_size(), [0, 4 * 37 * 64, 37 * 64, 64],
+                            (x.data_ptr(), cos.data_ptr(), sin.data_ptr(), 0), 132)[0] == 1
+    _close(rope.apply_rope(x, cos, sin, transpose=transpose),
+           rope.apply_rope_plain(x, cos, sin, transpose), atol, rtol)
+
+
+@pytest.mark.parametrize("case", ["rms_norm", "rms_norm_read_twice", "apply_rope",
+                                  "apply_rope_transpose"])
+def test_rms_norm_and_rope_repeat_bitwise(dev, gen, case):
+    """Two launches on the same inputs give the same bits (no atomics)."""
+    if case.startswith("rms_norm"):
+        d = 2048 if case == "rms_norm" else 4104
+        x = _randn(gen, 3077, d)
+        scale = 1.0 + _randn(gen, d, dtype=torch.float32, std=0.1)
+        first, second = (rmsnorm.rms_norm(x, scale) for _ in range(2))
+    else:
+        cfg = GPTConfig(n_embd=2048, n_head=32, n_query_groups=4, intermediate_size=256,
+                        mlp_class="LLaMAMLP")
+        q5, _, _ = split_heads(cfg, _randn(gen, 2, 1024, cfg.qkv_out_dim))
+        cos, sin = _rope_tables(gen, 1024, 64, torch.bfloat16)
+        tr = case == "apply_rope_transpose"
+        first, second = (rope.apply_rope(q5, cos, sin, transpose=tr) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize("transpose", [False, True])

@@ -301,8 +301,11 @@ ENCODER_REL_TOL = 1e-4
 L2_FLUSH_BYTES = 256 << 20
 # depth of the decode slice (full width); the training slice keeps all 22
 DECODE_LAYERS = 22
-# TinyLlama-1.1B's linears that K8 and K5 see: (name, out, in)
-Q4_SHAPES = (("fc_1", 5632, 2048), ("mlp_proj", 2048, 5632), ("lm_head", 32000, 2048))
+# TinyLlama-1.1B's linears that K8 and K5 see: (name, out, in); K8 is also
+# timed at 3072 prefill rows of Q4_PREFILL
+Q4_SHAPES = (("qkv", 2560, 2048), ("attn_proj", 2048, 2048), ("fc_1", 5632, 2048),
+             ("mlp_proj", 2048, 5632), ("lm_head", 32000, 2048))
+Q4_PREFILL = ("fc_1", "mlp_proj", "lm_head")
 LORA_SHAPES = (("qkv", 2560, 2048, 3), ("proj", 2048, 2048, 1))  # (name, O, D, blocks of r)
 LORA_RANK = 16
 
@@ -435,7 +438,7 @@ def compare_scaled(name, got, want, torch) -> dict:
 def kernel_phases(torch, seed: int) -> dict:
     import torch.nn.functional as F
 
-    from dualhyp_tpu_torch.ops import attention, rmsnorm, rope, swiglu
+    from dualhyp_tpu_torch.ops import attention, int4, lora, quant, rmsnorm, rope, swiglu
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -546,16 +549,23 @@ def kernel_phases(torch, seed: int) -> dict:
     # host microseconds a call at tiny shapes, where the card waits on the
     # host: K1's forward and K4 encode their TMA tensor maps (4 and 5-7) on
     # every call, K2 encodes none (the yardstick of one ctypes launch)
+    # K8 and K5 at decode rows, where a slice calls them thousands of times
     xs, ws = randn(8, 128), randn(256, 128, std=0.05)
     w3s = randn(128, 256, std=0.05)
     qt, kt = randn(1, 8, 16, hs), randn(1, 2, 16, hs)
+    packed, q4_scales = quant.quantize_weight_int4(randn(256, 128, dtype=torch.float32))
+    a_s, b_s = randn(16, 128, std=0.05), randn(256, 16, std=0.05)
     emit({"phase": "host_cost", "shapes": {"rms_norm": [8, 128], "swiglu_mlp": [8, 128, 256],
-                                           "flash_attention_fwd": [1, 8, 2, 16, hs]},
+                                           "flash_attention_fwd": [1, 8, 2, 16, hs],
+                                           "q4_matmul": [8, 256, 128],
+                                           "lora_linear": [8, 256, 128, 16]},
           "host_us": {
               "rms_norm": host_us(lambda: rmsnorm.rms_norm(xs, scale[:128]), torch),
               "swiglu_mlp": host_us(lambda: swiglu.swiglu_mlp(xs, ws, ws, w3s), torch),
               "flash_attention_fwd": host_us(lambda: attention._flash_fwd(qt, kt, kt, 0.125),
-                                             torch)}})
+                                             torch),
+              "q4_matmul": host_us(lambda: int4.q4_matmul(xs, packed, q4_scales), torch),
+              "lora_linear": host_us(lambda: lora.lora_linear(xs, ws, a_s, b_s, 1.0), torch)}})
     return results
 
 
@@ -584,9 +594,17 @@ def host_us(fn, torch, n: int = 200) -> float:
     return elapsed / n * 1e6
 
 
+def decode_plan(module, *args):
+    """`module.decode_plan(*args)` (K8's and K5's decode kernels), None in a
+    checkout that has none (a parent measured in turns)."""
+    plan = getattr(module, "decode_plan", None)
+    return plan(*args) if plan else None
+
+
 def q4_lora_phase(torch, seed: int) -> dict:
     """K8 and K5 at the shapes of TinyLlama-1.1B's linears, each against its
-    plain version, timed beside its bound and its cuBLAS yardstick."""
+    plain version, timed beside its bound and its cuBLAS yardstick (back to
+    back and, as the kernel's device_ms, one cold call)."""
     from dualhyp_tpu_torch.ops import int4, lora, quant
 
     dev = torch.device("cuda")
@@ -600,21 +618,26 @@ def q4_lora_phase(torch, seed: int) -> dict:
     for name, n, k in Q4_SHAPES:
         packed, scales = quant.quantize_weight_int4(randn(n, k, std=0.02, dtype=torch.float32))
         w_deq = quant.dequantize_weight_int4(packed, scales, bf16)  # the yardstick's weight
-        for label, rows in (("decode", 8), ("prefill", 3072)):
+        rows_of = [("decode", 8), ("decode_1", 1), ("decode_16", 16)]
+        if name in Q4_PREFILL:
+            rows_of.append(("prefill", 3072))
+        for label, rows in rows_of:
             x = randn(rows, k)
             got = repeatable("q4_matmul", lambda: int4.q4_matmul(x, packed, scales), torch)
             err = compare("q4_matmul", got, int4.q4_matmul_plain(x, packed, scales), torch)
             bms, by = bound(rows * k * 2 + n * k // 2 + n * (k // 128) * 4 + rows * n * 2,
                             2 * rows * n * k, BF16_TENSOR_FLOPS)
+            launch = (decode_plan(int4, rows, n, k) if rows <= int4.DECODE_ROWS else
+                      dict(tile=list(int4.tile(rows)[:2]),
+                           split_k=list(int4.split_k(rows, n, k // 128))))
             q4[f"{label}_{name}"] = dict(
-                shape=[rows, n, k], tile=list(int4.tile(rows)[:2]),
-                split_k=list(int4.split_k(rows, n, k // 128)), max_abs_err=err,
-                repeats_bitwise=True,
+                shape=[rows, n, k], launch=launch, max_abs_err=err, repeats_bitwise=True,
                 ms=time_ms(lambda: int4.q4_matmul(x, packed, scales), torch),
                 device_ms=device_ms(lambda: int4.q4_matmul(x, packed, scales), torch),
                 plain_ms=time_ms(lambda: int4.q4_matmul_plain(x, packed, scales), torch,
                                  warmup=1, iters=3),
                 library_ms=time_ms(lambda: x @ w_deq.t(), torch),
+                library_device_ms=device_ms(lambda: x @ w_deq.t(), torch),
                 library="cuBLAS bf16 matmul on the dequantised weight",
                 bound_ms=bms, bound_by=by)
         del w_deq
@@ -630,7 +653,7 @@ def q4_lora_phase(torch, seed: int) -> dict:
         shapes = (d, (o - d) // 2, (o - d) // 2) if blocks == 3 else (o,)
         b = lora.lora_qkv_block_b(b_small, shapes, r)
         s = 1.0  # lora_alpha / lora_r of the slice
-        for rows in (8, 1536, 3072, 8192):
+        for rows in (1, 8, 16, 1536, 3072, 8192):
             for separate in (False, True):
                 x = randn(rows, d)
                 xin = randn(rows, d) if separate else None
@@ -643,16 +666,20 @@ def q4_lora_phase(torch, seed: int) -> dict:
                 bms, by = bound((n_x + o * d + blocks * r * d + o * blocks * r + rows * o) * 2,
                                 2 * rows * o * d + 2 * rows * blocks * r * d + 2 * rows * o * r,
                                 BF16_TENSOR_FLOPS)
+                decode = rows <= lora.DECODE_ROWS
                 lo[f"{name}_{rows}{'_xin' if separate else ''}"] = dict(
                     shape=[rows, o, d, blocks * r], separate_xin=separate, max_abs_err=err,
-                    path="mma.sync" if rows <= lora.DECODE_ROWS else "wgmma",
-                    repeats_bitwise=True,
+                    path="decode" if decode else "wgmma",
+                    launch=decode_plan(lora, rows, o, d, blocks * r, s, separate) if decode
+                    else None, repeats_bitwise=True,
                     ms=time_ms(lambda: lora.lora_linear(x, w, a, b, s, xin=xin), torch),
                     device_ms=device_ms(lambda: lora.lora_linear(x, w, a, b, s, xin=xin),
                                         torch),
                     plain_ms=time_ms(lambda: lora.lora_linear_plain(x, w, a, b, s, xin),
                                      torch, warmup=1, iters=3),
                     library_ms=time_ms(lambda: x @ w.t() + s * ((xb @ a.t()) @ b.t()), torch),
+                    library_device_ms=device_ms(
+                        lambda: x @ w.t() + s * ((xb @ a.t()) @ b.t()), torch),
                     library="cuBLAS x W^T + s (xin A^T) B^T, three products and an add",
                     bound_ms=bms, bound_by=by)
     emit({"phase": "kernel", "name": "lora_linear",
@@ -855,6 +882,12 @@ class WordTokenizer:
         return " ".join(self.words.get(int(i), f"<{int(i)}>") for i in ids)
 
 
+# substrings of the kernel names of K8's and K5's paths in a slice's profile
+# (device ms and launches of each): the decode kernels, the prefill kernels,
+# and the wgmma kernel's pass over split parts
+SLICE_KERNELS = {"k8_decode": ("q4_decode_kernel",), "k8_prefill": ("q4_tma_kernel",),
+                 "k8_split_pass": ("::sum_splits(",), "k5_decode": ("lora_decode_kernel",),
+                 "k5_prefill": ("lora_rank_kernel", "lora_tma_kernel")}
 DECODE_PATH = ("rms_norm", "apply_rope", "flash_attention_fwd", "swiglu_mlp")
 TRAIN_PATH = ("rms_norm", "apply_rope", "flash_attention_fwd", "flash_attention_bwd",
               "swiglu_mlp", "apply_rope_transpose")
@@ -869,7 +902,7 @@ SLICES = {
     "int8_kv8": dict(lora_impl="xla", quantize="int8", kv_quant="int8", profile=False,
                      launch=("rms_norm", "apply_rope", "flash_attention_fwd"),
                      idle=("swiglu_mlp", "lora_linear", "q4_matmul")),
-    "fused": dict(lora_impl="fused", quantize=None, kv_quant=None, profile=False,
+    "fused": dict(lora_impl="fused", quantize=None, kv_quant=None, profile=True,
                   launch=DECODE_PATH + ("lora_linear",), idle=("q4_matmul",)),
 }
 
@@ -955,8 +988,14 @@ def serve_requests(torch, model, seed: int, serve: dict, profile_label=None) -> 
                 torch.cuda.synchronize()
                 prof_wall_ms = (time.perf_counter() - t1) * 1e3
             summary = profile_summary(prof, prof_wall_ms)
+            times = device_kernel_times(prof)
+            paths = {key: {"ms": sum(us for name, (us, _) in times.items()
+                                     if any(p in name for p in parts)) / 1e3,
+                           "launches": sum(n for name, (_, n) in times.items()
+                                           if any(p in name for p in parts))}
+                     for key, parts in SLICE_KERNELS.items()}
             emit({"phase": "slice_profile", "variant": profile_label,
-                  "profile_s": time.perf_counter() - t1, **summary})
+                  "profile_s": time.perf_counter() - t1, "k5_k8": paths, **summary})
     return (out_records, metrics, wall, launches, [prompt_lengths[0], prompt_lengths[-1]],
             prefill_rows)
 
@@ -3394,7 +3433,8 @@ def main(argv=None) -> int:
             **({"decode": kernels[name]["decode"]} if "decode" in kernels[name] else {}),
         }
         if shape:  # K5, K6, K7, K8: every measured shape beside the main one
-            entry["shapes"] = {k: {key: v[key] for key in keys + ("bound_ms_cuda_cores",)
+            entry["shapes"] = {k: {key: v[key] for key in keys + ("bound_ms_cuda_cores",
+                                                                  "library_device_ms")
                                    if key in v}
                                for k, v in kernels[name].items()}
         if name == "full_attention_fwd":  # fp32: the CUDA cores' bound beside the split one

@@ -3,8 +3,10 @@
 // the prefill paths of K8 and L2): mbarriers, TMA loads, stores and
 // reduce-adds through tensor maps, warpgroup matrix products (wgmma) with
 // operands in 128-byte swizzled shared memory or, for A, in registers,
-// warpgroup register hand-over (setmaxnreg), and the host-side encoding of
-// the tensor maps.
+// warpgroup register hand-over (setmaxnreg), the host-side encoding of
+// the tensor maps; and for the decode kernels of K5 and K8, 16-byte weight
+// loads that skip L1, thread-block clusters (their launch, barrier, and
+// sums over the CTAs' shared memory in a fixed order).
 //
 // Shared-memory tiles: TMA writes a box of (rows, 64) bf16 with
 // CU_TENSOR_MAP_SWIZZLE_128B, so row r holds its 128 bytes at r * 128 with
@@ -202,6 +204,118 @@ __device__ __forceinline__ int swizzled_offset(int r, int c) {
 // The same for a (rows, 32) fp32 tile (c even: the pair shares 8 bytes).
 __device__ __forceinline__ int swizzled_offset_f32(int r, int c) {
   return r * 128 + ((((c >> 2) ^ r) & 7) << 4) + ((c & 3) << 2);
+}
+
+// ---- weight streams and thread-block clusters (the decode kernels of K5, K8) --
+
+// 16 bytes of read-only device memory straight into registers, not kept in
+// L1 (a weight a kernel reads once).
+__device__ __forceinline__ uint4 ld_stream(const void* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
+// This CTA's rank in its cluster, and the cluster's CTAs (1 in a launch
+// without clusters).
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return static_cast<int>(r);
+}
+__device__ __forceinline__ int cluster_size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return static_cast<int>(n);
+}
+
+// The two halves of a barrier of every thread of the cluster's CTAs. After
+// an arrive at a kernel's start, the wait tells that every CTA of the
+// cluster has started (its shared memory may be written); after an arrive
+// that follows writes to other CTAs' shared memory, the wait makes them
+// seen (release / acquire).
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Writes v to the float at `p` (an address in this CTA's shared memory) in
+// the shared memory of the cluster's CTA `rank`.
+__device__ __forceinline__ void st_cluster_f32(float* p, int rank, float v) {
+  uint32_t addr;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(addr) : "r"(smem_addr(p)), "r"(rank));
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
+}
+
+// Sends a warp's mma.sync accumulators of 16 weight rows (A's rows, columns
+// col + [0, 16)) by 8 tokens (B's columns, tok + [0, 8)) into `slots`,
+// (ranks, tokens, cols) fp32, at this CTA's rank, in the shared memory of
+// the cluster's CTA `dst`; or, with dst < 0, of the CTA that owns each
+// column, `cols` each (at column % cols). Lane l holds rows l / 4 and l /
+// 4 + 8 of tokens 2 (l % 4) and + 1.
+__device__ __forceinline__ void push_row_tile(float* slots, int tokens, int cols, int col,
+                                              int tok, const float (&c)[4], int rank, int lane,
+                                              int dst = -1) {
+  const int t = tok + 2 * (lane & 3);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int r = col + (lane >> 2) + 8 * (e >> 1);
+    st_cluster_f32(slots + (rank * tokens + t + (e & 1)) * cols + (dst < 0 ? r % cols : r),
+                   dst < 0 ? r / cols : dst, c[e]);
+  }
+}
+
+// The sum over a cluster's ranks, in rank order, of slot element `i` (each
+// rank's slot `stride` floats apart): the same bits on every run.
+__device__ __forceinline__ float sum_slots(const float* slots, int stride, int ranks) {
+  float sum = slots[0];
+  for (int c = 1; c < ranks; ++c) sum += slots[c * stride];
+  return sum;
+}
+
+// Lets kKernel take more than 48 KB of dynamic shared memory (the card's
+// most, 227 KB) on the current device: one runtime call a kernel and
+// device, not one a launch (a decode call's host time counts).
+template <auto kKernel>
+static inline int allow_smem(int bytes) {
+  static unsigned raised = 0;  // a bit a device
+  if (bytes <= 48 * 1024) return 0;
+  int dev = 0;
+  int err = static_cast<int>(cudaGetDevice(&dev));
+  if (err || (raised >> dev & 1u)) return err;
+  err = static_cast<int>(
+      cudaFuncSetAttribute(kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448));
+  if (!err) raised |= 1u << dev;
+  return err;
+}
+
+// Launches `kernel` on `blocks` CTAs in clusters of `cluster` along x (a
+// multiple of it); returns the launch's error, or the last one.
+template <typename... Params, typename... Args>
+static inline int launch_cluster(void (*kernel)(Params...), int blocks, int threads, int smem,
+                                 int cluster, cudaStream_t stream, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
 // ---- wgmma -----------------------------------------------------------------

@@ -8,16 +8,15 @@
 // reason to exist is that the dequantised matrix never reaches device
 // memory (the XLA path materialises it and reads it back). Both paths
 // unpack the packed bytes in registers, straight into tensor-core
-// operands: byte c of a row holds columns 2c (low nibble) and 2c + 1 (high
-// nibble), which is exactly the pair of k values one register of an
-// mma.sync or wgmma fragment holds, and a nibble becomes an exact bf16
-// integer with one bit trick a pair (0x4300 | (nibble ^ 8) is 128 + v + 8
-// in bf16; subtract 136). No dequantised value is stored anywhere. The TPU
-// kernel splits x into even and odd planes to meet the two nibble planes;
-// here the nibbles meet x where it lies, read in place through its row
-// stride. Each group's product is summed in fp32 and multiplied by the
-// group's scale after the product, as the TPU kernel does; one rounding to
-// bf16 at the end.
+// operands, and a nibble becomes an exact bf16 integer with one logic
+// operation (0x4300 | (nibble ^ 8) is 128 + v + 8 in bf16; subtract 136).
+// No dequantised value is stored anywhere. The TPU kernel splits x into
+// even and odd planes to meet the two nibble planes; here x meets the
+// nibbles in the order they come (the prefill kernel reads x in place
+// through its row stride; the decode kernel stages it once, its k order
+// permuted within each group). Each group's product is summed in fp32 and
+// multiplied by the group's scale after the product, as the TPU kernel
+// does; one rounding to bf16 at the end.
 //   * prefill rows (more than 16; q4_tma_kernel): the operands are swapped,
 //     outT = W xT, so the weights fill wgmma's 64-row side and the tokens
 //     are its N (128 a tile). A producer warp keeps a ring of stages in
@@ -32,164 +31,198 @@
 //     part * s, one scale a row. The output tile goes through shared
 //     memory (the ring, done with) and is written row-major with 16-byte
 //     stores;
-//   * decode rows (at most 16; q4_kernel): mma.sync m16n8k16 on a 16 x 64
-//     output tile with 4 warps, walking K one group at a time, two groups
-//     in flight by cp.async; the host-side tensor maps of a TMA kernel
-//     would cost more than this path's device time;
-//   * when the output tiles cannot fill the card (decode rows against a
-//     narrow N) the groups are split across blocks (grid z); each split
-//     writes an fp32 partial and a second pass adds them in a fixed order.
-//     No atomics: the output repeats bit for bit.
+//   * decode rows (at most 16; q4_decode_kernel): a GEMV bound by the
+//     packed bytes, which a lane streams straight into registers with
+//     16-byte loads (ld.global.nc, no L1 allocation), one group of a row a
+//     load, all groups of its share in flight before x is staged; the
+//     bytes are mma.sync's A fragments as they lie (the weights on M, the
+//     tokens as N, so 8 rows fill the tile), nibbles k and k + 4 a
+//     register, and x, staged once a CTA in shared memory, is permuted to
+//     match. A CTA covers 128 weight rows; where the column blocks cannot
+//     fill the card the groups are split across the CTAs of a cluster (at
+//     most 8), whose fp32 parts meet in distributed shared memory and are
+//     added in rank order, each CTA for its share of the columns: one
+//     launch, no workspace in device memory, no atomics, so the output
+//     repeats bit for bit. The host-side tensor maps of a TMA kernel would
+//     cost more than this path's device time;
+//   * the prefill kernel splits K across CTAs (grid z) when its output
+//     tiles cannot fill the card; each split writes an fp32 partial and
+//     `sum_splits` adds them in a fixed order.
 #include "hopper.cuh"
 
 namespace {
 
-constexpr int kGroup = 128;          // input columns a scale covers: one K step
-constexpr int kThreads = 128;        // 4 warps
-constexpr int kLds = kGroup + 8;     // bf16 row stride of the x tile
-constexpr int kLdp = kGroup / 2 + 16;  // byte row stride of the packed tile
+constexpr int kGroup = 128;  // input columns a scale covers
 
-// One packed byte -> the bf16 pair (low nibble, high nibble) of one
-// fragment register (mma.sync's B, wgmma's register A), exact.
-__device__ __forceinline__ uint32_t unpack_byte(uint32_t byte) {
-  uint32_t v = (((byte & 0x0Fu) | ((byte & 0xF0u) << 12)) ^ 0x00080008u) | 0x43004300u;
+// ---- decode rows: one weight stream on mma.sync ------------------------------
+
+constexpr int kDecodeWarps = 8;                  // a warp streams 16 weight rows
+constexpr int kDecodeCols = 16 * kDecodeWarps;   // output columns (weight rows) a CTA
+
+// Nibbles k and k + 4 of a packed word (bits 0-3 and 16-19 of `w`, the
+// word shifted by 4 j for k = j) -> their bf16 pair, exact: (nibble ^ 8) |
+// 0x4300 is 136 + v in bf16, in one logic operation, then 136 off.
+__device__ __forceinline__ uint32_t pair_k4(uint32_t w) {
+  uint32_t v = (w & 0x000F000Fu) ^ 0x43084308u;
   __nv_bfloat162 f = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&v),
                              __floats2bfloat162_rn(136.f, 136.f));
   return *reinterpret_cast<uint32_t*>(&f);
 }
 
-// ---- decode rows: mma.sync, cp.async ---------------------------------------------
-
-// WM x WN warps; a warp owns MT m16 tiles by NT n8 tiles.
-template <int WM, int WN, int MT, int NT>
-__global__ void __launch_bounds__(kThreads)
-q4_kernel(const bf16* __restrict__ x, long long ldx, const uint8_t* __restrict__ packed,
-          const float* __restrict__ scales, bf16* __restrict__ out,
-          float* __restrict__ ws, int m, int n, int k, int per_split) {
-  constexpr int BM = WM * MT * 16;
-  constexpr int BN = WN * NT * 8;
-  static_assert(WM * WN * 32 == kThreads, "four warps");
-  __shared__ __align__(16) bf16 x_s[2][BM * kLds];
-  __shared__ __align__(16) uint8_t p_s[2][BN * kLdp];
-  __shared__ __align__(16) float s_s[2][BN];
-
-  const int n0 = blockIdx.x * BN;
-  const int r0 = blockIdx.y * BM;
+// out (m <= 8 MT, n) = x W^T: CTA (column block cb, cluster rank) streams
+// the packed bytes of weight rows cb * 128 + [0, 128) over its share of the
+// groups, [g0, g1); each CTA sends its fp32 parts of the cluster's columns
+// to the CTA that owns them (128 / ranks each) in distributed shared
+// memory, and after one barrier every CTA adds its columns' parts in rank
+// order. Warp w owns rows 16 w + [0, 16) as mma.sync's A (m16n8k16, the
+// tokens as N): lane (row l / 4, quad l % 4) reads bytes 16 quad + [0, 16)
+// of its row and of the row 8 below, one 16-byte load each a group, and
+// word i of them (k 32 quad + 8 i + [0, 8)) is the A fragments of two k16
+// steps: nibbles (k, k + 4) and (k + 1, k + 5), then (k + 2, k + 6) and
+// (k + 3, k + 7). A lane keeps two groups in flight, loading the next
+// while it multiplies the last. x is staged once in that
+// order (`x_s`: chunk 4 quad + i of a group's 16-byte chunks at 4 i +
+// quad, its bf16 pairs as (0, 4), (1, 5), (2, 6), (3, 7)), so a lane's B
+// fragments of the two steps are one 16-byte shared load. Each group's
+// fp32 sum is multiplied by its scale, as the Pallas kernel does.
+template <int MT>
+__global__ void __launch_bounds__(kDecodeWarps * 32)
+q4_decode_kernel(const bf16* __restrict__ x, long long ldx, const uint8_t* __restrict__ packed,
+                 const float* __restrict__ scales, bf16* __restrict__ out, int m, int n, int k) {
+  constexpr int kTok = 8 * MT;
+  cluster_arrive_relaxed();  // this CTA has started: the cluster may write its slots
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ranks = cluster_size();
+  const int rank = cluster_rank();
+  const int cb = blockIdx.x / ranks;
   const int groups = k / kGroup;
-  const int g_begin = blockIdx.z * per_split;
-  const int g_end = min(groups, g_begin + per_split);
-  const long long half_k = k / 2;
+  const int g0 = rank * groups / ranks;  // every rank takes one group at least
+  const int g1 = (rank + 1) * groups / ranks;
+  // x's row stride, from the largest share: the slots lie at the same
+  // offset in every CTA of the cluster; 64 bytes past a multiple of 128,
+  // so a quad's 16-byte loads of two tokens meet no bank twice
+  const int ldxs = (groups + ranks - 1) / ranks * kGroup + 32;
+  const int cols = kDecodeCols / ranks;  // the columns this CTA adds up and stores
+  bf16* x_s = reinterpret_cast<bf16*>(smem);
+  float* slots = reinterpret_cast<float*>(smem + kTok * ldxs * 2);  // (ranks, tokens, cols)
+
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int wm = warp / WN;
-  const int wn = warp % WN;
+  const int quad = lane & 3;
+  const int row = lane >> 2;
+  const int n0 = cb * kDecodeCols + 16 * warp;
+  const int r_lo = min(n0 + row, n - 1);  // rows past n read row n - 1 and are not stored
+  const int r_hi = min(n0 + row + 8, n - 1);
+  const uint8_t* p_lo = packed + static_cast<long long>(r_lo) * (k / 2) + 16 * quad;
+  const uint8_t* p_hi = packed + static_cast<long long>(r_hi) * (k / 2) + 16 * quad;
+  const float* s_lo = scales + static_cast<long long>(r_lo) * groups;
+  const float* s_hi = scales + static_cast<long long>(r_hi) * groups;
 
-  // group g's x columns, packed bytes and scales into buffer `st`; rows past
-  // m or N copy zeros
-  auto load_group = [&](int st, int g) {
-    for (int i = threadIdx.x; i < BM * 16; i += kThreads) {
-      const int r = i >> 4;
-      const int c = (i & 15) * 8;
-      const bool ok = r0 + r < m;
-      cp_async(&x_s[st][r * kLds + c], ok ? x + (r0 + r) * ldx + g * kGroup + c : x, ok);
-    }
-    for (int i = threadIdx.x; i < BN * 4; i += kThreads) {
-      const int r = i >> 2;
-      const int c = (i & 3) * 16;
-      const bool ok = n0 + r < n;
-      cp_async(&p_s[st][r * kLdp + c],
-               ok ? packed + (n0 + r) * half_k + g * (kGroup / 2) + c : packed, ok);
-    }
-    if (threadIdx.x < BN) {
-      const bool ok = n0 + threadIdx.x < n;
-      cp_async<4>(&s_s[st][threadIdx.x],
-                  ok ? scales + static_cast<long long>(n0 + threadIdx.x) * groups + g : scales,
-                  ok);
+  struct Batch {  // a group of the lane's two rows: bytes and scales
+    uint4 lo, hi;
+    float s_lo, s_hi;
+  };
+  auto issue = [&](Batch& b, int g) {
+    if (g < g1) {
+      b.lo = ld_stream(p_lo + g * (kGroup / 2));
+      b.hi = ld_stream(p_hi + g * (kGroup / 2));
+      b.s_lo = __ldg(s_lo + g);
+      b.s_hi = __ldg(s_hi + g);
     }
   };
+  Batch b0, b1;  // two groups in flight: the next loads while the last multiplies
+  issue(b0, g0);  // the first weights are in flight while x is staged
+  issue(b1, g0 + 1);
 
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  const int chunks = (g1 - g0) * (kGroup / 8);
+  for (int i = threadIdx.x; i < kTok * chunks; i += blockDim.x) {
+    const int t = i / chunks;
+    const int c = i % chunks;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (t < m) v = *reinterpret_cast<const uint4*>(x + t * ldx + g0 * kGroup + 8 * c);
+    uint4 p;
+    p.x = __byte_perm(v.x, v.z, 0x5410);
+    p.y = __byte_perm(v.x, v.z, 0x7632);
+    p.z = __byte_perm(v.y, v.w, 0x5410);
+    p.w = __byte_perm(v.y, v.w, 0x7632);
+    const int cc = c & 15;
+    *reinterpret_cast<uint4*>(x_s + t * ldxs + 8 * (c - cc + 4 * (cc & 3) + (cc >> 2))) = p;
+  }
+  __syncthreads();
 
-  if (g_begin < g_end) load_group(0, g_begin);
-  cp_async_commit();
-  for (int g = g_begin; g < g_end; ++g) {
-    const int st = (g - g_begin) & 1;
-    if (g + 1 < g_end) load_group(st ^ 1, g + 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // group g's copies have landed
-    __syncthreads();
-
-    float part[MT][NT][4];
+  float acc[MT][4];
 #pragma unroll
-    for (int i = 0; i < MT; ++i)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
+    for (int e = 0; e < 4; ++e) acc[mt][e] = 0.f;
+  const bf16* xb = x_s + row * ldxs + 8 * quad;  // this lane's token, its quad's chunks
+  auto multiply = [&](const Batch& b, int g) {
+    if (g >= g1) return;
+    float part[MT][4];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) part[i][j][e] = 0.f;
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int kk = 0; kk < kGroup; kk += 16) {
-      uint32_t a[MT][4];
-      uint32_t b[NT][2];
+      for (int e = 0; e < 4; ++e) part[mt][e] = 0.f;
+    const bf16* xg = xb + (g - g0) * kGroup;
 #pragma unroll
-      for (int i = 0; i < MT; ++i)
-        load_frag_a(a[i], x_s[st], kLds, (wm * MT + i) * 16, kk, lane);
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t lo = (&b.lo.x)[i];
+      const uint32_t hi = (&b.hi.x)[i];
+      const uint32_t a0[4] = {pair_k4(lo), pair_k4(hi), pair_k4(lo >> 4), pair_k4(hi >> 4)};
+      const uint32_t a1[4] = {pair_k4(lo >> 8), pair_k4(hi >> 8), pair_k4(lo >> 12),
+                              pair_k4(hi >> 12)};
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        // B fragment rows k = kk + 2(l%4) (+1) and + 8 (+9) of column
-        // n = l/4: packed bytes kk/2 + l%4 and kk/2 + l%4 + 4
-        const uint8_t* p =
-            &p_s[st][((wn * NT + j) * 8 + (lane >> 2)) * kLdp + kk / 2 + (lane & 3)];
-        b[j][0] = unpack_byte(p[0]);
-        b[j][1] = unpack_byte(p[4]);
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j) mma_bf16_16816(part[i][j], a[i], b[j]);
-    }
-    // the group's scale multiplies its partial sum, per output column
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int col = (wn * NT + j) * 8 + (lane & 3) * 2;
-      const float s0 = s_s[st][col];
-      const float s1 = s_s[st][col + 1];
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        acc[i][j][0] += part[i][j][0] * s0;
-        acc[i][j][1] += part[i][j][1] * s1;
-        acc[i][j][2] += part[i][j][2] * s0;
-        acc[i][j][3] += part[i][j][3] * s1;
+      for (int mt = 0; mt < MT; ++mt) {
+        const uint4 xv = *reinterpret_cast<const uint4*>(xg + mt * 8 * ldxs + 32 * i);
+        const uint32_t f0[2] = {xv.x, xv.y};
+        const uint32_t f1[2] = {xv.z, xv.w};
+        mma_bf16_16816(part[mt], a0, f0);
+        mma_bf16_16816(part[mt], a1, f1);
       }
     }
-    __syncthreads();  // every warp is done with buffer st before it refills
+    // the group's scale multiplies its sum, per weight row
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      acc[mt][0] += part[mt][0] * b.s_lo;
+      acc[mt][1] += part[mt][1] * b.s_lo;
+      acc[mt][2] += part[mt][2] * b.s_hi;
+      acc[mt][3] += part[mt][3] * b.s_hi;
+    }
+  };
+  for (int g = g0; g < g1; g += 2) {
+    multiply(b0, g);
+    issue(b0, g + 2);
+    multiply(b1, g + 1);
+    issue(b1, g + 3);
   }
 
-  const bool split = gridDim.z > 1;
-  float* ws_split = ws + static_cast<long long>(blockIdx.z) * m * n;
+  cluster_wait();  // every CTA of the cluster has started
 #pragma unroll
-  for (int i = 0; i < MT; ++i) {
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int row = r0 + (wm * MT + i) * 16 + (lane >> 2);
-      const int col = n0 + (wn * NT + j) * 8 + (lane & 3) * 2;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int rr = row + (e >> 1) * 8;
-        const int cc = col + (e & 1);
-        if (rr < m && cc < n) {
-          const long long at = static_cast<long long>(rr) * n + cc;
-          if (split) ws_split[at] = acc[i][j][e];
-          else out[at] = __float2bfloat16(acc[i][j][e]);
-        }
-      }
-    }
+  for (int mt = 0; mt < MT; ++mt)
+    push_row_tile(slots, kTok, cols, 16 * warp, 8 * mt, acc[mt], rank, lane);
+  cluster_arrive();
+  cluster_wait();  // every CTA's parts of this CTA's columns have landed
+  for (int i = threadIdx.x; i < m * cols; i += blockDim.x) {
+    const int t = i / cols;
+    const int c = i % cols;
+    const int col = cb * kDecodeCols + rank * cols + c;
+    if (col < n)
+      out[static_cast<long long>(t) * n + col] =
+          __float2bfloat16(sum_slots(slots + t * cols + c, kTok * cols, ranks));
   }
+}
+
+template <int MT>
+int launch_decode(const bf16* x, long long ldx, const uint8_t* packed, const float* scales,
+                  bf16* out, int m, int n, int k, int ranks, cudaStream_t s) {
+  const int per = (k / kGroup + ranks - 1) / ranks;  // groups of the largest share
+  const int smem = 8 * MT * ((per * kGroup + 32) * 2 + kDecodeCols * 4);
+  auto kernel = q4_decode_kernel<MT>;
+  const int err = allow_smem<&q4_decode_kernel<MT>>(smem);
+  if (err) return err;
+  const int blocks = (n + kDecodeCols - 1) / kDecodeCols * ranks;
+  return launch_cluster(kernel, blocks, kDecodeWarps * 32, smem, ranks, s, x, ldx, packed,
+                        scales, out, m, n, k);
 }
 
 // ---- prefill rows: operands swapped, wgmma fed by TMA -----------------------
@@ -213,7 +246,7 @@ struct Q4Layout {
 };
 
 // byte quad of each of two words of packed bytes (`sel`: quad | (4 + quad)
-// << 4) -> the bf16 pairs of their nibbles, as unpack_byte makes them: the
+// << 4) -> the bf16 pairs (low nibble, high nibble) of their nibbles: the
 // two bytes are gathered into one register, each moved to (low nibble at
 // bit 0, high nibble at bit 16) and masked, offset and rebased in one
 // logic operation
@@ -426,10 +459,12 @@ int launch_tma(const void* x, long long ldx, const void* packed, const float* sc
 // x: (m, k) bf16 with row stride ldx (elements; a multiple of 8, 16-byte
 // aligned rows), unit column stride; packed: contiguous (n, k / 2) int8,
 // 16-byte aligned; scales: contiguous (n, k / 128) fp32; out: contiguous
-// (m, n) bf16; ws: (splits, m, n) fp32 scratch when splits > 1. k must be
-// a multiple of 128; groups [z * per_split, (z + 1) * per_split) go to
-// split z. Up to 16 rows run the decode tile (16 x 64), else the TMA
-// kernel's (128 weight rows by 128 tokens).
+// (m, n) bf16. k must be a multiple of 128. Up to 16 rows run the decode
+// kernel: `splits` CTAs of a cluster (at most 8) take even shares of the
+// groups and add their parts on chip; ws and per_split are not read. Above
+// 16 rows the TMA kernel (128 weight rows by 128 tokens) runs with groups
+// [z * per_split, (z + 1) * per_split) in split z, whose fp32 parts go
+// to ws, (splits, m, n), when splits > 1, and a second pass adds them.
 DH_EXPORT int dh_q4_matmul(const void* x, long long ldx, const void* packed,
                            const void* scales, void* out, void* ws, int m, int n,
                            int k, int splits, int per_split, void* stream) {
@@ -437,16 +472,15 @@ DH_EXPORT int dh_q4_matmul(const void* x, long long ldx, const void* packed,
   const float* sp = static_cast<const float*>(scales);
   bf16* op = static_cast<bf16*>(out);
   float* wp = static_cast<float*>(ws);
-  int err;
   if (m <= 16) {
-    dim3 grid((n + 63) / 64, (m + 15) / 16, splits);
-    q4_kernel<1, 4, 1, 2><<<grid, kThreads, 0, s>>>(
-        static_cast<const bf16*>(x), ldx, static_cast<const uint8_t*>(packed), sp, op, wp, m,
-        n, k, per_split);
-    err = static_cast<int>(cudaGetLastError());
-  } else {
-    err = launch_tma(x, ldx, packed, sp, op, wp, m, n, k, splits, per_split, s);
+    if (splits < 1 || splits > 8 || splits > k / kGroup)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const bf16* xp = static_cast<const bf16*>(x);
+    const uint8_t* pp = static_cast<const uint8_t*>(packed);
+    return m <= 8 ? launch_decode<1>(xp, ldx, pp, sp, op, m, n, k, splits, s)
+                  : launch_decode<2>(xp, ldx, pp, sp, op, m, n, k, splits, s);
   }
+  int err = launch_tma(x, ldx, packed, sp, op, wp, m, n, k, splits, per_split, s);
   if (err != 0 || splits <= 1) return err;
   const long long mn = static_cast<long long>(m) * n;
   sum_splits<<<static_cast<unsigned int>((mn + 255) / 256), 256, 0, s>>>(wp, op, mn, splits);

@@ -30,12 +30,21 @@
 //     at rank 32 to 64, and in a third warpgroup it added r / 256 of the
 //     tensor work (3/16 at rank 48), which left the kernel behind cuBLAS's
 //     three products (PERF.md);
-//   * decode rows (lora_kernel, mma.sync m16n8k16 with fp32 sums and
-//     cp.async double buffering): a 16 x 32 output tile a block, the base
-//     tile x W^T and the rank tile xin A^T accumulated together, the rank
-//     tile rounded to bf16 into shared memory and multiplied by the B
-//     tile. From 17 rows on the wgmma kernels take less time than any
-//     mma.sync tile measured (PERF.md).
+//   * decode rows (lora_decode_kernel, at most 32: from 1 to 32 rows it
+//     takes less device and host time than the wgmma kernels, PERF.md):
+//     a GEMV bound by W's bytes, which a lane streams
+//     straight into registers with 16-byte loads (ld.global.nc, no L1
+//     allocation) as mma.sync's A fragments (W's rows on M, the tokens as
+//     N, so 8 rows fill the tile); x is staged once a CTA. A CTA covers 128
+//     output columns, and A's rows are streamed beside W's by one more warp
+//     each 16, so A is read once a CTA and xin A^T is never recomputed a
+//     32-column tile. D is split across the CTAs of a cluster (at most 8)
+//     where the column blocks cannot fill the card; their fp32 parts meet
+//     in distributed shared memory: every CTA adds the parts of xin A^T in
+//     rank order and only then rounds it to bf16 (rounding a D slice's
+//     part would be another function), then adds the base parts of its
+//     share of the columns in rank order and s h B^T, and rounds once. One
+//     launch, no scratch in device memory and no tensor map a call.
 // Rows, O and D need not be multiples of the tiles (D a multiple of 8; for
 // the wgmma kernels r too, which the wrapper pads with zeros): the ragged
 // edges load as zeros and are not stored. Measured by chip_smoke.py on an
@@ -47,205 +56,204 @@
 
 namespace {
 
-constexpr int kThreads = 128;  // 4 warps
-constexpr int kBK = 32;        // depth of one step over D
-constexpr int kLdk = kBK + 8;  // bf16 row stride of the loop's tiles
+// ---- decode rows: one weight stream on mma.sync ------------------------------
 
-// Starts the copy of rows x 32 columns at (r0, k0) of a row-major (rmax,
-// d) matrix into a (rows, kLdk) tile; rows >= rmax and columns >= d are zero.
-template <int ROWS>
-__device__ __forceinline__ void load_k_tile(bf16* dst, const bf16* src, int r0, int rmax,
-                                            int k0, int d) {
-  for (int i = threadIdx.x; i < ROWS * (kBK / 8); i += kThreads) {
-    const int r = i / (kBK / 8);
-    const int c = (i % (kBK / 8)) * 8;
-    const bool ok = r0 + r < rmax && k0 + c < d;
-    cp_async(dst + r * kLdk + c, ok ? src + static_cast<long long>(r0 + r) * d + k0 + c : src,
-             ok);
-  }
-}
+constexpr int kDecodeWarps = 8;                 // warps streaming W, 16 rows each
+constexpr int kDecodeCols = 16 * kDecodeWarps;  // output columns (W rows) a CTA
+constexpr int kStep = 32;                       // depth of a lane's 16-byte load, a quad's 64
 
-// Shared memory of lora_kernel, in elements: two buffers of the loop's
-// tiles (x, xin when separate, W, A), then the rank and B tiles.
-template <int BM, int BN, int RP>
-constexpr int lora_smem_elems(bool separate) {
-  const int loop = 2 * (BM * (separate ? 2 : 1) + BN + RP) * kLdk;
-  const int end = (BM + BN) * (RP + 8);
-  return loop > end ? loop : end;
-}
+// out (m <= 8 MT, o) = x W^T + s * bf16(xin A^T) B^T. CTA (column block cb,
+// cluster rank) streams W's rows cb * 128 + [0, 128) over its share of D
+// (32-deep steps [k0, k1)), and RT more warps stream A's r rows over the
+// same share (none at s = 0: the branch is skipped, exactly). A warp owns
+// 16 rows as mma.sync's A (m16n8k16, tokens as N): lane (row l / 4, quad
+// l % 4) loads 16 bytes (k 8 quad + [0, 8)) of its row and of the row 8
+// below a step, the A fragments of two k16 steps as they lie, and one
+// 16-byte shared load of its token's x (xin for A's rows) over the same k
+// is their B fragments; it keeps two steps in flight.
+// After the loop each CTA sends its fp32 parts to the cluster's CTAs in
+// distributed shared memory: its part of xin A^T to every CTA, its base
+// parts of each CTA's 128 / ranks columns to that CTA. After one barrier
+// every CTA adds the parts of xin A^T in rank order (the sum over all of
+// D) and only then rounds it to bf16, as the Pallas kernel rounds its
+// full-D sum; then it adds its columns' base parts in rank order and their
+// h B^T (fp32 sums of exact products), s times, and rounds once.
+template <int MT, int RT>
+__global__ void __launch_bounds__((kDecodeWarps + 4) * 32)
+lora_decode_kernel(const bf16* __restrict__ x, const bf16* __restrict__ xin,
+                   const bf16* __restrict__ w, const bf16* __restrict__ a,
+                   const bf16* __restrict__ b, bf16* __restrict__ out, float s, int m, int o,
+                   int d, int r) {
+  constexpr int kTok = 8 * MT;
+  constexpr int kRP = 16 * RT;  // A's rows, padded
+  cluster_arrive_relaxed();  // this CTA has started: the cluster may write its slots
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ranks = cluster_size();
+  const int rank = cluster_rank();
+  const int cb = blockIdx.x / ranks;
+  const int steps = (d + kStep - 1) / kStep;
+  const int k0 = rank * steps / ranks;  // every rank takes one step at least
+  const int k1 = (rank + 1) * steps / ranks;
+  // x's row stride, from the largest share: the slots lie at the same
+  // offsets in every CTA of the cluster; 64 bytes past a multiple of 128
+  const int ldxs = (((steps + ranks - 1) / ranks + 1) & ~1) * kStep + 32;
+  const bool separate = RT > 0 && xin != x;
+  const int cols = kDecodeCols / ranks;  // the columns this CTA adds up and stores
+  bf16* x_s = reinterpret_cast<bf16*>(smem);
+  bf16* xin_s = separate ? x_s + kTok * ldxs : x_s;
+  // (ranks, tokens, cols): the cluster's base parts of this CTA's columns
+  float* slots = reinterpret_cast<float*>(x_s + (separate ? 2 : 1) * kTok * ldxs);
+  float* hslots = slots + kTok * kDecodeCols;  // (ranks, tokens, kRP): parts of xin A^T
+  float* h_s = hslots + ranks * kTok * kRP;    // (tokens, kRP): bf16(xin A^T) over all of D
+  bf16* b_s = reinterpret_cast<bf16*>(h_s + kTok * kRP);  // (cols, kRP): this CTA's B rows
 
-// WM x WN warps; a warp owns MT m16 tiles by NT n8 tiles of the output;
-// RP is the padded rank.
-template <int WM, int WN, int MT, int NT, int RP>
-__global__ void __launch_bounds__(kThreads)
-lora_kernel(const bf16* __restrict__ x, const bf16* __restrict__ xin,
-            const bf16* __restrict__ w, const bf16* __restrict__ a,
-            const bf16* __restrict__ b, bf16* __restrict__ out, float s,
-            int m, int o, int d, int r) {
-  constexpr int BM = WM * MT * 16;
-  constexpr int BN = WN * NT * 8;
-  constexpr int RT = RP / 8;                // rank n8 tiles
-  constexpr int RQ = (RT + WN - 1) / WN;    // rank tiles a warp owns, at most
-  constexpr int kLdr = RP + 8;              // bf16 row stride of the rank tiles
-  static_assert(WM * WN * 32 == kThreads, "four warps");
-  static_assert(RP % 16 == 0, "rank padded to a multiple of 16");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  const bool separate = xin != x;
-  const int n_x = separate ? 2 : 1;                // x tiles a buffer holds
-  const int buffer = (BM * n_x + BN + RP) * kLdk;  // elements of one buffer
-  bf16* t_s = smem;             // after the loop: bf16(xin A^T), (BM, kLdr)
-  bf16* b_s = smem + BM * kLdr; // after the loop: the B tile, (BN, kLdr)
-
-  const int o0 = blockIdx.x * BN;
-  const int r0 = blockIdx.y * BM;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int wm = warp / WN;
-  const int wn = warp % WN;
+  const int quad = lane & 3;
+  const int row = lane >> 2;
+  const bool rank_warp = warp >= kDecodeWarps;
+  const bf16* src = rank_warp ? a : w;
+  const int r0 = rank_warp ? 16 * (warp - kDecodeWarps) : cb * kDecodeCols + 16 * warp;
+  const int rows = rank_warp ? r : o;  // rows past it read the last row and are not used
+  const bf16* p_lo = src + static_cast<long long>(min(r0 + row, rows - 1)) * d + 8 * quad;
+  const bf16* p_hi = src + static_cast<long long>(min(r0 + row + 8, rows - 1)) * d + 8 * quad;
 
-  // buffer st: the x tile, the xin tile (when separate), then W, then A
-  auto load_step = [&](int st, int k0) {
-    bf16* base = smem + st * buffer;
-    load_k_tile<BM>(base, x, r0, m, k0, d);
-    if (separate) load_k_tile<BM>(base + BM * kLdk, xin, r0, m, k0, d);
-    load_k_tile<BN>(base + BM * n_x * kLdk, w + static_cast<long long>(o0) * d, 0, o - o0,
-                    k0, d);
-    load_k_tile<RP>(base + (BM * n_x + BN) * kLdk, a, 0, r, k0, d);
+  struct Batch {  // a step of the lane's two rows
+    uint4 lo, hi;
   };
-
-  float acc[MT][NT][4];
-  float accr[MT][RQ][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-#pragma unroll
-    for (int q = 0; q < RQ; ++q)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) accr[i][q][e] = 0.f;
-  }
-
-  const int steps = (d + kBK - 1) / kBK;
-  load_step(0, 0);
-  cp_async_commit();
-  for (int step = 0; step < steps; ++step) {
-    const int st = step & 1;
-    if (step + 1 < steps) load_step(st ^ 1, (step + 1) * kBK);
-    cp_async_commit();
-    cp_async_wait<1>();  // this step's copies have landed
-    __syncthreads();
-    const bf16* x_s = smem + st * buffer;
-    const bf16* rank_in = separate ? x_s + BM * kLdk : x_s;
-    const bf16* w_s = x_s + BM * n_x * kLdk;
-    const bf16* a_s = w_s + BN * kLdk;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t fx[MT][4];
-      uint32_t fin[MT][4];
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        load_frag_a(fx[i], x_s, kLdk, (wm * MT + i) * 16, kk, lane);
-        load_frag_a(fin[i], rank_in, kLdk, (wm * MT + i) * 16, kk, lane);
-      }
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        uint32_t fw[2];
-        load_frag_b(fw, w_s, kLdk, (wn * NT + j) * 8, kk, lane);
-#pragma unroll
-        for (int i = 0; i < MT; ++i) mma_bf16_16816(acc[i][j], fx[i], fw);
-      }
-#pragma unroll
-      for (int q = 0; q < RQ; ++q) {
-        const int jt = wn + WN * q;
-        if (jt < RT) {
-          uint32_t fa[2];
-          load_frag_b(fa, a_s, kLdk, jt * 8, kk, lane);
-#pragma unroll
-          for (int i = 0; i < MT; ++i) mma_bf16_16816(accr[i][q], fin[i], fa);
-        }
-      }
+  auto issue = [&](Batch& bt, int kb) {
+    if (kb < k1) {
+      const bool in = kb * kStep + 8 * quad < d;  // d % 8 == 0: whole loads
+      bt.lo = in ? ld_stream(p_lo + kb * kStep) : make_uint4(0u, 0u, 0u, 0u);
+      bt.hi = in ? ld_stream(p_hi + kb * kStep) : make_uint4(0u, 0u, 0u, 0u);
     }
-    __syncthreads();  // every warp is done with buffer st before it refills
-  }
+  };
+  Batch b0, b1;  // two steps in flight: the next loads while the last multiplies
+  issue(b0, k0);  // the first weights are in flight while x is staged
+  issue(b1, k0 + 1);
 
-  // the rank tile, rounded to bf16, and the B tile into shared memory
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-    const int row = (wm * MT + i) * 16 + (lane >> 2);
-#pragma unroll
-    for (int q = 0; q < RQ; ++q) {
-      const int jt = wn + WN * q;
-      if (jt < RT) {
-        const int col = jt * 8 + (lane & 3) * 2;
-        *reinterpret_cast<uint32_t*>(t_s + row * kLdr + col) =
-            pack_bf16x2(accr[i][q][0], accr[i][q][1]);
-        *reinterpret_cast<uint32_t*>(t_s + (row + 8) * kLdr + col) =
-            pack_bf16x2(accr[i][q][2], accr[i][q][3]);
-      }
-    }
+  const int chunks = (k1 - k0) * (kStep / 8);
+  for (int i = threadIdx.x; i < kTok * chunks; i += blockDim.x) {
+    const int t = i / chunks;
+    const int c = i % chunks;
+    const int kk = k0 * kStep + 8 * c;
+    const bool in = t < m && kk < d;
+    const long long at = static_cast<long long>(t) * d + kk;
+    *reinterpret_cast<uint4*>(x_s + t * ldxs + 8 * c) =
+        in ? *reinterpret_cast<const uint4*>(x + at) : make_uint4(0u, 0u, 0u, 0u);
+    if (separate)
+      *reinterpret_cast<uint4*>(xin_s + t * ldxs + 8 * c) =
+          in ? *reinterpret_cast<const uint4*>(xin + at) : make_uint4(0u, 0u, 0u, 0u);
   }
-  for (int i = threadIdx.x; i < BN * RP; i += kThreads) {
-    const int row = i / RP;
-    const int c = i % RP;
-    b_s[row * kLdr + c] = (o0 + row < o && c < r)
-                              ? b[static_cast<long long>(o0 + row) * r + c]
-                              : __float2bfloat16(0.f);
+  if constexpr (RT > 0) {  // B's rows of this CTA's columns, zeros past o and r
+    for (int i = threadIdx.x; i < cols * kRP; i += blockDim.x) {
+      const int col = cb * kDecodeCols + rank * cols + i / kRP;
+      const int j = i % kRP;
+      b_s[i] = col < o && j < r ? b[static_cast<long long>(col) * r + j] : __float2bfloat16(0.f);
+    }
   }
   __syncthreads();
 
+  float acc[MT][4];
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    float delta[MT][4];
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int i = 0; i < MT; ++i)
+    for (int e = 0; e < 4; ++e) acc[mt][e] = 0.f;
+  const bf16* xb = (rank_warp ? xin_s : x_s) + row * ldxs + 8 * quad;
+  auto multiply = [&](const Batch& bt, int kb) {
+    if (kb >= k1) return;
+    const uint32_t a0[4] = {bt.lo.x, bt.hi.x, bt.lo.y, bt.hi.y};
+    const uint32_t a1[4] = {bt.lo.z, bt.hi.z, bt.lo.w, bt.hi.w};
 #pragma unroll
-      for (int e = 0; e < 4; ++e) delta[i][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < RP; kk += 16) {
-      uint32_t fb[2];
-      load_frag_b(fb, b_s, kLdr, (wn * NT + j) * 8, kk, lane);
-#pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        uint32_t ft[4];
-        load_frag_a(ft, t_s, kLdr, (wm * MT + i) * 16, kk, lane);
-        mma_bf16_16816(delta[i], ft, fb);
-      }
+    for (int mt = 0; mt < MT; ++mt) {
+      const uint4 xv = *reinterpret_cast<const uint4*>(xb + mt * 8 * ldxs + (kb - k0) * kStep);
+      const uint32_t f0[2] = {xv.x, xv.y};
+      const uint32_t f1[2] = {xv.z, xv.w};
+      mma_bf16_16816(acc[mt], a0, f0);
+      mma_bf16_16816(acc[mt], a1, f1);
     }
-    const int col = o0 + (wn * NT + j) * 8 + (lane & 3) * 2;
+  };
+  for (int kb = k0; kb < k1; kb += 2) {
+    multiply(b0, kb);
+    issue(b0, kb + 2);
+    multiply(b1, kb + 1);
+    issue(b1, kb + 3);
+  }
+
+  cluster_wait();  // every CTA of the cluster has started
+  if (!rank_warp) {
 #pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      const int row = r0 + (wm * MT + i) * 16 + (lane >> 2);
+    for (int mt = 0; mt < MT; ++mt)
+      push_row_tile(slots, kTok, cols, 16 * warp, 8 * mt, acc[mt], rank, lane);
+  } else if constexpr (RT > 0) {  // every CTA takes all of xin A^T
+    for (int dst = 0; dst < ranks; ++dst)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int rr = row + (e >> 1) * 8;
-        const int cc = col + (e & 1);
-        if (rr < m && cc < o)
-          out[static_cast<long long>(rr) * o + cc] =
-              __float2bfloat16(acc[i][j][e] + s * delta[i][e]);
-      }
+      for (int mt = 0; mt < MT; ++mt)
+        push_row_tile(hslots, kTok, kRP, 16 * (warp - kDecodeWarps), 8 * mt, acc[mt], rank,
+                      lane, dst);
+  }
+  cluster_arrive();
+  cluster_wait();  // every CTA's parts have landed
+
+  if constexpr (RT > 0) {  // h over all of D, then rounded
+    for (int i = threadIdx.x; i < m * kRP; i += blockDim.x) {
+      const int j = i % kRP;  // zero past r, as B's rows are
+      h_s[i] = j < r ? __bfloat162float(
+                           __float2bfloat16(sum_slots(hslots + i, kTok * kRP, ranks)))
+                     : 0.f;
     }
+    __syncthreads();
+  }
+  for (int i = threadIdx.x; i < m * cols; i += blockDim.x) {
+    const int t = i / cols;
+    const int c = i % cols;
+    const int col = cb * kDecodeCols + rank * cols + c;
+    if (col >= o) continue;
+    float v = sum_slots(slots + t * cols + c, kTok * cols, ranks);
+    if constexpr (RT > 0) {
+      float delta = 0.f;
+#pragma unroll
+      for (int j = 0; j < kRP; ++j)
+        delta = fmaf(h_s[t * kRP + j], __bfloat162float(b_s[c * kRP + j]), delta);
+      v = fmaf(s, delta, v);
+    }
+    out[static_cast<long long>(t) * o + col] = __float2bfloat16(v);
   }
 }
 
-template <int WM, int WN, int MT, int NT, int RP>
-cudaError_t launch_tiles(const bf16* x, const bf16* xin, const bf16* w, const bf16* a,
-                         const bf16* b, bf16* out, float s, int m, int o, int d, int r,
-                         cudaStream_t stream) {
-  constexpr int BM = WM * MT * 16;
-  constexpr int BN = WN * NT * 8;
-  auto kernel = lora_kernel<WM, WN, MT, NT, RP>;
-  const int bytes = static_cast<int>(sizeof(bf16)) * lora_smem_elems<BM, BN, RP>(xin != x);
-  if (bytes > 48 * 1024) {  // above the static limit only when allowed first
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return err;
+// Shared memory of lora_decode_kernel<MT, RT> in bytes.
+constexpr int decode_smem(int mt, int rt, int ldxs, bool separate, int ranks) {
+  return 8 * mt * (ldxs * 2 * (separate ? 2 : 1) + kDecodeCols * 4 + 16 * rt * 4 * (ranks + 1)) +
+         kDecodeCols / ranks * 16 * rt * 2;
+}
+
+template <int MT, int RT>
+int launch_decode(const bf16* x, const bf16* xin, const bf16* w, const bf16* a, const bf16* b,
+                  bf16* out, float s, int m, int o, int d, int r, int ranks,
+                  cudaStream_t stream) {
+  const int per = ((d + kStep - 1) / kStep + ranks - 1) / ranks;  // steps of the largest share
+  const int smem = decode_smem(MT, RT, ((per + 1) & ~1) * kStep + 32, RT > 0 && xin != x, ranks);
+  auto kernel = lora_decode_kernel<MT, RT>;
+  const int err = allow_smem<&lora_decode_kernel<MT, RT>>(smem);
+  if (err) return err;
+  const int blocks = (o + kDecodeCols - 1) / kDecodeCols * ranks;
+  return launch_cluster(kernel, blocks, (kDecodeWarps + RT) * 32, smem, ranks, stream, x, xin,
+                        w, a, b, out, s, m, o, d, r);
+}
+
+// The decode kernel's instance for m rows (MT token tiles of 8) and rank r
+// (RT tiles of 16; none at s = 0).
+template <int MT>
+int decode_rows(const bf16* x, const bf16* xin, const bf16* w, const bf16* a, const bf16* b,
+                bf16* out, float s, int m, int o, int d, int r, int ranks, cudaStream_t st) {
+  switch (s == 0.f ? 0 : (r + 15) / 16) {
+    case 0: return launch_decode<MT, 0>(x, xin, w, a, b, out, s, m, o, d, r, ranks, st);
+    case 1: return launch_decode<MT, 1>(x, xin, w, a, b, out, s, m, o, d, r, ranks, st);
+    case 2: return launch_decode<MT, 2>(x, xin, w, a, b, out, s, m, o, d, r, ranks, st);
+    case 3: return launch_decode<MT, 3>(x, xin, w, a, b, out, s, m, o, d, r, ranks, st);
+    case 4: return launch_decode<MT, 4>(x, xin, w, a, b, out, s, m, o, d, r, ranks, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  dim3 grid((o + BN - 1) / BN, (m + BM - 1) / BM);
-  kernel<<<grid, kThreads, bytes, stream>>>(x, xin, w, a, b, out, s, m, o, d, r);
-  return cudaGetLastError();
 }
 
 // ---- prefill and training rows: wgmma fed by TMA -----------------------------
@@ -515,25 +523,17 @@ int tma(const void* x, const void* xin, const void* w, const void* a, const void
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int RP>
-int launch(const bf16* x, const bf16* xin, const bf16* w, const bf16* a, const bf16* b,
-           bf16* h, bf16* out, float s, int m, int o, int d, int r, cudaStream_t stream) {
-  if (h != nullptr) return tma<RP>(x, xin, w, a, b, h, out, s, m, o, d, r, stream);
-  return static_cast<int>(
-      launch_tiles<1, 4, 1, 1, RP>(x, xin, w, a, b, out, s, m, o, d, r, stream));
-}
-
 }  // namespace
 
 // x, xin: contiguous (m, d) bf16 (xin == x: the branch reads x); w:
 // contiguous (o, d); a: contiguous (r, d); b: contiguous (o, r); out:
-// contiguous (m, o) bf16; d a multiple of 8, r at most 64. Given h, an
-// (m, r_pad) bf16 scratch (r_pad: r rounded up to 16), it runs the
-// wgmma/TMA kernels (16-byte aligned tensors, r a multiple of 8), else the
-// mma.sync tile.
+// contiguous (m, o) bf16; d a multiple of 8, r at most 64, all 16-byte
+// aligned. Given h, an (m, r_pad) bf16 scratch (r_pad: r rounded up to 16),
+// it runs the wgmma/TMA kernels (r a multiple of 8), else the decode kernel
+// on at most 32 rows, its CTAs in clusters of `ranks` (1-8) that split D.
 DH_EXPORT int dh_lora_linear(const void* x, const void* xin, const void* w, const void* a,
                              const void* b, void* h, void* out, float s, int m, int o, int d,
-                             int r, void* stream) {
+                             int r, int ranks, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* xp = static_cast<const bf16*>(x);
   const bf16* ip = static_cast<const bf16*>(xin);
@@ -542,12 +542,22 @@ DH_EXPORT int dh_lora_linear(const void* x, const void* xin, const void* w, cons
   const bf16* bp = static_cast<const bf16*>(b);
   bf16* hp = static_cast<bf16*>(h);
   bf16* op = static_cast<bf16*>(out);
-  if (hp != nullptr && r % 8) return static_cast<int>(cudaErrorInvalidValue);
+  if (r < 1 || r > 64) return static_cast<int>(cudaErrorInvalidValue);
+  if (hp == nullptr) {
+    if (m > 32 || ranks < 1 || ranks > 8 || ranks > (d + kStep - 1) / kStep)
+      return static_cast<int>(cudaErrorInvalidValue);
+    switch ((m + 7) / 8) {
+      case 1: return decode_rows<1>(xp, ip, wp, ap, bp, op, s, m, o, d, r, ranks, st);
+      case 2: return decode_rows<2>(xp, ip, wp, ap, bp, op, s, m, o, d, r, ranks, st);
+      case 3: return decode_rows<3>(xp, ip, wp, ap, bp, op, s, m, o, d, r, ranks, st);
+      default: return decode_rows<4>(xp, ip, wp, ap, bp, op, s, m, o, d, r, ranks, st);
+    }
+  }
+  if (r % 8) return static_cast<int>(cudaErrorInvalidValue);
   switch ((r + 15) / 16) {
-    case 1: return launch<16>(xp, ip, wp, ap, bp, hp, op, s, m, o, d, r, st);
-    case 2: return launch<32>(xp, ip, wp, ap, bp, hp, op, s, m, o, d, r, st);
-    case 3: return launch<48>(xp, ip, wp, ap, bp, hp, op, s, m, o, d, r, st);
-    case 4: return launch<64>(xp, ip, wp, ap, bp, hp, op, s, m, o, d, r, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 1: return tma<16>(xp, ip, wp, ap, bp, hp, op, s, m, o, d, r, st);
+    case 2: return tma<32>(xp, ip, wp, ap, bp, hp, op, s, m, o, d, r, st);
+    case 3: return tma<48>(xp, ip, wp, ap, bp, hp, op, s, m, o, d, r, st);
+    default: return tma<64>(xp, ip, wp, ap, bp, hp, op, s, m, o, d, r, st);
   }
 }

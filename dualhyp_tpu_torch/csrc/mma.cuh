@@ -1,7 +1,7 @@
 // Warp-level bf16 tensor-core products (mma.sync m16n8k16, fp32 sums) over
 // tiles in shared memory, with the fragment layouts of the PTX ISA: the
 // accumulator element (row, column) a lane holds is known, so a kernel can
-// scale or mask it per column in registers (K5, K8). And asynchronous
+// scale or mask it per column in registers (K5, K8, L2). And asynchronous
 // copies (cp.async) that fill the next tile while the current one is
 // multiplied.
 #pragma once

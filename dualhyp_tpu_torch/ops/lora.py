@@ -12,6 +12,8 @@ kernel): dx, dxin, dA and dB, no dW (the base weight is frozen).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from dualhyp_tpu_torch.ops import _lib
@@ -22,19 +24,75 @@ from dualhyp_tpu_torch.ops.swiglu import _full_fp32_matmuls
 # decode rows; the (rows, O) intermediate stays on chip. Above DECODE_ROWS
 # rows two wgmma/TMA kernels: h = bf16(xin A^T) into an (rows, r_pad)
 # scratch, then 128 x 256 tiles of x W^T with h B^T added in the epilogue,
-# s folded into the base sum; at decode rows an mma.sync tile that keeps
-# the (rows, r) tile on chip too. On an NVIDIA H100 80GB HBM3 at 700.00 W:
-# 0.0775 ms at 3072 rows of the fused QKV (cuBLAS x3 + add 0.112), 0.1747
-# at 8192. See the source note in csrc/lora_linear.cu.
+# s folded into the base sum. At decode rows one kernel streams W and A
+# into mma.sync fragments with 16-byte loads, its CTAs in clusters that
+# split D (`decode_plan`): xin A^T is summed over the cluster on chip and
+# only then rounded, and no tensor map is encoded. On an NVIDIA H100 80GB
+# HBM3 at 700.00 W: 0.0775 ms at 3072 rows of the fused QKV (cuBLAS x3 +
+# add 0.112), 0.1747 at 8192. See the source note in csrc/lora_linear.cu.
 LORA_LINEAR = _lib.Kernel(
     "dh_lora_linear",
-    [_lib.C_PTR] * 7 + [_lib.C_F32] + [_lib.C_INT] * 4,
+    [_lib.C_PTR] * 7 + [_lib.C_F32] + [_lib.C_INT] * 5,
 )
 
 MAX_RANK = 64  # the kernel's largest padded rank
-# rows at or below which the mma.sync decode tile runs, above it the wgmma
-# kernels
-DECODE_ROWS = 16
+# rows at or below which the decode kernel runs, above it the wgmma kernels:
+# its most, below which it took less device and host time than the wgmma
+# kernels at every count measured (1 to 32 rows, PERF.md)
+DECODE_ROWS = 32
+DECODE_COLS = 128  # output columns a CTA of the decode kernel: 8 warps of 16
+DECODE_STEP = 32  # depth of the decode kernel's steps over D
+MAX_CLUSTER = 8
+FILL_CTAS = 3 * 132  # CTAs the card holds at once: three an SM of the H100's 132
+SMEM_LIMIT = 232448  # shared memory a CTA may take on an H100 (227 KB)
+
+
+@functools.lru_cache(maxsize=None)
+def decode_cluster(rows: int, o: int, d: int, rank_tiles: int, separate: bool) -> tuple:
+    """(cluster, CTAs, shared memory bytes a CTA) of K5's decode kernel at
+    `rows` <= DECODE_ROWS with `rank_tiles` warps over A (`decode_plan`); raises
+    where D's slice of x would not fit a CTA's shared memory."""
+    if not 0 < rows <= DECODE_ROWS or d % 8 or o < 1:
+        raise ValueError(f"decode rows {rows}, O {o}, D {d}")
+    steps = -(-d // DECODE_STEP)
+    blocks = -(-o // DECODE_COLS)
+    cluster = 1
+    while cluster < MAX_CLUSTER and 2 * blocks * cluster <= FILL_CTAS and 2 * cluster <= steps:
+        cluster *= 2
+    per = -(-steps // cluster)
+    ldxs = (per + 1) // 2 * 2 * DECODE_STEP + 32
+    smem = (8 * -(-rows // 8) * (ldxs * 2 * (2 if separate and rank_tiles else 1)
+                                 + DECODE_COLS * 4 + 16 * rank_tiles * 4 * (cluster + 1))
+            + DECODE_COLS // cluster * 16 * rank_tiles * 2)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"D {d} takes {smem} bytes of shared memory a CTA at {rows} rows")
+    return cluster, blocks * cluster, smem
+
+
+def decode_plan(rows: int, o: int, d: int, r: int, s: float = 1.0,
+                separate: bool = False) -> dict:
+    """The launch of K5's decode kernel at `rows` <= DECODE_ROWS: CTAs of DECODE_COLS
+    output columns (8 warps over W's rows, and one warp a 16 rows of A
+    unless s is 0), `cluster` of them a column block, each taking an even
+    share of D's 32-deep steps (`steps[rank]`); the cluster's CTAs add
+    their fp32 parts of xin A^T in shared memory in rank order, each CTA
+    all of them (then rounds to bf16), and the base parts of
+    `columns[rank]` of the block. The cluster is the largest power of two,
+    at most MAX_CLUSTER and the step count, whose CTAs the card holds at
+    once (FILL_CTAS). `smem`: its bytes a CTA (x and xin staged once, the
+    cluster's parts of its columns and of xin A^T, bf16(xin A^T), B's
+    rows)."""
+    if not 0 < r <= MAX_RANK:
+        raise ValueError(f"rank {r}")
+    rank_tiles = 0 if s == 0 else -(-r // 16)
+    cluster, ctas, smem = decode_cluster(rows, o, d, rank_tiles, separate)
+    steps = -(-d // DECODE_STEP)
+    cols = DECODE_COLS // cluster
+    return dict(token_tiles=-(-rows // 8), rank_tiles=rank_tiles, col_blocks=ctas // cluster,
+                cluster=cluster, ctas=ctas, threads=32 * (8 + rank_tiles), smem=smem,
+                steps=[(c * steps // cluster, (c + 1) * steps // cluster)
+                       for c in range(cluster)],
+                columns=[(c * cols, (c + 1) * cols) for c in range(cluster)])
 
 
 def lora_linear_plain(x, w, a, b, s, xin=None):
@@ -80,19 +138,22 @@ def _launch(x, xin, w, a, b, s):
     xin2 = x2 if xin is None else _aligned(xin.reshape(-1, d))
     w, a, b = _aligned(w), _aligned(a), _aligned(b)
     rows = x2.shape[0]
-    h = None
-    if rows > DECODE_ROWS:  # the wgmma kernels and their (rows, r_pad) scratch
+    out = torch.empty((rows, o), dtype=x.dtype, device=device)
+    if not rows or not o:
+        return out.reshape(*x.shape[:-1], o)
+    h, ranks = None, 0
+    if rows <= DECODE_ROWS:  # one launch, no scratch: D's split meets on chip
+        ranks = decode_cluster(rows, o, d, 0 if s == 0 else -(-r // 16), xin is not None)[0]
+    else:  # the wgmma kernels and their (rows, r_pad) scratch
         if r % 8:  # B's rows go by TMA: 16-byte rows
             pad = -r % 8
             a = torch.nn.functional.pad(a, (0, 0, 0, pad))
             b = torch.nn.functional.pad(b, (0, pad))
             r += pad
         h = torch.empty((rows, -(-r // 16) * 16), dtype=x.dtype, device=device)
-    out = torch.empty((rows, o), dtype=x.dtype, device=device)
-    if rows and o:
-        LORA_LINEAR(device, x2.data_ptr(), xin2.data_ptr(), w.data_ptr(), a.data_ptr(),
-                    b.data_ptr(), 0 if h is None else h.data_ptr(), out.data_ptr(),
-                    float(s), rows, o, d, r)
+    LORA_LINEAR(device, x2.data_ptr(), xin2.data_ptr(), w.data_ptr(), a.data_ptr(),
+                b.data_ptr(), 0 if h is None else h.data_ptr(), out.data_ptr(),
+                float(s), rows, o, d, r, ranks)
     return out.reshape(*x.shape[:-1], o)
 
 

@@ -18,8 +18,8 @@ sources: a variant of the design), then prints one JSON line:
     16) at the decode (8), fused-slice prefill (1536), 3072 and training
     (8192) rows, with and without a separate LoRA input, beside cuBLAS's
     three products and an add; and at 1 to 128 rows on each of its paths
-    (the mma.sync decode tile and the wgmma kernels) where the checkout
-    has both;
+    (the decode kernel, to 32 rows, and the wgmma kernels), device ms and
+    host us a call, where the checkout has both;
   * K6 and K7 at bf16 against their plain versions (the largest difference
     and the share of elements that differ), and the same for K1's forward
     (which rounds P to bf16) on K7's inputs; their device ms beside SDPA,
@@ -109,13 +109,18 @@ def lora_times(torch, cs, lora, randn) -> dict:
                     "bound_ms": bms, "bound_by": by}
         if hasattr(lora, "DECODE_ROWS"):  # both paths at 1 to 128 rows
             keep = lora.DECODE_ROWS
+            # the decode kernel takes at most 32 rows (the mma.sync tile
+            # before it, any)
+            most = 32 if hasattr(lora, "decode_plan") else 10 ** 9
             for rows in PATH_ROWS:
                 x = randn(rows, d)
                 fn = lambda: lora.lora_linear(x, w, a, b, 1.0)  # noqa: E731
                 row = {}
-                for path, cut in (("mma_sync", 10 ** 9), ("wgmma", 0)):
-                    lora.DECODE_ROWS = cut
-                    row[path] = cs.device_ms(fn, torch)
+                for path, cut in (("decode", most), ("wgmma", 0)):
+                    if path == "wgmma" or rows <= cut:
+                        lora.DECODE_ROWS = cut
+                        row[path] = cs.device_ms(fn, torch)
+                        row[f"{path}_host_us"] = cs.host_us(fn, torch)
                 lora.DECODE_ROWS = keep
                 row["library_ms"] = cs.time_ms(lambda: x @ w.t() + (x @ a.t()) @ b.t(), torch)
                 out[f"{name}_paths_{rows}"] = row

@@ -8,11 +8,15 @@ n_elem 16 to 128 of cos/sin tables whose halves differ) with bitwise
 repeats, a ragged intermediate
 size, the gelu gate, strided inputs, fp32 where a kernel takes it, the
 wrappers' refusals, the autograd ops of the training path, K8 at ragged
-rows and N with split K (1 to 3072 rows around its 16-row decode tile
-and its 128-token tile, K of one and five groups), K8 and L2's
+rows and N with split K (1 to 3072 rows around its 16-row decode kernel
+and its 128-token tile, K of one and five groups), K8 at 1 to 16 rows and
+K5 at 1, 8 and 16 rows (s 0, 0.75 and 2, xin shared and separate) at the
+int4 and fused slices' shapes and at 17 to 32 rows (its decode kernel's
+most), both at 8 rows repeating bitwise in one CUDA kernel a call without
+a host sync, K8 and L2's
 forward and lhs gradient repeating bitwise at 3072 rows, K5 at ragged
 rows and O, ranks 4, 8, 16, 40, 48 and 64, a zero scale and a separate LoRA
-input, rows 17 to 1536 around its wgmma kernels' tiles, an unaligned
+input, rows 33 to 1536 around its wgmma kernels' tiles, an unaligned
 input, bitwise repeats at 3072 rows and no host wait forward or backward,
 and K6/K7 in fp32 and bf16 at T or
 S of 1, 63, 64, 65 and 1500, S != T, kv_valid and strided inputs, K6 at
@@ -583,10 +587,113 @@ def test_q4_matmul(dev, gen, rows, n, k):
 def test_q4_matmul_splits_k_and_reads_strided_rows(dev, gen):
     w = _randn(gen, 256, 2048, dtype=torch.float32, std=0.05)
     packed, scales = quant.quantize_weight_int4(w)
-    assert int4.split_k(8, 256, 16)[0] > 1
+    assert int4.decode_plan(8, 256, 2048)["cluster"] > 1
     x = _randn(gen, 8, 4096)[:, 1024:3072]  # a row stride of 4096 elements
     _close(int4.q4_matmul(x, packed, scales), int4.q4_matmul_plain(x, packed, scales),
            *Q4_TOL)
+
+
+# TinyLlama-1.1B's int4 linears at decode (N, K): qkv, attn.proj, fc_1 (and
+# fc_2), mlp.proj, lm_head; K5's fused QKV (rank 3 x 16) and proj (16)
+Q4_DECODE_SHAPES = {"qkv": (2560, 2048), "attn_proj": (2048, 2048), "fc_1": (5632, 2048),
+                    "mlp_proj": (2048, 5632), "lm_head": (32000, 2048)}
+LORA_DECODE_SHAPES = {"qkv": (2560, 2048, 48), "proj": (2048, 2048, 16)}
+_decode_weights = {}
+
+
+def _q4_weights(gen, name):
+    """The packed weights and scales of a slice shape, made once a run."""
+    if name not in _decode_weights:
+        n, k = Q4_DECODE_SHAPES[name]
+        _decode_weights[name] = quant.quantize_weight_int4(
+            _randn(gen, n, k, dtype=torch.float32, std=0.02))
+    return _decode_weights[name]
+
+
+@pytest.mark.parametrize("name", list(Q4_DECODE_SHAPES))
+@pytest.mark.parametrize("rows", list(range(1, 17)))
+def test_q4_matmul_decode_rows_at_the_slice_shapes(dev, gen, name, rows):
+    packed, scales = _q4_weights(gen, name)
+    x = _randn(gen, rows, Q4_DECODE_SHAPES[name][1])
+    before = int4.Q4_MATMUL.launches
+    got = int4.q4_matmul(x, packed, scales)
+    assert int4.Q4_MATMUL.launches == before + 1
+    _close(got, int4.q4_matmul_plain(x, packed, scales), *Q4_TOL)
+
+
+@pytest.mark.parametrize("name", list(LORA_DECODE_SHAPES))
+@pytest.mark.parametrize("rows", [1, 8, 16])
+@pytest.mark.parametrize("s", [0.0, 0.75, 2.0])
+@pytest.mark.parametrize("separate", [False, True])
+def test_lora_linear_decode_rows_at_the_slice_shapes(dev, gen, name, rows, s, separate):
+    o, d, r = LORA_DECODE_SHAPES[name]
+    x = _randn(gen, rows, d)
+    xin = _randn(gen, rows, d) if separate else None
+    w, a = _randn(gen, o, d, std=0.02), _randn(gen, r, d, std=d ** -0.5)
+    b = _randn(gen, o, r, std=0.02)
+    before = lora.LORA_LINEAR.launches
+    got = lora.lora_linear(x, w, a, b, s, xin=xin)
+    assert lora.LORA_LINEAR.launches == before + 1
+    _close(got, lora.lora_linear_plain(x, w, a, b, s, xin), *Q4_TOL)
+
+
+@pytest.mark.parametrize("rows", [17, 24, 32])
+@pytest.mark.parametrize("separate", [False, True])
+def test_lora_linear_decode_kernel_takes_up_to_32_rows(dev, gen, rows, separate):
+    """The decode kernel's three- and four-token-tile instances (17 to 32
+    rows, lora.DECODE_ROWS)."""
+    assert lora.DECODE_ROWS == 32
+    o, d, r = LORA_DECODE_SHAPES["qkv"]
+    x = _randn(gen, rows, d)
+    xin = _randn(gen, rows, d) if separate else None
+    w, a = _randn(gen, o, d, std=0.02), _randn(gen, r, d, std=d ** -0.5)
+    b = _randn(gen, o, r, std=0.02)
+    _close(lora.lora_linear(x, w, a, b, 0.75, xin=xin),
+           lora.lora_linear_plain(x, w, a, b, 0.75, xin), *Q4_TOL)
+
+
+def _decode_call(gen, kernel):
+    """(wrapper, call) of K8 at fc_1 on a strided x (read in place) or K5
+    at the fused QKV with a separate xin, at 8 rows."""
+    if kernel == "q4_matmul":
+        packed, scales = _q4_weights(gen, "fc_1")
+        x = _randn(gen, 8, 4096)[:, 1024:3072]  # a row stride of 4096 elements
+        return int4.Q4_MATMUL, lambda: int4.q4_matmul(x, packed, scales)
+    x, xin = _randn(gen, 8, 2048), _randn(gen, 8, 2048)
+    w, a = _randn(gen, 2560, 2048, std=0.02), _randn(gen, 48, 2048, std=0.02)
+    b = _randn(gen, 2560, 48, std=0.02)
+    return lora.LORA_LINEAR, lambda: lora.lora_linear(x, w, a, b, 1.0, xin=xin)
+
+
+@pytest.mark.parametrize("kernel", ["q4_matmul", "lora_linear"])
+def test_decode_kernels_repeat_bitwise(dev, gen, kernel):
+    """K8 and K5 at 8 rows add their K split in a fixed order (no atomics):
+    two calls give the same bits, one launch each."""
+    wrapper, call = _decode_call(gen, kernel)
+    before = wrapper.launches
+    first, second = call(), call()
+    assert wrapper.launches == before + 2
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("kernel", ["q4_matmul", "lora_linear"])
+def test_decode_kernels_run_one_cuda_kernel_without_a_host_sync(dev, gen, kernel):
+    """At decode rows a call is one CUDA kernel (K8: no second pass over
+    split parts; no copy of the strided x) and never waits for the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, call = _decode_call(gen, kernel)
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            call()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if str(e.device_type).endswith("CUDA")]
+    assert len(names) == 1, names
 
 
 def test_q4_matmul_refuses_what_it_does_not_take(dev, gen):
@@ -612,13 +719,13 @@ def test_lora_linear(dev, gen, rows, o, d, r, s, separate):
     _close(got, lora.lora_linear_plain(x, w, a, b, s, xin), *Q4_TOL)
 
 
-# K5's wgmma kernels (rows above lora.DECODE_ROWS): rows around the rank
+# K5's wgmma kernels (rows above lora.DECODE_ROWS, 32): rows around the rank
 # kernel's 64-row and the base kernel's 128-row tiles and the fused slice's
 # prefill (1536), ranks that are not multiples of 16 (8, 40) or of 8 (4:
 # the wrapper pads A and B with zeros) and the largest (64), O past two
 # 256-column tiles, D of eleven 64-deep stages, and s = 0.75 (folded into
 # the base sum: not a power of two, so one more fp32 rounding of each term)
-@pytest.mark.parametrize("rows", [17, 64, 127, 128, 129, 1536])
+@pytest.mark.parametrize("rows", [33, 64, 127, 128, 129, 1536])
 @pytest.mark.parametrize("r", [4, 8, 40, 64])
 @pytest.mark.parametrize("separate", [False, True])
 def test_lora_linear_wgmma_tiles(dev, gen, rows, r, separate):

@@ -232,7 +232,9 @@ def test_quantized_mlp_bypasses_the_fused_mlp(monkeypatch):
 
 
 def test_q4_split_k_covers_every_group():
-    for rows, n, groups in [(8, 5632, 16), (8, 2048, 44), (1, 100, 5), (8, 32000, 16),
+    # the wgmma kernel's splits (rows above int4.DECODE_ROWS; the decode
+    # kernel's parts meet in a cluster: tests/test_torch_decode_tiles.py)
+    for rows, n, groups in [(17, 5632, 16), (64, 2048, 44), (129, 100, 5), (128, 32000, 16),
                             (3072, 5632, 16)]:
         splits, per = int4.split_k(rows, n, groups)
         assert splits * per >= groups > (splits - 1) * per

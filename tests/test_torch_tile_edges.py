@@ -173,15 +173,21 @@ def test_q4_matmul_plain_matches_pallas_at_the_tile_edges(rng, rows, n, k):
     got = int4.q4_matmul(torch.from_numpy(x), torch.from_numpy(np.asarray(packed)),
                          torch.from_numpy(np.asarray(scale)))
     _close(got, want, atol=2e-4)
-    splits, per = int4.split_k(rows, n, k // int4.KERNEL_GROUP)
-    assert splits * per >= k // int4.KERNEL_GROUP > (splits - 1) * per
+    groups = k // int4.KERNEL_GROUP
+    if rows <= int4.DECODE_ROWS:  # the decode kernel's ranks take every group once
+        parts = int4.decode_plan(rows, n, k)["groups"]
+        assert [g for lo, hi in parts for g in range(lo, hi)] == list(range(groups))
+    else:
+        splits, per = int4.split_k(rows, n, groups)
+        assert splits * per >= groups > (splits - 1) * per
 
 
 def test_q4_tiles_change_at_the_decode_rows():
     # the rows where csrc/int4_matmul.cu changes path: its C side picks the
-    # same tiles (m <= 16: mma.sync, 16 x 64; else wgmma, 128 x 128)
-    assert [int4.tile(r)[:2] for r in (16, 17, 64, 65)] == [(16, 64), (128, 128), (128, 128),
-                                                              (128, 128)]
+    # same tiles (m <= 16: the decode kernel, 128 columns a CTA; else
+    # wgmma, 128 x 128)
+    assert [int4.tile(r)[:2] for r in (16, 17, 64, 65)] == [(16, 128), (128, 128),
+                                                              (128, 128), (128, 128)]
 
 
 # L2's row groups at the edges of its 128-row tile (m a multiple of 128, the

@@ -96,8 +96,10 @@ prints one JSON line; a failed phase raises and the script exits non-zero.
      Mixtral slices' shapes (decode 16 rows, prefill 6144 rows and the
      training forward's 16384, for fc_1/fc_2 and proj), with skewed and
      with empty experts (timed beside its bound and torch._grouped_mm, or a
-     per-expert cuBLAS loop) and in a single group, two calls bitwise
-     equal; K1's
+     per-expert cuBLAS loop, back to back and one cold call each), in a
+     single group, and at the decode shapes with every expert busy (timed
+     too), two calls bitwise equal, the decode kernel's launch plan; the
+     host us of a decode call beside K2's; K1's
      forward at head size 128 (B=8 Hq=32 G=8, T=384 and a ragged T=200);
  16. one Mixtral MoE layer at the decode and the prefill shape under
      torch.cuda.set_sync_debug_mode("error"): no host sync on that path;
@@ -107,8 +109,9 @@ prints one JSON line; a failed phase raises and the script exits non-zero.
  18. the Mixtral slice: 16 of 32 layers of Mixtral-8x7B-Instruct at full
      width (47 GB of bf16 weights), LoRA r=16 on q/k/v/proj, random weights
      from --seed, serving the decode slice's 16 requests with moe_impl
-     "megablox" (L2, the main path; then under torch.profiler) and "dense":
-     p50, tokens/s, peak memory, launches, greedy agreement;
+     "megablox" (L2, the main path; then under torch.profiler, with L2's
+     decode and prefill kernels' device ms and launches) and "dense": p50,
+     tokens/s, peak memory, launches, greedy agreement;
  19. L2's gradients at Mixtral's training rows (8 x 1024 tokens x top 2 =
      16384) for fc_1 and proj, skewed, with empty experts and in a single
      group: dlhs and drhs (each two calls bitwise equal) against their plain
@@ -882,12 +885,13 @@ class WordTokenizer:
         return " ".join(self.words.get(int(i), f"<{int(i)}>") for i in ids)
 
 
-# substrings of the kernel names of K8's and K5's paths in a slice's profile
-# (device ms and launches of each): the decode kernels, the prefill kernels,
-# and the wgmma kernel's pass over split parts
+# substrings of the kernel names of K8's, K5's and L2's paths in a slice's
+# profile (device ms and launches of each): the decode kernels, the prefill
+# kernels, and K8's wgmma kernel's pass over split parts
 SLICE_KERNELS = {"k8_decode": ("q4_decode_kernel",), "k8_prefill": ("q4_tma_kernel",),
                  "k8_split_pass": ("::sum_splits(",), "k5_decode": ("lora_decode_kernel",),
-                 "k5_prefill": ("lora_rank_kernel", "lora_tma_kernel")}
+                 "k5_prefill": ("lora_rank_kernel", "lora_tma_kernel"),
+                 "l2_decode": ("gmm_decode_kernel",), "l2_prefill": ("gmm_tma_kernel",)}
 DECODE_PATH = ("rms_norm", "apply_rope", "flash_attention_fwd", "swiglu_mlp")
 TRAIN_PATH = ("rms_norm", "apply_rope", "flash_attention_fwd", "flash_attention_bwd",
               "swiglu_mlp", "apply_rope_transpose")
@@ -995,7 +999,7 @@ def serve_requests(torch, model, seed: int, serve: dict, profile_label=None) -> 
                                            if any(p in name for p in parts))}
                      for key, parts in SLICE_KERNELS.items()}
             emit({"phase": "slice_profile", "variant": profile_label,
-                  "profile_s": time.perf_counter() - t1, "k5_k8": paths, **summary})
+                  "profile_s": time.perf_counter() - t1, "paths": paths, **summary})
     return (out_records, metrics, wall, launches, [prompt_lengths[0], prompt_lengths[-1]],
             prefill_rows)
 
@@ -2469,10 +2473,14 @@ def seeded_group_sizes(torch, rows: int, n_expert: int, seed: int, case: str):
     """The group sizes of `rows` expert slots (rows / 2 tokens, top 2) from
     a seeded draw of router logits: "skewed" adds a falling bias over the
     experts (expert 0 the most popular), "empty" never routes to experts 2
-    and 5; "single" puts every slot in expert 3."""
-    if case == "single":
+    and 5; "single" puts every slot in expert 3; "busy" gives every expert
+    rows / n_expert slots (the rest to the first ones)."""
+    if case in ("single", "busy"):
         sizes = [0] * n_expert
-        sizes[3] = rows
+        if case == "single":
+            sizes[3] = rows
+        else:
+            sizes = [rows // n_expert + (e < rows % n_expert) for e in range(n_expert)]
         return torch.tensor(sizes, dtype=torch.int32, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(seed)
     logits = torch.randn(rows // 2, n_expert, generator=gen, device="cuda")
@@ -2513,13 +2521,16 @@ def grouped_mm_library(torch, lhs, w, sizes):
 
 def gmm_phase(torch, seed: int) -> dict:
     """L2's forward against its plain version at the Mixtral slices' six
-    shapes, each with skewed experts, empty experts and a single group, two
-    calls bitwise equal; the skewed and empty draws timed beside the bound
-    and the library yardstick. The skewed and empty draws come first, in
-    the order and from the seeds they have had since the phase began (the
-    decode and prefill shapes' inputs do not change as shapes are added),
-    then the single groups."""
-    from dualhyp_tpu_torch.ops import gmm
+    shapes, each with skewed experts, empty experts and a single group, and
+    at the two decode shapes with every expert busy, two calls bitwise
+    equal; all but the single groups timed beside the bound and the library
+    yardstick (back to back and one cold call each). The skewed and empty
+    draws come first, in the order and from the seeds they have had since
+    the phase began (the decode and prefill shapes' inputs do not change as
+    shapes are added), then the single groups, then the busy decode draws.
+    Then the host microseconds of a decode call at a tiny shape, beside K2's
+    (a kernel this phase does not change), three times each."""
+    from dualhyp_tpu_torch.ops import gmm, rmsnorm
 
     gen = torch.Generator(device="cuda").manual_seed(seed + 37)
     n_expert = 8
@@ -2527,6 +2538,7 @@ def gmm_phase(torch, seed: int) -> dict:
     out = {}
     draws = [(shape, case) for shape in GMM_SHAPES for case in ("skewed", "empty")]
     draws += [(shape, "single") for shape in GMM_SHAPES]
+    draws += [(shape, "busy") for shape in GMM_SHAPES if shape[0].startswith("decode")]
     for i, ((name, rows, n, k), case) in enumerate(draws):
         if (n, k) not in weights:
             weights[(n, k)] = (torch.randn((n_expert, n, k), generator=gen, device="cuda")
@@ -2540,6 +2552,8 @@ def gmm_phase(torch, seed: int) -> dict:
                       torch)
         entry = dict(shape=[rows, n, k], group_sizes=sizes.tolist(), max_abs_err=err,
                      repeats_bitwise=True)
+        if rows <= getattr(gmm, "DECODE_ROWS", 0):
+            entry["launch"] = decode_plan(gmm, rows, n, k, n_expert)
         if case != "single":
             lib, lib_name = grouped_mm_library(torch, lhs, w, sizes)
             busy = int((sizes > 0).sum())
@@ -2548,7 +2562,8 @@ def gmm_phase(torch, seed: int) -> dict:
             entry.update(
                 ms=time_ms(fn, torch), device_ms=device_ms(fn, torch),
                 plain_ms=time_ms(plain, torch, warmup=1, iters=3),
-                library_ms=time_ms(lib, torch), library=lib_name,
+                library_ms=time_ms(lib, torch), library_device_ms=device_ms(lib, torch),
+                library=lib_name,
                 library_max_abs_err=float((lib().float() - plain().float()).abs().max()),
                 bound_ms=bms, bound_by=by)
         out[f"{name}_{case}"] = entry
@@ -2556,6 +2571,18 @@ def gmm_phase(torch, seed: int) -> dict:
         torch.cuda.empty_cache()
     del weights
     torch.cuda.empty_cache()
+    # host microseconds of a decode call (16 rows over 8 experts) at a tiny
+    # shape, where the card waits on the host, beside K2's at 8 x 128
+    lhs = torch.randn((16, 128), generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn((n_expert, 256, 128), generator=gen, device="cuda").to(torch.bfloat16)
+    sizes = seeded_group_sizes(torch, 16, n_expert, seed, "busy")
+    scale = torch.ones(128, dtype=torch.bfloat16, device="cuda")
+    host = {"grouped_matmul": [host_us(lambda: gmm.grouped_matmul(lhs, w, sizes), torch)
+                               for _ in range(3)],
+            "rms_norm": [host_us(lambda: rmsnorm.rms_norm(lhs[:8], scale), torch)
+                         for _ in range(3)]}
+    out["host_cost"] = {"shapes": {"grouped_matmul": [16, 256, 128, n_expert],
+                                   "rms_norm": [8, 128]}, "host_us": host}
     emit({"phase": "kernel", "name": "grouped_matmul",
           "tolerance": dict(zip(("atol", "rtol"), TOLERANCES["grouped_matmul"])), **out})
     return out

@@ -37,23 +37,39 @@
 //     ordered in bands of kRaster row visits, each band walking every
 //     column tile, so the lhs tiles and weight tiles a wave of blocks reads
 //     stay in the L2 cache;
-//   * decode rows (at most kDecodeRows) keep an mma.sync tile (gmm_kernel)
-//     of one m16 row tile by 64 columns with 4 warps, streamed by cp.async:
-//     a visit holds a couple of rows and the weight bytes, not the
-//     products, set the time (more, smaller blocks keep more bytes in
-//     flight); there it is on par with torch._grouped_mm.
+//   * decode rows (at most kDecodeRows, 32; the serving loop's 16) run
+//     gmm_decode_kernel, one launch a call with no tensor map (a map costs
+//     the host 14-22 us a call, more than this path's device time in a
+//     host-bound loop): the weights, not the products, set the time, and a
+//     visit is a whole group's rows (a few). Its operands are swapped:
+//     16 weight rows a warp are mma.sync's M, the visit's rows its N in n8
+//     tiles, so no m16 tile of tokens is wasted. All threads copy 16 bytes
+//     at a time (cp.async, the L2 fetching whole 128-byte lines) into a
+//     three-stage ring, 256 contiguous bytes of each of a CTA's 64 weight
+//     rows a stage, and the visit's lhs rows beside them; two stages stay in
+//     flight. K is split over a cluster of up to 8 CTAs (the plan,
+//     ops/gmm.decode_plan, leaves each at least 16 stages): each pushes its
+//     fp32 parts to the owning CTA's shared memory, one cluster barrier, a
+//     sum in rank order, one rounding; no atomics, no workspace, the output
+//     repeats bit for bit. At Mixtral's decode shapes it takes 8-16% less
+//     device time than torch._grouped_mm, 84-86% of the byte bound with
+//     four experts busy; weight streams into registers (as K5's and K8's
+//     decode kernels load, 64 bytes of a row at a time) and 1-D bulk
+//     copies of whole row pieces from one producer warp were slower
+//     (PERF.md).
 // Ragged N is masked; K must be a multiple of 8 (16-byte rows).
 //
 // The backward replaces megablox `_gmm_bwd` (jax/experimental/pallas/ops/
 // tpu/megablox/ops.py): dlhs is its `gmm` with the other transpose, drhs its
 // `tgmm` (gmm.py, pallas_call in `tgmm`). Both are bound by operations at
 // the training rows (2 M N K each, M = 16384 at Mixtral's 8 x 1024 step).
-//   * dlhs is the forward's kernels and schedule with W[e] read along its
-//     stored rows: a (BK, BN) tile of W[e] is a row-major (K, N) operand,
-//     which wgmma reads MN-major from (64 rows, 64) TMA boxes (and the
-//     decode tile through `ldmatrix.trans`, load_frag_b_kmajor), so the
-//     stack is never transposed or copied (a copy would be 940 MB a call at
-//     Mixtral's width);
+//   * dlhs is the forward's TMA kernel and schedule with W[e] read along
+//     its stored rows: a (BK, BN) tile of W[e] is a row-major (K, N)
+//     operand, which wgmma reads MN-major from (64 rows, 64) TMA boxes, so
+//     the stack is never transposed or copied (a copy would be 940 MB a
+//     call at Mixtral's width). At up to 64 rows it keeps PR 5's mma.sync
+//     tile (gmm_kernel, W[e] through `ldmatrix.trans`, load_frag_b_kmajor),
+//     which no path runs: training takes 16384 rows;
 //   * drhs (tgmm_tma_kernel, at every row count) runs on the same ring,
 //     tile sizes and consumers with the roles turned: a block owns a (128
 //     n, 256 k) tile of one expert's dW, finds its group's rows from the
@@ -99,13 +115,168 @@ __device__ __forceinline__ void find_visit(int (&visit)[4], const int* __restric
   }
 }
 
-// ---- decode rows: mma.sync, cp.async ------------------------------------------
+// ---- decode rows, forward: a weight stream through a cp.async ring ------------
 
-// out (m, n) = lhs (m, k) times W[e] by row group, summed over k. WM x WN
-// warps; a warp owns MT m16 tiles by NT n8 tiles; BK of the k axis a step.
-// kTransW false: W[e] is (n, k), the forward; true: W[e] is (k, n), read
-// along its rows (dlhs: the stack (E, N, K) with n = K and k = N).
-template <int WM, int WN, int MT, int NT, int BK, bool kTransW>
+constexpr int kDecodeWarps = 4;                 // warps a CTA, each owning 16 weight rows
+constexpr int kDecodeCols = 16 * kDecodeWarps;  // output columns (weight rows) a CTA
+constexpr int kDecodeK = 128;                   // k a stage: 256 contiguous bytes of a row
+constexpr int kDecodeLd = kDecodeK + 8;         // bf16 row stride of a stage (16 bytes of pad)
+constexpr int kDecodeStages = 3;
+
+// The shared memory of gmm_decode_kernel<MT>: the ring (kDecodeCols weight
+// rows and 8 MT lhs rows a stage) and the cluster's fp32 parts.
+__host__ __device__ constexpr int decode_smem(int mt) {
+  return kDecodeStages * (kDecodeCols + 8 * mt) * kDecodeLd * 2 + 8 * mt * kDecodeCols * 4;
+}
+
+// out (m <= 8 MT, n) = lhs W[e]^T by row group: CTA (visit e, column block
+// cb, cluster rank) streams W[e]'s rows cb * 64 + [0, 64) over its share of
+// K's 128-deep chunks for the rows of group e (visit n_groups: the rows
+// past the last group, which it zeroes). Every thread copies 16 bytes at a
+// time into a ring of kDecodeStages stages, eight lanes a 128-byte line, a
+// stage 256 bytes of each weight row and of each of the visit's lhs rows
+// (zeros past K); two stages stay in flight while a third is multiplied.
+// Warp w owns weight rows 16 w + [0, 16) as mma.sync's A (m16n8k16), the
+// visit's rows, the tokens, are N in n8 tiles (a visit holds a few rows:
+// no m16 tile of them is wasted, and only its rows are copied). Each CTA
+// sends its fp32 parts of the cluster's columns to the CTA that owns them
+// (64 / ranks each) in distributed shared memory, and after one barrier
+// every CTA adds its columns' parts in rank order and rounds them once.
+template <int MT>
+__global__ void __launch_bounds__(kDecodeWarps * 32)
+gmm_decode_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ w,
+                  const int* __restrict__ group_sizes, bf16* __restrict__ out, int m, int n,
+                  int k, int n_groups, int col_blocks) {
+  constexpr int kTok = 8 * MT;
+  constexpr int kStage = (kDecodeCols + kTok) * kDecodeLd;  // bf16 elements a stage
+  constexpr int kS = kDecodeStages;
+  constexpr int kThreads = kDecodeWarps * 32;
+  constexpr int kChunks = kDecodeK / 8;  // 16-byte copies a row a stage
+  static_assert(kDecodeCols * kChunks % kThreads == 0, "whole rounds of weight copies");
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  float* slots = reinterpret_cast<float*>(ring + kS * kStage);  // (ranks, tokens, cols)
+  const int ranks = cluster_size();
+  const int rank = cluster_rank();
+  const int unit = blockIdx.x / ranks;
+  const int e = unit / col_blocks;
+  const int cb = unit - e * col_blocks;
+  // the visit's rows [start, end), from the group sizes; the cluster's CTAs
+  // share them, so an empty visit exits with its whole cluster
+  int start = 0;
+  for (int i = 0; i < e; ++i) start = min(m, start + max(__ldg(group_sizes + i), 0));
+  const int end = e < n_groups ? min(m, start + max(__ldg(group_sizes + e), 0)) : m;
+  if (end <= start) return;
+  const int cols = kDecodeCols / ranks;  // the columns this CTA adds up and stores
+  const int c0 = cb * kDecodeCols + rank * cols;
+  if (e == n_groups) {  // rows that no group holds
+    for (int i = threadIdx.x; i < (end - start) * cols; i += kThreads) {
+      const int col = c0 + i % cols;
+      if (col < n) out[static_cast<long long>(start + i / cols) * n + col] = __float2bfloat16(0.f);
+    }
+    return;
+  }
+  cluster_arrive_relaxed();  // this CTA has started: the cluster may write its slots
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int chunks = (k + kDecodeK - 1) / kDecodeK;
+  const int ch0 = rank * chunks / ranks;
+  const int nch = (rank + 1) * chunks / ranks - ch0;
+  const int tokens = end - start;
+  const int tiles = (tokens + 7) >> 3;  // the visit's n8 token tiles, at most MT
+  const int rows = min(kDecodeCols, n - cb * kDecodeCols);
+  const bf16* wb = w + (static_cast<long long>(e) * n + cb * kDecodeCols) * k;
+  const bf16* xb = lhs + static_cast<long long>(start) * k;
+
+  // stage `slot` <- chunk `ch`: the CTA's weight rows (zeros past n) and the
+  // visit's lhs rows (the rows of a token tile past the visit are not
+  // copied: their products are not stored), zeros past K
+  auto load = [&](int slot, int ch) {
+    bf16* st = ring + slot * kStage;
+    const int kk = ch * kDecodeK;
+#pragma unroll
+    for (int j = 0; j < kDecodeCols * kChunks / kThreads; ++j) {
+      const int i = threadIdx.x + j * kThreads;
+      const int r = i / kChunks;
+      const int c = (i % kChunks) * 8;
+      const bool ok = r < rows && kk + c < k;
+      cp_async_line(st + r * kDecodeLd + c, ok ? wb + static_cast<long long>(r) * k + kk + c : wb,
+                    ok);
+    }
+    for (int i = threadIdx.x; i < tokens * kChunks; i += kThreads) {
+      const int t = i / kChunks;
+      const int c = (i % kChunks) * 8;
+      const bool ok = kk + c < k;
+      cp_async_line(st + (kDecodeCols + t) * kDecodeLd + c,
+                    ok ? xb + static_cast<long long>(t) * k + kk + c : xb, ok);
+    }
+  };
+
+  float acc[MT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[mt][q] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kS - 1; ++i) {
+    if (i < nch) load(i, ch0 + i);
+    cp_async_commit();
+  }
+  for (int i = 0; i < nch; ++i) {
+    cp_async_wait<kS - 2>();  // this thread's copies of chunk i have landed
+    __syncthreads();          // everyone's have, and everyone is done with chunk i - 1
+    if (i + kS - 1 < nch) load((i + kS - 1) % kS, ch0 + i + kS - 1);
+    cp_async_commit();
+    const bf16* st = ring + (i % kS) * kStage;
+    const int valid = min(kDecodeK, k - (ch0 + i) * kDecodeK);
+#pragma unroll
+    for (int kk = 0; kk < kDecodeK; kk += 16) {
+      if (kk >= valid) break;
+      uint32_t a[4];
+      load_frag_a(a, st, kDecodeLd, 16 * warp, kk, lane);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        if (mt >= tiles) break;
+        uint32_t b[2];
+        load_frag_b(b, st + kDecodeCols * kDecodeLd, kDecodeLd, 8 * mt, kk, lane);
+        mma_bf16_16816(acc[mt], a, b);
+      }
+    }
+  }
+
+  cluster_wait();  // every CTA of the cluster has started
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+    if (mt < tiles) push_row_tile(slots, kTok, cols, 16 * warp, 8 * mt, acc[mt], rank, lane);
+  cluster_arrive();
+  cluster_wait();  // every CTA's parts of this CTA's columns have landed
+  for (int i = threadIdx.x; i < tokens * cols; i += kThreads) {
+    const int t = i / cols;
+    const int c = i - t * cols;
+    if (c0 + c < n)
+      out[static_cast<long long>(start + t) * n + c0 + c] =
+          __float2bfloat16(sum_slots(slots + t * cols + c, kTok * cols, ranks));
+  }
+}
+
+template <int MT>
+int launch_decode(const bf16* lhs, const bf16* w, const int* sizes, bf16* out, int m, int n,
+                  int k, int n_groups, int ranks, cudaStream_t s) {
+  constexpr int smem = decode_smem(MT);
+  const int err = allow_smem<&gmm_decode_kernel<MT>>(smem);
+  if (err) return err;
+  const int col_blocks = (n + kDecodeCols - 1) / kDecodeCols;
+  return launch_cluster(gmm_decode_kernel<MT>, col_blocks * (n_groups + 1) * ranks,
+                        kDecodeWarps * 32, smem, ranks, s, lhs, w, sizes, out, m, n, k, n_groups,
+                        col_blocks);
+}
+
+// ---- decode rows, dlhs: mma.sync, cp.async ------------------------------------
+
+// dlhs (m, n) = g (m, k) times W[e] by row group, W[e] (k, n) read along its
+// rows (the stack (E, N, K) with n = K and k = N). WM x WN warps; a warp
+// owns MT m16 tiles by NT n8 tiles; BK of the k axis a step.
+template <int WM, int WN, int MT, int NT, int BK>
 __global__ void __launch_bounds__(WM * WN * 32)
 gmm_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ w,
            const int* __restrict__ group_sizes, bf16* __restrict__ out, int m, int n,
@@ -113,12 +284,12 @@ gmm_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ w,
   constexpr int kThreads = WM * WN * 32;
   constexpr int BM = WM * MT * 16;
   constexpr int BN = WN * NT * 8;
-  constexpr int kLd = BK + 8;      // bf16 row stride of the lhs tile (and of W's, forward)
+  constexpr int kLd = BK + 8;      // bf16 row stride of the lhs tile
   constexpr int kChunks = BK / 8;  // 16-byte copies a tile row
-  constexpr int kLdW = kTransW ? BN + 8 : kLd;  // row stride of the W tile
-  static_assert(!kTransW || NT % 2 == 0, "W's k-major fragments come in n-tile pairs");
+  constexpr int kLdW = BN + 8;     // row stride of the W tile
+  static_assert(NT % 2 == 0, "W's k-major fragments come in n-tile pairs");
   __shared__ __align__(16) bf16 a_s[2][BM * kLd];
-  __shared__ __align__(16) bf16 b_s[2][(kTransW ? BK : BN) * kLdW];
+  __shared__ __align__(16) bf16 b_s[2][BK * kLdW];
   __shared__ int visit[4];  // group (n_groups: the zero rows), tile row, first row, end row
 
   if (threadIdx.x == 0) find_visit(visit, group_sizes, blockIdx.y, m, n_groups, BM);
@@ -156,22 +327,12 @@ gmm_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ w,
       cp_async(&a_s[st][r * kLd + c], ok ? lhs + static_cast<long long>(row) * k + k0 + c : lhs,
                ok);
     }
-    if constexpr (kTransW) {  // BK rows of W[e] (k), BN of their n values each
-      for (int i = threadIdx.x; i < BK * (BN / 8); i += kThreads) {
-        const int r = i / (BN / 8);
-        const int c = (i % (BN / 8)) * 8;
-        const bool ok = k0 + r < k && n0 + c < n;
-        cp_async(&b_s[st][r * kLdW + c],
-                 ok ? wb + static_cast<long long>(k0 + r) * n + n0 + c : wb, ok);
-      }
-    } else {
-      for (int i = threadIdx.x; i < BN * kChunks; i += kThreads) {
-        const int r = i / kChunks;
-        const int c = (i % kChunks) * 8;
-        const bool ok = n0 + r < n && k0 + c < k;
-        cp_async(&b_s[st][r * kLd + c],
-                 ok ? wb + static_cast<long long>(n0 + r) * k + k0 + c : wb, ok);
-      }
+    for (int i = threadIdx.x; i < BK * (BN / 8); i += kThreads) {  // BK rows (k), BN n each
+      const int r = i / (BN / 8);
+      const int c = (i % (BN / 8)) * 8;
+      const bool ok = k0 + r < k && n0 + c < n;
+      cp_async(&b_s[st][r * kLdW + c], ok ? wb + static_cast<long long>(k0 + r) * n + n0 + c : wb,
+               ok);
     }
   };
 
@@ -198,14 +359,9 @@ gmm_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ w,
       uint32_t b[NT][2];
 #pragma unroll
       for (int i = 0; i < MT; ++i) load_frag_a(a[i], a_s[st], kLd, (wm * MT + i) * 16, kk, lane);
-      if constexpr (kTransW) {
 #pragma unroll
-        for (int j = 0; j < NT; j += 2)
-          load_frag_b_kmajor(b[j], b[j + 1], b_s[st], kLdW, kk, (wn * NT + j) * 8, lane);
-      } else {
-#pragma unroll
-        for (int j = 0; j < NT; ++j) load_frag_b(b[j], b_s[st], kLd, (wn * NT + j) * 8, kk, lane);
-      }
+      for (int j = 0; j < NT; j += 2)
+        load_frag_b_kmajor(b[j], b[j + 1], b_s[st], kLdW, kk, (wn * NT + j) * 8, lane);
 #pragma unroll
       for (int i = 0; i < MT; ++i)
 #pragma unroll
@@ -526,21 +682,16 @@ tgmm_tma_kernel(const __grid_constant__ CUtensorMap map_g,
   }
 }
 
-// rows at or below which the decode tile runs
-constexpr int kDecodeRows = 64;
+// rows at or below which the forward's decode kernel runs: at 64 rows
+// (eight of them a group) the TMA kernel took less device time than the
+// decode kernel, whose ring then holds 64 lhs rows a stage (PERF.md)
+constexpr int kDecodeRows = 32;
+// rows at or below which dlhs runs its mma.sync tile
+constexpr int kDlhsDecodeRows = 64;
 
 template <bool kTransW>
-int launch_gmm(const void* lhs, const void* w, const void* sizes, void* out, int m, int n,
-               int k, int n_groups, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* sp = static_cast<const int*>(sizes);
-  bf16* op = static_cast<bf16*>(out);
-  if (m <= kDecodeRows) {  // one m16 row tile by 64 columns, 4 warps
-    dim3 grid((n + 63) / 64, (m + 15) / 16 + n_groups + 1);
-    gmm_kernel<1, 4, 1, 2, 64, kTransW><<<grid, 128, 0, s>>>(
-        static_cast<const bf16*>(lhs), static_cast<const bf16*>(w), sp, op, m, n, k, n_groups);
-    return static_cast<int>(cudaGetLastError());
-  }
+int launch_tma(const void* lhs, const void* w, const int* sizes, bf16* out, int m, int n, int k,
+               int n_groups, cudaStream_t s) {
   // first a runtime call, which makes the card's context current on this
   // thread (autograd runs dlhs on a thread of its own): the tensor maps need it
   int err = static_cast<int>(cudaFuncSetAttribute(
@@ -555,7 +706,7 @@ int launch_gmm(const void* lhs, const void* w, const void* sizes, void* out, int
   if (err) return err;
   const int visits = (m + kBM - 1) / kBM + n_groups + 1;
   const int blocks = (n + kBN - 1) / kBN * visits;
-  gmm_tma_kernel<kTransW><<<blocks, kTmaThreads, kTmaSmem, s>>>(map_a, map_w, sp, op, m, n, k,
+  gmm_tma_kernel<kTransW><<<blocks, kTmaThreads, kTmaSmem, s>>>(map_a, map_w, sizes, out, m, n, k,
                                                                 n_groups, visits);
   return static_cast<int>(cudaGetLastError());
 }
@@ -564,10 +715,23 @@ int launch_gmm(const void* lhs, const void* w, const void* sizes, void* out, int
 
 // lhs: contiguous (m, k) bf16; w: contiguous (n_groups, n, k) bf16; sizes:
 // (n_groups,) int32 on the device; out: contiguous (m, n) bf16. k a multiple
-// of 8, all pointers 16-byte aligned.
+// of 8, all pointers 16-byte aligned. Up to kDecodeRows rows run the decode
+// kernel, its CTAs in clusters of `cluster` (1 to 8) that split K and add
+// their parts on chip; above, the TMA kernel (`cluster` is not read).
 DH_EXPORT int dh_grouped_matmul(const void* lhs, const void* w, const void* sizes, void* out,
-                                int m, int n, int k, int n_groups, void* stream) {
-  return launch_gmm<false>(lhs, w, sizes, out, m, n, k, n_groups, stream);
+                                int m, int n, int k, int n_groups, int cluster, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* sp = static_cast<const int*>(sizes);
+  bf16* op = static_cast<bf16*>(out);
+  if (m <= kDecodeRows) {
+    if (cluster < 1 || cluster > 8) return static_cast<int>(cudaErrorInvalidValue);
+    const bf16* lp = static_cast<const bf16*>(lhs);
+    const bf16* wp = static_cast<const bf16*>(w);
+    if (m <= 8) return launch_decode<1>(lp, wp, sp, op, m, n, k, n_groups, cluster, s);
+    if (m <= 16) return launch_decode<2>(lp, wp, sp, op, m, n, k, n_groups, cluster, s);
+    return launch_decode<4>(lp, wp, sp, op, m, n, k, n_groups, cluster, s);
+  }
+  return launch_tma<false>(lhs, w, sp, op, m, n, k, n_groups, s);
 }
 
 // dlhs (m, k) = g (m, n) times W[e] (n, k) by row group: g contiguous (m, n)
@@ -575,8 +739,18 @@ DH_EXPORT int dh_grouped_matmul(const void* lhs, const void* w, const void* size
 // k multiples of 8, pointers 16-byte aligned. Rows past the last group are 0.
 DH_EXPORT int dh_grouped_matmul_dlhs(const void* g, const void* w, const void* sizes, void* out,
                                      int m, int n, int k, int n_groups, void* stream) {
-  // the kernel's output columns are k, its contraction n
-  return launch_gmm<true>(g, w, sizes, out, m, k, n, n_groups, stream);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* sp = static_cast<const int*>(sizes);
+  bf16* op = static_cast<bf16*>(out);
+  // the kernels' output columns are k, their contraction n
+  if (m <= kDlhsDecodeRows) {  // one m16 row tile by 64 columns, 4 warps
+    dim3 grid((k + 63) / 64, (m + 15) / 16 + n_groups + 1);
+    gmm_kernel<1, 4, 1, 2, 64><<<grid, 128, 0, s>>>(static_cast<const bf16*>(g),
+                                                    static_cast<const bf16*>(w), sp, op, m, k, n,
+                                                    n_groups);
+    return static_cast<int>(cudaGetLastError());
+  }
+  return launch_tma<true>(g, w, sp, op, m, k, n, n_groups, s);
 }
 
 // dW (n_groups, n, k) = per group, g (m, n)^T times lhs (m, k) over the

@@ -86,6 +86,15 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src, bool pred) 
                  "n"(kBytes), "r"(n));
 }
 
+// cp_async of 16 bytes whose L2 miss fetches the whole 128-byte line from
+// device memory (`.L2::128B`), for a row streamed line by line: L2's decode
+// kernel took 1-2% less device time with it (PERF.md).
+__device__ __forceinline__ void cp_async_line(void* dst, const void* src, bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global.L2::128B [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(pred ? 16 : 0));
+}
+
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
 // Waits until at most `kPending` of this thread's committed copy groups are

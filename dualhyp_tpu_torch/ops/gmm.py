@@ -22,6 +22,8 @@ leaves them, and so are their gradients.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from dualhyp_tpu_torch.ops import _lib
@@ -29,17 +31,22 @@ from dualhyp_tpu_torch.ops import _lib
 # L2: replaces megablox `gmm` (jax/experimental/pallas/ops/tpu/megablox/
 # gmm.py). Bound by the expert weight bytes in decode (16 rows) and by
 # operations in prefill and training (thousands of rows); each block finds
-# its (group, row tile) from the group sizes on the device, so no size is
-# read back to the host. Above 64 rows a wgmma/TMA kernel (128 x 256 tiles),
-# at or below an mma.sync one. See csrc/grouped_matmul.cu.
+# its group's rows from the group sizes on the device, so no size is read
+# back to the host. Above DECODE_ROWS a wgmma/TMA kernel (128 x 256 tiles);
+# at or below, one launch of a decode kernel that streams each busy
+# expert's weight rows through a cp.async ring into mma.sync products (the
+# weights on M, a group's rows as N), no tensor map encoded, its CTAs in
+# clusters that split K and add the parts in shared memory (`decode_plan`).
+# See csrc/grouped_matmul.cu.
 GROUPED_MATMUL = _lib.Kernel(
     "dh_grouped_matmul",
-    [_lib.C_PTR] * 4 + [_lib.C_INT] * 4,
+    [_lib.C_PTR] * 4 + [_lib.C_INT] * 5,
 )
 # L2's gradient of lhs: replaces megablox `_gmm_bwd`'s `gmm` with the other
-# transpose (ops.py). The forward's kernels and schedule, with the stack read
-# along its stored rows (wgmma's MN-major B; ldmatrix.trans in the decode
-# tile): bound by operations at the training rows.
+# transpose (ops.py). The forward's TMA kernel and schedule, with the stack
+# read along its stored rows (wgmma's MN-major B): bound by operations at the
+# training rows. At or below 64 rows an mma.sync tile (cp.async,
+# ldmatrix.trans), which no path runs: training takes 16384 rows.
 GROUPED_MATMUL_DLHS = _lib.Kernel(
     "dh_grouped_matmul_dlhs",
     [_lib.C_PTR] * 4 + [_lib.C_INT] * 4,
@@ -53,6 +60,57 @@ GROUPED_MATMUL_DRHS = _lib.Kernel(
     "dh_grouped_matmul_drhs",
     [_lib.C_PTR] * 4 + [_lib.C_INT] * 4,
 )
+
+
+# rows at or below which the forward runs its decode kernel (kDecodeRows)
+DECODE_ROWS = 32
+DECODE_COLS = 64  # output columns a CTA of the decode kernel: 4 warps of 16 weight rows
+DECODE_K = 128  # k a stage of the decode kernel's ring: 256 bytes of each row
+MAX_CLUSTER = 8  # CTAs of a cluster, the portable most
+MIN_CHUNKS = 16  # stages of K a rank of a cluster streams, at least
+
+
+@functools.lru_cache(maxsize=None)
+def decode_cluster(rows: int, n: int, k: int, n_groups: int) -> int:
+    """The cluster of L2's decode kernel at `rows` <= DECODE_ROWS
+    (`decode_plan`)."""
+    if not 0 < rows <= DECODE_ROWS or n < 1 or k < 8 or k % 8 or n_groups < 1:
+        raise ValueError(f"decode rows {rows}, N {n}, K {k}, groups {n_groups}")
+    chunks = -(-k // DECODE_K)
+    cluster = 1
+    while cluster < MAX_CLUSTER and chunks // (2 * cluster) >= MIN_CHUNKS:
+        cluster *= 2
+    return cluster
+
+
+def decode_plan(rows: int, n: int, k: int, n_groups: int) -> dict:
+    """The launch of L2's decode kernel at `rows` <= DECODE_ROWS, fixed by
+    rows, N, K and the group count alone (the group sizes stay on the
+    device): one visit a group and one for the rows past the last group
+    (`visits`; an empty one exits at once), each by `col_blocks` blocks of
+    DECODE_COLS output columns, `cluster` CTAs a block, each taking an even
+    share of K's DECODE_K-deep chunks (`chunks[rank]`); the cluster's CTAs
+    add their fp32 parts in shared memory in rank order, CTA `rank` for
+    `columns[rank]` of the block, so nothing goes through device memory. A
+    visit's rows are N in `token_tiles` n8 tiles. The cluster is the largest
+    power of two, at most MAX_CLUSTER, that leaves every rank MIN_CHUNKS
+    chunks at least: shorter streams and more CTAs, whose last wave on the
+    card is shorter (at Mixtral's decode shapes 2 and 4 beat 1 and 8 on
+    the card, PERF.md). `smem`: its bytes a CTA (a three-stage ring of the
+    weight rows and the visit's rows, and the cluster's parts of its
+    columns)."""
+    cluster = decode_cluster(rows, n, k, n_groups)
+    col_blocks = -(-n // DECODE_COLS)
+    chunks = -(-k // DECODE_K)
+    tiles = next(t for t in (1, 2, 4) if 8 * t >= rows)
+    cols = DECODE_COLS // cluster
+    return dict(token_tiles=tiles, visits=n_groups + 1, col_blocks=col_blocks, cluster=cluster,
+                ctas=(n_groups + 1) * col_blocks * cluster, threads=128,
+                smem=3 * (DECODE_COLS + 8 * tiles) * (DECODE_K + 8) * 2
+                + 8 * tiles * DECODE_COLS * 4,
+                chunks=[(c * chunks // cluster, (c + 1) * chunks // cluster)
+                        for c in range(cluster)],
+                columns=[(c * cols, (c + 1) * cols) for c in range(cluster)])
 
 
 def _groups(group_sizes, m: int):
@@ -147,8 +205,9 @@ def _grouped_matmul(lhs, weight, group_sizes):
     group_sizes = group_sizes.contiguous()
     out = torch.empty((m, n), dtype=lhs.dtype, device=device)
     if m and n:
+        cluster = decode_cluster(m, n, k, e) if m <= DECODE_ROWS else 1
         GROUPED_MATMUL(device, lhs.data_ptr(), weight.data_ptr(), group_sizes.data_ptr(),
-                       out.data_ptr(), m, n, k, e)
+                       out.data_ptr(), m, n, k, e, cluster)
     return out
 
 

@@ -22,9 +22,12 @@ and K6/K7 in fp32 and bf16 at T or
 S of 1, 63, 64, 65 and 1500, S != T, kv_valid and strided inputs, K6 at
 fp32 at the RelPrompt shape (B1 H20 T=S=280) repeating bitwise, K6/K7 at
 fp32 on logits up to ~130 (where TF32 or two bf16 pieces miss), L2
-(the grouped matmul) at M of 0, 1, 16, 17, 64, 65, 300 and 6144 with
+(the grouped matmul) at M of 0, 1, 8, 16, 17, 32, 64, 65, 300 and 6144 with
 empty, straddling and single groups, groups of 127, 128 and 129 rows
-around its 128-row tile and a ragged N, its two gradients
+around its 128-row tile, a ragged N and a K of 14336 that its decode
+kernel splits over a cluster, rows past the last group at 1 to 65 rows,
+its forward at 16 rows repeating bitwise in one CUDA kernel a call
+without a host sync, its two gradients
 (dlhs, drhs) at M from 0 to 16384, drhs at groups of 63 to 129 rows
 around its 64-row step with rows past the last group, repeating bitwise
 at 16384 rows, K1's forward and backward at head size
@@ -654,7 +657,14 @@ def test_lora_linear_decode_kernel_takes_up_to_32_rows(dev, gen, rows, separate)
 
 def _decode_call(gen, kernel):
     """(wrapper, call) of K8 at fc_1 on a strided x (read in place) or K5
-    at the fused QKV with a separate xin, at 8 rows."""
+    at the fused QKV with a separate xin, at 8 rows; or L2's forward at 16
+    rows (8 tokens x top 2) over 8 experts at a long K, which its plan
+    splits over a cluster."""
+    if kernel == "grouped_matmul":
+        lhs, w = _randn(gen, 16, 14336), _randn(gen, 8, 256, 14336, std=0.02)
+        sizes = torch.tensor([5, 0, 3, 2, 0, 4, 0, 2], dtype=torch.int32, device=lhs.device)
+        assert gmm.decode_plan(16, 256, 14336, 8)["cluster"] > 1
+        return gmm.GROUPED_MATMUL, lambda: gmm.grouped_matmul(lhs, w, sizes)
     if kernel == "q4_matmul":
         packed, scales = _q4_weights(gen, "fc_1")
         x = _randn(gen, 8, 4096)[:, 1024:3072]  # a row stride of 4096 elements
@@ -665,10 +675,10 @@ def _decode_call(gen, kernel):
     return lora.LORA_LINEAR, lambda: lora.lora_linear(x, w, a, b, 1.0, xin=xin)
 
 
-@pytest.mark.parametrize("kernel", ["q4_matmul", "lora_linear"])
+@pytest.mark.parametrize("kernel", ["q4_matmul", "lora_linear", "grouped_matmul"])
 def test_decode_kernels_repeat_bitwise(dev, gen, kernel):
-    """K8 and K5 at 8 rows add their K split in a fixed order (no atomics):
-    two calls give the same bits, one launch each."""
+    """K8 and K5 at 8 rows and L2 at 16 add their K split in a fixed order
+    (no atomics): two calls give the same bits, one launch each."""
     wrapper, call = _decode_call(gen, kernel)
     before = wrapper.launches
     first, second = call(), call()
@@ -676,10 +686,11 @@ def test_decode_kernels_repeat_bitwise(dev, gen, kernel):
     assert torch.equal(first, second)
 
 
-@pytest.mark.parametrize("kernel", ["q4_matmul", "lora_linear"])
+@pytest.mark.parametrize("kernel", ["q4_matmul", "lora_linear", "grouped_matmul"])
 def test_decode_kernels_run_one_cuda_kernel_without_a_host_sync(dev, gen, kernel):
     """At decode rows a call is one CUDA kernel (K8: no second pass over
-    split parts; no copy of the strided x) and never waits for the card."""
+    split parts; no copy of the strided x; L2: no group size read back)
+    and never waits for the card."""
     from torch.profiler import ProfilerActivity, profile
 
     _, call = _decode_call(gen, kernel)
@@ -829,16 +840,32 @@ def _group_sizes(case, m, dev):
     return torch.tensor(sizes, dtype=torch.int32, device=dev)
 
 
-@pytest.mark.parametrize("m", [0, 1, 16, 17, 64, 65, 300, 6144])
+@pytest.mark.parametrize("m", [0, 1, 8, 16, 17, 32, 64, 65, 300, 6144])
 @pytest.mark.parametrize("case", list(GMM_GROUPS))
-@pytest.mark.parametrize("n,k", [(200, 256), (128, 40)])
+@pytest.mark.parametrize("n,k", [(200, 256), (128, 40), (256, 14336)])
 def test_grouped_matmul(dev, gen, m, case, n, k):
+    """(256, 14336): a long K, which the decode kernel's plan splits over a
+    cluster at up to gmm.DECODE_ROWS rows."""
+    if k == 14336 and 0 < m <= gmm.DECODE_ROWS:
+        assert gmm.decode_plan(m, n, k, 8)["cluster"] > 1
     lhs = _randn(gen, m, k)
     w = _randn(gen, 8, n, k, std=0.05)
     sizes = _group_sizes(case, m, dev)
     before = gmm.GROUPED_MATMUL.launches
     got = gmm.grouped_matmul(lhs, w, sizes)
     assert gmm.GROUPED_MATMUL.launches == before + (1 if m else 0)
+    _close(got, gmm.grouped_matmul_plain(lhs, w, sizes), *GMM_TOL)
+
+
+@pytest.mark.parametrize("m", [1, 8, 16, 32, 64, 65])
+def test_grouped_matmul_decode_rows_past_the_last_group(dev, gen, m):
+    """Rows past the last group are zero, at the long K the decode kernel
+    splits over a cluster (and at 64 and 65 rows, the TMA kernel's)."""
+    n, k = 256, 14336
+    lhs, w = _randn(gen, m, k), _randn(gen, 8, n, k, std=0.05)
+    sizes = torch.tensor([m // 3, 0, m // 4, 0, 0, 0, 0, 0], dtype=torch.int32, device=dev)
+    got = gmm.grouped_matmul(lhs, w, sizes)
+    assert not bool(got[m // 3 + m // 4:].any())
     _close(got, gmm.grouped_matmul_plain(lhs, w, sizes), *GMM_TOL)
 
 

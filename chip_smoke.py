@@ -156,9 +156,37 @@ prints one JSON line; a failed phase raises and the script exits non-zero.
      kernels, K2, K3 and K4 launch, K1 never; then the 8 x 1024 step with
      remat, "own" (K1) against "splash" (L1) in turns own, splash, splash,
      own, one profiled step each;
- 26. the seconds of each phase, the `{"kernels": [...]}` line (all fifteen
-     kernels, launches by path), the card's name and power limit, and the
-     last line `{"ok": true, "device": {...}}`.
+ 26. (after the kernel phases) K4, K5 (QKV rank 48, proj rank 16) and K8
+     (qkv, fc_1) at a speculative verify step's rows, slots x (draft 8 +
+     1) = 9, 36, 72, 144, which cross K8's (16), K5's (32) and K4's (64)
+     decode thresholds: each against its plain version, two calls bitwise
+     equal, timed beside its bound and cuBLAS; (after the depth-2 checks) a
+     depth-2, full-width verify step of 9 tokens a row, card against 9
+     decode steps on the card and against the CPU (DEPTH2_ATOL);
+ 27. (after the decode slices) the speculative slice: the decode slice's
+     model and 16 requests through `run_inference` with --speculative
+     lookup, anchored and --scheduler continuous (draft 8): p50, tokens/s,
+     tokens a row a verify step, launches a verify step, greedy agreement
+     with the bf16 slice; host syncs counted under sync debug "warn", one
+     `lookup_step` alone under "error"; then the serving slice:
+     `ContinuousBatcher` with 16 slots, draft 8, chunks of 8 steps, 24
+     requests with budgets of 16-64 tokens, in bf16 (lookup, anchored),
+     with the int8 KV cache and merged + int4 (K8 at 144 rows), each chunk
+     under sync debug "error", one status read a chunk; and
+     `cli.serve_ger.Server` answering 4 requests over TCP on 127.0.0.1;
+ 28. (after the RelPrompt slice) a depth-2, full-width RelPrompt training
+     step (fused LoRA, the two classifiers at Whisper-large's and BRAVEn's
+     widths), card against CPU: the three losses and every LoRA and
+     classifier gradient; then the RelPrompt training slice:
+     `cli.finetune_relprompt.main` on full-width TinyLlama-1.1B-Chat with
+     3 mask rows, features from the RelPrompt slice's random Whisper-large-v3
+     on the card, 32 train and 8 val records, 4 steps of micro batch 8, K5
+     for the LoRA linears, one validation and the saves; `best_model.npz`
+     read back by `ckpt.io`; one step profiled;
+ 29. the seconds of each phase, the `{"kernels": [...]}` line (all fifteen
+     kernels, launches by path, K4's, K5's and K8's verify rows), the
+     card's name and power limit, and the last line
+     `{"ok": true, "device": {...}}`.
 
 Exits non-zero without printing a result when no CUDA card is present or
 when the port's package is not beside the script.
@@ -2281,10 +2309,12 @@ RELPROMPT_PATH = ("full_attention_fwd", "rms_norm", "apply_rope", "flash_attenti
 RELPROMPT_IDLE = ("lora_linear", "causal_attention_fwd", "q4_matmul")
 
 
-def relprompt_slice(torch, seed: int) -> dict:
+def relprompt_slice(torch, seed: int, whisper: Path) -> dict:
     """The RelPrompt slice: (a) precompute_features on the 16 requests, (b)
     run_relprompt with the encoder on the card, (c) the same from (a)'s
-    features. Launch counts around (a) and (b)."""
+    features. Launch counts around (a) and (b). The random Whisper-large-v3
+    checkpoint is written to `whisper` (the RelPrompt training slice reads
+    it there too)."""
     import argparse as ap
 
     import numpy as np
@@ -2314,7 +2344,7 @@ def relprompt_slice(torch, seed: int) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         t0 = time.perf_counter()
-        write_whisper_checkpoint(torch, tmp / "whisper", seed + 29)
+        write_whisper_checkpoint(torch, whisper, seed + 29)
         write_s = time.perf_counter() - t0
         records = synthetic.make_records(n_uids=16, n_hyps=5, seed=seed)
         rng = np.random.default_rng(seed)
@@ -2338,7 +2368,7 @@ def relprompt_slice(torch, seed: int) -> dict:
         t0 = time.perf_counter()
         written = precompute_features.main(["--json", str(path), "--out_dir",
                                             str(tmp / "feats"), "--whisper_checkpoint",
-                                            str(tmp / "whisper"), "--device", "cuda"])
+                                            str(whisper), "--device", "cuda"])
         torch.cuda.synchronize()
         precompute_s = time.perf_counter() - t0
         launches_a = read_counts()
@@ -2346,7 +2376,7 @@ def relprompt_slice(torch, seed: int) -> dict:
             raise RuntimeError(f"precompute_features wrote {written} of 16 feature files")
 
         # (b) the encoder on the card, feature by feature, timed per utterance
-        args = ap.Namespace(whisper_checkpoint=str(tmp / "whisper"), feature_dir=None,
+        args = ap.Namespace(whisper_checkpoint=str(whisper), feature_dir=None,
                             synthetic_features=False, device="cuda")
         load = feature_loader(args, cfg)
         feature_ms = []
@@ -2372,7 +2402,7 @@ def relprompt_slice(torch, seed: int) -> dict:
         from dualhyp_tpu_torch.cli.make_json_asr import load_whisper
         from dualhyp_tpu_torch.cli.finetune_relprompt import replayed_waveform
 
-        (enc, enc_cfg), _, _ = load_whisper(tmp / "whisper", device="cuda")
+        (enc, enc_cfg), _, _ = load_whisper(whisper, device="cuda")
         longest = max(records, key=lambda r: r["Audio_Corruption"]["total_len"])
         mel = torch.from_numpy(w.log_mel_spectrogram(replayed_waveform(longest),
                                                      enc_cfg.n_mels)[None]).cuda()
@@ -3266,6 +3296,724 @@ def mixtral_train_slice(torch, seed: int) -> dict:
     return result
 
 
+# ---- a verify step's rows, speculative decoding, serving, RelPrompt training ----
+
+# a verify step's rows: slots x (draft_len + 1) at draft 8, for 1, 4, 8 and 16
+# slots; they cross K8's decode threshold (16 rows), K5's (32), K4's (64)
+VERIFY_ROWS = (9, 36, 72, 144)
+DRAFT_LEN = 8
+
+
+def verify_rows_phase(torch, seed: int) -> dict:
+    """K4, K5 (the fused QKV at rank 48 and proj at rank 16) and K8 (qkv and
+    fc_1) at a verify step's rows, each against its plain version (two calls
+    bitwise equal), timed beside its bound and its cuBLAS yardstick."""
+    from dualhyp_tpu_torch.ops import int4, lora, quant, swiglu
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 61)
+    bf16 = torch.bfloat16
+    d, inter = 2048, 5632
+
+    def randn(*shape, std=1.0, dtype=bf16):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+    def row(name, fn, plain, library, bytes_moved, flops, path, shape, plain_iters=20):
+        err = compare(name, repeatable(name, fn, torch), plain(), torch)
+        bms, by = bound(bytes_moved, flops, BF16_TENSOR_FLOPS)
+        return dict(shape=shape, path=path, max_abs_err=err, repeats_bitwise=True,
+                    ms=time_ms(fn, torch), device_ms=device_ms(fn, torch),
+                    plain_ms=time_ms(plain, torch, warmup=1, iters=plain_iters),
+                    library_ms=time_ms(library, torch),
+                    library_device_ms=device_ms(library, torch), bound_ms=bms, bound_by=by)
+
+    out = {"swiglu_mlp": {}, "lora_linear": {}, "q4_matmul": {}}
+    w1, w2 = randn(inter, d, std=0.02), randn(inter, d, std=0.02)
+    w3 = randn(d, inter, std=0.02)
+    for rows in VERIFY_ROWS:
+        x = randn(rows, d)
+        out["swiglu_mlp"][f"verify_{rows}"] = row(
+            "swiglu_mlp", lambda: swiglu.swiglu_mlp(x, w1, w2, w3),
+            lambda: swiglu.swiglu_mlp_plain(x, w1, w2, w3),
+            lambda: (torch.nn.functional.silu(x @ w1.t()) * (x @ w2.t())) @ w3.t(),
+            (2 * rows * d + 3 * inter * d) * 2, 6 * rows * d * inter,
+            "decode" if rows <= swiglu.DECODE_ROWS else "wgmma", [rows, d, inter])
+    r = LORA_RANK
+    for name, o, dd, blocks in LORA_SHAPES:
+        w = randn(o, dd, std=0.02)
+        a = randn(blocks * r, dd, std=1 / math.sqrt(dd))
+        shapes = (dd, (o - dd) // 2, (o - dd) // 2) if blocks == 3 else (o,)
+        b = lora.lora_qkv_block_b(randn(o, r, std=0.02), shapes, r)
+        for rows in VERIFY_ROWS:
+            x = randn(rows, dd)
+            out["lora_linear"][f"{name}_verify_{rows}"] = row(
+                "lora_linear", lambda: lora.lora_linear(x, w, a, b, 1.0),
+                lambda: lora.lora_linear_plain(x, w, a, b, 1.0, None),
+                lambda: x @ w.t() + (x @ a.t()) @ b.t(),
+                (rows * dd + o * dd + blocks * r * dd + o * blocks * r + rows * o) * 2,
+                2 * rows * o * dd + 2 * rows * blocks * r * dd + 2 * rows * o * r,
+                "decode" if rows <= lora.DECODE_ROWS else "wgmma", [rows, o, dd, blocks * r])
+    for name, n, k in Q4_SHAPES:
+        if name not in ("qkv", "fc_1"):
+            continue
+        packed, scales = quant.quantize_weight_int4(randn(n, k, std=0.02, dtype=torch.float32))
+        w_deq = quant.dequantize_weight_int4(packed, scales, bf16)
+        for rows in VERIFY_ROWS:
+            x = randn(rows, k)
+            out["q4_matmul"][f"{name}_verify_{rows}"] = row(
+                "q4_matmul", lambda: int4.q4_matmul(x, packed, scales),
+                lambda: int4.q4_matmul_plain(x, packed, scales), lambda: x @ w_deq.t(),
+                rows * k * 2 + n * k // 2 + n * (k // 128) * 4 + rows * n * 2, 2 * rows * n * k,
+                "decode" if rows <= int4.DECODE_ROWS else "wgmma", [rows, n, k], plain_iters=3)
+    for name, entry in out.items():
+        emit({"phase": "kernel_verify_rows", "name": name,
+              "tolerance": dict(zip(("atol", "rtol"), TOLERANCES[name])), **entry})
+    torch.cuda.empty_cache()
+    return out
+
+
+def depth2_verify_check(torch, seed: int) -> dict:
+    """A depth-2, full-width TinyLlama + LoRA model from seeded numpy
+    weights: `verify_step` logits of K = 9 tokens a row on the card (bf16,
+    kernels) against 9 successive `decode_step`s on the card and against
+    the CPU's `verify_step` (plain, fp32), each within DEPTH2_ATOL."""
+    import numpy as np
+
+    from dualhyp_tpu_torch.ckpt.convert import params_from_jax
+
+    cfg = lora_config(2)
+    tree = numpy_tree(cfg, seed)
+    card = params_from_jax(tree, cfg, device="cuda", dtype=torch.bfloat16)
+    cpu = params_from_jax(tree, cfg, device="cpu", dtype=torch.float32)
+    del tree
+    rng = np.random.default_rng(seed + 5)
+    t, k = 96, DRAFT_LEN + 1
+    ids = torch.from_numpy(rng.integers(3, cfg.vocab_size, size=(4, t)))
+    lengths = torch.tensor([96, 80, 50, 33])
+    for i, n in enumerate(lengths.tolist()):
+        ids[i, n:] = 0
+    chunk = torch.from_numpy(rng.integers(3, cfg.vocab_size, size=(4, k)))
+    slots = t + k + 1
+
+    def prefilled(model, device):
+        cache = model.init_cache(4, slots)
+        model.prefill(ids.to(device), lengths.to(device), cache)
+        return cache
+
+    cache = prefilled(card, "cuda")
+    reset_counts()
+    got = card.verify_step(chunk.cuda(), lengths.cuda(), cache).cpu()
+    launches = read_counts()
+    cache = prefilled(card, "cuda")
+    steps = torch.stack([card.decode_step(chunk[:, i].cuda(), (lengths + i).cuda(), cache)
+                         for i in range(k)], dim=1).cpu()
+    want = cpu.verify_step(chunk, lengths, prefilled(cpu, "cpu"))
+    err_cpu = float((got - want).abs().max())
+    err_steps = float((got - steps).abs().max())
+    result = {"phase": "depth2_verify_card_vs_cpu", "shape": [4, t, k], "rows": 4 * k,
+              "max_abs_err_vs_cpu": err_cpu, "max_abs_err_vs_decode_steps": err_steps,
+              "tolerance": DEPTH2_ATOL, "logit_std": float(want.std()),
+              "argmax_agree_vs_cpu": float((got.argmax(-1) == want.argmax(-1)).float().mean()),
+              "argmax_agree_vs_decode_steps": float(
+                  (got.argmax(-1) == steps.argmax(-1)).float().mean()),
+              "launches": launches}
+    emit(result)
+    del card, cpu
+    torch.cuda.empty_cache()
+    if not (err_cpu <= DEPTH2_ATOL and err_steps <= DEPTH2_ATOL):
+        raise RuntimeError(f"depth-2 verify logits: vs CPU {err_cpu}, vs decode steps "
+                           f"{err_steps} > {DEPTH2_ATOL}")
+    if any(launches[n] <= 0 for n in ("rms_norm", "swiglu_mlp")):
+        raise RuntimeError(f"depth-2 verify step launches {launches}")
+    return result
+
+
+def relprompt_numpy_tree(cfg, seed: int) -> dict:
+    """`numpy_tree` with the 3 mask-token rows appended to `wte` and the two
+    classifiers (torch's default bounds, biases N(0, 0.1))."""
+    import numpy as np
+
+    tree = numpy_tree(cfg, seed)
+    rng = np.random.default_rng(seed + 8)
+    wte = tree["wte"]["weight"]
+    extra = rng.standard_normal((cfg.n_extra_tokens, cfg.n_embd), dtype=np.float32) * wte.std()
+    tree["wte"]["weight"] = np.concatenate([wte, extra])
+    h = cfg.classifier_hidden_dim
+
+    def layer(shape):
+        fan_in = int(np.prod(shape[1:]))
+        return {"weight": rng.uniform(-1, 1, size=shape).astype(np.float32) / math.sqrt(fan_in),
+                "bias": rng.standard_normal(shape[0], dtype=np.float32) * np.float32(0.1)}
+
+    for name, dim in (("audio_noise_classifier", cfg.whisper_dim),
+                      ("visual_noise_classifier", cfg.raven_dim)):
+        tree[name] = {"conv1": layer((h, dim, 3)), "conv2": layer((h, h, 3)),
+                      "classifier": layer((3, h))}
+    return tree
+
+
+def depth2_relprompt_train_check(torch, seed: int) -> dict:
+    """One `RelPromptTrainer` step of a depth-2, full-width TinyLlama + LoRA
+    RelPrompt model (the classifiers over Whisper-large's 1280 and BRAVEn's
+    1024 feature widths, the 3 mask-token rows) from seeded numpy weights,
+    LoRA through K5 (DUALHYP_LORA_IMPL=fused), dropout off: the total, LLM
+    and mask losses (TRAIN_LOSS_ATOL) and every LoRA and classifier
+    gradient (TRAIN_GRAD_REL), card bf16 against CPU fp32."""
+    import numpy as np
+
+    from dualhyp_tpu_torch.ckpt.convert import load_tree
+    from dualhyp_tpu_torch.models.gpt import GPT
+    from dualhyp_tpu_torch.train import RelPromptTrainConfig, RelPromptTrainer
+
+    cfg = lora_config(2).replace(use_relprompt=True, n_extra_tokens=3)
+    tree = relprompt_numpy_tree(cfg, seed)
+    rng = np.random.default_rng(seed + 9)
+    b, t, pool = 2, 160, cfg.classifier_pool_size
+    ids = rng.integers(3, cfg.effective_padded_vocab_size, size=(b, t)).astype(np.int32)
+    labels = np.where(ids < cfg.padded_vocab_size, ids, -1)
+    labels[:, : t // 2] = -1
+    batch = {"input_ids": ids, "labels": labels,
+             "audio_features": rng.standard_normal((b, 6 * 2 * pool, cfg.whisper_dim),
+                                                   dtype=np.float32),
+             "visual_features": rng.standard_normal((b, 6 * pool, cfg.raven_dim),
+                                                    dtype=np.float32),
+             "audio_mask_targets": rng.integers(0, 3, size=(b, 6)),
+             "visual_mask_targets": rng.integers(0, 3, size=(b, 6))}
+    results = {}
+    for device, dtype in (("cuda", "bfloat16"), ("cpu", "float32")):
+        tcfg = RelPromptTrainConfig(batch_size=b, micro_batch_size=b, compute_dtype=dtype,
+                                    frozen_dtype="bfloat16" if device == "cuda" else "",
+                                    lm_head_chunk_size=128, remat=True)
+        model = GPT(cfg, device=device, dtype=getattr(torch, dtype), lora_impl="fused")
+        load_tree(model, tree)
+        trainer = RelPromptTrainer(cfg, tcfg, model)
+        if device == "cuda":
+            reset_counts()
+        out = trainer.train_step(batch, max_iters=100, warmup_steps=10)
+        if device == "cuda":
+            launches = read_counts()
+        results[device] = ({k: float(out[k]) for k in ("loss", "llm_loss", "mask_loss")},
+                           {n: p.grad.detach().float().cpu() for n, p in trainer.trainable.items()})
+        del trainer, model
+    torch.cuda.empty_cache()
+    (loss_card, g_card), (loss_cpu, g_cpu) = results["cuda"], results["cpu"]
+    rel = {n: float((g_card[n] - g_cpu[n]).norm() / g_cpu[n].norm()) for n in g_cpu}
+    loss_err = {k: abs(loss_card[k] - loss_cpu[k]) for k in loss_card}
+    result = {"phase": "depth2_relprompt_train_card_vs_cpu", "lora_impl": "fused",
+              "shape": [b, t], "launches": launches, "loss_card": loss_card,
+              "loss_cpu": loss_cpu, "loss_abs_err": loss_err, "loss_atol": TRAIN_LOSS_ATOL,
+              "grad_rel_l2_err_max": {"lora": max(e for n, e in rel.items() if "lora_" in n),
+                                      "classifier": max(e for n, e in rel.items()
+                                                        if "noise_classifier" in n)},
+              "grad_rel_l2_err": rel, "grad_rel_tol": TRAIN_GRAD_REL}
+    emit(result)
+    if not all(e <= TRAIN_LOSS_ATOL for e in loss_err.values()):
+        raise RuntimeError(f"depth-2 RelPrompt losses: card {loss_card} vs CPU {loss_cpu}")
+    bad = {n: e for n, e in rel.items() if not e <= TRAIN_GRAD_REL}
+    if bad:
+        raise RuntimeError(f"depth-2 RelPrompt gradients off: {bad}")
+    missing = [n for n in RELPROMPT_TRAIN_PATH if n != "full_attention_fwd" and launches[n] <= 0]
+    if missing:
+        raise RuntimeError(f"depth-2 RelPrompt step never launched {missing}")
+    return result
+
+
+@contextlib.contextmanager
+def lora_impl_env(name: str):
+    """DUALHYP_LORA_IMPL set to `name` for the block (`GPT` reads it when it
+    is built)."""
+    old = os.environ.get("DUALHYP_LORA_IMPL")
+    os.environ["DUALHYP_LORA_IMPL"] = name
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["DUALHYP_LORA_IMPL"]
+        else:
+            os.environ["DUALHYP_LORA_IMPL"] = old
+
+
+def write_wavs(records, tmp: Path, seed: int) -> None:
+    """Each record's clean and noise WAVs from seeded noise (16 kHz int16)."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    rng = np.random.default_rng(seed)
+    for rec in records:
+        n = rec["Audio_Corruption"]["total_len"]
+        rec["Clean_Wav"] = str(tmp / f"{rec['Uid']}_clean.wav")
+        rec["Noise_Wav"] = str(tmp / f"{rec['Uid']}_noise.wav")
+        wavfile.write(rec["Clean_Wav"], 16000, (rng.standard_normal(n) * 3000).astype(np.int16))
+        wavfile.write(rec["Noise_Wav"], 16000,
+                      (rng.standard_normal(n // 3) * 3000).astype(np.int16))
+
+
+def relprompt_tokenizer(cfg):
+    """The word tokenizer over the synthetic vocabulary and the RelPrompt
+    template, with the mask tokens at the rows above the model's vocabulary."""
+    from dualhyp_tpu_torch.cli.inference_relprompt import add_mask_tokens
+    from dualhyp_tpu_torch.data import prompts, synthetic
+
+    template_words = " ".join(prompts.RelPrompt_PROMPTS.values()).split()
+    tok = WordTokenizer(sorted(set(synthetic.word_vocabulary()) | set(template_words)),
+                        special_base=cfg.padded_vocab_size)
+    add_mask_tokens(tok)
+    return tok
+
+
+# the RelPrompt training path: K6 for the features, then the LLM's forward
+# and backward with K5 (DUALHYP_LORA_IMPL=fused)
+RELPROMPT_TRAIN_PATH = ("full_attention_fwd", "rms_norm", "apply_rope", "apply_rope_transpose",
+                        "flash_attention_fwd", "flash_attention_bwd", "swiglu_mlp",
+                        "lora_linear")
+
+
+def relprompt_train_slice(torch, seed: int, whisper: Path) -> dict:
+    """`cli.finetune_relprompt.main` on the full-width TinyLlama-1.1B-Chat
+    RelPrompt config (22 layers, 32000 + 3 embedding rows, LoRA r=16 on
+    q/k/v/proj, random weights from --seed: the checkpoint directory holds
+    no weights), features through `--whisper_checkpoint` (the random
+    Whisper-large-v3 on the card, K6), 32 train and 8 val records, micro
+    batch 8, one epoch = 4 optimizer steps, one validation, the saves; the
+    LoRA linears through K5. The card's machine has no `tokenizers`: the
+    CLI's tokenizer loader returns the word tokenizer. Then the saved
+    `best_model.npz` is read back by `ckpt.io` and held against the trained
+    leaves, and one step is profiled."""
+    from unittest import mock
+
+    import numpy as np
+
+    from dualhyp_tpu_torch import config_from_name
+    from dualhyp_tpu_torch.ckpt.convert import flat_from_named
+    from dualhyp_tpu_torch.ckpt.io import load_params
+    from dualhyp_tpu_torch.cli import common, finetune_relprompt
+    from dualhyp_tpu_torch.data import collate, synthetic
+
+    cfg = config_from_name("tiny-llama-1.1b-chat", use_relprompt=True, n_extra_tokens=3)
+    tok = relprompt_tokenizer(cfg)
+    feature_s, step_ends, fed = [], [], []
+    build = finetune_relprompt.build_feature_batch
+
+    def timed_features(examples, loader, rng, cfg_):
+        t1 = time.perf_counter()
+        out = build(examples, loader, rng, cfg_)
+        torch.cuda.synchronize()
+        feature_s.append(time.perf_counter() - t1)
+        fed.append(examples)
+        return out
+
+    def on_step(opt_step, out):
+        torch.cuda.synchronize()
+        step_ends.append(time.perf_counter())
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        ckpt = tmp / "tiny-llama-1.1b-chat"  # the registry's config, no weights
+        ckpt.mkdir()
+        for name, n, s in (("train", 32, seed + 3), ("val", 8, seed + 4)):
+            records = synthetic.make_records(n_uids=n, n_hyps=5, seed=s)
+            write_wavs(records, tmp, s)
+            synthetic.write_json(tmp / f"{name}.json", records)
+        argv = ["--train_path", str(tmp / "train.json"), "--val_path", str(tmp / "val.json"),
+                "--llm_checkpoint", str(ckpt), "--dual_hypotheses", "--prompts_format",
+                "RelPrompt", "--whisper_checkpoint", str(whisper), "--device", "cuda",
+                "--micro_batch_size", "8", "--num_epochs", "1", "--log_interval", "4",
+                "--seed", str(seed), "--exp_name", "relprompt_train"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.chdir(tmp), lora_impl_env("fused"), \
+                mock.patch.object(common, "load_tokenizer", lambda _dir: tok), \
+                mock.patch.object(finetune_relprompt, "build_feature_batch", timed_features):
+            out = finetune_relprompt.main(argv, on_step=on_step)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        run = tmp / "runs" / "relprompt_train"
+        saved = sorted(f.name for f in run.iterdir())
+        trainer = out["trainer"]
+        tree = load_params(run / "best_model.npz")
+        flat = flat_from_named(trainer.trainable, cfg.n_layer, device="cpu")
+        reload_mismatch = []
+        for key, want in flat.items():
+            got = tree
+            for part in key.split("::"):
+                got = got[part]
+            if not np.array_equal(np.asarray(got), want.numpy()):
+                reload_mismatch.append(key)
+        wte_rows = int(np.asarray(tree["wte"]["weight"]).shape[0]) if not isinstance(
+            tree["wte"]["weight"], torch.Tensor) else int(tree["wte"]["weight"].shape[0])
+        del tree
+
+        # the padded shape of each step (the batches the features were built
+        # for: the train steps', then the validation's)
+        n_steps = len(out["steps"])
+        step_shapes = [list(collate.pad_batch(ex)["input_ids"].shape) for ex in fed[:n_steps]]
+        # one more step under torch.profiler, on the last step's examples with
+        # seeded features of their lengths
+        from torch.profiler import ProfilerActivity, profile
+
+        batch = collate.pad_batch(fed[n_steps - 1])
+        batch.update(build(fed[n_steps - 1], finetune_relprompt.feature_loader(
+            argparse.Namespace(whisper_checkpoint=None, feature_dir=None,
+                               synthetic_features=True), cfg), np.random.default_rng(seed),
+            cfg))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            trainer.train_step(batch, out["max_iters"], out["warmup_steps"])
+            torch.cuda.synchronize()
+            prof_wall_ms = (time.perf_counter() - t1) * 1e3
+    emit({"phase": "relprompt_train_profile", "step_shape": list(batch["input_ids"].shape),
+          **profile_summary(prof, prof_wall_ms, top_n=12)})
+    steps = out["steps"]
+    step_s = [b - a for a, b in zip([t0] + step_ends[:-1], step_ends)]
+    # a step's interval less its batch's feature extraction (the encoder)
+    train_s = [s - f for s, f in zip(step_s, feature_s)]
+    tokens = [shape[0] * shape[1] for shape in step_shapes]
+    result = {"phase": "relprompt_train_slice", "model": cfg.name, "n_layer": cfg.n_layer,
+              "embedding_rows": wte_rows, "lora_r": trainer.model_cfg.lora_r,
+              "lora_impl": "fused", "remat": True, "micro_batch_size": 8,
+              "optimizer_steps": len(steps), "step_shapes": step_shapes,
+              "step_s": step_s, "feature_s_per_batch": feature_s[:len(steps)],
+              "feature_s_validation": sum(feature_s[len(steps):]),
+              "train_step_ms": [s * 1e3 for s in train_s],
+              "tokens_per_s": sum(tokens) / sum(train_s),
+              # after the first step (the process's first backward of these
+              # shapes)
+              "tokens_per_s_steps_2_on": sum(tokens[1:]) / sum(train_s[1:]),
+              "train_step_ms_median": sorted(train_s)[len(train_s) // 2] * 1e3,
+              "wall_s": wall,
+              "peak_mem_gb": peak_gb,
+              "losses": [float(s["loss"]) for s in steps],
+              "llm_losses": [float(s["llm_loss"]) for s in steps],
+              "mask_losses": [float(s["mask_loss"]) for s in steps],
+              "lrs": [(s["lr"], s["classifier_lr"]) for s in steps],
+              "validation": out["validation"], "saved": saved,
+              "reload_mismatch": reload_mismatch, "launches": launches}
+    emit(result)
+    del trainer, out
+    torch.cuda.empty_cache()
+    if len(steps) != 4 or not all(math.isfinite(x) for x in result["losses"]):
+        raise RuntimeError(f"RelPrompt training losses {result['losses']}")
+    if reload_mismatch or wte_rows != cfg.effective_padded_vocab_size:
+        raise RuntimeError(f"best_model.npz did not read back: {reload_mismatch}, "
+                           f"{wte_rows} embedding rows")
+    if not {"best_model.npz", "model_relprompt_finetuned.npz", "train_state.npz"} <= set(saved):
+        raise RuntimeError(f"RelPrompt training saved {saved}")
+    missing = [name for name in RELPROMPT_TRAIN_PATH if launches[name] <= 0]
+    if missing:
+        raise RuntimeError(f"kernels never launched on the RelPrompt training path: {missing}")
+    return result
+
+
+def count_syncs(torch, fn):
+    """(fn's result, the host syncs torch reports while it runs: sync debug
+    mode "warn", each warning counted)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+# the speculative decode path: K1 (prefill), K2, K3 (prefill), K4; a verify
+# step's K4 at 72 rows runs the wgmma kernel
+SPEC_PATH = DECODE_PATH
+SPEC_MODES = {"lookup": dict(speculative="lookup"), "anchored": dict(speculative="anchored"),
+              "continuous": dict(scheduler="continuous")}
+
+
+def spec_decode_slice(torch, seed: int, reference: dict) -> dict:
+    """The decode slice's model and 16 requests (decode batch 8, 32 new
+    tokens, greedy) through `run_inference` with --speculative lookup,
+    --speculative anchored and --scheduler continuous (draft 8): p50,
+    tokens/s, tokens a row emits a verify step, verify steps, launches,
+    greedy agreement with the bf16 decode slice; the lookup run once more
+    with torch's sync debug mode counting host syncs; one batch of seeded
+    prompts through `generate_lookup` under torch.profiler; one
+    `lookup_step` alone under sync debug "error"."""
+    from dualhyp_tpu_torch.infer.decode import lookup_step
+    from dualhyp_tpu_torch.models.gpt import GPT
+
+    cfg = lora_config(DECODE_LAYERS)
+    model = GPT(cfg, device="cuda", dtype=torch.bfloat16, lora_impl="xla")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model.init_weights(gen)
+    random_lora_b(torch, model, gen)
+    runs = {}
+    for mode, options in SPEC_MODES.items():
+        serve = dict(decode_batch=8, max_new_tokens=32, temperature=0.2, top_k=1,
+                     kv_quant=None, draft_len=DRAFT_LEN, **options)
+        records, metrics, wall, launches, prompt_tokens, _ = serve_requests(
+            torch, model, seed, serve)
+        steps = metrics["verify_steps"]
+        runs[mode] = {"metrics": metrics, "wall_s": wall, "prompt_tokens": prompt_tokens,
+                      "launches": launches,
+                      "launches_per_verify_step": {k: v / steps for k, v in launches.items()
+                                                   if v},
+                      "vs_bf16_slice": token_agreement(records, reference["records"]),
+                      "sample": records[0]}
+        check_served(records, metrics, launches, SPEC_PATH, ("lora_linear", "q4_matmul"),
+                     f"speculative {mode}")
+    # host syncs of the whole lookup run (the loop reads one flag a verify
+    # step; the prefill and the copies back add theirs)
+    serve = dict(decode_batch=8, max_new_tokens=32, top_k=1, draft_len=DRAFT_LEN,
+                 speculative="lookup")
+    (_, metrics, *_), syncs = count_syncs(torch, lambda: serve_requests(torch, model, seed,
+                                                                        serve))
+    # where a verify step's time goes: one batch of 8 seeded prompts of 192
+    # tokens (the slice's bucket), 16 new tokens, under torch.profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    from dualhyp_tpu_torch.infer.decode import generate_lookup
+
+    b, t = 8, 192
+    ids = torch.randint(3, cfg.vocab_size, (b, t), generator=gen, device="cuda")
+    lengths = torch.full((b,), t, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        _, _, (prof_steps, _) = generate_lookup(model, ids, lengths, max_new_tokens=16,
+                                                draft_len=DRAFT_LEN, return_steps=True)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t1) * 1e3
+    emit({"phase": "spec_decode_profile", "batch": [b, t], "max_new_tokens": 16,
+          "verify_steps": prof_steps, **profile_summary(prof, prof_wall_ms)})
+    # a verify step alone makes no host sync
+    cache = model.init_cache(b, t + 2 * (DRAFT_LEN + 1))
+    first = model.prefill(ids, lengths, cache).argmax(-1)
+    tokens = torch.zeros((b, t + 2 * (DRAFT_LEN + 1)), dtype=torch.long, device="cuda")
+    tokens[:, :t] = ids
+    state = (tokens, lengths, torch.zeros_like(lengths), cache,
+             torch.zeros(b, dtype=torch.bool, device="cuda"), first, 0)
+    lookup_step(model, state, draft_len=DRAFT_LEN, ngram=3, eos_id=None, max_new_tokens=32)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        lookup_step(model, state, draft_len=DRAFT_LEN, ngram=3, eos_id=None,
+                    max_new_tokens=32)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    result = {"phase": "spec_decode_slice", "model": cfg.name, "n_layer": cfg.n_layer,
+              "decode_batch": 8, "max_new_tokens": 32, "draft_len": DRAFT_LEN,
+              "verify_rows": 8 * (DRAFT_LEN + 1), "runs": runs,
+              "host_syncs_lookup_run": syncs, "verify_steps_lookup_run": metrics["verify_steps"],
+              "host_syncs_per_verify_step": syncs / metrics["verify_steps"],
+              "lookup_step_host_syncs": 0}
+    emit(result)
+    del model, cache, state
+    torch.cuda.empty_cache()
+    return result
+
+
+def serve_traffic(seed: int, n: int = 24):
+    """`n` synthetic DualHyp requests for the batcher: (id, prompt ids,
+    budget drawn from 16-64, best-hypothesis ids), with the word tokenizer."""
+    import numpy as np
+
+    from dualhyp_tpu_torch.data import hypotheses, prompts, synthetic
+
+    template_words = " ".join(prompts.DualHyp_PROMPTS.values()).split()
+    tok = WordTokenizer(sorted(set(synthetic.word_vocabulary()) | set(template_words)))
+    rng = np.random.default_rng(seed + 17)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "serve.json"
+        synthetic.write_json(path, synthetic.make_records(n_uids=n, n_hyps=5, seed=seed + 17))
+        ds = hypotheses.DualHypothesesDataset("test", str(path), tokenizer=tok,
+                                              prompts_format="DualHyp", seed=seed)
+        requests = []
+        for i in range(len(ds)):
+            ex = ds[i]
+            best = ex.records[0]["nhyps_asr"]["hyps"][0]
+            requests.append((i, list(ex.input_ids_no_response), int(rng.integers(16, 65)),
+                             tok.encode(best)))
+    return tok, requests
+
+
+SERVE_RUNS = (("bf16_lookup", "lookup", None, True), ("bf16_anchored", "anchored", None, False),
+              ("int8_kv", "lookup", "int8", False), ("int4", "anchored", None, True))
+
+
+def serve_slice(torch, seed: int) -> dict:
+    """`ContinuousBatcher` on the decode slice's model: 16 slots, draft 8,
+    chunks of 8 verify steps, 24 requests with budgets of 16-64 tokens, in
+    bf16 (lookup, anchored), with the int8 KV cache, and merged + int4
+    (--quantize int4: K8 at 144 rows, the wgmma kernel). Each chunk runs
+    under torch's sync debug mode "error" (a host sync raises); each run
+    reports p50, tokens/s, chunks and the host reads a chunk. In the bf16
+    lookup and int4 runs one chunk of the full pool is profiled (int4: K8's
+    wgmma kernel at 144 rows). Then `cli.serve_ger.Server`
+    answers 4 requests over TCP on 127.0.0.1."""
+    import socket
+    import threading
+
+    import numpy as np
+
+    from dualhyp_tpu_torch.cli import serve_ger
+    from dualhyp_tpu_torch.infer.serve import ContinuousBatcher
+    from dualhyp_tpu_torch.models.gpt import GPT, merge_lora, quantize_model
+
+    cfg = lora_config(DECODE_LAYERS)
+    model = GPT(cfg, device="cuda", dtype=torch.bfloat16, lora_impl="xla")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model.init_weights(gen)
+    random_lora_b(torch, model, gen)
+    tok, requests = serve_traffic(seed)
+
+    def batcher_for(source, kv_quant):
+        batcher = ContinuousBatcher(model, slots=16, max_new_tokens=64, draft_len=DRAFT_LEN,
+                                    chunk_steps=8, eos_id=tok.eos_token_id,
+                                    draft_source=source, kv_quant=kv_quant)
+        chunk = batcher._chunk
+
+        def guarded():  # no host sync inside a chunk
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return chunk()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+
+        batcher._chunk = guarded
+        return batcher
+
+    runs = {}
+    for label, source, kv_quant, profiled in SERVE_RUNS:
+        if label == "int4":  # the CLI's --quantize int4: merge, then quantize
+            quantize_model(merge_lora(model), "int4")
+        batcher = batcher_for(source, kv_quant)
+        # warm: a refill and a chunk
+        batcher.serve([(rid, prompt, 2, hyp) for rid, prompt, _, hyp in requests[:2]])
+        batcher.chunks = batcher.host_reads = batcher.row_gathers = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        served = batcher.serve(requests)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        budgets = {rid: cap for rid, _, cap, _ in requests}
+        prompts_of = {rid: p for rid, p, _, _ in requests}
+        generated = [len(r["tokens"]) - r["prompt_len"] for r in served]
+        over = [r["id"] for r, g in zip(served, generated) if g > budgets[r["id"]]
+                or r["tokens"][:r["prompt_len"]] != prompts_of[r["id"]]]
+        runs[label] = {"draft_source": source, "kv_quant": kv_quant,
+                       "quantize": "int4" if label == "int4" else None,
+                       "requests": len(served), "wall_s": wall,
+                       "p50_latency_s": float(np.percentile([r["latency_s"] for r in served], 50)),
+                       "p90_latency_s": float(np.percentile([r["latency_s"] for r in served], 90)),
+                       "generated_tokens": sum(generated), "tokens_per_s": sum(generated) / wall,
+                       "chunks": batcher.chunks, "verify_steps": batcher.chunks * 8,
+                       "tokens_per_slot_verify_step": sum(generated) / (batcher.chunks * 8 * 16),
+                       "host_reads": batcher.host_reads,
+                       "host_syncs_per_chunk": (batcher.host_reads - batcher.row_gathers)
+                       / batcher.chunks, "row_gathers": batcher.row_gathers,
+                       "chunk_sync_debug_mode": "error",
+                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       "over_budget_or_prompt_changed": over, "launches": launches}
+        if profiled:  # one chunk of the full pool under torch.profiler
+            from torch.profiler import ProfilerActivity, profile
+
+            batcher = batcher_for(source, kv_quant)
+            batcher.start()
+            for req in requests:
+                batcher.submit(*req)
+            batcher.poll()  # the first refill and chunk
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                batcher.poll()
+                torch.cuda.synchronize()
+                prof_wall_ms = (time.perf_counter() - t1) * 1e3
+            times = device_kernel_times(prof)
+            paths = {key: {"ms": sum(us for name, (us, _) in times.items()
+                                     if any(p in name for p in parts)) / 1e3,
+                           "launches": sum(n for name, (_, n) in times.items()
+                                           if any(p in name for p in parts))}
+                     for key, parts in SLICE_KERNELS.items()}
+            runs[label]["profile"] = {"chunk_steps": 8, "busy_slots": 16, "paths": paths,
+                                      **profile_summary(prof, prof_wall_ms)}
+            emit({"phase": "serve_profile", "run": label, **runs[label]["profile"]})
+        emit({"phase": "serve_run", "run": label, **runs[label]})
+        if len(served) != len(requests) or over:
+            raise RuntimeError(f"serve run {label}: {len(served)} of {len(requests)} served, "
+                               f"over budget or prompt changed {over}")
+        if runs[label]["host_syncs_per_chunk"] != 1:
+            raise RuntimeError(f"serve run {label}: {runs[label]['host_syncs_per_chunk']} "
+                               f"host syncs a chunk")
+        need = (("q4_matmul", "rms_norm", "apply_rope", "flash_attention_fwd") if label == "int4"
+                else SPEC_PATH)
+        missing = [n for n in need if launches[n] <= 0]
+        if missing:
+            raise RuntimeError(f"kernels never launched in serve run {label}: {missing}")
+    if runs["int4"]["profile"]["paths"]["k8_prefill"]["launches"] <= 0:
+        raise RuntimeError("int4 serving never ran K8's wgmma kernel at 144 verify rows")
+
+    # the TCP server: 4 requests end to end
+    batcher = batcher_for("anchored", None)
+    server = serve_ger.Server(batcher, tok)
+    ready, holder = threading.Event(), {}
+
+    def ready_cb(port):
+        holder["port"] = port
+        ready.set()
+
+    thread = threading.Thread(target=server.run, args=("127.0.0.1", 0, ready_cb), daemon=True)
+    thread.start()
+    t0 = time.perf_counter()
+    replies = {}
+    try:
+        if not ready.wait(timeout=60):
+            raise RuntimeError("the server did not start")
+        with socket.create_connection(("127.0.0.1", holder["port"]), timeout=60) as conn:
+            for i in range(4):
+                hyps = ["the cat sat on the mat", "the bat sat on the mat", "cat sat"]
+                req = {"id": f"r{i}", "nhyps_asr": hyps, "max_new": 16 + 8 * i}
+                if i % 2:
+                    req["nhyps_vsr"] = ["the cat sat on a mat", "a cat sat"]
+                conn.sendall((json.dumps(req) + "\n").encode())
+            conn.settimeout(120)
+            buf = b""
+            while len(replies) < 4:
+                data = conn.recv(1 << 16)
+                if not data:
+                    raise RuntimeError("the server closed the connection early")
+                buf += data
+                while b"\n" in buf:
+                    line, _, buf = buf.partition(b"\n")
+                    rec = json.loads(line)
+                    if "error" in rec:
+                        raise RuntimeError(f"the server answered {rec}")
+                    replies[rec["id"]] = rec
+    finally:
+        server.stop()
+        thread.join(timeout=30)
+    tcp = {"requests": 4, "wall_s": time.perf_counter() - t0,
+           "latency_s": sorted(r["latency_s"] for r in replies.values()),
+           "sample": replies["r0"], "stopped": not thread.is_alive()}
+    result = {"phase": "serve_slice", "model": cfg.name, "n_layer": cfg.n_layer, "slots": 16,
+              "draft_len": DRAFT_LEN, "chunk_steps": 8, "verify_rows": 16 * (DRAFT_LEN + 1),
+              "requests": len(requests), "budgets": [16, 64],
+              "runs": {k: {x: y for x, y in v.items() if x != "profile"} for k, v in runs.items()},
+              "tcp": tcp}
+    emit({"phase": "serve_tcp", **tcp})
+    emit(result)
+    del model, batcher, server
+    torch.cuda.empty_cache()
+    if not tcp["stopped"] or not all(isinstance(r["text"], str) for r in replies.values()):
+        raise RuntimeError(f"the TCP server round trip failed: {tcp}")
+    return result
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3313,6 +4061,7 @@ def main(argv=None) -> int:
 
     kernels = run("kernel_phases", kernel_phases)
     kernels.update(run("q4_lora_phase", q4_lora_phase))
+    verify_rows = run("verify_rows_phase", verify_rows_phase)
     fwd = run("flash_fwd_phase", flash_fwd_phase)
     kernels.update({k: fwd[k] for k in ("full_attention_fwd", "causal_attention_fwd")})
     kernels["grouped_matmul"] = run("gmm_phase", gmm_phase)
@@ -3322,10 +4071,18 @@ def main(argv=None) -> int:
     run("depth2_check", depth2_check)
     run("depth2_int4_check", depth2_int4_check)
     run("depth2_encoder_check", depth2_encoder_check)
+    run("depth2_verify_check", depth2_verify_check)
     sliced = run("decode_slice", slice_run)
     slices = {variant: run(f"{variant}_slice", slice_run, variant, reference=sliced)
               for variant in ("int4", "int8_kv8", "fused")}
-    relprompt = run("relprompt_slice", relprompt_slice)
+    spec = run("spec_decode_slice", spec_decode_slice, reference=sliced)
+    served = run("serve_slice", serve_slice)
+    whisper_dir = tempfile.TemporaryDirectory()
+    whisper = Path(whisper_dir.name) / "whisper"
+    relprompt = run("relprompt_slice", relprompt_slice, whisper)
+    run("depth2_relprompt_train_check", depth2_relprompt_train_check)
+    relprompt_train = run("relprompt_train_slice", relprompt_train_slice, whisper)
+    whisper_dir.cleanup()
     kernels["flash_attention_bwd"] = {"train": run("flash_bwd_phase", flash_bwd_phase)}
     kernels["flash_attention_bwd"]["d128"] = run("flash_bwd_d128_phase", flash_bwd_phase,
                                                  g=8, hs=128)
@@ -3416,6 +4173,9 @@ def main(argv=None) -> int:
              **{f"train_step_1024_{k}": r["launches"] for k, r in stepped.items()},
              "relprompt_slice": relprompt["launches"],
              "relprompt_precompute": relprompt["launches_precompute"],
+             "relprompt_train_slice": relprompt_train["launches"],
+             **{f"spec_decode_{k}": r["launches"] for k, r in spec["runs"].items()},
+             **{f"serve_{k}": r["launches"] for k, r in served["runs"].items()},
              "causal_attention_fwd_phase": fwd["causal_launches"],
              "mixtral_slice": mixtral["megablox"]["launches"],
              "mixtral_dense_slice": mixtral["dense"]["launches"],
@@ -3468,6 +4228,9 @@ def main(argv=None) -> int:
             entry["bound_ms_cuda_cores"] = main_shape["bound_ms_cuda_cores"]
         if name in train_rows:
             entry["train_rows"] = {k: train_rows[name][k] for k in keys}
+        if name in verify_rows:  # K4, K5, K8 at a verify step's rows
+            entry["verify_rows"] = {k: {key: v[key] for key in keys + ("path",)}
+                                    for k, v in verify_rows[name].items()}
         if name == "apply_rope":
             entry["train_rows_transpose"] = {
                 k: train_shapes["apply_rope_transpose"][k] for k in keys}

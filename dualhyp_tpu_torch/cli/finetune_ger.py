@@ -68,7 +68,10 @@ def build_parser():
                         help="resume from runs/<exp>/train_state.npz "
                              "(optimizer moments + LR clock; exact resume)")
     parser.add_argument("--data_prefetch", action="store_true",
-                        help="not ported yet")
+                        help="producer-thread batch pipeline: overlaps "
+                             "host-side wav/ROI loading with the card's work "
+                             "(use when corruption is enabled; disables "
+                             "length-sorted batching)")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device (default: the CUDA card; raises "
                              "without one)")
@@ -99,7 +102,8 @@ def _vocab_size(tokenizer):
 
 def run_training(model, tokenizer, train_ds, val_ds, tcfg: TrainConfig, out_dir, *,
                  generator: torch.Generator, resume: bool = False, logger=None,
-                 on_step=None, adapter_only: bool = False) -> dict:
+                 on_step=None, adapter_only: bool = False,
+                 data_prefetch: bool = False) -> dict:
     """The finetuning loop of the JAX package's `main`, on `model`'s device.
 
     Epochs of length-sorted, seeded batches (`collate.epoch_batches`); a
@@ -111,7 +115,9 @@ def run_training(model, tokenizer, train_ds, val_ds, tcfg: TrainConfig, out_dir,
     state saved to `train_state_diverged.npz`, when a logged loss is not
     finite. on_step(opt_step, loss, lr): called after each optimizer step.
     adapter_only (--save_adapter_only): the best and final files hold the
-    trainable leaves alone, not the whole tree. Returns {"trainer",
+    trainable leaves alone, not the whole tree. data_prefetch
+    (--data_prefetch): the batches come from `collate.prefetch_epoch_batches`
+    (a producer thread, no length sorting). Returns {"trainer",
     "losses" (device scalars), "lrs", "best_val", "max_iters",
     "warmup_steps"}."""
     out_dir = Path(out_dir)
@@ -149,9 +155,13 @@ def run_training(model, tokenizer, train_ds, val_ds, tcfg: TrainConfig, out_dir,
     save_every = max(tcfg.save_interval // tcfg.grad_accum, 1)
     for epoch in range(start_epoch, tcfg.num_epochs):
         epoch_gen = torch.Generator().manual_seed(dropout_seed + epoch)
-        batches = collate.epoch_batches(
-            train_ds, tcfg.batch_size, shuffle=True, seed=tcfg.seed, epoch=epoch,
-            length_sorted=True)
+        if data_prefetch:
+            batches = collate.prefetch_epoch_batches(
+                train_ds, tcfg.batch_size, shuffle=True, seed=tcfg.seed, epoch=epoch)
+        else:
+            batches = collate.epoch_batches(
+                train_ds, tcfg.batch_size, shuffle=True, seed=tcfg.seed, epoch=epoch,
+                length_sorted=True)
         for batch in batches:
             # monitor + CSV step logging happen inside train_step
             loss, lr = trainer.train_step(batch, max_iters, warmup_steps, epoch_gen)
@@ -196,8 +206,6 @@ def run_training(model, tokenizer, train_ds, val_ds, tcfg: TrainConfig, out_dir,
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.data_prefetch:
-        raise NotImplementedError("--data_prefetch is not ported yet")
     device = resolve_device(args.device)
     out_dir = Path(f"./runs/{args.exp_name}")
     logger = setup_run_logger(out_dir)
@@ -246,7 +254,7 @@ def main(argv=None):
     generator = torch.Generator().manual_seed(args.seed)
     run_training(model, tokenizer, train_ds, val_ds, tcfg, out_dir,
                  generator=generator, resume=args.resume, logger=logger,
-                 adapter_only=args.save_adapter_only)
+                 adapter_only=args.save_adapter_only, data_prefetch=args.data_prefetch)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """GER / DualHyp correction + WER evaluation entry point.
 
-Counterpart of `dualhyp_tpu/cli/inference_ger.py`, lockstep greedy path:
+Counterpart of `dualhyp_tpu/cli/inference_ger.py`:
 
   python -m dualhyp_tpu_torch.cli.inference_ger \\
       --test_path test.json --model_path runs/exp/best_model.npz \\
@@ -16,7 +16,11 @@ predictions JSON written next to the checkpoint. Decoding is batched
 --quantize int8|int4 merges the LoRA deltas into the weights, then
 quantizes them (int4 runs kernel K8); --kv_quant int8 decodes against an
 int8 KV cache. DUALHYP_LORA_IMPL=fused runs the unmerged LoRA linears
-through kernel K5.
+through kernel K5. --speculative [lookup|anchored] decodes greedily with
+drafts of --draft_len tokens verified in one pass (`infer/decode`,
+token-identical to greedy); --scheduler continuous serves the prompts
+through the slot pool of `infer/serve.ContinuousBatcher`; --dry_run checks
+the hypotheses JSON's ingest without loading weights.
 """
 
 from __future__ import annotations
@@ -32,7 +36,8 @@ import torch
 from dualhyp_tpu_torch.cli import common
 from dualhyp_tpu_torch.data.collate import bucket_length
 from dualhyp_tpu_torch.device import resolve_device
-from dualhyp_tpu_torch.infer.decode import generate
+from dualhyp_tpu_torch.infer.decode import (
+    find_subsequence_span, generate, generate_anchored, generate_lookup)
 from dualhyp_tpu_torch.infer.evaluate import evaluate_predictions, extract_response
 from dualhyp_tpu_torch.models.gpt import merge_lora, quantize_model
 
@@ -60,18 +65,53 @@ def build_parser():
                              "shift within the quantization's rounding)")
     parser.add_argument("--speculative", nargs="?", const="lookup",
                         choices=["lookup", "anchored"], default=None,
-                        help="not ported yet")
+                        help="speculative decoding (greedy only; token-"
+                             "identical): 'lookup' drafts from suffix n-gram "
+                             "matches anywhere in the buffer; 'anchored' "
+                             "follows the best-hypothesis span with a "
+                             "monotone pointer")
+    parser.add_argument("--draft_len", type=int, default=8,
+                        help="speculative draft window (tokens verified a "
+                             "step = draft_len + 1)")
     parser.add_argument("--scheduler", choices=["lockstep", "continuous"],
                         default="lockstep",
-                        help="only lockstep is ported yet")
+                        help="continuous: slot-based continuous batching "
+                             "with speculative decoding (infer/serve.py); "
+                             "finished sequences refill at once")
+    parser.add_argument("--dry_run", action="store_true",
+                        help="validate the hypotheses JSON ingest (schema, "
+                             "prompt packing, token lengths) and exit "
+                             "without loading model weights")
     common.add_model_args(parser)
     common.add_data_args(parser)
     return parser
 
 
+def _best_hypothesis_text(ex, dataset):
+    """The best ASR hypothesis of a PackedExample (the anchored draft's
+    span); '' when there is none."""
+    if not getattr(ex, "records", None):
+        return ""
+    rec = ex.records[0]
+    key = getattr(dataset, "nhyps_key_asr", None) or getattr(dataset, "nhyps_key",
+                                                             "nhyps_asr")
+    try:
+        return rec[key]["hyps"][0]
+    except (KeyError, IndexError, TypeError):
+        return ""
+
+
+def _hypothesis_ids(tokenizer, text):
+    try:  # a BOS would break the span match inside the prompt
+        return tokenizer.encode(text, add_special_tokens=False)
+    except TypeError:
+        return tokenizer.encode(text)
+
+
 def run_inference(model, tokenizer, dataset, *, decode_batch=8,
                   max_new_tokens=150, temperature=0.2, top_k=1,
-                  collect_latency=False, generator=None, kv_quant=None):
+                  collect_latency=False, generator=None, kv_quant=None,
+                  speculative=None, draft_len=8, scheduler="lockstep"):
     """Batched correction over a dataset. Returns (records, metrics).
 
     Prompts are sorted by length and decoded `decode_batch` at a time,
@@ -79,7 +119,22 @@ def run_inference(model, tokenizer, dataset, *, decode_batch=8,
     last prompt and drops the repeats. Latency is per batch, shared by its
     prompts. collect_latency adds p50/p90 latency, the generated tokens (EOS
     not counted, repeats dropped) and their rate over the decode time.
-    kv_quant: "int8" decodes against an int8 KV cache."""
+    kv_quant: "int8" decodes against an int8 KV cache. speculative
+    ("lookup" or "anchored", greedy only): `generate_lookup` or
+    `generate_anchored` with `draft_len`; collect_latency then adds the
+    verify steps and the tokens a row emits a verify step.
+    scheduler="continuous": the requests go through a
+    `ContinuousBatcher` of `decode_batch` slots (draft source "anchored"
+    under speculative="anchored", else "lookup")."""
+    if (speculative or scheduler == "continuous") and top_k != 1:
+        raise ValueError("--speculative/--scheduler continuous require greedy decoding "
+                         "(top_k=1)")
+    if scheduler == "continuous":
+        return _run_inference_continuous(
+            model, tokenizer, dataset, decode_batch=decode_batch,
+            max_new_tokens=max_new_tokens, collect_latency=collect_latency,
+            draft_len=draft_len, kv_quant=kv_quant,
+            draft_source="anchored" if speculative == "anchored" else "lookup")
     cfg = model.cfg
     eos_id = getattr(tokenizer, "eos_token_id", None)
     examples = [dataset[i] for i in range(len(dataset))]
@@ -88,6 +143,7 @@ def run_inference(model, tokenizer, dataset, *, decode_batch=8,
     latencies = []
     generated = 0
     decode_s = 0.0
+    verify_steps = row_steps = drafted = 0
     for start in range(0, len(examples), decode_batch):
         chunk = examples[start:start + decode_batch]
         real = len(chunk)
@@ -102,11 +158,33 @@ def run_inference(model, tokenizer, dataset, *, decode_batch=8,
             ids[i, :len(p)] = p
             lengths[i] = len(p)
         t0 = time.perf_counter()
-        tokens, total_lengths = generate(
-            model, torch.from_numpy(ids), torch.from_numpy(lengths),
-            max_new_tokens=max_new_tokens, temperature=temperature,
-            top_k=top_k, eos_id=eos_id, generator=generator, kv_quant=kv_quant,
-        )
+        if speculative:
+            kw = dict(max_new_tokens=max_new_tokens, eos_id=eos_id, draft_len=draft_len,
+                      kv_quant=kv_quant, return_steps=True)
+            if speculative == "anchored":
+                # each row's best-hypothesis span (a zero span falls back
+                # to the suffix lookup)
+                spans = np.zeros((2, decode_batch), np.int64)
+                for i, ex in enumerate(chunk):
+                    best = _best_hypothesis_text(ex, dataset)
+                    if best:
+                        spans[:, i] = find_subsequence_span(
+                            list(ids[i][:int(lengths[i])]), _hypothesis_ids(tokenizer, best))
+                tokens, total_lengths, (steps, emitted) = generate_anchored(
+                    model, torch.from_numpy(ids), torch.from_numpy(lengths),
+                    torch.from_numpy(spans[0]), torch.from_numpy(spans[1]), **kw)
+            else:
+                tokens, total_lengths, (steps, emitted) = generate_lookup(
+                    model, torch.from_numpy(ids), torch.from_numpy(lengths), **kw)
+            verify_steps += steps
+            row_steps += steps * real
+            drafted += int(emitted[:real].sum()) - int((emitted[:real] > 0).sum())
+        else:
+            tokens, total_lengths = generate(
+                model, torch.from_numpy(ids), torch.from_numpy(lengths),
+                max_new_tokens=max_new_tokens, temperature=temperature,
+                top_k=top_k, eos_id=eos_id, generator=generator, kv_quant=kv_quant,
+            )
         tokens = tokens.cpu().numpy()
         total_lengths = total_lengths.cpu().numpy()
         elapsed = time.perf_counter() - t0
@@ -131,18 +209,116 @@ def run_inference(model, tokenizer, dataset, *, decode_batch=8,
         metrics["p90_latency_s"] = float(np.percentile(latencies, 90))
         metrics["generated_tokens"] = generated
         metrics["tokens_per_s"] = generated / decode_s
+        if speculative:
+            # the tokens a row emits a verify step (the first token of each
+            # row comes from the prefill), over every step of its batch
+            metrics["verify_steps"] = verify_steps
+            metrics["tokens_per_row_verify_step"] = drafted / max(row_steps, 1)
     return records, metrics
+
+
+def _run_inference_continuous(model, tokenizer, dataset, *, decode_batch, max_new_tokens,
+                              collect_latency, draft_len, draft_source="lookup",
+                              kv_quant=None):
+    """The continuous-batching evaluator: the lockstep path's records and
+    metrics, but finished sequences hand their slot to the next prompt at
+    once (per-request latency, no straggler wait)."""
+    from dualhyp_tpu_torch.infer.serve import ContinuousBatcher
+
+    eos_id = getattr(tokenizer, "eos_token_id", None)
+    examples = [dataset[i] for i in range(len(dataset))]
+    # the lockstep path's record order (sorted by prompt length)
+    examples.sort(key=lambda e: len(e.input_ids_no_response))
+    batcher = ContinuousBatcher(model, slots=decode_batch, max_new_tokens=max_new_tokens,
+                                draft_len=draft_len, eos_id=eos_id,
+                                draft_source=draft_source, kv_quant=kv_quant)
+
+    def hyp_ids(ex):
+        """Best-hypothesis tokens for the anchored draft pointer."""
+        if draft_source != "anchored":
+            return None
+        best = _best_hypothesis_text(ex, dataset)
+        return _hypothesis_ids(tokenizer, best) if best else None
+
+    # the lockstep path's truncation budget (prompt and budget must fit)
+    budget = model.cfg.block_size - max_new_tokens
+    requests = [(i, list(ex.input_ids_no_response)[:budget], None, hyp_ids(ex))
+                for i, ex in enumerate(examples)]
+    t0 = time.perf_counter()
+    served = batcher.serve(requests)
+    decode_s = time.perf_counter() - t0
+
+    records = [None] * len(examples)
+    latencies = []
+    generated = 0
+    for rec in served:
+        ex = examples[rec["id"]]
+        seq = rec["tokens"]
+        generated += len(seq) - rec["prompt_len"]
+        records[rec["id"]] = {
+            "uid": ex.uid,
+            "inference": extract_response(tokenizer.decode(seq),
+                                          tokenizer.decode(seq[:rec["prompt_len"]])),
+            "ground_truth": ex.ground_truth.strip(),
+        }
+        latencies.append(rec["latency_s"])
+    metrics = evaluate_predictions(
+        [r["inference"] for r in records], [r["ground_truth"] for r in records]
+    )
+    if collect_latency and latencies:
+        metrics["p50_latency_s"] = float(np.percentile(latencies, 50))
+        metrics["p90_latency_s"] = float(np.percentile(latencies, 90))
+        metrics["generated_tokens"] = generated
+        metrics["tokens_per_s"] = generated / decode_s
+        metrics["chunks"] = batcher.chunks
+        metrics["verify_steps"] = batcher.chunks * batcher.chunk_steps
+        metrics["host_reads"] = batcher.host_reads
+    return records, metrics
+
+
+def dry_run_ingest(args, tokenizer) -> dict:
+    """Load the hypotheses JSON through the whole dataset path (uid
+    grouping, prompt packing, label masking) without touching model
+    weights: a schema check before spending time on the card."""
+    dataset_cls = common.dataset_class_for(args)
+    dataset = dataset_cls(
+        "test",
+        args.test_path,
+        tokenizer=tokenizer,
+        nhyps_key=args.nhyps_key,
+        max_nhyps=args.max_nhyps,
+        prompts_format=args.prompts_format,
+        apply_chat_template=args.apply_chat_template,
+        language=args.language,
+        seed=args.seed,
+    )
+    lengths = []
+    for i in range(len(dataset)):
+        ex = dataset[i]
+        assert ex.ground_truth is not None
+        lengths.append(len(ex.input_ids_no_response))
+    info = {
+        "examples": len(dataset),
+        "prompt_tokens_min": int(min(lengths)) if lengths else 0,
+        "prompt_tokens_p50": int(np.median(lengths)) if lengths else 0,
+        "prompt_tokens_max": int(max(lengths)) if lengths else 0,
+        "dataset_class": dataset_cls.__name__,
+    }
+    print(json.dumps(info))
+    return info
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.speculative:
-        raise NotImplementedError("--speculative is not ported yet")
-    if args.scheduler != "lockstep":
-        raise NotImplementedError("--scheduler continuous is not ported yet")
+    if (args.speculative or args.scheduler == "continuous") and args.top_k != 1:
+        raise ValueError("--speculative/--scheduler continuous require greedy decoding "
+                         "(top_k=1)")
+    checkpoint_dir = Path(args.llm_checkpoint)
+    if args.dry_run:
+        dry_run_ingest(args, common.load_tokenizer(checkpoint_dir))
+        return
     device = resolve_device(args.device)
 
-    checkpoint_dir = Path(args.llm_checkpoint)
     tokenizer = common.load_tokenizer(checkpoint_dir)
     model_cfg = common.model_config_from_args(args)
     model = common.load_model(checkpoint_dir, model_cfg, device=device,
@@ -173,6 +349,9 @@ def main(argv=None):
         collect_latency=True,
         generator=generator,
         kv_quant=args.kv_quant,
+        speculative=args.speculative,
+        draft_len=args.draft_len,
+        scheduler=args.scheduler,
     )
     predict_dir = Path(args.model_path).parent / "predictions"
     predict_dir.mkdir(parents=True, exist_ok=True)

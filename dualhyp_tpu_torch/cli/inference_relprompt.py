@@ -52,9 +52,14 @@ def build_parser():
     parser.add_argument("--max_new_tokens", type=int, default=150)
     parser.add_argument("--temperature", type=float, default=0.2)
     parser.add_argument("--top_k", type=int, default=1)
-    parser.add_argument("--speculative", action="store_true", help="not ported yet")
+    parser.add_argument("--speculative", action="store_true",
+                        help="prompt-lookup speculative decoding (greedy only, "
+                             "token-identical; see inference_ger)")
+    parser.add_argument("--draft_len", type=int, default=8)
     parser.add_argument("--scheduler", choices=["lockstep", "continuous"],
-                        default="lockstep", help="only lockstep is ported yet")
+                        default="lockstep",
+                        help="continuous: slot-based continuous batching with "
+                             "speculative decoding (infer/serve.py)")
     parser.add_argument("--mask_threshold", type=float, default=None)
     parser.add_argument("--time_window", type=float, default=0.4)
     parser.add_argument("--feature_dir", type=str, default=None)
@@ -100,12 +105,14 @@ def add_mask_tokens(tokenizer) -> None:
 
 
 def run_relprompt(model, tokenizer, dataset, loader, *, seed=1337, decode_batch=8,
-                  max_new_tokens=150, temperature=0.2, top_k=1, generator=None):
+                  max_new_tokens=150, temperature=0.2, top_k=1, generator=None,
+                  speculative=False, draft_len=8, scheduler="lockstep"):
     """Masks predicted and substituted for every request of `dataset` (a
     `DualHypothesesMaskDataset` with leave_masks=True), then batched
-    correction (`cli.inference_ger.run_inference`). Returns (records,
-    metrics with the mask metrics beside, {uid: (audio tokens, visual
-    tokens)})."""
+    correction (`cli.inference_ger.run_inference`; speculative: prompt
+    lookup drafts of `draft_len`; scheduler "continuous": the slot pool).
+    Returns (records, metrics with the mask metrics beside, {uid: (audio
+    tokens, visual tokens)})."""
     cfg = model.cfg
     feat_rng = np.random.default_rng(seed)
     all_pred, all_targ = [], []
@@ -128,7 +135,9 @@ def run_relprompt(model, tokenizer, dataset, loader, *, seed=1337, decode_batch=
     records, metrics = run_inference(
         model, tokenizer, examples, decode_batch=decode_batch,
         max_new_tokens=max_new_tokens, temperature=temperature, top_k=top_k,
-        collect_latency=True, generator=generator)
+        collect_latency=True, generator=generator,
+        speculative="lookup" if speculative else None, draft_len=draft_len,
+        scheduler=scheduler)
     metrics.update({f"mask_{k}": v for k, v in rp.mask_metrics(
         np.asarray(all_pred), np.asarray(all_targ)).items()})
     return records, metrics, masks
@@ -136,10 +145,9 @@ def run_relprompt(model, tokenizer, dataset, loader, *, seed=1337, decode_batch=
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.speculative:
-        raise NotImplementedError("--speculative is not ported yet")
-    if args.scheduler != "lockstep":
-        raise NotImplementedError("--scheduler continuous is not ported yet")
+    if (args.speculative or args.scheduler == "continuous") and args.top_k != 1:
+        raise ValueError("--speculative/--scheduler continuous require greedy decoding "
+                         "(top_k=1)")
     device = resolve_device(args.device)
     args.device = str(device)
 
@@ -170,7 +178,8 @@ def main(argv=None):
     records, metrics, _ = run_relprompt(
         model, tokenizer, dataset, loader, seed=args.seed,
         decode_batch=args.decode_batch, max_new_tokens=args.max_new_tokens,
-        temperature=args.temperature, top_k=args.top_k, generator=generator)
+        temperature=args.temperature, top_k=args.top_k, generator=generator,
+        speculative=args.speculative, draft_len=args.draft_len, scheduler=args.scheduler)
     predict_dir = Path(args.model_path).parent / "predictions"
     predict_dir.mkdir(parents=True, exist_ok=True)
     out_path = predict_dir / (Path(args.model_path).stem + "_relprompt.json")

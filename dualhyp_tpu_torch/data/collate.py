@@ -1,9 +1,9 @@
 """Bucketed batching.
 
-A copy of `dualhyp_tpu/data/collate.py` without its prefetching producer
-thread: batches pad to bucket boundaries, so a handful of shapes cover the
-whole dataset (a decode batch pads its prompts the same way). Pad values
-follow the reference (ids -> 0, labels -> -1).
+A copy of `dualhyp_tpu/data/collate.py`: batches pad to bucket boundaries,
+so a handful of shapes cover the whole dataset (a decode batch pads its
+prompts the same way). Pad values follow the reference (ids -> 0, labels ->
+-1). `prefetch_epoch_batches` builds the batches in a producer thread.
 """
 
 from __future__ import annotations
@@ -110,3 +110,78 @@ def assemble_batch(chunk, batch_size: int, buckets: Sequence[int]) -> dict:
     batch = pad_batch(chunk, buckets)
     batch["valid"] = np.ones((batch_size,), np.int32)
     return batch
+
+
+def prefetch_epoch_batches(dataset, batch_size: int, *, shuffle: bool,
+                           seed: int, epoch: int,
+                           buckets: Sequence[int] = DEFAULT_BUCKETS,
+                           drop_last: bool = False,
+                           process_index: int = 0,
+                           process_count: int = 1,
+                           prefetch: int = 2) -> Iterable[dict]:
+    """`epoch_batches` with lazy, pipelined example fetching.
+
+    `epoch_batches` materialises the WHOLE epoch before the first batch —
+    fine for the text-only GER path (tokenise once), but a long stall when
+    corruption is enabled and __getitem__ loads waveforms/mouth-ROI HDF5
+    (the RelPrompt training path; the reference leans on torch DataLoader
+    workers, ref: finetune/ger.py:173-174). A producer thread builds
+    padded batches into a bounded queue, overlapping host-side IO/packing
+    with device compute (the train step runs asynchronously on the card, so
+    the queue fills while it works). The producer fetches examples
+    SEQUENTIALLY: the datasets consume a shared seeded RNG per
+    __getitem__, so parallel fetching would race it and change the draw
+    sequence. Batch order/content identical to `epoch_batches` without
+    `length_sorted` (tested)."""
+    import queue
+    import threading
+
+    order = list(range(len(dataset)))
+    rng = random.Random(seed + epoch)
+    if shuffle:
+        rng.shuffle(order)
+    if process_count > 1:
+        order = order[process_index::process_count]
+
+    q: "queue.Queue" = queue.Queue(maxsize=max(prefetch, 1))
+    _END = object()
+    stop = threading.Event()  # set when the consumer abandons the generator
+
+    def _put(item) -> bool:
+        """put() that gives up once the consumer is gone, so an abandoned
+        generator (e.g. the NaN SystemExit in finetune_ger) does not leak
+        a thread blocked forever on a full queue."""
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def produce():
+        try:
+            for i in range(0, len(order), batch_size):
+                idxs = order[i : i + batch_size]
+                if drop_last and len(idxs) < batch_size:
+                    break
+                chunk = [dataset[j] for j in idxs]
+                if not _put(assemble_batch(chunk, batch_size, buckets)):
+                    return
+            _put(_END)
+        except BaseException as exc:  # surface in the consumer
+            _put(exc)
+
+    worker = threading.Thread(target=produce, daemon=True)
+    worker.start()
+    try:
+        while True:
+            item = q.get()
+            if item is _END:
+                break
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+        worker.join(timeout=5.0)

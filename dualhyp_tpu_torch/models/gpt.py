@@ -25,8 +25,9 @@ its leaves: an AdamW step of ~1e-4 x lr would round away in bf16.
 `forward` is the training and evaluation pass (grad enabled; LoRA-input
 dropout from a generator; rematerialisation with `torch.utils.checkpoint`
 of whole blocks, of the MLP alone, or of a block but its MoE up products:
-the JAX package's `remat` True, "mlp" and "moe"); `prefill` and
-`decode_step` serve, without grad.
+the JAX package's `remat` True, "mlp" and "moe"); `prefill`,
+`decode_step` and `verify_step` (K tokens a row in one pass, speculative
+decoding's check of a draft) serve, without grad.
 Every parameter is created with requires_grad False; a trainer turns it on
 for `trainable_parameters()`.
 
@@ -480,7 +481,9 @@ class Block(nn.Module):
         """x: (B, T, d). cache_kv: this layer's (k, v) cache, or (k, v,
         k_scale, v_scale) for an int8 cache, written in place: at slot 0 in
         prefill (positions None), at `positions` in a decode step (T == 1),
-        for the rows where `active` holds. An int8 cache takes K/V rounded
+        for the rows where `active` holds, and at positions..positions+T-1 of
+        every row in a verify step (T > 1, cos and sin then the rows of
+        `rope.gather_rope_rows`). An int8 cache takes K/V rounded
         by `q8_rows` over D; prefill attends the exact K/V. seed: the
         LoRA dropout masks of this block come from a generator seeded with
         it, so a rematerialised pass draws the same masks (None: no
@@ -527,11 +530,14 @@ class Block(nn.Module):
         if positions is None:
             q = rope_ops.apply_rope(q, cos[:t], sin[:t]).reshape(b, nh, t, hs)
             k = rope_ops.apply_rope(k, cos[:t], sin[:t])
-        else:
-            if t != 1:
-                raise NotImplementedError("chunked decode is not ported yet")
+        elif t == 1:
             q = rope_ops.apply_rope_gathered(q.reshape(b, nh, t, hs), cos, sin, positions)
             k = rope_ops.apply_rope_gathered(k, cos, sin, positions)
+        else:
+            # a verify chunk: cos, sin are the rows at positions + i, gathered
+            # once a step (`GPT.verify_step`)
+            q = rope_ops.apply_rope_rows(q.reshape(b, nh, t, hs), cos, sin)
+            k = rope_ops.apply_rope_rows(k, cos, sin)
 
         if cache_kv is None:
             y = attn_ops.causal_attention(q, k, v)
@@ -541,6 +547,18 @@ class Block(nn.Module):
             for c, new in zip(cache_kv, _cache_entries(k, v, len(cache_kv))):
                 c[:, :, :t] = new.to(c.dtype)
             y = attn_ops.causal_attention(q, k, v)
+        elif t > 1:
+            # a verify chunk: every row's T slots from positions on (clamped
+            # to fit, as `dynamic_update_slice` clamps a start), inactive
+            # rows too, as in the JAX package
+            start = positions.clamp(min=0, max=cache_kv[0].shape[2] - t)
+            rows = torch.arange(b, device=x.device)[:, None]
+            slots = start[:, None] + torch.arange(t, device=x.device)[None, :]
+            for c, new in zip(cache_kv, _cache_entries(k, v, len(cache_kv))):
+                c[rows, :, slots] = new.transpose(1, 2).to(c.dtype)
+            scales = cache_kv[2:] if len(cache_kv) == 4 else (None, None)
+            y = attn_ops.chunk_decode_attention(q, cache_kv[0], cache_kv[1], positions,
+                                                k_scale=scales[0], v_scale=scales[1])
         else:
             rows = torch.arange(b, device=x.device)
             for c, new in zip(cache_kv, _cache_entries(k[:, :, 0], v[:, :, 0], len(cache_kv))):
@@ -759,6 +777,22 @@ class GPT(nn.Module):
             x = block(x, self.cos, self.sin, cache_kv=kv, positions=positions,
                       kv_length=kv_length, active=active)
         return self._head(x[:, 0])
+
+    @torch.no_grad()
+    def verify_step(self, tokens, start, cache):
+        """A speculative verify step (`verify_step` of the JAX package):
+        tokens (B, K) sit at slots start..start+K-1 (start (B,)); all K
+        tokens' K/V are written there in every row, and token i attends the
+        slots at or below start + i. Returns logits (B, K, V) fp32, from one
+        pass over the weights for all K tokens. RoPE rows are gathered at
+        start + i in the activation dtype; past block_size they are NaN, as
+        the JAX package's gather fills them."""
+        x = self._embed(tokens)
+        positions = start[:, None] + torch.arange(tokens.shape[1], device=tokens.device)
+        cos, sin = rope_ops.gather_rope_rows(self.cos, self.sin, positions)
+        for block, kv in zip(self.blocks, cache):
+            x = block(x, cos, sin, cache_kv=kv, positions=start)
+        return self._head(x)
 
 
 @torch.no_grad()

@@ -152,6 +152,21 @@ def extend_embeddings(params: dict, generator: torch.Generator, n_extra: int = 3
     return new
 
 
+@torch.no_grad()
+def init_relprompt_leaves(model, generator: torch.Generator) -> None:
+    """A RelPrompt `GPT`'s new leaves, in place, as the JAX package's
+    finetuning starts them: the audio, then the visual classifier
+    (`init_classifier`), then the `n_extra_tokens` embedding rows above the
+    base vocabulary, N(0, std(the base rows)) as `extend_embeddings` draws
+    them, all from `generator`."""
+    model.audio_noise_classifier.init_weights(generator)
+    model.visual_noise_classifier.init_weights(generator)
+    n_extra = model.cfg.n_extra_tokens
+    wte = model.wte.weight
+    base = {"wte": {"weight": wte[:wte.shape[0] - n_extra]}}
+    wte.copy_(extend_embeddings(base, generator, n_extra)["wte"]["weight"])
+
+
 def mask_loss(logits, targets) -> torch.Tensor:
     """3-class cross-entropy with length trimming."""
     t = min(logits.shape[1], targets.shape[1])

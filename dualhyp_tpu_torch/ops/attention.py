@@ -17,6 +17,9 @@ the grouped broadcast happens inside the kernel or the einsum.
   * `decode_attention`: one step against the KV cache, masked by each row's
     valid length, with the per-slot scales of an int8 cache (plain PyTorch;
     the JAX package leaves it to XLA too).
+  * `chunk_decode_attention`: a speculative verify step's K queries a row
+    against the cache, query i masked to the slots at or below start + i
+    (plain PyTorch, as `decode_attention`).
 """
 
 from __future__ import annotations
@@ -278,3 +281,36 @@ def decode_attention(q, k_cache, v_cache, kv_length, scale: float | None = None,
     probs = probs.to(q.dtype)
     out = torch.matmul(probs, v_cache[:, :, None].to(q.dtype))
     return out.reshape(b, hq, 1, d)
+
+
+def chunk_decode_attention(q, k_cache, v_cache, start, scale: float | None = None,
+                           k_scale=None, v_scale=None):
+    """A verify step's attention: K consecutive queries a row against the
+    cache (`chunk_decode_attention` of the JAX package, plain PyTorch as
+    the JAX package leaves it to XLA).
+
+    q: (B, Hq, K, D), the tokens at slots start..start+K-1 of each row;
+    k_cache, v_cache: (B, G, S, D), the K tokens' K/V already written;
+    start: (B,). Query i sees the slots at or below start + i (its own
+    included). As `decode_attention`: exact fp32 products of the cached
+    values, the softmax in fp32, the probabilities rounded to q's dtype
+    before the PV product, and an int8 cache's (B, G, S) per-slot scales
+    on the logits (K) and the probabilities (V). At K = 1 it is
+    `decode_attention` with kv_length = start + 1."""
+    b, hq, kq, d = q.shape
+    g, s = k_cache.shape[1], k_cache.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    qg = _grouped(q, g).float()  # (B, G, Qh, K, D)
+    logits = torch.matmul(qg, k_cache.float()[:, :, None].transpose(-1, -2)) * scale
+    if k_scale is not None:
+        logits = logits * k_scale[:, :, None, None, :].float()
+    limit = start[:, None] + torch.arange(kq, device=q.device)[None, :]  # (B, K)
+    valid = torch.arange(s, device=q.device)[None, None, :] <= limit[:, :, None]
+    logits = logits.masked_fill(~valid[:, None, None], float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    if v_scale is not None:
+        probs = probs * v_scale[:, :, None, None, :].float()
+    probs = probs.to(q.dtype)
+    out = torch.matmul(probs, v_cache[:, :, None].to(q.dtype))
+    return out.reshape(b, hq, kq, d)

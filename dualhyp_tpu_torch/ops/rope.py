@@ -9,9 +9,9 @@ n_elem channels (partial rotary: the rest pass through).
 `apply_rope` launches kernel K3 (`csrc/rope.cu`) on a CUDA tensor and runs
 the plain version on a CPU tensor. With grad enabled it goes through `RoPE`,
 whose backward is K3 with `transpose=True` (the inverse rotation), as in
-the JAX package's custom VJP. `apply_rope_gathered` is the decode
-step's per-row position path, which the JAX package also keeps outside its
-kernel.
+the JAX package's custom VJP. `apply_rope_gathered` (the decode step) and
+`apply_rope_rows` on `gather_rope_rows` (the verify step) are the per-row
+position paths, which the JAX package also keeps outside its kernel.
 """
 
 from __future__ import annotations
@@ -170,11 +170,33 @@ def apply_rope_gathered(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     x: (B, H, 1, head_size); cos, sin: (S, n_elem) tables; positions: (B,).
     Mirrors the gather path of `dualhyp_tpu/models/gpt.py:_block`, which
     applies the jnp formula in x's dtype."""
-    n_elem = cos.shape[-1]
+    if cos.shape[-1] == 0:
+        return x
+    return apply_rope_rows(x, cos[positions][:, None, None, :],
+                           sin[positions][:, None, None, :])
+
+
+def gather_rope_rows(cos: torch.Tensor, sin: torch.Tensor, positions: torch.Tensor):
+    """The table rows at positions (B, T): (cos, sin), each (B, 1, T,
+    n_elem), for `apply_rope_rows`. A position past the table's end gives
+    NaN rows, as `jnp.take` fills them in the JAX package's verify step (a
+    speculative chunk's drafts may run past block_size; no emitted token
+    reads them). The index is clamped first: no read past the end."""
+    outside = (positions >= cos.shape[0])[:, None, :, None]
+    idx = positions.clamp(max=cos.shape[0] - 1)
+    return (cos[idx][:, None].masked_fill(outside, float("nan")),
+            sin[idx][:, None].masked_fill(outside, float("nan")))
+
+
+def apply_rope_rows(x: torch.Tensor, cos_b: torch.Tensor, sin_b: torch.Tensor):
+    """Rotary embedding with a row of the table per (batch, position): x
+    (B, H, T, head_size), cos_b and sin_b broadcasting against (B, H, T,
+    n_elem); the jnp formula in x's dtype (plain PyTorch: the decode and
+    verify steps' per-row positions, which the JAX package keeps outside its
+    kernel too)."""
+    n_elem = cos_b.shape[-1]
     if n_elem == 0:
         return x
-    cos_b = cos[positions][:, None, None, :]  # (B, 1, 1, n_elem)
-    sin_b = sin[positions][:, None, None, :]
     half = n_elem // 2
     head = x[..., :n_elem]
     rotated = torch.cat([-head[..., half:], head[..., :half]], dim=-1)

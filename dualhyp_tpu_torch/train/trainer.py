@@ -117,13 +117,20 @@ class Trainer:
         self.micro_iter = 0  # the reference counts micro-iterations
         self._window_losses = []
 
-        self.trainable = model.trainable_parameters()
+        self.trainable = self._trainable_parameters()
         for name, p in model.named_parameters():
             p.requires_grad_(name in self.trainable)
             if train_cfg.frozen_dtype and name not in self.trainable and p.is_floating_point():
                 # frozen leaves never update; store them at compute precision
                 p.data = p.data.to(getattr(torch, train_cfg.frozen_dtype))
-        self.optimizer = make_optimizer(train_cfg, list(self.trainable.values()))
+        self.optimizer = self._make_optimizer()
+
+    def _trainable_parameters(self) -> dict:
+        """The leaves that train, by parameter name (mode "lora": LoRA)."""
+        return self.model.trainable_parameters()
+
+    def _make_optimizer(self) -> torch.optim.Optimizer:
+        return make_optimizer(self.cfg, list(self.trainable.values()))
 
     # ---- loss ----
     def _loss(self, ids, labels, *, train: bool, generator=None):

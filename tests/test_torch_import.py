@@ -123,20 +123,23 @@ def test_relprompt_entry_points_raise_without_cuda(no_cuda, tmp_path):
 
 @pytest.mark.parametrize("flag", [["--speculative"], ["--scheduler", "continuous"]])
 def test_unported_cli_options_raise(tmp_path, flag):
+    """Speculative decoding and continuous batching are ported, greedy only,
+    as in the JAX package: with sampling (top_k > 1) they raise."""
     from dualhyp_tpu_torch.cli import inference_ger
 
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match="greedy"):
         inference_ger.main(["--test_path", "t.json", "--model_path", "m.npz",
-                            "--device", "cpu", *flag])
+                            "--device", "cpu", "--top_k", "2", *flag])
 
 
 @pytest.mark.parametrize("flag", [["--speculative"], ["--scheduler", "continuous"]])
 def test_unported_relprompt_options_raise(flag):
+    """As `test_unported_cli_options_raise`, for RelPrompt correction."""
     from dualhyp_tpu_torch.cli import inference_relprompt
 
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match="greedy"):
         inference_relprompt.main(["--test_path", "t.json", "--model_path", "m.npz",
-                                  "--device", "cpu", *flag])
+                                  "--device", "cpu", "--top_k", "2", *flag])
 
 
 def test_precompute_features_refuses_the_visual_encoder(tmp_path):

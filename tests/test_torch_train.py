@@ -391,12 +391,15 @@ def test_training_entry_points_raise_without_cuda(monkeypatch, tmp_path):
                            "--val_path", str(tmp_path / "v.json")])
 
 
-def test_unported_finetune_options_raise():
+def test_unported_finetune_options_raise(tiny_checkpoint):
+    """--data_prefetch is ported (test_torch_packed_prefetch.py); adapter
+    finetuning is not, and raises."""
     from dualhyp_tpu_torch.cli import finetune_ger
 
     with pytest.raises(NotImplementedError, match="not ported yet"):
         finetune_ger.main(["--train_path", "t.json", "--val_path", "v.json",
-                           "--device", "cpu", "--data_prefetch"])
+                           "--device", "cpu", "--llm_checkpoint", str(tiny_checkpoint),
+                           "--mode", "adapter", "--data_prefetch"])
 
 
 @pytest.fixture

@@ -101,11 +101,21 @@ def _best_hypothesis_text(ex, dataset):
         return ""
 
 
-def _hypothesis_ids(tokenizer, text):
+def hypothesis_ids(tokenizer, text):
+    """A hypothesis's token ids without special tokens: the span that
+    anchored drafting looks for in the prompt."""
     try:  # a BOS would break the span match inside the prompt
         return tokenizer.encode(text, add_special_tokens=False)
     except TypeError:
         return tokenizer.encode(text)
+
+
+def check_greedy(speculative, scheduler, top_k) -> None:
+    """Speculative decoding and the slot pool are greedy only, as in the
+    JAX package: raise for sampling (top_k != 1)."""
+    if (speculative or scheduler == "continuous") and top_k != 1:
+        raise ValueError("--speculative/--scheduler continuous require greedy decoding "
+                         "(top_k=1)")
 
 
 def run_inference(model, tokenizer, dataset, *, decode_batch=8,
@@ -126,9 +136,7 @@ def run_inference(model, tokenizer, dataset, *, decode_batch=8,
     scheduler="continuous": the requests go through a
     `ContinuousBatcher` of `decode_batch` slots (draft source "anchored"
     under speculative="anchored", else "lookup")."""
-    if (speculative or scheduler == "continuous") and top_k != 1:
-        raise ValueError("--speculative/--scheduler continuous require greedy decoding "
-                         "(top_k=1)")
+    check_greedy(speculative, scheduler, top_k)
     if scheduler == "continuous":
         return _run_inference_continuous(
             model, tokenizer, dataset, decode_batch=decode_batch,
@@ -169,7 +177,7 @@ def run_inference(model, tokenizer, dataset, *, decode_batch=8,
                     best = _best_hypothesis_text(ex, dataset)
                     if best:
                         spans[:, i] = find_subsequence_span(
-                            list(ids[i][:int(lengths[i])]), _hypothesis_ids(tokenizer, best))
+                            list(ids[i][:int(lengths[i])]), hypothesis_ids(tokenizer, best))
                 tokens, total_lengths, (steps, emitted) = generate_anchored(
                     model, torch.from_numpy(ids), torch.from_numpy(lengths),
                     torch.from_numpy(spans[0]), torch.from_numpy(spans[1]), **kw)
@@ -238,7 +246,7 @@ def _run_inference_continuous(model, tokenizer, dataset, *, decode_batch, max_ne
         if draft_source != "anchored":
             return None
         best = _best_hypothesis_text(ex, dataset)
-        return _hypothesis_ids(tokenizer, best) if best else None
+        return hypothesis_ids(tokenizer, best) if best else None
 
     # the lockstep path's truncation budget (prompt and budget must fit)
     budget = model.cfg.block_size - max_new_tokens
@@ -310,9 +318,7 @@ def dry_run_ingest(args, tokenizer) -> dict:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if (args.speculative or args.scheduler == "continuous") and args.top_k != 1:
-        raise ValueError("--speculative/--scheduler continuous require greedy decoding "
-                         "(top_k=1)")
+    check_greedy(args.speculative, args.scheduler, args.top_k)  # before the model loads
     checkpoint_dir = Path(args.llm_checkpoint)
     if args.dry_run:
         dry_run_ingest(args, common.load_tokenizer(checkpoint_dir))

@@ -30,7 +30,7 @@ import torch
 
 from dualhyp_tpu_torch.cli import common
 from dualhyp_tpu_torch.cli.finetune_relprompt import feature_loader
-from dualhyp_tpu_torch.cli.inference_ger import run_inference
+from dualhyp_tpu_torch.cli.inference_ger import check_greedy, run_inference
 from dualhyp_tpu_torch.data import masks as mask_lib
 from dualhyp_tpu_torch.data.hypotheses import DualHypothesesMaskDataset
 from dualhyp_tpu_torch.data.prompts import MASK_TOKENS
@@ -145,9 +145,7 @@ def run_relprompt(model, tokenizer, dataset, loader, *, seed=1337, decode_batch=
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if (args.speculative or args.scheduler == "continuous") and args.top_k != 1:
-        raise ValueError("--speculative/--scheduler continuous require greedy decoding "
-                         "(top_k=1)")
+    check_greedy(args.speculative, args.scheduler, args.top_k)  # before the model loads
     device = resolve_device(args.device)
     args.device = str(device)
 

@@ -34,6 +34,7 @@ import threading
 from pathlib import Path
 
 from dualhyp_tpu_torch.cli import common
+from dualhyp_tpu_torch.cli.inference_ger import hypothesis_ids
 from dualhyp_tpu_torch.data.prompts import get_prompts_format
 from dualhyp_tpu_torch.device import resolve_device
 from dualhyp_tpu_torch.infer.evaluate import extract_response
@@ -121,13 +122,7 @@ class Server:
             hyp = req.get("hypothesis")
             if hyp is None and req.get("nhyps_asr"):
                 hyp = req["nhyps_asr"][0]
-            if isinstance(hyp, str):
-                try:  # a BOS would break the span match inside the prompt
-                    hyp_ids = self.tokenizer.encode(hyp, add_special_tokens=False)
-                except TypeError:
-                    hyp_ids = self.tokenizer.encode(hyp)
-            else:
-                hyp_ids = hyp
+            hyp_ids = hypothesis_ids(self.tokenizer, hyp) if isinstance(hyp, str) else hyp
             self.batcher.submit(rid, ids, req.get("max_new"), hyp_ids)
         except Exception as exc:
             self._send(conn, {"error": f"{type(exc).__name__}: {exc}", "line": line[:200]})

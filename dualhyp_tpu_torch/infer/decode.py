@@ -256,6 +256,17 @@ def _start_speculative(model: GPT, prompt_ids, prompt_lengths, *, max_new_tokens
     return (tokens, prompt_lengths + emitted, emitted, cache, done, first, 0), t
 
 
+def _run_speculative(state, step, t: int, max_new_tokens: int, return_steps: bool):
+    """`step` until every row is done or has its max_new_tokens (one flag
+    read a verify step); the return of `generate_lookup`."""
+    while bool((~state[4] & (state[2] < max_new_tokens)).any()):
+        state = step(state)
+    tokens, lengths, emitted = state[0][:, :t + max_new_tokens], state[1], state[2]
+    if return_steps:
+        return tokens, lengths, (state[6], emitted)
+    return tokens, lengths
+
+
 @torch.no_grad()
 def generate_lookup(model: GPT, prompt_ids, prompt_lengths, *, max_new_tokens: int = 150,
                     eos_id: Optional[int] = None, draft_len: int = 8, ngram: int = 3,
@@ -273,13 +284,12 @@ def generate_lookup(model: GPT, prompt_ids, prompt_lengths, *, max_new_tokens: i
     state, t = _start_speculative(model, prompt_ids, prompt_lengths,
                                   max_new_tokens=max_new_tokens, draft_len=draft_len,
                                   eos_id=eos_id, kv_quant=kv_quant)
-    while bool((~state[4] & (state[2] < max_new_tokens)).any()):
-        state = lookup_step(model, state, draft_len=draft_len, ngram=ngram, eos_id=eos_id,
-                            max_new_tokens=max_new_tokens)
-    tokens, lengths, emitted = state[0][:, :t + max_new_tokens], state[1], state[2]
-    if return_steps:
-        return tokens, lengths, (state[6], emitted)
-    return tokens, lengths
+
+    def step(state):
+        return lookup_step(model, state, draft_len=draft_len, ngram=ngram, eos_id=eos_id,
+                           max_new_tokens=max_new_tokens)
+
+    return _run_speculative(state, step, t, max_new_tokens, return_steps)
 
 
 @torch.no_grad()
@@ -298,13 +308,12 @@ def generate_anchored(model: GPT, prompt_ids, prompt_lengths, span_start, span_l
     span_start = torch.as_tensor(span_start, device=model.device).long()
     span_len = torch.as_tensor(span_len, device=model.device).long()
     state = state + (torch.zeros_like(span_start),)
-    while bool((~state[4] & (state[2] < max_new_tokens)).any()):
-        state = anchored_step(model, state, span_start, span_len, draft_len=draft_len,
-                              ngram=ngram, eos_id=eos_id, max_new_tokens=max_new_tokens)
-    tokens, lengths, emitted = state[0][:, :t + max_new_tokens], state[1], state[2]
-    if return_steps:
-        return tokens, lengths, (state[6], emitted)
-    return tokens, lengths
+
+    def step(state):
+        return anchored_step(model, state, span_start, span_len, draft_len=draft_len,
+                             ngram=ngram, eos_id=eos_id, max_new_tokens=max_new_tokens)
+
+    return _run_speculative(state, step, t, max_new_tokens, return_steps)
 
 
 def find_subsequence_span(prompt_ids, sub_ids):

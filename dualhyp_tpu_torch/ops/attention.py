@@ -14,12 +14,11 @@ the grouped broadcast happens inside the kernel or the einsum.
     its own forward (`csrc/flash_attention.cu`), dQ and dK/dV kernels
     (`csrc/flash_attention_bwd.cu`).
     All take head size 64 (TinyLlama) and 128 (Mixtral).
-  * `decode_attention`: one step against the KV cache, masked by each row's
-    valid length, with the per-slot scales of an int8 cache (plain PyTorch;
-    the JAX package leaves it to XLA too).
   * `chunk_decode_attention`: a speculative verify step's K queries a row
-    against the cache, query i masked to the slots at or below start + i
-    (plain PyTorch, as `decode_attention`).
+    against the KV cache, query i masked to the slots at or below start +
+    i, with the per-slot scales of an int8 cache (plain PyTorch; the JAX
+    package leaves it to XLA too); `decode_attention` is its K = 1 case,
+    one step masked by each row's valid length.
 """
 
 from __future__ import annotations
@@ -255,32 +254,14 @@ def causal_attention(q, k, v, scale: float | None = None):
 
 def decode_attention(q, k_cache, v_cache, kv_length, scale: float | None = None,
                      k_scale=None, v_scale=None):
-    """One decode step against a fixed-size cache.
+    """One decode step against a fixed-size cache: `chunk_decode_attention`
+    at K = 1, its query at slot kv_length - 1.
 
     q: (B, Hq, 1, D); k_cache, v_cache: (B, G, S, D); kv_length: (B,) valid
-    cache slots per row (slots >= kv_length are masked). The logits take
-    exact fp32 products of the cached values, the softmax runs in fp32, and
-    the probabilities are rounded to q's dtype before the PV product.
-    k_scale, v_scale: the (B, G, S) per-slot scales of an int8 cache
-    (`_dequant_cache` of the JAX package): the K scale multiplies the
-    logits and the V scale the probabilities, slot by slot, so the int8
-    values enter the products as they are."""
-    b, hq, _, d = q.shape
-    g, s = k_cache.shape[1], k_cache.shape[2]
-    if scale is None:
-        scale = 1.0 / math.sqrt(d)
-    qg = _grouped(q, g).float()  # (B, G, Qh, 1, D)
-    logits = torch.matmul(qg, k_cache.float()[:, :, None].transpose(-1, -2)) * scale
-    if k_scale is not None:
-        logits = logits * k_scale[:, :, None, None, :].float()
-    valid = torch.arange(s, device=q.device)[None, :] < kv_length[:, None]
-    logits = logits.masked_fill(~valid[:, None, None, None, :], float("-inf"))
-    probs = torch.softmax(logits, dim=-1)
-    if v_scale is not None:
-        probs = probs * v_scale[:, :, None, None, :].float()
-    probs = probs.to(q.dtype)
-    out = torch.matmul(probs, v_cache[:, :, None].to(q.dtype))
-    return out.reshape(b, hq, 1, d)
+    cache slots per row (slots >= kv_length are masked); k_scale, v_scale:
+    an int8 cache's (B, G, S) per-slot scales."""
+    return chunk_decode_attention(q, k_cache, v_cache, kv_length - 1, scale,
+                                  k_scale=k_scale, v_scale=v_scale)
 
 
 def chunk_decode_attention(q, k_cache, v_cache, start, scale: float | None = None,
@@ -292,11 +273,12 @@ def chunk_decode_attention(q, k_cache, v_cache, start, scale: float | None = Non
     q: (B, Hq, K, D), the tokens at slots start..start+K-1 of each row;
     k_cache, v_cache: (B, G, S, D), the K tokens' K/V already written;
     start: (B,). Query i sees the slots at or below start + i (its own
-    included). As `decode_attention`: exact fp32 products of the cached
-    values, the softmax in fp32, the probabilities rounded to q's dtype
-    before the PV product, and an int8 cache's (B, G, S) per-slot scales
-    on the logits (K) and the probabilities (V). At K = 1 it is
-    `decode_attention` with kv_length = start + 1."""
+    included). The logits take exact fp32 products of the cached values,
+    the softmax runs in fp32, and the probabilities are rounded to q's
+    dtype before the PV product. k_scale, v_scale: the (B, G, S) per-slot
+    scales of an int8 cache (`_dequant_cache` of the JAX package): the K
+    scale multiplies the logits and the V scale the probabilities, slot by
+    slot, so the int8 values enter the products as they are."""
     b, hq, kq, d = q.shape
     g, s = k_cache.shape[1], k_cache.shape[2]
     if scale is None:

@@ -183,7 +183,24 @@ prints one JSON line; a failed phase raises and the script exits non-zero.
      on the card, 32 train and 8 val records, 4 steps of micro batch 8, K5
      for the LoRA linears, one validation and the saves; `best_model.npz`
      read back by `ckpt.io`; one step profiled;
- 29. the seconds of each phase, the `{"kernels": [...]}` line (all fifteen
+ 29. (after the RelPrompt training slice) slice 6: K8 at the Whisper-large-v3
+     decoder's linears (1280 x 1280, 5120 x 1280, 1280 x 5120) at a beam
+     step's 400 rows, the cross K/V's 8 x 1500 and a long-form step's 5, and
+     K6 in bf16 at B8 H20 T=S=1500, each against its plain version, timed
+     beside its bound and cuBLAS / SDPA; a depth-2, full-width Whisper
+     decoder, card (bf16) against CPU (fp32): the full forward's logits, 8
+     cached steps against the full forward, int8 cross and self K/V; the
+     ASR slice: `cli.make_json_asr.main --config` on 16 seeded WAVs of 2-12
+     s with noise mixed in, the random Whisper-large-v3 with its decoder
+     (F16 on disk, so bf16 compute), beam 50, n-best 5, decode batch 8, 64
+     new tokens (cut from 224), in bf16, with `quantize: int4` and with
+     int8 cross and self K/V: all 16 records, no retry or skip printed, at
+     most one host sync a chunk in every beam (torch's sync warnings), K6
+     and (int4) K8 launched; ms an utterance, step ms, peak memory, a
+     profiled chunk's idle share; the long-form slice: `cli.transcribe.main`
+     on a 75-s WAV, beam 5, --quantize int4, --word_timestamps, 32 new
+     tokens a window and the fallback to temperature 1.0;
+ 30. the seconds of each phase, the `{"kernels": [...]}` line (all fifteen
      kernels, launches by path, K4's, K5's and K8's verify rows), the
      card's name and power limit, and the last line
      `{"ok": true, "device": {...}}`.
@@ -2271,11 +2288,13 @@ def write_safetensors(path, tensors: dict) -> None:
 
 
 def write_whisper_checkpoint(torch, path: Path, seed: int) -> None:
-    """A random Whisper-large-v3 encoder as a HF directory: `config.json` and
-    an F16 `model.safetensors`, as openai/whisper-large-v3 ships it. Weights
-    N(0, 1/n_state) as the JAX init draws them (drawn on the card from
-    `seed`), small random biases, LayerNorm scales near 1."""
+    """A random Whisper-large-v3 (encoder and decoder) as a HF directory:
+    `config.json` and an F16 `model.safetensors`, as openai/whisper-large-v3
+    ships it. Weights N(0, 1/n_state) as the JAX init draws them (drawn on
+    the card from `seed`), positional embeddings N(0, 0.01), small random
+    biases, LayerNorm scales near 1."""
     from dualhyp_tpu_torch.models.whisper import WHISPER_LARGE_V3 as cfg
+    from dualhyp_tpu_torch.models.whisper import WHISPER_LARGE_V3_DECODER as dec
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     s = cfg.n_state
@@ -2302,11 +2321,29 @@ def write_whisper_checkpoint(torch, path: Path, seed: int) -> None:
         for name in ("self_attn_layer_norm", "final_layer_norm"):
             tensors[pre + name + ".weight"] = normal(s, scale=0.1, loc=1.0)
             tensors[pre + name + ".bias"] = normal(s, scale=0.02)
+    tensors.update({"model.decoder.embed_tokens.weight": normal(dec.n_vocab, s),
+                    "model.decoder.embed_positions.weight": normal(dec.n_ctx, s, scale=0.01),
+                    "model.decoder.layer_norm.weight": normal(s, scale=0.1, loc=1.0),
+                    "model.decoder.layer_norm.bias": normal(s, scale=0.02)})
+    for prefix in ("self_attn", "encoder_attn"):
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            linears[f"{prefix}.{name}"] = (s, s, name != "k_proj")
+    for i in range(dec.n_layer):
+        pre = f"model.decoder.layers.{i}."
+        for name, (o, d, bias) in linears.items():
+            tensors[pre + name + ".weight"] = normal(o, d)
+            if bias:
+                tensors[pre + name + ".bias"] = normal(o, scale=0.02)
+        for name in ("self_attn_layer_norm", "encoder_attn_layer_norm", "final_layer_norm"):
+            tensors[pre + name + ".weight"] = normal(s, scale=0.1, loc=1.0)
+            tensors[pre + name + ".bias"] = normal(s, scale=0.02)
     path.mkdir(parents=True, exist_ok=True)
     (path / "config.json").write_text(json.dumps({
         "num_mel_bins": cfg.n_mels, "max_source_positions": cfg.n_ctx,
         "d_model": cfg.n_state, "encoder_attention_heads": cfg.n_head,
-        "encoder_layers": cfg.n_layer}))
+        "encoder_layers": cfg.n_layer, "vocab_size": dec.n_vocab,
+        "max_target_positions": dec.n_ctx, "decoder_attention_heads": dec.n_head,
+        "decoder_layers": dec.n_layer}))
     write_safetensors(path / "model.safetensors", tensors)
 
 
@@ -3736,7 +3773,9 @@ def count_syncs(torch, fn):
             out = fn()
         finally:
             torch.cuda.set_sync_debug_mode(prev)
-    return out, sum("synchroniz" in str(w.message) for w in caught)
+    # "called a synchronizing CUDA operation"; not the notice that the debug
+    # mode is a prototype, which the process's first switch to it prints
+    return out, sum("called a synchronizing" in str(w.message) for w in caught)
 
 
 # the speculative decode path: K1 (prefill), K2, K3 (prefill), K4; a verify
@@ -4060,6 +4099,483 @@ def serve_slice(torch, seed: int) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# slice 6: offline ASR n-best and long-form transcription (the Whisper decoder
+# and its batched beam search)
+# ---------------------------------------------------------------------------
+
+# the Whisper-large-v3 decoder's linears that K8 sees under int4: (name, N, K)
+WHISPER_Q4_SHAPES = (("attn", 1280, 1280), ("fc1", 5120, 1280), ("fc2", 1280, 5120))
+# K8's rows on the slice: a beam step (decode batch 8 x beam 50), the cross
+# K/V of 8 windows of 1500 frames (key and value only), a long-form step of
+# beam 5 at one utterance (the decode kernel)
+WHISPER_Q4_ROWS = (("beam_step", 400), ("cross_kv", 8 * 1500), ("longform_step", 5))
+ASR_BEAM, ASR_NBEST, ASR_BATCH = 50, 5, 8
+# the sample length is cut from the reference's 224 to 64 new tokens (the
+# random model rarely ends a beam, so every batch runs its whole budget)
+ASR_MAX_NEW = 64
+ASR_UTTERANCES = 16
+ASR_IDLE = ("flash_attention_fwd", "rms_norm", "apply_rope", "swiglu_mlp", "lora_linear",
+            "causal_attention_fwd", "grouped_matmul")
+# depth-2, full-width decoder, card (bf16 weights and activations) against
+# the CPU (fp32): logits of spread ~1 move by a few bf16 ulps of the largest
+# (~0.03) through two blocks; a wiring fault (a transposed head, a wrong
+# cache column or parent, a lost scale) moves them by about their spread.
+# The int8 K/V round on both sides and a code at a rounding tie may differ
+# by one, which moves a logit by ~1e-3 here.
+WHISPER_DEPTH2_ATOL = 0.1
+
+
+def numpy_decoder_tree(cfg, seed: int) -> dict:
+    """A Whisper decoder tree in the JAX package's layout, drawn with numpy
+    as `numpy_encoder_tree` draws the encoder."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    s, n = cfg.n_state, cfg.n_layer
+    std = 1.0 / math.sqrt(s)
+
+    def normal(*shape, scale=std, loc=0.0):
+        return (loc + rng.standard_normal(shape, dtype=np.float32) * np.float32(scale))
+
+    def lin(out_f, in_f, bias=True):
+        leaf = {"weight": normal(n, out_f, in_f)}
+        if bias:
+            leaf["bias"] = normal(n, out_f, scale=0.02)
+        return leaf
+
+    def attn():
+        return {"query": lin(s, s), "key": lin(s, s, bias=False), "value": lin(s, s),
+                "out": lin(s, s)}
+
+    def ln(*shape):
+        return {"scale": normal(*shape, scale=0.1, loc=1.0), "bias": normal(*shape, scale=0.02)}
+
+    return {"token_embedding": normal(cfg.n_vocab, s),
+            "positional_embedding": normal(cfg.n_ctx, s, scale=0.01),
+            "blocks": {"attn_ln": ln(n, s), "attn": attn(), "cross_ln": ln(n, s),
+                       "cross": attn(), "mlp_ln": ln(n, s),
+                       "mlp": {"fc1": lin(4 * s, s), "fc2": lin(s, 4 * s)}},
+            "ln": ln(s)}
+
+
+def whisper_kernel_phase(torch, seed: int) -> dict:
+    """K8 at the Whisper decoder's shapes and rows (WHISPER_Q4_SHAPES x
+    WHISPER_Q4_ROWS) and K6 in bf16 at the encoder's B8 H20 T=S=1500, each
+    against its plain version, timed beside its bound and the library call
+    (cuBLAS on the dequantised weight; SDPA)."""
+    import torch.nn.functional as F
+
+    from dualhyp_tpu_torch.ops import flash_fwd, int4, quant
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 41)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, std=1.0, dtype=bf16):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+    q4 = {}
+    for name, n, k in WHISPER_Q4_SHAPES:
+        packed, scales = quant.quantize_weight_int4(randn(n, k, std=1 / math.sqrt(k),
+                                                          dtype=torch.float32))
+        w_deq = quant.dequantize_weight_int4(packed, scales, bf16)
+        for label, rows in WHISPER_Q4_ROWS:
+            if label == "cross_kv" and name != "attn":
+                continue
+            x = randn(rows, k)
+            fn = lambda: int4.q4_matmul(x, packed, scales)  # noqa: E731
+            plain = lambda: int4.q4_matmul_plain(x, packed, scales)  # noqa: E731
+            got = repeatable("q4_matmul", fn, torch)
+            err = compare("q4_matmul", got, plain(), torch)
+            bms, by = bound(rows * k * 2 + n * k // 2 + n * (k // 128) * 4 + rows * n * 2,
+                            2 * rows * n * k, BF16_TENSOR_FLOPS)
+            q4[f"whisper_{label}_{name}"] = dict(
+                shape=[rows, n, k], max_abs_err=err, repeats_bitwise=True,
+                path="decode" if rows <= int4.DECODE_ROWS else "wgmma",
+                ms=time_ms(fn, torch), device_ms=device_ms(fn, torch),
+                plain_ms=time_ms(plain, torch, warmup=1, iters=3),
+                library_ms=time_ms(lambda: x @ w_deq.t(), torch),
+                library_device_ms=device_ms(lambda: x @ w_deq.t(), torch),
+                library="cuBLAS bf16 matmul on the dequantised weight",
+                bound_ms=bms, bound_by=by)
+            del x, got
+        del w_deq, packed, scales
+    emit({"phase": "kernel", "name": "q4_matmul", "shapes_of": "whisper-large-v3 decoder",
+          "tolerance": dict(zip(("atol", "rtol"), TOLERANCES["q4_matmul"])), **q4})
+
+    b, h, t, hs = 8, 20, 1500, 64
+    q, k, v = (randn(b, h, t, hs) for _ in range(3))
+    fn = lambda: flash_fwd.full_attention_fwd(q, k, v)  # noqa: E731
+    plain = lambda: flash_fwd.full_attention_plain(q, k, v)  # noqa: E731
+    got, want = repeatable("full_attention_fwd", fn, torch), plain()
+    err = float((got.float() - want.float()).abs().max())
+    share = float((got != want).float().mean())
+    if not (err <= FLASH_FWD_ATOL["bfloat16"] and share <= FLASH_FWD_DIFFER_SHARE):
+        raise RuntimeError(f"full_attention_fwd bf16 at the ASR encoder's shape: max_abs_err "
+                           f"{err}, {share} of the elements differ")
+    bms, by = bound((2 * b * h * t * hs + 2 * b * h * t * hs) * 2, 4 * b * h * t * t * hs,
+                    BF16_TENSOR_FLOPS)
+    k6 = dict(shape=[b, h, t, t, hs], dtype="bfloat16", max_abs_err=err, differ_share=share,
+              repeats_bitwise=True, ms=time_ms(fn, torch), device_ms=device_ms(fn, torch),
+              plain_ms=time_ms(plain, torch, warmup=1, iters=5),
+              library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v), torch),
+              library="SDPA (non-causal)", bound_ms=bms, bound_by=by)
+    emit({"phase": "kernel", "name": "full_attention_fwd", "asr_b8_t1500_bf16": k6})
+    del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return {"q4_matmul": q4, "full_attention_fwd": {"asr_b8_t1500_bf16": k6}}
+
+
+def depth2_whisper_decoder_check(torch, seed: int) -> dict:
+    """A depth-2, full-width Whisper-large-v3 decoder from seeded numpy
+    weights, card (bf16) against the CPU (fp32): the full forward's logits;
+    8 cached steps against the full forward (card and CPU); and the same 8
+    steps with int8 cross and self K/V, card against CPU."""
+    import dataclasses
+
+    import numpy as np
+
+    from dualhyp_tpu_torch.ckpt.convert import decoder_from_jax
+    from dualhyp_tpu_torch.models import whisper as w
+
+    cfg = dataclasses.replace(w.WHISPER_LARGE_V3_DECODER, n_layer=2)
+    tree = numpy_decoder_tree(cfg, seed + 43)
+    card = decoder_from_jax(tree, device="cuda", dtype=torch.bfloat16)
+    cpu = decoder_from_jax(tree, device="cpu", dtype=torch.float32)
+    del tree
+    rng = np.random.default_rng(seed + 47)
+    b, steps = 2, 8
+    feats = torch.from_numpy(rng.standard_normal((b, 1500, cfg.n_state), dtype=np.float32))
+    toks = torch.from_numpy(rng.integers(0, 50257, size=(b, steps)))
+    feats_card = feats.to("cuda", torch.bfloat16)
+    out = {}
+
+    def err(a, b_):
+        return float((a.float().cpu() - b_.float().cpu()).abs().max())
+
+    full_card = w.decode_logits(card, cfg, toks.cuda(), feats_card, compute_dtype=torch.bfloat16)
+    full_cpu = w.decode_logits(cpu, cfg, toks, feats)
+    out["full_forward"] = err(full_card, full_cpu)
+    out["logit_spread"] = float(full_cpu.std())
+
+    def walk(params, device, feats_, quant_kv):
+        cross = w.precompute_cross_kv(params, cfg, feats_, quantize=quant_kv)
+        cache = w.init_self_cache(cfg, b, steps, dtype=params["token_embedding"].dtype,
+                                  quantize=quant_kv, device=device)
+        return torch.stack([w.decode_step_cached(params, cfg, toks[:, s].to(device), s, cache,
+                                                 cross) for s in range(steps)], dim=1)
+
+    for quant_kv in (None, "int8"):
+        reset_counts()
+        got = walk(card, "cuda", feats_card, quant_kv)
+        want = walk(cpu, "cpu", feats, quant_kv)
+        label = quant_kv or "float"
+        out[f"cached_{label}_card_vs_cpu"] = err(got, want)
+        if quant_kv is None:
+            out["cached_card_vs_full_card"] = err(got, full_card)
+            out["cached_cpu_vs_full_cpu"] = err(want, full_cpu)
+    result = {"phase": "depth2_whisper_decoder_card_vs_cpu", "n_state": cfg.n_state,
+              "n_head": cfg.n_head, "n_vocab": cfg.n_vocab, "n_layer": cfg.n_layer,
+              "batch": b, "steps": steps, "frames": 1500, "atol": WHISPER_DEPTH2_ATOL, **out}
+    emit(result)
+    bad = {k: v for k, v in out.items() if k != "logit_spread" and not v <= WHISPER_DEPTH2_ATOL}
+    if bad or out["cached_cpu_vs_full_cpu"] > 1e-3:
+        raise RuntimeError(f"depth-2 decoder: {bad or out}")
+    del card, cpu
+    torch.cuda.empty_cache()
+    return result
+
+
+class SyntheticWhisperTokenizer:
+    """`data.synthetic.whisper_vocabulary` as the tokenizer duck type the
+    ASR path calls, without the `tokenizers` package: words and runs of
+    punctuation split on whitespace, unknown ones to <unk>."""
+
+    def __init__(self):
+        import re
+
+        from dualhyp_tpu_torch.data.synthetic import whisper_vocabulary
+
+        self.vocab = whisper_vocabulary()
+        self.inverse = {i: t for t, i in self.vocab.items()}
+        self.n_text = self.vocab["<|endoftext|>"]
+        self.split = re.compile(r"\w+|[^\w\s]+").findall
+
+    def convert_tokens_to_ids(self, token):
+        return self.vocab.get(token)
+
+    def encode(self, text, add_special_tokens=False):
+        return [self.vocab.get(p, self.vocab["<unk>"]) for p in self.split(text)]
+
+    def decode(self, ids, skip_special_tokens=False):
+        return " ".join(self.inverse[int(i)] for i in ids
+                        if not (skip_special_tokens and int(i) >= self.n_text))
+
+
+@contextlib.contextmanager
+def whisper_tokenizer_route(whisper: Path):
+    """The synthetic Whisper tokenizer reaches the CLIs as the checkpoint's
+    `tokenizer.json` where `tokenizers` imports; otherwise through the
+    `load_whisper` seam. Yields the route's name."""
+    from dualhyp_tpu_torch.cli import make_json_asr
+    from dualhyp_tpu_torch.data.synthetic import whisper_tokenizer_json
+
+    if importlib.util.find_spec("tokenizers") is not None:
+        (whisper / "tokenizer.json").write_text(json.dumps(whisper_tokenizer_json(),
+                                                           ensure_ascii=False))
+        yield "tokenizer.json through tokenizers"
+        return
+    original = make_json_asr.load_whisper
+
+    def load(checkpoint_dir, need_tokenizer=False, **kw):
+        enc, dec, _ = original(checkpoint_dir, need_tokenizer=False, **kw)
+        return enc, dec, SyntheticWhisperTokenizer() if need_tokenizer else None
+
+    make_json_asr.load_whisper = load
+    try:
+        yield "load_whisper seam (no tokenizers package)"
+    finally:
+        make_json_asr.load_whisper = original
+
+
+@contextlib.contextmanager
+def counted_beams(torch, log: list, profile_first: bool = False):
+    """Wraps the beam search the CLIs call: for each call, its wall time,
+    chunks, steps and the host syncs torch reports over it (sync debug
+    "warn"), appended to `log`. profile_first: the first call is followed
+    by one more chunk (16 steps and its prefill, the same inputs) under
+    torch.profiler, its idle share appended as {"profiled_chunk": ...}. The
+    encoder's wall time is logged too ({"encode_s": ...})."""
+    from dualhyp_tpu_torch.cli import make_json_asr
+    from dualhyp_tpu_torch.infer import whisper_device_beam as wdb
+    from dualhyp_tpu_torch.models import whisper as w
+
+    beam, encode = wdb.device_beam_search_batch, w.encode
+
+    def counted(*args, **kwargs):
+        stats = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, syncs = count_syncs(torch, lambda: beam(*args, **{**kwargs, "stats": stats}))
+        torch.cuda.synchronize()
+        log.append({"utterances": int(args[2].shape[0]), "seconds": time.perf_counter() - t0,
+                    "syncs": syncs, **stats})
+        if profile_first and sum("profiled_chunk" in e for e in log) == 0:
+            from torch.profiler import ProfilerActivity, profile
+
+            one = {**kwargs, "max_new_tokens": wdb.MULTI_UTT_CHUNK}
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                beam(*args, **one)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t1) * 1e3
+            log.append({"profiled_chunk": profile_summary(prof, wall_ms, top_n=8)})
+        return out
+
+    def timed_encode(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = encode(*args, **kwargs)
+        torch.cuda.synchronize()
+        log.append({"encode_s": time.perf_counter() - t0})
+        return out
+
+    # the CLIs reach the beam through make_json_asr's name for it and
+    # (infer.transcribe, at each call) through the module's
+    make_json_asr.device_beam_search_batch = counted
+    wdb.device_beam_search_batch = counted
+    w.encode = timed_encode
+    try:
+        yield
+    finally:
+        make_json_asr.device_beam_search_batch = beam
+        wdb.device_beam_search_batch = beam
+        w.encode = encode
+
+
+def check_beams(beams: list, label: str) -> dict:
+    """Host syncs a beam: at most one a chunk (the chunk's read; the prefill
+    reads nothing back)."""
+    calls = [b for b in beams if "syncs" in b]
+    over = [b for b in calls if b["syncs"] > b["chunks"]]
+    if not calls or over:
+        raise RuntimeError(f"{label}: beams {calls}: more host syncs than chunks in {over}")
+    return {"beams": len(calls), "steps": sum(b["steps"] for b in calls),
+            "chunks": sum(b["chunks"] for b in calls),
+            "host_syncs": sum(b["syncs"] for b in calls),
+            "beam_s": sum(b["seconds"] for b in calls),
+            "encode_s": sum(b["encode_s"] for b in beams if "encode_s" in b),
+            "step_ms": 1e3 * sum(b["seconds"] for b in calls) / max(
+                1, sum(b["steps"] for b in calls))}
+
+
+def write_asr_manifest(tmp: Path, seed: int):
+    """ASR_UTTERANCES seeded WAVs of 2-12 s (noise, the random model's
+    input), their captions, and a noise WAV to mix in: (manifest, noise)."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    from dualhyp_tpu_torch.data import synthetic
+
+    rng = np.random.default_rng(seed)
+    records = synthetic.make_records(n_uids=ASR_UTTERANCES, n_hyps=1, seed=seed)
+    lines = []
+    for i, rec in enumerate(records):
+        seconds = 2.0 + 10.0 * i / (ASR_UTTERANCES - 1)
+        path = tmp / f"asr_{i:02d}.wav"
+        wavfile.write(path, 16000, (rng.standard_normal(int(seconds * 16000)) * 3000)
+                      .astype(np.int16))
+        lines.append(f"{rec['Uid']}\t{path}\t{rec['Caption']}")
+    manifest = tmp / "manifest.tsv"
+    manifest.write_text("\n".join(lines) + "\n")
+    noise = tmp / "noise.wav"
+    wavfile.write(noise, 16000, (rng.standard_normal(16000 * 6) * 3000).astype(np.int16))
+    return manifest, noise
+
+
+def whisper_asr_slice(torch, seed: int, whisper: Path) -> dict:
+    """Slice 6's main path: `cli.make_json_asr.main --config` on the random
+    Whisper-large-v3 (F16 on disk, so bf16 compute: K6 at bf16), 16 WAVs
+    of 2-12 s with noise mixed in, beam 50, n-best 5, decode batch 8, 64
+    new tokens; three runs: bf16, `quantize: int4` (K8) and int8 cross and
+    self K/V. Each must write all 16 records, 5 hypotheses each, with no
+    retry and no skip printed, and no beam may sync the host more than once
+    a chunk."""
+    import io
+
+    from dualhyp_tpu_torch.cli import make_json_asr
+    from dualhyp_tpu_torch.models import whisper as w
+
+    runs = (("bf16", {}), ("int4", {"quantize": "int4"}),
+            ("int8_kv", {"cross_kv_quant": "int8", "self_kv_quant": "int8"}))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp, whisper_tokenizer_route(whisper) as route:
+        tmp = Path(tmp)
+        manifest, noise = write_asr_manifest(tmp, seed + 53)
+        for label, extra in runs:
+            cfg = {"model_checkpoint": str(whisper), "manifest": str(manifest),
+                   "noise_wav": str(noise), "output_file": str(tmp / f"asr_{label}.json"),
+                   "beam_size": ASR_BEAM, "n_best": ASR_NBEST, "decode_batch": ASR_BATCH,
+                   "max_new_tokens": ASR_MAX_NEW, "seed": seed, "dataset_name": "synthetic",
+                   **extra}
+            (tmp / f"{label}.json").write_text(json.dumps(cfg))
+            beams, printed = [], io.StringIO()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            with counted_beams(torch, beams, profile_first=label == "bf16"), \
+                    contextlib.redirect_stdout(printed):
+                records = make_json_asr.main(["--config", str(tmp / f"{label}.json")])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_counts()
+            text = printed.getvalue()
+            beam = check_beams(beams, f"ASR {label}")
+            profiled = next((b["profiled_chunk"] for b in beams if "profiled_chunk" in b), None)
+            out[label] = {
+                "records": len(records), "wall_s": wall,
+                "ms_per_utterance": 1e3 * (beam["beam_s"] + beam["encode_s"]) / ASR_UTTERANCES,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "host_syncs_per_chunk": beam["host_syncs"] / beam["chunks"],
+                **beam, "launches": launches,
+                **({"profiled_chunk": profiled} if profiled else {}),
+                "sample": records[0]["nhyps"] if records else None}
+            emit({"phase": "whisper_asr_slice", "run": label, **out[label]})
+            if ("retrying per utterance" in text or "skip " in text
+                    or len(records) != ASR_UTTERANCES):
+                raise RuntimeError(f"ASR {label}: {len(records)} records; printed {text!r}")
+            for rec in records:
+                scores = rec["nhyps"]["scores"]
+                if len(rec["nhyps"]["hyps"]) != ASR_NBEST or not all(map(math.isfinite, scores)):
+                    raise RuntimeError(f"ASR {label}: record {rec}")
+            k6 = launches["full_attention_fwd"]
+            k8 = launches["q4_matmul"]
+            n_enc = w.WHISPER_LARGE_V3.n_layer * -(-ASR_UTTERANCES // ASR_BATCH)
+            stray = [name for name in ASR_IDLE if launches[name] != 0]
+            if k6 != n_enc or (k8 > 0) != (label == "int4") or stray:
+                raise RuntimeError(f"ASR {label}: K6 {k6} (want {n_enc}), K8 {k8}, "
+                                   f"off the path {stray}")
+        hyps = {label: [r["nhyps"]["hyps"][0] for r in json.loads(
+            (tmp / f"asr_{label}.json").read_text())] for label, _ in runs}
+    result = {"phase": "whisper_asr_slice", "model": "whisper-large-v3 (random, F16 on disk, "
+              "bf16 compute)", "tokenizer_route": route, "utterances": ASR_UTTERANCES,
+              "beam": ASR_BEAM, "n_best": ASR_NBEST, "decode_batch": ASR_BATCH,
+              "max_new_tokens": ASR_MAX_NEW,
+              "first_hyp_agreement_vs_bf16": {
+                  label: sum(a == b for a, b in zip(hyps[label], hyps["bf16"])) / ASR_UTTERANCES
+                  for label in hyps if label != "bf16"},
+              **{label: {k: v for k, v in r.items() if k not in ("sample", "launches")}
+                 for label, r in out.items()}}
+    emit(result)
+    torch.cuda.empty_cache()
+    return {**result, "launches": {label: r["launches"] for label, r in out.items()}}
+
+
+LONGFORM_SECONDS = 75
+# long-form cuts: 32 new tokens a window (from 224) and one fallback
+# temperature (1.0; the CLI's default ladder is 0.2, 0.4, ..., 1.0): a random
+# model fails the log-probability threshold in every window, and each
+# fallback samples token by token on the host stepper (~50 ms a step at
+# full width, host-bound)
+LONGFORM_MAX_NEW = 32
+
+
+def longform_slice(torch, seed: int, whisper: Path) -> dict:
+    """`cli.transcribe.main` on one seeded 75-s WAV: beam 5, --quantize int4
+    (K8 at 5-row beam steps on its decode kernel), --word_timestamps,
+    --language en, LONGFORM_MAX_NEW new tokens a window and the fallback
+    to temperature 1.0: the JSON holds beam-5 n-best streams with segments
+    and word timings."""
+    import io
+
+    import numpy as np
+    from scipy.io import wavfile
+
+    from dualhyp_tpu_torch.cli import transcribe
+
+    with tempfile.TemporaryDirectory() as tmp, whisper_tokenizer_route(whisper) as route:
+        tmp = Path(tmp)
+        rng = np.random.default_rng(seed + 59)
+        wav = tmp / "long.wav"
+        wavfile.write(wav, 16000, (rng.standard_normal(LONGFORM_SECONDS * 16000) * 3000)
+                      .astype(np.int16))
+        beams, printed = [], io.StringIO()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        with counted_beams(torch, beams), contextlib.redirect_stdout(printed):
+            transcribe.main([str(wav), "--whisper_checkpoint", str(whisper), "--output_dir",
+                             str(tmp / "out"), "--beam_size", "5", "--quantize", "int4",
+                             "--word_timestamps", "--language", "en",
+                             "--max_new_tokens", str(LONGFORM_MAX_NEW),
+                             "--temperature_increment_on_fallback", "1.0"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        data = json.loads((tmp / "out" / "long.json").read_text())
+    beam = check_beams(beams, "long-form")
+    segments = [s for hyp in data for s in hyp["segments"]]
+    words = [wd for s in segments for wd in s.get("words", [])]
+    result = {"phase": "longform_slice", "seconds_of_audio": LONGFORM_SECONDS,
+              "tokenizer_route": route, "beam": 5, "quantize": "int4",
+              "max_new_tokens": LONGFORM_MAX_NEW, "temperatures": [0.0, 1.0], "wall_s": wall,
+              "realtime_factor": LONGFORM_SECONDS / wall,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "hypotheses": len(data), "segments": len(segments), "words": len(words),
+              "segment_temperatures": sorted({s["temperature"] for s in segments}),
+              **beam, "launches": launches, "printed": printed.getvalue()[-300:]}
+    emit(result)
+    finite = all(math.isfinite(x) for s in segments for x in (s["start"], s["end"],
+                                                              s["avg_logprob"]))
+    if (len(data) != 5 or not segments or not words or not finite
+            or launches["q4_matmul"] <= 0 or launches["full_attention_fwd"] <= 0):
+        raise RuntimeError(f"long-form slice: {result}")
+    return result
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4128,6 +4644,12 @@ def main(argv=None) -> int:
     relprompt = run("relprompt_slice", relprompt_slice, whisper)
     run("depth2_relprompt_train_check", depth2_relprompt_train_check)
     relprompt_train = run("relprompt_train_slice", relprompt_train_slice, whisper)
+    whisper_kernels = run("whisper_kernel_phase", whisper_kernel_phase)
+    for name in ("q4_matmul", "full_attention_fwd"):
+        kernels[name].update(whisper_kernels[name])
+    run("depth2_whisper_decoder_check", depth2_whisper_decoder_check)
+    asr = run("whisper_asr_slice", whisper_asr_slice, whisper)
+    longform = run("longform_slice", longform_slice, whisper)
     whisper_dir.cleanup()
     kernels["flash_attention_bwd"] = {"train": run("flash_bwd_phase", flash_bwd_phase)}
     kernels["flash_attention_bwd"]["d128"] = run("flash_bwd_d128_phase", flash_bwd_phase,
@@ -4195,7 +4717,13 @@ def main(argv=None) -> int:
         "full_attention_fwd": "cli.inference_relprompt.run_relprompt -> "
                               "cli.finetune_relprompt feature loader -> models.whisper.encode "
                               "-> _mha, each of 32 layers; cli.precompute_features.main -> "
-                              "the same encode",
+                              "the same encode; cli.make_json_asr.main -> "
+                              "decode_beams_from_mels -> encode in bf16 (an F16 checkpoint); "
+                              "cli.transcribe.main -> infer.transcribe -> encode",
+        "q4_matmul": "cli.inference_ger.run_inference --quantize int4 -> GPT.prefill/"
+                     "decode_step; cli.make_json_asr.main (quantize: int4) -> "
+                     "whisper_device_beam -> models.whisper.decode_step_cached / "
+                     "precompute_cross_kv -> _dec_linear; cli.transcribe.main --quantize int4",
         "causal_attention_fwd": "no production call site (the JAX package calls "
                                 "causal_attention_fwd from its tests only): this script's "
                                 "K7 kernel phase",
@@ -4220,6 +4748,8 @@ def main(argv=None) -> int:
              "relprompt_slice": relprompt["launches"],
              "relprompt_precompute": relprompt["launches_precompute"],
              "relprompt_train_slice": relprompt_train["launches"],
+             **{f"asr_slice_{k}": r for k, r in asr["launches"].items()},
+             "longform_slice": longform["launches"],
              **{f"spec_decode_{k}": r["launches"] for k, r in spec["runs"].items()},
              **{f"serve_{k}": r["launches"] for k, r in served["runs"].items()},
              "causal_attention_fwd_phase": fwd["causal_launches"],

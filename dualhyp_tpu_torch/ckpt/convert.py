@@ -24,8 +24,9 @@ A RelPrompt tree loads into a RelPrompt `GPT` (`use_relprompt`,
 leaves into the model's two classifiers, its `wte` with the extra rows.
 
 `tree_from_model` is the inverse: the model's parameters as such a tree.
-`encoder_from_jax` takes the JAX package's Whisper encoder tree to the
-port's (`models/whisper`), which is the same tree as torch tensors.
+`encoder_from_jax` and `decoder_from_jax` take the JAX package's Whisper
+encoder and decoder trees to the port's (`models/whisper`), which are the
+same trees as torch tensors.
 """
 
 from __future__ import annotations
@@ -176,6 +177,25 @@ def encoder_from_jax(tree: dict, *, device=None, dtype=torch.float32) -> dict:
     return {key: encoder_from_jax(value, device=device, dtype=dtype)
             if isinstance(value, dict) else _tensor(value).to(device, dtype)
             for key, value in tree.items()}
+
+
+def decoder_from_jax(tree: dict, *, device=None, dtype=torch.float32) -> dict:
+    """The JAX package's Whisper decoder tree (`init_decoder`,
+    `convert_hf_whisper_decoder`, or either after `quantize_tree`; numpy or
+    JAX arrays, or tensors) as the port's decoder parameters on `device`
+    (the card when None): float leaves in `dtype`, the quantized leaves
+    (int8 codes or packed int4 bytes, fp32 scales) as they are, and the
+    LayerNorm leaves (`*ln`) in fp32, the dtype LayerNorm computes in."""
+    device = resolve_device(device)
+    keep = {quant.Q_KEY, quant.SCALE_KEY, quant.Q4_KEY, quant.SCALE4_KEY}
+
+    def walk(node, name=""):
+        return {key: walk(value, key) if isinstance(value, dict)
+                else _tensor(value).to(device) if key in keep
+                else _tensor(value).to(device, torch.float32 if name.endswith("ln") else dtype)
+                for key, value in node.items()}
+
+    return walk(tree)
 
 
 @torch.no_grad()

@@ -16,6 +16,8 @@ import json
 import random
 from typing import List
 
+from dualhyp_tpu_torch.data.tokenizer import WHISPER_LANGUAGES
+
 _WORDS = (
     "the quick brown fox jumps over a lazy dog while many people watch "
     "from their windows and talk about weather news sports music and art "
@@ -116,3 +118,47 @@ def write_json(path, records) -> None:
 
 def word_vocabulary() -> List[str]:
     return sorted(set(_WORDS))
+
+
+# the symbols Whisper's non-speech suppression looks up (`infer.beam_search.
+# non_speech_token_ids`), each a token of the synthetic Whisper vocabulary
+_NON_SPEECH = (list('"#()*+/:;<=>@[\\]^_`{|}~「」『』-\'♩♪♫♬♭♮♯')
+               + "<< >> <<< >>> -- --- -( -[ (' (\" (( )) ((( ))) [[ ]] {{ }} ♪♪ ♪♪♪".split())
+
+
+def whisper_vocabulary(n_text: int = 50257, n_timestamps: int = 1501) -> dict:
+    """{token: id} of a synthetic Whisper-shaped vocabulary: `n_text` text
+    tokens (the non-speech symbols, "<unk>", then words "w<id>"), then
+    large-v3's specials in its order (`<|endoftext|>` = n_text,
+    `<|startoftranscript|>`, 100 languages, `<|translate|>`,
+    `<|transcribe|>`, `<|startoflm|>`, `<|startofprev|>`, `<|nospeech|>`,
+    `<|notimestamps|>`), then the timestamps `<|0.00|>`... 0.02 s apart. At
+    the defaults: 51866 tokens, `<|endoftext|>` 50257, `<|0.00|>` 50365."""
+    text = list(_NON_SPEECH) + ["<unk>"]
+    text += [f"w{i}" for i in range(len(text), n_text)]
+    specials = (["<|endoftext|>", "<|startoftranscript|>"]
+                + [f"<|{code}|>" for code in WHISPER_LANGUAGES]
+                + ["<|translate|>", "<|transcribe|>", "<|startoflm|>", "<|startofprev|>",
+                   "<|nospeech|>", "<|notimestamps|>"]
+                + [f"<|{i * 0.02:.2f}|>" for i in range(n_timestamps)])
+    return {tok: i for i, tok in enumerate(text[:n_text] + specials)}
+
+
+def whisper_tokenizer_json(n_text: int = 50257, n_timestamps: int = 1501) -> dict:
+    """The `tokenizer.json` of `whisper_vocabulary`: a word-level model
+    split on whitespace and punctuation, every non-text token special (so
+    `decode(..., skip_special_tokens=True)` drops it)."""
+    vocab = whisper_vocabulary(n_text, n_timestamps)
+    return {
+        "version": "1.0",
+        "truncation": None,
+        "padding": None,
+        "added_tokens": [{"id": i, "content": tok, "single_word": False, "lstrip": False,
+                          "rstrip": False, "normalized": False, "special": True}
+                         for tok, i in vocab.items() if i >= n_text],
+        "normalizer": None,
+        "pre_tokenizer": {"type": "Whitespace"},
+        "post_processor": None,
+        "decoder": None,
+        "model": {"type": "WordLevel", "vocab": vocab, "unk_token": "<unk>"},
+    }

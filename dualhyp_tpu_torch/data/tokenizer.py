@@ -120,3 +120,41 @@ def _token_str(value):
     if isinstance(value, dict):
         return value.get("content")
     return value
+
+
+# the Whisper language codes, in the order of their tokens (the public
+# model vocabulary, ref: data/whisper/tokenizer.py LANGUAGES)
+WHISPER_LANGUAGES = (
+    "en zh de es ru ko fr ja pt tr pl ca nl ar sv it id hi fi vi he uk el "
+    "ms cs ro da hu ta no th ur hr bg lt la mi ml cy sk te fa lv bn sr az "
+    "sl kn et mk br eu is hy ne mn bs kk sq sw gl mr pa si km sn yo so af "
+    "oc ka be tg sd gu am yi lo uz fo ht ps tk nn mt sa lb my bo tl mg as "
+    "tt haw ln ha ba jw su yue"
+).split()
+
+
+class WhisperTokenizer:
+    """A Whisper checkpoint's `tokenizer.json` through the `tokenizers`
+    backend: what the ASR n-best path and long-form transcription call of
+    `transformers.WhisperTokenizer` (`convert_tokens_to_ids`,
+    `encode(text, add_special_tokens=False)`, `decode(ids,
+    skip_special_tokens=...)`), without `transformers`. A token that is not
+    in the vocabulary converts to None."""
+
+    def __init__(self, checkpoint_dir) -> None:
+        path = Path(checkpoint_dir) / "tokenizer.json"
+        if not path.is_file():
+            raise FileNotFoundError(f"no tokenizer.json under {checkpoint_dir}")
+        from tokenizers import Tokenizer as HFTokenizer
+
+        self.processor = HFTokenizer.from_file(str(path))
+
+    def convert_tokens_to_ids(self, token: str) -> Optional[int]:
+        return self.processor.token_to_id(token)
+
+    def encode(self, text: str, add_special_tokens: bool = False) -> List[int]:
+        return self.processor.encode(text, add_special_tokens=add_special_tokens).ids
+
+    def decode(self, ids, skip_special_tokens: bool = False) -> str:
+        return self.processor.decode([int(i) for i in ids],
+                                     skip_special_tokens=skip_special_tokens)

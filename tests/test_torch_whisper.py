@@ -303,6 +303,12 @@ def test_load_whisper_matches_the_jax_conversion(tmp_path, rng, dtype):
 
 
 def test_load_whisper_refuses_the_decoder_and_tokenizer(tmp_path):
-    for kw in ({"need_tokenizer": True}, {"need_decoder": True}):
-        with pytest.raises(NotImplementedError, match="slice 6"):
-            load_whisper(tmp_path, device="cpu", **kw)
+    """An encoder-only checkpoint has no decoder tensors and no
+    tokenizer.json: asked for either, `load_whisper` raises (the decoder
+    and the tokenizer are read since slice 6, tests/test_torch_asr_cli.py)."""
+    cfg, params = _jax_encoder(seed=1)
+    write_whisper_checkpoint(tmp_path, params, cfg)
+    with pytest.raises(FileNotFoundError, match="tokenizer.json"):
+        load_whisper(tmp_path, device="cpu", need_tokenizer=True)
+    with pytest.raises(KeyError):
+        load_whisper(tmp_path, device="cpu", need_decoder=True)

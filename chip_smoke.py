@@ -109,7 +109,8 @@ prints one JSON line; a failed phase raises and the script exits non-zero.
  18. the Mixtral slice: 16 of 32 layers of Mixtral-8x7B-Instruct at full
      width (47 GB of bf16 weights), LoRA r=16 on q/k/v/proj, random weights
      from --seed, serving the decode slice's 16 requests with moe_impl
-     "megablox" (L2, the main path; then under torch.profiler, with L2's
+     "megablox" (L2, the main path; then one decode batch under
+     torch.profiler, with L2's
      decode and prefill kernels' device ms and launches) and "dense": p50,
      tokens/s, peak memory, launches, greedy agreement;
  19. L2's gradients at Mixtral's training rows (8 x 1024 tokens x top 2 =
@@ -200,7 +201,30 @@ prints one JSON line; a failed phase raises and the script exits non-zero.
      profiled chunk's idle share; the long-form slice: `cli.transcribe.main`
      on a 75-s WAV, beam 5, --quantize int4, --word_timestamps, 32 new
      tokens a window and the fallback to temperature 1.0;
- 30. the seconds of each phase, the `{"kernels": [...]}` line (all fifteen
+ 30. slice 7 and `native`: first of all (after the build), `native`
+     (hostops.cc) built by g++, its seconds, and its edit distance, DTW and
+     median filter equal to the numpy versions at the long-form slice's
+     sizes (the long-form slice then counts its calls of `native.dtw` and
+     `native.median_filter`: both > 0); after the long-form slice, a
+     depth-2 BRAVEn-large (1024, 16 heads, 4096, the full Conv3D + ResNet-18
+     frontend) and a 2-block 1024/16/4096 decoder, card (fp32, TF32 off)
+     against CPU: memory and CTC log-probs, the cached step against the full
+     forward and the CPU, the psi scores of one beam step (bf16 reported);
+     the VSR slice: `cli.make_json_vsr.main --config` on 16 seeded uint8
+     96 x 96 mouth ROIs of 3-5 s, random BRAVEn-large + a 1024/16/4096 x 6
+     decoder in bf16 (one npz), 1049 tokens, occ_type pixelate, beam 40,
+     ctc_weight 0.1, decode batch 16, max_len 40, n-best 5; the AVSR slice:
+     `cli.make_json_avsr.main` on 16 (WAV, ROI) pairs of the same lengths,
+     random auto_avsr at its public sizes (768/12/3072 x 12 a stream,
+     fusion 8192, a 768/12/3072 x 6 decoder, 5049 tokens, bf16), the same
+     beam: each 16 records of 5 finite hypotheses, no retry or skip printed,
+     one host read a beam chunk and no sync torch reports, no kernel
+     launched; ms an utterance, encode ms (CUDA events), step ms, peak
+     memory, a profiled chunk's idle share and launches a step; then
+     `cli.precompute_features.main --raven_checkpoint` on 4 RelPrompt
+     records with ROIs: visual features (frames, 1024), nonzero, and K6 32
+     times an utterance;
+ 31. the seconds of each phase, the `{"kernels": [...]}` line (all fifteen
      kernels, launches by path, K4's, K5's and K8's verify rows), the
      card's name and power limit, and the last line
      `{"ok": true, "device": {...}}`.
@@ -995,8 +1019,10 @@ def token_agreement(records, reference) -> dict:
 def serve_requests(torch, model, seed: int, serve: dict, profile_label=None) -> tuple:
     """The decode slice's traffic: 16 synthetic DualHyp requests through
     `cli.inference_ger.run_inference` with the launch counts reset before
-    and read after; with `profile_label`, the same traffic again under
-    torch.profiler. Returns (records, metrics, wall_s, launches, [shortest,
+    and read after; with `profile_label`, one decode batch of that traffic
+    again under torch.profiler (the longer of its two batches: profiling
+    all 16 requests took 103-119 s a slice, most of it in the trace's
+    post-processing). Returns (records, metrics, wall_s, launches, [shortest,
     longest prompt], the rows of each prefill: `run_inference`'s batches of
     the sorted prompts, each padded to its longest prompt's bucket)."""
     from dualhyp_tpu_torch.cli.inference_ger import run_inference
@@ -1033,13 +1059,16 @@ def serve_requests(torch, model, seed: int, serve: dict, profile_label=None) -> 
         launches = read_counts()
 
         if profile_label:
-            # the same traffic again under torch.profiler: where the device
-            # time goes, and how much of the wall the device is idle
+            # one batch of the traffic again under torch.profiler: where the
+            # device time goes, and how much of the wall the device is idle
             from torch.profiler import ProfilerActivity, profile
 
+            fresh = dataset()  # the served draws
+            examples = [fresh[i] for i in range(len(fresh))]
+            one_batch = sorted(examples, key=lambda e: len(e.input_ids_no_response))[-batch:]
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t1 = time.perf_counter()
-                run_inference(model, tok, dataset(), **serve)
+                run_inference(model, tok, one_batch, **serve)
                 torch.cuda.synchronize()
                 prof_wall_ms = (time.perf_counter() - t1) * 1e3
             summary = profile_summary(prof, prof_wall_ms)
@@ -1050,7 +1079,8 @@ def serve_requests(torch, model, seed: int, serve: dict, profile_label=None) -> 
                                            if any(p in name for p in parts))}
                      for key, parts in SLICE_KERNELS.items()}
             emit({"phase": "slice_profile", "variant": profile_label,
-                  "profile_s": time.perf_counter() - t1, "paths": paths, **summary})
+                  "profiled_requests": len(one_batch), "profile_s": time.perf_counter() - t1,
+                  "paths": paths, **summary})
     return (out_records, metrics, wall, launches, [prompt_lengths[0], prompt_lengths[-1]],
             prefill_rows)
 
@@ -4546,7 +4576,9 @@ def longform_slice(torch, seed: int, whisper: Path) -> dict:
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         t0 = time.perf_counter()
-        with counted_beams(torch, beams), contextlib.redirect_stdout(printed):
+        native_calls = {}
+        with counted_beams(torch, beams), counted_native(native_calls), \
+                contextlib.redirect_stdout(printed):
             transcribe.main([str(wav), "--whisper_checkpoint", str(whisper), "--output_dir",
                              str(tmp / "out"), "--beam_size", "5", "--quantize", "int4",
                              "--word_timestamps", "--language", "en",
@@ -4566,13 +4598,572 @@ def longform_slice(torch, seed: int, whisper: Path) -> dict:
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
               "hypotheses": len(data), "segments": len(segments), "words": len(words),
               "segment_temperatures": sorted({s["temperature"] for s in segments}),
+              "native_calls": native_calls,
               **beam, "launches": launches, "printed": printed.getvalue()[-300:]}
     emit(result)
     finite = all(math.isfinite(x) for s in segments for x in (s["start"], s["end"],
                                                               s["avg_logprob"]))
     if (len(data) != 5 or not segments or not words or not finite
-            or launches["q4_matmul"] <= 0 or launches["full_attention_fwd"] <= 0):
+            or launches["q4_matmul"] <= 0 or launches["full_attention_fwd"] <= 0
+            or not native_calls.get("dtw") or not native_calls.get("median_filter")):
         raise RuntimeError(f"long-form slice: {result}")
+    return result
+
+
+# ---------------------------------------------------------------------------
+# slice 7: the native host ops, and offline VSR / AVSR n-best generation
+# ---------------------------------------------------------------------------
+
+# the long-form slice's host alignment: text tokens x the frames of a 30-s
+# window (DTW), and the alignment heads' rows filtered over those frames
+NATIVE_DTW_SHAPE = (40, 1500)
+NATIVE_MEDIAN_ROWS = 160
+NATIVE_WER_PAIRS = 2000
+
+
+@contextlib.contextmanager
+def counted_native(calls: dict):
+    """Counts the calls of `native.dtw` and `native.median_filter` (the long-
+    form slice's word timing reaches them through the module)."""
+    from dualhyp_tpu_torch import native
+
+    originals = {name: getattr(native, name) for name in ("dtw", "median_filter")}
+
+    def counter(name):
+        def call(*args, **kwargs):
+            calls[name] = calls.get(name, 0) + 1
+            return originals[name](*args, **kwargs)
+        return call
+
+    for name in originals:
+        setattr(native, name, counter(name))
+    try:
+        yield
+    finally:
+        for name, fn in originals.items():
+            setattr(native, name, fn)
+
+
+def host_ms(fn, reps: int = 5) -> float:
+    """Median host wall ms of fn() (host code: no card work to wait for)."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def native_phase(torch, seed: int) -> dict:
+    """`native` (hostops.cc) built by g++ into the checkout's build directory,
+    then edit_distance_batch, dtw and median_filter against the plain numpy
+    versions the port keeps, on seeded inputs at the long-form slice's sizes:
+    equal, and their host ms beside each other's."""
+    import numpy as np
+
+    from dualhyp_tpu_torch import native
+    from dualhyp_tpu_torch.infer import evaluate
+    from dualhyp_tpu_torch.infer import whisper_timing as wt
+
+    t0 = time.perf_counter()
+    lib = native.build()
+    native.library()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 71)
+    cost = rng.standard_normal(NATIVE_DTW_SHAPE).astype(np.float32)
+    got, want = native.dtw(cost), wt.dtw(cost)
+    rows = rng.standard_normal((NATIVE_MEDIAN_ROWS, NATIVE_DTW_SHAPE[1])).astype(np.float32)
+    med = np.stack([native.median_filter(r, 7) for r in rows])
+    words = [f"w{i}" for i in range(50)]
+    refs = [list(rng.choice(words, rng.integers(5, 30))) for _ in range(NATIVE_WER_PAIRS)]
+    hyps = [list(rng.choice(words, rng.integers(5, 30))) for _ in range(NATIVE_WER_PAIRS)]
+    dists = native.edit_distance_batch(refs, hyps)
+    plain = [evaluate.edit_distance(r, h) for r, h in zip(refs, hyps)]
+    result = {
+        "phase": "native", "library": str(lib.relative_to(REPO)), "build_s": build_s,
+        "dtw": {"shape": list(NATIVE_DTW_SHAPE), "path_len": len(got[0]),
+                "equal": all(np.array_equal(a, b) for a, b in zip(got, want)),
+                "native_host_ms": host_ms(lambda: native.dtw(cost)),
+                "plain_host_ms": host_ms(lambda: wt.dtw(cost), reps=3)},
+        "median_filter": {"rows": NATIVE_MEDIAN_ROWS, "width": 7,
+                          "equal": bool(np.array_equal(med, wt.median_filter(rows, 7))),
+                          "native_host_ms": host_ms(
+                              lambda: [native.median_filter(r, 7) for r in rows]),
+                          "plain_host_ms": host_ms(lambda: wt.median_filter(rows, 7))},
+        "edit_distance": {"pairs": NATIVE_WER_PAIRS,
+                          "equal": bool(np.array_equal(dists, plain)),
+                          "native_host_ms": host_ms(lambda: native.edit_distance_batch(refs, hyps)),
+                          "plain_host_ms": host_ms(lambda: [evaluate.edit_distance(r, h)
+                                                            for r, h in zip(refs, hyps)], reps=3)}}
+    emit(result)
+    if not all(result[k]["equal"] for k in ("dtw", "median_filter", "edit_distance")):
+        raise RuntimeError(f"native against the numpy versions: {result}")
+    return result
+
+
+# BRAVEn-large (the JAX package's default VSR encoder) and its ESPnet decoder
+VSR_VOCAB = 1049            # <blank> + 1047 unigram pieces + <sos/eos>
+VSR_DECODER = dict(attention_dim=1024, attention_heads=16, linear_units=4096, num_blocks=6)
+# auto_avsr at its public audiovisual sizes (scripts/bench_make_json_avsr.py)
+AVSR_VOCAB = 5049           # <blank> + 5047 unigram pieces + <sos/eos>
+AVSR_FUSION_HIDDEN = 8192
+AVSR_DECODER = dict(attention_dim=768, attention_heads=12, linear_units=3072, num_blocks=6)
+VSR_UTTERANCES = 16
+VSR_BEAM = 40
+VSR_BATCH = 16
+VSR_MAX_LEN = 40            # tokens a hypothesis (the CLI's default is 100)
+VSR_NBEST = 5
+VSR_CTC_WEIGHT = 0.1
+# card (fp32, TF32 off) against CPU (fp32) at depth 2: a share of the
+# largest value, as the Whisper encoder's check holds its features
+VSR_REL_TOL = 1e-4
+
+
+def depth2_vsr_check(torch, seed: int) -> dict:
+    """BRAVEn-large at depth 2 (1024 wide, 16 heads, 4096 units, the full
+    Conv3D + ResNet-18 frontend) and a 2-block 1024/16/4096 decoder, from
+    seeded fp32 weights, card (fp32 under exact_fp32) against CPU (fp32):
+    the encoder's memory and CTC log-probs, the cached decoder step against
+    the full forward and the CPU's step, and the psi scores of one beam
+    step, each within VSR_REL_TOL of its largest value; the same trees in
+    bf16 on the card against the CPU, reported."""
+    import dataclasses
+
+    import numpy as np
+
+    from dualhyp_tpu_torch.ckpt.convert import raven_from_jax
+    from dualhyp_tpu_torch.cli.make_json_vsr import encode_ctc_batch
+    from dualhyp_tpu_torch.device import exact_fp32
+    from dualhyp_tpu_torch.infer import joint_device_beam as jdb
+    from dualhyp_tpu_torch.models import espnet_decoder as ed
+    from dualhyp_tpu_torch.models import raven
+
+    cfg = dataclasses.replace(raven.BRAVEN_LARGE, num_blocks=2)
+    dcfg = ed.EspnetDecoderConfig(odim=VSR_VOCAB, **{**VSR_DECODER, "num_blocks": 2})
+    gen = torch.Generator().manual_seed(seed + 73)
+    cpu = {"frontend": raven.init_conv3d_frontend(gen), "encoder": raven.init_encoder(cfg, gen),
+           "decoder": ed.init_decoder(dcfg, gen), "ctc": ed.init_ctc(VSR_VOCAB, 1024, gen)}
+    rng = np.random.default_rng(seed + 79)
+    videos = [rng.standard_normal((t, 88, 88)).astype(np.float32) for t in (48, 37)]
+    out, checks = {}, []
+
+    def rel(got, want):
+        got, want = got.float().cpu(), want.float().cpu()
+        return float((got - want).abs().max() / want.abs().max())
+
+    want_m, want_c = encode_ctc_batch(cpu["frontend"], cpu["encoder"], cpu["ctc"], cfg, videos,
+                                      as_device=True)
+    for dtype in (torch.float32, torch.bfloat16):
+        card = raven_from_jax(cpu, device="cuda", dtype=dtype)
+        got_m, got_c = encode_ctc_batch(card["frontend"], card["encoder"], card["ctc"], cfg,
+                                        videos, as_device=True)
+        errs = {"memory_rel_err": max(rel(got_m[0][i, :t], want_m[0][i, :t])
+                                      for i, t in enumerate(want_m[1])),
+                "ctc_log_probs_rel_err": max(rel(got_c[0][i, :t], want_c[0][i, :t])
+                                             for i, t in enumerate(want_c[1]))}
+        out[str(dtype).split(".")[-1]] = errs
+        if dtype == torch.float32:
+            checks += list(errs.items())
+    del card
+
+    # the cached decoder step: 2 utterances x 4 rows, 6 positions
+    card = raven_from_jax(cpu, device="cuda")
+    rows = torch.from_numpy(rng.integers(1, VSR_VOCAB - 1, size=(8, 6)))
+    dec_err = full_err = 0.0
+    with torch.no_grad(), exact_fp32():
+        for side, tree, dev in (("cpu", cpu, "cpu"), ("cuda", card, "cuda")):
+            memory = want_m[0].to(dev)
+            mlen = torch.from_numpy(want_m[1].astype(np.int64)).to(dev)
+            kv = ed.precompute_cross_kv(tree["decoder"], dcfg, memory)
+            cache = ed.init_self_cache(dcfg, 8, 6, device=dev)
+            table = ed.position_table(dcfg, 6, dev)
+            steps = torch.stack([ed.decode_step_cached(
+                tree["decoder"], dcfg, rows[:, p].to(dev), p, cache, kv, mlen, table,
+                n_per_group=4)[0] for p in range(6)], dim=1)
+            if side == "cpu":
+                cpu_steps = steps
+            else:
+                full = ed.decode_logits(tree["decoder"], dcfg, rows.to(dev),
+                                        memory.repeat_interleave(4, dim=0),
+                                        memory_length=mlen.repeat_interleave(4))
+                full_err, dec_err = rel(steps, full), rel(steps, cpu_steps)
+    checks += [("cached_step_vs_full_forward_rel_err", full_err),
+               ("cached_step_card_vs_cpu_rel_err", dec_err)]
+
+    # the psi scores of one beam step, beam 40 x 2 utterances, 60 candidates
+    ctc_x = want_c[0]
+    valid = torch.from_numpy(np.repeat(want_c[1], VSR_BEAM).astype(np.int64))
+    r_prev = torch.from_numpy(rng.normal(-5, 2, (2 * VSR_BEAM, ctc_x.shape[1], 2))
+                              .astype(np.float32))
+    last = torch.from_numpy(rng.integers(1, VSR_VOCAB - 1, 2 * VSR_BEAM))
+    cand = torch.from_numpy(rng.integers(0, VSR_VOCAB, (2 * VSR_BEAM, 60)))
+    cand[:, 0] = last
+    psi = {}
+    with torch.no_grad(), exact_fp32():
+        for dev in ("cpu", "cuda"):
+            psi[dev] = jdb.ctc_psi_scores(ctc_x.to(dev), valid.to(dev), r_prev.to(dev),
+                                          last.to(dev), cand.to(dev), 3, 0, VSR_VOCAB - 1,
+                                          VSR_BEAM)
+    rankable = psi["cpu"] > -1e9  # LOG_ZERO marks blank and flushed candidates on both
+    checks.append(("psi_rel_err", rel(psi["cuda"][rankable], psi["cpu"][rankable])))
+    checks.append(("psi_log_zero_mismatch", float(not torch.equal(
+        psi["cuda"].cpu() <= -1e9, ~rankable))))
+    out.update({"float32": {**out["float32"], **dict(checks[2:])}})
+    result = {"phase": "depth2_vsr_card_vs_cpu", "encoder": "BRAVEn-large width, 2 blocks",
+              "decoder": {**VSR_DECODER, "num_blocks": 2}, "vocab": VSR_VOCAB,
+              "frames": [48, 37], "rel_tolerance": VSR_REL_TOL, **out}
+    emit(result)
+    bad = [(k, v) for k, v in checks if not v <= VSR_REL_TOL]
+    if bad:
+        raise RuntimeError(f"depth-2 VSR card vs CPU beyond {VSR_REL_TOL}: {bad}")
+    del card, cpu
+    torch.cuda.empty_cache()
+    return result
+
+
+def write_token_list(path: Path, vocab: int) -> None:
+    """<blank>, vocab - 2 SentencePiece-like pieces, <sos/eos>."""
+    pieces = [f"▁w{i}" if i % 3 == 0 else f"p{i}" for i in range(vocab - 2)]
+    path.write_text("\n".join(f"{p} {i}" for i, p in enumerate(
+        ["<blank>", *pieces, "<sos/eos>"])) + "\n", encoding="utf-8")
+
+
+def write_vsr_checkpoint(torch, path: Path, seed: int) -> dict:
+    """Random BRAVEn-large with its Conv3D frontend, a 1024/16/4096 x 6
+    decoder and the CTC head, drawn on the card from `seed`, written in bf16
+    as one npz (the JAX package's layout)."""
+    from dualhyp_tpu_torch.ckpt.convert import _leaves
+    from dualhyp_tpu_torch.ckpt.io import save_params
+    from dualhyp_tpu_torch.models import espnet_decoder as ed
+    from dualhyp_tpu_torch.models import raven
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    kw = dict(device="cuda", dtype=torch.bfloat16)
+    dcfg = ed.EspnetDecoderConfig(odim=VSR_VOCAB, **VSR_DECODER)
+    tree = {"frontend": raven.init_conv3d_frontend(gen, **kw),
+            "encoder": raven.init_encoder(raven.BRAVEN_LARGE, gen, **kw),
+            "decoder": ed.init_decoder(dcfg, gen, **kw),
+            "ctc": ed.init_ctc(VSR_VOCAB, raven.BRAVEN_LARGE.attention_dim, gen, **kw)}
+    save_params(path, tree)
+    n = sum(t.numel() for _, t in _leaves(tree))
+    del tree
+    torch.cuda.empty_cache()
+    return {"parameters": n, "bytes": path.stat().st_size}
+
+
+def write_avsr_checkpoint(torch, path: Path, seed: int) -> dict:
+    """Random auto_avsr at its public audiovisual sizes: the Conv3D and
+    Conv1D frontends, two 768/12/3072 x 12 conformers (macaron, conv kernel
+    31, bare Linear embeddings), the BatchNorm fusion MLP (1536 -> 8192 ->
+    768), a 768/12/3072 x 6 decoder and the CTC head over 5049 tokens, in
+    bf16 as one npz."""
+    from dualhyp_tpu_torch.ckpt.convert import _leaves
+    from dualhyp_tpu_torch.ckpt.io import save_params
+    from dualhyp_tpu_torch.models import avsr
+    from dualhyp_tpu_torch.models import espnet_decoder as ed
+    from dualhyp_tpu_torch.models import raven
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    kw = dict(device="cuda", dtype=torch.bfloat16)
+    enc = raven.AUTO_AVSR_CONFORMER
+    d = enc.attention_dim
+    tree = {"video_frontend": raven.init_conv3d_frontend(gen, **kw),
+            "audio_frontend": avsr.init_conv1d_frontend(gen, **kw),
+            "video_encoder": raven.init_encoder(enc, gen, embed_norm=False, **kw),
+            "audio_encoder": raven.init_encoder(enc, gen, embed_norm=False, **kw),
+            "fusion": avsr.init_mlp_head(2 * d, AVSR_FUSION_HIDDEN, d, gen, **kw),
+            "decoder": ed.init_decoder(ed.EspnetDecoderConfig(odim=AVSR_VOCAB, **AVSR_DECODER),
+                                       gen, **kw),
+            "ctc": ed.init_ctc(AVSR_VOCAB, d, gen, **kw)}
+    save_params(path, tree)
+    n = sum(t.numel() for _, t in _leaves(tree))
+    del tree
+    torch.cuda.empty_cache()
+    return {"parameters": n, "bytes": path.stat().st_size}
+
+
+def vsr_lengths():
+    """VSR_UTTERANCES frame counts over 3-5 s at 25 fps."""
+    return [75 + 50 * i // (VSR_UTTERANCES - 1) for i in range(VSR_UTTERANCES)]
+
+
+def write_rois(tmp: Path, seed: int, lengths) -> list:
+    """Seeded uint8 96 x 96 mouth ROIs as .npy files (the card's machine has
+    no h5py)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    paths = []
+    for i, t in enumerate(lengths):
+        path = tmp / f"roi_{i:02d}.npy"
+        np.save(path, rng.integers(0, 256, size=(t, 96, 96), dtype=np.uint8))
+        paths.append(path)
+    return paths
+
+
+@contextlib.contextmanager
+def counted_joint_beams(torch, log: list, profile_first: bool = False):
+    """Wraps the joint beam and the encoders the VSR/AVSR CLIs call: for each
+    beam, its wall time, stats (chunks, steps, host reads) and the host syncs
+    torch reports over it (sync debug "warn"); for each encode its ms by CUDA
+    events, and the seconds the npz takes to read. profile_first: the first
+    beam is followed by one chunk (16 steps, the same inputs) under
+    torch.profiler: its idle share and device kernel launches a step."""
+    from dualhyp_tpu_torch.cli import make_json_avsr, make_json_vsr
+    from dualhyp_tpu_torch.infer import joint_device_beam as jdb
+
+    beam = jdb.joint_device_beam_batch
+    encoders = {make_json_vsr: ("encode_ctc_batch", make_json_vsr.encode_ctc_batch),
+                make_json_avsr: ("encode_ctc_batch_av", make_json_avsr.encode_ctc_batch_av)}
+
+    def counted(*args, **kwargs):
+        stats = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, syncs = count_syncs(torch, lambda: beam(*args, **{**kwargs, "stats": stats}))
+        torch.cuda.synchronize()
+        log.append({"utterances": len(out), "seconds": time.perf_counter() - t0,
+                    "torch_syncs": syncs, **stats})
+        if profile_first and sum("profiled_chunk" in e for e in log) == 0:
+            from torch.profiler import ProfilerActivity, profile
+
+            one = {**kwargs, "max_len": 16}
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                beam(*args, **one)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t1) * 1e3
+            summary = profile_summary(prof, wall_ms, top_n=8)
+            launches = sum(n for _, n in device_kernel_times(prof).values())
+            log.append({"profiled_chunk": {**summary, "steps": 16,
+                                           "launches_per_step": launches / 16}})
+        return out
+
+    def timed(fn):
+        def call(*args, **kwargs):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            end.synchronize()
+            log.append({"encode_ms": start.elapsed_time(end)})
+            return out
+        return call
+
+    def loaded(fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            log.append({"load_s": time.perf_counter() - t0})
+            return out
+        return call
+
+    loaders = {module: module.load_params for module in (make_json_vsr, make_json_avsr)}
+    for module in (make_json_vsr, make_json_avsr, jdb):
+        module.joint_device_beam_batch = counted
+    for module, (name, fn) in encoders.items():
+        setattr(module, name, timed(fn))
+    for module, fn in loaders.items():
+        module.load_params = loaded(fn)
+    try:
+        yield
+    finally:
+        for module in (make_json_vsr, make_json_avsr, jdb):
+            module.joint_device_beam_batch = beam
+        for module, (name, fn) in encoders.items():
+            setattr(module, name, fn)
+        for module, fn in loaders.items():
+            module.load_params = fn
+
+
+def check_joint_beams(log: list, label: str) -> dict:
+    """One host sync a beam chunk: the chunk's read (an event wait, which
+    torch's sync debug mode does not see) and no sync torch reports."""
+    calls = [b for b in log if "torch_syncs" in b]
+    bad = [b for b in calls if b["torch_syncs"] or b["host_reads"] != b["chunks"]]
+    if not calls or bad:
+        raise RuntimeError(f"{label}: beams {calls}: host syncs beyond one read a chunk in {bad}")
+    chunks = sum(b["chunks"] for b in calls)
+    steps = sum(b["steps"] for b in calls)
+    beam_s = sum(b["seconds"] for b in calls)
+    return {"beams": len(calls), "steps": steps, "chunks": chunks,
+            "host_syncs_per_chunk": sum(b["torch_syncs"] + b["host_reads"] for b in calls) / chunks,
+            "torch_reported_syncs": sum(b["torch_syncs"] for b in calls),
+            "beam_s": beam_s, "step_ms": 1e3 * beam_s / steps,
+            "encode_ms": sum(b["encode_ms"] for b in log if "encode_ms" in b),
+            "checkpoint_read_s": sum(b["load_s"] for b in log if "load_s" in b)}
+
+
+def run_generator(torch, label: str, module, config: Path, reference_launches=None) -> dict:
+    """`module.main --config` (make_json_vsr or make_json_avsr) with the beams
+    and encodes counted, launches read around it; fails on a retry, a skip,
+    a missing record or a record without VSR_NBEST finite hypotheses."""
+    import io
+
+    log, printed = [], io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with counted_joint_beams(torch, log, profile_first=True), contextlib.redirect_stdout(printed):
+        records = module.main(["--config", str(config)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    text = printed.getvalue()
+    beam = check_joint_beams(log, label)
+    profiled = next((b["profiled_chunk"] for b in log if "profiled_chunk" in b), None)
+    result = {"phase": label, "records": len(records), "wall_s": wall,
+              "ms_per_utterance": (1e3 * beam["beam_s"] + beam["encode_ms"]) / VSR_UTTERANCES,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, **beam,
+              "profiled_chunk": profiled, "launches": launches,
+              "retries_or_skips": text.count("falling back") + text.count("skip "),
+              "sample": records[0]["nhyps"] if records else None}
+    emit(result)
+    if result["retries_or_skips"] or len(records) != VSR_UTTERANCES:
+        raise RuntimeError(f"{label}: {len(records)} records; printed {text!r}")
+    for rec in records:
+        scores = rec["nhyps"]["scores"]
+        if len(rec["nhyps"]["hyps"]) != VSR_NBEST or not all(map(math.isfinite, scores)):
+            raise RuntimeError(f"{label}: record {rec}")
+    stray = [name for name, n in launches.items() if n]
+    if stray:  # no TPU kernel lies on the VSR/AVSR paths
+        raise RuntimeError(f"{label}: kernels launched off their paths: {stray}")
+    return result
+
+
+def generator_config(tmp: Path, checkpoint: Path, manifest: Path, vocab: int, seed: int,
+                     **model) -> Path:
+    tokens = tmp / f"tokens_{vocab}.txt"
+    write_token_list(tokens, vocab)
+    cfg = {"token_list": str(tokens), "model_checkpoint": str(checkpoint),
+           "manifest": str(manifest), "output_file": str(tmp / f"{checkpoint.stem}.json"),
+           "beam_size": VSR_BEAM, "ctc_weight": VSR_CTC_WEIGHT, "decode_batch": VSR_BATCH,
+           "max_len": VSR_MAX_LEN, "n_best": VSR_NBEST, "occ_type": "pixelate", "seed": seed,
+           "dataset_name": "synthetic", **model}
+    path = tmp / f"{checkpoint.stem}_config.json"
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+def vsr_slice(torch, seed: int, braven: Path) -> dict:
+    """Slice 7's main path: `cli.make_json_vsr.main --config` on 16 seeded
+    mouth ROIs (uint8 96 x 96, 3-5 s at 25 fps, occ_type pixelate), random
+    BRAVEn-large + frontend, a 1024/16/4096 x 6 decoder and the CTC head in
+    bf16 (one npz, written to `braven`, which the visual-feature phase reads
+    too), a 1049-entry token list; beam 40, ctc_weight 0.1, decode batch 16,
+    max_len 40, n-best 5."""
+    from dualhyp_tpu_torch.cli import make_json_vsr
+    from dualhyp_tpu_torch.data import synthetic
+
+    t0 = time.perf_counter()
+    written = write_vsr_checkpoint(torch, braven, seed + 83)
+    write_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        records = synthetic.make_records(n_uids=VSR_UTTERANCES, n_hyps=1, seed=seed)
+        rois = write_rois(tmp, seed + 89, vsr_lengths())
+        manifest = tmp / "manifest.tsv"
+        manifest.write_text("".join(f"{r['Uid']}\t{p}\t{r['Caption']}\n"
+                                    for r, p in zip(records, rois)))
+        config = generator_config(tmp, braven, manifest, VSR_VOCAB, seed, decoder=VSR_DECODER)
+        result = run_generator(torch, "vsr_slice", make_json_vsr, config)
+    result = {**result, "model": "BRAVEn-large (random, bf16) + 1024/16/4096 x 6 decoder",
+              "checkpoint": {**written, "write_s": write_s}, "frames": vsr_lengths(),
+              "beam": VSR_BEAM, "max_len": VSR_MAX_LEN, "decode_batch": VSR_BATCH}
+    emit({k: v for k, v in result.items() if k not in ("sample", "launches")})
+    torch.cuda.empty_cache()
+    return result
+
+
+def avsr_slice(torch, seed: int) -> dict:
+    """`cli.make_json_avsr.main --config` on 16 (WAV, ROI) pairs of the VSR
+    slice's lengths (640 samples a frame), random auto_avsr at its public
+    audiovisual sizes in bf16; the VSR slice's beam and reports."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    from dualhyp_tpu_torch.cli import make_json_avsr
+    from dualhyp_tpu_torch.data import synthetic
+    from dualhyp_tpu_torch.models import raven
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        checkpoint = tmp / "auto_avsr.npz"
+        written = write_avsr_checkpoint(torch, checkpoint, seed + 97)
+        write_s = time.perf_counter() - t0
+        records = synthetic.make_records(n_uids=VSR_UTTERANCES, n_hyps=1, seed=seed + 1)
+        rois = write_rois(tmp, seed + 101, vsr_lengths())
+        rng = np.random.default_rng(seed + 103)
+        lines = []
+        for rec, roi, t in zip(records, rois, vsr_lengths()):
+            wav = tmp / f"{rec['Uid']}.wav"
+            wavfile.write(wav, 16000, (rng.standard_normal(t * 640) * 3000).astype(np.int16))
+            lines.append(f"{rec['Uid']}\t{wav}\t{roi}\t{rec['Caption']}\n")
+        manifest = tmp / "manifest.tsv"
+        manifest.write_text("".join(lines))
+        enc = {f: getattr(raven.AUTO_AVSR_CONFORMER, f) for f in (
+            "attention_dim", "attention_heads", "linear_units", "num_blocks", "macaron_style",
+            "use_cnn_module", "cnn_module_kernel")}
+        config = generator_config(tmp, checkpoint, manifest, AVSR_VOCAB, seed,
+                                  video_encoder=enc, audio_encoder=enc, decoder=AVSR_DECODER)
+        result = run_generator(torch, "avsr_slice", make_json_avsr, config)
+    result = {**result, "model": "auto_avsr (random, bf16): 768/12/3072 x 12 a stream, fusion "
+                                 "8192, 768/12/3072 x 6 decoder, vocab 5049",
+              "checkpoint": {**written, "write_s": write_s}, "frames": vsr_lengths()}
+    emit({k: v for k, v in result.items() if k not in ("sample", "launches")})
+    torch.cuda.empty_cache()
+    return result
+
+
+def precompute_visual_phase(torch, seed: int, whisper: Path, braven: Path) -> dict:
+    """`cli.precompute_features.main --raven_checkpoint` on 4 RelPrompt
+    records with mouth ROIs: the random Whisper-large-v3 (K6, 32 launches an
+    utterance) and the VSR slice's BRAVEn-large; each record's visual
+    features (frames, 1024), nonzero and finite, its occlusion replayed."""
+    import numpy as np
+
+    from dualhyp_tpu_torch.cli import precompute_features
+    from dualhyp_tpu_torch.data import synthetic
+    from dualhyp_tpu_torch.models import whisper as w
+
+    n = 4
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        records = synthetic.make_records(n_uids=n, n_hyps=5, seed=seed + 107)
+        write_wavs(records, tmp, seed + 109)
+        rois = write_rois(tmp, seed + 113, [r["Visual_Corruption"]["total_len"] for r in records])
+        for rec, roi in zip(records, rois):
+            rec["Mouthroi"] = str(roi)
+        synthetic.write_json(tmp / "test.json", records)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        written = precompute_features.main(["--json", str(tmp / "test.json"), "--out_dir",
+                                            str(tmp / "feats"), "--whisper_checkpoint",
+                                            str(whisper), "--raven_checkpoint", str(braven),
+                                            "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        shapes, finite, nonzero = [], True, True
+        for rec in records:
+            with np.load(tmp / "feats" / f"{rec['Uid']}.npz") as z:
+                visual = z["visual"]
+            shapes.append(list(visual.shape))
+            finite &= bool(np.isfinite(visual).all())
+            nonzero &= bool(np.abs(visual).max() > 0)
+    want = [[r["Visual_Corruption"]["total_len"], 1024] for r in records]
+    result = {"phase": "precompute_visual", "records": written, "wall_s": wall,
+              "visual_shapes": shapes, "finite": finite, "nonzero": nonzero,
+              "launches": launches}
+    emit(result)
+    k6 = launches["full_attention_fwd"]
+    if (written != n or shapes != want or not (finite and nonzero)
+            or k6 != w.WHISPER_LARGE_V3.n_layer * n):
+        raise RuntimeError(f"precompute --raven_checkpoint: {result}, K6 want "
+                           f"{w.WHISPER_LARGE_V3.n_layer * n}, shapes want {want}")
     return result
 
 
@@ -4621,6 +5212,7 @@ def main(argv=None) -> int:
         seconds[label] = time.perf_counter() - t1
         return out
 
+    run("native_phase", native_phase)
     kernels = run("kernel_phases", kernel_phases)
     kernels.update(run("q4_lora_phase", q4_lora_phase))
     verify_rows = run("verify_rows_phase", verify_rows_phase)
@@ -4650,6 +5242,11 @@ def main(argv=None) -> int:
     run("depth2_whisper_decoder_check", depth2_whisper_decoder_check)
     asr = run("whisper_asr_slice", whisper_asr_slice, whisper)
     longform = run("longform_slice", longform_slice, whisper)
+    run("depth2_vsr_check", depth2_vsr_check)
+    braven = Path(whisper_dir.name) / "braven_large.npz"
+    vsr = run("vsr_slice", vsr_slice, braven)
+    avsr = run("avsr_slice", avsr_slice)
+    visual = run("precompute_visual_phase", precompute_visual_phase, whisper, braven)
     whisper_dir.cleanup()
     kernels["flash_attention_bwd"] = {"train": run("flash_bwd_phase", flash_bwd_phase)}
     kernels["flash_attention_bwd"]["d128"] = run("flash_bwd_d128_phase", flash_bwd_phase,
@@ -4719,7 +5316,9 @@ def main(argv=None) -> int:
                               "-> _mha, each of 32 layers; cli.precompute_features.main -> "
                               "the same encode; cli.make_json_asr.main -> "
                               "decode_beams_from_mels -> encode in bf16 (an F16 checkpoint); "
-                              "cli.transcribe.main -> infer.transcribe -> encode",
+                              "cli.transcribe.main -> infer.transcribe -> encode; "
+                              "cli.precompute_features.main --raven_checkpoint (beside the "
+                              "BRAVEn encoder, which runs no kernel)",
         "q4_matmul": "cli.inference_ger.run_inference --quantize int4 -> GPT.prefill/"
                      "decode_step; cli.make_json_asr.main (quantize: int4) -> "
                      "whisper_device_beam -> models.whisper.decode_step_cached / "
@@ -4750,6 +5349,8 @@ def main(argv=None) -> int:
              "relprompt_train_slice": relprompt_train["launches"],
              **{f"asr_slice_{k}": r for k, r in asr["launches"].items()},
              "longform_slice": longform["launches"],
+             "vsr_slice": vsr["launches"], "avsr_slice": avsr["launches"],
+             "precompute_visual": visual["launches"],
              **{f"spec_decode_{k}": r["launches"] for k, r in spec["runs"].items()},
              **{f"serve_{k}": r["launches"] for k, r in served["runs"].items()},
              "causal_attention_fwd_phase": fwd["causal_launches"],

@@ -26,7 +26,9 @@ leaves into the model's two classifiers, its `wte` with the extra rows.
 `tree_from_model` is the inverse: the model's parameters as such a tree.
 `encoder_from_jax` and `decoder_from_jax` take the JAX package's Whisper
 encoder and decoder trees to the port's (`models/whisper`), which are the
-same trees as torch tensors.
+same trees as torch tensors; `raven_from_jax` (also named
+`espnet_decoder_from_jax`, `espnet_lm_from_jax` and `avsr_from_jax`) does
+the same for the VSR/AVSR trees, keeping each leaf's dtype.
 """
 
 from __future__ import annotations
@@ -209,3 +211,23 @@ def tree_from_model(model: GPT) -> dict:
     flat = flat_from_named(dict(model.named_parameters()), model.cfg.n_layer, device="cpu")
     return unflatten({key: t if t.dtype == torch.bfloat16 else t.numpy()
                       for key, t in flat.items()})
+
+
+def raven_from_jax(tree: dict, *, device=None, dtype=None) -> dict:
+    """A JAX package tree of the VSR/AVSR models (`models/raven`,
+    `espnet_decoder`, `espnet_lm`, `avsr`: numpy or JAX arrays, or tensors,
+    as `ckpt.io.load_params` of either package returns them) as the port's:
+    the same nested dict, each leaf a tensor on `device` (the card when
+    None), in `dtype`, or in its own dtype when None (a bf16 tree stays
+    bf16, so `raven.encode_dtype` selects bf16 compute as in JAX)."""
+    device = resolve_device(device)
+
+    def leaf(value):
+        t = _tensor(value)
+        return t.to(device, dtype) if dtype is not None and t.is_floating_point() else t.to(device)
+
+    return {key: raven_from_jax(value, device=device, dtype=dtype)
+            if isinstance(value, dict) else leaf(value) for key, value in tree.items()}
+
+
+espnet_decoder_from_jax = espnet_lm_from_jax = avsr_from_jax = raven_from_jax

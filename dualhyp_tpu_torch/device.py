@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 
 
@@ -39,3 +40,13 @@ def exact_fp32():
     finally:
         torch.backends.cuda.matmul.allow_tf32 = matmul
         torch.backends.cudnn.allow_tf32 = cudnn
+
+
+def to_device(arr: np.ndarray, device) -> torch.Tensor:
+    """A host array on `device`; to the card from pinned memory without a
+    host sync (the copy is ordered on the stream before its readers; a
+    pageable copy would wait for the stream)."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if torch.device(device).type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)

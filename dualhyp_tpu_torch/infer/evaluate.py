@@ -1,7 +1,9 @@
 """WER / exact-match evaluation.
 
-A copy of `dualhyp_tpu/infer/evaluate.py` without its native C++ WER path:
-the edit distance here is the pure-Python dynamic programme.
+Counterpart of `dualhyp_tpu/infer/evaluate.py`: the corpus WER runs the C++
+host library's batch edit distance (`native.word_error_rate`), as the JAX
+package's does where it builds; `edit_distance` is the pure-Python dynamic
+programme the tests hold the library against.
 
 Implements the reference's metric protocol (ref: inference/ger.py:96-117)
 with a dependency-free word-level edit distance (jiwer-compatible corpus
@@ -18,6 +20,8 @@ prefix, keep the first line, strip whitespace (ref: inference/ger.py:86-88).
 from __future__ import annotations
 
 from typing import List, Sequence
+
+from dualhyp_tpu_torch import native
 
 
 def edit_distance(ref: Sequence, hyp: Sequence) -> int:
@@ -39,19 +43,13 @@ def edit_distance(ref: Sequence, hyp: Sequence) -> int:
 
 
 def word_error_rate(predictions: List[str], references: List[str]) -> float:
-    """Corpus WER: sum(edit ops) / sum(reference words), by the pure-Python
-    dynamic programme above."""
+    """Corpus WER: sum(edit ops) / sum(reference words), by the C++ host
+    library (`native.word_error_rate`)."""
     if len(predictions) != len(references):
         raise ValueError(
             f"{len(predictions)} predictions for {len(references)} references"
         )
-    total_edits = 0
-    total_words = 0
-    for pred, ref in zip(predictions, references):
-        ref_words = ref.split()
-        total_edits += edit_distance(ref_words, pred.split())
-        total_words += len(ref_words)
-    return total_edits / max(total_words, 1)
+    return native.word_error_rate(predictions, references)
 
 
 def post_normalize(text: str) -> str:

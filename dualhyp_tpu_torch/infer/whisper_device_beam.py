@@ -40,6 +40,7 @@ from typing import List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from dualhyp_tpu_torch.device import to_device
 from dualhyp_tpu_torch.infer.beam_search import BeamHypothesis, TimestampRules, cons_to_list
 from dualhyp_tpu_torch.models import whisper as w
 
@@ -57,15 +58,6 @@ def topk_lowest_index(x: torch.Tensor, k: int):
     key = key | (n - 1 - torch.arange(n, device=x.device))
     idx = torch.topk(key, k, dim=-1).indices
     return x.gather(-1, idx), idx
-
-
-def to_device(arr: np.ndarray, device) -> torch.Tensor:
-    """A host array on `device`; to the card from pinned memory without a
-    host sync (the copy is ordered on the stream before its readers)."""
-    t = torch.from_numpy(np.ascontiguousarray(arr))
-    if torch.device(device).type != "cuda":
-        return t
-    return t.pin_memory().to(device, non_blocking=True)
 
 
 def _prefill(dec_params, dec_cfg, cross, tokens, offsets, quantize):

@@ -12,10 +12,12 @@ forward (the FLOPs) runs on the card (`models/whisper.
 decode_logits_with_cross_qk`), in the decoder's own dtype (a bf16 decoder,
 int4 weights included, computes in bf16: kernel K8 takes bf16 only); the
 JAX package computes it in fp32. The small sequential DTW and the median
-filter run on the host: `dtw` and `median_filter` give the values of the
-Python versions in `dualhyp_tpu/native/__init__.py`, vectorized with numpy
-(one anti-diagonal of the DTW at a time; every row's windows at once); its
-C++ host kernels are not ported yet.
+filter run on the host in the C++ host library (`native.dtw`,
+`native.median_filter`), as the JAX package's do. `dtw` and `median_filter`
+here are their plain numpy versions, which the tests hold the library
+against: the values of the Python versions in `dualhyp_tpu/native/
+__init__.py`, vectorized (one anti-diagonal of the DTW at a time; every
+row's windows at once).
 
 The reference's CPU median filter uses REFLECT padding (timing.py:35);
 `median_filter_reflect` reproduces that exactly by reflect-padding in
@@ -32,6 +34,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from dualhyp_tpu_torch import native
 from dualhyp_tpu_torch.models import whisper as w
 
 HOP_LENGTH = 160
@@ -106,7 +109,9 @@ def median_filter_reflect(x: np.ndarray, width: int) -> np.ndarray:
         return x
     flat = x.reshape(-1, x.shape[-1]).astype(np.float32)
     padded = np.pad(flat, ((0, 0), (half, half)), mode="reflect")
-    return median_filter(padded, width)[:, half:half + flat.shape[1]].reshape(x.shape)
+    out = np.stack([native.median_filter(row, width)[half:half + flat.shape[1]]
+                    for row in padded]) if len(flat) else flat
+    return out.reshape(x.shape)
 
 
 def split_tokens_on_unicode(tokens: List[int], decode_fn: Callable):
@@ -216,7 +221,7 @@ def find_alignment(
 
     matrix = weights.mean(axis=0)
     matrix = matrix[len(sot_sequence):-1]
-    text_indices, time_indices = dtw(-matrix)
+    text_indices, time_indices = native.dtw(-matrix)
 
     words, word_tokens = split_to_word_tokens(
         text_tokens + [eot_id], decode_fn, eot_id, language

@@ -143,9 +143,11 @@ def test_unported_relprompt_options_raise(flag):
 
 
 def test_precompute_features_refuses_the_visual_encoder(tmp_path):
+    """The BRAVEn visual encoder is ported: a --raven_checkpoint that is not
+    there is refused before anything else is read."""
     from dualhyp_tpu_torch.cli import precompute_features
 
-    with pytest.raises(NotImplementedError, match="slice 7"):
+    with pytest.raises(FileNotFoundError, match="braven.npz"):
         precompute_features.main(["--json", "t.json", "--out_dir", str(tmp_path),
                                   "--whisper_checkpoint", str(tmp_path), "--device", "cpu",
                                   "--raven_checkpoint", "braven.npz"])

@@ -224,10 +224,26 @@ prints one JSON line; a failed phase raises and the script exits non-zero.
      `cli.precompute_features.main --raven_checkpoint` on 4 RelPrompt
      records with ROIs: visual features (frames, 1024), nonzero, and K6 32
      times an utterance;
- 31. the seconds of each phase, the `{"kernels": [...]}` line (all fifteen
-     kernels, launches by path, K4's, K5's and K8's verify rows), the
-     card's name and power limit, and the last line
-     `{"ok": true, "device": {...}}`.
+ 31. slice 22, last: `flash_heads_phase`, K1's forward and backward and
+     L1's forward, dQ and dK/dV at head sizes 32, 80, 96, 100 and 256 (B8
+     T1024 with phi-2's, Gemma-2b's, Phi-3-mini's, open_llama_3b's and
+     pythia-14m's heads and groups; the forwards at T384 too) against
+     their plain versions, timed beside the bound and SDPA, with each
+     instance's registers and spills; `depth2_family_check`, two blocks at
+     full width of phi-2, pythia-1b, falcon-7b, Gemma-2b,
+     Phi-3-mini-4k-instruct and open_llama_3b with LoRA, card bf16 against
+     CPU fp32: prefill and decode logits, the K/V caches, one LoRA training
+     step's loss and gradients; `phi2_slice`, phi-2 at full size (2.8 B
+     parameters) written as a random HF Phi directory, loaded through
+     `cli.common.load_model`, serving the decode slice's 16 requests through
+     `run_inference` in bf16 (one batch profiled over 4 new tokens), 4 LoRA
+     finetuning steps through `run_training`, the requests again through K5
+     (lora_impl "fused") and merged and int4 (K8); K1 at D80 and K3 at 32
+     of 80 channels launched on every run, K2 and K4 never;
+ 32. the seconds of each phase, the `{"kernels": [...]}` line (all fifteen
+     kernels, launches by path, K4's, K5's and K8's verify rows, K1's and
+     L1's rows at each head size), the card's name and power limit, and
+     the last line `{"ok": true, "device": {...}}`.
 
 Exits non-zero without printing a result when no CUDA card is present or
 when the port's package is not beside the script.
@@ -679,6 +695,54 @@ def decode_plan(module, *args):
     return plan(*args) if plan else None
 
 
+def q4_row(torch, x, packed, scales, w_deq, **extra) -> dict:
+    """K8 on x (rows, K) against its plain version (TOLERANCES), two calls
+    bitwise equal, timed beside its bound, the plain version and cuBLAS on
+    the dequantised weight `w_deq` (back to back and, as device_ms, one cold
+    call); `extra` goes into the row after its shape."""
+    from dualhyp_tpu_torch.ops import int4
+
+    (rows, k), n = x.shape, packed.shape[0]
+    fn = lambda: int4.q4_matmul(x, packed, scales)  # noqa: E731
+    plain = lambda: int4.q4_matmul_plain(x, packed, scales)  # noqa: E731
+    library = lambda: x @ w_deq.t()  # noqa: E731
+    err = compare("q4_matmul", repeatable("q4_matmul", fn, torch), plain(), torch)
+    bms, by = bound(rows * k * 2 + n * k // 2 + n * (k // 128) * 4 + rows * n * 2,
+                    2 * rows * n * k, BF16_TENSOR_FLOPS)
+    return dict(shape=[rows, n, k], **extra, max_abs_err=err, repeats_bitwise=True,
+                ms=time_ms(fn, torch), device_ms=device_ms(fn, torch),
+                plain_ms=time_ms(plain, torch, warmup=1, iters=3),
+                library_ms=time_ms(library, torch), library_device_ms=device_ms(library, torch),
+                library="cuBLAS bf16 matmul on the dequantised weight",
+                bound_ms=bms, bound_by=by)
+
+
+def lora_row(torch, x, w, a, b, s, xin=None, **extra) -> dict:
+    """K5 on x (rows, D) (and a separate xin) against its plain version, as
+    `q4_row` holds K8, beside cuBLAS's x W^T + s (xin A^T) B^T."""
+    from dualhyp_tpu_torch.ops import lora
+
+    (rows, d), o, r = x.shape, w.shape[0], a.shape[0]
+    xb = x if xin is None else xin
+    fn = lambda: lora.lora_linear(x, w, a, b, s, xin=xin)  # noqa: E731
+    plain = lambda: lora.lora_linear_plain(x, w, a, b, s, xin)  # noqa: E731
+    library = lambda: x @ w.t() + s * ((xb @ a.t()) @ b.t())  # noqa: E731
+    err = compare("lora_linear", repeatable("lora_linear", fn, torch), plain(), torch)
+    n_x = rows * d * (1 if xin is None else 2)
+    # B is stored block-diagonal (O, r) over the q/k/v blocks; each output
+    # takes LORA_RANK of its columns
+    bms, by = bound((n_x + o * d + r * d + o * r + rows * o) * 2,
+                    2 * rows * o * d + 2 * rows * r * d + 2 * rows * o * LORA_RANK,
+                    BF16_TENSOR_FLOPS)
+    return dict(shape=[rows, o, d, r], separate_xin=xin is not None, max_abs_err=err,
+                path="decode" if rows <= lora.DECODE_ROWS else "wgmma", **extra,
+                repeats_bitwise=True, ms=time_ms(fn, torch), device_ms=device_ms(fn, torch),
+                plain_ms=time_ms(plain, torch, warmup=1, iters=3),
+                library_ms=time_ms(library, torch), library_device_ms=device_ms(library, torch),
+                library="cuBLAS x W^T + s (xin A^T) B^T, three products and an add",
+                bound_ms=bms, bound_by=by)
+
+
 def q4_lora_phase(torch, seed: int) -> dict:
     """K8 and K5 at the shapes of TinyLlama-1.1B's linears, each against its
     plain version, timed beside its bound and its cuBLAS yardstick (back to
@@ -700,24 +764,11 @@ def q4_lora_phase(torch, seed: int) -> dict:
         if name in Q4_PREFILL:
             rows_of.append(("prefill", 3072))
         for label, rows in rows_of:
-            x = randn(rows, k)
-            got = repeatable("q4_matmul", lambda: int4.q4_matmul(x, packed, scales), torch)
-            err = compare("q4_matmul", got, int4.q4_matmul_plain(x, packed, scales), torch)
-            bms, by = bound(rows * k * 2 + n * k // 2 + n * (k // 128) * 4 + rows * n * 2,
-                            2 * rows * n * k, BF16_TENSOR_FLOPS)
             launch = (decode_plan(int4, rows, n, k) if rows <= int4.DECODE_ROWS else
                       dict(tile=list(int4.tile(rows)[:2]),
                            split_k=list(int4.split_k(rows, n, k // 128))))
-            q4[f"{label}_{name}"] = dict(
-                shape=[rows, n, k], launch=launch, max_abs_err=err, repeats_bitwise=True,
-                ms=time_ms(lambda: int4.q4_matmul(x, packed, scales), torch),
-                device_ms=device_ms(lambda: int4.q4_matmul(x, packed, scales), torch),
-                plain_ms=time_ms(lambda: int4.q4_matmul_plain(x, packed, scales), torch,
-                                 warmup=1, iters=3),
-                library_ms=time_ms(lambda: x @ w_deq.t(), torch),
-                library_device_ms=device_ms(lambda: x @ w_deq.t(), torch),
-                library="cuBLAS bf16 matmul on the dequantised weight",
-                bound_ms=bms, bound_by=by)
+            q4[f"{label}_{name}"] = q4_row(torch, randn(rows, k), packed, scales, w_deq,
+                                           launch=launch)
         del w_deq
     emit({"phase": "kernel", "name": "q4_matmul",
           "tolerance": dict(zip(("atol", "rtol"), TOLERANCES["q4_matmul"])), **q4})
@@ -735,31 +786,10 @@ def q4_lora_phase(torch, seed: int) -> dict:
             for separate in (False, True):
                 x = randn(rows, d)
                 xin = randn(rows, d) if separate else None
-                xb = x if xin is None else xin
-                got = repeatable("lora_linear", lambda: lora.lora_linear(x, w, a, b, s, xin=xin),
-                                 torch)
-                err = compare("lora_linear", got, lora.lora_linear_plain(x, w, a, b, s, xin),
-                              torch)
-                n_x = rows * d * (2 if separate else 1)
-                bms, by = bound((n_x + o * d + blocks * r * d + o * blocks * r + rows * o) * 2,
-                                2 * rows * o * d + 2 * rows * blocks * r * d + 2 * rows * o * r,
-                                BF16_TENSOR_FLOPS)
-                decode = rows <= lora.DECODE_ROWS
-                lo[f"{name}_{rows}{'_xin' if separate else ''}"] = dict(
-                    shape=[rows, o, d, blocks * r], separate_xin=separate, max_abs_err=err,
-                    path="decode" if decode else "wgmma",
-                    launch=decode_plan(lora, rows, o, d, blocks * r, s, separate) if decode
-                    else None, repeats_bitwise=True,
-                    ms=time_ms(lambda: lora.lora_linear(x, w, a, b, s, xin=xin), torch),
-                    device_ms=device_ms(lambda: lora.lora_linear(x, w, a, b, s, xin=xin),
-                                        torch),
-                    plain_ms=time_ms(lambda: lora.lora_linear_plain(x, w, a, b, s, xin),
-                                     torch, warmup=1, iters=3),
-                    library_ms=time_ms(lambda: x @ w.t() + s * ((xb @ a.t()) @ b.t()), torch),
-                    library_device_ms=device_ms(
-                        lambda: x @ w.t() + s * ((xb @ a.t()) @ b.t()), torch),
-                    library="cuBLAS x W^T + s (xin A^T) B^T, three products and an add",
-                    bound_ms=bms, bound_by=by)
+                lo[f"{name}_{rows}{'_xin' if separate else ''}"] = lora_row(
+                    torch, x, w, a, b, s, xin,
+                    launch=decode_plan(lora, rows, o, d, blocks * r, s, separate)
+                    if rows <= lora.DECODE_ROWS else None)
     emit({"phase": "kernel", "name": "lora_linear",
           "tolerance": dict(zip(("atol", "rtol"), TOLERANCES["lora_linear"])), **lo})
     torch.cuda.empty_cache()
@@ -1016,13 +1046,15 @@ def token_agreement(records, reference) -> dict:
     return {"token_agreement": same / total, "exact_answers": exact / len(records)}
 
 
-def serve_requests(torch, model, seed: int, serve: dict, profile_label=None) -> tuple:
+def serve_requests(torch, model, seed: int, serve: dict, profile_label=None,
+                   profile_new_tokens=None) -> tuple:
     """The decode slice's traffic: 16 synthetic DualHyp requests through
     `cli.inference_ger.run_inference` with the launch counts reset before
     and read after; with `profile_label`, one decode batch of that traffic
     again under torch.profiler (the longer of its two batches: profiling
     all 16 requests took 103-119 s a slice, most of it in the trace's
-    post-processing). Returns (records, metrics, wall_s, launches, [shortest,
+    post-processing), with `profile_new_tokens` in place of the traffic's
+    max_new_tokens where given. Returns (records, metrics, wall_s, launches, [shortest,
     longest prompt], the rows of each prefill: `run_inference`'s batches of
     the sorted prompts, each padded to its longest prompt's bucket)."""
     from dualhyp_tpu_torch.cli.inference_ger import run_inference
@@ -1068,7 +1100,9 @@ def serve_requests(torch, model, seed: int, serve: dict, profile_label=None) -> 
             one_batch = sorted(examples, key=lambda e: len(e.input_ids_no_response))[-batch:]
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t1 = time.perf_counter()
-                run_inference(model, tok, one_batch, **serve)
+                run_inference(model, tok, one_batch,
+                              **{**serve, "max_new_tokens": profile_new_tokens or
+                                 serve["max_new_tokens"]})
                 torch.cuda.synchronize()
                 prof_wall_ms = (time.perf_counter() - t1) * 1e3
             summary = profile_summary(prof, prof_wall_ms)
@@ -1080,6 +1114,7 @@ def serve_requests(torch, model, seed: int, serve: dict, profile_label=None) -> 
                      for key, parts in SLICE_KERNELS.items()}
             emit({"phase": "slice_profile", "variant": profile_label,
                   "profiled_requests": len(one_batch), "profile_s": time.perf_counter() - t1,
+                  "new_tokens": profile_new_tokens or serve["max_new_tokens"],
                   "paths": paths, **summary})
     return (out_records, metrics, wall, launches, [prompt_lengths[0], prompt_lengths[-1]],
             prefill_rows)
@@ -1475,10 +1510,13 @@ def dualhyp_data(tmp: Path, seed: int):
     return tok, dataset
 
 
-def timed_training(torch, model, tcfg, tok, dataset, out_dir: Path, seed: int) -> dict:
+def timed_training(torch, model, tcfg, tok, dataset, out_dir: Path, seed: int,
+                   adapter_only: bool = False) -> dict:
     """`cli.finetune_ger.run_training` on the card with the launch counts
     reset before and read after: tokens/s over the padded batches, MFU
-    (the JAX package's count), step times, peak memory, losses."""
+    (the JAX package's count), step times, peak memory, losses.
+    adapter_only: its checkpoints hold the LoRA leaves alone
+    (--save_adapter_only)."""
     from dualhyp_tpu_torch.cli.finetune_ger import run_training
     from dualhyp_tpu_torch.data import collate
     from dualhyp_tpu_torch.utils.monitor import estimate_train_flops_per_token
@@ -1500,7 +1538,8 @@ def timed_training(torch, model, tcfg, tok, dataset, out_dir: Path, seed: int) -
     reset_counts()
     t0 = time.perf_counter()
     out = run_training(model, tok, dataset("train"), dataset("val"), tcfg, out_dir,
-                       generator=torch.Generator().manual_seed(seed), on_step=on_step)
+                       generator=torch.Generator().manual_seed(seed), on_step=on_step,
+                       adapter_only=adapter_only)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
@@ -2314,7 +2353,7 @@ def write_safetensors(path, tensors: dict) -> None:
         fp.write(len(raw).to_bytes(8, "little"))
         fp.write(raw)
         for t in tensors.values():
-            fp.write(t.contiguous().view(torch.uint8).numpy().tobytes())
+            fp.write(t.contiguous().view(torch.uint8).numpy())
 
 
 def write_whisper_checkpoint(torch, path: Path, seed: int) -> None:
@@ -3391,26 +3430,25 @@ def verify_rows_phase(torch, seed: int) -> dict:
     def randn(*shape, std=1.0, dtype=bf16):
         return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
 
-    def row(name, fn, plain, library, bytes_moved, flops, path, shape, plain_iters=20):
-        err = compare(name, repeatable(name, fn, torch), plain(), torch)
-        bms, by = bound(bytes_moved, flops, BF16_TENSOR_FLOPS)
-        return dict(shape=shape, path=path, max_abs_err=err, repeats_bitwise=True,
-                    ms=time_ms(fn, torch), device_ms=device_ms(fn, torch),
-                    plain_ms=time_ms(plain, torch, warmup=1, iters=plain_iters),
-                    library_ms=time_ms(library, torch),
-                    library_device_ms=device_ms(library, torch), bound_ms=bms, bound_by=by)
-
     out = {"swiglu_mlp": {}, "lora_linear": {}, "q4_matmul": {}}
     w1, w2 = randn(inter, d, std=0.02), randn(inter, d, std=0.02)
     w3 = randn(d, inter, std=0.02)
     for rows in VERIFY_ROWS:
         x = randn(rows, d)
-        out["swiglu_mlp"][f"verify_{rows}"] = row(
-            "swiglu_mlp", lambda: swiglu.swiglu_mlp(x, w1, w2, w3),
-            lambda: swiglu.swiglu_mlp_plain(x, w1, w2, w3),
-            lambda: (torch.nn.functional.silu(x @ w1.t()) * (x @ w2.t())) @ w3.t(),
-            (2 * rows * d + 3 * inter * d) * 2, 6 * rows * d * inter,
-            "decode" if rows <= swiglu.DECODE_ROWS else "wgmma", [rows, d, inter])
+        fn = lambda: swiglu.swiglu_mlp(x, w1, w2, w3)  # noqa: E731
+        plain = lambda: swiglu.swiglu_mlp_plain(x, w1, w2, w3)  # noqa: E731
+        library = lambda: (  # noqa: E731
+            torch.nn.functional.silu(x @ w1.t()) * (x @ w2.t())) @ w3.t()
+        bms, by = bound((2 * rows * d + 3 * inter * d) * 2, 6 * rows * d * inter,
+                        BF16_TENSOR_FLOPS)
+        out["swiglu_mlp"][f"verify_{rows}"] = dict(
+            shape=[rows, d, inter], path="decode" if rows <= swiglu.DECODE_ROWS else "wgmma",
+            max_abs_err=compare("swiglu_mlp", repeatable("swiglu_mlp", fn, torch), plain(),
+                                torch),
+            repeats_bitwise=True, ms=time_ms(fn, torch), device_ms=device_ms(fn, torch),
+            plain_ms=time_ms(plain, torch, warmup=1, iters=20),
+            library_ms=time_ms(library, torch), library_device_ms=device_ms(library, torch),
+            bound_ms=bms, bound_by=by)
     r = LORA_RANK
     for name, o, dd, blocks in LORA_SHAPES:
         w = randn(o, dd, std=0.02)
@@ -3418,26 +3456,17 @@ def verify_rows_phase(torch, seed: int) -> dict:
         shapes = (dd, (o - dd) // 2, (o - dd) // 2) if blocks == 3 else (o,)
         b = lora.lora_qkv_block_b(randn(o, r, std=0.02), shapes, r)
         for rows in VERIFY_ROWS:
-            x = randn(rows, dd)
-            out["lora_linear"][f"{name}_verify_{rows}"] = row(
-                "lora_linear", lambda: lora.lora_linear(x, w, a, b, 1.0),
-                lambda: lora.lora_linear_plain(x, w, a, b, 1.0, None),
-                lambda: x @ w.t() + (x @ a.t()) @ b.t(),
-                (rows * dd + o * dd + blocks * r * dd + o * blocks * r + rows * o) * 2,
-                2 * rows * o * dd + 2 * rows * blocks * r * dd + 2 * rows * o * r,
-                "decode" if rows <= lora.DECODE_ROWS else "wgmma", [rows, o, dd, blocks * r])
+            out["lora_linear"][f"{name}_verify_{rows}"] = lora_row(
+                torch, randn(rows, dd), w, a, b, 1.0)
     for name, n, k in Q4_SHAPES:
         if name not in ("qkv", "fc_1"):
             continue
         packed, scales = quant.quantize_weight_int4(randn(n, k, std=0.02, dtype=torch.float32))
         w_deq = quant.dequantize_weight_int4(packed, scales, bf16)
         for rows in VERIFY_ROWS:
-            x = randn(rows, k)
-            out["q4_matmul"][f"{name}_verify_{rows}"] = row(
-                "q4_matmul", lambda: int4.q4_matmul(x, packed, scales),
-                lambda: int4.q4_matmul_plain(x, packed, scales), lambda: x @ w_deq.t(),
-                rows * k * 2 + n * k // 2 + n * (k // 128) * 4 + rows * n * 2, 2 * rows * n * k,
-                "decode" if rows <= int4.DECODE_ROWS else "wgmma", [rows, n, k], plain_iters=3)
+            out["q4_matmul"][f"{name}_verify_{rows}"] = q4_row(
+                torch, randn(rows, k), packed, scales, w_deq,
+                path="decode" if rows <= int4.DECODE_ROWS else "wgmma")
     for name, entry in out.items():
         emit({"phase": "kernel_verify_rows", "name": name,
               "tolerance": dict(zip(("atol", "rtol"), TOLERANCES[name])), **entry})
@@ -4213,23 +4242,9 @@ def whisper_kernel_phase(torch, seed: int) -> dict:
         for label, rows in WHISPER_Q4_ROWS:
             if label == "cross_kv" and name != "attn":
                 continue
-            x = randn(rows, k)
-            fn = lambda: int4.q4_matmul(x, packed, scales)  # noqa: E731
-            plain = lambda: int4.q4_matmul_plain(x, packed, scales)  # noqa: E731
-            got = repeatable("q4_matmul", fn, torch)
-            err = compare("q4_matmul", got, plain(), torch)
-            bms, by = bound(rows * k * 2 + n * k // 2 + n * (k // 128) * 4 + rows * n * 2,
-                            2 * rows * n * k, BF16_TENSOR_FLOPS)
-            q4[f"whisper_{label}_{name}"] = dict(
-                shape=[rows, n, k], max_abs_err=err, repeats_bitwise=True,
-                path="decode" if rows <= int4.DECODE_ROWS else "wgmma",
-                ms=time_ms(fn, torch), device_ms=device_ms(fn, torch),
-                plain_ms=time_ms(plain, torch, warmup=1, iters=3),
-                library_ms=time_ms(lambda: x @ w_deq.t(), torch),
-                library_device_ms=device_ms(lambda: x @ w_deq.t(), torch),
-                library="cuBLAS bf16 matmul on the dequantised weight",
-                bound_ms=bms, bound_by=by)
-            del x, got
+            q4[f"whisper_{label}_{name}"] = q4_row(
+                torch, randn(rows, k), packed, scales, w_deq,
+                path="decode" if rows <= int4.DECODE_ROWS else "wgmma")
         del w_deq, packed, scales
     emit({"phase": "kernel", "name": "q4_matmul", "shapes_of": "whisper-large-v3 decoder",
           "tolerance": dict(zip(("atol", "rtol"), TOLERANCES["q4_matmul"])), **q4})
@@ -5167,6 +5182,547 @@ def precompute_visual_phase(torch, seed: int, whisper: Path, braven: Path) -> di
     return result
 
 
+# ---- slice 22: the GPT-NeoX / Phi / Falcon family, K1 at every head size ----
+
+# (config, query heads, KV groups, head size) of the training shapes at which
+# flash_heads_phase holds K1 and L1 at the head sizes other than 64 and 128
+FLASH_HEAD_CONFIGS = (("phi-2", 32, 32, 80), ("Gemma-2b", 8, 1, 256),
+                      ("Phi-3-mini-4k-instruct", 32, 32, 96), ("open_llama_3b", 32, 32, 100),
+                      ("pythia-14m", 4, 4, 32))
+FLASH_HEADS_B, FLASH_HEADS_T, FLASH_HEADS_PREFILL_T = 8, 1024, 384
+FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd") + SPLASH_KERNELS
+# depth2_family_check's configs: phi-2; pythia-1b (D 256, a separate
+# norm_2, rotary 64 of 256); falcon-7b (71 heads of one group, a shared
+# norm, no bias); and the RMSNorm configs whose head sizes (256, 96, 100)
+# K1 once refused on the card
+FAMILY_DEPTH2 = ("phi-2", "pythia-1b", "falcon-7b", "Gemma-2b", "Phi-3-mini-4k-instruct",
+                 "open_llama_3b")
+# depth-2 K/V caches, card bf16 vs CPU fp32, relative L2 error over the
+# whole cache: bf16 projections round K and V by 2^-9 relative each (~0.004
+# after two blocks); a wrong slot, head or rotation gives ~1
+DEPTH2_CACHE_REL = 0.05
+PHI2 = "phi-2"
+# phi2_slice: which kernels launch on each run and which must not (a
+# LayerNorm model runs no K2, its GPT-NeoX MLP no K4)
+PHI2_IDLE = ("rms_norm", "swiglu_mlp", "grouped_matmul") + SPLASH_KERNELS
+PHI2_RUNS = {
+    "bf16": dict(launch=("flash_attention_fwd", "apply_rope"),
+                 idle=PHI2_IDLE + ("lora_linear", "q4_matmul")),
+    "fused": dict(launch=("flash_attention_fwd", "apply_rope", "lora_linear"),
+                  idle=PHI2_IDLE + ("q4_matmul",)),
+    "int4": dict(launch=("flash_attention_fwd", "apply_rope", "q4_matmul"),
+                 idle=PHI2_IDLE + ("lora_linear",)),
+}
+PHI2_PROFILE_NEW_TOKENS = 4
+# phi2_kernel_phase: phi-2's linears under int4 (name, N, K), K8's shapes
+# on phi2_slice's int4 run, the head at decode rows only (a prefill takes
+# each row's last token); its LoRA linears under K5 (name, O, D, blocks of
+# r 16); the rows a call takes there: a decode step of batch 8 and a
+# prefill of 8 prompts padded to 192 tokens (phi2_slice's prefill_rows)
+PHI2_Q4_SHAPES = (("qkv", 7680, 2560), ("attn_proj", 2560, 2560), ("fc", 10240, 2560),
+                  ("mlp_proj", 2560, 10240), ("lm_head", 51200, 2560))
+PHI2_LORA_SHAPES = (("qkv", 7680, 2560, 3), ("proj", 2560, 2560, 1))
+PHI2_ROWS = (("decode", 8), ("prefill", 1536))
+# K3 at phi-2's partial rotary (32 of 80 channels) on q and k read in place
+# from the fused QKV: the prefill (B8 T192) and the training shape (B8
+# T1024, also transposed on contiguous gradients)
+PHI2_ROPE_SHAPES = (("prefill", 192, False), ("train", 1024, True))
+PHI2_TRAIN_PATH = ("flash_attention_fwd", "flash_attention_bwd", "apply_rope",
+                   "apply_rope_transpose")
+
+
+def family_lora_config(name: str, **kw):
+    """A registry config with the slices' LoRA (r 16, alpha 16, q/k/v/proj)."""
+    from dualhyp_tpu_torch import config_from_name
+
+    return config_from_name(name, lora_r=16, lora_alpha=16, lora_query=True, lora_key=True,
+                            lora_value=True, lora_projection=True, **kw)
+
+
+def flash_heads_phase(torch, seed: int) -> dict:
+    """K1's forward and backward and L1's forward, dQ and dK/dV at the head
+    sizes other than 64 and 128 (32, 80, 96, 100, 256), each against its plain version
+    at FLASH_HEAD_CONFIGS' training shapes (B8 T1024, the config's own heads
+    and groups: phi-2, Gemma-2b, Phi-3-mini, open_llama_3b, pythia-14m's
+    head size with 4 heads), the forwards at the prefill shape (T384) too.
+    Every kernel runs on the raw q at the softmax scale. Times beside the
+    bound (the head size's own operations and bytes, not the padded
+    tiles'), the plain version and SDPA (forward; its backward beside the
+    gradient kernels); each instance's registers and spills. Returns
+    {kernel: {"d<D>": row}}."""
+    import torch.nn.functional as F
+
+    from dualhyp_tpu_torch.ops import attention, splash
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 31)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    out = {name: {} for name in FLASH_KERNELS}
+    for config, nh, g, hs in FLASH_HEAD_CONFIGS:
+        scale = 1.0 / math.sqrt(hs)
+        b, t = FLASH_HEADS_B, FLASH_HEADS_T
+        q, k, v, do = randn(b, nh, t, hs), randn(b, g, t, hs), randn(b, g, t, hs), \
+            randn(b, nh, t, hs)
+        o, lse = attention._flash_fwd(q, k, v, scale)
+        o_plain, lse_plain = attention.causal_attention_plain_lse(q, k, v, scale)
+        checks = {"flash_attention_fwd": {
+            "max_abs_err": compare("flash_attention_fwd", o, o_plain, torch),
+            "lse_max_abs_err": float((lse - lse_plain).abs().max())}}
+        bad_lse = not bool(((lse - lse_plain).abs()
+                            <= LSE_TOL[0] + LSE_TOL[1] * lse_plain.abs()).all())
+        del o_plain, lse_plain
+        got = attention.flash_attention_bwd(q, k, v, o, lse, do, scale)
+        want = attention.flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
+        bwd = {f"d{n}": compare_scaled(f"flash_attention_bwd d{n} D{hs}", x, y, torch)
+               for n, x, y in zip("qkv", got, want)}
+        checks["flash_attention_bwd"] = {"max_abs_err": max(c["max_abs_err"]
+                                                            for c in bwd.values()), **bwd}
+        del got, want
+        so, slse = splash.splash_fwd(q, k, v, scale)
+        so_plain, slse_plain = splash.splash_fwd_plain(q, k, v, scale)
+        checks["splash_attention_fwd"] = {
+            "max_abs_err": compare("splash_attention_fwd", so, so_plain, torch),
+            "lse_max_abs_err": float((slse - slse_plain).abs().max())}
+        bad_lse |= not bool(((slse - slse_plain).abs()
+                             <= LSE_TOL[0] + LSE_TOL[1] * slse_plain.abs()).all())
+        if bad_lse:
+            raise RuntimeError(f"flash/splash lse at D{hs}: a kernel disagrees with its plain "
+                               f"version: {checks}, tolerance {LSE_TOL}")
+        del so_plain, slse_plain
+        di = splash.row_dot(so, do)
+        args = (q, k, v, slse, do, di, scale)
+        checks["splash_attention_dq"] = compare_scaled(
+            f"splash_attention_dq D{hs}", splash.splash_dq(*args),
+            splash.splash_dq_plain(*args), torch)
+        dkv = {f"d{n}": compare_scaled(f"splash_attention_dkv d{n} D{hs}", x, y, torch)
+               for n, x, y in zip("kv", splash.splash_dkv(*args), splash.splash_dkv_plain(*args))}
+        checks["splash_attention_dkv"] = {"max_abs_err": max(c["max_abs_err"]
+                                                             for c in dkv.values()), **dkv}
+        torch.cuda.empty_cache()
+
+        qr, kr, vr = (z.detach().requires_grad_() for z in (q, k, v))
+        sdpa_out = sdpa_gqa(F, qr, kr, vr, scale)
+        sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(sdpa_out, (qr, kr, vr), do,
+                                                          retain_graph=True), torch, iters=5)
+        pairs = b * nh * t * (t + 1) // 2
+        n_q, n_kv, n_rows = b * nh * t * hs, b * g * t * hs, b * nh * t
+        runs = {
+            # (kernel, plain, SDPA ms, bytes: each input read once, each
+            # output written once; operations: 2 flops a MAC a causal pair)
+            "flash_attention_fwd": (
+                lambda: attention._flash_fwd(q, k, v, scale),
+                lambda: attention.causal_attention_plain(q, k, v, scale),
+                time_ms(lambda: sdpa_gqa(F, q, k, v, scale), torch, iters=5),
+                (2 * n_q + 2 * n_kv) * 2 + n_rows * 4, 4 * hs * pairs),
+            "flash_attention_bwd": (
+                lambda: attention.flash_attention_bwd(q, k, v, o, lse, do, scale),
+                lambda: attention.flash_attention_bwd_plain(q, k, v, o, lse, do, scale),
+                sdpa_bwd_ms, (3 * n_q + 2 * n_kv) * 2 + (n_q + 2 * n_kv) * 2 + n_rows * 4,
+                10 * hs * pairs),
+            "splash_attention_fwd": (
+                lambda: splash.splash_fwd(q, k, v, scale),
+                lambda: splash.splash_fwd_plain(q, k, v, scale),
+                None, (2 * n_q + 2 * n_kv) * 2 + n_rows * 4, 4 * hs * pairs),
+            "splash_attention_dq": (
+                lambda: splash.splash_dq(*args), lambda: splash.splash_dq_plain(*args),
+                sdpa_bwd_ms, (3 * n_q + 2 * n_kv) * 2 + 2 * n_rows * 4, 6 * hs * pairs),
+            "splash_attention_dkv": (
+                lambda: splash.splash_dkv(*args), lambda: splash.splash_dkv_plain(*args),
+                sdpa_bwd_ms, (2 * n_q + 4 * n_kv) * 2 + 2 * n_rows * 4, 8 * hs * pairs)}
+        for name, (fn, plain, lib_ms, n_bytes, flops) in runs.items():
+            if lib_ms is None:  # L1's forward beside the same SDPA forward as K1's
+                lib_ms = out["flash_attention_fwd"][f"d{hs}"]["library_ms"]
+            bms, by = bound(n_bytes, flops, BF16_TENSOR_FLOPS)
+            out[name][f"d{hs}"] = dict(
+                config=config, shape=[b, nh, g, t, hs], **checks[name],
+                ms=time_ms(fn, torch, iters=10), device_ms=device_ms(fn, torch, iters=5),
+                plain_ms=time_ms(plain, torch, warmup=1, iters=2), library_ms=lib_ms,
+                library=("SDPA forward (enable_gqa)" if name.endswith("_fwd") else
+                         "SDPA backward (dQ, dK, dV together; autograd.grad)"),
+                bound_ms=bms, bound_by=by)
+        dp = attention.padded_head_size(hs)
+        if dp != hs:  # the wrappers' zero-padded copies, timed alone
+            for name, tensors in (("flash_attention_fwd", (q, k, v)),
+                                  ("flash_attention_bwd", (q, k, v, o, do))):
+                n_in = sum(x.numel() for x in tensors)
+                out[name][f"d{hs}"]["pad_copy"] = dict(
+                    padded_head_size=dp, bytes=2 * n_in * (1 + dp / hs),
+                    ms=time_ms(lambda: [attention._pad_heads(x, dp) for x in tensors], torch,
+                               iters=10))
+        del q, k, v, do, o, lse, so, slse, di, args, qr, kr, vr, sdpa_out
+        torch.cuda.empty_cache()
+
+        # the forwards at the prefill shape
+        t = FLASH_HEADS_PREFILL_T
+        q, k, v = randn(b, nh, t, hs), randn(b, g, t, hs), randn(b, g, t, hs)
+        pairs, n_q, n_kv, n_rows = b * nh * t * (t + 1) // 2, b * nh * t * hs, \
+            b * g * t * hs, b * nh * t
+        bms, by = bound((2 * n_q + 2 * n_kv) * 2 + n_rows * 4, 4 * hs * pairs,
+                        BF16_TENSOR_FLOPS)
+        lib_ms = time_ms(lambda: sdpa_gqa(F, q, k, v, scale), torch, iters=10)
+        for name, fn, plain in (
+                ("flash_attention_fwd", lambda: attention._flash_fwd(q, k, v, scale)[0],
+                 lambda: attention.causal_attention_plain(q, k, v, scale)),
+                ("splash_attention_fwd", lambda: splash.splash_fwd(q, k, v, scale)[0],
+                 lambda: splash.splash_fwd_plain(q, k, v, scale)[0])):
+            out[name][f"d{hs}"][f"prefill_T{t}"] = dict(
+                shape=[b, nh, g, t, hs], max_abs_err=compare(name, fn(), plain(), torch),
+                ms=time_ms(fn, torch, iters=10), device_ms=device_ms(fn, torch, iters=5),
+                plain_ms=time_ms(plain, torch, warmup=1, iters=2), library_ms=lib_ms,
+                bound_ms=bms, bound_by=by)
+        del q, k, v
+        torch.cuda.empty_cache()
+    reports = [ptxas_report(src) for src in ("flash_attention.cu", "flash_attention_bwd.cu")]
+    ptxas = ("not measured (library built before this run)" if None in reports else
+             {k: v for k, v in {**reports[0], **reports[1]}.items()
+              if any(f"<{d}" in k for d in (32, 80, 96, 104, 256))})
+    emit({"phase": "flash_heads", "tolerance": {
+              "forward": dict(zip(("atol", "rtol"), TOLERANCES["flash_attention_fwd"]),
+                              lse=LSE_TOL),
+              "splash_forward": dict(zip(("atol", "rtol"), TOLERANCES["splash_attention_fwd"])),
+              "gradients": dict(zip(("atol", "atol_of_rms", "rtol"), FLASH_BWD_TOL))},
+          "ptxas": ptxas, **out})
+    return out
+
+
+def phi2_kernel_phase(torch, seed: int) -> dict:
+    """K8, K5 and K3 at the shapes phi2_slice gives them, each against its
+    plain version at TOLERANCES, timed beside its bound and, for K8 and K5,
+    the cuBLAS yardstick (`q4_row`, `lora_row`): K8 at phi-2's five linears
+    (PHI2_Q4_SHAPES x PHI2_ROWS), K5 at q/k/v and proj with rank 16, K3 at
+    32 of 80 channels on fused-QKV views (PHI2_ROPE_SHAPES). Returns
+    {kernel: {row: result}}."""
+    from dualhyp_tpu_torch import config_from_name
+    from dualhyp_tpu_torch.models.gpt import split_heads
+    from dualhyp_tpu_torch.ops import lora, quant, rope
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 53)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, std=1.0, dtype=bf16):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+    q4 = {}
+    for name, n, k in PHI2_Q4_SHAPES:
+        packed, scales = quant.quantize_weight_int4(randn(n, k, std=0.02, dtype=torch.float32))
+        w_deq = quant.dequantize_weight_int4(packed, scales, bf16)
+        for label, rows in PHI2_ROWS:
+            if name != "lm_head" or label == "decode":
+                q4[f"phi2_{label}_{name}"] = q4_row(torch, randn(rows, k), packed, scales,
+                                                    w_deq)
+        del packed, scales, w_deq
+    emit({"phase": "kernel", "name": "q4_matmul", "shapes_of": PHI2,
+          "tolerance": dict(zip(("atol", "rtol"), TOLERANCES["q4_matmul"])), **q4})
+
+    lo = {}
+    for name, o, d, blocks in PHI2_LORA_SHAPES:
+        w, a = randn(o, d, std=0.02), randn(blocks * LORA_RANK, d, std=1 / math.sqrt(d))
+        shapes = (d, (o - d) // 2, (o - d) // 2) if blocks == 3 else (o,)
+        b = lora.lora_qkv_block_b(randn(o, LORA_RANK, std=0.02), shapes, LORA_RANK)
+        for label, rows in PHI2_ROWS:
+            lo[f"phi2_{label}_{name}"] = lora_row(torch, randn(rows, d), w, a, b, 1.0)
+    emit({"phase": "kernel", "name": "lora_linear", "shapes_of": PHI2,
+          "tolerance": dict(zip(("atol", "rtol"), TOLERANCES["lora_linear"])), **lo})
+
+    cfg = config_from_name(PHI2)
+    hs, n_elem, b = cfg.head_size, cfg.rope_n_elem, 8
+    ro = {}
+    for label, t, with_transpose in PHI2_ROPE_SHAPES:
+        q5, k4, _ = split_heads(cfg, randn(b, t, cfg.qkv_out_dim))
+        cos, sin = rope.build_rope_cache(t, n_elem, base=cfg.rope_base, dtype=bf16, device=dev)
+        runs = [("q", q5, False), ("k", k4, False)]
+        if with_transpose:
+            runs += [("q_transpose", randn(*q5.shape), True),
+                     ("k_transpose", randn(*k4.shape), True)]
+        for part, x, tr in runs:
+            fn = lambda: rope.apply_rope(x, cos, sin, tr)  # noqa: E731
+            plain = lambda: rope.apply_rope_plain(x, cos, sin, tr)  # noqa: E731
+            n = x.numel()
+            bms, by = bound(2 * n * 2 + 2 * t * n_elem * 2, 4 * (n // hs) * n_elem, FP32_FLOPS)
+            ro[f"phi2_{label}_{part}"] = dict(
+                shape=list(x.shape), n_elem=n_elem, transpose=tr,
+                max_abs_err=compare("apply_rope", repeatable("apply_rope", fn, torch), plain(),
+                                    torch),
+                repeats_bitwise=True, ms=time_ms(fn, torch), device_ms=device_ms(fn, torch),
+                plain_ms=time_ms(plain, torch), library_ms=None, bound_ms=bms, bound_by=by)
+        del q5, k4, runs
+    emit({"phase": "kernel", "name": "apply_rope", "shapes_of": PHI2,
+          "tolerance": dict(zip(("atol", "rtol"), TOLERANCES["apply_rope"])), **ro})
+    torch.cuda.empty_cache()
+    return {"q4_matmul": q4, "lora_linear": lo, "apply_rope": ro}
+
+
+def randomize_family_leaves(torch, model, gen) -> None:
+    """A finetuned-looking model: lora_B N(0, 0.02) on q/k/v/proj, every
+    bias N(0, 0.02) and every norm scale 1 + N(0, 0.1), so the biases and
+    LayerNorm leaves count (the init's are 0 and 1)."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("lora_B") or name.endswith(".bias"):
+                p.copy_(torch.randn(p.shape, generator=gen, device=p.device) * 0.02)
+            elif name.endswith(".scale"):
+                p.copy_(1.0 + torch.randn(p.shape, generator=gen, device=p.device) * 0.1)
+
+
+def depth2_family_check(torch, seed: int) -> dict:
+    """Two blocks of each FAMILY_DEPTH2 config at full width, LoRA on
+    q/k/v/proj, card bf16 against CPU fp32 on the same weights (drawn on the
+    card, then copied to the CPU in fp32): the prefill logits and one decode
+    step's (DEPTH2_ATOL), the K/V caches (DEPTH2_CACHE_REL), and one LoRA
+    Trainer step, dropout off: the loss (TRAIN_LOSS_ATOL) and every LoRA
+    gradient (TRAIN_GRAD_REL). K1's forward and backward and K3 must launch
+    on the card; K2 and K4 exactly where the config has an RMSNorm and a
+    gated MLP without biases. Returns {config: result}."""
+    import numpy as np
+
+    from dualhyp_tpu_torch.models.gpt import GPT
+    from dualhyp_tpu_torch.train import TrainConfig, Trainer
+
+    results = {}
+    for name in FAMILY_DEPTH2:
+        cfg = family_lora_config(name, n_layer=2)
+        card = GPT(cfg, device="cuda", dtype=torch.bfloat16)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        card.init_weights(gen)
+        randomize_family_leaves(torch, card, gen)
+        cpu = GPT(cfg, device="cpu", dtype=torch.float32)
+        cpu.load_state_dict({k: v.float().cpu() for k, v in card.state_dict().items()})
+        rng = np.random.default_rng(seed + 1)
+        t = 96  # not a multiple of the flash kernel's 64-row tile
+        ids = torch.from_numpy(rng.integers(3, cfg.vocab_size, size=(2, t)))
+        lengths = torch.tensor([96, 61])
+        ids[1, 61:] = 0
+        reset_counts()
+        caches = {"cuda": card.init_cache(2, t + 1), "cpu": cpu.init_cache(2, t + 1)}
+        got = card.prefill(ids.cuda(), lengths.cuda(), caches["cuda"]).cpu()
+        want = cpu.prefill(ids, lengths, caches["cpu"])
+        token = want.argmax(-1)
+        got_step = card.decode_step(token.cuda(), lengths.cuda(), caches["cuda"]).cpu()
+        want_step = cpu.decode_step(token, lengths, caches["cpu"])
+        errs = {"prefill_logits": float((got - want).abs().max()),
+                "decode_logits": float((got_step - want_step).abs().max())}
+        cache_rel = {f"layer{i}_{kv}": float((c.float().cpu() - w).norm() / w.norm())
+                     for i, (lc, lw) in enumerate(zip(caches["cuda"], caches["cpu"]))
+                     for kv, c, w in zip("kv", lc, lw)}
+        del caches
+        # one LoRA training step at the same T
+        ids = rng.integers(3, cfg.vocab_size, size=(2, t)).astype(np.int32)
+        labels = ids.copy()
+        labels[:, : t // 2] = -1
+        batch = {"input_ids": ids, "labels": labels}
+        steps = {}
+        for device, model, dtype in (("cuda", card, "bfloat16"), ("cpu", cpu, "float32")):
+            tcfg = TrainConfig(batch_size=2, micro_batch_size=2, compute_dtype=dtype,
+                               lm_head_chunk_size=128)
+            trainer = Trainer(cfg, tcfg, model)
+            loss, _ = trainer.train_step(batch, max_iters=100, warmup_steps=10)
+            steps[device] = (float(loss), {n: p.grad.detach().float().cpu()
+                                           for n, p in trainer.trainable.items()})
+            del trainer
+        launches = read_counts()
+        del card, cpu
+        torch.cuda.empty_cache()
+        (loss_card, g_card), (loss_cpu, g_cpu) = steps["cuda"], steps["cpu"]
+        rel = {n: float((g_card[n] - g_cpu[n]).norm() / g_cpu[n].norm()) for n in g_cpu}
+        rms = cfg.norm_class == "RMSNorm"
+        k4 = cfg.mlp_class in ("LLaMAMLP", "GemmaMLP") and not cfg.bias
+        must = ("flash_attention_fwd", "flash_attention_bwd", "apply_rope",
+                "apply_rope_transpose") + (("rms_norm",) if rms else ()) + \
+            (("swiglu_mlp",) if k4 else ())
+        never = (() if rms else ("rms_norm",)) + (() if k4 else ("swiglu_mlp",)) + \
+            ("lora_linear", "q4_matmul") + SPLASH_KERNELS
+        result = {"phase": "depth2_family_card_vs_cpu", "config": name,
+                  "head_size": cfg.head_size, "rope_n_elem": cfg.rope_n_elem,
+                  "norm": cfg.norm_class, "mlp": cfg.mlp_class, "bias": cfg.bias,
+                  "heads": [cfg.n_head, cfg.n_query_groups], "width": cfg.n_embd,
+                  **errs, "logit_std": float(want.std()), "logit_atol": DEPTH2_ATOL,
+                  "cache_rel_l2_err": cache_rel, "cache_rel_tol": DEPTH2_CACHE_REL,
+                  "loss_card": loss_card, "loss_cpu": loss_cpu,
+                  "loss_abs_err": abs(loss_card - loss_cpu), "loss_atol": TRAIN_LOSS_ATOL,
+                  "grad_rel_l2_err_max": max(rel.values()), "grad_rel_tol": TRAIN_GRAD_REL,
+                  "launches": launches}
+        emit(result)
+        results[name] = result
+        if not max(errs.values()) <= DEPTH2_ATOL:
+            raise RuntimeError(f"depth-2 {name} logits: card vs CPU {errs} > {DEPTH2_ATOL}")
+        if not max(cache_rel.values()) <= DEPTH2_CACHE_REL:
+            raise RuntimeError(f"depth-2 {name} caches: card vs CPU {cache_rel}")
+        if not abs(loss_card - loss_cpu) <= TRAIN_LOSS_ATOL:
+            raise RuntimeError(f"depth-2 {name} train loss: card {loss_card} vs CPU {loss_cpu}")
+        bad = {n: e for n, e in rel.items() if not e <= TRAIN_GRAD_REL}
+        if bad:
+            raise RuntimeError(f"depth-2 {name} LoRA gradients off: {bad}")
+        if any(launches[n] <= 0 for n in must) or any(launches[n] for n in never):
+            raise RuntimeError(f"depth-2 {name}: launches {launches}, must {must}, "
+                               f"never {never}")
+    return results
+
+
+def write_hf_phi(torch, path: Path, cfg, seed: int) -> dict:
+    """A random HF-layout Phi checkpoint of `cfg` (phi-2's tensor names, bf16
+    safetensors in two shards, drawn on the card from `seed`: std 0.02
+    matrices and biases, LayerNorm weights near 1) and its `config.json`.
+    Returns a few written tensors (CPU) to hold the conversion against."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    d, hs, inter = cfg.n_embd, cfg.head_size, cfg.intermediate_size
+
+    def w(*shape, std=0.02, mean=0.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * std + mean).to(
+            torch.bfloat16).cpu()
+
+    def linear(shard, name, out_f, in_f):
+        shard[name + ".weight"], shard[name + ".bias"] = w(out_f, in_f), w(out_f)
+
+    def norm(shard, name):
+        shard[name + ".weight"], shard[name + ".bias"] = w(d, std=0.1, mean=1.0), w(d)
+
+    path.mkdir(parents=True)
+    half = cfg.n_layer // 2
+    shards = [{"model.embed_tokens.weight": w(cfg.vocab_size, d)}, {}]
+    for i in range(cfg.n_layer):
+        shard, p = shards[i >= half], f"model.layers.{i}."
+        for x in "qkv":
+            linear(shard, p + f"self_attn.{x}_proj", cfg.n_head * hs, d)
+        linear(shard, p + "self_attn.dense", d, cfg.n_head * hs)
+        linear(shard, p + "mlp.fc1", inter, d)
+        linear(shard, p + "mlp.fc2", d, inter)
+        norm(shard, p + "input_layernorm")
+    norm(shards[1], "model.final_layernorm")
+    linear(shards[1], "lm_head", cfg.vocab_size, d)
+    for i, shard in enumerate(shards):
+        write_safetensors(path / f"model-0000{i + 1}-of-00002.safetensors", shard)
+    (path / "config.json").write_text(json.dumps({
+        "architectures": ["PhiForCausalLM"], "hidden_size": d, "intermediate_size": inter,
+        "num_attention_heads": cfg.n_head, "num_hidden_layers": cfg.n_layer,
+        "partial_rotary_factor": cfg.rotary_percentage, "vocab_size": cfg.vocab_size,
+        "torch_dtype": "bfloat16"}))
+    p = "model.layers.1.self_attn."
+    return {"layer1_qkv": [shards[0][p + f"{x}_proj.weight"] for x in "qkv"],
+            "layer1_qkv_bias": [shards[0][p + f"{x}_proj.bias"] for x in "qkv"],
+            "lm_head_bias": shards[1]["lm_head.bias"],
+            "ln_f_bias": shards[1]["model.final_layernorm.bias"]}
+
+
+def phi2_slice(torch, seed: int) -> dict:
+    """phi-2 at full size (32 layers, width 2560, 32 heads of 80, rotary 32
+    of 80, intermediate 10240, vocab 51200, 2.8 B parameters) with LoRA r 16
+    on q/k/v/proj: random bf16 weights from --seed written as an HF Phi
+    directory (5.6 GB) and loaded through `cli.common.load_model` (the
+    port's `convert_phi_family`); then the decode slices' traffic (16
+    DualHyp requests, decode batch 8, 32 new tokens, greedy) through
+    `cli.inference_ger.run_inference` in bf16 (one batch profiled), LoRA
+    finetuning through `cli.finetune_ger.run_training` (4 optimizer steps of
+    batch 32 in micro batches of 8, remat on, the training slice's
+    settings), the traffic again with the LoRA linears through K5 (a model
+    built with lora_impl "fused" holding the same weights), and once more
+    merged and int4 (K8), as `--quantize int4` runs it. K1 (D 80) and K3 (n_elem
+    32 of 80) must launch on every run, K1's backward and K3's transposed
+    launch in training, K5 and K8 on their runs; K2 and K4 never (LayerNorm,
+    the GPT-NeoX MLP)."""
+    from dualhyp_tpu_torch.ckpt.convert_hf import interleave_qkv
+    from dualhyp_tpu_torch.cli.common import load_model
+    from dualhyp_tpu_torch.models.gpt import GPT, merge_lora, quantize_model
+    from dualhyp_tpu_torch.train import TrainConfig
+
+    cfg = family_lora_config(PHI2, lora_dropout=0.05)
+    result = {"phase": "phi2_slice", "model": cfg.name, "n_layer": cfg.n_layer,
+              "width": cfg.n_embd, "heads": cfg.n_head, "head_size": cfg.head_size,
+              "rope_n_elem": cfg.rope_n_elem, "intermediate": cfg.intermediate_size,
+              "vocab": cfg.padded_vocab_size, "lora_r": cfg.lora_r}
+    serve = dict(decode_batch=8, max_new_tokens=32, temperature=0.2, top_k=1, kv_quant=None)
+    runs = {}
+
+    def served(label, model, profile):
+        # the profiled batch decodes PHI2_PROFILE_NEW_TOKENS tokens: with 32
+        # its trace took 71 s to post-process, with 8 23 s (NVIDIA H100
+        # 80GB HBM3 hosts)
+        records, metrics, wall, launches, prompt_tokens, prefill_rows = serve_requests(
+            torch, model, seed, serve, f"phi2_{label}" if profile else None,
+            profile_new_tokens=PHI2_PROFILE_NEW_TOKENS)
+        runs[label] = {"wall_s": wall, "metrics": metrics,
+                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       "prompt_tokens": prompt_tokens, "prefill_rows": prefill_rows,
+                       "launches": launches, "sample": records[0]}
+        check_served(records, metrics, launches, PHI2_RUNS[label]["launch"],
+                     PHI2_RUNS[label]["idle"], f"phi-2 {label}")
+        return records
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        hf_dir = tmp / "phi-2"
+        t0 = time.perf_counter()
+        written = write_hf_phi(torch, hf_dir, cfg, seed)
+        result["hf_checkpoint_gb"] = sum(f.stat().st_size for f in hf_dir.iterdir()) / 1e9
+        result["write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        model = load_model(hf_dir, cfg, device="cuda", seed=seed, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        result["load_model_s"] = time.perf_counter() - t0
+        shutil.rmtree(hf_dir)
+        qkv = model.blocks[1].attn.qkv
+        converted = {
+            "layer1_qkv": torch.equal(qkv.weight.cpu(),
+                                      interleave_qkv(*written["layer1_qkv"], cfg)),
+            "layer1_qkv_bias": torch.equal(qkv.bias.cpu(),
+                                           interleave_qkv(*written["layer1_qkv_bias"], cfg)),
+            "lm_head_bias": torch.equal(model.lm_head.bias[:cfg.vocab_size].cpu(),
+                                        written["lm_head_bias"]),
+            "ln_f_bias": torch.equal(model.ln_f.bias.cpu(), written["ln_f_bias"].float())}
+        del written
+        result["converted_equal"] = converted
+        if not all(converted.values()):
+            raise RuntimeError(f"load_model did not convert the phi-2 checkpoint: {converted}")
+        result["parameters"] = sum(p.numel() for p in model.parameters())
+        result["weight_gb"] = sum(p.numel() * p.element_size()
+                                  for p in model.parameters()) / 1e9
+        random_lora_b(torch, model, torch.Generator(device="cuda").manual_seed(seed + 1))
+        reference = served("bf16", model, profile=True)
+
+        tcfg = TrainConfig(batch_size=32, micro_batch_size=8, num_epochs=2,
+                           frozen_dtype="bfloat16", remat=True, seed=seed,
+                           log_interval=32, save_interval=10**6)
+        tok, dataset = dualhyp_data(tmp, seed)
+        # the LoRA leaves alone in the checkpoints (--save_adapter_only): the
+        # whole tree would be 5.6 GB a file
+        trained = timed_training(torch, model, tcfg, tok, dataset, tmp / "run", seed,
+                                 adapter_only=True)
+        out = trained.pop("out")
+        result["train"] = dict(batch_size=tcfg.batch_size,
+                               micro_batch_size=tcfg.micro_batch_size, remat=True,
+                               val_loss=out["best_val"], **trained)
+        del out
+        losses = trained["losses"]
+        if len(losses) != 4 or not all(math.isfinite(x) for x in losses):
+            raise RuntimeError(f"phi-2 training losses {losses}")
+        missing = [n for n in PHI2_TRAIN_PATH if trained["launches"][n] <= 0]
+        stray = [n for n in PHI2_IDLE + ("lora_linear", "q4_matmul")
+                 if trained["launches"][n] != 0]
+        if missing or stray:
+            raise RuntimeError(f"phi-2 training: never launched {missing}, launched {stray}")
+
+        fused = GPT(cfg, device="cuda", dtype=torch.bfloat16, lora_impl="fused")
+        fused.load_state_dict(model.state_dict())
+        del model
+        torch.cuda.empty_cache()
+        reference = served("fused", fused, profile=False)
+        quantize_model(merge_lora(fused), "int4")  # what --quantize int4 runs
+        torch.cuda.empty_cache()
+        records = served("int4", fused, profile=False)
+        runs["int4"]["vs_fused"] = token_agreement(records, reference)
+        del fused
+        torch.cuda.empty_cache()
+    result["runs"] = {k: {key: v for key, v in r.items() if key != "sample"}
+                      for k, r in runs.items()}
+    result["sample"] = runs["bf16"]["sample"]
+    emit(result)
+    result["runs"] = runs
+    return result
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5266,6 +5822,12 @@ def main(argv=None) -> int:
     depth2_moe_train = run("depth2_mixtral_train_check", depth2_mixtral_train_check)
     mixtral = run("mixtral_slice", mixtral_slice)
     mixtral_train = run("mixtral_train_slice", mixtral_train_slice)
+    heads = run("flash_heads_phase", flash_heads_phase)
+    phi2_kernels = run("phi2_kernel_phase", phi2_kernel_phase)
+    for name in ("q4_matmul", "lora_linear"):
+        kernels[name].update(phi2_kernels[name])
+    depth2_family = run("depth2_family_check", depth2_family_check)
+    phi2 = run("phi2_slice", phi2_slice)
     emit({"phase": "phase_seconds", **seconds})
 
     sources = {"rms_norm": ("rmsnorm.cu", "dualhyp_tpu/ops/pallas/rmsnorm_kernel.py:26"),
@@ -5367,7 +5929,17 @@ def main(argv=None) -> int:
              "splash_slice": splashed["launches"],
              "splash_slice_decode": splashed["decode_launches"],
              **{f"depth2_train_splash_T{t}": r["launches"] for t, r in depth2_splash.items()},
-             **{f"attn_ab_1024_{k}": r["launches"] for k, r in attn_ab.items()}}
+             **{f"attn_ab_1024_{k}": r["launches"] for k, r in attn_ab.items()},
+             **{f"phi2_{k}": r["launches"] for k, r in phi2["runs"].items()},
+             "phi2_train": phi2["train"]["launches"],
+             **{f"depth2_family_{k}": r["launches"] for k, r in depth2_family.items()}}
+    # the runs whose every K1 launch is at one of those head sizes (the
+    # launch counts are the wrapper's, over all head sizes)
+    head_paths = {80: ("phi2_bf16", "phi2_fused", "phi2_int4", "phi2_train",
+                       "depth2_family_phi-2"),
+                  256: ("depth2_family_pythia-1b", "depth2_family_Gemma-2b"),
+                  96: ("depth2_family_Phi-3-mini-4k-instruct",),
+                  100: ("depth2_family_open_llama_3b",), 32: ()}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "device_ms", "shape")
     train_rows = {"rms_norm": train_shapes["rms_norm"],
@@ -5420,6 +5992,23 @@ def main(argv=None) -> int:
                 entry[key] = {k: row[k] for k in keys}
         if name == "flash_attention_bwd":
             entry["d128"] = {k: kernels[name]["d128"][k] for k in keys}
+        if name in FLASH_KERNELS:  # the head sizes other than 64 and 128
+            for hs, runs_at in head_paths.items():
+                row = heads[name][f"d{hs}"]
+                entry[f"d{hs}"] = {
+                    **{k: row[k] for k in keys}, "config": row["config"],
+                    "launches": sum(launches[p] for p in runs_at),
+                    "launches_by_path": {p: launches[p] for p in runs_at},
+                    **({"prefill": {k: row[f"prefill_T{FLASH_HEADS_PREFILL_T}"][k]
+                                    for k in keys}}
+                       if f"prefill_T{FLASH_HEADS_PREFILL_T}" in row else {})}
+        if name == "apply_rope":  # partial rotary, 32 of phi-2's 80 channels
+            entry["phi2_partial_rotary"] = {k: {key: v[key] for key in keys}
+                                            for k, v in phi2_kernels[name].items()}
+            entry["phi2_partial_rotary_launches"] = {
+                p: launches[p] for p in ("phi2_bf16", "phi2_train")}
+            entry["phi2_partial_rotary_transpose_launches"] = phi2["train"]["launches"][
+                "apply_rope_transpose"]
         if name in SPLASH_KERNELS:
             entry["launches"] = launches["splash_slice"] + (
                 launches["splash_slice_decode"] if name == "splash_attention_fwd" else 0)

@@ -150,7 +150,8 @@ def load_model(checkpoint_dir, cfg, *, device, seed: int, dtype=torch.bfloat16,
                finetuned=None) -> GPT:
     """The model with the checkpoint directory's base weights: converted
     ones (`dualhyp_model.npz`) if it has them, else HF `*.safetensors`
-    shards converted on the fly (`ckpt.convert_hf`, LLaMA family), as
+    shards converted on the fly (`ckpt.convert_hf`: the LLaMA, GPT-NeoX,
+    Falcon and Phi families), as
     `dualhyp_tpu/cli/common.py:load_base_params` does; else random weights
     from `seed` with a warning. Then the finetuned leaves (`finetuned`, an
     npz path) over them. Leaves a checkpoint lacks keep their initial

@@ -48,8 +48,15 @@
 //   * O = acc / l goes out through shared memory and a TMA store of the
 //     (B, T, H, D) view (rows past T are not written); L = m + log l;
 //   * the grid puts the longest query tiles (most key tiles) first;
-//   * one instance per head size (64: TinyLlama, 128: Mixtral) and P V
-//     arithmetic.
+//   * one instance per head size and P V arithmetic: 64 (TinyLlama), 128
+//     (Mixtral, LLaMA), 32 (pythia-14m), 80 (phi-2, pythia-2.8b), 96
+//     (Phi-3), 100 (open_llama_3b, read as 104 from the wrapper's padded
+//     copy: a 200-byte row breaks TMA's 16-byte stride rule) and 256
+//     (Gemma, pythia-1b). A head size that is not a multiple of 64 reads
+//     whole 64-column boxes, zero past D (TMA's out-of-bounds fill): Q K^T
+//     stops at the last 16-column step that holds data, P V runs the whole
+//     box (at D 80, 1.6x the products of its columns). D 256 runs one
+//     consumer warpgroup (O is 128 registers a thread).
 // Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00 W (device
 // time, PERF.md): K1 0.147 ms at B8 Hq32 G4 T1024 D64 (bound 0.035, SDPA
 // 0.110) and 0.230 ms at G8 D128 (bound 0.070, SDPA 0.149), where the WMMA
@@ -65,17 +72,23 @@ constexpr int kBKV = 64;    // keys a tile
 constexpr int kStages = 2;  // K/V tiles in flight
 constexpr float kLog2e = 1.4426950408889634f;
 
+// kD: the head size as the rows lie in memory (104 is head size 100 in a
+// copy the wrapper pads with 4 zero columns, so every stride is a multiple
+// of 16 bytes). Tiles are whole 64-column (128-byte) boxes; TMA reads zeros
+// past kD, which leave S and P V exact, and stores no column past it.
 template <int kD>
 struct Layout {
-  // consumer warpgroups of 64 query rows: one at D = 64, two (sharing each
-  // K/V tile) at D = 128, the faster of the two on the card at T 384 and
-  // 1024 (see PERF.md)
-  static constexpr int kWG = kD == 64 ? 1 : 2;
+  static constexpr int kCols = (kD + 63) / 64;         // 64-column (128-byte) blocks
+  static constexpr int kK16 = (kD + 15) / 16;          // k16 steps of Q K^T
+  // consumer warpgroups of 64 query rows: one at one column block, two
+  // (sharing each K/V tile) at two (D 80 to 128), the faster of the two on
+  // the card at T 384 and 1024 at D 64 and 128 (see PERF.md); one at D 256,
+  // where O alone takes 128 registers a thread
+  static constexpr int kWG = kCols == 2 ? 2 : 1;
   static constexpr int kBQ = 64 * kWG;                 // query rows a block
   static constexpr int kThreads = kWG * 128 + 32;      // + the producer warp
-  static constexpr int kCols = kD / 64;                 // 64-column (128-byte) blocks
-  static constexpr int kQBytes = kBQ * kD * 2;
-  static constexpr int kKVBytes = kBKV * kD * 2;       // one K or V tile
+  static constexpr int kQBytes = kBQ * kCols * 64 * 2;
+  static constexpr int kKVBytes = kBKV * kCols * 64 * 2;  // one K or V tile
   static constexpr int kBarOffset = kQBytes + 2 * kStages * kKVBytes;
   // + the barriers, + slack to align the base to 1024 bytes
   static constexpr int kSmem = kBarOffset + 64 + 1024;
@@ -176,7 +189,7 @@ __device__ __forceinline__ void attention_fwd(const CUtensorMap* map_q, const CU
       fence_regs(sc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
+      for (int kk = 0; kk < L::kK16; ++kk) {
         const int c = kk / 4;                  // column block
         const int off = (kk % 4) * 16;         // 16 columns = 32 bytes into the swizzled row
         Wgmma<kBKV>::ss(sc, sw128_desc(q_wg + c * kBQ * 64 + off),
@@ -366,12 +379,20 @@ int dispatch(const void* q, const void* k, const void* v, void* o, void* lse, in
              long long vsh, long long vst, long long osb, long long osh, long long ost,
              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64)
-    return launch<64, kSplit>(q, k, v, o, lse, b, n_head, n_kv_head, t, scale, qsb, qsh, qst,
-                              ksb, ksh, kst, vsb, vsh, vst, osb, osh, ost, s);
-  if (d == 128)
-    return launch<128, kSplit>(q, k, v, o, lse, b, n_head, n_kv_head, t, scale, qsb, qsh, qst,
-                               ksb, ksh, kst, vsb, vsh, vst, osb, osh, ost, s);
+#define DH_FWD_CASE(D)                                                                     \
+  case D:                                                                                  \
+    return launch<D, kSplit>(q, k, v, o, lse, b, n_head, n_kv_head, t, scale, qsb, qsh, qst, \
+                             ksb, ksh, kst, vsb, vsh, vst, osb, osh, ost, s);
+  switch (d) {
+    DH_FWD_CASE(32)
+    DH_FWD_CASE(64)
+    DH_FWD_CASE(80)
+    DH_FWD_CASE(96)
+    DH_FWD_CASE(104)
+    DH_FWD_CASE(128)
+    DH_FWD_CASE(256)
+  }
+#undef DH_FWD_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -416,7 +437,8 @@ int attention_fwd_bf16(const void* q, const void* k, const void* v, void* o, int
 // q: (B, H, T, D); k, v: (B, G, T, D), each with (batch, head, token)
 // element strides that are multiples of 8 and unit channel stride, 16-byte
 // aligned; o: the same for (B, H, T, D); lse: contiguous (B, H, T) fp32.
-// D is 64 or 128. S = scale * q k^T.
+// D is 32, 64, 80, 96, 104 (head size 100 padded with zero columns), 128 or
+// 256: every head size of the model registry. S = scale * q k^T.
 
 // K1's forward: P rounded to bf16 before P V.
 DH_EXPORT int dh_flash_attention_fwd(

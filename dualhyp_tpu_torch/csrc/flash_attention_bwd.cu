@@ -78,7 +78,7 @@
 //     thread issues a per-element atomic; the wrapper casts the buffer;
 //   * L1's instance issues S^T in a wgmma group of its own and forms P^T
 //     (by the SFU's exp, `exp2_approx`) while dP^T still runs, then dS^T;
-//     K1's waits for both products and takes exp2f, as before;
+//     K1's waits for both products and takes exp2f, as before (`kK1`);
 //   * registers: dK and dV of 64 keys are D fp32 registers a thread, S^T
 //     and dP^T 64 more. At D = 64 two consumer warpgroups (128 keys a
 //     block) run beside the producer warpgroup, which hands them its
@@ -94,7 +94,14 @@
 //   * ragged T: TMA reads zeros past T (Q and dO rows give zero dS; keys
 //     past T are masked), the TMA adds and stores stop at T; every T >= 1
 //     runs;
-//   * one instance per head size (64: TinyLlama, 128: Mixtral).
+//   * one instance per head size: 32, 64, 80, 96, 100 (read as 104 from
+//     the wrapper's zero-padded copy), 128 and 256, as the forward's
+//     (flash_attention.cu). At D 256 the dK/dV accumulators alone would
+//     take 256 registers a thread: the grid holds two blocks a key block,
+//     each keeping half of the columns of dK and dV (both form the whole
+//     of S^T and dP^T, 7 products of D/2 where K1 runs 5 of D), and K1's
+//     dQ comes from L1's dQ kernel on K1's own L and Delta, written in
+//     fp32 into K1's dQ buffer; both take K1's exp2f there (`kK1`).
 //
 // Design of L1's dQ (the shape of K1's forward, flash_attention.cu): a block
 // owns 64 query rows of one (batch, query head): one consumer warpgroup
@@ -133,10 +140,22 @@ namespace {
 
 constexpr int kBQ = 64;     // query rows of a pair (K1, L1 dK/dV) or an L1 dQ block
 constexpr int kBKV = 64;    // keys of an L1 dQ tile
-// consumer warpgroups (of 64 keys) a block at head size kD for K1's
-// backward and L1's dK/dV: the faster choice at each on the card (PERF.md)
+// kD: the head size as the rows lie in memory (104: head size 100 in the
+// wrapper's copy padded with 4 zero columns). Tiles are whole 64-column
+// boxes, zero past kD (TMA's out-of-bounds fill); products that contract
+// over D stop at the last 16-column step holding data.
 template <int kD>
-constexpr int kWarpgroups = kD == 64 ? 2 : 1;
+constexpr int kColBlocks = (kD + 63) / 64;
+// consumer warpgroups (of 64 keys) a block at head size kD for K1's
+// backward and L1's dK/dV: the faster choice at 64 and 128 on the card
+// (PERF.md), two at one column block, one above
+template <int kD>
+constexpr int kWarpgroups = kColBlocks<kD> == 1 ? 2 : 1;
+// column parts of dK and dV: at D 256 a block keeps half of their columns
+// (128 registers a thread of each would not fit) and a second block the
+// other half, each forming the whole of S^T and dP^T
+template <int kD>
+constexpr int kParts = kColBlocks<kD> > 2 ? 2 : 1;
 constexpr int kStages = 2;  // Q/dO tiles (K/V tiles for L1's dQ) in flight
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -149,10 +168,18 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
+// 2^x as K1 takes it (kK1: exp2f, as the JAX kernel's exp) or as L1 does
+template <bool kK1>
+__device__ __forceinline__ float exp2_of(float x) {
+  if constexpr (kK1) return exp2f(x);
+  else return exp2_approx(x);
+}
+
 // The shared-memory layout and register split of the instance for head
 // size kD with kWG consumer warpgroups, with or without K1's dQ half.
-template <int kD, int kWG, bool kWithDq>
+template <int kD, int kWG, bool kWithDq, int kNParts = 1>
 struct Layout {
+  static_assert(kNParts == 1 || !kWithDq, "K1's dQ half runs on whole rows");
   static constexpr int kBK = 64 * kWG;              // keys a block
   static constexpr int kThreads = 128 * (kWG + 1);  // + the producer warpgroup
   // registers a thread at launch (the SM's 64K over one block's threads:
@@ -163,11 +190,13 @@ struct Layout {
   static constexpr bool kHandOver = kLaunchRegs < 255;
   static constexpr int kProducerRegs = 24;
   static constexpr int kConsumerRegs = (kLaunchRegs * (kWG + 1) - kProducerRegs) / kWG / 8 * 8;
-  static constexpr int kCols = kD / 64;             // 64-column (128-byte) blocks
-  static constexpr int kKVBytes = kBK * kD * 2;     // the K or V tile
-  static constexpr int kQBytes = kBQ * kD * 2;      // one Q or dO tile
+  static constexpr int kCols = kColBlocks<kD>;      // 64-column (128-byte) blocks
+  static constexpr int kOutCols = kCols / kNParts;  // the blocks of dK, dV a block keeps
+  static constexpr int kK16 = (kD + 15) / 16;       // k16 steps over D
+  static constexpr int kKVBytes = kBK * kCols * 64 * 2;  // the K or V tile
+  static constexpr int kQBytes = kBQ * kCols * 64 * 2;   // one Q or dO tile
   static constexpr int kDsBytes = kWithDq ? 64 * kBQ * 2 : 0;  // a warpgroup's bf16 dS^T
-  static constexpr int kDqBytes = kWithDq ? kBQ * kD * 4 : 0;  // its fp32 dQ partial
+  static constexpr int kDqBytes = kWithDq ? kBQ * kCols * 64 * 4 : 0;  // its fp32 dQ partial
   static constexpr int kRowBytes = 2 * kBQ * 4;     // a tile's L and Delta
   static constexpr int kV = kKVBytes;
   static constexpr int kQ = 2 * kKVBytes;
@@ -182,6 +211,7 @@ struct Layout {
 
 // Delta[row] = sum_d dO[row, d] * O[row, d] in fp32 and a copy of L[row],
 // one warp a row of the (B, H, tp) scratch rows; rows at or past T get 0.
+// A lane takes channels lane, lane + 32, ...
 template <int kD>
 __global__ void __launch_bounds__(128)
 delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
@@ -201,9 +231,7 @@ delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
     const bf16* drow = dout + b * dsb + h * dsh + ti * dst;
     float s = 0.f;
 #pragma unroll
-    for (int c = 0; c < kD; c += 64)
-      s += to_f32(orow[c + lane]) * to_f32(drow[c + lane]) +
-           to_f32(orow[c + lane + 32]) * to_f32(drow[c + lane + 32]);
+    for (int c = lane; c < kD; c += 32) s += to_f32(orow[c]) * to_f32(drow[c]);
     total = warp_sum(s);
     l = lse[bh * t + ti];
   }
@@ -227,15 +255,18 @@ splash_rows(const float* __restrict__ lse, const float* __restrict__ di,
 }
 
 // The backward of one block (K1 with kWithDq; L1's dK/dV without: map_dq
-// is then not read).
-template <int kD, int kWG, bool kWithDq>
+// is then not read). With kNParts 2 the grid holds two blocks a key block,
+// each keeping one half of the columns of dK and dV. kK1: P by exp2f (K1's
+// arithmetic, also where its D 256 path runs this body without dQ).
+template <int kD, int kWG, bool kWithDq, int kNParts = 1, bool kK1 = kWithDq>
 __device__ __forceinline__ void attention_bwd(
     const CUtensorMap* map_q, const CUtensorMap* map_k, const CUtensorMap* map_v,
     const CUtensorMap* map_do, const CUtensorMap* map_rows, const CUtensorMap* map_dq,
     const CUtensorMap* map_dk, const CUtensorMap* map_dv, int q_per_kv, int t, float scale) {
-  using L = Layout<kD, kWG, kWithDq>;
+  using L = Layout<kD, kWG, kWithDq, kNParts>;
   constexpr int kBK = L::kBK;
   constexpr int kCols = L::kCols;
+  constexpr int kOutCols = L::kOutCols;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -257,7 +288,8 @@ __device__ __forceinline__ void attention_bwd(
 
   const int g = blockIdx.x;
   const int b = blockIdx.y;
-  const int k0 = blockIdx.z * kBK;  // the first key blocks walk the most tiles
+  const int k0 = blockIdx.z / kNParts * kBK;  // the first key blocks walk the most tiles
+  const int col0 = blockIdx.z % kNParts * kOutCols;  // the first column block of dK, dV
   const int n_qt = (t + kBQ - 1) / kBQ;
   const int qt0 = k0 / kBQ;         // the first query tile that reaches the keys
   // warp-uniform as far as the compiler can tell (a shuffle from lane 0), so
@@ -315,9 +347,9 @@ __device__ __forceinline__ void attention_bwd(
     bf16* ds_s = reinterpret_cast<bf16*>(smem + L::kDs + wg * L::kDsBytes);
     unsigned char* dq_s = smem + L::kDq + wg * L::kDqBytes;
 
-    float dk[kCols][32], dv[kCols][32];
+    float dk[kOutCols][32], dv[kOutCols][32];
 #pragma unroll
-    for (int c = 0; c < kCols; ++c)
+    for (int c = 0; c < kOutCols; ++c)
 #pragma unroll
       for (int i = 0; i < 32; ++i) dk[c][i] = dv[c][i] = 0.f;
 
@@ -342,14 +374,14 @@ __device__ __forceinline__ void attention_bwd(
         fence_regs(dpt);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < kD / 16; ++kk) {
+        for (int kk = 0; kk < L::kK16; ++kk) {
           const int off = (kk / 4) * kBK * 64 + (kk % 4) * 16;
           const int qoff = (kk / 4) * kBQ * 64 + (kk % 4) * 16;
           Wgmma<64>::ss(st, sw128_desc(k_wg + off), sw128_desc(q_sm + qoff), kk > 0);
         }
         if constexpr (!kWithDq) wgmma_commit();  // L1: S^T in a group of its own
 #pragma unroll
-        for (int kk = 0; kk < kD / 16; ++kk) {
+        for (int kk = 0; kk < L::kK16; ++kk) {
           const int off = (kk / 4) * kBK * 64 + (kk % 4) * 16;
           const int qoff = (kk / 4) * kBQ * 64 + (kk % 4) * 16;
           Wgmma<64>::ss(dpt, sw128_desc(v_wg + off), sw128_desc(do_sm + qoff), kk > 0);
@@ -381,7 +413,7 @@ __device__ __forceinline__ void attention_bwd(
                 st[x] = p;
               }
           }
-        } else {  // L1: P^T by the SFU's exp while dP^T runs, then dS^T
+        } else {  // P^T (L1: by the SFU's exp) while dP^T runs, then dS^T
 #pragma unroll
           for (int j = 0; j < 8; ++j) {
             const float2 lv = *reinterpret_cast<const float2*>(l_row + 8 * j + col);
@@ -391,7 +423,7 @@ __device__ __forceinline__ void attention_bwd(
 #pragma unroll
               for (int e = 0; e < 2; ++e) {
                 const int x = 4 * j + 2 * half + e;
-                float p = exp2_approx(fmaf(st[x], scale2, -l2[e]));
+                float p = exp2_of<kK1>(fmaf(st[x], scale2, -l2[e]));
                 if (diag && kw0 + r0 + 8 * half > q0 + 8 * j + col + e) p = 0.f;
                 st[x] = p;
               }
@@ -429,7 +461,7 @@ __device__ __forceinline__ void attention_bwd(
 
         // dV += P^T dO and dK += dS^T Q, with dO and Q read MN-major
 #pragma unroll
-        for (int c = 0; c < kCols; ++c) {
+        for (int c = 0; c < kOutCols; ++c) {
           fence_regs(dv[c]);
           fence_regs(dk[c]);
         }
@@ -437,8 +469,8 @@ __device__ __forceinline__ void attention_bwd(
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
-          for (int c = 0; c < kCols; ++c) {
-            const int off = c * kBQ * 64 + kk * 16 * 64;
+          for (int c = 0; c < kOutCols; ++c) {
+            const int off = (col0 + c) * kBQ * 64 + kk * 16 * 64;
             wgmma_rs_n64_tb(dv[c], pt[kk], sw128_desc(do_sm + off));
             wgmma_rs_n64_tb(dk[c], dst[kk], sw128_desc(q_sm + off));
           }
@@ -447,7 +479,7 @@ __device__ __forceinline__ void attention_bwd(
         if constexpr (!kWithDq) {
           wgmma_wait<0>();
 #pragma unroll
-          for (int c = 0; c < kCols; ++c) {
+          for (int c = 0; c < kOutCols; ++c) {
             fence_regs(dv[c]);
             fence_regs(dk[c]);
           }
@@ -476,7 +508,7 @@ __device__ __forceinline__ void attention_bwd(
             fence_regs(dq);
             if (c == 0) {
 #pragma unroll
-              for (int cc = 0; cc < kCols; ++cc) {
+              for (int cc = 0; cc < kOutCols; ++cc) {
                 fence_regs(dv[cc]);
                 fence_regs(dk[cc]);
               }
@@ -500,7 +532,7 @@ __device__ __forceinline__ void attention_bwd(
           __syncwarp();
           if (lane == 0) {
 #pragma unroll
-            for (int box = 0; box < 2 * kCols; ++box)
+            for (int box = 0; box < (kD + 31) / 32; ++box)  // no box wholly past D
               tma_reduce_add_4d(map_dq, dq_s + box * (kBQ * 128) + wq * 16 * 128, box * 32,
                                 q0 + wq * 16, h, b);
             bulk_commit();
@@ -511,7 +543,7 @@ __device__ __forceinline__ void attention_bwd(
 
     // dK * scale and dV through the warpgroup's own K and V rows, then TMA
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
+    for (int c = 0; c < kOutCols; ++c) {
       unsigned char* kbox = reinterpret_cast<unsigned char*>(k_wg + c * kBK * 64);
       unsigned char* vbox = reinterpret_cast<unsigned char*>(v_wg + c * kBK * 64);
 #pragma unroll
@@ -528,9 +560,9 @@ __device__ __forceinline__ void attention_bwd(
     fence_async_smem();
     named_barrier<128>(1 + wg);
     if (tid == 0 && kw0 < t) {
-      for (int c = 0; c < kCols; ++c) {
-        tma_store_4d(map_dk, k_wg + c * kBK * 64, c * 64, kw0, g, b);
-        tma_store_4d(map_dv, v_wg + c * kBK * 64, c * 64, kw0, g, b);
+      for (int c = 0; c < kOutCols; ++c) {
+        tma_store_4d(map_dk, k_wg + c * kBK * 64, (col0 + c) * 64, kw0, g, b);
+        tma_store_4d(map_dv, v_wg + c * kBK * 64, (col0 + c) * 64, kw0, g, b);
       }
       bulk_commit();
     }
@@ -553,15 +585,15 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap map_q,
                                &map_dv, q_per_kv, t, scale);
 }
 
-template <int kD, int kWG>
-__global__ void __launch_bounds__(Layout<kD, kWG, false>::kThreads, 1)
+template <int kD, int kWG, bool kK1>
+__global__ void __launch_bounds__(Layout<kD, kWG, false, kParts<kD>>::kThreads, 1)
 splash_dkv(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
            const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
            const __grid_constant__ CUtensorMap map_rows,
            const __grid_constant__ CUtensorMap map_dk,
            const __grid_constant__ CUtensorMap map_dv, int q_per_kv, int t, float scale) {
-  attention_bwd<kD, kWG, false>(&map_q, &map_k, &map_v, &map_do, &map_rows, nullptr, &map_dk,
-                                &map_dv, q_per_kv, t, scale);
+  attention_bwd<kD, kWG, false, kParts<kD>, kK1>(&map_q, &map_k, &map_v, &map_do, &map_rows,
+                                                 nullptr, &map_dk, &map_dv, q_per_kv, t, scale);
 }
 
 // ---- L1's dQ ---------------------------------------------------------------
@@ -569,9 +601,10 @@ splash_dkv(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CU
 template <int kD>
 struct DqLayout {
   static constexpr int kThreads = 128 + 32;           // + the producer warp
-  static constexpr int kCols = kD / 64;
-  static constexpr int kQBytes = kBQ * kD * 2;        // the Q or the dO tile
-  static constexpr int kKVBytes = kBKV * kD * 2;      // one K or V tile
+  static constexpr int kCols = kColBlocks<kD>;
+  static constexpr int kK16 = (kD + 15) / 16;         // k16 steps over D
+  static constexpr int kQBytes = kBQ * kCols * 64 * 2;   // the Q or the dO tile
+  static constexpr int kKVBytes = kBKV * kCols * 64 * 2; // one K or V tile
   static constexpr int kDO = kQBytes;
   static constexpr int kK = 2 * kQBytes;
   static constexpr int kV = kK + kStages * kKVBytes;
@@ -580,12 +613,17 @@ struct DqLayout {
   static constexpr int kSmem = kBars + 8 * (1 + 2 * kStages) + 1024;
 };
 
-template <int kD>
+// kK1: as K1's dQ at D 256: P by exp2f, and dQ written in fp32 into K1's
+// (B, H, T, D) buffer `dq32` (element strides gsb, gsh, gst) by plain
+// stores, each element once, in place of map_dq's bf16 TMA store.
+template <int kD, bool kK1>
 __global__ void __launch_bounds__(DqLayout<kD>::kThreads, 1)
 splash_dq(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
           const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
-          const __grid_constant__ CUtensorMap map_dq, const float* __restrict__ lse,
-          const float* __restrict__ di, int n_head, int q_per_kv, int t, float scale) {
+          const __grid_constant__ CUtensorMap map_dq, float* __restrict__ dq32,
+          long long gsb, long long gsh, long long gst, const float* __restrict__ lse,
+          const float* __restrict__ di, int n_head, int q_per_kv, int t, int ldr,
+          float scale) {
   using L = DqLayout<kD>;
   constexpr int kCols = L::kCols;
   extern __shared__ unsigned char smem_raw[];
@@ -647,7 +685,7 @@ splash_dq(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
   const int row0 = q0 + rr;
   const int col = 2 * (lane & 3);                        // and columns 8 j + col (+ 1)
   const float scale2 = scale * kLog2e;                   // logits in base 2
-  const long long row_base = (static_cast<long long>(b) * n_head + h) * t;
+  const long long row_base = (static_cast<long long>(b) * n_head + h) * ldr;
   float l2[2], dl[2];  // each row's lse (base 2) and di; 0 past T (Q and dO read 0 there)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -675,7 +713,7 @@ splash_dq(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
     fence_regs(dp);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
+    for (int kk = 0; kk < L::kK16; ++kk) {
       const int off = (kk / 4) * 64 * 64 + (kk % 4) * 16;  // column block, 16 columns
       Wgmma<kBKV>::ss(sc, sw128_desc(q_s + off), sw128_desc(k_s + off), kk > 0);
       Wgmma<kBKV>::ss(dp, sw128_desc(do_s + off), sw128_desc(v_s + off), kk > 0);
@@ -699,7 +737,7 @@ splash_dq(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
 #pragma unroll
         for (int x = 0; x < 2; ++x) {
           const int i = 8 * kk + 2 * e + x;
-          float p = exp2_approx(fmaf(sc[i], scale2, -l2[e & 1]));
+          float p = exp2_of<kK1>(fmaf(sc[i], scale2, -l2[e & 1]));
           if (masked) {
             const int key = k0 + 8 * (i >> 2) + col + x;
             if (key > row0 + 8 * (e & 1) || key >= t) p = 0.f;
@@ -723,6 +761,22 @@ splash_dq(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
 #pragma unroll
     for (int kk = 0; kk < kBKV / 16; ++kk) fence_regs(da[kk]);
     if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  if constexpr (kK1) {  // ---- epilogue: dQ * scale in fp32, each row below T ----
+    float* out = dq32 + b * gsb + h * gsh;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (row0 + 8 * r >= t) continue;
+      float* row = out + (row0 + 8 * r) * gst;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c)
+#pragma unroll
+        for (int jn = 0; jn < 8; ++jn)
+          *reinterpret_cast<float2*>(row + c * 64 + 8 * jn + col) =
+              make_float2(dq[c][4 * jn + 2 * r] * scale, dq[c][4 * jn + 2 * r + 1] * scale);
+    }
+    return;
   }
 
   // ---- epilogue: dQ * scale through the Q tile, then TMA ----
@@ -759,15 +813,17 @@ int rows_map(CUtensorMap* map, void* rows, int b, int n_head, int tp) {
 }
 
 // The tensor maps and the launch of K1's backward (kWithDq) or L1's dK/dV,
-// once a pre-pass has written `rows` (dq is not read without kWithDq).
-template <int kD, int kWG, bool kWithDq>
+// once a pre-pass has written `rows` (dq is not read without kWithDq);
+// kK1 without kWithDq: the dK/dV body with K1's exp (K1 at D 256).
+template <int kD, int kWG, bool kWithDq, bool kK1 = kWithDq>
 int launch_bwd(const void* q, const void* k, const void* v, const void* dout, void* rows,
                void* dq, void* dk, void* dv, int b, int n_head, int n_kv_head, int t, int tp,
                float scale, long long qsb, long long qsh, long long qst, long long ksb,
                long long ksh, long long kst, long long vsb, long long vsh, long long vst,
                long long dsb, long long dsh, long long dst, long long dksb, long long dksh,
                long long dkst, long long dvsb, long long dvsh, long long dvst, cudaStream_t s) {
-  using L = Layout<kD, kWG, kWithDq>;
+  constexpr int kNParts = kWithDq ? 1 : kParts<kD>;
+  using L = Layout<kD, kWG, kWithDq, kNParts>;
   CUtensorMap mq, mk, mv, mdo, mrows, mdq, mdk, mdv;
   int e = head_map(&mq, q, b, n_head, t, kD, qsb, qsh, qst, kBQ);
   if (!e) e = head_map(&mk, k, b, n_kv_head, t, kD, ksb, ksh, kst, L::kBK);
@@ -781,7 +837,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout, vo
                  static_cast<long long>(t) * kD, kD, 16, /*fp32=*/true);
   if (!e) e = rows_map(&mrows, rows, b, n_head, tp);
   if (e) return e;
-  const dim3 grid(n_kv_head, b, (t + L::kBK - 1) / L::kBK);
+  const dim3 grid(n_kv_head, b, (t + L::kBK - 1) / L::kBK * kNParts);
   cudaError_t err;
   if constexpr (kWithDq) {
     err = cudaFuncSetAttribute(flash_bwd_kernel<kD, kWG>,
@@ -790,16 +846,48 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout, vo
       flash_bwd_kernel<kD, kWG><<<grid, L::kThreads, L::kSmem, s>>>(
           mq, mk, mv, mdo, mrows, mdq, mdk, mdv, n_head / n_kv_head, t, scale);
   } else {
-    err = cudaFuncSetAttribute(splash_dkv<kD, kWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               L::kSmem);
+    err = cudaFuncSetAttribute(splash_dkv<kD, kWG, kK1>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
     if (err == cudaSuccess)
-      splash_dkv<kD, kWG><<<grid, L::kThreads, L::kSmem, s>>>(mq, mk, mv, mdo, mrows, mdk, mdv,
-                                                            n_head / n_kv_head, t, scale);
+      splash_dkv<kD, kWG, kK1><<<grid, L::kThreads, L::kSmem, s>>>(
+          mq, mk, mv, mdo, mrows, mdk, mdv, n_head / n_kv_head, t, scale);
   }
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-template <int kD, int kWG>
+// L1's dQ kernel, reading lse and di as (B, H) rows of `ldr` floats; with
+// kK1 K1's D 256 dQ into its fp32 buffer dq (element strides gsb, gsh, gst).
+template <int kD, bool kK1 = false>
+int launch_splash_dq(const void* q, const void* k, const void* v, const void* lse,
+                     const void* dout, const void* di, void* dq, int b, int n_head,
+                     int n_kv_head, int t, int ldr, float scale, long long qsb, long long qsh,
+                     long long qst, long long ksb, long long ksh, long long kst, long long vsb,
+                     long long vsh, long long vst, long long dsb, long long dsh, long long dst,
+                     long long gsb, long long gsh, long long gst, cudaStream_t s) {
+  using L = DqLayout<kD>;
+  CUtensorMap mq, mk, mv, mdo, mdq{};
+  int e = head_map(&mq, q, b, n_head, t, kD, qsb, qsh, qst, kBQ);
+  if (!e) e = head_map(&mk, k, b, n_kv_head, t, kD, ksb, ksh, kst, kBKV);
+  if (!e) e = head_map(&mv, v, b, n_kv_head, t, kD, vsb, vsh, vst, kBKV);
+  if (!e) e = head_map(&mdo, dout, b, n_head, t, kD, dsb, dsh, dst, kBQ);
+  if (!e && !kK1) e = head_map(&mdq, dq, b, n_head, t, kD, gsb, gsh, gst, kBQ);
+  if (e) return e;
+  cudaError_t err = cudaFuncSetAttribute(splash_dq<kD, kK1>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(n_head, b, (t + kBQ - 1) / kBQ);
+  splash_dq<kD, kK1><<<grid, L::kThreads, L::kSmem, s>>>(
+      mq, mk, mv, mdo, mdq, kK1 ? static_cast<float*>(dq) : nullptr, gsb, gsh, gst,
+      static_cast<const float*>(lse), static_cast<const float*>(di), n_head, n_head / n_kv_head,
+      t, ldr, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K1's backward: the Delta pre-pass, then one fused kernel for dQ, dK and
+// dV; at D 256 (kParts 2) L1's two gradient bodies on K1's L and Delta
+// instead, both with K1's exp2f: dK/dV with the columns split over two
+// blocks, and dQ by the dQ kernel, written once (fp32) into K1's buffer.
+template <int kD>
 int launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
            const void* lse, void* rows, void* dq, void* dk, void* dv, int b, int n_head,
            int n_kv_head, int t, float scale, long long qsb, long long qsh, long long qst,
@@ -815,12 +903,24 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
       osh, ost, dsb, dsh, dst);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_bwd<kD, kWG, true>(q, k, v, dout, rows, dq, dk, dv, b, n_head, n_kv_head, t,
-                                   tp, scale, qsb, qsh, qst, ksb, ksh, kst, vsb, vsh, vst, dsb,
-                                   dsh, dst, dksb, dksh, dkst, dvsb, dvsh, dvst, s);
+  if constexpr (kParts<kD> == 1) {
+    return launch_bwd<kD, kWarpgroups<kD>, true>(
+        q, k, v, dout, rows, dq, dk, dv, b, n_head, n_kv_head, t, tp, scale, qsb, qsh, qst, ksb,
+        ksh, kst, vsb, vsh, vst, dsb, dsh, dst, dksb, dksh, dkst, dvsb, dvsh, dvst, s);
+  } else {
+    const int e = launch_bwd<kD, kWarpgroups<kD>, false, true>(
+        q, k, v, dout, rows, nullptr, dk, dv, b, n_head, n_kv_head, t, tp, scale, qsb, qsh, qst,
+        ksb, ksh, kst, vsb, vsh, vst, dsb, dsh, dst, dksb, dksh, dkst, dvsb, dvsh, dvst, s);
+    if (e) return e;
+    const float* l_rows = static_cast<const float*>(rows);
+    return launch_splash_dq<kD, true>(
+        q, k, v, l_rows, dout, l_rows + n_rows, dq, b, n_head, n_kv_head, t, tp, scale, qsb,
+        qsh, qst, ksb, ksh, kst, vsb, vsh, vst, dsb, dsh, dst,
+        static_cast<long long>(n_head) * t * kD, static_cast<long long>(t) * kD, kD, s);
+  }
 }
 
-template <int kD, int kWG>
+template <int kD>
 int launch_splash_dkv(const void* q, const void* k, const void* v, const void* lse,
                       const void* dout, const void* di, void* rows, void* dk, void* dv, int b,
                       int n_head, int n_kv_head, int t, float scale, long long qsb,
@@ -835,45 +935,24 @@ int launch_splash_dkv(const void* q, const void* k, const void* v, const void* l
       n_rows, t, tp);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_bwd<kD, kWG, false>(q, k, v, dout, rows, nullptr, dk, dv, b, n_head, n_kv_head,
-                                    t, tp, scale, qsb, qsh, qst, ksb, ksh, kst, vsb, vsh, vst,
-                                    dsb, dsh, dst, dksb, dksh, dkst, dvsb, dvsh, dvst, s);
-}
-
-template <int kD>
-int launch_splash_dq(const void* q, const void* k, const void* v, const void* lse,
-                     const void* dout, const void* di, void* dq, int b, int n_head,
-                     int n_kv_head, int t, float scale, long long qsb, long long qsh,
-                     long long qst, long long ksb, long long ksh, long long kst, long long vsb,
-                     long long vsh, long long vst, long long dsb, long long dsh, long long dst,
-                     long long gsb, long long gsh, long long gst, cudaStream_t s) {
-  using L = DqLayout<kD>;
-  CUtensorMap mq, mk, mv, mdo, mdq;
-  int e = head_map(&mq, q, b, n_head, t, kD, qsb, qsh, qst, kBQ);
-  if (!e) e = head_map(&mk, k, b, n_kv_head, t, kD, ksb, ksh, kst, kBKV);
-  if (!e) e = head_map(&mv, v, b, n_kv_head, t, kD, vsb, vsh, vst, kBKV);
-  if (!e) e = head_map(&mdo, dout, b, n_head, t, kD, dsb, dsh, dst, kBQ);
-  if (!e) e = head_map(&mdq, dq, b, n_head, t, kD, gsb, gsh, gst, kBQ);
-  if (e) return e;
-  cudaError_t err = cudaFuncSetAttribute(splash_dq<kD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(n_head, b, (t + kBQ - 1) / kBQ);
-  splash_dq<kD><<<grid, L::kThreads, L::kSmem, s>>>(
-      mq, mk, mv, mdo, mdq, static_cast<const float*>(lse), static_cast<const float*>(di),
-      n_head, n_head / n_kv_head, t, scale);
-  return static_cast<int>(cudaGetLastError());
+  return launch_bwd<kD, kWarpgroups<kD>, false>(
+      q, k, v, dout, rows, nullptr, dk, dv, b, n_head, n_kv_head, t, tp, scale, qsb, qsh, qst,
+      ksb, ksh, kst, vsb, vsh, vst, dsb, dsh, dst, dksb, dksh, dkst, dvsb, dvsh, dvst, s);
 }
 
 }  // namespace
 
+// Every head size of the model registry: 32, 64, 80, 96, 104 (head size 100
+// in the wrapper's copy padded with 4 zero columns), 128 and 256.
+#define DH_HEAD_SIZES(X) X(32) X(64) X(80) X(96) X(104) X(128) X(256)
+
 // q, dout: (B, H, T, D); k, v: (B, G, T, D): each with (batch, head, token)
 // element strides that are multiples of 8, unit channel stride and a
-// 16-byte aligned base (TMA reads them); o: (B, H, T, D) with strides;
-// D is 64 or 128. lse: contiguous (B, H, T) fp32; rows: (2, B, H, T rounded
-// up to 64) fp32 scratch, written here; dq: contiguous (B, H, T, D) fp32,
-// zero on entry (the pairs' partials are added into it); dk, dv: (B, G, T,
-// D) bf16 with strides, 16-byte aligned.
+// 16-byte aligned base (TMA reads them); o: (B, H, T, D) with strides.
+// lse: contiguous (B, H, T) fp32; rows: (2, B, H, T rounded up to 64) fp32
+// scratch, written here; dq: contiguous (B, H, T, D) fp32, zero on entry
+// (the pairs' partials are added into it; at D 256 each element below T is
+// written once); dk, dv: (B, G, T, D) bf16 with strides, 16-byte aligned.
 DH_EXPORT int dh_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* rows, void* dq, void* dk,
@@ -884,22 +963,19 @@ DH_EXPORT int dh_flash_attention_bwd(
     long long dksb, long long dksh, long long dkst, long long dvsb,
     long long dvsh, long long dvst, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64)
-    return launch<64, kWarpgroups<64>>(
-        q, k, v, o, dout, lse, rows, dq, dk, dv, b, n_head, n_kv_head, t, scale, qsb, qsh,
-        qst, ksb, ksh, kst, vsb, vsh, vst, osb, osh, ost, dsb, dsh, dst, dksb, dksh, dkst,
-        dvsb, dvsh, dvst, s);
-  if (d == 128)
-    return launch<128, kWarpgroups<128>>(
-        q, k, v, o, dout, lse, rows, dq, dk, dv, b, n_head, n_kv_head, t, scale, qsb, qsh,
-        qst, ksb, ksh, kst, vsb, vsh, vst, osb, osh, ost, dsb, dsh, dst, dksb, dksh, dkst,
-        dvsb, dvsh, dvst, s);
+#define DH_CASE(D)                                                                            \
+  if (d == D)                                                                                 \
+    return launch<D>(q, k, v, o, dout, lse, rows, dq, dk, dv, b, n_head, n_kv_head, t, scale, \
+                     qsb, qsh, qst, ksb, ksh, kst, vsb, vsh, vst, osb, osh, ost, dsb, dsh,    \
+                     dst, dksb, dksh, dkst, dvsb, dvsh, dvst, s);
+  DH_HEAD_SIZES(DH_CASE)
+#undef DH_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // L1's kernels. q, dout: (B, Hq, T, D); k, v: (B, G, T, D), Hq a multiple
 // of G, each with (batch, head, token) element strides that are multiples
-// of 8, unit channel stride and a 16-byte aligned base; D is 64 or 128.
+// of 8, unit channel stride and a 16-byte aligned base; D as K1's.
 // lse and di: contiguous (B, Hq, T) fp32. S = scale * q k^T.
 
 // dQ from (q, k, v, lse, dO, di) into dq (B, Hq, T, D) bf16 with strides,
@@ -912,14 +988,13 @@ DH_EXPORT int dh_splash_dq(const void* q, const void* k, const void* v, const vo
                            long long dsb, long long dsh, long long dst, long long gsb,
                            long long gsh, long long gst, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64)
-    return launch_splash_dq<64>(
-        q, k, v, lse, dout, di, dq, b, n_head, n_kv_head, t, scale, qsb, qsh, qst, ksb, ksh,
-        kst, vsb, vsh, vst, dsb, dsh, dst, gsb, gsh, gst, s);
-  if (d == 128)
-    return launch_splash_dq<128>(
-        q, k, v, lse, dout, di, dq, b, n_head, n_kv_head, t, scale, qsb, qsh, qst, ksb, ksh,
-        kst, vsb, vsh, vst, dsb, dsh, dst, gsb, gsh, gst, s);
+#define DH_CASE(D)                                                                             \
+  if (d == D)                                                                                  \
+    return launch_splash_dq<D>(q, k, v, lse, dout, di, dq, b, n_head, n_kv_head, t, t, scale, \
+                               qsb, qsh, qst, ksb, ksh, kst, vsb, vsh, vst, dsb, dsh, dst, gsb, \
+                               gsh, gst, s);
+  DH_HEAD_SIZES(DH_CASE)
+#undef DH_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -935,13 +1010,12 @@ DH_EXPORT int dh_splash_dkv(const void* q, const void* k, const void* v, const v
                             long long dksb, long long dksh, long long dkst, long long dvsb,
                             long long dvsh, long long dvst, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64)
-    return launch_splash_dkv<64, kWarpgroups<64>>(
-        q, k, v, lse, dout, di, rows, dk, dv, b, n_head, n_kv_head, t, scale, qsb, qsh, qst,
-        ksb, ksh, kst, vsb, vsh, vst, dsb, dsh, dst, dksb, dksh, dkst, dvsb, dvsh, dvst, s);
-  if (d == 128)
-    return launch_splash_dkv<128, kWarpgroups<128>>(
-        q, k, v, lse, dout, di, rows, dk, dv, b, n_head, n_kv_head, t, scale, qsb, qsh, qst,
-        ksb, ksh, kst, vsb, vsh, vst, dsb, dsh, dst, dksb, dksh, dkst, dvsb, dvsh, dvst, s);
+#define DH_CASE(D)                                                                             \
+  if (d == D)                                                                                  \
+    return launch_splash_dkv<D>(q, k, v, lse, dout, di, rows, dk, dv, b, n_head, n_kv_head, t, \
+                                scale, qsb, qsh, qst, ksb, ksh, kst, vsb, vsh, vst, dsb, dsh,  \
+                                dst, dksb, dksh, dkst, dvsb, dvsh, dvst, s);
+  DH_HEAD_SIZES(DH_CASE)
+#undef DH_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,9 +1,16 @@
-"""Decoder-only GPT of the LLaMA family, with LoRA: finetuning and decoding.
+"""Decoder-only GPT of the LLaMA and GPT-NeoX / Phi / Falcon families, with
+LoRA: finetuning and decoding.
 
-Counterpart of `dualhyp_tpu/models/gpt.py`: RMSNorm, the
-LLaMA (silu) or Gemma (tanh-gelu) gated MLP, grouped-query attention, full
-or partial rotary embeddings, no bias; LoRA on the fused QKV projection and
-on `proj` (and on the head when asked), gated by `lora_start_layer`.
+Counterpart of `dualhyp_tpu/models/gpt.py`: RMSNorm or LayerNorm (scale
+and bias), the LLaMA (silu) or Gemma (tanh-gelu) gated MLP or the GPT-NeoX
+MLP (`fc`, gelu exact or tanh, `proj`), optional biases on the linears and
+on the head, grouped-query attention, full or partial rotary embeddings,
+sequential or parallel residual with a separate or shared norm; LoRA on the
+fused QKV projection and on `proj` (and on the head when asked), gated by
+`lora_start_layer`. A linear's bias is added after its product, in the
+product's dtype, whether that product is plain, int8, int4 (K8) or the
+fused LoRA kernel K5; a biased gated MLP does not run K4 (the JAX
+package's rule).
 
 Layout decisions kept from the JAX package, so that its checkpoints load
 with no re-layout and its parameter tree maps name for name onto this
@@ -79,24 +86,28 @@ from dualhyp_tpu_torch.ops import rope as rope_ops
 from dualhyp_tpu_torch.ops import swiglu as mlp_ops
 
 
+NORM_CLASSES = ("RMSNorm", "LayerNorm")
+MLP_CLASSES = ("LLaMAMLP", "GemmaMLP", "GptNeoxMLP", "LLaMAMoE")
+
+
 def check_supported(cfg: GPTConfig) -> None:
-    """Raise for the parts of a config this module does not port yet."""
+    """Raise for the parts of a config this module does not port yet:
+    adapters and LoRA on the MLP (the next slice, PEFT breadth)."""
     missing = []
-    if cfg.norm_class != "RMSNorm":
+    if cfg.norm_class not in NORM_CLASSES:
         missing.append(f"norm_class={cfg.norm_class}")
-    if cfg.mlp_class not in ("LLaMAMLP", "GemmaMLP", "LLaMAMoE"):
+    if cfg.mlp_class not in MLP_CLASSES:
         missing.append(f"mlp_class={cfg.mlp_class}")
     if cfg.mlp_class == "LLaMAMoE" and not (cfg.n_expert > 0 and cfg.n_expert_per_token > 0):
         raise ValueError(f"config {cfg.name!r}: an MoE needs n_expert and n_expert_per_token")
-    if cfg.bias or cfg.lm_head_bias:
-        missing.append("bias")
     if cfg.use_adapter or cfg.use_adapter_v2:
         missing.append("adapters")
     if cfg.lora_r > 0 and cfg.lora_mlp:
         missing.append("LoRA on the MLP")
     if missing:
         raise NotImplementedError(
-            f"config {cfg.name!r} asks for what is not ported yet: {', '.join(missing)}"
+            f"config {cfg.name!r} asks for what is not ported yet: {', '.join(missing)} "
+            "(the next slice, PEFT breadth: ROADMAP §1)"
         )
 
 
@@ -159,9 +170,23 @@ def _fused_input(x, rate: float, generator):
 
 
 class Norm(nn.Module):
-    def __init__(self, d, device):
+    """A norm's fp32 leaves: `scale`, and `bias` for a LayerNorm
+    (`_norm_leaves` of the JAX package)."""
+
+    def __init__(self, cfg: GPTConfig, device):
         super().__init__()
-        self.scale = _param((d,), torch.float32, device)
+        self.eps = cfg.norm_eps
+        self.scale = _param((cfg.n_embd,), torch.float32, device)
+        self.register_parameter(
+            "bias", _param((cfg.n_embd,), torch.float32, device)
+            if cfg.norm_class == "LayerNorm" else None)
+
+    def forward(self, x):
+        """RMSNorm (K2, `ops/rmsnorm.rms_norm`) or, with a bias, LayerNorm
+        (plain PyTorch, as the JAX package leaves it to XLA)."""
+        if self.bias is None:
+            return norm_ops.rms_norm(x, self.scale, self.eps)
+        return norm_ops.layer_norm(x, self.scale, self.bias, self.eps)
 
 
 class Embedding(nn.Module):
@@ -173,10 +198,17 @@ class Embedding(nn.Module):
 class _Frozen(nn.Module):
     """The frozen weight of a linear (`_base_linear` of the JAX package):
     `weight`, or after `set_quantized` the int8 leaves `weight_q8` and
-    `weight_scale` or the int4 leaves `weight_q4` and `weight_scale4`."""
+    `weight_scale` or the int4 leaves `weight_q4` and `weight_scale4`; and
+    its optional `bias` in the compute dtype, which quantizing keeps."""
 
     quant = None  # None, "int8" or "int4"
     fused = False  # the LoRA branch through kernel K5
+
+    def _init_bias(self, out_f, bias: bool, dtype, device) -> None:
+        self.register_parameter("bias", _param((out_f,), dtype, device) if bias else None)
+
+    def _add_bias(self, y):
+        return y if self.bias is None else y + self.bias.to(y.dtype)
 
     def set_quantized(self, leaves: dict) -> None:
         """Replace `weight` by quantized leaves ({name: tensor})."""
@@ -186,11 +218,14 @@ class _Frozen(nn.Module):
         self.quant = "int4" if quant_ops.Q4_KEY in leaves else "int8"
 
     def base(self, x):
+        """The frozen product plus the bias."""
         if self.quant == "int8":
-            return quant_ops.qmatmul(x, self.weight_q8, self.weight_scale)
-        if self.quant == "int4":
-            return quant_ops.q4matmul(x, self.weight_q4, self.weight_scale4)
-        return mlp_ops.linear(x, self.weight)
+            y = quant_ops.qmatmul(x, self.weight_q8, self.weight_scale)
+        elif self.quant == "int4":
+            y = quant_ops.q4matmul(x, self.weight_q4, self.weight_scale4)
+        else:
+            y = mlp_ops.linear(x, self.weight)
+        return self._add_bias(y)
 
     def use_fused(self) -> bool:
         """K5 runs a LoRA linear when asked for, never a quantized one
@@ -209,11 +244,12 @@ class Linear(_Frozen):
     scale (a gated-off layer's LoRA gradients are then zero products)."""
 
     def __init__(self, in_f, out_f, cfg: GPTConfig, with_lora: bool, dtype, device,
-                 fused: bool = False):
+                 fused: bool = False, bias: bool = False):
         super().__init__()
         self.scaling = cfg.lora_scaling
         self.dropout = cfg.lora_dropout
         self.weight = _param((out_f, in_f), dtype, device)
+        self._init_bias(out_f, bias, dtype, device)
         self.with_lora = with_lora and cfg.lora_r > 0
         self.fused = fused
         if self.with_lora:
@@ -222,9 +258,9 @@ class Linear(_Frozen):
 
     def forward(self, x, lora_on: bool = True, generator=None):
         if self.use_fused():
-            return lora_ops.lora_linear(
+            return self._add_bias(lora_ops.lora_linear(
                 x, self.weight, self.lora_A, self.lora_B, self.scaling * float(lora_on),
-                xin=_fused_input(x, self.dropout, generator))
+                xin=_fused_input(x, self.dropout, generator)))
         y = self.base(x)
         if self.with_lora and lora_on:
             xin = _dropout(x, self.dropout, generator)
@@ -244,6 +280,7 @@ class QKV(_Frozen):
         self.fused = fused
         d = cfg.n_embd
         self.weight = _param((cfg.qkv_out_dim, d), dtype, device)
+        self._init_bias(cfg.qkv_out_dim, cfg.bias, dtype, device)
         self.shapes = lora_qkv_shapes(cfg) if cfg.lora_r > 0 else ()
         self.with_lora = bool(self.shapes)
         if self.with_lora:
@@ -257,9 +294,9 @@ class QKV(_Frozen):
         cfg = self.cfg
         if self.use_fused() and len(self.shapes) == 3:
             b_bd = lora_ops.lora_qkv_block_b(self.lora_B, self.shapes, cfg.lora_r)
-            return lora_ops.lora_linear(
+            return self._add_bias(lora_ops.lora_linear(
                 x, self.weight, self.lora_A, b_bd, cfg.lora_scaling * float(lora_on),
-                xin=_fused_input(x, cfg.lora_dropout, generator))
+                xin=_fused_input(x, cfg.lora_dropout, generator)))
         y = self.base(x)
         if not (self.with_lora and lora_on):
             return y
@@ -312,27 +349,45 @@ class Attention(nn.Module):
         super().__init__()
         self.qkv = QKV(cfg, dtype, device, fused)
         self.proj = Linear(cfg.n_embd, cfg.n_embd, cfg, cfg.lora_projection,
-                           dtype, device, fused)
+                           dtype, device, fused, cfg.bias)
 
 
 class MLP(nn.Module):
+    """The gated MLP (LLaMA silu, Gemma tanh-gelu): fc_1, fc_2, proj."""
+
     def __init__(self, cfg: GPTConfig, dtype, device):
         super().__init__()
         d, inter = cfg.n_embd, cfg.intermediate_size
         self.gate = "silu" if cfg.mlp_class == "LLaMAMLP" else "gelu"
-        self.fc_1 = Linear(d, inter, cfg, False, dtype, device)
-        self.fc_2 = Linear(d, inter, cfg, False, dtype, device)
-        self.proj = Linear(inter, d, cfg, False, dtype, device)
+        self.fc_1 = Linear(d, inter, cfg, False, dtype, device, bias=cfg.bias)
+        self.fc_2 = Linear(d, inter, cfg, False, dtype, device, bias=cfg.bias)
+        self.proj = Linear(inter, d, cfg, False, dtype, device, bias=cfg.bias)
 
     def forward(self, x):
-        if self.fc_1.quant is not None:
+        if self.fc_1.quant is not None or self.fc_1.bias is not None:
             # `_mlp`'s unfused branch, as the JAX package takes it for
-            # quantized leaves: K4 does not run
+            # quantized leaves and biases: K4 does not run
             h1 = self.fc_1(x)
             act = F.silu(h1) if self.gate == "silu" else F.gelu(h1, approximate="tanh")
             return self.proj(act * self.fc_2(x))
         return mlp_ops.swiglu_mlp(x, self.fc_1.weight, self.fc_2.weight,
                                   self.proj.weight, gate=self.gate)
+
+
+class GptNeoxMLP(nn.Module):
+    """The GPT-NeoX MLP (`_mlp`'s last branch of the JAX package): proj(gelu(
+    fc(x))), gelu exact or, with `gelu_approximate="tanh"`, its tanh form
+    (plain products: the JAX package runs no kernel here)."""
+
+    def __init__(self, cfg: GPTConfig, dtype, device):
+        super().__init__()
+        d, inter = cfg.n_embd, cfg.intermediate_size
+        self.approximate = "tanh" if cfg.gelu_approximate == "tanh" else "none"
+        self.fc = Linear(d, inter, cfg, False, dtype, device, bias=cfg.bias)
+        self.proj = Linear(inter, d, cfg, False, dtype, device, bias=cfg.bias)
+
+    def forward(self, x):
+        return self.proj(F.gelu(self.fc(x), approximate=self.approximate))
 
 
 class Stack(nn.Module):
@@ -464,17 +519,16 @@ class Block(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.lora_on = layer_idx >= cfg.lora_start_layer
-        self.norm_1 = Norm(cfg.n_embd, device)
+        self.norm_1 = Norm(cfg, device)
         self.attn = Attention(cfg, dtype, device, fused)
         if not cfg.shared_attention_norm:
-            self.norm_2 = Norm(cfg.n_embd, device)
+            self.norm_2 = Norm(cfg, device)
         if cfg.mlp_class == "LLaMAMoE":
             self.mlp = MoE(cfg, dtype, device, moe_impl)
+        elif cfg.mlp_class == "GptNeoxMLP":
+            self.mlp = GptNeoxMLP(cfg, dtype, device)
         else:
             self.mlp = MLP(cfg, dtype, device)
-
-    def _norm(self, norm: Norm, x):
-        return norm_ops.rms_norm(x, norm.scale, self.cfg.norm_eps)
 
     def forward(self, x, cos, sin, cache_kv=None, positions=None,
                 kv_length=None, active=None, seed=None, mlp_remat=False):
@@ -524,7 +578,7 @@ class Block(nn.Module):
         cfg = self.cfg
         b, t, _ = x.shape
         nh, hs = cfg.n_head, cfg.head_size
-        n1 = self._norm(self.norm_1, x)
+        n1 = self.norm_1(x)
         qkv = self.attn.qkv(n1, self.lora_on, generator)
         q, k, v = split_heads(cfg, qkv)
         if positions is None:
@@ -576,10 +630,10 @@ class Block(nn.Module):
         y = y.transpose(1, 2).reshape(b, t, nh * hs)
         h = self.attn.proj(y, self.lora_on, generator)
         if cfg.parallel_residual:
-            n2 = n1 if cfg.shared_attention_norm else self._norm(self.norm_2, x)
+            n2 = n1 if cfg.shared_attention_norm else self.norm_2(x)
             return x + h, n2
         x = x + h
-        return x, self._norm(self.norm_2, x)
+        return x, self.norm_2(x)
 
 
 # the LoRA linears' two implementations: "xla" the composition (the JAX
@@ -621,9 +675,9 @@ class GPT(nn.Module):
         self.wte = Embedding(cfg.effective_padded_vocab_size, cfg.n_embd, dtype, device)
         self.blocks = nn.ModuleList(
             Block(cfg, i, dtype, device, fused, moe_impl) for i in range(cfg.n_layer))
-        self.ln_f = Norm(cfg.n_embd, device)
+        self.ln_f = Norm(cfg, device)
         self.lm_head = Linear(cfg.n_embd, cfg.padded_vocab_size, cfg,
-                              cfg.lora_head, dtype, device, fused)
+                              cfg.lora_head, dtype, device, fused, cfg.lm_head_bias)
         if cfg.use_relprompt:
             # the reliability classifiers over the audio and visual features
             self.audio_noise_classifier = NoiseClassifier(
@@ -645,7 +699,8 @@ class GPT(nn.Module):
         """Random init with the JAX package's distributions (`gpt.init`):
         normal weights (GPT-NeoX std; an MoE's router and fc stacks too, its
         proj stack at the projection std), uniform lora_A, zero lora_B, unit
-        norm scales. Draws in fp32 from `generator`, then casts."""
+        norm scales, zero biases (linears' and LayerNorms'). Draws in fp32
+        from `generator`, then casts."""
         cfg = self.cfg
         d = cfg.n_embd
         std = math.sqrt(2.0 / 5 / d)
@@ -664,19 +719,23 @@ class GPT(nn.Module):
         normal(self.wte.weight, std)
         normal(self.lm_head.weight, std)
         lora(self.lm_head)
-        self.ln_f.scale.fill_(1.0)
+        for name, p in self.named_parameters():
+            if name.endswith(".scale"):
+                p.fill_(1.0)
+            elif name.endswith(".bias"):
+                p.zero_()
         for block in self.blocks:
-            block.norm_1.scale.fill_(1.0)
-            if hasattr(block, "norm_2"):
-                block.norm_2.scale.fill_(1.0)
             normal(block.attn.qkv.weight, std)
             lora(block.attn.qkv)
             normal(block.attn.proj.weight, proj_std)
             lora(block.attn.proj)
             if isinstance(block.mlp, MoE):
                 normal(block.mlp.gate.weight, std)
-            normal(block.mlp.fc_1.weight, std)
-            normal(block.mlp.fc_2.weight, std)
+            if isinstance(block.mlp, GptNeoxMLP):
+                normal(block.mlp.fc.weight, std)
+            else:
+                normal(block.mlp.fc_1.weight, std)
+                normal(block.mlp.fc_2.weight, std)
             normal(block.mlp.proj.weight, proj_std)
         if cfg.use_relprompt:
             self.audio_noise_classifier.init_weights(generator)
@@ -689,8 +748,7 @@ class GPT(nn.Module):
         return x
 
     def _head(self, x):
-        x = norm_ops.rms_norm(x, self.ln_f.scale, self.cfg.norm_eps)
-        return self.lm_head(x).float()
+        return self.lm_head(self.ln_f(x)).float()
 
     def init_cache(self, batch_size: int, max_seq: int, quantize=None) -> list:
         """Per-layer [k, v] caches, each (B, G, S, D) zeros in the compute
@@ -751,7 +809,7 @@ class GPT(nn.Module):
                 x = checkpoint(block, x, self.cos, self.sin, seed=seed,
                                use_reentrant=False, preserve_rng_state=False)
         if return_hidden:
-            return norm_ops.rms_norm(x, self.ln_f.scale, self.cfg.norm_eps)
+            return self.ln_f(x)
         return self._head(x)
 
     @torch.no_grad()

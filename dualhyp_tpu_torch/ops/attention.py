@@ -13,7 +13,10 @@ the grouped broadcast happens inside the kernel or the einsum.
     CPU. Any other value ("splash") runs L1, `ops/splash.causal_attention`:
     its own forward (`csrc/flash_attention.cu`), dQ and dK/dV kernels
     (`csrc/flash_attention_bwd.cu`).
-    All take head size 64 (TinyLlama) and 128 (Mixtral).
+    All take every head size of the model registry (`FLASH_HEAD_SIZES`:
+    32, 64, 80, 96, 100, 128, 256); head size 100 runs on a copy of its
+    inputs padded with zero columns to 104 (`padded_head_size`), since a
+    200-byte row breaks TMA's 16-byte stride rule.
   * `chunk_decode_attention`: a speculative verify step's K queries a row
     against the KV cache, query i masked to the slots at or below start +
     i, with the per-slot scales of an int8 cache (plain PyTorch; the JAX
@@ -35,9 +38,11 @@ from dualhyp_tpu_torch.ops import _lib
 # A producer warp streams K/V tiles by TMA (4-D tensor maps over the strided
 # views, encoded at each call) through an mbarrier ring; consumer warpgroups
 # run QK^T and PV on wgmma with S, P and O in registers and the online
-# softmax in fp32; one instance per head size. On an NVIDIA H100 80GB HBM3
-# at 700.00 W: 0.147 ms at B8 Hq32 G4 T1024 D64 (SDPA 0.112), 0.229 at G8
-# D128 (SDPA 0.148). See the source note in csrc/flash_attention.cu.
+# softmax in fp32; one instance per head size of the model registry, a size
+# that is not a multiple of 64 reading whole 64-column boxes zero-filled
+# past D. On an NVIDIA H100 80GB HBM3 at 700.00 W: 0.147 ms at B8 Hq32 G4
+# T1024 D64 (SDPA 0.112), 0.229 at G8 D128 (SDPA 0.148); the other head
+# sizes in PERF.md. See the source note in csrc/flash_attention.cu.
 FLASH_FWD = _lib.Kernel(
     "dh_flash_attention_fwd",
     [_lib.C_PTR] * 5 + [_lib.C_INT] * 5 + [_lib.C_F32] + [_lib.C_I64] * 12,
@@ -52,7 +57,9 @@ FLASH_FWD = _lib.Kernel(
 # S^T, dP^T, dV, dK and dQ on wgmma (P^T and dS^T as register A operands;
 # dS^T through shared memory for dQ) and add each pair's fp32 dQ tile by
 # TMA reduce-adds, with no per-element atomics; one instance per head size
-# (128 keys a block at D64, 64 at D128). On an NVIDIA H100 80GB HBM3 at
+# (128 keys a block at D32 and D64, 64 at D80 to D128; at D256 dK/dV split
+# over two blocks by columns and dQ from L1's dQ kernel into the same fp32
+# buffer, all with K1's exp2f). On an NVIDIA H100 80GB HBM3 at
 # 700.00 W: 0.466 ms at B8 Hq32 G4 T1024 D64 (SDPA's backward 0.42-0.64),
 # 1.257 at G8 D128 (SDPA 0.667). See csrc/flash_attention_bwd.cu.
 FLASH_BWD = _lib.Kernel(
@@ -60,8 +67,23 @@ FLASH_BWD = _lib.Kernel(
     [_lib.C_PTR] * 10 + [_lib.C_INT] * 5 + [_lib.C_F32] + [_lib.C_I64] * 21,
 )
 
-# head sizes K1's forward and backward take (TinyLlama 64, Mixtral 128)
-FLASH_HEAD_SIZES = (64, 128)
+# head sizes K1's forward and backward take: every one of the model
+# registry (pythia-14m 32, TinyLlama 64, phi-2 80, Phi-3 96, open_llama_3b
+# 100, LLaMA and Mixtral 128, Gemma 256)
+FLASH_HEAD_SIZES = (32, 64, 80, 96, 100, 128, 256)
+# head sizes whose rows the kernels read from a copy padded with zero
+# columns (the pad leaves S = q k^T and P V exact; the wrapper drops it)
+_PADDED = {100: 104}
+
+
+def padded_head_size(d: int) -> int:
+    """The row width the kernels read for head size d."""
+    return _PADDED.get(d, d)
+
+
+def _pad_heads(x, dp: int):
+    """x (.., D) as a new contiguous tensor of dp channels, zero past D."""
+    return torch.nn.functional.pad(x, (0, dp - x.shape[-1]))
 
 
 def _grouped(q, n_groups):
@@ -144,8 +166,9 @@ def _check_rows(name, x):
 
 
 def _flash_fwd(q, k, v, scale):
-    """Launch K1's forward (head size 64 or 128). Returns (o (B, Hq, T, D)
-    as a view of a (B, T, Hq, D) buffer, lse (B, Hq, T) fp32)."""
+    """Launch K1's forward (a head size of `FLASH_HEAD_SIZES`). Returns (o
+    (B, Hq, T, D) as a view of a (B, T, Hq, D') buffer, D' the padded head
+    size, lse (B, Hq, T) fp32)."""
     device = _lib.check_cuda(q, k, v)
     b, hq, t, d = q.shape
     g = k.shape[1]
@@ -157,18 +180,22 @@ def _flash_fwd(q, k, v, scale):
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.dtype != torch.bfloat16:
             raise TypeError(f"flash kernel takes bfloat16 {name}, got {x.dtype}")
+    dp = padded_head_size(d)
+    if dp != d:
+        q, k, v = (_pad_heads(x, dp) for x in (q, k, v))
+    for name, x in (("q", q), ("k", k), ("v", v)):
         _check_rows(name, x)
-    o = torch.empty((b, t, hq, d), dtype=q.dtype, device=device).transpose(1, 2)
+    o = torch.empty((b, t, hq, dp), dtype=q.dtype, device=device).transpose(1, 2)
     lse = torch.empty((b, hq, t), dtype=torch.float32, device=device)
     if o.numel():
         FLASH_FWD(device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                  lse.data_ptr(), b, hq, g, t, d, float(scale),
+                  lse.data_ptr(), b, hq, g, t, dp, float(scale),
                   *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3])
-    return o, lse
+    return o[..., :d], lse
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, scale: float):
-    """Launch K1's backward (head size 64 or 128). q, o, do: (B, Hq, T, D);
+    """Launch K1's backward (a head size of `FLASH_HEAD_SIZES`). q, o, do: (B, Hq, T, D);
     k, v: (B, G, T, D), all bf16 with any (batch, head, token) strides and a
     unit channel stride (O as the forward's (B, T, Hq, D) view, dO as
     autograd hands it: neither is copied); lse: (B, Hq, T) fp32. Returns
@@ -189,24 +216,27 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale: float):
             raise TypeError(f"flash kernel takes bfloat16 {name}, got {x.dtype}")
     if lse.dtype != torch.float32:
         raise TypeError(f"flash kernel takes fp32 lse, got {lse.dtype}")
+    dp = padded_head_size(d)
+    if dp != d:
+        q, k, v, o, do = (_pad_heads(x, dp) for x in (q, k, v, o, do))
     if not _aligned_rows(do):
         do = do.contiguous()
     for name, x in (("q", q), ("k", k), ("v", v), ("o", o)):
         _check_rows(name, x)
     lse = lse.contiguous()
-    dq32 = torch.zeros((b, hq, t, d), dtype=torch.float32, device=device)
+    dq = torch.zeros((b, hq, t, dp), dtype=torch.float32, device=device)
     # L and Delta, each (B, Hq, T rounded up to 64): whole 64-row TMA boxes
     rows = torch.empty((2, b, hq, -(-t // 64) * 64), dtype=torch.float32, device=device)
-    dk = torch.empty((b, g, t, d), dtype=k.dtype, device=device)
-    dv = torch.empty((b, g, t, d), dtype=v.dtype, device=device)
+    dk = torch.empty((b, g, t, dp), dtype=k.dtype, device=device)
+    dv = torch.empty((b, g, t, dp), dtype=v.dtype, device=device)
     if q.numel():
         FLASH_BWD(device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                  do.data_ptr(), lse.data_ptr(), rows.data_ptr(), dq32.data_ptr(),
-                  dk.data_ptr(), dv.data_ptr(), b, hq, g, t, d, float(scale),
+                  do.data_ptr(), lse.data_ptr(), rows.data_ptr(), dq.data_ptr(),
+                  dk.data_ptr(), dv.data_ptr(), b, hq, g, t, dp, float(scale),
                   *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                   *o.stride()[:3], *do.stride()[:3], *dk.stride()[:3],
                   *dv.stride()[:3])
-    return dq32.to(q.dtype), dk, dv
+    return dq[..., :d].to(q.dtype), dk[..., :d], dv[..., :d]
 
 
 class FlashAttention(torch.autograd.Function):

@@ -33,8 +33,9 @@ import math
 import torch
 
 from dualhyp_tpu_torch.ops import _lib
-from dualhyp_tpu_torch.ops.attention import (_acc_dtype, _aligned_rows, _grouped,
-                                             _masked_logits)
+from dualhyp_tpu_torch.ops.attention import (FLASH_HEAD_SIZES, _acc_dtype, _aligned_rows,
+                                             _grouped, _masked_logits, _pad_heads,
+                                             padded_head_size)
 from dualhyp_tpu_torch.ops.swiglu import _aligned
 
 # L1 forward: replaces splash_attention_kernel.py `flash_attention_kernel`
@@ -68,8 +69,9 @@ SPLASH_DQ = _lib.Kernel(
 SPLASH_DKV = _lib.Kernel(
     "dh_splash_dkv", [_lib.C_PTR] * 9 + [_lib.C_INT] * 5 + [_lib.C_F32] + [_lib.C_I64] * 18)
 
-# head sizes the kernels take (TinyLlama 64, Mixtral 128)
-HEAD_SIZES = (64, 128)
+# head sizes the kernels take: K1's, every one of the model registry (100
+# on a copy padded with zero columns to 104, as K1 reads it)
+HEAD_SIZES = FLASH_HEAD_SIZES
 # the JAX wrapper runs the splash kernel at T >= 128 with T % 128 == 0
 # (`flash_attention.py:56`) and XLA elsewhere
 MIN_SEQ = 128
@@ -156,30 +158,35 @@ def _check_shapes(q, k, v, *same_as_q):
                          f"{[tuple(x.shape) for x in same_as_q]}")
 
 
-def _tma_readable(x):
+def _tma_readable(x, dp: int | None = None):
     """x itself when TMA can read it (16-byte aligned base, unit channel
-    stride, other strides multiples of 16 bytes), else a contiguous, aligned
-    copy."""
+    stride, other strides multiples of 16 bytes, dp channels: x's own when
+    None), else a contiguous, aligned copy (padded with zero channels to
+    dp)."""
+    if dp is not None and x.shape[-1] != dp:
+        return _pad_heads(x, dp)
     return x if _aligned_rows(x) else _aligned(x)
 
 
 def splash_fwd(q, k, v, scale: float = 1.0):
-    """Launch L1's forward. q: (B, Hq, T, D); k, v: (B, G, T, D), bf16, D 64
-    or 128, any (batch, head, token) strides with a unit channel stride; an
+    """Launch L1's forward. q: (B, Hq, T, D); k, v: (B, G, T, D), bf16, D of
+    `HEAD_SIZES`, any (batch, head, token) strides with a unit channel stride; an
     input TMA cannot read as it lies is copied first. Returns (o (B, Hq, T,
     D) as a view of a (B, T, Hq, D) buffer, lse (B, Hq, T) fp32)."""
     device = _lib.check_cuda(q, k, v)
     _check_shapes(q, k, v)
-    q, k, v = (_tma_readable(x) for x in (q, k, v))
+    d = q.shape[-1]
+    dp = padded_head_size(d)
+    q, k, v = (_tma_readable(x, dp) for x in (q, k, v))
     _check((("q", q), ("k", k), ("v", v)))
-    b, hq, t, d = q.shape
-    o = torch.empty((b, t, hq, d), dtype=q.dtype, device=device).transpose(1, 2)
+    b, hq, t, _ = q.shape
+    o = torch.empty((b, t, hq, dp), dtype=q.dtype, device=device).transpose(1, 2)
     lse = torch.empty((b, hq, t), dtype=torch.float32, device=device)
     if o.numel():
         SPLASH_FWD(device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                   lse.data_ptr(), b, hq, k.shape[1], t, d, float(scale),
+                   lse.data_ptr(), b, hq, k.shape[1], t, dp, float(scale),
                    *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3])
-    return o, lse
+    return o[..., :d], lse
 
 
 def _bwd_inputs(q, k, v, lse, do, di):
@@ -188,32 +195,37 @@ def _bwd_inputs(q, k, v, lse, do, di):
     b, hq, t, _ = q.shape
     if lse.shape != (b, hq, t) or di.shape != (b, hq, t):
         raise ValueError(f"lse {tuple(lse.shape)}, di {tuple(di.shape)}: want {(b, hq, t)}")
+    dp = padded_head_size(q.shape[-1])
+    if dp != q.shape[-1]:
+        q, k, v, do = (_pad_heads(x, dp) for x in (q, k, v, do))
     if not _aligned_rows(do):
         do = do.contiguous()
     _check((("q", q), ("k", k), ("v", v), ("do", do)), (("lse", lse), ("di", di)))
-    return device, do, lse.contiguous(), di.contiguous()
+    return device, q, k, v, do, lse.contiguous(), di.contiguous()
 
 
 def splash_dq(q, k, v, lse, do, di, scale: float = 1.0):
     """Launch L1's dQ kernel. q, do: (B, Hq, T, D); k, v: (B, G, T, D), bf16
     (dO as autograd hands it: copied only when its rows are not aligned);
     lse, di: (B, Hq, T) fp32. Returns dq (B, Hq, T, D) in q's dtype."""
-    device, do, lse, di = _bwd_inputs(q, k, v, lse, do, di)
-    b, hq, t, d = q.shape
-    dq = torch.empty((b, hq, t, d), dtype=q.dtype, device=device)
+    d = q.shape[-1]
+    device, q, k, v, do, lse, di = _bwd_inputs(q, k, v, lse, do, di)
+    b, hq, t, dp = q.shape
+    dq = torch.empty((b, hq, t, dp), dtype=q.dtype, device=device)
     if dq.numel():
         SPLASH_DQ(device, q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(),
-                  do.data_ptr(), di.data_ptr(), dq.data_ptr(), b, hq, k.shape[1], t, d,
+                  do.data_ptr(), di.data_ptr(), dq.data_ptr(), b, hq, k.shape[1], t, dp,
                   float(scale), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                   *do.stride()[:3], *dq.stride()[:3])
-    return dq
+    return dq[..., :d]
 
 
 def splash_dkv(q, k, v, lse, do, di, scale: float = 1.0):
     """Launch L1's dK/dV kernel (inputs as `splash_dq`). Returns (dk, dv),
     (B, G, T, D) in the dtypes of k and v, summed over each group's heads."""
-    device, do, lse, di = _bwd_inputs(q, k, v, lse, do, di)
-    b, hq, t, d = q.shape
+    d = q.shape[-1]
+    device, q, k, v, do, lse, di = _bwd_inputs(q, k, v, lse, do, di)
+    b, hq, t, dp = q.shape
     dk = torch.empty(k.shape, dtype=k.dtype, device=device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=device)
     # lse and di, each (B, Hq, T rounded up to 64): whole 64-row TMA boxes
@@ -221,10 +233,10 @@ def splash_dkv(q, k, v, lse, do, di, scale: float = 1.0):
     if dk.numel():
         SPLASH_DKV(device, q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(),
                    do.data_ptr(), di.data_ptr(), rows.data_ptr(), dk.data_ptr(),
-                   dv.data_ptr(), b, hq, k.shape[1], t, d, float(scale), *q.stride()[:3],
+                   dv.data_ptr(), b, hq, k.shape[1], t, dp, float(scale), *q.stride()[:3],
                    *k.stride()[:3], *v.stride()[:3], *do.stride()[:3], *dk.stride()[:3],
                    *dv.stride()[:3])
-    return dk, dv
+    return dk[..., :d], dv[..., :d]
 
 
 def row_dot(o, do):

@@ -150,7 +150,7 @@ class Trainer:
         return chunked_cross_entropy(
             hidden, lm_head.weight, targets,
             chunk_size=self.cfg.lm_head_chunk_size if train else 0,
-            mean_all_tokens=mean_all)
+            lm_head_b=lm_head.bias, mean_all_tokens=mean_all)
 
     def _to_device(self, array):
         return torch.as_tensor(np.asarray(array), dtype=torch.long).to(self.model.device)

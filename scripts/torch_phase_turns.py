@@ -13,8 +13,10 @@ checkout's `chip_smoke.py` and kernel library, builds the library with
 flags: a variant that the sources select with a macro, such as
 `.:-DX=1`), prints the registers and spills of its kernels (and, where
 the checkout's `chip_smoke.py` counts them, their wgmma instructions) as
-one JSON line, then runs each named phase (`fn(torch, seed)`), whose own
-JSON lines (kernel checks, device ms, bounds) pass through. With
+one JSON line, then runs each named phase (`fn(torch, seed)`; a phase
+given as `name:key=value,...` takes those keyword arguments, read as
+Python literals, e.g. `flash_bwd_phase:g=8,hs=128`), whose own JSON lines
+(kernel checks, device ms, bounds) pass through. With
 `--phases-from DIR` every turn takes its phases from DIR's `chip_smoke.py`
 and its kernels and package from its root: one measuring code for a parent
 that lacks a phase (its public ops must take the same arguments). Each turn
@@ -26,6 +28,7 @@ call compare. Imports no JAX.
 from __future__ import annotations
 
 import argparse
+import ast
 import json
 import os
 import subprocess
@@ -60,8 +63,11 @@ def child(root: Path, flags: list[str], phases: list[str], seed: int,
     lib = _lib.build(verbose=True)
     cs.emit({"flags": flags, "ptxas": {src: cs.ptxas_report(src) for src in SOURCES},
              **({"HGMMA": cs.sass_counts(lib)} if hasattr(cs, "sass_counts") else {})})
-    for name in phases:
-        getattr(cs, name)(torch, seed)
+    for phase in phases:
+        name, _, args = phase.partition(":")
+        kwargs = {k: ast.literal_eval(v) for k, v in
+                  (item.split("=", 1) for item in args.split(",") if item)}
+        getattr(cs, name)(torch, seed, **kwargs)
         torch.cuda.empty_cache()
     return 0
 

@@ -41,7 +41,11 @@ edges, head sizes 64 and 128, GQA ratios 1, 4, 8, fused-QKV views), K1's
 backward and L1's forward (T 127, 128, 129 and 256 at the edges of their
 64- and 128-key blocks, an unaligned input copied, one launch a call) and
 K4 (1 to 3072 rows at widths 128 and 2048, inter 200, 256 and 5632, both
-gates, bitwise repeats, an unaligned input). Every test needs an NVIDIA
+gates, bitwise repeats, an unaligned input), K1 and L1 at the registry's
+other head sizes (32, 80, 96, 100 through a padded copy, 256) with MHA,
+MQA and 7 or 71 query heads in one group, fused-QKV views and the autograd
+op, K3 at the registry's partial rotary pairs and K5 and K8 at phi-2's
+shapes. Every test needs an NVIDIA
 card and skips without one. On the card's machine (no JAX there) run them
 without the suite's conftest:
 
@@ -142,7 +146,8 @@ def _rope_tables(gen, t, n_elem, dtype):
 # copied) and 128 of 128; one position, a ragged T and the training T; q and k
 # views of the fused QKV projection and a contiguous gradient
 @pytest.mark.parametrize("dtype,atol,rtol", [BF16, F32])
-@pytest.mark.parametrize("d,n_elem", [(64, 16), (64, 32), (64, 64), (128, 128)])
+@pytest.mark.parametrize("d,n_elem", [(64, 16), (64, 32), (64, 64), (128, 128),
+                                     (80, 20), (80, 32), (32, 8), (256, 64)])
 @pytest.mark.parametrize("t", [1, 37, 1024])
 @pytest.mark.parametrize("transpose", [False, True])
 def test_apply_rope_on_fused_qkv_heads(dev, gen, dtype, atol, rtol, d, n_elem, t, transpose):
@@ -229,7 +234,7 @@ def test_flash_attention(dev, gen, t, hq, g, d):
     _close(lse, want_lse.reshape(2, hq, t), 1e-4, 1e-5)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", attention.FLASH_HEAD_SIZES)
 @pytest.mark.parametrize("groups", [2, 8])
 def test_flash_attention_reads_fused_qkv_views(dev, gen, d, groups):
     """k and v (and q, at one query head a group) as strided views of the
@@ -241,13 +246,14 @@ def test_flash_attention_reads_fused_qkv_views(dev, gen, d, groups):
     q = q5.reshape(2, 8, 70, d)
     assert not k.is_contiguous() and q.is_contiguous() == (groups != 8)
     got = attention.causal_attention(q, k, v)
-    assert got.transpose(1, 2).is_contiguous()
+    # head size 100 comes back as a view of the (B, T, H, 104) padded buffer
+    assert got.transpose(1, 2).is_contiguous() == (attention.padded_head_size(d) == d)
     _close(got, attention.causal_attention_plain(q, k, v), 1e-2, 2.0 ** -6)
 
 
 def test_flash_attention_refuses_what_it_does_not_take(dev, gen):
     with pytest.raises(ValueError, match="head size"):
-        attention.causal_attention(*(_randn(gen, 1, 2, 8, 32) for _ in range(3)))
+        attention.causal_attention(*(_randn(gen, 1, 2, 8, 48) for _ in range(3)))
     with pytest.raises(TypeError, match="bfloat16"):
         attention.causal_attention(*(_randn(gen, 1, 2, 8, 64, dtype=torch.float32)
                                      for _ in range(3)))
@@ -525,7 +531,7 @@ def test_flash_attention_bwd_refuses_what_it_does_not_take(dev, gen):
         attention.flash_attention_bwd(q, k, v, o, lse, o.float(), 0.125)
     with pytest.raises(TypeError, match="fp32 lse"):
         attention.flash_attention_bwd(q, k, v, o, lse.bfloat16(), o, 0.125)
-    small = [_randn(gen, 1, h, 16, 32) for h in (4, 2, 2, 4, 4)]
+    small = [_randn(gen, 1, h, 16, 48) for h in (4, 2, 2, 4, 4)]
     with pytest.raises(ValueError, match="head size"):
         attention.flash_attention_bwd(*small[:4], lse, small[4], 0.125)
 
@@ -1280,7 +1286,7 @@ def test_splash_kernels_refuse_what_they_do_not_take(dev, gen):
     with pytest.raises(TypeError, match="bfloat16"):
         splash.splash_fwd(q.float(), k, v)
     with pytest.raises(ValueError, match="head size"):
-        splash.splash_fwd(*(x[..., :32] for x in (q, k, v)))
+        splash.splash_fwd(*(x[..., :48] for x in (q, k, v)))
     o, lse = splash.splash_fwd(q, k, v)
     di = splash.row_dot(o, do)
     with pytest.raises(TypeError, match="fp32 lse"):
@@ -1351,6 +1357,122 @@ def test_splash_autograd_op_on_the_card_matches_the_cpu(dev, gen, monkeypatch, t
     _close(o, want_o.to(dev), *BF16[1:])
     for x, y in zip(grads, want_grads):
         _close_bwd(x, y.to(dev))
+
+
+# ---- K1 and L1 at every head size of the model registry ----
+
+# the head sizes other than 64 and 128 (those are held above): 32
+# (pythia-14m), 80 (phi-2), 96 (Phi-3), 100 (open_llama_3b, through a copy
+# padded to 104) and 256 (Gemma, pythia-1b: dK/dV split over two blocks)
+REGISTRY_HEADS = [32, 80, 96, 100, 256]
+
+
+def _k1_and_l1_against_plain(q, k, v, do, scale):
+    """K1's forward and backward and L1's forward, dQ and dK/dV on the same
+    inputs, each against its plain version; one launch a call."""
+    counts = [x.launches for x in (attention.FLASH_FWD, attention.FLASH_BWD, splash.SPLASH_FWD,
+                                   splash.SPLASH_DQ, splash.SPLASH_DKV)]
+    o, lse = attention._flash_fwd(q, k, v, scale)
+    want_o, want_lse = attention.causal_attention_plain_lse(q, k, v, scale)
+    _close(o, want_o, 1e-2, 2.0 ** -6)
+    _close(lse, want_lse, 1e-4, 1e-5)
+    got = attention.flash_attention_bwd(q, k, v, o, lse, do, scale)
+    want = attention.flash_attention_bwd_plain(q, k, v, o, lse, do, scale)
+    for x, y in zip(got, want):
+        _close_bwd(x, y)
+    so, slse = splash.splash_fwd(q, k, v, scale)
+    want_o, want_lse = splash.splash_fwd_plain(q, k, v, scale)
+    _close(so, want_o, *BF16[1:])
+    _close(slse, want_lse, 1e-4, 1e-5)
+    _splash_check_bwd(q, k, v, so, slse, do, scale)
+    after = [x.launches for x in (attention.FLASH_FWD, attention.FLASH_BWD, splash.SPLASH_FWD,
+                                  splash.SPLASH_DQ, splash.SPLASH_DKV)]
+    assert [a - b for a, b in zip(after, counts)] == [1, 1, 1, 1, 1]
+
+
+# T on both sides of the 64-row and 64-key tiles and a training length;
+# MHA, MQA (8 heads of one group, Gemma-2b's), falcon-7b's 71 heads of one
+# group (an odd group size for the dK/dV sum) and 7 of one
+@pytest.mark.parametrize("d", REGISTRY_HEADS)
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 129, 200, 1024])
+@pytest.mark.parametrize("hq,g", [(4, 4), (8, 1), (7, 1), (71, 1)])
+def test_flash_and_splash_at_every_registry_head_size(dev, gen, d, t, hq, g):
+    b = 1 if hq == 71 else 2
+    q, k, v, do = _splash_inputs(gen, b, hq, g, t, d)
+    _k1_and_l1_against_plain(q, k, v, do, d ** -0.5)
+
+
+@pytest.mark.parametrize("d", REGISTRY_HEADS)
+def test_flash_and_splash_read_fused_qkv_views_at_every_head_size(dev, gen, d):
+    """q, k and v as strided views of the fused QKV projection (phi-2's
+    layout: 8 heads, 4 groups), dO as a (B, T, H, D) transpose, at a ragged
+    T; the forward's O is the (B, T, H, D') view."""
+    cfg = GPTConfig(n_embd=8 * d, n_head=8, n_query_groups=4, intermediate_size=256,
+                    mlp_class="LLaMAMLP")
+    q5, k, v = split_heads(cfg, _randn(gen, 2, 70, cfg.qkv_out_dim))
+    q = q5.reshape(2, 8, 70, d)
+    do = _randn(gen, 2, 70, 8, d).transpose(1, 2)
+    _k1_and_l1_against_plain(q, k, v, do, d ** -0.5)
+    got = attention.causal_attention(q, k, v)
+    _close(got, attention.causal_attention_plain(q, k, v), 1e-2, 2.0 ** -6)
+
+
+@pytest.mark.parametrize("d", REGISTRY_HEADS)
+def test_flash_autograd_at_every_head_size_matches_the_cpu(dev, gen, d):
+    """`causal_attention` with grad (FlashAttention: K1 forward and
+    backward) on the card against the plain pair on CPU copies. The
+    gradients are held as a pair is (chip_smoke.py's FLASH_PAIR_REL_L2,
+    relative L2 2^-6): Delta carries each side's own O, and in the first
+    rows that moves single elements of dQ past the elementwise backward
+    bound at any head size, depending on the draw (up to 1.28x it at D 128
+    and 1.07x at D 256 over three draws; the plain backward fed the card's
+    O moves them as far: scripts/torch_flash_pair_check.py), while each
+    kernel alone meets it (test_flash_and_splash_at_every_registry_head_size)."""
+    q, k, v, do = _splash_inputs(gen, 2, 8, 2, 130, d)
+    results = {}
+    for where in ("cuda", "cpu"):
+        leaves = [x.to(where).detach().requires_grad_() for x in (q, k, v)]
+        out = attention.causal_attention(*leaves)
+        out.backward(do.to(where))
+        results[where] = [out.detach(), *(x.grad for x in leaves)]
+    (o, *grads), (want_o, *want_grads) = results["cuda"], results["cpu"]
+    _close(o, want_o.to(dev), 1e-2, 2.0 ** -6)
+    for x, y in zip(grads, want_grads):
+        y = y.to(dev).float()
+        assert float((x.float() - y).norm() / y.norm()) <= 2.0 ** -6
+
+
+# phi-2's linears (out, in): int4 (K8) at decode, verify and prefill rows,
+# fused LoRA (K5, rank 16, q/k/v and proj) at decode and prefill rows
+PHI2_Q4_SHAPES = {"qkv": (7680, 2560), "attn_proj": (2560, 2560), "fc": (10240, 2560),
+                  "mlp_proj": (2560, 10240), "lm_head": (51200, 2560)}
+PHI2_LORA_SHAPES = {"qkv": (7680, 2560, 48), "proj": (2560, 2560, 16)}
+
+
+@pytest.mark.parametrize("name", list(PHI2_Q4_SHAPES))
+@pytest.mark.parametrize("rows", [1, 8, 16, 72, 1536])
+def test_q4_matmul_at_phi2_shapes(dev, gen, name, rows):
+    n, k = PHI2_Q4_SHAPES[name]
+    packed, scales = quant.quantize_weight_int4(
+        _randn(gen, n, k, dtype=torch.float32, std=0.02))
+    x = _randn(gen, rows, k)
+    before = int4.Q4_MATMUL.launches
+    got = int4.q4_matmul(x, packed, scales)
+    assert int4.Q4_MATMUL.launches == before + 1
+    _close(got, int4.q4_matmul_plain(x, packed, scales), *Q4_TOL)
+
+
+@pytest.mark.parametrize("name", list(PHI2_LORA_SHAPES))
+@pytest.mark.parametrize("rows", [1, 8, 72, 1536])
+def test_lora_linear_at_phi2_shapes(dev, gen, name, rows):
+    o, d, r = PHI2_LORA_SHAPES[name]
+    x = _randn(gen, rows, d)
+    w, a = _randn(gen, o, d, std=0.02), _randn(gen, r, d, std=d ** -0.5)
+    b = _randn(gen, o, r, std=0.02)
+    before = lora.LORA_LINEAR.launches
+    got = lora.lora_linear(x, w, a, b, 1.0)
+    assert lora.LORA_LINEAR.launches == before + 1
+    _close(got, lora.lora_linear_plain(x, w, a, b, 1.0), *Q4_TOL)
 
 
 if __name__ == "__main__":

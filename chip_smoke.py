@@ -240,7 +240,25 @@ prints one JSON line; a failed phase raises and the script exits non-zero.
      finetuning steps through `run_training`, the requests again through K5
      (lora_impl "fused") and merged and int4 (K8); K1 at D80 and K3 at 32
      of 80 channels launched on every run, K2 and K4 never;
- 32. the seconds of each phase, the `{"kernels": [...]}` line (all fifteen
+ 32. slice 23, PEFT breadth, last: `peft_kernel_phase`, K5 at TinyLlama's
+     MLP shapes under --lora_mlp (fc_1 / fc_2 O 5632 D 2048, proj O 2048 D
+     5632, rank 16) at 8, 1536 and 8192 rows (and 8192 with a separate
+     dropout input) against its plain version, timed beside its bound and
+     cuBLAS x3 + add; `depth2_peft_check`, two full-width TinyLlama blocks
+     in each mode (adapter v1, v2, LoRA on q/k/v/proj and the MLP through
+     K5, full), every PEFT leaf non-zero, card bf16 against CPU fp32:
+     prefill and decode logits, caches, a Trainer step's loss and every
+     trainable gradient; `peft_slice`, full-width TinyLlama-1.1B (22 layers)
+     in modes adapter, adapter_v2 and LoRA-on-the-MLP (K5): 4 steps of
+     `run_training`, the decode slices' 16 requests through
+     `run_inference`, and again merged and int4 (K8, the v2 wrap after it,
+     v1's prefix through the quantized QKV); mode full: 4 steps of
+     `run_training` at 4 layers, the 8 x 1024 step at 22 layers with
+     mu_dtype "" and "bfloat16" (step ms, tokens/s, MFU, peak memory,
+     `utils.profiling.compiled_flops` against the analytic count and
+     `live_device_memory`), one mode-full step of Mixtral-8x7B at depth 1
+     (L2's drhs kernel launches);
+ 33. the seconds of each phase, the `{"kernels": [...]}` line (all fifteen
      kernels, launches by path, K4's, K5's and K8's verify rows, K1's and
      L1's rows at each head size), the card's name and power limit, and
      the last line `{"ok": true, "device": {...}}`.
@@ -5457,15 +5475,18 @@ def phi2_kernel_phase(torch, seed: int) -> dict:
 
 
 def randomize_family_leaves(torch, model, gen) -> None:
-    """A finetuned-looking model: lora_B N(0, 0.02) on q/k/v/proj, every
-    bias N(0, 0.02) and every norm scale 1 + N(0, 0.1), so the biases and
-    LayerNorm leaves count (the init's are 0 and 1)."""
+    """A finetuned-looking model: every lora_B, bias and adapter v2 bias
+    N(0, 0.02), every norm and adapter v2 scale 1 + N(0, 0.1), adapter v1's
+    gates N(0, 0.3), so the biases, LayerNorm and PEFT leaves count (the
+    init's are 0 and 1)."""
+    draws = {"lora_B": (0.0, 0.02), "bias": (0.0, 0.02), "scale": (1.0, 0.1),
+             "gating_factor": (0.0, 0.3)}
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if name.endswith("lora_B") or name.endswith(".bias"):
-                p.copy_(torch.randn(p.shape, generator=gen, device=p.device) * 0.02)
-            elif name.endswith(".scale"):
-                p.copy_(1.0 + torch.randn(p.shape, generator=gen, device=p.device) * 0.1)
+            suffix = next((k for k in draws if name.endswith(k)), None)
+            if suffix is not None:
+                mean, std = draws[suffix]
+                p.copy_(mean + torch.randn(p.shape, generator=gen, device=p.device) * std)
 
 
 def depth2_family_check(torch, seed: int) -> dict:
@@ -5723,6 +5744,445 @@ def phi2_slice(torch, seed: int) -> dict:
     return result
 
 
+# ---- PEFT breadth (slice 23): adapter v1 / v2, LoRA on the MLP, mode full ----
+# K5 at the MLP's shapes under --lora_mlp, TinyLlama's (name, O, D): fc_1 and
+# fc_2 take O 5632 D 2048, proj O 2048 D 5632; rank 16; at a decode step's 8
+# rows, the decode slices' 1536 prefill rows and the 8 x 1024 training rows
+# (with the dropout's separate input there, as training runs it)
+PEFT_LORA_SHAPES = (("mlp_fc", 5632, 2048), ("mlp_proj", 2048, 5632))
+PEFT_LORA_ROWS = (8, 1536, 8192)
+PEFT_MODES = ("adapter", "adapter_v2", "lora_mlp", "full")
+# the Trainer's mode of each (LoRA on the MLP trains in mode "lora")
+TRAIN_MODE = {"adapter": "adapter", "adapter_v2": "adapter_v2", "lora_mlp": "lora",
+              "full": "full"}
+# the full-mode slice's run_training depth: every weight is an fp32 master,
+# and run_training writes the whole tree twice and the trainable leaves with
+# both moments at each epoch's end (13 GB at 22 layers); its 8 x 1024 steps
+# keep all 22 layers
+PEFT_FULL_TRAIN_LAYERS = 4
+PEFT_IDLE = ("grouped_matmul", "grouped_matmul_dlhs", "grouped_matmul_drhs") + SPLASH_KERNELS
+PEFT_DECODE = ("rms_norm", "apply_rope", "flash_attention_fwd")
+PEFT_TRAIN = ("rms_norm", "apply_rope", "apply_rope_transpose", "flash_attention_fwd",
+              "flash_attention_bwd")
+# peft_slice's runs: the kernels that must launch and those that must not. K4
+# runs unless fc_1 has LoRA, adapter v2's wrap or a quantized weight; K5 on
+# the fused LoRA linears; K8 on int4 weights (adapter v1's prefix through the
+# quantized QKV too)
+PEFT_RUNS = {
+    "adapter_train": dict(launch=PEFT_TRAIN + ("swiglu_mlp",),
+                          idle=PEFT_IDLE + ("lora_linear", "q4_matmul")),
+    "adapter_bf16": dict(launch=PEFT_DECODE + ("swiglu_mlp",),
+                         idle=PEFT_IDLE + ("lora_linear", "q4_matmul")),
+    "adapter_int4": dict(launch=PEFT_DECODE + ("q4_matmul",),
+                         idle=PEFT_IDLE + ("lora_linear", "swiglu_mlp")),
+    "adapter_v2_train": dict(launch=PEFT_TRAIN,
+                             idle=PEFT_IDLE + ("lora_linear", "q4_matmul", "swiglu_mlp")),
+    "adapter_v2_bf16": dict(launch=PEFT_DECODE,
+                            idle=PEFT_IDLE + ("lora_linear", "q4_matmul", "swiglu_mlp")),
+    "adapter_v2_int4": dict(launch=PEFT_DECODE + ("q4_matmul",),
+                            idle=PEFT_IDLE + ("lora_linear", "swiglu_mlp")),
+    "lora_mlp_train": dict(launch=PEFT_TRAIN + ("lora_linear",),
+                           idle=PEFT_IDLE + ("q4_matmul", "swiglu_mlp")),
+    "lora_mlp_fused": dict(launch=PEFT_DECODE + ("lora_linear",),
+                           idle=PEFT_IDLE + ("q4_matmul", "swiglu_mlp")),
+    "lora_mlp_int4": dict(launch=PEFT_DECODE + ("q4_matmul",),
+                          idle=PEFT_IDLE + ("lora_linear", "swiglu_mlp")),
+    "full_train": dict(launch=PEFT_TRAIN + ("swiglu_mlp",),
+                       idle=PEFT_IDLE + ("lora_linear", "q4_matmul")),
+    "full_moe": dict(launch=PEFT_TRAIN[1:] + ("grouped_matmul", "grouped_matmul_dlhs",
+                                              "grouped_matmul_drhs"),
+                     idle=SPLASH_KERNELS + ("lora_linear", "q4_matmul", "swiglu_mlp")),
+}
+# compiled_flops of the full-mode 8 x 1024 step against the analytic counts:
+# its forward against a third of estimate_train_flops_per_token; the whole
+# step against that estimate plus what the backward recomputes (K4's two
+# gate products, attention's logits)
+FLOPS_REL_TOL = 0.10
+
+
+def peft_config(mode: str, n_layer: int, **kw):
+    """TinyLlama-1.1B-Chat as `cli.common.model_config_from_args` builds it
+    for --mode: adapter v1 (lora_r 0), v2 (v1 too), LoRA r 16 on q/k/v/proj
+    and the MLP (--lora_mlp), or no PEFT leaves (full)."""
+    from dualhyp_tpu_torch import config_from_name
+
+    lora = dict(lora_r=16, lora_alpha=16, lora_query=True, lora_key=True, lora_value=True,
+                lora_projection=True)
+    extra = {"adapter": dict(use_adapter=True), "full": {},
+             "adapter_v2": dict(use_adapter=True, use_adapter_v2=True),
+             "lora_mlp": dict(lora, lora_mlp=True)}[mode]
+    return config_from_name("tiny-llama-1.1b-chat", n_layer=n_layer, **{**extra, **kw})
+
+
+def peft_kernel_phase(torch, seed: int) -> dict:
+    """K5 at the MLP's shapes under --lora_mlp (PEFT_LORA_SHAPES x
+    PEFT_LORA_ROWS, the training rows with a separate dropout input too),
+    each against `lora_linear_plain` at TOLERANCES, two calls bitwise equal,
+    timed beside its bound and cuBLAS x3 + add (`lora_row`)."""
+    from dualhyp_tpu_torch.ops import lora
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 61)
+    r = LORA_RANK
+
+    def randn(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(torch.bfloat16)
+
+    lo = {}
+    for name, o, d in PEFT_LORA_SHAPES:
+        w, a, b = randn(o, d, std=0.02), randn(r, d, std=1 / math.sqrt(d)), randn(o, r, std=0.02)
+        for rows in PEFT_LORA_ROWS:
+            lo[f"{name}_{rows}"] = lora_row(
+                torch, randn(rows, d), w, a, b, 1.0,
+                launch=decode_plan(lora, rows, o, d, r, 1.0, False)
+                if rows <= lora.DECODE_ROWS else None)
+        rows = PEFT_LORA_ROWS[-1]
+        lo[f"{name}_{rows}_xin"] = lora_row(torch, randn(rows, d), w, a, b, 1.0, randn(rows, d))
+    emit({"phase": "kernel", "name": "lora_linear", "shapes_of": "TinyLlama's MLP (--lora_mlp)",
+          "tolerance": dict(zip(("atol", "rtol"), TOLERANCES["lora_linear"])), **lo})
+    torch.cuda.empty_cache()
+    return {"lora_linear": lo}
+
+
+def depth2_peft_check(torch, seed: int) -> dict:
+    """Two blocks of TinyLlama at full width in each PEFT_MODES mode (the
+    adapter from layer 1, so one layer runs it gated off; LoRA on the MLP
+    through K5 on the card and its plain version on the CPU), every PEFT
+    leaf drawn non-zero, card bf16 against CPU fp32 on the same weights:
+    prefill and decode logits (DEPTH2_ATOL), the K/V caches
+    (DEPTH2_CACHE_REL), and one Trainer step of the mode: the loss
+    (TRAIN_LOSS_ATOL) and the gradient of every trainable leaf
+    (TRAIN_GRAD_REL; zero on both sides where the gate is off): the adapter
+    prefix and gates, v2's scales, biases and norms, the MLP's LoRA, every
+    weight in mode full (fp32 masters on the card)."""
+    import numpy as np
+
+    from dualhyp_tpu_torch.models.gpt import GPT
+    from dualhyp_tpu_torch.train import TrainConfig, Trainer
+
+    results = {}
+    for mode in PEFT_MODES:
+        cfg = peft_config(mode, 2, adapter_start_layer=1)
+        impl = "fused" if mode == "lora_mlp" else "xla"
+        card = GPT(cfg, device="cuda", dtype=torch.bfloat16, lora_impl=impl)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        card.init_weights(gen)
+        randomize_family_leaves(torch, card, gen)
+        cpu = GPT(cfg, device="cpu", dtype=torch.float32, lora_impl=impl)
+        cpu.load_state_dict({k: v.float().cpu() for k, v in card.state_dict().items()})
+        rng = np.random.default_rng(seed + 3)
+        t = 96
+        ids = torch.from_numpy(rng.integers(3, cfg.vocab_size, size=(2, t)))
+        lengths = torch.tensor([96, 61])
+        ids[1, 61:] = 0
+        reset_counts()
+        caches = {"cuda": card.init_cache(2, t + 1), "cpu": cpu.init_cache(2, t + 1)}
+        got = card.prefill(ids.cuda(), lengths.cuda(), caches["cuda"]).cpu()
+        want = cpu.prefill(ids, lengths, caches["cpu"])
+        token = want.argmax(-1)
+        got_step = card.decode_step(token.cuda(), lengths.cuda(), caches["cuda"]).cpu()
+        want_step = cpu.decode_step(token, lengths, caches["cpu"])
+        errs = {"prefill_logits": float((got - want).abs().max()),
+                "decode_logits": float((got_step - want_step).abs().max())}
+        cache_rel = {f"layer{i}_{kv}": float((c.float().cpu() - w).norm() / w.norm())
+                     for i, (lc, lw) in enumerate(zip(caches["cuda"], caches["cpu"]))
+                     for kv, c, w in zip("kv", lc, lw)}
+        del caches
+        ids = rng.integers(3, cfg.vocab_size, size=(2, t)).astype(np.int32)
+        labels = ids.copy()
+        labels[:, : t // 2] = -1
+        batch = {"input_ids": ids, "labels": labels}
+        steps = {}
+        for device, model, dtype in (("cuda", card, "bfloat16"), ("cpu", cpu, "float32")):
+            tcfg = TrainConfig(batch_size=2, micro_batch_size=2, compute_dtype=dtype,
+                               lm_head_chunk_size=128, mode=TRAIN_MODE[mode])
+            trainer = Trainer(cfg, tcfg, model)
+            loss, _ = trainer.train_step(batch, max_iters=100, warmup_steps=10)
+            steps[device] = (float(loss), {n: p.grad.detach().float().cpu()
+                                           for n, p in trainer.trainable.items()})
+            del trainer
+        launches = read_counts()
+        del card, cpu
+        torch.cuda.empty_cache()
+        (loss_card, g_card), (loss_cpu, g_cpu) = steps["cuda"], steps["cpu"]
+        rel = {n: float((g_card[n] - g_cpu[n]).norm() / g_cpu[n].norm()) if g_cpu[n].any()
+               else float(g_card[n].abs().max()) for n in g_cpu}
+        k4 = mode in ("adapter", "full")
+        # adapter v1 trains layer 1 alone here: no gradient goes back through
+        # an attention, so K1's backward and K3's transpose do not run
+        must = (PEFT_DECODE if mode == "adapter" else PEFT_TRAIN) + (
+            ("swiglu_mlp",) if k4 else ()) + (("lora_linear",) if mode == "lora_mlp" else ())
+        never = PEFT_IDLE + ("q4_matmul",) + (() if k4 else ("swiglu_mlp",)) + (
+            () if mode == "lora_mlp" else ("lora_linear",))
+        worst = max(rel, key=rel.get)
+        result = {"phase": "depth2_peft_card_vs_cpu", "mode": mode, "lora_impl": impl,
+                  "width": cfg.n_embd, "adapter_start_layer": cfg.adapter_start_layer,
+                  **errs, "logit_std": float(want.std()), "logit_atol": DEPTH2_ATOL,
+                  "cache_rel_l2_err_max": max(cache_rel.values()),
+                  "cache_rel_tol": DEPTH2_CACHE_REL,
+                  "loss_card": loss_card, "loss_cpu": loss_cpu,
+                  "loss_abs_err": abs(loss_card - loss_cpu), "loss_atol": TRAIN_LOSS_ATOL,
+                  "trainable_leaves": len(rel), "grad_rel_l2_err_max": rel[worst],
+                  "grad_rel_worst_leaf": worst, "grad_rel_tol": TRAIN_GRAD_REL,
+                  "launches": launches}
+        emit(result)
+        results[mode] = result
+        if not max(errs.values()) <= DEPTH2_ATOL:
+            raise RuntimeError(f"depth-2 {mode} logits: card vs CPU {errs} > {DEPTH2_ATOL}")
+        if not max(cache_rel.values()) <= DEPTH2_CACHE_REL:
+            raise RuntimeError(f"depth-2 {mode} caches: card vs CPU {cache_rel}")
+        if not abs(loss_card - loss_cpu) <= TRAIN_LOSS_ATOL:
+            raise RuntimeError(f"depth-2 {mode} train loss: card {loss_card} vs CPU {loss_cpu}")
+        bad = {n: e for n, e in rel.items() if not e <= TRAIN_GRAD_REL}
+        if bad:
+            raise RuntimeError(f"depth-2 {mode} gradients off: {bad}")
+        if any(launches[n] <= 0 for n in must) or any(launches[n] for n in never):
+            raise RuntimeError(f"depth-2 {mode}: launches {launches}, must {must}, "
+                               f"never {never}")
+    return results
+
+
+def check_launches(launches, label) -> None:
+    """PEFT_RUNS[label]'s kernels launched, its idle ones not."""
+    spec = PEFT_RUNS[label]
+    missing = [n for n in spec["launch"] if launches[n] <= 0]
+    stray = [n for n in spec["idle"] if launches[n] != 0]
+    if missing or stray:
+        raise RuntimeError(f"peft {label}: never launched {missing}, launched {stray}")
+
+
+def full_step_1024(torch, model, cfg, seed: int, mu_dtype: str, flops: bool) -> dict:
+    """Mode-full Trainer steps of `model` at 8 x 1024 (half the labels
+    masked, remat off, the head's loss chunked): 2 warm-up and 3 timed, the
+    launch counts read around them, then the AdamW step alone (3 on the
+    last gradients, host clock after a synchronise); with `flops`, one step
+    under torch.profiler, then one step and one forward under
+    `profiling.compiled_flops` and the card's memory
+    (`profiling.live_device_memory`)."""
+    import numpy as np
+
+    from dualhyp_tpu_torch.train import TrainConfig, Trainer
+    from dualhyp_tpu_torch.utils import profiling
+    from dualhyp_tpu_torch.utils.monitor import estimate_train_flops_per_token
+
+    mb, t = 8, 1024
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(1, cfg.vocab_size, size=(mb, t)).astype(np.int32)
+    labels = ids.copy()
+    labels[:, : t // 2] = -1
+    batch = {"input_ids": ids, "labels": labels}
+    per_token = estimate_train_flops_per_token(cfg, t)
+    trainer = Trainer(cfg, TrainConfig(batch_size=mb, micro_batch_size=mb, mode="full",
+                                       mu_dtype=mu_dtype, lm_head_chunk_size=128,
+                                       remat=False), model)
+    for _ in range(2):
+        trainer.train_step(batch, max_iters=1000, warmup_steps=10)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        loss, _ = trainer.train_step(batch, max_iters=1000, warmup_steps=10)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    med = sorted(times)[1]
+    out = {"mode": "full", "mu_dtype": mu_dtype or "float32", "remat": False,
+           "shape": [mb, t], "step_ms": [x * 1e3 for x in times], "median_step_ms": med * 1e3,
+           "tokens_per_s": mb * t / med, "mfu": mb * t * per_token / med / BF16_TENSOR_FLOPS,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "loss": float(loss),
+           "moment_bytes": sum(s["exp_avg"].numel() * s["exp_avg"].element_size()
+                               for s in trainer.optimizer.state.values()),
+           "launches": read_counts()}
+    # the AdamW step alone, on the last step's gradients (which stay in .grad)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        trainer.optimizer.step()
+    torch.cuda.synchronize()
+    out["optimizer_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+    if flops:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            trainer.train_step(batch, max_iters=1000, warmup_steps=10)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        out["profile"] = {**step_kernel_ms(prof), **profile_summary(prof, wall_ms, top_n=12)}
+        del prof
+        step = profiling.compiled_flops(
+            lambda: trainer.train_step(batch, max_iters=1000, warmup_steps=10))
+        x = torch.from_numpy(ids).long().cuda()
+        with torch.no_grad():
+            forward = profiling.compiled_flops(lambda: model(x, return_hidden=True))
+        # the head's product, which the forward above leaves to the loss
+        forward += 2 * mb * t * cfg.n_embd * cfg.padded_vocab_size
+        d, inter, hs = cfg.n_embd, cfg.intermediate_size, cfg.head_size
+        recompute = cfg.n_layer * (2 * 2 * d * inter + 2 * cfg.n_head * hs * t)
+        out["flops"] = {
+            "step": step, "forward": forward, "estimate_per_step": mb * t * per_token,
+            "recompute_per_step": mb * t * recompute,
+            "step_over_estimate": step / (mb * t * per_token),
+            "forward_over_estimate_third": forward / (mb * t * per_token / 3),
+            "step_over_estimate_plus_recompute": step / (mb * t * (per_token + recompute)),
+            "live_device_memory": profiling.live_device_memory()}
+        for key in ("forward_over_estimate_third", "step_over_estimate_plus_recompute"):
+            if not abs(out["flops"][key] - 1) <= FLOPS_REL_TOL:
+                raise RuntimeError(f"compiled_flops off the estimate: {out['flops']}")
+    del trainer
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    if not math.isfinite(out["loss"]):
+        raise RuntimeError(f"full-mode step at 8 x 1024: {out}")
+    return out
+
+
+def peft_slice(torch, seed: int) -> dict:
+    """PEFT breadth on full-width TinyLlama-1.1B-Chat (22 layers, width 2048,
+    bf16, random weights from --seed, the PEFT leaves drawn non-zero):
+    for --mode adapter and adapter_v2, and for LoRA r 16 on q/k/v/proj and
+    the MLP through K5 (lora_impl "fused"): 4 optimizer steps of
+    `cli.finetune_ger.run_training` (batch 32 of micro batches 8, remat,
+    2 epochs of 64 records, --save_adapter_only), then the decode slices'
+    traffic (16 DualHyp requests, decode batch 8, 32 new tokens, greedy)
+    through `cli.inference_ger.run_inference`, and again as --quantize int4
+    runs it (LoRA merged first): K8, the adapter v1 prefix through the
+    quantized QKV. Mode full: 4 steps of run_training at
+    PEFT_FULL_TRAIN_LAYERS layers (1 epoch of batch 16 in micro batches 8),
+    then the 8 x 1024 step at 22 layers with mu_dtype "" and "bfloat16"
+    (`full_step_1024`, compiled_flops held to the analytic counts); and one
+    mode-full step of Mixtral-8x7B at full width and depth 1 (moe_impl
+    megablox, 8 x 1024), where L2's drhs kernel (`tgmm_tma_kernel`) must
+    launch. Each run's kernels must launch (PEFT_RUNS), the others not."""
+    import numpy as np
+
+    from dualhyp_tpu_torch import config_from_name
+    from dualhyp_tpu_torch.ckpt.io import flatten, load_params
+    from dualhyp_tpu_torch.models.gpt import GPT, is_peft_leaf, merge_lora, quantize_model
+    from dualhyp_tpu_torch.train import TrainConfig, Trainer
+
+    serve = dict(decode_batch=8, max_new_tokens=32, temperature=0.2, top_k=1, kv_quant=None)
+    result = {"phase": "peft_slice", "model": "tiny-llama-1.1b-chat", "width": 2048}
+    runs = {}
+
+    def served(label, model, reference=None):
+        records, metrics, wall, launches, _, _ = serve_requests(torch, model, seed, serve)
+        runs[label] = {"wall_s": wall, "metrics": metrics, "launches": launches,
+                       "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if reference is not None:
+            runs[label]["vs_bf16"] = token_agreement(records, reference)
+        check_served(records, metrics, launches, PEFT_RUNS[label]["launch"],
+                     PEFT_RUNS[label]["idle"], f"peft {label}")
+        return records
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        tok, dataset = dualhyp_data(tmp, seed)
+        for mode in PEFT_MODES[:3]:
+            fused = mode == "lora_mlp"
+            cfg = peft_config(mode, 22, lora_dropout=0.05 if fused else 0.0)
+            model = GPT(cfg, device="cuda", dtype=torch.bfloat16,
+                        lora_impl="fused" if fused else "xla")
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            model.init_weights(gen)
+            randomize_family_leaves(torch, model, gen)
+            peft = model.trainable_parameters(TRAIN_MODE[mode])
+            before = {n: p.detach().clone() for n, p in peft.items()}
+            tcfg = TrainConfig(batch_size=32, micro_batch_size=8, num_epochs=2,
+                               frozen_dtype="bfloat16", remat=True, seed=seed, log_interval=32,
+                               save_interval=10**6, mode=TRAIN_MODE[mode])
+            trained = timed_training(torch, model, tcfg, tok, dataset, tmp / f"run_{mode}",
+                                     seed, adapter_only=True)
+            out = trained.pop("out")
+            saved = load_params(tmp / f"run_{mode}" / "model_lora_finetuned.npz")
+            saved_keys = list(flatten(saved))
+            changed = sum(not torch.equal(before[n], p) for n, p in peft.items())
+            runs[f"{mode}_train"] = {**trained, "val_loss": out["best_val"],
+                                     "trainable_leaves": len(peft),
+                                     "trainable_params": sum(p.numel() for p in peft.values()),
+                                     "leaves_changed": changed,
+                                     "saved_leaves": len(saved_keys)}
+            del out, before, saved
+            losses = trained["losses"]
+            if len(losses) != 4 or not all(math.isfinite(x) for x in losses):
+                raise RuntimeError(f"peft {mode} training losses {losses}")
+            if changed != len(peft) or not all(is_peft_leaf(k, cfg) for k in saved_keys):
+                raise RuntimeError(f"peft {mode}: {changed}/{len(peft)} leaves changed, "
+                                   f"saved {saved_keys[:4]}")
+            check_launches(trained["launches"], f"{mode}_train")
+            label = f"{mode}_fused" if fused else f"{mode}_bf16"
+            reference = served(label, model)
+            if fused:
+                merge_lora(model)
+            quantize_model(model, "int4")  # what --quantize int4 runs
+            torch.cuda.empty_cache()
+            served(f"{mode}_int4", model, reference)
+            del model
+            torch.cuda.empty_cache()
+
+        cfg = peft_config("full", PEFT_FULL_TRAIN_LAYERS)
+        model = GPT(cfg, device="cuda", dtype=torch.bfloat16)
+        model.init_weights(torch.Generator(device="cuda").manual_seed(seed))
+        tcfg = TrainConfig(batch_size=16, micro_batch_size=8, num_epochs=1, remat=True,
+                           seed=seed, log_interval=16, save_interval=10**6, mode="full")
+        trained = timed_training(torch, model, tcfg, tok, dataset, tmp / "run_full", seed)
+        out = trained.pop("out")
+        masters = all(p.dtype == torch.float32 for p in model.parameters())
+        runs["full_train"] = {**trained, "n_layer": cfg.n_layer, "val_loss": out["best_val"],
+                              "fp32_masters": masters}
+        del out, model
+        torch.cuda.empty_cache()
+        if len(trained["losses"]) != 4 or not all(math.isfinite(x) for x in trained["losses"]):
+            raise RuntimeError(f"peft full training losses {trained['losses']}")
+        if not masters:
+            raise RuntimeError("mode full left a weight out of the fp32 masters")
+        check_launches(trained["launches"], "full_train")
+
+    cfg = peft_config("full", 22)
+    model = GPT(cfg, device="cuda", dtype=torch.bfloat16)
+    model.init_weights(torch.Generator(device="cuda").manual_seed(seed))
+    steps = {}
+    for mu_dtype in ("", "bfloat16"):
+        steps[mu_dtype or "float32"] = full_step_1024(torch, model, cfg, seed, mu_dtype,
+                                                      flops=not mu_dtype)
+    result["full_step_1024"] = steps
+    del model
+    torch.cuda.empty_cache()
+    for key, step in steps.items():
+        runs[f"full_1024_{key}"] = {"launches": step["launches"]}
+        check_launches(step["launches"], "full_train")
+
+    cfg = config_from_name(MIXTRAL, n_layer=1)
+    model = GPT(cfg, device="cuda", dtype=torch.bfloat16, moe_impl="megablox")
+    model.init_weights(torch.Generator(device="cuda").manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(1, cfg.vocab_size, size=(8, 1024)).astype(np.int32)
+    labels = ids.copy()
+    labels[:, :512] = -1
+    trainer = Trainer(cfg, TrainConfig(batch_size=8, micro_batch_size=8, mode="full",
+                                       lm_head_chunk_size=128, remat=False), model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    loss, _ = trainer.train_step({"input_ids": ids, "labels": labels}, 1000, 10)
+    torch.cuda.synchronize()
+    runs["full_moe"] = {"model": cfg.name, "n_layer": 1, "shape": [8, 1024],
+                        "step_ms": (time.perf_counter() - t0) * 1e3, "loss": float(loss),
+                        "parameters": sum(p.numel() for p in model.parameters()),
+                        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                        "launches": read_counts()}
+    del trainer, model
+    torch.cuda.empty_cache()
+    if not math.isfinite(runs["full_moe"]["loss"]):
+        raise RuntimeError(f"full-mode Mixtral step: {runs['full_moe']}")
+    check_launches(runs["full_moe"]["launches"], "full_moe")
+    result["runs"] = runs
+    emit(result)
+    return result
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5828,6 +6288,9 @@ def main(argv=None) -> int:
         kernels[name].update(phi2_kernels[name])
     depth2_family = run("depth2_family_check", depth2_family_check)
     phi2 = run("phi2_slice", phi2_slice)
+    kernels["lora_linear"].update(run("peft_kernel_phase", peft_kernel_phase)["lora_linear"])
+    depth2_peft = run("depth2_peft_check", depth2_peft_check)
+    peft = run("peft_slice", peft_slice)
     emit({"phase": "phase_seconds", **seconds})
 
     sources = {"rms_norm": ("rmsnorm.cu", "dualhyp_tpu/ops/pallas/rmsnorm_kernel.py:26"),
@@ -5868,7 +6331,7 @@ def main(argv=None) -> int:
                  "causal_attention_fwd": ("causal_attention_fwd_phase", "T1024"),
                  "grouped_matmul": ("mixtral_slice", "decode_fc_1_skewed"),
                  "grouped_matmul_dlhs": ("mixtral_train_slice", "fc_1_skewed"),
-                 "grouped_matmul_drhs": ("moe_layer_weight_grads", "fc_1_skewed"),
+                 "grouped_matmul_drhs": ("peft_full_moe", "fc_1_skewed"),
                  "splash_attention_fwd": ("splash_slice", "prefill"),
                  "splash_attention_dq": ("splash_slice", "train"),
                  "splash_attention_dkv": ("splash_slice", "train")}
@@ -5894,10 +6357,11 @@ def main(argv=None) -> int:
         "grouped_matmul_dlhs": "cli.finetune_ger.run_training -> train.Trainer.train_step -> "
                                "GPT.forward + backward -> MoE (moe_impl megablox) -> "
                                "GroupedMatmul.backward, 3 launches a layer a micro step",
-        "grouped_matmul_drhs": "GroupedMatmul.backward when an expert stack takes gradients "
-                               "(mode full, not ported): no production call site, and LoRA "
-                               "training launches it 0 times; this script's MoE layer backward "
-                               "with trainable stacks",
+        "grouped_matmul_drhs": "train.Trainer.train_step (mode full) -> GPT.forward + "
+                               "backward -> MoE (moe_impl megablox) -> GroupedMatmul.backward "
+                               "with trainable expert stacks, 3 launches a layer a micro step "
+                               "(peft_slice's Mixtral step); LoRA training launches it 0 "
+                               "times",
         **{name: "DUALHYP_ATTN_IMPL=splash: cli.finetune_ger.run_training -> "
                  "train.Trainer.train_step -> GPT.forward (+ remat, + backward) -> "
                  "ops.attention.causal_attention -> ops.splash.SplashAttention; "
@@ -5932,6 +6396,8 @@ def main(argv=None) -> int:
              **{f"attn_ab_1024_{k}": r["launches"] for k, r in attn_ab.items()},
              **{f"phi2_{k}": r["launches"] for k, r in phi2["runs"].items()},
              "phi2_train": phi2["train"]["launches"],
+             **{f"peft_{k}": r["launches"] for k, r in peft["runs"].items()},
+             **{f"depth2_peft_{k}": r["launches"] for k, r in depth2_peft.items()},
              **{f"depth2_family_{k}": r["launches"] for k, r in depth2_family.items()}}
     # the runs whose every K1 launch is at one of those head sizes (the
     # launch counts are the wrapper's, over all head sizes)

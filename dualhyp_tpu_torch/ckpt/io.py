@@ -9,7 +9,8 @@
 `load_params` returns the nested dict of numpy arrays; bf16 leaves come back
 as torch bf16 tensors, since numpy has no bfloat16. `save_params` writes
 such a tree (numpy arrays or torch tensors as leaves), so the JAX package's
-`load_params` reads what the port saves.
+`load_params` reads what the port saves; `save_adapter_only` writes its
+PEFT leaves alone and `load_adapter_over` lays such a file over a tree.
 
 `load_safetensors` reads a HF `*.safetensors` file (the Whisper checkpoints)
 without the `safetensors` package, which the card's machine does not have.
@@ -80,6 +81,43 @@ def save_params(path, tree: dict) -> None:
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     np.savez(path, **flatten(tree))
+
+
+def save_adapter_only(path, tree: dict, cfg) -> None:
+    """Write the PEFT leaves of a parameter tree alone (`save_adapter_only`
+    of the JAX package: its `adapter_only` keeps the leaves `trainable_mask`
+    marks, `models.gpt.is_peft_leaf` here)."""
+    from dualhyp_tpu_torch.models.gpt import is_peft_leaf
+
+    flat = flatten(tree)
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, **{k: v for k, v in flat.items()
+                      if is_peft_leaf(k.replace(SEP, "/"), cfg)})
+
+
+def load_adapter_over(tree: dict, path) -> dict:
+    """A new tree: `tree` with the leaves of the npz at `path` over it
+    (`load_adapter_over` of the JAX package: strict=False, a leaf the file
+    lacks keeps its value, a key the tree lacks raises KeyError)."""
+    flat = _untagged(flatten(tree))
+    with np.load(Path(path)) as z:
+        overlay = _untagged({k: z[k] for k in z.files})
+    unknown = set(overlay) - set(flat)
+    if unknown:
+        raise KeyError(f"adapter checkpoint has unknown keys: {sorted(unknown)[:5]}")
+    flat.update(overlay)
+    return unflatten(flat)
+
+
+def _untagged(flat: dict) -> dict:
+    """{key: array} with each `@bf16` leaf as a bf16 tensor under its key."""
+    out = {}
+    for key, value in flat.items():
+        if key.endswith(BF16_TAG):
+            key, value = key[: -len(BF16_TAG)], bf16_from_bits(value)
+        out[key] = value
+    return out
 
 
 # safetensors element types this reader takes, by their header name

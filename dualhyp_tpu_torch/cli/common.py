@@ -32,8 +32,9 @@ def add_model_args(parser: argparse.ArgumentParser):
     parser.add_argument("--lora_head", type=bool, default=False)
     parser.add_argument("--mode", type=str, default="lora",
                         choices=["lora", "adapter", "adapter_v2", "full"],
-                        help="PEFT family of the checkpoint (adapters are not "
-                             "ported yet)")
+                        help="PEFT family of the checkpoint: adapter and "
+                             "adapter_v2 drop LoRA for LLaMA-Adapter v1 / v2, "
+                             "full trains every weight")
 
 
 def add_data_args(parser: argparse.ArgumentParser):

@@ -1,4 +1,4 @@
-"""GER / DualHyp LoRA finetuning entry point.
+"""GER / DualHyp finetuning entry point: LoRA, adapter v1 / v2 or full.
 
 Counterpart of `dualhyp_tpu/cli/finetune_ger.py` on one card:
 
@@ -9,7 +9,9 @@ Counterpart of `dualhyp_tpu/cli/finetune_ger.py` on one card:
 
 The same flags as the JAX package's, without the mesh flags (multi-device
 training is not ported yet), plus --device (default: the CUDA card; raises
-without one) and --save_adapter_only. bf16 compute, frozen leaves in bf16,
+without one) and --save_adapter_only. --mode adapter|adapter_v2|full trains
+the adapter leaves or every weight (`Trainer`). bf16 compute, frozen
+leaves in bf16,
 remat on by default (whole blocks; `TrainConfig.remat` also takes "mlp"
 and "moe"). An MoE
 checkpoint trains through the path `DUALHYP_MOE_IMPL` picks, as `GPT`
@@ -129,8 +131,8 @@ def run_training(model, tokenizer, train_ds, val_ds, tcfg: TrainConfig, out_dir,
     step_logger = StepLogger(out_dir)
     monitor = SpeedMonitor()
     trainer = Trainer(model.cfg, tcfg, model, monitor=monitor, logger=step_logger)
-    logger.info(f"trainable params: {model.count_params(trainable_only=True):,} / "
-                f"{model.count_params():,}")
+    logger.info(f"mode {tcfg.mode}: trainable params "
+                f"{model.count_params(True, tcfg.mode):,} / {model.count_params():,}")
 
     # schedule bookkeeping in micro-iteration units (ref: finetune/ger.py:176-182)
     steps_per_epoch = max(len(train_ds) // tcfg.batch_size, 1)

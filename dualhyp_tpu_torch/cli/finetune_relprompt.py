@@ -261,8 +261,8 @@ def main(argv=None, on_step=None) -> dict:
     val_ds = DualHypothesesMaskDataset("val", args.val_path, **ds_kwargs)
 
     trainer = RelPromptTrainer(model_cfg, tcfg, model)
-    logger.info(f"trainable params: {model.count_params(trainable_only=True):,} + "
-                f"classifiers; {model.count_params():,} in all")
+    logger.info(f"mode {tcfg.mode}: trainable params (classifiers included) "
+                f"{model.count_params(True, tcfg.mode):,} / {model.count_params():,}")
     loader = feature_loader(args, model_cfg)
     feat_rng = np.random.default_rng(args.seed)
 

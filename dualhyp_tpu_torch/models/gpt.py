@@ -1,16 +1,29 @@
 """Decoder-only GPT of the LLaMA and GPT-NeoX / Phi / Falcon families, with
-LoRA: finetuning and decoding.
+the PEFT families of the JAX package: finetuning and decoding.
 
 Counterpart of `dualhyp_tpu/models/gpt.py`: RMSNorm or LayerNorm (scale
 and bias), the LLaMA (silu) or Gemma (tanh-gelu) gated MLP or the GPT-NeoX
 MLP (`fc`, gelu exact or tanh, `proj`), optional biases on the linears and
 on the head, grouped-query attention, full or partial rotary embeddings,
-sequential or parallel residual with a separate or shared norm; LoRA on the
-fused QKV projection and on `proj` (and on the head when asked), gated by
-`lora_start_layer`. A linear's bias is added after its product, in the
-product's dtype, whether that product is plain, int8, int4 (K8) or the
-fused LoRA kernel K5; a biased gated MLP does not run K4 (the JAX
-package's rule).
+sequential or parallel residual with a separate or shared norm. PEFT:
+  * LoRA on the fused QKV projection, on `proj`, on the MLP's linears
+    (`lora_mlp`) and on the head (`lora_head`), gated by `lora_start_layer`;
+  * LLaMA-Adapter v1 (`use_adapter`): a learned prefix of
+    `adapter_prompt_length` rows a layer (`adapter_wte`) goes through the
+    block's own QKV, unrotated, and the queries attend it with a full mask
+    (fp32 logits, probabilities rounded to q's dtype); the result, gated
+    per head by `gating_factor` and off below `adapter_start_layer`, adds
+    to the causal attention output before `proj`. The prefix's K/V never
+    enter the KV cache;
+  * LLaMA-Adapter v2 (`use_adapter_v2`): fp32 `adapter_scale` and
+    `adapter_bias` of length out_features on every linear, the head
+    included, applied as (y + bias) * scale in y's dtype after the bias
+    and the LoRA delta, on every path (plain, int8, int4 / K8, fused LoRA
+    / K5).
+A linear's bias is added after its product, in the product's dtype,
+whether that product is plain, int8, int4 (K8) or the fused LoRA kernel
+K5. The gated MLP runs K4 unless fc_1 has a bias, LoRA, the v2 wrap or a
+quantized weight (the JAX package's rule): then three linears.
 
 Layout decisions kept from the JAX package, so that its checkpoints load
 with no re-layout and its parameter tree maps name for name onto this
@@ -25,9 +38,10 @@ Where the JAX package runs one `lax.scan` over stacked layers, this module
 loops over a `ModuleList` of blocks. The KV cache is a list of per-layer
 (k, v) tensors of shape (B, G, S, D) in the compute dtype, updated in place.
 Frozen matrices are stored in the compute dtype, norm scales in fp32 (a
-trainer may round them to its frozen dtype). The LoRA leaves are fp32
-masters, cast to the activation dtype at each use as the JAX package casts
-its leaves: an AdamW step of ~1e-4 x lr would round away in bf16.
+trainer may round them to its frozen dtype). The PEFT leaves are fp32
+masters, and a trainer in mode "full" makes every floating parameter one:
+each is cast to the activation dtype where it is used, as the JAX package
+casts its leaves (an AdamW step of ~1e-4 x lr would round away in bf16).
 
 `forward` is the training and evaluation pass (grad enabled; LoRA-input
 dropout from a generator; rematerialisation with `torch.utils.checkpoint`
@@ -36,7 +50,7 @@ the JAX package's `remat` True, "mlp" and "moe"); `prefill`,
 `decode_step` and `verify_step` (K tokens a row in one pass, speculative
 decoding's check of a draft) serve, without grad.
 Every parameter is created with requires_grad False; a trainer turns it on
-for `trainable_parameters()`.
+for `trainable_parameters(mode)`.
 
 A RelPrompt config (`use_relprompt`) adds the two reliability classifiers
 (`models/relprompt.NoiseClassifier`) and `n_extra_tokens` embedding rows
@@ -44,24 +58,26 @@ above `lm_head`'s vocabulary: the mask tokens are read, never emitted.
 
 Decoding variants of the JAX package:
   * `quantize_model` replaces the big linear weights by int8 or int4 leaves
-    (`weight_q8`/`weight_scale`, `weight_q4`/`weight_scale4`); a quantized
-    MLP takes the unfused act(fc_1(x)) * fc_2(x) branch, so K4 does not run
-    on it; `merge_lora` folds the LoRA deltas into the weights first;
+    (`weight_q8`/`weight_scale`, `weight_q4`/`weight_scale4`) and keeps
+    the biases and adapter leaves beside them; a quantized MLP takes the
+    unfused act(fc_1(x)) * fc_2(x) branch, so K4 does not run on it;
+    `merge_lora` folds the LoRA deltas into the weights first;
   * `init_cache(..., quantize="int8")`: int8 K/V with fp32 per-slot scales;
   * `GPT(..., lora_impl="fused")`: the LoRA linears run kernel K5
     (`ops/lora`) instead of the composition (`DUALHYP_LORA_IMPL`, the JAX
     package's switch, when None; "xla", the composition, by default).
 
 A Mixtral-style MoE config (`mlp_class="LLaMAMoE"`) puts an `MoE` in each
-block where the dense configs have an `MLP`: a router and three frozen
+block where the dense configs have an `MLP`: a router and three
 (E, out, in) expert stacks, top-`n_expert_per_token` routing.
 `GPT(..., moe_impl=)` picks `_moe_mlp`'s dense einsums ("dense", the
 default) or `_moe_mlp_sparse`'s sorted rows through the grouped matmul L2
 (`ops/gmm`; "sparse" and "megablox", the JAX package's ragged_dot and
 megablox gmm, which compute the same function), whose backward runs L2's
-gradient kernels; None reads `DUALHYP_MOE_IMPL`. LoRA stays on attention:
-the JAX expert stacks carry none, and the JAX package cannot run a
-quantized MoE, so `quantize_model` refuses one.
+gradient kernels (drhs where the stacks train, mode "full"); None reads
+`DUALHYP_MOE_IMPL`. LoRA stays on attention: the JAX expert stacks carry
+none, and the JAX package cannot run a quantized MoE, so `quantize_model`
+refuses one.
 """
 
 from __future__ import annotations
@@ -91,8 +107,7 @@ MLP_CLASSES = ("LLaMAMLP", "GemmaMLP", "GptNeoxMLP", "LLaMAMoE")
 
 
 def check_supported(cfg: GPTConfig) -> None:
-    """Raise for the parts of a config this module does not port yet:
-    adapters and LoRA on the MLP (the next slice, PEFT breadth)."""
+    """Raise for a norm or MLP class this module does not know."""
     missing = []
     if cfg.norm_class not in NORM_CLASSES:
         missing.append(f"norm_class={cfg.norm_class}")
@@ -100,15 +115,30 @@ def check_supported(cfg: GPTConfig) -> None:
         missing.append(f"mlp_class={cfg.mlp_class}")
     if cfg.mlp_class == "LLaMAMoE" and not (cfg.n_expert > 0 and cfg.n_expert_per_token > 0):
         raise ValueError(f"config {cfg.name!r}: an MoE needs n_expert and n_expert_per_token")
-    if cfg.use_adapter or cfg.use_adapter_v2:
-        missing.append("adapters")
-    if cfg.lora_r > 0 and cfg.lora_mlp:
-        missing.append("LoRA on the MLP")
     if missing:
-        raise NotImplementedError(
-            f"config {cfg.name!r} asks for what is not ported yet: {', '.join(missing)} "
-            "(the next slice, PEFT breadth: ROADMAP §1)"
-        )
+        raise NotImplementedError(f"config {cfg.name!r} asks for {', '.join(missing)}")
+
+
+# the training modes of the JAX package's `TrainConfig.mode`
+MODES = ("lora", "adapter", "adapter_v2", "full")
+
+
+def is_peft_leaf(name: str, cfg: GPTConfig) -> bool:
+    """Whether the parameter `name` (a module path, `blocks.0.attn.qkv.
+    lora_A`, or a tree path, `blocks/attn/qkv/lora_A`) trains outside mode
+    "full": `trainable_mask` of the JAX package, by name. LoRA leaves;
+    adapter v1's `adapter_wte` and `gating_factor`; adapter v2's
+    `adapter_scale` and `adapter_bias` and every norm leaf (`norm_1`,
+    `norm_2`, `ln_f`, LayerNorm biases too); RelPrompt's classifiers."""
+    if "lora_A" in name or "lora_B" in name:
+        return True
+    if cfg.use_adapter and ("adapter_wte" in name or "gating_factor" in name):
+        return True
+    if cfg.use_adapter_v2 and ("adapter_scale" in name or "adapter_bias" in name
+                               or "norm_1" in name or "norm_2" in name
+                               or name.startswith("ln_f")):
+        return True
+    return "noise_classifier" in name or "audio_proj" in name or "visual_proj" in name
 
 
 def lora_qkv_shapes(cfg: GPTConfig) -> tuple:
@@ -198,17 +228,28 @@ class Embedding(nn.Module):
 class _Frozen(nn.Module):
     """The frozen weight of a linear (`_base_linear` of the JAX package):
     `weight`, or after `set_quantized` the int8 leaves `weight_q8` and
-    `weight_scale` or the int4 leaves `weight_q4` and `weight_scale4`; and
-    its optional `bias` in the compute dtype, which quantizing keeps."""
+    `weight_scale` or the int4 leaves `weight_q4` and `weight_scale4`; its
+    optional `bias` in the compute dtype; and adapter v2's fp32
+    `adapter_scale` and `adapter_bias`, which quantizing keeps too."""
 
     quant = None  # None, "int8" or "int4"
     fused = False  # the LoRA branch through kernel K5
 
-    def _init_bias(self, out_f, bias: bool, dtype, device) -> None:
+    def _init_bias(self, out_f, cfg: GPTConfig, bias: bool, dtype, device) -> None:
         self.register_parameter("bias", _param((out_f,), dtype, device) if bias else None)
+        for name in ("adapter_scale", "adapter_bias"):
+            self.register_parameter(name, _param((out_f,), torch.float32, device)
+                                    if cfg.use_adapter_v2 else None)
 
     def _add_bias(self, y):
         return y if self.bias is None else y + self.bias.to(y.dtype)
+
+    def _adapt(self, y):
+        """Adapter v2's (y + adapter_bias) * adapter_scale in y's dtype,
+        after the bias and the LoRA delta (identity without v2)."""
+        if self.adapter_scale is None:
+            return y
+        return (y + self.adapter_bias.to(y.dtype)) * self.adapter_scale.to(y.dtype)
 
     def set_quantized(self, leaves: dict) -> None:
         """Replace `weight` by quantized leaves ({name: tensor})."""
@@ -234,14 +275,15 @@ class _Frozen(nn.Module):
 
 
 class Linear(_Frozen):
-    """torch-layout linear with an optional LoRA branch.
+    """torch-layout linear with an optional LoRA branch and adapter v2's wrap.
 
     As `_apply_linear` of the JAX package: the fp32 A and B are cast to x's
     dtype, the two products run in it on the dropped-out input, and then
     come the scaling and the layer gate (a gated-off layer skips the branch,
     whose leaves then get no gradient: zero, as the JAX gate's). With
     `fused`, kernel K5 computes the whole linear, the gate folded into its
-    scale (a gated-off layer's LoRA gradients are then zero products)."""
+    scale (a gated-off layer's LoRA gradients are then zero products). The
+    v2 wrap comes last on both paths."""
 
     def __init__(self, in_f, out_f, cfg: GPTConfig, with_lora: bool, dtype, device,
                  fused: bool = False, bias: bool = False):
@@ -249,7 +291,7 @@ class Linear(_Frozen):
         self.scaling = cfg.lora_scaling
         self.dropout = cfg.lora_dropout
         self.weight = _param((out_f, in_f), dtype, device)
-        self._init_bias(out_f, bias, dtype, device)
+        self._init_bias(out_f, cfg, bias, dtype, device)
         self.with_lora = with_lora and cfg.lora_r > 0
         self.fused = fused
         if self.with_lora:
@@ -258,21 +300,22 @@ class Linear(_Frozen):
 
     def forward(self, x, lora_on: bool = True, generator=None):
         if self.use_fused():
-            return self._add_bias(lora_ops.lora_linear(
+            return self._adapt(self._add_bias(lora_ops.lora_linear(
                 x, self.weight, self.lora_A, self.lora_B, self.scaling * float(lora_on),
-                xin=_fused_input(x, self.dropout, generator)))
+                xin=_fused_input(x, self.dropout, generator))))
         y = self.base(x)
         if self.with_lora and lora_on:
             xin = _dropout(x, self.dropout, generator)
             delta = (xin @ self.lora_A.to(x.dtype).t()) @ self.lora_B.to(x.dtype).t()
             y = y + delta * self.scaling
-        return y
+        return self._adapt(y)
 
 
 class QKV(_Frozen):
     """Fused QKV projection with the reference's LoRA arithmetic
     (`_apply_qkv` of the JAX package). With `fused` and all of q, k and v
-    enabled, kernel K5 computes it, B made block-diagonal (rank 3r)."""
+    enabled, kernel K5 computes it, B made block-diagonal (rank 3r). Adapter
+    v2's vectors have `qkv_out_dim` rows in the interleaved order."""
 
     def __init__(self, cfg: GPTConfig, dtype, device, fused: bool = False):
         super().__init__()
@@ -280,7 +323,7 @@ class QKV(_Frozen):
         self.fused = fused
         d = cfg.n_embd
         self.weight = _param((cfg.qkv_out_dim, d), dtype, device)
-        self._init_bias(cfg.qkv_out_dim, cfg.bias, dtype, device)
+        self._init_bias(cfg.qkv_out_dim, cfg, cfg.bias, dtype, device)
         self.shapes = lora_qkv_shapes(cfg) if cfg.lora_r > 0 else ()
         self.with_lora = bool(self.shapes)
         if self.with_lora:
@@ -294,12 +337,12 @@ class QKV(_Frozen):
         cfg = self.cfg
         if self.use_fused() and len(self.shapes) == 3:
             b_bd = lora_ops.lora_qkv_block_b(self.lora_B, self.shapes, cfg.lora_r)
-            return self._add_bias(lora_ops.lora_linear(
+            return self._adapt(self._add_bias(lora_ops.lora_linear(
                 x, self.weight, self.lora_A, b_bd, cfg.lora_scaling * float(lora_on),
-                xin=_fused_input(x, cfg.lora_dropout, generator)))
+                xin=_fused_input(x, cfg.lora_dropout, generator))))
         y = self.base(x)
         if not (self.with_lora and lora_on):
-            return y
+            return self._adapt(y)
         r = self.cfg.lora_r
         xin = _dropout(x, self.cfg.lora_dropout, generator)
         after_a = xin @ self.lora_A.to(x.dtype).t()
@@ -318,7 +361,7 @@ class QKV(_Frozen):
         else:
             padded = torch.zeros_like(y)
             padded[..., self.rows] = delta.to(y.dtype)
-        return y + padded.to(y.dtype)
+        return self._adapt(y + padded.to(y.dtype))
 
 
 def _cache_entries(k, v, n: int):
@@ -345,54 +388,89 @@ def split_heads(cfg: GPTConfig, qkv):
 
 
 class Attention(nn.Module):
+    """The attention's linears, and adapter v1's leaves: `adapter_wte`
+    (adapter_prompt_length, d) and `gating_factor` (n_head,), fp32."""
+
     def __init__(self, cfg: GPTConfig, dtype, device, fused: bool = False):
         super().__init__()
+        self.cfg = cfg
         self.qkv = QKV(cfg, dtype, device, fused)
         self.proj = Linear(cfg.n_embd, cfg.n_embd, cfg, cfg.lora_projection,
                            dtype, device, fused, cfg.bias)
+        if cfg.use_adapter:
+            self.adapter_wte = _param((cfg.adapter_prompt_length, cfg.n_embd),
+                                      torch.float32, device)
+            self.gating_factor = _param((cfg.n_head,), torch.float32, device)
+
+    def prefix(self, q):
+        """Adapter v1's prefix attention (`_adapter_attention` and
+        `_full_prefix_attention` of the JAX package) for the post-RoPE
+        queries q (B, Hq, T, D): the prefix rows, in q's dtype, through this
+        block's QKV (LoRA ungated, no dropout, adapter v2's wrap), their K
+        and V unrotated; logits in fp32 over every prefix row, softmax,
+        probabilities rounded to q's dtype, then P V in q's dtype; gated per
+        head by `gating_factor`. Plain PyTorch, as XLA runs it there."""
+        cfg = self.cfg
+        b, hq, t, d = q.shape
+        _, ak, av = split_heads(cfg, self.qkv(self.adapter_wte.to(q.dtype)[None]))
+        qg = q.reshape(b, cfg.n_query_groups, hq // cfg.n_query_groups, t, d)
+        logits = (qg.float() @ ak.float()[:, :, None].transpose(-1, -2)) * (
+            1.0 / math.sqrt(cfg.head_size))
+        probs = torch.softmax(logits, dim=-1).to(q.dtype)
+        out = (probs @ av[:, :, None]).reshape(b, hq, t, d)
+        return out * self.gating_factor.to(q.dtype)[None, :, None, None]
 
 
 class MLP(nn.Module):
-    """The gated MLP (LLaMA silu, Gemma tanh-gelu): fc_1, fc_2, proj."""
+    """The gated MLP (LLaMA silu, Gemma tanh-gelu): fc_1, fc_2, proj, with
+    LoRA on each under `lora_mlp` (K5 when `fused`)."""
 
-    def __init__(self, cfg: GPTConfig, dtype, device):
+    def __init__(self, cfg: GPTConfig, dtype, device, fused: bool = False):
         super().__init__()
         d, inter = cfg.n_embd, cfg.intermediate_size
         self.gate = "silu" if cfg.mlp_class == "LLaMAMLP" else "gelu"
-        self.fc_1 = Linear(d, inter, cfg, False, dtype, device, bias=cfg.bias)
-        self.fc_2 = Linear(d, inter, cfg, False, dtype, device, bias=cfg.bias)
-        self.proj = Linear(inter, d, cfg, False, dtype, device, bias=cfg.bias)
+        self.fc_1 = Linear(d, inter, cfg, cfg.lora_mlp, dtype, device, fused, cfg.bias)
+        self.fc_2 = Linear(d, inter, cfg, cfg.lora_mlp, dtype, device, fused, cfg.bias)
+        self.proj = Linear(inter, d, cfg, cfg.lora_mlp, dtype, device, fused, cfg.bias)
 
-    def forward(self, x):
-        if self.fc_1.quant is not None or self.fc_1.bias is not None:
-            # `_mlp`'s unfused branch, as the JAX package takes it for
-            # quantized leaves and biases: K4 does not run
-            h1 = self.fc_1(x)
+    def forward(self, x, lora_on: bool = True, seed=None):
+        """seed: the LoRA dropout's generator seed of this MLP pass (None:
+        no dropout), so a rematerialised MLP draws the same masks."""
+        fc_1 = self.fc_1
+        if (fc_1.quant is not None or fc_1.bias is not None or fc_1.with_lora
+                or fc_1.adapter_scale is not None):
+            # `_mlp`'s unfused branch, as the JAX package takes it for LoRA,
+            # adapter v2, quantized leaves and biases: K4 does not run
+            generator = _generator(seed, x.device)
+            h1 = fc_1(x, lora_on, generator)
             act = F.silu(h1) if self.gate == "silu" else F.gelu(h1, approximate="tanh")
-            return self.proj(act * self.fc_2(x))
-        return mlp_ops.swiglu_mlp(x, self.fc_1.weight, self.fc_2.weight,
-                                  self.proj.weight, gate=self.gate)
+            return self.proj(act * self.fc_2(x, lora_on, generator), lora_on, generator)
+        return mlp_ops.swiglu_mlp(x, fc_1.weight, self.fc_2.weight, self.proj.weight,
+                                  gate=self.gate)
 
 
 class GptNeoxMLP(nn.Module):
     """The GPT-NeoX MLP (`_mlp`'s last branch of the JAX package): proj(gelu(
     fc(x))), gelu exact or, with `gelu_approximate="tanh"`, its tanh form
-    (plain products: the JAX package runs no kernel here)."""
+    (plain products: the JAX package runs no kernel here), LoRA on both
+    under `lora_mlp`."""
 
-    def __init__(self, cfg: GPTConfig, dtype, device):
+    def __init__(self, cfg: GPTConfig, dtype, device, fused: bool = False):
         super().__init__()
         d, inter = cfg.n_embd, cfg.intermediate_size
         self.approximate = "tanh" if cfg.gelu_approximate == "tanh" else "none"
-        self.fc = Linear(d, inter, cfg, False, dtype, device, bias=cfg.bias)
-        self.proj = Linear(inter, d, cfg, False, dtype, device, bias=cfg.bias)
+        self.fc = Linear(d, inter, cfg, cfg.lora_mlp, dtype, device, fused, cfg.bias)
+        self.proj = Linear(inter, d, cfg, cfg.lora_mlp, dtype, device, fused, cfg.bias)
 
-    def forward(self, x):
-        return self.proj(F.gelu(self.fc(x), approximate=self.approximate))
+    def forward(self, x, lora_on: bool = True, seed=None):
+        generator = _generator(seed, x.device)
+        h = F.gelu(self.fc(x, lora_on, generator), approximate=self.approximate)
+        return self.proj(h, lora_on, generator)
 
 
 class Stack(nn.Module):
-    """A frozen stack of expert matrices, `weight` (E, out, in) in the
-    compute dtype, or the router's (E, d)."""
+    """A stack of expert matrices, `weight` (E, out, in) in the compute
+    dtype (an fp32 master in mode "full"), or the router's (E, d)."""
 
     def __init__(self, shape, dtype, device):
         super().__init__()
@@ -455,22 +533,23 @@ class MoE(nn.Module):
         self.fc_2 = Stack((e, inter, d), dtype, device)
         self.proj = Stack((e, d, inter), dtype, device)
 
-    def forward(self, x):
+    def forward(self, x, lora_on: bool = True, seed=None):
+        """lora_on, seed: unused (the expert stacks carry no LoRA)."""
         if self.impl == "dense":
             return self._dense(x)
         return self._sparse(x)
 
     def _dense(self, x):
-        router = (x @ self.gate.weight.t()).float()
+        router = (x @ self.gate.weight.to(x.dtype).t()).float()
         top_vals, top_ids = moe_top_k(router, self.top_k)
         top_w = torch.softmax(top_vals, dim=-1)
         # one weight an expert: the top-k softmax at its ids, zero elsewhere
         weights = torch.zeros(router.shape, dtype=router.dtype, device=x.device)
         weights = weights.scatter(-1, top_ids, top_w).to(x.dtype)
-        h1 = torch.einsum("...d,eod->...eo", x, self.fc_1.weight)
-        h2 = torch.einsum("...d,eod->...eo", x, self.fc_2.weight)
+        h1 = torch.einsum("...d,eod->...eo", x, self.fc_1.weight.to(x.dtype))
+        h2 = torch.einsum("...d,eod->...eo", x, self.fc_2.weight.to(x.dtype))
         h = F.silu(h1) * h2
-        out = torch.einsum("...eo,edo->...ed", h, self.proj.weight)
+        out = torch.einsum("...eo,edo->...ed", h, self.proj.weight.to(x.dtype))
         return torch.einsum("...ed,...e->...d", out, weights)
 
     def route(self, x):
@@ -483,7 +562,7 @@ class MoE(nn.Module):
         e, k = self.gate.weight.shape[0], self.top_k
         xf = x.reshape(-1, x.shape[-1])
         n, d = xf.shape
-        router = (xf @ self.gate.weight.t()).float()
+        router = (xf @ self.gate.weight.to(x.dtype).t()).float()
         top_vals, top_ids = moe_top_k(router, k)
         weights = torch.softmax(top_vals, dim=-1).to(x.dtype)
         ef = top_ids.reshape(-1)  # (N*K,) the expert of each flat slot
@@ -497,13 +576,14 @@ class MoE(nn.Module):
 
     def up(self, xr, group_sizes):
         """g1, g2: the two up products of the sorted rows."""
-        return (gmm_ops.grouped_matmul(xr, self.fc_1.weight, group_sizes),
-                gmm_ops.grouped_matmul(xr, self.fc_2.weight, group_sizes))
+        return (gmm_ops.grouped_matmul(xr, self.fc_1.weight.to(xr.dtype), group_sizes),
+                gmm_ops.grouped_matmul(xr, self.fc_2.weight.to(xr.dtype), group_sizes))
 
     def down(self, g1, g2, weights, order, inv, group_sizes):
         """The proj product of silu(g1) * g2, unsorted and mixed by each
         token's weights: (N, d)."""
-        out = gmm_ops.grouped_matmul(F.silu(g1) * g2, self.proj.weight, group_sizes)
+        h = F.silu(g1) * g2
+        out = gmm_ops.grouped_matmul(h, self.proj.weight.to(h.dtype), group_sizes)
         out = permute_rows(out, inv, order).reshape(*weights.shape, -1)
         return (out * weights[..., None]).sum(dim=1)
 
@@ -519,6 +599,9 @@ class Block(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.lora_on = layer_idx >= cfg.lora_start_layer
+        # adapter v1's prefix attention is off below adapter_start_layer (the
+        # JAX package multiplies it by a 0/1 gate there)
+        self.adapter_on = cfg.use_adapter and layer_idx >= cfg.adapter_start_layer
         self.norm_1 = Norm(cfg, device)
         self.attn = Attention(cfg, dtype, device, fused)
         if not cfg.shared_attention_norm:
@@ -526,9 +609,9 @@ class Block(nn.Module):
         if cfg.mlp_class == "LLaMAMoE":
             self.mlp = MoE(cfg, dtype, device, moe_impl)
         elif cfg.mlp_class == "GptNeoxMLP":
-            self.mlp = GptNeoxMLP(cfg, dtype, device)
+            self.mlp = GptNeoxMLP(cfg, dtype, device, fused)
         else:
-            self.mlp = MLP(cfg, dtype, device)
+            self.mlp = MLP(cfg, dtype, device, fused)
 
     def forward(self, x, cos, sin, cache_kv=None, positions=None,
                 kv_length=None, active=None, seed=None, mlp_remat=False):
@@ -545,9 +628,12 @@ class Block(nn.Module):
         (remat="mlp")."""
         res, n2 = self._attend(x, cos, sin, _generator(seed, x.device), cache_kv,
                                positions, kv_length, active)
+        # the MLP's LoRA dropout draws from a generator of its own
+        mlp_seed = None if seed is None else seed + 1
         if mlp_remat:
-            return res + checkpoint(self.mlp, n2, use_reentrant=False, preserve_rng_state=False)
-        return res + self.mlp(n2)
+            return res + checkpoint(self.mlp, n2, self.lora_on, mlp_seed,
+                                    use_reentrant=False, preserve_rng_state=False)
+        return res + self.mlp(n2, self.lora_on, mlp_seed)
 
     def forward_moe_remat(self, x, cos, sin, seed=None):
         """The training pass under remat="moe" for a sparse MoE block (the
@@ -627,6 +713,8 @@ class Block(nn.Module):
             y = attn_ops.decode_attention(q, cache_kv[0], cache_kv[1], kv_length,
                                           k_scale=scales[0], v_scale=scales[1])
 
+        if self.adapter_on:
+            y = y + self.attn.prefix(q)
         y = y.transpose(1, 2).reshape(b, t, nh * hs)
         h = self.attn.proj(y, self.lora_on, generator)
         if cfg.parallel_residual:
@@ -699,8 +787,10 @@ class GPT(nn.Module):
         """Random init with the JAX package's distributions (`gpt.init`):
         normal weights (GPT-NeoX std; an MoE's router and fc stacks too, its
         proj stack at the projection std), uniform lora_A, zero lora_B, unit
-        norm scales, zero biases (linears' and LayerNorms'). Draws in fp32
-        from `generator`, then casts."""
+        norm scales, zero biases (linears' and LayerNorms'); adapter v1's
+        prefix normal at the GPT-NeoX std and zero gates, adapter v2's unit
+        scales and zero biases. Draws in fp32 from `generator`, then
+        casts."""
         cfg = self.cfg
         d = cfg.n_embd
         std = math.sqrt(2.0 / 5 / d)
@@ -720,29 +810,37 @@ class GPT(nn.Module):
         normal(self.lm_head.weight, std)
         lora(self.lm_head)
         for name, p in self.named_parameters():
-            if name.endswith(".scale"):
+            if name.endswith((".scale", ".adapter_scale")):
                 p.fill_(1.0)
-            elif name.endswith(".bias"):
+            elif name.endswith((".bias", ".adapter_bias", ".gating_factor")):
                 p.zero_()
         for block in self.blocks:
             normal(block.attn.qkv.weight, std)
             lora(block.attn.qkv)
             normal(block.attn.proj.weight, proj_std)
             lora(block.attn.proj)
+            if cfg.use_adapter:
+                normal(block.attn.adapter_wte, std)
             if isinstance(block.mlp, MoE):
                 normal(block.mlp.gate.weight, std)
             if isinstance(block.mlp, GptNeoxMLP):
                 normal(block.mlp.fc.weight, std)
+                lora(block.mlp.fc)
             else:
                 normal(block.mlp.fc_1.weight, std)
                 normal(block.mlp.fc_2.weight, std)
+                if not isinstance(block.mlp, MoE):
+                    lora(block.mlp.fc_1)
+                    lora(block.mlp.fc_2)
             normal(block.mlp.proj.weight, proj_std)
+            if not isinstance(block.mlp, MoE):
+                lora(block.mlp.proj)
         if cfg.use_relprompt:
             self.audio_noise_classifier.init_weights(generator)
             self.visual_noise_classifier.init_weights(generator)
 
     def _embed(self, idx):
-        x = self.wte.weight[idx]
+        x = self.wte.weight[idx].to(self.dtype)
         if self.cfg.scale_embeddings:
             x = x * torch.tensor(math.sqrt(self.cfg.n_embd), dtype=x.dtype)
         return x
@@ -766,14 +864,19 @@ class GPT(nn.Module):
         return [[torch.zeros(s, dtype=dt, device=self.device) for s, dt in dtypes]
                 for _ in range(cfg.n_layer)]
 
-    def trainable_parameters(self) -> dict:
-        """The LoRA leaves (`trainable_mask` of the JAX package in mode
-        "lora"), by parameter name."""
-        return {name: p for name, p in self.named_parameters()
-                if name.rsplit(".", 1)[-1].startswith("lora_")}
+    def trainable_parameters(self, mode: str = "lora") -> dict:
+        """The leaves that train in `mode`, by parameter name: every
+        floating leaf in "full" (`full_finetune_mask` of the JAX package),
+        else the config's PEFT leaves (`trainable_mask`, `is_peft_leaf`)
+        whatever the mode's name, as the JAX package's `select_mask`."""
+        if mode not in MODES:
+            raise ValueError(f"mode {mode!r} not in {MODES}")
+        if mode == "full":
+            return {name: p for name, p in self.named_parameters() if p.is_floating_point()}
+        return {name: p for name, p in self.named_parameters() if is_peft_leaf(name, self.cfg)}
 
-    def count_params(self, trainable_only: bool = False) -> int:
-        params = (self.trainable_parameters().values() if trainable_only
+    def count_params(self, trainable_only: bool = False, mode: str = "lora") -> int:
+        params = (self.trainable_parameters(mode).values() if trainable_only
                   else self.parameters())
         return sum(p.numel() for p in params)
 
@@ -857,8 +960,8 @@ class GPT(nn.Module):
 def merge_lora(model: GPT) -> GPT:
     """Fold the LoRA deltas into the base weights in place and zero lora_B
     (`merge_lora` of the JAX package): the output is the same whether the
-    LoRA branch runs afterwards or not. Block deltas are gated by
-    `lora_start_layer`; the head's is not."""
+    LoRA branch runs afterwards or not. Block deltas (q/k/v, proj and the
+    MLP's linears) are gated by `lora_start_layer`; the head's is not."""
     cfg = model.cfg
 
     def fold(mod, delta):
@@ -882,9 +985,9 @@ def merge_lora(model: GPT) -> GPT:
                 full[qkv.rows] = delta
                 delta = full
             fold(qkv, delta * gate)
-        proj = block.attn.proj
-        if proj.with_lora:
-            fold(proj, (proj.lora_B @ proj.lora_A) * cfg.lora_scaling * gate)
+        for lin in (block.attn.proj, *block.mlp.children()):
+            if getattr(lin, "with_lora", False):
+                fold(lin, (lin.lora_B @ lin.lora_A) * cfg.lora_scaling * gate)
     if model.lm_head.with_lora:
         fold(model.lm_head, (model.lm_head.lora_B @ model.lm_head.lora_A) * cfg.lora_scaling)
     return model

@@ -129,11 +129,19 @@ C_I64 = ctypes.c_longlong
 C_F32 = ctypes.c_float
 
 
+# open FLOP tallies ([count] lists): each launch adds the FLOPs its wrapper
+# gives it (`utils.profiling.compiled_flops`, whose FlopCounterMode sees the
+# aten ops only, not these launches)
+FLOP_TALLIES: list = []
+
+
 class Kernel:
     """One C entry point of the kernel library, with its launch count.
 
     `launches` counts successful launches only: a run can read it to show
-    that its main path went through the kernel."""
+    that its main path went through the kernel. A call's `flops` (the
+    products' multiply-adds times two, as FlopCounterMode counts an aten
+    product) go to every open tally of `FLOP_TALLIES`."""
 
     def __init__(self, symbol: str, argtypes: list):
         self.symbol = symbol
@@ -141,7 +149,7 @@ class Kernel:
         self.launches = 0
         self._fn = None
 
-    def __call__(self, device: torch.device, *args) -> None:
+    def __call__(self, device: torch.device, *args, flops: float = 0) -> None:
         if self._fn is None:
             fn = getattr(library(), self.symbol)
             fn.argtypes = [*self.argtypes, C_PTR]
@@ -154,6 +162,8 @@ class Kernel:
             msg = library().dh_error_string(err).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {err}: {msg}")
         self.launches += 1
+        for tally in FLOP_TALLIES:
+            tally[0] += flops
 
 
 def dtype_code(t: torch.Tensor) -> int:

@@ -190,7 +190,8 @@ def _flash_fwd(q, k, v, scale):
     if o.numel():
         FLASH_FWD(device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                   lse.data_ptr(), b, hq, g, t, dp, float(scale),
-                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3])
+                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+                  flops=4 * b * hq * t * t * d)  # Q K^T and P V, as FlopCounterMode counts SDPA
     return o[..., :d], lse
 
 
@@ -235,7 +236,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale: float):
                   dk.data_ptr(), dv.data_ptr(), b, hq, g, t, dp, float(scale),
                   *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                   *o.stride()[:3], *do.stride()[:3], *dk.stride()[:3],
-                  *dv.stride()[:3])
+                  *dv.stride()[:3],
+                  flops=10 * b * hq * t * t * d)  # S again, dP, dV, dQ, dK: SDPA's count
     return dq[..., :d].to(q.dtype), dk[..., :d], dv[..., :d]
 
 

@@ -115,7 +115,8 @@ def _launch(kernel, q, k, v, scale: float, s_valid: int, causal: bool):
     if o.numel():
         kernel(device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                b, hq, k.shape[1], t, s_valid, _lib.dtype_code(q), float(scale),
-               *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3])
+               *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+               flops=4 * b * hq * t * k.shape[2] * d)
     return o
 
 

@@ -207,7 +207,7 @@ def _grouped_matmul(lhs, weight, group_sizes):
     if m and n:
         cluster = decode_cluster(m, n, k, e) if m <= DECODE_ROWS else 1
         GROUPED_MATMUL(device, lhs.data_ptr(), weight.data_ptr(), group_sizes.data_ptr(),
-                       out.data_ptr(), m, n, k, e, cluster)
+                       out.data_ptr(), m, n, k, e, cluster, flops=2 * m * n * k)
     return out
 
 
@@ -243,7 +243,7 @@ def grouped_matmul_dlhs(grad, weight, group_sizes):
     out = torch.empty((m, k), dtype=grad.dtype, device=device)
     if m:
         GROUPED_MATMUL_DLHS(device, grad.data_ptr(), weight.data_ptr(), group_sizes.data_ptr(),
-                            out.data_ptr(), m, n, k, e)
+                            out.data_ptr(), m, n, k, e, flops=2 * m * n * k)
     return out
 
 
@@ -268,7 +268,7 @@ def grouped_matmul_drhs(grad, lhs, group_sizes):
     out = torch.empty((e, n, k), dtype=lhs.dtype, device=device)
     if out.numel():
         GROUPED_MATMUL_DRHS(device, grad.data_ptr(), lhs.data_ptr(), group_sizes.data_ptr(),
-                            out.data_ptr(), m, n, k, e)
+                            out.data_ptr(), m, n, k, e, flops=2 * m * n * k)
     return out
 
 

@@ -174,5 +174,5 @@ def q4_matmul(x, packed, scales, group: int = 128):
         if splits > 1:
             ws = torch.empty((splits, rows, n), dtype=torch.float32, device=device)
     Q4_MATMUL(device, x2.data_ptr(), x2.stride(0), packed.data_ptr(), scales.data_ptr(),
-              out.data_ptr(), ws.data_ptr(), rows, n, k, splits, per)
+              out.data_ptr(), ws.data_ptr(), rows, n, k, splits, per, flops=2 * rows * n * k)
     return out.reshape(*x.shape[:-1], n)

@@ -153,7 +153,7 @@ def _launch(x, xin, w, a, b, s):
         h = torch.empty((rows, -(-r // 16) * 16), dtype=x.dtype, device=device)
     LORA_LINEAR(device, x2.data_ptr(), xin2.data_ptr(), w.data_ptr(), a.data_ptr(),
                 b.data_ptr(), 0 if h is None else h.data_ptr(), out.data_ptr(),
-                float(s), rows, o, d, r, ranks)
+                float(s), rows, o, d, r, ranks, flops=2 * rows * (o * d + r * d + o * r))
     return out.reshape(*x.shape[:-1], o)
 
 

@@ -185,7 +185,8 @@ def splash_fwd(q, k, v, scale: float = 1.0):
     if o.numel():
         SPLASH_FWD(device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                    lse.data_ptr(), b, hq, k.shape[1], t, dp, float(scale),
-                   *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3])
+                   *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+                   flops=4 * b * hq * t * t * d)
     return o[..., :d], lse
 
 
@@ -216,7 +217,7 @@ def splash_dq(q, k, v, lse, do, di, scale: float = 1.0):
         SPLASH_DQ(device, q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(),
                   do.data_ptr(), di.data_ptr(), dq.data_ptr(), b, hq, k.shape[1], t, dp,
                   float(scale), *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                  *do.stride()[:3], *dq.stride()[:3])
+                  *do.stride()[:3], *dq.stride()[:3], flops=6 * b * hq * t * t * d)
     return dq[..., :d]
 
 
@@ -235,7 +236,7 @@ def splash_dkv(q, k, v, lse, do, di, scale: float = 1.0):
                    do.data_ptr(), di.data_ptr(), rows.data_ptr(), dk.data_ptr(),
                    dv.data_ptr(), b, hq, k.shape[1], t, dp, float(scale), *q.stride()[:3],
                    *k.stride()[:3], *v.stride()[:3], *do.stride()[:3], *dk.stride()[:3],
-                   *dv.stride()[:3])
+                   *dv.stride()[:3], flops=8 * b * hq * t * t * d)
     return dk[..., :d], dv[..., :d]
 
 

@@ -3,10 +3,12 @@
 Counterpart of `dualhyp_tpu/ops/swiglu.py`. Weights keep torch's
 (out_features, in_features) layout. `swiglu_mlp` launches kernel K4
 (`csrc/swiglu.cu`) on a CUDA tensor and runs the plain version on a CPU
-tensor; its weights are in x's dtype, as on the JAX package's XLA path,
-which casts them to x's dtype. With grad enabled it goes through `SwiGLU`,
-whose backward is the JAX package's rematerialising formula
-(`swiglu_kernel._bwd`) in fp32.
+tensor; its weights are cast to x's dtype for the product (a no-op for
+frozen weights, which are stored in it), as the JAX package casts them.
+With grad enabled it goes through `SwiGLU`, whose backward is the JAX
+package's rematerialising formula (`swiglu_kernel._bwd`) in fp32 on the
+weights as given (fp32 masters in mode "full"), the weight gradients in
+their dtype.
 """
 
 from __future__ import annotations
@@ -129,7 +131,8 @@ class SwiGLU(torch.autograd.Function):
 def swiglu_mlp(x, w1, w2, w3, gate: str = "silu"):
     """(act(x @ w1.T) * (x @ w2.T)) @ w3.T with act silu or tanh-gelu.
 
-    x: (..., d); w1, w2: (inter, d); w3: (d, inter), all in x's dtype."""
+    x: (..., d); w1, w2: (inter, d); w3: (d, inter), in x's dtype or fp32
+    masters (cast to x's dtype for the forward)."""
     if gate not in GATES:
         raise ValueError(f"gate {gate!r} not in {GATES}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w1, w2, w3)):
@@ -138,6 +141,7 @@ def swiglu_mlp(x, w1, w2, w3, gate: str = "silu"):
 
 
 def _swiglu(x, w1, w2, w3, gate):
+    w1, w2, w3 = (w.to(x.dtype) for w in (w1, w2, w3))
     if x.device.type == "cpu":
         return swiglu_mlp_plain(x, w1, w2, w3, gate)
     device = _lib.check_cuda(x, w1, w2, w3)
@@ -163,7 +167,8 @@ def _swiglu(x, w1, w2, w3, gate):
                    if rows <= DECODE_ROWS else None)
         SWIGLU(device, x2.data_ptr(), w1.data_ptr(), w2.data_ptr(), w3.data_ptr(),
                h.data_ptr(), None if partial is None else partial.data_ptr(),
-               out.data_ptr(), rows, d, inter, int(gate == "gelu"), DECODE_SPLITS)
+               out.data_ptr(), rows, d, inter, int(gate == "gelu"), DECODE_SPLITS,
+               flops=6 * rows * d * inter)
     return out.reshape(x.shape)
 
 

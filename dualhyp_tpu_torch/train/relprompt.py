@@ -17,9 +17,12 @@ Counterpart of `dualhyp_tpu/train/relprompt.py` (ref: finetune/relprompt.py):
   * validation reports the mask accuracy, precision, recall and F1 and the
     LLM loss, which alone selects the best model (ref: :559-595).
 
-Only the LoRA and classifier leaves train (`gpt.trainable_mask` of the JAX
-package): `wte`, with the three appended mask-token rows, stays one frozen
-leaf, stored in `frozen_dtype`. The encoder features (frozen Whisper /
+The config's PEFT leaves and the classifiers train (`gpt.trainable_mask`
+of the JAX package, through `GPT.trainable_parameters`): LoRA, or the
+adapter leaves under mode "adapter" / "adapter_v2"; `wte`, with the three
+appended mask-token rows, stays one frozen leaf, stored in
+`frozen_dtype`. The groups take no `mu_dtype`, as the JAX package's
+two-group optimizer takes none. The encoder features (frozen Whisper /
 BRAVEn) come precomputed in the batch ("audio_features",
 "visual_features"). On the card the classifiers and their backward run in
 fp32 with TF32 off (`device.exact_fp32`).
@@ -35,7 +38,7 @@ import torch
 from dualhyp_tpu_torch.device import exact_fp32
 from dualhyp_tpu_torch.models import relprompt
 from dualhyp_tpu_torch.ops.cross_entropy import IGNORE_INDEX
-from dualhyp_tpu_torch.train.trainer import TrainConfig, Trainer, lr_at_step
+from dualhyp_tpu_torch.train.trainer import AdamW, TrainConfig, Trainer, lr_at_step
 
 CLASSIFIERS = ("audio_noise_classifier", "visual_noise_classifier")
 
@@ -56,11 +59,6 @@ class RelPromptTrainer(Trainer):
     the mask loss. params: a RelPrompt `GPT` or a tree in the JAX
     package's layout (see `Trainer`)."""
 
-    def _trainable_parameters(self) -> dict:
-        named = dict(self.model.named_parameters())
-        return {**self.model.trainable_parameters(),
-                **{n: p for n, p in named.items() if is_classifier(n)}}
-
     def _make_optimizer(self) -> torch.optim.Optimizer:
         """Two AdamW groups by parameter name (== two param_groups, ref:
         finetune/relprompt.py:174-195); the LRs are set per step."""
@@ -69,8 +67,8 @@ class RelPromptTrainer(Trainer):
                    "params": [p for n, p in self.trainable.items() if not is_classifier(n)]},
                   {"name": "classifier", "lr": cfg.classifier_learning_rate,
                    "params": [p for n, p in self.trainable.items() if is_classifier(n)]}]
-        return torch.optim.AdamW(groups, betas=(0.9, 0.999), eps=1e-8,
-                                 weight_decay=cfg.weight_decay)
+        return AdamW(groups, lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8,
+                     weight_decay=cfg.weight_decay)
 
     def _pools(self):
         pool = self.model_cfg.classifier_pool_size

@@ -172,8 +172,9 @@ def test_weights_round_trip_exactly(family):
 
 def test_check_supported_takes_the_registry_and_refuses_peft_breadth():
     """Every registry config is accepted (the 46 LayerNorm / GPT-NeoX / bias
-    configs among them); adapters and LoRA on the MLP are refused, naming
-    the next slice. A quantized MoE is refused by `quantize_model`
+    configs among them). Adapters and LoRA on the MLP, refused until their
+    slice was ported, are accepted now (test_torch_peft.py holds them to the
+    JAX package). A quantized MoE is refused by `quantize_model`
     (test_torch_moe.py)."""
     names = registry.available_configs()
     family = [n for n in names
@@ -184,7 +185,6 @@ def test_check_supported_takes_the_registry_and_refuses_peft_breadth():
         check_supported(registry.config_from_name(name))
     for kw in (dict(use_adapter=True), dict(use_adapter_v2=True),
                dict(lora_r=4, lora_mlp=True)):
-        with pytest.raises(NotImplementedError, match="PEFT breadth"):
-            check_supported(registry.config_from_name("phi-2", **kw))
-    with pytest.raises(NotImplementedError, match="PEFT breadth"):
-        GPT(_port_config(helpers.tiny_config(use_adapter_v2=True)), device="cpu")
+        check_supported(registry.config_from_name("phi-2", **kw))
+    model = GPT(_port_config(helpers.tiny_config(use_adapter_v2=True)), device="cpu")
+    assert model.lm_head.adapter_scale.shape == (model.cfg.padded_vocab_size,)

@@ -154,10 +154,15 @@ def test_load_tree_rejects_unknown_and_missing_leaves():
 
 
 def test_unported_configs_raise():
-    """Adapters and LoRA on the MLP are not ported (the next slice); the
-    LayerNorm / GPT-NeoX configs are (test_torch_family.py)."""
-    with pytest.raises(NotImplementedError, match="adapters.*PEFT breadth"):
-        GPT(_port_config(helpers.tiny_config(use_adapter=True)), device="cpu")
-    with pytest.raises(NotImplementedError, match="MLP"):
-        GPT(_port_config(helpers.tiny_llama_config(lora_r=4, lora_mlp=True)),
-            device="cpu")
+    """A norm or MLP class the port does not know raises. Adapters and LoRA
+    on the MLP are ported (PEFT breadth, test_torch_peft.py): their configs
+    build, with the adapter leaves and the MLP's LoRA leaves."""
+    with pytest.raises(NotImplementedError, match="mlp_class=NoSuchMLP"):
+        GPT(_port_config(helpers.tiny_config(mlp_class="NoSuchMLP")), device="cpu")
+    model = GPT(_port_config(helpers.tiny_config(use_adapter=True, use_adapter_v2=True)),
+                device="cpu")
+    assert model.blocks[0].attn.adapter_wte is not None
+    assert model.blocks[0].mlp.fc.adapter_scale is not None
+    model = GPT(_port_config(helpers.tiny_llama_config(lora_r=4, lora_mlp=True)),
+                device="cpu")
+    assert model.blocks[0].mlp.fc_1.with_lora

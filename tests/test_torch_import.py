@@ -39,7 +39,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                    "dualhyp_tpu_torch.cli.finetune_relprompt",
                    "dualhyp_tpu_torch.cli.precompute_features",
                    "dualhyp_tpu_torch.cli.make_json_asr", "dualhyp_tpu_torch.ops.gmm",
-                   "dualhyp_tpu_torch.ops.splash", "dualhyp_tpu_torch.ckpt.convert_hf"):
+                   "dualhyp_tpu_torch.ops.splash", "dualhyp_tpu_torch.ckpt.convert_hf",
+                   "dualhyp_tpu_torch.utils.profiling"):
         assert module in result["imported"]
 
 

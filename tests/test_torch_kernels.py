@@ -143,11 +143,16 @@ def _rope_tables(gen, t, n_elem, dtype):
 
 
 # K3: 16-byte vectors at n_elem 16, 32 and 64 of a 64-wide head (the rest
-# copied) and 128 of 128; one position, a ragged T and the training T; q and k
-# views of the fused QKV projection and a contiguous gradient
+# copied) and 128 of 128; every (head size, rotary channels) pair of the
+# registry: (128, 32) pythia-1.4b to -12b and dolly-v2, (80, 80) RedPajama,
+# (96, 96) Phi-3, (100, 100) open_llama_3b (50 channels a half: the scalar
+# path), (256, 256) Gemma; one position, a ragged T and the training T; q
+# and k views of the fused QKV projection and a contiguous gradient
 @pytest.mark.parametrize("dtype,atol,rtol", [BF16, F32])
 @pytest.mark.parametrize("d,n_elem", [(64, 16), (64, 32), (64, 64), (128, 128),
-                                     (80, 20), (80, 32), (32, 8), (256, 64)])
+                                     (80, 20), (80, 32), (32, 8), (256, 64),
+                                     (128, 32), (80, 80), (96, 96), (100, 100),
+                                     (256, 256)])
 @pytest.mark.parametrize("t", [1, 37, 1024])
 @pytest.mark.parametrize("transpose", [False, True])
 def test_apply_rope_on_fused_qkv_heads(dev, gen, dtype, atol, rtol, d, n_elem, t, transpose):

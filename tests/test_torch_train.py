@@ -391,15 +391,22 @@ def test_training_entry_points_raise_without_cuda(monkeypatch, tmp_path):
                            "--val_path", str(tmp_path / "v.json")])
 
 
-def test_unported_finetune_options_raise(tiny_checkpoint):
-    """--data_prefetch is ported (test_torch_packed_prefetch.py); adapter
-    finetuning is not, and raises."""
+def test_unported_finetune_options_raise(tiny_checkpoint, tmp_path, monkeypatch):
+    """--data_prefetch and --mode adapter are ported (test_torch_packed_
+    prefetch.py, test_torch_peft_train.py): the run gets past the model and
+    stops at the missing data file. The mesh flags of multi-device training
+    (slice 8c) are not ported: the parser refuses them."""
     from dualhyp_tpu_torch.cli import finetune_ger
 
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(FileNotFoundError, match="t.json"):
         finetune_ger.main(["--train_path", "t.json", "--val_path", "v.json",
                            "--device", "cpu", "--llm_checkpoint", str(tiny_checkpoint),
                            "--mode", "adapter", "--data_prefetch"])
+    with pytest.raises(SystemExit):
+        finetune_ger.main(["--train_path", "t.json", "--val_path", "v.json",
+                           "--device", "cpu", "--llm_checkpoint", str(tiny_checkpoint),
+                           "--fsdp", "2"])
 
 
 @pytest.fixture

@@ -258,9 +258,28 @@ prints one JSON line; a failed phase raises and the script exits non-zero.
      `utils.profiling.compiled_flops` against the analytic count and
      `live_device_memory`), one mode-full step of Mixtral-8x7B at depth 1
      (L2's drhs kernel launches);
- 33. the seconds of each phase, the `{"kernels": [...]}` line (all fifteen
+ 33. slice 24, scale-out, last: `scaleout_kernel_phase`, K1's forward and
+     backward at a tensor-2 rank's 16 heads in 2 groups, K2 at a seq-2
+     shard, K3 (and K3 transposed) at the tensor-2 heads and a seq shard's
+     RoPE offset, K4 at intermediate 2816 and 7168, K5 at QKV out 1280, K8
+     at the row-parallel in dims 1024 and 2816, L2 and its dlhs over 4
+     local experts (fc_1 and proj), each against its plain version, timed
+     beside its bound; `scaleout_slice`, two processes of this script on
+     the one card (`--scaleout-child`, gloo on CUDA tensors; first a probe
+     of the collectives it takes there) running full-width TinyLlama
+     through `run_training` under data 2, fsdp 2, tensor 2 (K5) and a
+     2-stage pipeline, 2 Trainer steps at seq 2 (T 1024), the 16 requests
+     served over data 2, over tensor 2 and over tensor 2 merged and int4
+     (K8), and one LoRA step of Mixtral at depth 1 over expert 2 (L2),
+     while this process runs each as one rank alone: each run's probe
+     logits within 4x the measured bf16 reordering noise of one rank's,
+     the losses within 1e-3 of one rank's, the tokens reported against one
+     rank's, the kernels launched in both ranks (their own counts);
+     per-rank times are two ranks sharing one card, not scaling;
+ 34. the seconds of each phase, the `{"kernels": [...]}` line (all fifteen
      kernels, launches by path, K4's, K5's and K8's verify rows, K1's and
-     L1's rows at each head size), the card's name and power limit, and
+     L1's rows at each head size, each kernel's scale-out launches by run
+     and rank and its local shapes), the card's name and power limit, and
      the last line `{"ok": true, "device": {...}}`.
 
 Exits non-zero without printing a result when no CUDA card is present or
@@ -1019,17 +1038,18 @@ DECODE_PATH = ("rms_norm", "apply_rope", "flash_attention_fwd", "swiglu_mlp")
 TRAIN_PATH = ("rms_norm", "apply_rope", "flash_attention_fwd", "flash_attention_bwd",
               "swiglu_mlp", "apply_rope_transpose")
 # the decode slice's variants: how the model is built and served, which
-# kernels must launch on it and which must not
+# kernels must launch on it and which must not; the bf16 slice alone
+# profiles a batch (each profile took ~45 s of the script's time)
 SLICES = {
     "bf16": dict(lora_impl="xla", quantize=None, kv_quant=None, profile=True,
                  launch=DECODE_PATH, idle=("lora_linear", "q4_matmul")),
-    "int4": dict(lora_impl="fused", quantize="int4", kv_quant=None, profile=True,
+    "int4": dict(lora_impl="fused", quantize="int4", kv_quant=None, profile=False,
                  launch=("rms_norm", "apply_rope", "flash_attention_fwd", "q4_matmul"),
                  idle=("swiglu_mlp", "lora_linear")),
     "int8_kv8": dict(lora_impl="xla", quantize="int8", kv_quant="int8", profile=False,
                      launch=("rms_norm", "apply_rope", "flash_attention_fwd"),
                      idle=("swiglu_mlp", "lora_linear", "q4_matmul")),
-    "fused": dict(lora_impl="fused", quantize=None, kv_quant=None, profile=True,
+    "fused": dict(lora_impl="fused", quantize=None, kv_quant=None, profile=False,
                   launch=DECODE_PATH + ("lora_linear",), idle=("q4_matmul",)),
 }
 
@@ -1200,7 +1220,7 @@ def slice_run(torch, seed: int, variant: str = "bf16", reference=None) -> dict:
     return result
 
 
-def flash_bwd_phase(torch, seed: int, g: int = 4, hs: int = 64) -> dict:
+def flash_bwd_phase(torch, seed: int, g: int = 4, hs: int = 64, nh: int = 32) -> dict:
     """K1's forward-plus-backward pair against the plain pair at the training
     shape (B=8, Hq=32, T=1024; TinyLlama's G=4, D=64 or Mixtral's G=8,
     D=128) and a ragged T=200: the kernel's (O, L) against
@@ -1215,7 +1235,7 @@ def flash_bwd_phase(torch, seed: int, g: int = 4, hs: int = 64) -> dict:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 7)
-    b, nh = 8, 32
+    b = 8
     scale = 1.0 / math.sqrt(hs)
 
     def randn(*shape):
@@ -6183,12 +6203,556 @@ def peft_slice(torch, seed: int) -> dict:
     return result
 
 
+# ---- slice 24 (ROADMAP 8c): scale-out, two ranks sharing the one card ----
+# The card's machine has one H100, so the mesh paths run as two processes on
+# it (CUDA_VISIBLE_DEVICES=0, gloo on CUDA tensors: NCCL refuses two ranks on
+# one GPU). What this checks is the kernels at each rank's local shapes, and
+# the collectives and the entry points on CUDA tensors; the per-rank times
+# are two ranks sharing one card, not scaling.
+
+# the run_training runs of the two ranks: (label, mesh extents or None for
+# the pipeline's own mesh, TrainConfig fields, lora_impl)
+SCALEOUT_TRAIN = (("dp2", dict(data=2), {}, "xla"),
+                  ("fsdp2", dict(fsdp=2), {}, "xla"),
+                  ("tensor2", dict(tensor=2), {}, "fused"),
+                  ("pipe2", None, dict(pipeline_stages=2, pipeline_microbatches=2), "xla"))
+SCALEOUT_SEQ_T = 1024  # the seq 2 steps' sequence length (512 tokens a rank)
+# a rank's bf16 loss against one rank's of the same batch (the largest
+# measured was 1.6e-4, tensor 2 on an H100)
+SCALEOUT_LOSS_RTOL = 1e-3
+# the probe batch (rows, tokens) whose fp32 logits each run takes before its
+# first step, held to one rank's: the max abs error may be at most
+# SCALEOUT_PROBE_FACTOR times the bf16 reordering noise measured in the same
+# run, the max abs difference of one rank's logits of the whole batch and of
+# its rows one at a time (the same function; the products over fewer rows
+# take other cuBLAS tilings, as a pipeline's microbatches or a seq shard's
+# tokens do), with the LoRA products apart and fused (K5)
+SCALEOUT_PROBE = (2, 64)
+SCALEOUT_PROBE_FACTOR = 4.0
+# the kernels that must launch on the ranks, and on which run
+SCALEOUT_LAUNCH = {"flash_attention_fwd": "dp2", "flash_attention_bwd": "dp2",
+                   "rms_norm": "fsdp2", "apply_rope": "seq2", "swiglu_mlp": "tensor2",
+                   "lora_linear": "tensor2", "q4_matmul": "serve_tensor2_int4",
+                   "apply_rope_transpose": "tensor2",
+                   "grouped_matmul": "mixtral_expert2", "grouped_matmul_dlhs": "mixtral_expert2"}
+
+
+def scaleout_kernel_phase(torch, seed: int) -> dict:
+    """The kernels at the local shapes that the scale-out path gives them, each
+    against its plain version and timed beside its bound: K1's forward and
+    backward at TinyLlama's heads under tensor 2 (16 heads in 2 groups, B8
+    T1024); K2 at a seq 2 shard (8 x 512 rows); K3 on q and k of a tensor-2
+    fused QKV (1280 wide) and at a seq shard's offset (RoPE rows 512-1023);
+    K4 at intermediate 2816 (TinyLlama under tensor 2, 8192 rows) and 7168
+    (Mixtral, 2048 rows); K5 at the tensor-2 QKV (out 1280, rank 48, 8192
+    rows); K8 at the row-parallel in dims 1024 and 2816 (decode 8 and prefill
+    3072 rows); K3 transposed (the backward) on the tensor-2 q and k
+    gradients; L2 and its lhs gradient over 4 local experts of Mixtral's
+    fc_1 and proj (2048 slots, the local groups a skewed draw gives rank 0)."""
+    from dualhyp_tpu_torch.config import GPTConfig
+    from dualhyp_tpu_torch.models.gpt import split_heads
+    from dualhyp_tpu_torch.ops import gmm, lora, quant, rmsnorm, rope, swiglu
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 71)
+    bf16 = torch.bfloat16
+
+    def randn(*shape, std=1.0, dtype=bf16):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+    def row(name, fn, plain, bytes_moved, flops, rate, shape, library=None, **extra):
+        err = compare(name, repeatable(name, fn, torch), plain(), torch)
+        bms, by = bound(bytes_moved, flops, rate)
+        return dict(shape=shape, **extra, max_abs_err=err, ms=time_ms(fn, torch),
+                    device_ms=device_ms(fn, torch),
+                    plain_ms=time_ms(plain, torch, warmup=1, iters=3),
+                    library_ms=time_ms(library, torch) if library else None,
+                    bound_ms=bms, bound_by=by)
+
+    emit({"phase": "warm_up", **warm_up(torch)})
+    out = {"flash_attention": flash_bwd_phase(torch, seed, g=2, hs=64, nh=16)}
+    fwd = out["flash_attention"]["forward_T1024"]
+    out["flash_attention_fwd"] = {"tp_heads16_groups2": fwd}
+    out["flash_attention_bwd"] = {"tp_heads16_groups2": {
+        k: v for k, v in out.pop("flash_attention").items() if k != "forward_T1024"}}
+
+    d, rows = 2048, 8 * 512
+    x, scale = randn(rows, d), 1.0 + randn(d, std=0.1, dtype=torch.float32)
+    out["rms_norm"] = {"seq2_rows": row(
+        "rms_norm", lambda: rmsnorm.rms_norm(x, scale), lambda: rmsnorm.rms_norm_plain(x, scale),
+        2 * rows * d * 2 + d * 4, 4 * rows * d, FP32_FLOPS, [rows, d])}
+
+    cfg = GPTConfig(n_embd=d, n_head=32, n_query_groups=4, rotary_percentage=1.0,
+                    intermediate_size=5632, mlp_class="LLaMAMLP")
+    b, t, hs = 8, 1024, 64
+    qkv = randn(b, t, cfg.qkv_out_dim // 2)  # a tensor-2 rank's 2 of the 4 groups
+    q5, k4, _ = split_heads(cfg, qkv)
+    cos, sin = rope.build_rope_cache(t, hs, dtype=bf16, device=dev)
+    entry = {}
+    # the backward's K3 (transposed) takes the contiguous gradient of q, k
+    gq, gk = randn(*q5.shape), randn(*k4.shape)
+    for label, z, c, s, tr in (
+            ("tp_q_heads16", q5, cos, sin, False), ("tp_k_groups2", k4, cos, sin, False),
+            ("seq2_offset512_q", q5[:, :, :, 512:], cos[512:], sin[512:], False),
+            ("tp_q_heads16_transpose", gq, cos, sin, True),
+            ("tp_k_groups2_transpose", gk, cos, sin, True)):
+        n = z.numel()
+        entry[label] = row("apply_rope", lambda: rope.apply_rope(z, c, s, transpose=tr),
+                           lambda: rope.apply_rope_plain(z, c, s, transpose=tr),
+                           2 * n * 2 + 2 * c.shape[0] * hs * 2, 4 * n, FP32_FLOPS,
+                           list(z.shape), kernel="apply_rope_transpose" if tr else "apply_rope")
+    out["apply_rope"] = entry
+    del gq, gk
+
+    entry = {}
+    for label, dd, inter, n_rows in (("tp_tinyllama_inter2816", 2048, 2816, 8192),
+                                     ("tp_mixtral_inter7168", 4096, 7168, 2048)):
+        w1, w2 = randn(inter, dd, std=0.02), randn(inter, dd, std=0.02)
+        w3, xx = randn(dd, inter, std=0.02), randn(n_rows, dd)
+        entry[label] = row("swiglu_mlp", lambda: swiglu.swiglu_mlp(xx, w1, w2, w3),
+                           lambda: swiglu.swiglu_mlp_plain(xx, w1, w2, w3),
+                           (2 * n_rows * dd + 3 * inter * dd) * 2, 6 * n_rows * dd * inter,
+                           BF16_TENSOR_FLOPS, [n_rows, dd, inter])
+        del w1, w2, w3, xx
+    out["swiglu_mlp"] = entry
+
+    o, r = 1280, LORA_RANK
+    w, a = randn(o, d, std=0.02), randn(3 * r, d, std=1 / math.sqrt(d))
+    bb = lora.lora_qkv_block_b(randn(cfg.qkv_out_dim, r, std=0.02),
+                               (d, (cfg.qkv_out_dim - d) // 2, (cfg.qkv_out_dim - d) // 2),
+                               r)[:o]  # rank 0's rows of the block-diagonal B
+    out["lora_linear"] = {"tp_qkv_out1280": lora_row(torch, randn(8192, d), w, a, bb, 1.0)}
+
+    entry = {}
+    for name, n, k in (("attn_proj_in1024", 2048, 1024), ("mlp_proj_in2816", 2048, 2816)):
+        packed, scales = quant.quantize_weight_int4(randn(n, k, std=0.02, dtype=torch.float32))
+        w_deq = quant.dequantize_weight_int4(packed, scales, bf16)
+        for label, n_rows in (("decode", 8), ("prefill", 3072)):
+            entry[f"{label}_{name}"] = q4_row(torch, randn(n_rows, k), packed, scales, w_deq)
+    out["q4_matmul"] = entry
+
+    # L2 as expert 2's rank 0 runs it: all 2048 slots of Mixtral's 8
+    # experts (a skewed draw), sorted with its 4 local experts first; the
+    # groups are theirs and the rows past them come out zero
+    n_local, slots = 4, 2048
+    sizes = seeded_group_sizes(torch, slots, 8, seed, "skewed")[:n_local].contiguous()
+    used = int(sizes.sum())
+    offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+    out["grouped_matmul"], out["grouped_matmul_dlhs"] = {}, {}
+    for name, n, k in (("fc_1", 14336, 4096), ("proj", 4096, 14336)):
+        w, lhs, g = randn(n_local, n, k, std=0.02), randn(slots, k), randn(slots, n)
+        lib, lib_name = grouped_mm_library(torch, lhs, w, sizes)
+        out["grouped_matmul"][f"ep_local_experts4_{name}"] = row(
+            "grouped_matmul", lambda: gmm.grouped_matmul(lhs, w, sizes),
+            lambda: gmm.grouped_matmul_plain(lhs, w, sizes),
+            used * k * 2 + n_local * n * k * 2 + slots * n * 2, 2 * used * n * k,
+            BF16_TENSOR_FLOPS, [slots, n, k], library=lib, library_name=lib_name,
+            group_sizes=sizes.tolist())
+        lib, lib_name = first_that_runs([(
+            lambda: torch._grouped_mm(g, w, offs=offs, out_dtype=torch.bfloat16),
+            "torch._grouped_mm (M, N) x (E, N, K)")])
+        out["grouped_matmul_dlhs"][f"ep_local_experts4_{name}"] = row(
+            "grouped_matmul_dlhs", lambda: gmm.grouped_matmul_dlhs(g, w, sizes),
+            lambda: gmm.grouped_matmul_dlhs_plain(g, w, sizes),
+            used * n * 2 + n_local * n * k * 2 + slots * k * 2, 2 * used * n * k,
+            BF16_TENSOR_FLOPS, [slots, n, k], library=lib, library_name=lib_name,
+            group_sizes=sizes.tolist())
+        del w, lhs, g
+        torch.cuda.empty_cache()
+    emit({"phase": "scaleout_kernel_phase", **out})
+    return out
+
+
+def scaleout_data(tmp: Path, seed: int):
+    """The scale-out runs' data: the word tokenizer and seeded DualHyp
+    records, 16 train (2 steps of 8), 8 val and 16 test (the served
+    requests). Returns (tokenizer, dataset(split), requests)."""
+    from dualhyp_tpu_torch.data import hypotheses, prompts, synthetic
+
+    template_words = " ".join(prompts.DualHyp_PROMPTS.values()).split()
+    tok = WordTokenizer(sorted(set(synthetic.word_vocabulary()) | set(template_words)))
+    for name, n, s in (("train", 16, seed), ("val", 8, seed + 1), ("test", 16, seed + 2)):
+        synthetic.write_json(tmp / f"{name}.json",
+                             synthetic.make_records(n_uids=n, n_hyps=5, seed=s))
+
+    def dataset(split):
+        return hypotheses.DualHypothesesDataset(
+            split, str(tmp / f"{split}.json"), tokenizer=tok,
+            prompts_format="DualHyp", max_input_length=1024, seed=seed)
+
+    test = dataset("test")
+    requests = [(i, list(test[i].input_ids_no_response)) for i in range(len(test))]
+    return tok, dataset, requests
+
+
+def scaleout_tree(torch, cfg, seed: int, moe_impl=None) -> dict:
+    """A random model's whole tree, on the card (every rank draws the same
+    one from the seed), in the layout `load_tree` takes."""
+    from dualhyp_tpu_torch.ckpt.convert import flat_from_named
+    from dualhyp_tpu_torch.ckpt.io import unflatten
+    from dualhyp_tpu_torch.models.gpt import GPT
+
+    model = GPT(cfg, device="cuda", dtype=torch.bfloat16, moe_impl=moe_impl)
+    model.init_weights(torch.Generator(device="cuda").manual_seed(seed))
+    tree = unflatten(flat_from_named(dict(model.named_parameters()), cfg.n_layer))
+    del model
+    return tree
+
+
+def scaleout_probe(torch, model, seed: int, path: Path) -> str:
+    """This rank's fp32 logits of the seeded probe batch (SCALEOUT_PROBE),
+    saved on the host to `path`: every row, and under seq the rank's tokens;
+    on a pipe mesh through `pipeline_logits`. One rank alone also saves the
+    logits of the rows one at a time (`path` with "_rows" before ".pt", the
+    reordering noise). Returns the file's name."""
+    import numpy as np
+
+    from dualhyp_tpu_torch.parallel import pipeline_logits
+
+    ids = torch.as_tensor(np.random.default_rng(seed + 5).integers(3, 32000, SCALEOUT_PROBE),
+                          device="cuda")
+    mesh = model.mesh
+    with torch.no_grad():
+        if mesh is not None and "pipe" in mesh.shape:
+            logits = pipeline_logits(model, ids, mesh, n_micro=2)
+        else:
+            if mesh is not None:
+                t = ids.shape[1] // mesh.extent("seq")
+                ids = ids[:, mesh.index("seq") * t:(mesh.index("seq") + 1) * t]
+            logits = model(ids)
+            if mesh is None:
+                torch.save(torch.cat([model(ids[i:i + 1]) for i in range(ids.shape[0])]).cpu(),
+                           path.with_name(f"{path.stem}_rows.pt"))
+    torch.save(logits.cpu(), path)
+    return path.name
+
+
+def scaleout_runs(torch, seed: int, mesh_of, probe_dir: Path) -> dict:
+    """The scale-out workloads on this process, each on the mesh `mesh_of(
+    label, extents)` gives (None: one rank alone, the reference): the four
+    run_training runs of SCALEOUT_TRAIN, two Trainer steps at seq 2, the
+    16 requests served over data 2 (bf16), over tensor 2 (bf16) and over
+    tensor 2 merged and in int4, one LoRA step of Mixtral at depth 1 over
+    expert 2. Returns, for each, the losses or tokens, step seconds, peak
+    memory, launch counts and the name of its probe logits' file in
+    `probe_dir` (`scaleout_probe`, before the first step)."""
+    import numpy as np
+
+    from dualhyp_tpu_torch.ckpt.convert import load_tree
+    from dualhyp_tpu_torch.infer.serve import ContinuousBatcher
+    from dualhyp_tpu_torch.models.gpt import GPT, merge_lora, quantize_model
+    from dualhyp_tpu_torch.train import TrainConfig, Trainer
+
+    bf16 = torch.bfloat16
+    cfg = lora_config(22)
+    tree = scaleout_tree(torch, cfg, seed)
+    runs = {}
+    done = {}  # one rank alone: the run_training runs that are the same run
+
+    def model_on(label, extents, lora_impl="xla", model_cfg=cfg, model_tree=None,
+                 moe_impl=None, mesh=None):
+        mesh = mesh or mesh_of(label, extents)
+        model = GPT(model_cfg, device="cuda", dtype=bf16, lora_impl=lora_impl,
+                    moe_impl=moe_impl, mesh=mesh)
+        load_tree(model, tree if model_tree is None else model_tree)
+        return model
+
+    def settle():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        tok, dataset, requests = scaleout_data(tmp, seed)
+        for label, extents, extra, lora_impl in SCALEOUT_TRAIN:
+            mesh = mesh_of(label, extents)
+            if mesh is None:
+                # one rank alone: no pipeline, and one run a LoRA implementation
+                extra = {}
+                if lora_impl in done:
+                    runs[label] = runs[done[lora_impl]]
+                    continue
+                done[lora_impl] = label
+            settle()
+            model = model_on(label, extents, lora_impl, mesh=mesh)
+            probe = scaleout_probe(torch, model, seed, probe_dir / f"{label}.pt")
+            tcfg = TrainConfig(batch_size=8, micro_batch_size=8, num_epochs=1,
+                               frozen_dtype="bfloat16", remat=True, seed=seed, log_interval=8,
+                               save_interval=10**6, **extra)
+            trained = timed_training(torch, model, tcfg, tok, dataset, tmp / label, seed,
+                                     adapter_only=True)
+            runs[label] = {k: trained[k] for k in ("losses", "step_s", "peak_mem_gb",
+                                                   "launches")}
+            runs[label]["val_loss"] = trained["out"]["best_val"]
+            runs[label]["probe"] = probe
+            del model, trained
+        # seq 2: the Trainer at T 1024, 512 tokens a rank, two steps
+        settle()
+        model = model_on("seq2", dict(seq=2))
+        probe = scaleout_probe(torch, model, seed, probe_dir / "seq2.pt")
+        trainer = Trainer(cfg, TrainConfig(batch_size=2, micro_batch_size=2,
+                                           frozen_dtype="bfloat16", remat=True, seed=seed),
+                          model, mesh=model.mesh)
+        rng = np.random.default_rng(seed)
+        ids = rng.integers(3, 32000, (2, SCALEOUT_SEQ_T)).astype(np.int64)
+        labels = ids.copy()
+        labels[:, : SCALEOUT_SEQ_T // 2] = -1
+        reset_counts()
+        losses, step_s = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            loss, _ = trainer.train_step({"input_ids": ids, "labels": labels}, 10, 1)
+            losses.append(float(loss))
+            step_s.append(time.perf_counter() - t0)
+        runs["seq2"] = {"losses": losses, "step_s": step_s, "launches": read_counts(),
+                        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                        "probe": probe}
+        del model, trainer
+        # the 16 requests served: over data 2 and tensor 2 in bf16, over tensor
+        # 2 merged + int4 (one rank alone serves each model once)
+        served_one = {}
+        for label, extents, quantize in (("serve_data2", dict(data=2), None),
+                                         ("serve_tensor2", dict(tensor=2), None),
+                                         ("serve_tensor2_int4", dict(tensor=2), "int4")):
+            if mesh_of(label, extents) is None and quantize in served_one:
+                runs[label] = runs[served_one[quantize]]
+                continue
+            served_one[quantize] = label
+            settle()
+            model = model_on(label, extents)
+            if quantize:
+                merge_lora(model)
+                quantize_model(model, quantize)
+            probe = scaleout_probe(torch, model, seed, probe_dir / f"{label}.pt")
+            batcher = ContinuousBatcher(model, slots=16, max_new_tokens=32, chunk_steps=8,
+                                        eos_id=tok.eos_token_id)
+            reset_counts()
+            t0 = time.perf_counter()
+            served = batcher.serve(requests)
+            torch.cuda.synchronize()
+            runs[label] = {"tokens": {str(r["id"]): r["tokens"] for r in served},
+                           "prompt_lens": {str(r["id"]): r["prompt_len"] for r in served},
+                           "wall_s": time.perf_counter() - t0, "chunks": batcher.chunks,
+                           "launches": read_counts(), "probe": probe,
+                           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+            del model, batcher
+    del tree
+    # Mixtral at depth 1 (megablox: L2), expert 2: one LoRA step
+    settle()
+    mcfg = mixtral_config(1)
+    mtree = scaleout_tree(torch, mcfg, seed + 1, moe_impl="megablox")
+    model = model_on("mixtral_expert2", dict(expert=2), model_cfg=mcfg, model_tree=mtree,
+                     moe_impl="megablox")
+    del mtree
+    probe = scaleout_probe(torch, model, seed, probe_dir / "mixtral_expert2.pt")
+    trainer = Trainer(mcfg, TrainConfig(batch_size=4, micro_batch_size=4,
+                                        frozen_dtype="bfloat16", remat=True, seed=seed),
+                      model, mesh=model.mesh)
+    rng = np.random.default_rng(seed + 1)
+    ids = rng.integers(3, 32000, (4, 256)).astype(np.int64)
+    reset_counts()
+    t0 = time.perf_counter()
+    loss, _ = trainer.train_step({"input_ids": ids, "labels": ids}, 10, 1)
+    runs["mixtral_expert2"] = {"losses": [float(loss)], "step_s": [time.perf_counter() - t0],
+                               "launches": read_counts(), "probe": probe,
+                               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del model, trainer
+    settle()
+    return runs
+
+
+def gloo_cuda_probe(torch) -> dict:
+    """Which collectives this gloo group takes on CUDA tensors, each checked
+    for its values on two ranks ("ok", or what went wrong): those that
+    `parallel.comm` uses. Send / recv is not tried: torch documents gloo's
+    as CPU-only, and a failed collective ends the group."""
+    import torch.distributed as dist
+
+    rank, dev = dist.get_rank(), torch.device("cuda", 0)
+    x = torch.arange(4, device=dev, dtype=torch.float32) + 10 * rank
+    gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+    scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+    split = [0, 4] if rank == 0 else [4, 0]
+
+    def run(fn, out, want):
+        fn(out)
+        return out.cpu().tolist() == want
+
+    trials = {
+        "all_reduce": lambda: run(lambda y: dist.all_reduce(y), x.clone(),
+                                  [10., 12., 14., 16.]),
+        "all_reduce_max_bf16": lambda: run(
+            lambda y: dist.all_reduce(y, op=dist.ReduceOp.MAX), x.to(torch.bfloat16),
+            [10., 11., 12., 13.]),
+        "broadcast": lambda: run(lambda y: dist.broadcast(y, src=0), x.clone(),
+                                 [0., 1., 2., 3.]),
+        "all_gather_single": lambda: run(lambda y: gather(y, x), x.new_empty(8),
+                                         [0., 1., 2., 3., 10., 11., 12., 13.]),
+        "reduce_scatter_single": lambda: run(lambda y: scatter(y, x), x.new_empty(2),
+                                             [10., 12.] if rank == 0 else [14., 16.]),
+        "all_to_all_single_shift": lambda: run(
+            lambda y: dist.all_to_all_single(y, x, split, split), x.new_empty(4),
+            [10., 11., 12., 13.] if rank == 0 else [0., 1., 2., 3.]),
+    }
+    out = {}
+    for name, trial in trials.items():
+        try:
+            out[name] = "ok" if trial() else "wrong values"
+        except Exception as exc:  # a backend's refusal is the probe's finding
+            out[name] = f"{type(exc).__name__}: {str(exc)[:120]}"
+    return out
+
+
+def scaleout_child(torch, seed: int, out: Path) -> None:
+    """One rank of scaleout_slice (its own process, `--scaleout-child`):
+    joins the two-rank gloo group on the card and runs `scaleout_runs` on
+    meshes of the world's two ranks; writes the results to `out`."""
+    import torch.distributed as dist
+
+    from dualhyp_tpu_torch.parallel import init_distributed, make_mesh, make_pipe_mesh
+
+    init_distributed(backend="gloo", device="cuda:0")
+
+    def mesh_of(label, extents):
+        return make_pipe_mesh(2) if extents is None else make_mesh(**extents)
+
+    probe = gloo_cuda_probe(torch)
+    probe_dir = out.parent / f"{out.stem}_probe"
+    probe_dir.mkdir()
+    runs = scaleout_runs(torch, seed, mesh_of, probe_dir)
+    out.write_text(json.dumps({"rank": dist.get_rank(), "runs": runs, "gloo_cuda": probe}))
+    dist.destroy_process_group()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def scaleout_slice(torch, seed: int) -> dict:
+    """Scale-out (slice 24) as two ranks on the one card: two processes of
+    this script (`--scaleout-child`, CUDA_VISIBLE_DEVICES=0, LOCAL_RANK 0,
+    RANK 0 / 1, WORLD_SIZE 2, gloo) run `scaleout_runs` on their meshes while
+    this process runs the same workloads as one rank alone. Each rank's loss
+    must be within SCALEOUT_LOSS_RTOL of the one rank's on the same batch,
+    and each run's probe logits within SCALEOUT_PROBE_FACTOR times the
+    measured bf16 reordering noise of the one rank's; the served tokens are
+    reported against the one rank's; the kernels of SCALEOUT_LAUNCH must
+    launch in both ranks (their own counts). The step times are two ranks
+    sharing one card, not scaling."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="0", LOCAL_RANK="0", WORLD_SIZE="2",
+               MASTER_ADDR="localhost", MASTER_PORT=str(free_port()))
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        procs = []
+        for rank in range(2):
+            log = open(tmp / f"rank{rank}.log", "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, str(REPO / "chip_smoke.py"), "--seed", str(seed),
+                 "--scaleout-child", str(tmp / f"rank{rank}.json")],
+                env=dict(env, RANK=str(rank)), stdout=log, stderr=subprocess.STDOUT), log))
+        try:
+            t0 = time.perf_counter()
+            (tmp / "one").mkdir()
+            one = scaleout_runs(torch, seed, lambda label, extents: None, tmp / "one")
+            one_s = time.perf_counter() - t0
+            rcs = [p.wait(timeout=900) for p, _ in procs]
+        finally:
+            for p, log in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                log.close()
+        if any(rcs):
+            tails = {r: (tmp / f"rank{r}.log").read_text()[-3000:] for r in range(2)}
+            raise RuntimeError(f"scale-out ranks exited {rcs}: {tails}")
+        done = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(2)]
+        ranks = [d["runs"] for d in done]
+        # each run's probe logits: one rank's, and the two ranks' (under seq
+        # each holds its half of the tokens)
+        probes, noises = {}, {}
+        for label, ref in one.items():
+            want = torch.load(tmp / "one" / ref["probe"])
+            rows = tmp / "one" / ref["probe"].replace(".pt", "_rows.pt")
+            if label in ("dp2", "tensor2"):  # LoRA apart, fused
+                noises[label] = float((torch.load(rows) - want).abs().max())
+            got = [torch.load(tmp / f"rank{r}_probe" / ranks[r][label]["probe"])
+                   for r in range(2)]
+            if label == "seq2":
+                got = [torch.cat(got, dim=1)] * 2
+            probes[label] = (want, got)
+    noises["fused_vs_apart"] = float((probes["dp2"][0] - probes["tensor2"][0]).abs().max())
+    noise = max(noises.values())
+    result = {"phase": "scaleout_slice", "ranks": 2, "sharing": "two ranks on one card "
+              "(gloo on CUDA tensors), per-rank times are not scaling", "one_rank_s": one_s,
+              "gloo_cuda": [d["gloo_cuda"] for d in done],
+              "probe": {"shape": list(SCALEOUT_PROBE), "bf16_reordering_noise": noise,
+                        "noise_of": "the most of max |one rank's logits of the whole batch - "
+                                    "of its rows one at a time| (LoRA apart: dp2, fused: "
+                                    "tensor2) and max |fused - apart|", "noises": noises,
+                        "limit": SCALEOUT_PROBE_FACTOR * noise,
+                        "logits_std": float(probes["dp2"][0].std())},
+              "runs": {}}
+    bad = []
+    for label, ref in one.items():
+        entry = {"one_rank": {k: v for k, v in ref.items() if k not in ("tokens", "prompt_lens")}}
+        want, got_logits = probes[label]
+        for r, runs in enumerate(ranks):
+            got = runs[label]
+            entry[f"rank{r}"] = {k: v for k, v in got.items()
+                                 if k not in ("tokens", "prompt_lens")}
+            err = float((got_logits[r] - want).abs().max()) \
+                if got_logits[r].shape == want.shape else float("inf")
+            entry[f"rank{r}"]["probe_max_abs_err"] = err
+            if not err <= SCALEOUT_PROBE_FACTOR * noise:
+                bad.append(f"{label} rank {r}: probe logits off by {err} (noise {noise})")
+            if "losses" in ref:
+                rel = [abs(a - b) / abs(b) for a, b in zip(got["losses"], ref["losses"])]
+                entry[f"rank{r}"]["loss_rel_err"] = rel
+                if not (len(rel) == len(ref["losses"]) and max(rel) <= SCALEOUT_LOSS_RTOL):
+                    bad.append(f"{label} rank {r}: losses {got['losses']} vs {ref['losses']}")
+            else:
+                same = sum(got["tokens"][i] == ref["tokens"][i] for i in ref["tokens"])
+                entry[f"rank{r}"]["requests_equal_to_one_rank"] = f"{same}/{len(ref['tokens'])}"
+                # the tokens each request generated before it first parted
+                # from one rank's, of the one rank's count
+                entry[f"rank{r}"]["generated_before_parting"] = [
+                    [next((j for j, (a, b) in enumerate(zip(got["tokens"].get(i, []), want_t))
+                           if a != b), min(len(got["tokens"].get(i, [])), len(want_t)))
+                     - ref["prompt_lens"][i], len(want_t) - ref["prompt_lens"][i]]
+                    for i, want_t in ref["tokens"].items()]
+                if sorted(got["tokens"]) != sorted(ref["tokens"]):
+                    bad.append(f"{label} rank {r}: served {len(got['tokens'])} requests")
+        result["runs"][label] = entry
+    for name, label in SCALEOUT_LAUNCH.items():
+        counts = [runs[label]["launches"][name] for runs in ranks]
+        if min(counts) <= 0:
+            bad.append(f"{name} launched {counts} times on {label}")
+    result["launches_by_rank"] = {label: [runs[label]["launches"] for runs in ranks]
+                                  for label in ranks[0]}
+    emit(result)
+    if bad:
+        raise RuntimeError(f"scale-out: {bad}")
+    return result
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--scaleout-child", type=Path, default=None,
+                        help="run one rank of scaleout_slice, writing its results here")
     args = parser.parse_args(argv)
 
     import torch
+
+    if args.scaleout_child is not None:
+        sys.path.insert(0, str(REPO))
+        scaleout_child(torch, args.seed, args.scaleout_child)
+        return 0
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -6291,6 +6855,8 @@ def main(argv=None) -> int:
     kernels["lora_linear"].update(run("peft_kernel_phase", peft_kernel_phase)["lora_linear"])
     depth2_peft = run("depth2_peft_check", depth2_peft_check)
     peft = run("peft_slice", peft_slice)
+    scale_kernels = run("scaleout_kernel_phase", scaleout_kernel_phase)
+    scaled = run("scaleout_slice", scaleout_slice)
     emit({"phase": "phase_seconds", **seconds})
 
     sources = {"rms_norm": ("rmsnorm.cu", "dualhyp_tpu/ops/pallas/rmsnorm_kernel.py:26"),
@@ -6479,6 +7045,14 @@ def main(argv=None) -> int:
             entry["launches"] = launches["splash_slice"] + (
                 launches["splash_slice_decode"] if name == "splash_attention_fwd" else 0)
             entry["main_path"] = "splash_slice (training + decode)"
+        # scale-out: each rank's launches on each run (two ranks sharing the
+        # card), and the kernel at the local shapes those runs give it
+        entry["scaleout"] = {
+            "launches_by_run": {label: [counts[name] for counts in by_rank]
+                                for label, by_rank in scaled["launches_by_rank"].items()},
+            **({"local_shapes": {k: {key: v.get(key) for key in keys}
+                                 for k, v in scale_kernels[name].items()}}
+               if name in scale_kernels else {})}
         line.append(entry)
     emit({"kernels": line})
     print(smi, flush=True)

@@ -41,6 +41,7 @@ from dualhyp_tpu_torch.config import GPTConfig
 from dualhyp_tpu_torch.device import resolve_device
 from dualhyp_tpu_torch.models.gpt import GPT
 from dualhyp_tpu_torch.ops import quant
+from dualhyp_tpu_torch.parallel import sharding
 
 
 def _leaves(tree: dict, prefix=()):
@@ -104,7 +105,13 @@ def load_tree(model: GPT, tree: dict, strict: bool = True) -> None:
 
     strict: every parameter of the model must be in the tree. A leaf the
     model has no parameter for always raises (an adapter leaf of a variant
-    that is not ported)."""
+    that is not ported). A model on a mesh (`GPT(mesh=)`) takes the rank's
+    pieces of the whole leaves (`parallel.sharding.model_spec`); a pipeline
+    stage its own layers."""
+    mesh = model.mesh
+    if mesh is not None and "pipe" not in mesh.shape:
+        tree = sharding._map(tree, lambda path, leaf: sharding.local_piece(
+            _tensor(leaf), sharding.model_spec(path, np.shape(leaf), mesh), mesh))
     _quantize_like(model, tree)
     params = dict(model.named_parameters())
     seen = set()
@@ -114,7 +121,7 @@ def load_tree(model: GPT, tree: dict, strict: bool = True) -> None:
         if path[0] == "blocks":
             if arr.shape[0] != n_layer:
                 raise ValueError(f"{'/'.join(path)}: {arr.shape[0]} layers for {n_layer}")
-            targets = [(f"blocks.{i}.{'.'.join(path[1:])}", arr[i]) for i in range(n_layer)]
+            targets = [(f"blocks.{i}.{'.'.join(path[1:])}", arr[i]) for i in model.layer_range]
         else:
             targets = [(".".join(path), arr)]
         for name, src in targets:
@@ -132,9 +139,10 @@ def load_tree(model: GPT, tree: dict, strict: bool = True) -> None:
 
 
 def params_from_jax(tree: dict, cfg: GPTConfig, *, device=None,
-                    dtype=torch.bfloat16) -> GPT:
-    """A `GPT` holding the JAX parameter tree's values (every leaf needed)."""
-    model = GPT(cfg, device=device, dtype=dtype)
+                    dtype=torch.bfloat16, mesh=None) -> GPT:
+    """A `GPT` holding the JAX parameter tree's values (every leaf needed);
+    on a mesh, the rank's pieces of them."""
+    model = GPT(cfg, device=device, dtype=dtype, mesh=mesh)
     load_tree(model, tree, strict=True)
     return model
 

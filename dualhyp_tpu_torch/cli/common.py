@@ -1,7 +1,14 @@
 """Shared CLI plumbing (the parts of `dualhyp_tpu/cli/common.py` that the
-finetuning and correction-decoding entry points need): the model and data
-flags, the model config (RelPrompt's too), the checkpoint checks, the
-tokenizer, the dataset class and the weights."""
+finetuning and correction-decoding entry points need): the model, data and
+mesh flags, the model config (RelPrompt's too), the checkpoint checks, the
+tokenizer, the dataset class and the weights.
+
+The mesh flags (`add_mesh_args`: --dp, --fsdp, --tensor, --expert, --seq,
+the JAX package's, with its defaults) run an entry point as one rank of a
+torchrun job, one card a rank (`mesh_from_args`):
+
+  torchrun --nproc_per_node N -m dualhyp_tpu_torch.cli.finetune_ger --tensor 2 ...
+"""
 
 from __future__ import annotations
 
@@ -35,6 +42,58 @@ def add_model_args(parser: argparse.ArgumentParser):
                         help="PEFT family of the checkpoint: adapter and "
                              "adapter_v2 drop LoRA for LLaMA-Adapter v1 / v2, "
                              "full trains every weight")
+
+
+def add_mesh_args(parser: argparse.ArgumentParser):
+    parser.add_argument("--dp", type=int, default=None,
+                        help="data-parallel mesh extent (default: all devices)")
+    parser.add_argument("--fsdp", type=int, default=1,
+                        help="parameter-sharding mesh extent (ZeRO-3 equivalent)")
+    parser.add_argument("--tensor", type=int, default=1,
+                        help="tensor-parallel mesh extent (for >7B configs)")
+    parser.add_argument("--expert", type=int, default=1,
+                        help="expert-parallel mesh extent (MoE configs: "
+                             "experts shard over this axis)")
+    parser.add_argument("--seq", type=int, default=1,
+                        help="sequence-parallel mesh extent (activations "
+                             "shard over tokens; long-context headroom)")
+
+
+def wants_mesh(args) -> bool:
+    """Whether the flags or the job ask for a mesh: an axis above 1, or a
+    torchrun job (`RANK` set), which joins its process group even at one
+    rank."""
+    import os
+
+    return (args.fsdp > 1 or args.tensor > 1 or args.expert > 1 or args.seq > 1
+            or (args.dp or 0) > 1 or "RANK" in os.environ)
+
+
+def mesh_from_args(args, dp=None):
+    """(the mesh of the flags, this rank's device): joins the job's process
+    group (`parallel.init_distributed`: the card `cuda:LOCAL_RANK` and NCCL,
+    or --device cpu and gloo) and lays its ranks out (`parallel.make_mesh`).
+    dp: the data extent (None: --dp, or the world over the model axes)."""
+    import os
+
+    import torch.distributed as dist
+
+    from dualhyp_tpu_torch.parallel import init_distributed, make_mesh
+
+    world = (dist.get_world_size() if dist.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", "1")))
+    model_axes = args.fsdp * args.tensor * args.expert * args.seq
+    data = dp if dp is not None else args.dp if args.dp is not None else world // model_axes
+    if data * model_axes != world:
+        # a usage error, before any process group: as the parser reports one
+        raise SystemExit(f"the mesh {data}x{args.fsdp}x{args.tensor}x{args.expert}x"
+                         f"{args.seq} needs {data * model_axes} ranks and the job has "
+                         f"{world}: launch it with torchrun --nproc_per_node "
+                         f"{data * model_axes}")
+    device = init_distributed(device=args.device)
+    mesh = make_mesh(data=data, fsdp=args.fsdp, tensor=args.tensor, expert=args.expert,
+                     seq=args.seq)
+    return mesh, device
 
 
 def add_data_args(parser: argparse.ArgumentParser):
@@ -148,7 +207,7 @@ def dataset_class_for(args):
 
 
 def load_model(checkpoint_dir, cfg, *, device, seed: int, dtype=torch.bfloat16,
-               finetuned=None) -> GPT:
+               finetuned=None, mesh=None) -> GPT:
     """The model with the checkpoint directory's base weights: converted
     ones (`dualhyp_model.npz`) if it has them, else HF `*.safetensors`
     shards converted on the fly (`ckpt.convert_hf`: the LLaMA, GPT-NeoX,
@@ -159,9 +218,11 @@ def load_model(checkpoint_dir, cfg, *, device, seed: int, dtype=torch.bfloat16,
     values, as the reference's strict=False load does. A RelPrompt config
     (`n_extra_tokens`) takes base weights without the extra rows and
     appends them (`relprompt.extend_embeddings`), as the JAX package loads
-    its base weights with `n_extra_tokens=0` and then extends them."""
+    its base weights with `n_extra_tokens=0` and then extends them. mesh:
+    the rank's piece of the model (`GPT(mesh=)`), its random leaves those
+    of a one-rank init."""
     checkpoint_dir = Path(checkpoint_dir)
-    model = GPT(cfg, device=device, dtype=dtype)
+    model = GPT(cfg, device=device, dtype=dtype, mesh=mesh)
     generator = torch.Generator(device=model.device)
     generator.manual_seed(seed)
     model.init_weights(generator)

@@ -1,15 +1,21 @@
 """GER / DualHyp finetuning entry point: LoRA, adapter v1 / v2 or full.
 
-Counterpart of `dualhyp_tpu/cli/finetune_ger.py` on one card:
+Counterpart of `dualhyp_tpu/cli/finetune_ger.py`:
 
   python -m dualhyp_tpu_torch.cli.finetune_ger \\
       --train_path train.json --val_path val.json \\
       --llm_checkpoint checkpoints/TinyLlama/TinyLlama-1.1B-Chat-v1.0 \\
       --dual_hypotheses --prompts_format DualHyp --exp_name my_run
+  # N cards, one rank a card (the mesh flags)
+  torchrun --nproc_per_node N -m dualhyp_tpu_torch.cli.finetune_ger --tensor 2 ...
 
-The same flags as the JAX package's, without the mesh flags (multi-device
-training is not ported yet), plus --device (default: the CUDA card; raises
-without one) and --save_adapter_only. --mode adapter|adapter_v2|full trains
+The same flags as the JAX package's, the mesh flags --dp / --fsdp /
+--tensor / --expert / --seq included (`parallel`; without --dp, the
+largest data extent that divides the micro batch, the JAX package's rule;
+the job must hold that many ranks), plus --device (default: the CUDA card,
+`cuda:LOCAL_RANK` under torchrun; raises without one) and
+--save_adapter_only. On a mesh every rank runs the loop and rank 0 writes
+the files and the log. --mode adapter|adapter_v2|full trains
 the adapter leaves or every weight (`Trainer`). bf16 compute, frozen
 leaves in bf16,
 remat on by default (whole blocks; `TrainConfig.remat` also takes "mlp"
@@ -42,6 +48,13 @@ from dualhyp_tpu_torch.data import collate
 from dualhyp_tpu_torch.device import resolve_device
 from dualhyp_tpu_torch.train import TrainConfig, Trainer
 from dualhyp_tpu_torch.utils import SpeedMonitor, StepLogger, setup_run_logger
+
+
+class _Quiet:
+    """The log of a rank that does not write (a mesh's ranks but 0)."""
+
+    def info(self, *args, **kwargs):
+        pass
 
 
 def build_parser():
@@ -79,11 +92,19 @@ def build_parser():
                              "without one)")
     common.add_model_args(parser)
     common.add_data_args(parser)
+    common.add_mesh_args(parser)
     return parser
 
 
 def _saved_tree(trainer, adapter_only: bool) -> dict:
     return trainer.trainable_params if adapter_only else trainer.params
+
+
+def _save(trainer, path, adapter_only: bool) -> None:
+    """The best or final file: every rank gathers the tree, rank 0 writes."""
+    tree = _saved_tree(trainer, adapter_only)
+    if trainer.lead:
+        save_params(path, tree)
 
 
 def _validate_and_save(trainer, val_ds, tcfg, out_dir, best_val, logger, adapter_only):
@@ -93,7 +114,7 @@ def _validate_and_save(trainer, val_ds, tcfg, out_dir, best_val, logger, adapter
     logger.info(f"val loss {val_loss:.4f}")
     if val_loss < best_val:
         best_val = val_loss
-        save_params(out_dir / "best_model.npz", _saved_tree(trainer, adapter_only))
+        _save(trainer, out_dir / "best_model.npz", adapter_only)
         logger.info("best model saved")
     return best_val
 
@@ -121,16 +142,21 @@ def run_training(model, tokenizer, train_ds, val_ds, tcfg: TrainConfig, out_dir,
     (--data_prefetch): the batches come from `collate.prefetch_epoch_batches`
     (a producer thread, no length sorting). Returns {"trainer",
     "losses" (device scalars), "lrs", "best_val", "max_iters",
-    "warmup_steps"}."""
+    "warmup_steps"}. A model on a mesh (`GPT(mesh=)`) trains on its mesh;
+    every rank calls this, rank 0 writes the files."""
     out_dir = Path(out_dir)
+    lead = model.mesh is None or torch.distributed.get_rank() == 0
     if logger is None:
-        logger = setup_run_logger(out_dir)
+        logger = setup_run_logger(out_dir) if lead else _Quiet()
     if _vocab_size(tokenizer) > model.cfg.padded_vocab_size:
         raise ValueError(f"tokenizer has {_vocab_size(tokenizer)} tokens, the model "
                          f"{model.cfg.padded_vocab_size}")
     step_logger = StepLogger(out_dir)
     monitor = SpeedMonitor()
-    trainer = Trainer(model.cfg, tcfg, model, monitor=monitor, logger=step_logger)
+    # a pipeline's stages bring their own mesh (model.mesh)
+    trainer = Trainer(model.cfg, tcfg, model,
+                      mesh=model.mesh if tcfg.pipeline_stages == 1 else None,
+                      monitor=monitor, logger=step_logger)
     logger.info(f"mode {tcfg.mode}: trainable params "
                 f"{model.count_params(True, tcfg.mode):,} / {model.count_params():,}")
 
@@ -192,26 +218,53 @@ def run_training(model, tokenizer, train_ds, val_ds, tcfg: TrainConfig, out_dir,
             if opt_step % save_every == 0:
                 best_val = _validate_and_save(trainer, val_ds, tcfg, out_dir,
                                               best_val, logger, adapter_only)
-        step_logger.save()
+        if lead:
+            step_logger.save()
         # epoch-boundary resume point (optimizer moments + LR clock)
         trainer.save_train_state(state_path, extra={"epoch": epoch})
 
     best_val = _validate_and_save(trainer, val_ds, tcfg, out_dir, best_val, logger,
                                   adapter_only)
-    save_params(out_dir / "model_lora_finetuned.npz", _saved_tree(trainer, adapter_only))
+    _save(trainer, out_dir / "model_lora_finetuned.npz", adapter_only)
     logger.info(f"training done in {time.perf_counter() - t_start:.1f}s; "
                 f"best val loss {best_val:.4f}")
-    step_logger.save()
+    if lead:
+        step_logger.save()
     return {"trainer": trainer, "losses": losses, "lrs": lrs, "best_val": best_val,
             "max_iters": max_iters, "warmup_steps": warmup_steps}
 
 
+def _data_extent(args):
+    """--dp, or the largest data extent that divides the micro batch (with
+    fsdp) within the job's ranks (the JAX package's rule); the job must
+    hold exactly the mesh's ranks (`common.mesh_from_args`)."""
+    import os
+
+    model_axes = args.fsdp * args.tensor * args.expert * args.seq
+    world = (torch.distributed.get_world_size() if torch.distributed.is_initialized()
+             else int(os.environ.get("WORLD_SIZE", "1")))
+    dp = args.dp
+    if dp is None:
+        dp = 1
+        for cand in range(1, world // model_axes + 1):
+            if args.micro_batch_size % (cand * args.fsdp) == 0:
+                dp = cand
+    return dp
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    device = resolve_device(args.device)
+    mesh = None
+    if common.wants_mesh(args):
+        mesh, device = common.mesh_from_args(args, dp=_data_extent(args))
+    else:
+        device = resolve_device(args.device)
     out_dir = Path(f"./runs/{args.exp_name}")
-    logger = setup_run_logger(out_dir)
+    lead = mesh is None or torch.distributed.get_rank() == 0
+    logger = setup_run_logger(out_dir) if lead else _Quiet()
     logger.info(f"CLI arguments: {vars(args)}")
+    if mesh is not None:
+        logger.info(f"mesh: {mesh.shape}, backend {torch.distributed.get_backend()}")
 
     checkpoint_dir = Path(args.llm_checkpoint)
     common.check_valid_checkpoint_dir(checkpoint_dir)
@@ -238,7 +291,7 @@ def main(argv=None):
         mode=args.mode,
     )
     model = common.load_model(checkpoint_dir, model_cfg, device=device, seed=args.seed,
-                              dtype=getattr(torch, tcfg.compute_dtype))
+                              dtype=getattr(torch, tcfg.compute_dtype), mesh=mesh)
 
     dataset_cls = common.dataset_class_for(args)
     ds_kwargs = dict(

@@ -21,6 +21,17 @@ drafts of --draft_len tokens verified in one pass (`infer/decode`,
 token-identical to greedy); --scheduler continuous serves the prompts
 through the slot pool of `infer/serve.ContinuousBatcher`; --dry_run checks
 the hypotheses JSON's ingest without loading weights.
+
+The mesh flags (--dp, --fsdp, --tensor, --expert, --seq; `cli.common.
+add_mesh_args`) run it on every rank of a torchrun job, one card a rank:
+
+  torchrun --nproc_per_node 2 -m dualhyp_tpu_torch.cli.inference_ger --tensor 2 ...
+
+The model is each rank's piece (`GPT(mesh=)`); each decode batch shards
+over `data x fsdp` when that extent divides it (over `data` alone under
+fsdp, whose ranks must step together, since a batch stops when its rows
+are done), the tokens are gathered, and rank 0 writes the records, which
+equal a one-rank run's.
 """
 
 from __future__ import annotations
@@ -40,6 +51,7 @@ from dualhyp_tpu_torch.infer.decode import (
     find_subsequence_span, generate, generate_anchored, generate_lookup)
 from dualhyp_tpu_torch.infer.evaluate import evaluate_predictions, extract_response
 from dualhyp_tpu_torch.models.gpt import merge_lora, quantize_model
+from dualhyp_tpu_torch.parallel import comm
 
 
 def build_parser():
@@ -84,6 +96,7 @@ def build_parser():
                              "without loading model weights")
     common.add_model_args(parser)
     common.add_data_args(parser)
+    common.add_mesh_args(parser)
     return parser
 
 
@@ -135,7 +148,11 @@ def run_inference(model, tokenizer, dataset, *, decode_batch=8,
     verify steps and the tokens a row emits a verify step.
     scheduler="continuous": the requests go through a
     `ContinuousBatcher` of `decode_batch` slots (draft source "anchored"
-    under speculative="anchored", else "lookup")."""
+    under speculative="anchored", else "lookup").
+
+    A model on a mesh decodes each batch's rows split over `data x fsdp`
+    (`data` under fsdp) where the extent divides decode_batch, and gathers
+    the tokens; every rank returns the same records."""
     check_greedy(speculative, scheduler, top_k)
     if scheduler == "continuous":
         return _run_inference_continuous(
@@ -147,6 +164,14 @@ def run_inference(model, tokenizer, dataset, *, decode_batch=8,
     eos_id = getattr(tokenizer, "eos_token_id", None)
     examples = [dataset[i] for i in range(len(dataset))]
     examples.sort(key=lambda e: len(e.input_ids_no_response))
+    split, rows_group, lo = 1, None, 0
+    mesh = model.mesh
+    if mesh is not None:
+        axes = ("data",) if mesh.shape.get("fsdp", 1) > 1 else ("data", "fsdp")
+        if decode_batch % mesh.extent(*axes) == 0:
+            split, rows_group = mesh.extent(*axes), mesh.group(*axes)
+            lo = mesh.index(*axes) * (decode_batch // split)
+    local = slice(lo, lo + decode_batch // split)
     records = []
     latencies = []
     generated = 0
@@ -179,20 +204,26 @@ def run_inference(model, tokenizer, dataset, *, decode_batch=8,
                         spans[:, i] = find_subsequence_span(
                             list(ids[i][:int(lengths[i])]), hypothesis_ids(tokenizer, best))
                 tokens, total_lengths, (steps, emitted) = generate_anchored(
-                    model, torch.from_numpy(ids), torch.from_numpy(lengths),
-                    torch.from_numpy(spans[0]), torch.from_numpy(spans[1]), **kw)
+                    model, torch.from_numpy(ids[local]), torch.from_numpy(lengths[local]),
+                    torch.from_numpy(spans[0][local]), torch.from_numpy(spans[1][local]), **kw)
             else:
                 tokens, total_lengths, (steps, emitted) = generate_lookup(
-                    model, torch.from_numpy(ids), torch.from_numpy(lengths), **kw)
+                    model, torch.from_numpy(ids[local]), torch.from_numpy(lengths[local]),
+                    **kw)
+            if rows_group is not None:
+                emitted = comm._all_gather(torch.as_tensor(emitted), 0, rows_group)
             verify_steps += steps
             row_steps += steps * real
             drafted += int(emitted[:real].sum()) - int((emitted[:real] > 0).sum())
         else:
             tokens, total_lengths = generate(
-                model, torch.from_numpy(ids), torch.from_numpy(lengths),
+                model, torch.from_numpy(ids[local]), torch.from_numpy(lengths[local]),
                 max_new_tokens=max_new_tokens, temperature=temperature,
                 top_k=top_k, eos_id=eos_id, generator=generator, kv_quant=kv_quant,
             )
+        if rows_group is not None:
+            tokens = comm._all_gather(tokens, 0, rows_group)
+            total_lengths = comm._all_gather(total_lengths, 0, rows_group)
         tokens = tokens.cpu().numpy()
         total_lengths = total_lengths.cpu().numpy()
         elapsed = time.perf_counter() - t0
@@ -323,12 +354,16 @@ def main(argv=None):
     if args.dry_run:
         dry_run_ingest(args, common.load_tokenizer(checkpoint_dir))
         return
-    device = resolve_device(args.device)
+    mesh = None
+    if common.wants_mesh(args):
+        mesh, device = common.mesh_from_args(args)
+    else:
+        device = resolve_device(args.device)
 
     tokenizer = common.load_tokenizer(checkpoint_dir)
     model_cfg = common.model_config_from_args(args)
     model = common.load_model(checkpoint_dir, model_cfg, device=device,
-                              seed=args.seed, finetuned=args.model_path)
+                              seed=args.seed, finetuned=args.model_path, mesh=mesh)
     if args.quantize:
         if model_cfg.any_lora:
             merge_lora(model)
@@ -359,6 +394,8 @@ def main(argv=None):
         draft_len=args.draft_len,
         scheduler=args.scheduler,
     )
+    if mesh is not None and torch.distributed.get_rank() != 0:
+        return  # rank 0 writes the records
     predict_dir = Path(args.model_path).parent / "predictions"
     predict_dir.mkdir(parents=True, exist_ok=True)
     out_path = predict_dir / (Path(args.model_path).stem + ".json")

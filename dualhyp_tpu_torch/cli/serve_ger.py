@@ -22,6 +22,13 @@ as soon as one frees. Runs on the card unless --device names another:
 
 --quantize int8|int4 merges the LoRA deltas into the weights and quantizes
 them (int4 runs kernel K8), as `cli.inference_ger` does.
+
+The mesh flags (--dp, --fsdp, --tensor, --expert, --seq) serve from a
+torchrun job, one card a rank: rank 0 owns the socket and the queue, the
+slot pool shards over data x fsdp, and the other ranks follow rank 0's
+polls (`ContinuousBatcher.follow`):
+
+  torchrun --nproc_per_node 2 -m dualhyp_tpu_torch.cli.serve_ger --tensor 2 ...
 """
 
 from __future__ import annotations
@@ -32,6 +39,8 @@ import selectors
 import socket
 import threading
 from pathlib import Path
+
+import torch
 
 from dualhyp_tpu_torch.cli import common
 from dualhyp_tpu_torch.cli.inference_ger import hypothesis_ids
@@ -58,6 +67,7 @@ def build_parser():
                              "'hypothesis' given explicitly) with a monotone "
                              "pointer; 'lookup' is whole-buffer suffix n-grams")
     parser.add_argument("--quantize", choices=[None, "int8", "int4"], default=None)
+    common.add_mesh_args(parser)
     parser.add_argument("--seed", type=int, default=1337,
                         help="seed of the random init of weights the checkpoint lacks")
     parser.add_argument("--device", type=str, default=None,
@@ -204,12 +214,16 @@ def load_batcher(args):
     from dualhyp_tpu_torch.infer.serve import ContinuousBatcher
     from dualhyp_tpu_torch.models.gpt import merge_lora, quantize_model
 
-    device = resolve_device(args.device)
+    mesh = None
+    if common.wants_mesh(args):
+        mesh, device = common.mesh_from_args(args)
+    else:
+        device = resolve_device(args.device)
     checkpoint_dir = Path(args.llm_checkpoint)
     tokenizer = common.load_tokenizer(checkpoint_dir)
     model_cfg = common.model_config_from_args(args)
     model = common.load_model(checkpoint_dir, model_cfg, device=device, seed=args.seed,
-                              finetuned=args.model_path)
+                              finetuned=args.model_path, mesh=mesh)
     if args.quantize:
         if model_cfg.any_lora:
             merge_lora(model)
@@ -224,7 +238,14 @@ def load_batcher(args):
 def main(argv=None):
     args = build_parser().parse_args(argv)
     batcher, tokenizer = load_batcher(args)
-    Server(batcher, tokenizer).run(args.host, args.port)
+    if batcher.mesh is not None and torch.distributed.get_rank() != 0:
+        batcher.start()
+        batcher.follow()
+        return
+    try:
+        Server(batcher, tokenizer).run(args.host, args.port)
+    finally:
+        batcher.close()
 
 
 if __name__ == "__main__":

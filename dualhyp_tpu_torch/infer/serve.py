@@ -17,6 +17,21 @@ A refill prefills its prompts as a batch of a bucket size (1, 2, 4, 8, 16,
 32, padded with dummy rows) at a padded length (64, 128, ... up to
 block_size - 1), as the JAX package does, into a fresh (rows, block_size +
 draft_len + 1) cache that is copied into the slots whole.
+
+On a mesh (the model built with `GPT(mesh=)`) the slot pool shards over
+`data x fsdp`, rounded up so that the extent divides it (the JAX package's
+rule); each rank holds its slots' device state and runs the model's
+collectives (tensor, expert) with its group. The host bookkeeping (which
+request sits in which slot, the queue) is the same on every rank, kept so
+by one rule: global rank 0 owns the queue (`submit` counts there) and, at
+the start of each `poll`, broadcasts the requests submitted since the last
+one (`broadcast_object_list` at chunk boundaries, never within a chunk).
+Every rank then refills alike: a refill's prefill runs every admitted
+prompt on every rank (the rows are independent) and each rank keeps its
+slots' rows. After a chunk the packed status and, when a slot finished,
+the token rows are all-gathered over `data x fsdp`, so every rank returns
+the same records. Ranks other than 0 follow rank 0 with `follow()` until it
+calls `close()`.
 """
 
 from __future__ import annotations
@@ -29,6 +44,7 @@ import torch
 
 from dualhyp_tpu_torch.infer.decode import anchored_step, find_subsequence_span, lookup_step
 from dualhyp_tpu_torch.models.gpt import GPT
+from dualhyp_tpu_torch.parallel import comm
 
 # refill-batch buckets (the JAX package compiles one prefill a bucket; the
 # port keeps its shapes, so the same kernel paths run)
@@ -46,8 +62,8 @@ class ContinuousBatcher:
     monotone pointer, per slot falling back to the suffix lookup when no
     span was submitted); both token-identical to greedy. kv_quant "int8":
     an int8 slot-pool KV cache with per-slot scales (outputs may shift
-    within the quantization's rounding). mesh: multi-device serving, not
-    ported (slice 8c).
+    within the quantization's rounding). mesh: the model's mesh (None:
+    `model.mesh`); see the module docstring.
 
     `chunks` counts the chunks run, `host_reads` the reads of device data
     on the host (a status read a chunk, and a row gather a chunk in which a
@@ -57,9 +73,8 @@ class ContinuousBatcher:
                  draft_len: int = 8, ngram: int = 3, chunk_steps: int = 16,
                  eos_id: Optional[int] = None, mesh=None, draft_source: str = "lookup",
                  kv_quant: Optional[str] = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "serving over a device mesh is not ported yet (slice 8c)")
+        if mesh is not None and mesh is not model.mesh:
+            raise ValueError("the model was built on another mesh than the batcher's")
         if draft_source not in ("lookup", "anchored"):
             raise ValueError(f"draft_source {draft_source!r} not in ('lookup', 'anchored')")
         if draft_len < 1:
@@ -77,6 +92,18 @@ class ContinuousBatcher:
         self.prompt_budget = self.cfg.block_size - 1
         self.buf = self.cfg.block_size + draft_len + 1
         self.chunks = self.host_reads = self.row_gathers = 0
+        self.mesh = model.mesh
+        self.local_slots, self._lo, self._pool_group = slots, 0, None
+        self._inbox: List[tuple] = []
+        self._closing = self.stopped = False
+        if self.mesh is not None:
+            extent = self.mesh.extent("data", "fsdp")
+            # round the pool up so that the data x fsdp extent divides it
+            self.slots = -(-slots // extent) * extent
+            self.local_slots = self.slots // extent
+            self._lo = self.mesh.index("data", "fsdp") * self.local_slots
+            self._pool_group = self.mesh.group("data", "fsdp")
+            self._lead = not torch.distributed.is_initialized() or torch.distributed.get_rank() == 0
 
     # ---- device pieces ----
     @torch.no_grad()
@@ -97,7 +124,10 @@ class ContinuousBatcher:
                                     max_new_tokens=budget)
         self._state = state
         tokens, lengths, emitted, cache, done = state[:5]
-        return torch.stack([lengths, emitted, done.long(), budget])
+        status = torch.stack([lengths, emitted, done.long(), budget])
+        if self._pool_group is not None:
+            status = comm._all_gather(status, 1, self._pool_group)
+        return status
 
     @torch.no_grad()
     def _refill_rows(self, r: int, t: int, slot_ids, pids, plens, caps, span_start,
@@ -105,8 +135,9 @@ class ContinuousBatcher:
         """Prefill r prompts (the first n = len(slot_ids) real, the rest
         padding) into a fresh cache and copy the real rows into their
         slots: tokens, lengths, emitted, done, last, budget, the cache (all
-        buf slots) and, anchored, the pointer and span."""
-        model, device, n = self.model, self.model.device, len(slot_ids)
+        buf slots) and, anchored, the pointer and span. On a mesh, the rows
+        whose slots this rank holds."""
+        model, device = self.model, self.model.device
         pids = torch.from_numpy(pids).to(device)
         plens = torch.from_numpy(plens).to(device)
         small = model.init_cache(r, self.buf, quantize=self.kv_quant)
@@ -117,6 +148,19 @@ class ContinuousBatcher:
         rows[:, :t] = pids
         rows[torch.arange(r, device=device), plens] = torch.where(fdone, 0, first)
         step = (~fdone).long()
+        n = len(slot_ids)
+        if self.mesh is not None:
+            # the admitted rows this rank's slots take, and those slots
+            mine = [(row, slot - self._lo) for row, slot in enumerate(slot_ids)
+                    if self._lo <= slot < self._lo + self.local_slots]
+            if not mine:
+                return
+            sel = torch.tensor([row for row, _ in mine], device=device)
+            rows, plens, first, fdone, step = (t[sel] for t in (rows, plens, first, fdone, step))
+            small = [[c[sel] for c in layer] for layer in small]
+            caps, span_start, span_len = (a[[row for row, _ in mine]]
+                                          for a in (caps, span_start, span_len))
+            slot_ids, n = [slot for _, slot in mine], len(mine)
         idx = torch.from_numpy(np.asarray(slot_ids, np.int64)).to(device)
         tokens, lengths, emitted, cache, done, last, steps = self._state[:7]
         tokens[idx] = rows[:n]
@@ -135,7 +179,7 @@ class ContinuousBatcher:
             sl[idx] = torch.from_numpy(span_len[:n]).to(device)
 
     def _empty_state(self):
-        s, buf, device = self.slots, self.buf, self.model.device
+        s, buf, device = self.local_slots, self.buf, self.model.device
 
         def zeros(*shape, dtype=torch.long):
             return torch.zeros(shape, dtype=dtype, device=device)
@@ -147,6 +191,30 @@ class ContinuousBatcher:
         if self.anchored:
             state = state + (zeros(s), zeros(s), zeros(s))  # pointer, span start, span len
         return state, zeros(s)
+
+    def _sync(self) -> bool:
+        """On a mesh: rank 0's requests submitted since the last call join
+        every rank's queue (one broadcast). Returns whether rank 0 has
+        closed the pool."""
+        if self.mesh is None:
+            return False
+        payload = comm.broadcast_objects([self._inbox, self._closing])
+        self._queue.extend(payload[0])
+        self._inbox = []
+        return payload[1]
+
+    def close(self) -> None:
+        """Rank 0 (on a mesh): release the ranks that `follow`."""
+        if self.mesh is not None and self._lead:
+            self._closing = True
+            self._sync()
+        self.stopped = True
+
+    def follow(self) -> None:
+        """A rank other than 0 (on a mesh): run the polls rank 0 runs, in
+        step with it, until it calls `close`."""
+        while not self.stopped:
+            self.poll()
 
     # ---- incremental (live-serving) API ----
     def start(self) -> None:
@@ -176,11 +244,16 @@ class ContinuousBatcher:
         span = (0, 0)
         if self.anchored and hypothesis is not None:
             span = find_subsequence_span(prompt, list(hypothesis))
-        self._queue.append((rid, prompt, cap, time.perf_counter(), span))
+        item = (rid, prompt, cap, time.perf_counter(), span)
+        if self.mesh is None:
+            self._queue.append(item)
+        elif self._lead:
+            self._inbox.append(item)  # broadcast at the next poll
 
     @property
     def pending(self) -> int:
-        return len(self._queue) + sum(1 for s in self._slot_req if s is not None)
+        return (len(self._queue) + len(self._inbox)
+                + sum(1 for s in self._slot_req if s is not None))
 
     def _refill(self) -> None:
         free = [i for i in range(self.slots) if self._slot_req[i] is None]
@@ -217,6 +290,9 @@ class ContinuousBatcher:
         """Admit queued requests, run one chunk, and return the newly
         completed records ({id, tokens, prompt_len, latency_s, queue_s,
         decode_s}; tokens hold the prompt, EOS excluded). [] when idle."""
+        if self._sync():
+            self.stopped = True
+            return []
         self._refill()
         if all(s is None for s in self._slot_req):
             return []
@@ -230,7 +306,10 @@ class ContinuousBatcher:
         results: List[dict] = []
         if finished:
             idx = torch.tensor(finished, device=self.model.device)
-            rows = self._state[0][idx].cpu().numpy()
+            tokens = self._state[0]
+            if self._pool_group is not None:
+                tokens = comm._all_gather(tokens, 0, self._pool_group)
+            rows = tokens[idx].cpu().numpy()
             self.host_reads += 1
             self.row_gathers += 1
             for row, slot in enumerate(finished):
@@ -253,6 +332,9 @@ class ContinuousBatcher:
             self.submit(req[0], req[1], req[2] if len(req) > 2 else None,
                         req[3] if len(req) > 3 else None)
         results: List[dict] = []
+        if self.mesh is not None:
+            # the first poll brings rank 0's requests to every rank
+            results.extend(self.poll())
         while self.pending:
             results.extend(self.poll())
         return results

@@ -82,6 +82,7 @@ refuses one.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 
@@ -100,6 +101,8 @@ from dualhyp_tpu_torch.ops import quant as quant_ops
 from dualhyp_tpu_torch.ops import rmsnorm as norm_ops
 from dualhyp_tpu_torch.ops import rope as rope_ops
 from dualhyp_tpu_torch.ops import swiglu as mlp_ops
+from dualhyp_tpu_torch.parallel import comm
+from dualhyp_tpu_torch.parallel import sharding
 
 
 NORM_CLASSES = ("RMSNorm", "LayerNorm")
@@ -234,6 +237,36 @@ class _Frozen(nn.Module):
 
     quant = None  # None, "int8" or "int4"
     fused = False  # the LoRA branch through kernel K5
+    # tensor parallel (`GPT(mesh=)`): "col" holds rows [lo, lo + n) of the
+    # out dim, "row" columns of the in dim; the group and this rank's index
+    tp_kind = None
+    tp_group = None
+    tp_index = 0
+
+    def _shard(self, t, dim: int):
+        """A leaf the model keeps whole, as this rank uses it: its slice
+        that meets the rank's piece of the weight (`_slice_dim`: the out
+        dim of a column-parallel linear, the in dim of a row-parallel one),
+        through `comm.copy_to`, so that its gradient sums over the tensor
+        ranks. The leaf itself where there is no tensor parallelism."""
+        if self.tp_group is None:
+            return t
+        n = self._local_extent()
+        return comm.copy_to(t, self.tp_group).narrow(dim, self.tp_index * n, n)
+
+    def _local_extent(self) -> int:
+        """This rank's extent of the sharded dim of the weight."""
+        w = next(getattr(self, k) for k in ("weight", "weight_q8", "weight_q4")
+                 if getattr(self, k, None) is not None)
+        if self.tp_kind == "col":
+            return w.shape[0]
+        # a row-parallel in dim: int4 packs two a byte
+        return w.shape[1] * (2 if self.quant == "int4" else 1)
+
+    def _col(self, t):
+        """A per-output-row leaf (bias, adapter v2's vectors) as this rank
+        uses it: its rows of a column-parallel linear."""
+        return self._shard(t, 0) if self.tp_kind == "col" else t
 
     def _init_bias(self, out_f, cfg: GPTConfig, bias: bool, dtype, device) -> None:
         self.register_parameter("bias", _param((out_f,), dtype, device) if bias else None)
@@ -242,14 +275,15 @@ class _Frozen(nn.Module):
                                     if cfg.use_adapter_v2 else None)
 
     def _add_bias(self, y):
-        return y if self.bias is None else y + self.bias.to(y.dtype)
+        return y if self.bias is None else y + self._col(self.bias).to(y.dtype)
 
     def _adapt(self, y):
         """Adapter v2's (y + adapter_bias) * adapter_scale in y's dtype,
         after the bias and the LoRA delta (identity without v2)."""
         if self.adapter_scale is None:
             return y
-        return (y + self.adapter_bias.to(y.dtype)) * self.adapter_scale.to(y.dtype)
+        return ((y + self._col(self.adapter_bias).to(y.dtype))
+                * self._col(self.adapter_scale).to(y.dtype))
 
     def set_quantized(self, leaves: dict) -> None:
         """Replace `weight` by quantized leaves ({name: tensor})."""
@@ -258,15 +292,27 @@ class _Frozen(nn.Module):
             self.register_parameter(name, nn.Parameter(t, requires_grad=False))
         self.quant = "int4" if quant_ops.Q4_KEY in leaves else "int8"
 
+    def product(self, x):
+        """The frozen product."""
+        if self.quant == "int8" and self.tp_kind == "row":
+            # x is this rank's columns of its rows: their absmax is the rows'
+            absmax = x.to(torch.float32).abs().amax(dim=-1, keepdim=True)
+            comm.all_reduce_(absmax, self.tp_group, torch.distributed.ReduceOp.MAX)
+            return quant_ops.qmatmul(x, self.weight_q8, self.weight_scale, absmax)
+        if self.quant == "int8":
+            return quant_ops.qmatmul(x, self.weight_q8, self.weight_scale)
+        if self.quant == "int4":
+            return quant_ops.q4matmul(x, self.weight_q4, self.weight_scale4)
+        return mlp_ops.linear(x, self.weight)
+
     def base(self, x):
         """The frozen product plus the bias."""
-        if self.quant == "int8":
-            y = quant_ops.qmatmul(x, self.weight_q8, self.weight_scale)
-        elif self.quant == "int4":
-            y = quant_ops.q4matmul(x, self.weight_q4, self.weight_scale4)
-        else:
-            y = mlp_ops.linear(x, self.weight)
-        return self._add_bias(y)
+        return self._add_bias(self.product(x))
+
+    def _row_finish(self, y):
+        """A row-parallel linear's partial product summed over the tensor
+        ranks, then the bias, once (`comm.reduce_from`)."""
+        return self._add_bias(comm.reduce_from(y, self.tp_group))
 
     def use_fused(self) -> bool:
         """K5 runs a LoRA linear when asked for, never a quantized one
@@ -298,17 +344,31 @@ class Linear(_Frozen):
             self.lora_A = _param((cfg.lora_r, in_f), torch.float32, device)
             self.lora_B = _param((out_f, cfg.lora_r), torch.float32, device)
 
+    def _lora_leaves(self):
+        """(A, B) as this rank uses them: B's rows of a column-parallel
+        linear, A's columns of a row-parallel one (`_shard`)."""
+        a, b = self.lora_A, self.lora_B
+        if self.tp_kind == "col":
+            return comm.copy_to(a, self.tp_group), self._shard(b, 0)
+        if self.tp_kind == "row":
+            return self._shard(a, 1), comm.copy_to(b, self.tp_group)
+        return a, b
+
     def forward(self, x, lora_on: bool = True, generator=None):
+        row = self.tp_kind == "row"
+        finish = self._row_finish if row else self._add_bias
         if self.use_fused():
-            return self._adapt(self._add_bias(lora_ops.lora_linear(
-                x, self.weight, self.lora_A, self.lora_B, self.scaling * float(lora_on),
+            a, b = self._lora_leaves()
+            return self._adapt(finish(lora_ops.lora_linear(
+                x, self.weight, a, b, self.scaling * float(lora_on),
                 xin=_fused_input(x, self.dropout, generator))))
-        y = self.base(x)
+        y = self.product(x) if row else self.base(x)
         if self.with_lora and lora_on:
+            a, b = self._lora_leaves()
             xin = _dropout(x, self.dropout, generator)
-            delta = (xin @ self.lora_A.to(x.dtype).t()) @ self.lora_B.to(x.dtype).t()
+            delta = (xin @ a.to(x.dtype).t()) @ b.to(x.dtype).t()
             y = y + delta * self.scaling
-        return self._adapt(y)
+        return self._adapt(self._row_finish(y) if row else y)
 
 
 class QKV(_Frozen):
@@ -334,19 +394,29 @@ class QKV(_Frozen):
                                      persistent=False)
 
     def forward(self, x, lora_on: bool = True, generator=None):
+        """Under tensor parallelism (column parallel by query group) the
+        LoRA delta is formed over the whole output, its leaves through
+        `comm.copy_to`, and this rank's rows of it are kept."""
         cfg = self.cfg
+        lora_a, lora_b = (self.lora_A, self.lora_B) if self.with_lora else (None, None)
+        if self.with_lora and self.tp_group is not None:
+            lora_a = comm.copy_to(lora_a, self.tp_group)
+            lora_b = comm.copy_to(lora_b, self.tp_group)
         if self.use_fused() and len(self.shapes) == 3:
-            b_bd = lora_ops.lora_qkv_block_b(self.lora_B, self.shapes, cfg.lora_r)
+            b_bd = lora_ops.lora_qkv_block_b(lora_b, self.shapes, cfg.lora_r)
+            if self.tp_group is not None:
+                n = self._local_extent()
+                b_bd = b_bd.narrow(0, self.tp_index * n, n)
             return self._adapt(self._add_bias(lora_ops.lora_linear(
-                x, self.weight, self.lora_A, b_bd, cfg.lora_scaling * float(lora_on),
+                x, self.weight, lora_a, b_bd, cfg.lora_scaling * float(lora_on),
                 xin=_fused_input(x, cfg.lora_dropout, generator))))
         y = self.base(x)
         if not (self.with_lora and lora_on):
             return self._adapt(y)
         r = self.cfg.lora_r
         xin = _dropout(x, self.cfg.lora_dropout, generator)
-        after_a = xin @ self.lora_A.to(x.dtype).t()
-        lora_b = self.lora_B.to(x.dtype)
+        after_a = xin @ lora_a.to(x.dtype).t()
+        lora_b = lora_b.to(x.dtype)
         outs = []
         row = 0
         for i, extent in enumerate(self.shapes):
@@ -359,8 +429,11 @@ class QKV(_Frozen):
             # interleaved output as it is (the reference's layout quirk)
             padded = delta
         else:
-            padded = torch.zeros_like(y)
+            padded = y.new_zeros((*y.shape[:-1], cfg.qkv_out_dim))
             padded[..., self.rows] = delta.to(y.dtype)
+        if self.tp_group is not None:
+            n = self._local_extent()
+            padded = padded.narrow(-1, self.tp_index * n, n)
         return self._adapt(y + padded.to(y.dtype))
 
 
@@ -378,8 +451,10 @@ def split_heads(cfg: GPTConfig, qkv):
     """(B, T, QKV) -> q (B, G, q_per_kv, T, D), k, v (B, G, T, D), all views.
 
     The fused layout interleaves per query group: [q * q_per_kv, k, v]."""
-    b, t, _ = qkv.shape
-    g, qpk, hs = cfg.n_query_groups, cfg.q_per_kv, cfg.head_size
+    b, t, width = qkv.shape
+    qpk, hs = cfg.q_per_kv, cfg.head_size
+    # the groups this rank holds (all of them but under tensor parallelism)
+    g = width // ((qpk + 2) * hs)
     qkv = qkv.view(b, t, g, qpk + 2, hs)
     q = qkv[:, :, :, :qpk].permute(0, 2, 3, 1, 4)
     k = qkv[:, :, :, qpk].transpose(1, 2)
@@ -412,13 +487,19 @@ class Attention(nn.Module):
         head by `gating_factor`. Plain PyTorch, as XLA runs it there."""
         cfg = self.cfg
         b, hq, t, d = q.shape
-        _, ak, av = split_heads(cfg, self.qkv(self.adapter_wte.to(q.dtype)[None]))
-        qg = q.reshape(b, cfg.n_query_groups, hq // cfg.n_query_groups, t, d)
+        wte = comm.copy_to(self.adapter_wte, self.qkv.tp_group)
+        _, ak, av = split_heads(cfg, self.qkv(wte.to(q.dtype)[None]))
+        groups = ak.shape[1]
+        qg = q.reshape(b, groups, hq // groups, t, d)
         logits = (qg.float() @ ak.float()[:, :, None].transpose(-1, -2)) * (
             1.0 / math.sqrt(cfg.head_size))
         probs = torch.softmax(logits, dim=-1).to(q.dtype)
         out = (probs @ av[:, :, None]).reshape(b, hq, t, d)
-        return out * self.gating_factor.to(q.dtype)[None, :, None, None]
+        gate = self.gating_factor
+        if self.qkv.tp_group is not None:
+            # this rank's heads of the gate
+            gate = comm.copy_to(gate, self.qkv.tp_group).narrow(0, self.qkv.tp_index * hq, hq)
+        return out * gate.to(q.dtype)[None, :, None, None]
 
 
 class MLP(nn.Module):
@@ -433,9 +514,12 @@ class MLP(nn.Module):
         self.fc_2 = Linear(d, inter, cfg, cfg.lora_mlp, dtype, device, fused, cfg.bias)
         self.proj = Linear(inter, d, cfg, cfg.lora_mlp, dtype, device, fused, cfg.bias)
 
+    tp_group = None  # tensor parallel: fc_1 / fc_2 column, proj row parallel
+
     def forward(self, x, lora_on: bool = True, seed=None):
         """seed: the LoRA dropout's generator seed of this MLP pass (None:
         no dropout), so a rematerialised MLP draws the same masks."""
+        x = comm.copy_to(x, self.tp_group)
         fc_1 = self.fc_1
         if (fc_1.quant is not None or fc_1.bias is not None or fc_1.with_lora
                 or fc_1.adapter_scale is not None):
@@ -445,8 +529,8 @@ class MLP(nn.Module):
             h1 = fc_1(x, lora_on, generator)
             act = F.silu(h1) if self.gate == "silu" else F.gelu(h1, approximate="tanh")
             return self.proj(act * self.fc_2(x, lora_on, generator), lora_on, generator)
-        return mlp_ops.swiglu_mlp(x, fc_1.weight, self.fc_2.weight, self.proj.weight,
-                                  gate=self.gate)
+        return comm.reduce_from(mlp_ops.swiglu_mlp(
+            x, fc_1.weight, self.fc_2.weight, self.proj.weight, gate=self.gate), self.tp_group)
 
 
 class GptNeoxMLP(nn.Module):
@@ -462,8 +546,11 @@ class GptNeoxMLP(nn.Module):
         self.fc = Linear(d, inter, cfg, cfg.lora_mlp, dtype, device, fused, cfg.bias)
         self.proj = Linear(inter, d, cfg, cfg.lora_mlp, dtype, device, fused, cfg.bias)
 
+    tp_group = None  # tensor parallel: fc column, proj row parallel
+
     def forward(self, x, lora_on: bool = True, seed=None):
         generator = _generator(seed, x.device)
+        x = comm.copy_to(x, self.tp_group)
         h = F.gelu(self.fc(x, lora_on, generator), approximate=self.approximate)
         return self.proj(h, lora_on, generator)
 
@@ -514,6 +601,16 @@ class MoE(nn.Module):
     inter, d) and `proj` (E, d, inter), silu gate; each token mixes its top
     k experts with softmax weights over their logits.
 
+    Under a mesh (`GPT(mesh=)`) a rank holds experts [e0, e0 + E_local) of
+    the stacks (expert parallel) and its columns of the intermediate dim
+    (tensor parallel). Every rank routes all rows from the replicated x;
+    the products see x and the mixing weights through `comm.copy_to`, so
+    their gradients sum over the ranks; the weighted partial sums are
+    all-reduced over `tp_group` (the psum of the JAX package's combine; no
+    all-to-all). The sparse path sorts the slots with the local experts
+    first ((expert - e0) mod E), so L2 runs on the local group sizes and the
+    rows past them come out zero.
+
     impl "dense" runs every expert on every token and mixes with zero
     weights elsewhere (the JAX default; plain einsums, as XLA runs them
     there). "sparse" and "megablox" sort the token slots by expert and run
@@ -522,6 +619,9 @@ class MoE(nn.Module):
     the sort, the sorted rows xr), `up` (g1, g2) and `down` (the proj
     product, the unsort, the mix). No host sync, forward or backward, so a
     decode step keeps its one."""
+
+    tp_group = None  # the group over which the products are split
+    e0 = 0  # the first local expert
 
     def __init__(self, cfg: GPTConfig, dtype, device, impl: str):
         super().__init__()
@@ -546,11 +646,16 @@ class MoE(nn.Module):
         # one weight an expert: the top-k softmax at its ids, zero elsewhere
         weights = torch.zeros(router.shape, dtype=router.dtype, device=x.device)
         weights = weights.scatter(-1, top_ids, top_w).to(x.dtype)
+        if self.tp_group is not None:
+            x = comm.copy_to(x, self.tp_group)
+            weights = comm.copy_to(weights, self.tp_group).narrow(
+                -1, self.e0, self.fc_1.weight.shape[0])
         h1 = torch.einsum("...d,eod->...eo", x, self.fc_1.weight.to(x.dtype))
         h2 = torch.einsum("...d,eod->...eo", x, self.fc_2.weight.to(x.dtype))
         h = F.silu(h1) * h2
         out = torch.einsum("...eo,edo->...ed", h, self.proj.weight.to(x.dtype))
-        return torch.einsum("...ed,...e->...d", out, weights)
+        return comm.reduce_from(torch.einsum("...ed,...e->...d", out, weights),
+                                self.tp_group)
 
     def route(self, x):
         """The sparse path's routing of x (.., d): (xr (N*K, d), the token
@@ -566,12 +671,19 @@ class MoE(nn.Module):
         top_vals, top_ids = moe_top_k(router, k)
         weights = torch.softmax(top_vals, dim=-1).to(x.dtype)
         ef = top_ids.reshape(-1)  # (N*K,) the expert of each flat slot
+        if self.e0:
+            ef = (ef - self.e0) % e  # the local experts first
         order = torch.sort(ef, stable=True).indices  # ties keep token order
         iota = torch.arange(n * k, device=x.device)
         inv = torch.empty_like(order).scatter_(0, order, iota)
+        if self.tp_group is not None:
+            xf = comm.copy_to(xf, self.tp_group)
+            weights = comm.copy_to(weights, self.tp_group)
         xr = permute_rows(xf[:, None].expand(n, k, d).reshape(n * k, d), order, inv)
         group_sizes = torch.zeros(e, dtype=torch.int64, device=x.device)
         group_sizes = group_sizes.scatter_add_(0, ef, torch.ones_like(ef)).to(torch.int32)
+        # the local experts' groups (all of them but under expert parallelism)
+        group_sizes = group_sizes[:self.fc_1.weight.shape[0]]
         return xr, weights, order, inv, group_sizes
 
     def up(self, xr, group_sizes):
@@ -585,7 +697,7 @@ class MoE(nn.Module):
         h = F.silu(g1) * g2
         out = gmm_ops.grouped_matmul(h, self.proj.weight.to(h.dtype), group_sizes)
         out = permute_rows(out, inv, order).reshape(*weights.shape, -1)
-        return (out * weights[..., None]).sum(dim=1)
+        return comm.reduce_from((out * weights[..., None]).sum(dim=1), self.tp_group)
 
     def _sparse(self, x):
         xr, weights, order, inv, group_sizes = self.route(x)
@@ -594,6 +706,11 @@ class MoE(nn.Module):
 
 
 class Block(nn.Module):
+    # sequence parallel: this rank's tokens are shard `seq_index` of the
+    # sequence; q, k and v are all-gathered over `seq_group` for attention
+    seq_group = None
+    seq_index = 0
+
     def __init__(self, cfg: GPTConfig, layer_idx: int, dtype, device, fused: bool = False,
                  moe_impl: str = "dense"):
         super().__init__()
@@ -663,10 +780,11 @@ class Block(nn.Module):
         MLP's normed input)."""
         cfg = self.cfg
         b, t, _ = x.shape
-        nh, hs = cfg.n_head, cfg.head_size
         n1 = self.norm_1(x)
-        qkv = self.attn.qkv(n1, self.lora_on, generator)
+        qkv = self.attn.qkv(comm.copy_to(n1, self.attn.qkv.tp_group), self.lora_on, generator)
         q, k, v = split_heads(cfg, qkv)
+        # this rank's heads (all of them but under tensor parallelism)
+        nh, hs = q.shape[1] * q.shape[2], cfg.head_size
         if positions is None:
             q = rope_ops.apply_rope(q, cos[:t], sin[:t]).reshape(b, nh, t, hs)
             k = rope_ops.apply_rope(k, cos[:t], sin[:t])
@@ -679,7 +797,11 @@ class Block(nn.Module):
             q = rope_ops.apply_rope_rows(q.reshape(b, nh, t, hs), cos, sin)
             k = rope_ops.apply_rope_rows(k, cos, sin)
 
-        if cache_kv is None:
+        if cache_kv is None and self.seq_group is not None:
+            # the whole sequence's q, k, v; attention on it; this shard's rows
+            whole = [comm.all_gather(z, 2, self.seq_group) for z in (q, k, v)]
+            y = attn_ops.causal_attention(*whole).narrow(2, self.seq_index * t, t)
+        elif cache_kv is None:
             y = attn_ops.causal_attention(q, k, v)
         elif positions is None:
             # prefill: the whole prompt goes to slot 0; attention reads the
@@ -740,13 +862,50 @@ class GPT(nn.Module):
     `lora_impl`: "xla" (the composition) or "fused" (kernel K5); None reads
     `DUALHYP_LORA_IMPL`, "xla" when unset. `moe_impl` (an MoE config):
     "dense", "sparse" or "megablox" (the grouped matmul L2); None reads
-    `DUALHYP_MOE_IMPL`, "dense" when unset."""
+    `DUALHYP_MOE_IMPL`, "dense" when unset.
+
+    mesh (`parallel.make_mesh`): the model is this rank's local piece of the
+    sharded model. Its parameters are made on the meta device and then only
+    the rank's pieces (`sharding.model_spec`) on `device`; `load_tree` takes
+    the rank's pieces of a whole tree. On the mesh's axes:
+      * tensor: QKV column parallel by query group (n_query_groups %
+        tensor == 0), fc_1 / fc_2 / fc by intermediate, attn.proj and
+        mlp.proj row parallel with an all-reduce (a bias added once, after
+        it), the head column parallel over the vocab with its logits
+        gathered; Megatron's f and g (`comm.copy_to`, `comm.reduce_from`)
+        on each region's input and output;
+      * expert: an MoE's local experts (`MoE`);
+      * seq: the rows of `forward`'s idx are shard `seq` of the sequence;
+        RoPE rows start at the shard's offset, attention runs on the
+        all-gathered q, k, v and keeps the shard's rows (`Block`); the
+        norms and the MLP stay local;
+      * fsdp: a leaf the rule shards over fsdp is stored as its shard and
+        all-gathered (`gathered`) before the module that uses it runs: a
+        block at a time, the embedding, the head. The gather's backward
+        reduce-scatters the gradient. Its gathered weights are freed after
+        the block where the block is rematerialised (remat "mlp" and "moe"
+        take whole blocks under fsdp); else autograd keeps them for the
+        backward;
+      * pipe (`parallel.make_pipe_mesh`): the rank holds the blocks of its
+        stage alone (the others are empty modules) and runs them through
+        `parallel.pipeline`.
+    The data axis needs nothing of the model: the batch is split by the
+    caller (the trainer, the decoders) and the gradients summed by it."""
+
+    mesh = None
+    _tp_group = None  # the head's tensor group (column parallel over the vocab)
 
     def __init__(self, cfg: GPTConfig, *, device=None, dtype=torch.bfloat16,
-                 lora_impl=None, moe_impl=None):
+                 lora_impl=None, moe_impl=None, mesh=None):
         super().__init__()
         check_supported(cfg)
         device = resolve_device(device)
+        if mesh is not None:
+            tensor = mesh.shape.get("tensor", 1)
+            if cfg.n_query_groups % tensor:
+                raise ValueError(f"n_query_groups {cfg.n_query_groups} does not split "
+                                 f"over tensor {tensor}")
+        final_device, device = device, torch.device("meta") if mesh is not None else device
         if lora_impl is None:
             lora_impl = os.environ.get("DUALHYP_LORA_IMPL", "xla")
         if lora_impl not in LORA_IMPLS:
@@ -774,9 +933,129 @@ class GPT(nn.Module):
                 cfg.raven_dim, cfg.classifier_hidden_dim, device)
         cos, sin = rope_ops.build_rope_cache(
             cfg.block_size, cfg.rope_n_elem, base=cfg.rope_base,
-            condense_ratio=cfg.rope_condense_ratio, dtype=dtype, device=device)
+            condense_ratio=cfg.rope_condense_ratio, dtype=dtype, device=final_device)
         self.register_buffer("cos", cos, persistent=False)
         self.register_buffer("sin", sin, persistent=False)
+        self.layer_range = range(cfg.n_layer)
+        self._fsdp_group = None
+        if mesh is not None:
+            self._localize(mesh, final_device)
+
+    # ---- the local model of a mesh ----
+    @staticmethod
+    def leaf_path(name: str):
+        """(tree path, stacked) of parameter `name`: `blocks.3.attn.qkv.
+        weight` is leaf `blocks/attn/qkv/weight` of the stacked tree."""
+        parts = name.split(".")
+        if parts[0] == "blocks":
+            return "/".join(["blocks", *parts[2:]]), True
+        return "/".join(parts), False
+
+    def _localize(self, mesh, device) -> None:
+        """Replace the meta parameters by this rank's pieces on `device`
+        (empty, to be loaded) and set the modules' collectives."""
+        cfg = self.cfg
+        self.mesh = mesh
+        pipe = "pipe" in mesh.shape
+        if pipe:
+            stages = mesh.shape["pipe"]
+            if cfg.n_layer % stages:
+                raise ValueError(f"n_layer {cfg.n_layer} does not split over {stages} stages")
+            per = cfg.n_layer // stages
+            self.layer_range = range(mesh.coords["pipe"] * per, (mesh.coords["pipe"] + 1) * per)
+            for i in range(cfg.n_layer):
+                if i not in self.layer_range:
+                    self.blocks[i] = nn.Module()  # another stage's block
+        self.specs = {}
+        for name, p in list(self.named_parameters()):
+            path, stacked = self.leaf_path(name)
+            full = (cfg.n_layer, *p.shape) if stacked else tuple(p.shape)
+            spec = (None,) * len(full) if pipe else sharding.model_spec(path, full, mesh)
+            bounds = sharding.piece_bounds(full, spec, mesh)
+            shape = [b - a for a, b in bounds][int(stacked):]
+            spec = spec[int(stacked):]
+            mod_name, leaf = name.rsplit(".", 1)
+            mod = self.get_submodule(mod_name)
+            mod._parameters[leaf] = nn.Parameter(
+                torch.empty(shape, dtype=p.dtype, device=device), requires_grad=False)
+            self.specs[name] = spec
+            if "fsdp" in spec:
+                if "_fsdp_dims" not in mod.__dict__:
+                    mod._fsdp_dims = {}
+                mod._fsdp_dims[leaf] = spec.index("fsdp")
+        if mesh.shape.get("fsdp", 1) > 1:
+            self._fsdp_group = mesh.group("fsdp")
+        for mod in self.modules():
+            if isinstance(mod, QKV) and hasattr(mod, "rows"):
+                mod.rows = lora_qkv_row_index(cfg).to(device)
+        if pipe:
+            return
+        tensor = mesh.shape.get("tensor", 1) > 1
+        tp_group, tp_index = (mesh.group("tensor"), mesh.index("tensor")) if tensor else (None, 0)
+        for name, mod in self.named_modules():
+            path, _ = self.leaf_path(name + ".weight")
+            if isinstance(mod, _Frozen) and tensor:
+                mod.tp_kind = ("col" if any(k in path for k in sharding.TENSOR_COLUMN)
+                               else "row" if "proj/weight" in path else None)
+                if mod.tp_kind is not None:
+                    mod.tp_group, mod.tp_index = tp_group, tp_index
+            elif isinstance(mod, (MLP, GptNeoxMLP)):
+                mod.tp_group = tp_group
+            elif isinstance(mod, MoE):
+                axes = ["tensor"] if tensor else []
+                local = mod.fc_1.weight.shape[0]
+                if local < cfg.n_expert:
+                    axes.append("expert")
+                    mod.e0 = mesh.index("expert") * local
+                mod.tp_group = mesh.group(*axes) if axes else None
+            elif isinstance(mod, Block):
+                if mesh.shape.get("seq", 1) > 1:
+                    mod.seq_group, mod.seq_index = mesh.group("seq"), mesh.index("seq")
+        self._tp_group = tp_group
+
+    @contextlib.contextmanager
+    def gathered(self, *modules):
+        """The fsdp-sharded leaves of `modules` all-gathered for the
+        duration (`comm.all_gather`: the gradient reduce-scatters back to
+        the shards); nothing without fsdp."""
+        saved = []
+        if self._fsdp_group is not None:
+            for module in modules:
+                for m in module.modules():
+                    for leaf, dim in m.__dict__.get("_fsdp_dims", {}).items():
+                        p = m._parameters[leaf]
+                        saved.append((m, leaf, p))
+                        m._parameters[leaf] = comm.all_gather(p, dim, self._fsdp_group)
+        try:
+            yield
+        finally:
+            for m, leaf, p in saved:
+                m._parameters[leaf] = p
+
+    def _call(self, module, fn, *args, **kwargs):
+        """fn(*args, **kwargs) with `module`'s fsdp leaves gathered."""
+        if self._fsdp_group is None:
+            return fn(*args, **kwargs)
+        with self.gathered(module):
+            return fn(*args, **kwargs)
+
+    @property
+    def local_blocks(self) -> list:
+        """(layer index, block) of the blocks this rank holds."""
+        return [(i, self.blocks[i]) for i in self.layer_range]
+
+    @property
+    def seq_offset(self) -> int:
+        """Tokens before this rank's shard, in units of the shard's length."""
+        return self.mesh.index("seq") if self.mesh is not None else 0
+
+    def head_logits(self, hidden):
+        """fp32 logits (.., padded_vocab) of final normed hidden states:
+        the head (with its LoRA and adapter v2's wrap), gathered over the
+        vocab under tensor parallelism."""
+        with self.gathered(self.lm_head):
+            logits = self.lm_head(comm.copy_to(hidden, self._tp_group)).float()
+        return comm.gather_from(logits, -1, self._tp_group)
 
     @property
     def device(self) -> torch.device:
@@ -790,20 +1069,40 @@ class GPT(nn.Module):
         norm scales, zero biases (linears' and LayerNorms'); adapter v1's
         prefix normal at the GPT-NeoX std and zero gates, adapter v2's unit
         scales and zero biases. Draws in fp32 from `generator`, then
-        casts."""
+        casts. On a mesh every leaf is drawn whole, one at a time, and the
+        rank keeps its piece: the values of a one-rank init."""
         cfg = self.cfg
         d = cfg.n_embd
         std = math.sqrt(2.0 / 5 / d)
         proj_std = 1.0 / math.sqrt(d) / cfg.n_layer
+        if self.mesh is not None and "pipe" in self.mesh.shape:
+            raise NotImplementedError("a pipeline stage loads its weights from a tree")
+        whole = {} if self.mesh is None else {
+            id(p): name for name, p in self.named_parameters()}
+
+        def full_shape(p):
+            if id(p) not in whole:
+                return p.shape
+            spec, shape = self.specs[whole[id(p)]], list(p.shape)
+            for dim, entry in enumerate(spec):
+                if entry is not None:
+                    shape[dim] *= self.mesh.extent(entry)
+            return shape
+
+        def put(p, value):
+            if id(p) in whole:
+                value = sharding.local_piece(value, self.specs[whole[id(p)]], self.mesh)
+            p.copy_(value)
 
         def normal(p, s):
-            p.copy_(torch.randn(p.shape, generator=generator, device=p.device) * s)
+            put(p, torch.randn(full_shape(p), generator=generator, device=p.device) * s)
 
         def lora(mod):
             if mod.with_lora:
-                bound = 1.0 / math.sqrt(mod.lora_A.shape[1])
-                a = torch.rand(mod.lora_A.shape, generator=generator, device=mod.lora_A.device)
-                mod.lora_A.copy_(a * (2 * bound) - bound)
+                shape = full_shape(mod.lora_A)
+                bound = 1.0 / math.sqrt(shape[1])
+                a = torch.rand(shape, generator=generator, device=mod.lora_A.device)
+                put(mod.lora_A, a * (2 * bound) - bound)
                 mod.lora_B.zero_()
 
         normal(self.wte.weight, std)
@@ -840,13 +1139,20 @@ class GPT(nn.Module):
             self.visual_noise_classifier.init_weights(generator)
 
     def _embed(self, idx):
-        x = self.wte.weight[idx].to(self.dtype)
+        with self.gathered(self.wte):
+            x = self.wte.weight[idx].to(self.dtype)
         if self.cfg.scale_embeddings:
             x = x * torch.tensor(math.sqrt(self.cfg.n_embd), dtype=x.dtype)
         return x
 
     def _head(self, x):
+        if self.mesh is not None:
+            return self.head_logits(self._norm_f(x))
         return self.lm_head(self.ln_f(x)).float()
+
+    def _norm_f(self, x):
+        with self.gathered(self.ln_f):
+            return self.ln_f(x)
 
     def init_cache(self, batch_size: int, max_seq: int, quantize=None) -> list:
         """Per-layer [k, v] caches, each (B, G, S, D) zeros in the compute
@@ -854,7 +1160,8 @@ class GPT(nn.Module):
         per-layer [k, v, k_scale, v_scale], int8 K/V and fp32 (B, G, S)
         per-slot scales."""
         cfg = self.cfg
-        shape = (batch_size, cfg.n_query_groups, max_seq, cfg.head_size)
+        groups = cfg.n_query_groups // (self.mesh.shape.get("tensor", 1) if self.mesh else 1)
+        shape = (batch_size, groups, max_seq, cfg.head_size)
         if quantize is None:
             dtypes = [(shape, self.dtype)] * 2
         elif quantize == "int8":
@@ -892,27 +1199,35 @@ class GPT(nn.Module):
         Returns logits (B, T, padded_vocab) fp32, or the final normed hidden
         states (B, T, d) in the compute dtype when `return_hidden`."""
         t = idx.shape[1]
-        if t > self.cfg.block_size:
-            raise ValueError(f"sequence {t} exceeds block_size {self.cfg.block_size}")
+        seq = self.mesh.shape.get("seq", 1) if self.mesh is not None else 1
+        if t * seq > self.cfg.block_size:
+            raise ValueError(f"sequence {t * seq} exceeds block_size {self.cfg.block_size}")
         if not (isinstance(remat, bool) or remat in REMAT_MODES[2:]):
             raise ValueError(f"remat {remat!r} not in {REMAT_MODES}")
+        if self.mesh is not None and "pipe" in self.mesh.shape:
+            raise ValueError("a pipeline stage runs through parallel.pipeline")
         seeds = [None] * self.cfg.n_layer
         if generator is not None and self.cfg.lora_dropout > 0:
             seeds = torch.randint(0, 2**62, (self.cfg.n_layer,), generator=generator,
                                   device=generator.device).tolist()
+        # a sequence shard's RoPE rows start at its offset
+        off = self.seq_offset * t
+        cos, sin = self.cos[off:off + t], self.sin[off:off + t]
+        if self._fsdp_group is not None and remat in ("mlp", "moe"):
+            remat = True  # a rematerialised piece must gather its leaves again
         x = self._embed(idx)
         for block, seed in zip(self.blocks, seeds):
             if not (remat and torch.is_grad_enabled()):
-                x = block(x, self.cos, self.sin, seed=seed)
+                x = self._call(block, block, x, cos, sin, seed=seed)
             elif remat == "mlp":
-                x = block(x, self.cos, self.sin, seed=seed, mlp_remat=True)
+                x = block(x, cos, sin, seed=seed, mlp_remat=True)
             elif remat == "moe" and getattr(block.mlp, "impl", "dense") != "dense":
-                x = block.forward_moe_remat(x, self.cos, self.sin, seed)
+                x = block.forward_moe_remat(x, cos, sin, seed)
             else:
-                x = checkpoint(block, x, self.cos, self.sin, seed=seed,
+                x = checkpoint(self._call, block, block, x, cos, sin, seed=seed,
                                use_reentrant=False, preserve_rng_state=False)
         if return_hidden:
-            return self.ln_f(x)
+            return self._norm_f(x)
         return self._head(x)
 
     @torch.no_grad()
@@ -922,7 +1237,7 @@ class GPT(nn.Module):
         token (lengths - 1)."""
         x = self._embed(idx)
         for block, kv in zip(self.blocks, cache):
-            x = block(x, self.cos, self.sin, cache_kv=kv)
+            x = self._call(block, block, x, self.cos, self.sin, cache_kv=kv)
         rows = torch.arange(x.shape[0], device=x.device)
         return self._head(x[rows, lengths.long() - 1])
 
@@ -935,8 +1250,8 @@ class GPT(nn.Module):
         x = self._embed(token[:, None])
         kv_length = positions + 1
         for block, kv in zip(self.blocks, cache):
-            x = block(x, self.cos, self.sin, cache_kv=kv, positions=positions,
-                      kv_length=kv_length, active=active)
+            x = self._call(block, block, x, self.cos, self.sin, cache_kv=kv,
+                           positions=positions, kv_length=kv_length, active=active)
         return self._head(x[:, 0])
 
     @torch.no_grad()
@@ -952,7 +1267,7 @@ class GPT(nn.Module):
         positions = start[:, None] + torch.arange(tokens.shape[1], device=tokens.device)
         cos, sin = rope_ops.gather_rope_rows(self.cos, self.sin, positions)
         for block, kv in zip(self.blocks, cache):
-            x = block(x, cos, sin, cache_kv=kv, positions=start)
+            x = self._call(block, block, x, cos, sin, cache_kv=kv, positions=start)
         return self._head(x)
 
 
@@ -963,10 +1278,16 @@ def merge_lora(model: GPT) -> GPT:
     LoRA branch runs afterwards or not. Block deltas (q/k/v, proj and the
     MLP's linears) are gated by `lora_start_layer`; the head's is not."""
     cfg = model.cfg
+    if model.mesh is not None and model.mesh.shape.get("fsdp", 1) > 1:
+        raise NotImplementedError("merge_lora under fsdp: merge on a one-rank model")
 
     def fold(mod, delta):
         if mod.quant is not None:
             raise ValueError("merge_lora needs the float weights: merge before quantizing")
+        if mod.tp_kind is not None:
+            # the piece of the whole delta that meets this rank's weight
+            n = mod._local_extent()
+            delta = delta.narrow(0 if mod.tp_kind == "col" else 1, mod.tp_index * n, n)
         mod.weight.copy_((mod.weight.float() + delta).to(mod.weight.dtype))
         mod.lora_B.zero_()
 
@@ -981,7 +1302,8 @@ def merge_lora(model: GPT) -> GPT:
                 row += extent
             delta = torch.cat(outs) * cfg.lora_scaling
             if len(qkv.shapes) < 3:
-                full = torch.zeros(qkv.weight.shape, dtype=delta.dtype, device=delta.device)
+                full = torch.zeros((cfg.qkv_out_dim, cfg.n_embd), dtype=delta.dtype,
+                                   device=delta.device)
                 full[qkv.rows] = delta
                 delta = full
             fold(qkv, delta * gate)
@@ -1007,8 +1329,28 @@ def quantize_model(model: GPT, mode: str) -> GPT:
         raise NotImplementedError(
             "a quantized MoE is not supported: the JAX package's MoE reads only the "
             "expert stacks' float weights (gpt._moe_mlp, _moe_mlp_sparse)")
+    if model.mesh is not None and model.mesh.shape.get("fsdp", 1) > 1:
+        raise NotImplementedError("quantized weights under fsdp: quantize a one-rank model")
     for mod in model.modules():
-        if (isinstance(mod, _Frozen) and mod.quant is None
-                and quant_ops._should_quantize("weight", mod.weight)):
-            mod.set_quantized(quant_ops.quantize_pair(mod.weight, mode))
+        if not (isinstance(mod, _Frozen) and mod.quant is None):
+            continue
+        w = mod.weight
+        # the decisions of the whole weight; a tensor-parallel piece's
+        # values are those of the whole weight's quantization
+        n = comm.size(mod.tp_group)
+        whole = sharding._Shape((w.shape[0] * (n if mod.tp_kind == "col" else 1),
+                                 w.shape[1] * (n if mod.tp_kind == "row" else 1)))
+        if not quant_ops._should_quantize("weight", whole):
+            continue
+        int4 = mode == "int4" and whole.shape[1] % quant_ops.INT4_GROUP == 0
+        if mod.tp_kind == "row" and (int4 and w.shape[1] % quant_ops.INT4_GROUP):
+            raise ValueError(f"a row-parallel in dim of {w.shape[1]} splits int4's groups "
+                             f"of {quant_ops.INT4_GROUP}")
+        absmax = None
+        if mod.tp_kind == "row" and not int4:
+            # int8 scales a whole row: its absmax over the tensor ranks
+            absmax = w.abs().amax(dim=-1, keepdim=True).float()
+            comm.all_reduce_(absmax, mod.tp_group, torch.distributed.ReduceOp.MAX)
+            absmax = absmax.to(w.dtype)
+        mod.set_quantized(quant_ops.quantize_pair(w, "int4" if int4 else "int8", absmax))
     return model

@@ -32,9 +32,13 @@ _MIN_QUANT_DIM = 256  # smaller matrices (norms, classifiers) stay as they are
 _INT_MM_MIN_ROWS = 32
 
 
-def quantize_weight(w: torch.Tensor):
-    """(out, in) float -> (int8 (out, in), fp32 scale (out, 1))."""
-    absmax = w.abs().amax(dim=-1, keepdim=True)
+def quantize_weight(w: torch.Tensor, absmax=None):
+    """(out, in) float -> (int8 (out, in), fp32 scale (out, 1)).
+
+    absmax: the rows' absmax (out, 1) in w's dtype, when w is a piece of
+    longer rows (a row-parallel linear's weight); w's own when None."""
+    if absmax is None:
+        absmax = w.abs().amax(dim=-1, keepdim=True)
     scale = torch.clamp(absmax, min=1e-8) / 127.0
     q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
     return q, scale.to(torch.float32)
@@ -56,14 +60,18 @@ def _int8_product(xq: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(xq.contiguous(), q.t())[:m]
 
 
-def qmatmul(x, q, scale):
+def qmatmul(x, q, scale, x_absmax=None):
     """x (..., in) @ dequant(q).T with exact int8 x int8 -> int32 sums.
 
     The JAX package computes this product outside any Pallas kernel
     (`lax.dot_general` with an int32 result), so on the card it is the
-    library's int8 GEMM (`torch._int_mm`); on the CPU an integer matmul."""
+    library's int8 GEMM (`torch._int_mm`); on the CPU an integer matmul.
+    x_absmax: the rows' absmax that scales x (..., 1) fp32, when x is a
+    piece of longer rows (a row-parallel linear's input); x's own when
+    None."""
     x32 = x.to(torch.float32)
-    x_absmax = x32.abs().amax(dim=-1, keepdim=True)
+    if x_absmax is None:
+        x_absmax = x32.abs().amax(dim=-1, keepdim=True)
     x_scale = torch.clamp(x_absmax, min=1e-8) / 127.0
     xq = torch.clamp(torch.round(x32 / x_scale), -127, 127).to(torch.int8)
     lead = xq.shape[:-1]
@@ -121,14 +129,15 @@ def _should_quantize(key: str, leaf) -> bool:
     return min(leaf.shape[-2:]) >= _MIN_QUANT_DIM
 
 
-def quantize_pair(w: torch.Tensor, mode: str) -> dict:
+def quantize_pair(w: torch.Tensor, mode: str, absmax=None) -> dict:
     """The quantized leaves that replace weight `w` under `mode`: int4 where
     the input width is a multiple of the group, else int8 (as
-    `quantize_tree` of the JAX package)."""
+    `quantize_tree` of the JAX package), with `absmax` as `quantize_weight`
+    takes it."""
     if mode == "int4" and w.shape[-1] % INT4_GROUP == 0:
         q, s = quantize_weight_int4(w)
         return {Q4_KEY: q, SCALE4_KEY: s}
-    q, s = quantize_weight(w)
+    q, s = quantize_weight(w, absmax)
     return {Q_KEY: q, SCALE_KEY: s}
 
 

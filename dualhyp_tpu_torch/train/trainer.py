@@ -26,7 +26,21 @@ finetune/full.py):
     281), chunked over the head unless the head has LoRA or adapter v2's
     wrap; it stays a device tensor, so a step waits on no host sync.
 
-Not ported yet (slice 8c): pipeline stages, meshes.
+On a mesh (`Trainer(mesh=)`, `parallel.make_mesh`) the model is the rank's
+local piece (`GPT(mesh=)`) and the step follows the JAX package's sharded
+step (`_shard_batch`): this rank takes its rows of `data x fsdp` and, where
+T divides, its tokens of `seq`. The labels are shifted before the tokens
+are split, so that the pair (hidden[t], labels[t + 1]) never crosses a
+shard. The loss is each rank's sum over its tokens over the global count
+(every position for the reference's training mean, the valid targets in
+evaluation), the logits formed whole (vocab gathered under tensor
+parallelism, no chunking). The gradients sum over `data x seq`, and over
+`fsdp` for the leaves that fsdp does not shard (the gather's backward has
+reduce-scattered the others); AdamW steps each rank's shards, which equals
+the replicated step since it is elementwise. With `pipeline_stages` > 1
+the trainer builds its own (data, pipe) mesh (`parallel.make_pipe_mesh`),
+which does not compose with fsdp / tensor / expert (the JAX package's
+assertion), and runs the block stack through `parallel.pipeline`.
 """
 
 from __future__ import annotations
@@ -43,7 +57,9 @@ from dualhyp_tpu_torch.ckpt.convert import (
     flat_from_named, load_tree, named_from_flat, params_from_jax, tree_from_model)
 from dualhyp_tpu_torch.config import GPTConfig
 from dualhyp_tpu_torch.models.gpt import GPT
-from dualhyp_tpu_torch.ops.cross_entropy import IGNORE_INDEX, chunked_cross_entropy, cross_entropy
+from dualhyp_tpu_torch.ops.cross_entropy import (
+    IGNORE_INDEX, _token_ce, chunked_cross_entropy, cross_entropy)
+from dualhyp_tpu_torch.parallel import comm, pipeline, sharding
 from dualhyp_tpu_torch.utils.monitor import estimate_train_flops_per_token
 
 
@@ -85,6 +101,9 @@ class TrainConfig:
     # AdamW's first-moment storage dtype ("" = the parameter's; "bfloat16"
     # rounds the stored moment each step, as optax's mu_dtype does)
     mu_dtype: str = ""
+    pipeline_stages: int = 1       # >1: GPipe over the block stack
+    pipeline_microbatches: int = 2  # microbatches in flight a step
+    pipeline_data: int = 1         # data extent of the (data, pipe) mesh
 
     @property
     def grad_accum(self) -> int:
@@ -195,19 +214,39 @@ class Trainer:
     params: a `GPT`, or a parameter tree in the JAX package's layout, which
     is loaded into a new `GPT` on `device` (None: the card, raising without
     one) in `compute_dtype`, its trainable leaves as fp32 masters of the
-    tree's values."""
+    tree's values.
+
+    mesh: this rank's mesh; a tree then loads as the rank's pieces, and a
+    `GPT` must have been built on the same mesh."""
 
     def __init__(self, model_cfg: GPTConfig, train_cfg: TrainConfig, params, *,
-                 device=None, monitor=None, logger=None):
+                 device=None, mesh=None, monitor=None, logger=None):
         if train_cfg.mu_dtype not in ("", "bfloat16", "float32"):
             raise ValueError(f"mu_dtype {train_cfg.mu_dtype!r}")
         dtype = getattr(torch, train_cfg.compute_dtype)
+        if train_cfg.pipeline_stages > 1:
+            assert mesh is None, (
+                "pipeline_stages builds its own (data, pipe) mesh; "
+                "fsdp/tensor/expert sharding does not compose with PP — "
+                "drop those flags or use the non-PP sharded path"
+            )
+            if isinstance(params, GPT) and params.mesh is not None:
+                mesh = params.mesh  # a stage built on its pipe mesh
+            else:
+                mesh = pipeline.make_pipe_mesh(train_cfg.pipeline_stages,
+                                               data=max(train_cfg.pipeline_data, 1))
+        self.mesh = mesh
+        # the rank that writes files (all ranks gather what it writes)
+        self.lead = mesh is None or not torch.distributed.is_initialized() or (
+            torch.distributed.get_rank() == 0)
         tree = None
         if isinstance(params, GPT):
             model = params
+            if model.mesh is not mesh:
+                raise ValueError("the model was built on another mesh than the trainer's")
         else:
             tree = params
-            model = params_from_jax(params, model_cfg, device=device, dtype=dtype)
+            model = params_from_jax(params, model_cfg, device=device, dtype=dtype, mesh=mesh)
         if model.dtype != dtype:
             raise ValueError(f"model computes in {model.dtype}, the config asks for "
                              f"{train_cfg.compute_dtype}")
@@ -266,6 +305,93 @@ class Trainer:
     def _to_device(self, array):
         return torch.as_tensor(np.asarray(array), dtype=torch.long).to(self.model.device)
 
+    # ---- the mesh ----
+    def _pipelined(self) -> bool:
+        return self.mesh is not None and "pipe" in self.mesh.shape
+
+    def _batch_axes(self) -> tuple:
+        """The axes the batch's rows split over."""
+        return ("data",) if self._pipelined() else ("data", "fsdp")
+
+    def _shard_batch(self, ids, labels):
+        """This rank's part of host arrays (..., B, T): its rows of the
+        batch axes (a pipeline's: its rows of each microbatch) and, where T
+        divides, its tokens of `seq` (`_shard_batch` of the JAX package).
+        The labels come back shifted (targets[t] = labels[t + 1], the last
+        ignored), split alike. Returns (ids, targets, seq_split)."""
+        ids, labels = np.asarray(ids), np.asarray(labels)
+        targets = np.full_like(labels, IGNORE_INDEX)
+        targets[..., :-1] = labels[..., 1:]
+        mesh = self.mesh
+        b, t = ids.shape[-2:]
+        n = mesh.extent(*self._batch_axes())
+        if self._pipelined():
+            rows = pipeline.local_rows(b, self.cfg.pipeline_microbatches, n,
+                                       mesh.index("data"))
+        else:
+            if b % n:
+                raise ValueError(f"batch {b} does not split over data x fsdp = {n}")
+            i = mesh.index(*self._batch_axes())
+            rows = np.arange(i * (b // n), (i + 1) * (b // n))
+        ids, targets = ids[..., rows, :], targets[..., rows, :]
+        seq = mesh.shape.get("seq", 1)
+        seq_split = seq > 1 and t % seq == 0
+        if seq_split:
+            j, tl = mesh.index("seq"), t // seq
+            ids, targets = ids[..., j * tl:(j + 1) * tl], targets[..., j * tl:(j + 1) * tl]
+        return ids, targets, seq_split
+
+    def _loss_group(self):
+        """The ranks whose losses add up to the step's (the rows' axes and
+        seq)."""
+        return self.mesh.group(*self._batch_axes(), "seq")
+
+    def _mesh_nll(self, ids, targets, *, train: bool, generator=None):
+        """(summed CE of this rank's tokens, its count of valid targets)."""
+        model = self.model
+        if self._pipelined():
+            hidden = pipeline.pipeline_hidden(
+                model, ids, self.mesh, n_micro=self.cfg.pipeline_microbatches,
+                generator=generator if train else None, local=True)
+        else:
+            hidden = model(ids, generator=generator,
+                           remat=self.cfg.remat if train else False, return_hidden=True)
+        nll, mask = _token_ce(model.head_logits(hidden), targets)
+        return nll.sum(), mask.sum()
+
+    def _reduce_grads(self) -> None:
+        """Sum each trainable leaf's gradient over the ranks that hold the
+        same piece of it and saw other data: one flat all-reduce a group."""
+        buckets = {}
+        for name, p in self.trainable.items():
+            spec = self.model.specs.get(name, ())
+            axes = [a for a in self._batch_axes() if a not in spec] + ["seq"]
+            group = self.mesh.group(*axes)
+            if group is not None:
+                buckets.setdefault(tuple(axes), (group, []))[1].append(p.grad)
+        for group, grads in buckets.values():
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            comm.all_reduce_(flat, group)
+            offset = 0
+            for g in grads:
+                g.copy_(flat[offset:offset + g.numel()].view_as(g))
+                offset += g.numel()
+
+    def _full(self, named: dict) -> dict:
+        """{name: tensor} of the model's leaves as whole leaves (the
+        rank's pieces gathered); a pipeline's stages contribute their own
+        blocks. On the host."""
+        if self.mesh is None:
+            return named
+        if self._pipelined():
+            mine = {n: t.detach().cpu() for n, t in named.items()}
+            whole = {}
+            for part in comm.all_gather_objects(mine, self.mesh.group("pipe")):
+                whole.update(part)
+            return whole
+        return {n: sharding.gather_leaf(t.detach(), self.model.specs[n], self.mesh).cpu()
+                for n, t in named.items()}
+
     # ---- schedule ----
     def _lr(self, max_iters, warmup_steps) -> float:
         return lr_at_step(self.micro_iter, base_lr=self.cfg.learning_rate,
@@ -299,14 +425,33 @@ class Trainer:
         gradients stay in the leaves' `.grad` until the next step."""
         accum = self.cfg.grad_accum
         mb = self.cfg.micro_batch_size
-        ids = self._to_device(batch["input_ids"]).reshape(accum, mb, -1)
-        labels = self._to_device(batch["labels"]).reshape(accum, mb, -1)
+        ids = np.asarray(batch["input_ids"]).reshape(accum, mb, -1)
+        labels = np.asarray(batch["labels"]).reshape(accum, mb, -1)
+        n_tokens, seq_len = ids.size, ids.shape[-1]
         self.optimizer.zero_grad(set_to_none=True)
         loss_sum = torch.zeros((), dtype=torch.float32, device=self.model.device)
-        for i in range(accum):
-            loss = self._loss(ids[i], labels[i], train=True, generator=generator)
-            loss.backward()
-            loss_sum += loss.detach()
+        if self.mesh is None:
+            ids, labels = self._to_device(ids), self._to_device(labels)
+            for i in range(accum):
+                loss = self._loss(ids[i], labels[i], train=True, generator=generator)
+                loss.backward()
+                loss_sum += loss.detach()
+        else:
+            ids, targets, seq_split = self._shard_batch(ids, labels)
+            ids, targets = self._to_device(ids), self._to_device(targets)
+            # the reference's mean over every position of the global batch;
+            # seq ranks that hold the same tokens share its sum
+            denom = mb * (seq_len - 1) * (1 if seq_split else self.mesh.shape.get("seq", 1))
+            for i in range(accum):
+                nll, _ = self._mesh_nll(ids[i], targets[i], train=True, generator=generator)
+                loss = nll / denom
+                loss.backward()
+                loss_sum += loss.detach()
+            for p in self.trainable.values():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            self._reduce_grads()
+            comm.all_reduce_(loss_sum, self._loss_group())
         for p in self.trainable.values():
             # a leaf no loss reached (a gated-off layer) has a zero gradient,
             # and still decays, as in the JAX package
@@ -323,8 +468,7 @@ class Trainer:
         self.optimizer.step()
         self.opt_step += 1
         loss = loss_sum / accum
-        self._record_step(loss, lr, tokens=ids.numel(), samples=accum * mb,
-                          seq_len=ids.shape[-1])
+        self._record_step(loss, lr, tokens=n_tokens, samples=accum * mb, seq_len=seq_len)
         return loss, lr
 
     def train_chunk(self, batches, max_iters, warmup_steps, generator=None):
@@ -346,16 +490,33 @@ class Trainer:
             targets = np.asarray(batch["labels"])[:, 1:]
             if (targets != IGNORE_INDEX).sum() == 0:
                 continue
-            loss = self._loss(self._to_device(batch["input_ids"]),
-                              self._to_device(batch["labels"]), train=False)
+            if self.mesh is None:
+                loss = self._loss(self._to_device(batch["input_ids"]),
+                                  self._to_device(batch["labels"]), train=False)
+            else:
+                ids, targets, seq_split = self._shard_batch(batch["input_ids"],
+                                                            batch["labels"])
+                nll, count = self._mesh_nll(self._to_device(ids), self._to_device(targets),
+                                            train=False)
+                total = torch.stack([nll.float(), count.float()])
+                if not seq_split:
+                    total = total / self.mesh.shape.get("seq", 1)
+                comm.all_reduce_(total, self._loss_group())
+                loss = total[0] / total[1]
             losses.append(float(loss))
         return sum(losses) / max(len(losses), 1)
 
     @property
     def params(self) -> dict:
         """The model's parameter tree in the JAX package's layout (what
-        `ckpt.io.save_params` writes)."""
-        return tree_from_model(self.model)
+        `ckpt.io.save_params` writes); on a mesh the whole leaves, which
+        every rank must ask for together."""
+        if self.mesh is None:
+            return tree_from_model(self.model)
+        full = self._full(dict(self.model.named_parameters()))
+        flat = flat_from_named(full, self.model_cfg.n_layer, device="cpu")
+        return ckpt_io.unflatten({k: t if t.dtype == torch.bfloat16 else t.numpy()
+                                  for k, t in flat.items()})
 
     @property
     def trainable_params(self) -> dict:
@@ -368,12 +529,14 @@ class Trainer:
 
     # ---- exact-resume checkpointing ----
     def _flat(self, named: dict) -> dict:
-        return flat_from_named(named, self.model_cfg.n_layer)
+        return flat_from_named(self._full(named), self.model_cfg.n_layer)
 
     def save_train_state(self, path, extra: dict | None = None) -> None:
         """Trainable leaves (under `trainable::`, in the JAX package's key
         layout), the AdamW moments and step, and the micro-iteration clock
-        in one npz; `extra` stores small ints (e.g. the epoch index)."""
+        in one npz; `extra` stores small ints (e.g. the epoch index). On a
+        mesh every rank calls it (the leaves are gathered) and rank 0
+        writes."""
         sep = ckpt_io.SEP
         arrays = {f"trainable{sep}{k}": v for k, v in self._flat(self.trainable).items()}
         state = [self.optimizer.state.get(p) for p in self.trainable.values()]
@@ -388,6 +551,8 @@ class Trainer:
         flat["meta_opt_step"] = np.asarray(self.opt_step)
         for k, v in (extra or {}).items():
             flat[f"extra_{k}"] = np.asarray(v)
+        if not self.lead:
+            return
         path = Path(path)
         path.parent.mkdir(parents=True, exist_ok=True)
         np.savez(path, **flat)
@@ -409,7 +574,8 @@ class Trainer:
                                 if k.startswith(prefix)})
 
         for name, value in section(f"trainable{sep}").items():
-            self.trainable[name].copy_(value)
+            if name in self.trainable:
+                self.trainable[name].copy_(self._local(name, value))
         self.optimizer.state.clear()
         if f"optstate{sep}step" in flat:
             step = float(flat[f"optstate{sep}step"])
@@ -418,9 +584,15 @@ class Trainer:
             for name, p in self.trainable.items():
                 state = self.optimizer.init_state(p)
                 state["step"].fill_(step)
-                state["exp_avg"].copy_(avg[name])
-                state["exp_avg_sq"].copy_(avg_sq[name])
+                state["exp_avg"].copy_(self._local(name, avg[name]))
+                state["exp_avg_sq"].copy_(self._local(name, avg_sq[name]))
         return extra
+
+    def _local(self, name: str, value):
+        """This rank's piece of a whole leaf of parameter `name`."""
+        if self.mesh is None:
+            return value
+        return sharding.local_piece(value, self.model.specs[name], self.mesh)
 
     def _named(self, flat: dict) -> dict:
         tensors = {}

@@ -106,8 +106,8 @@ prints one JSON line; a failed phase raises and the script exits non-zero.
  17. a depth-2, full-width Mixtral-8x7B + LoRA model, card (L2, K1 at
      D=128, bf16) against CPU (plain, fp32): the share of (token, layer)
      routes that agree, and the prefill logits of the rows routed alike;
- 18. the Mixtral slice: 16 of 32 layers of Mixtral-8x7B-Instruct at full
-     width (47 GB of bf16 weights), LoRA r=16 on q/k/v/proj, random weights
+ 18. the Mixtral slice: 8 of 32 layers of Mixtral-8x7B-Instruct at full
+     width (23.5 GB of bf16 weights), LoRA r=16 on q/k/v/proj, random weights
      from --seed, serving the decode slice's 16 requests with moe_impl
      "megablox" (L2, the main path; then one decode batch under
      torch.profiler, with L2's
@@ -126,7 +126,7 @@ prints one JSON line; a failed phase raises and the script exits non-zero.
  21. K2 and K3 (both directions) at Mixtral's training shape: 8192 rows of
      width 4096, q of 32 heads in 8 groups and k of 8 at head size 128, rope
      base 1e6;
- 22. the Mixtral training slice: the 16-layer Mixtral with LoRA r=16 through
+ 22. the Mixtral training slice: the 8-layer Mixtral with LoRA r=16 through
      `cli.finetune_ger.run_training` (megablox, remat, 4 optimizer steps,
      checkpoints of the LoRA leaves as --save_adapter_only writes them, the
      best one read back and 4 requests decoded), then the 8 x 1024 step
@@ -161,7 +161,10 @@ prints one JSON line; a failed phase raises and the script exits non-zero.
      (qkv, fc_1) at a speculative verify step's rows, slots x (draft 8 +
      1) = 9, 36, 72, 144, which cross K8's (16), K5's (32) and K4's (64)
      decode thresholds: each against its plain version, two calls bitwise
-     equal, timed beside its bound and cuBLAS; (after the depth-2 checks) a
+     equal, timed beside its bound and cuBLAS, K8's middle kernel (above 16
+     rows) beside the parent's wgmma tile on the same inputs
+     (`was_device_ms`; int4 serving must launch the middle kernel); (after
+     the depth-2 checks) a
      depth-2, full-width verify step of 9 tokens a row, card against 9
      decode steps on the card and against the CPU (DEPTH2_ATOL);
  27. (after the decode slices) the speculative slice: the decode slice's
@@ -186,9 +189,10 @@ prints one JSON line; a failed phase raises and the script exits non-zero.
      read back by `ckpt.io`; one step profiled;
  29. (after the RelPrompt training slice) slice 6: K8 at the Whisper-large-v3
      decoder's linears (1280 x 1280, 5120 x 1280, 1280 x 5120) at a beam
-     step's 400 rows, the cross K/V's 8 x 1500 and a long-form step's 5, and
-     K6 in bf16 at B8 H20 T=S=1500, each against its plain version, timed
-     beside its bound and cuBLAS / SDPA; a depth-2, full-width Whisper
+     step's 400 rows (the middle kernel, beside the parent's tile; the int4
+     beam must launch it), the cross K/V's 8 x 1500 and a long-form step's
+     5, and K6 in bf16 at B8 H20 T=S=1500, each against its plain version,
+     timed beside its bound and cuBLAS / SDPA; a depth-2, full-width Whisper
      decoder, card (bf16) against CPU (fp32): the full forward's logits, 8
      cached steps against the full forward, int8 cross and self K/V; the
      ASR slice: `cli.make_json_asr.main --config` on 16 seeded WAVs of 2-12
@@ -266,8 +270,9 @@ prints one JSON line; a failed phase raises and the script exits non-zero.
      local experts (fc_1 and proj), each against its plain version, timed
      beside its bound; `scaleout_slice`, two processes of this script on
      the one card (`--scaleout-child`, gloo on CUDA tensors; first a probe
-     of the collectives it takes there) running full-width TinyLlama
-     through `run_training` under data 2, fsdp 2, tensor 2 (K5) and a
+     of the collectives it takes there) running full-width TinyLlama at 4
+     of its 22 layers (SCALEOUT_LAYERS) through `run_training` under data
+     2, fsdp 2, tensor 2 (K5) and a
      2-stage pipeline, 2 Trainer steps at seq 2 (T 1024), the 16 requests
      served over data 2, over tensor 2 and over tensor 2 merged and int4
      (K8), and one LoRA step of Mixtral at depth 1 over expert 2 (L2),
@@ -754,6 +759,32 @@ def q4_row(torch, x, packed, scales, w_deq, **extra) -> dict:
                 bound_ms=bms, bound_by=by)
 
 
+def q4_mid_row(torch, x, packed, scales, w_deq, **extra) -> dict:
+    """`q4_row` with the path K8's dispatch takes at x's rows and, where
+    that is the middle kernel, its plan and the parent's tile (the wgmma/TMA
+    kernel, with `sum_splits` where it splits K) timed on the same inputs as
+    `was_device_ms`: the dispatch with MID_ROWS at DECODE_ROWS, as before
+    the middle kernel."""
+    from dualhyp_tpu_torch.ops import int4
+
+    (rows, k), n = x.shape, packed.shape[0]
+    path_of = getattr(int4, "path_of", None)  # None in a parent measured in turns
+    path = (path_of(rows, n, k) if path_of else
+            "decode" if rows <= int4.DECODE_ROWS else "wgmma")
+    row = q4_row(torch, x, packed, scales, w_deq, path=path, **extra)
+    if path == "mid":
+        plan = int4.mid_plan(rows, n, k)
+        row["plan"] = {key: plan[key] for key in ("tiles", "tokens", "cluster", "ctas", "smem")}
+        saved = int4.MID_ROWS
+        int4.MID_ROWS = int4.DECODE_ROWS
+        try:
+            row["was_device_ms"] = device_ms(lambda: int4.q4_matmul(x, packed, scales), torch)
+        finally:
+            int4.MID_ROWS = saved
+        row["was"] = "the parent's wgmma/TMA tile on the same inputs"
+    return row
+
+
 def lora_row(torch, x, w, a, b, s, xin=None, **extra) -> dict:
     """K5 on x (rows, D) (and a separate xin) against its plain version, as
     `q4_row` holds K8, beside cuBLAS's x W^T + s (xin A^T) B^T."""
@@ -1030,7 +1061,8 @@ class WordTokenizer:
 # substrings of the kernel names of K8's, K5's and L2's paths in a slice's
 # profile (device ms and launches of each): the decode kernels, the prefill
 # kernels, and K8's wgmma kernel's pass over split parts
-SLICE_KERNELS = {"k8_decode": ("q4_decode_kernel",), "k8_prefill": ("q4_tma_kernel",),
+SLICE_KERNELS = {"k8_decode": ("q4_decode_kernel",), "k8_mid": ("q4_mid_kernel",),
+                 "k8_prefill": ("q4_tma_kernel",),
                  "k8_split_pass": ("::sum_splits(",), "k5_decode": ("lora_decode_kernel",),
                  "k5_prefill": ("lora_rank_kernel", "lora_tma_kernel"),
                  "l2_decode": ("gmm_decode_kernel",), "l2_prefill": ("gmm_tma_kernel",)}
@@ -1055,18 +1087,29 @@ SLICES = {
 
 
 def reset_counts():
-    from dualhyp_tpu_torch.ops import KERNELS, TRANSPOSED
+    from dualhyp_tpu_torch.ops import KERNELS, TRANSPOSED, attention, int4
 
     for kernel in (*KERNELS.values(), *TRANSPOSED.values()):
         kernel.launches = 0
+    # (a parent checkout measured in turns may count neither)
+    for by in (getattr(int4, "PATH_LAUNCHES", {}), getattr(attention, "BWD_HEAD_LAUNCHES", {})):
+        for key in by:
+            by[key] = 0
 
 
 def read_counts() -> dict:
-    from dualhyp_tpu_torch.ops import KERNELS, TRANSPOSED
+    """Each kernel's launches, the RoPE kernel's transposed ones, K8's by
+    path (`q4_matmul_mid`: the middle kernel) and K1's backward by head size
+    (`flash_attention_bwd_d80`)."""
+    from dualhyp_tpu_torch.ops import KERNELS, TRANSPOSED, attention, int4
 
     counts = {name: kernel.launches for name, kernel in KERNELS.items()}
     counts.update({f"{name}_transpose": kernel.launches
                    for name, kernel in TRANSPOSED.items()})
+    counts.update({f"q4_matmul_{path}": n
+                   for path, n in getattr(int4, "PATH_LAUNCHES", {}).items()})
+    counts.update({f"flash_attention_bwd_d{d}": n
+                   for d, n in getattr(attention, "BWD_HEAD_LAUNCHES", {}).items()})
     return counts
 
 
@@ -1411,7 +1454,7 @@ def training_shape_mixtral_phase(torch, seed: int) -> dict:
 def remat_steps_phase(torch, seed: int) -> dict:
     """The two 8 x 1024 training steps with remat on that K2 and K3 serve:
     full TinyLlama-1.1B + LoRA (2 warm-up, 5 timed steps, as
-    `train_step_1024`) and the 16-layer Mixtral-8x7B + LoRA under megablox
+    `train_step_1024`) and the MIXTRAL_LAYERS-layer Mixtral-8x7B + LoRA under megablox
     (1 warm-up, 5 timed, as `mixtral_step_1024`), each step's seconds and
     their median, with the K2 and K3 launches of the timed steps."""
     import numpy as np
@@ -2619,9 +2662,10 @@ def relprompt_slice(torch, seed: int, whisper: Path) -> dict:
 
 
 MIXTRAL = "Mixtral-8x7B-Instruct-v0.1"
-# depth of the Mixtral slice (full width): 16 of 32 layers are 47.0 GB of
-# bf16 weights; all 32 (93.4 GB) need more than one 80 GB card
-MIXTRAL_LAYERS = 16
+# depth of the Mixtral slice (full width): 8 of 32 layers, 23.5 GB of bf16
+# weights (16 fit a card, 47.0 GB, but took the script past its time on a
+# slow host); all 32 (93.4 GB) need more than one 80 GB card
+MIXTRAL_LAYERS = 8
 # L2 at the Mixtral slices' shapes: (name, rows M, N, K). Decode: 8 tokens x
 # top 2; prefill: 8 prompts x 384 tokens x top 2 (the longest prompt
 # bucket of the kernel phases; the slice's own prompts are shorter);
@@ -2972,7 +3016,7 @@ def moe_nosync_check(torch, seed: int) -> dict:
 
 
 def mixtral_slice(torch, seed: int) -> dict:
-    """The Mixtral slice: 16 of 32 layers of Mixtral-8x7B-Instruct at full
+    """The Mixtral slice: MIXTRAL_LAYERS of 32 layers of Mixtral-8x7B-Instruct at full
     width, LoRA r=16 on q/k/v/proj, random weights from --seed, serving the
     decode slice's 16 requests with moe_impl "megablox" (L2, the main path,
     then profiled) and "dense" (plain einsums), one model alive at a time."""
@@ -3288,14 +3332,14 @@ def mixtral_step_1024(torch, model, cfg, seed: int, remat, profile: bool, warmup
 
 
 def mixtral_train_slice(torch, seed: int) -> dict:
-    """LoRA finetuning of Mixtral-8x7B-Instruct, 16 of 32 layers at full
-    width (47 GB of random bf16 weights from --seed), moe_impl megablox,
+    """LoRA finetuning of Mixtral-8x7B-Instruct, MIXTRAL_LAYERS of 32 layers
+    at full width (random bf16 weights from --seed), moe_impl megablox,
     through `cli.finetune_ger.run_training` with the CLI's settings (frozen
     leaves bf16, LoRA r=16 alpha=16 dropout 0.05, remat): batch 16 of micro
     batches 8, 32 synthetic DualHyp train records and 8 val records, 2
     epochs = 4 optimizer steps, the checkpoints holding the LoRA leaves
-    alone (`adapter_only`, the CLI's --save_adapter_only: the whole tree is
-    47 GB a file); then the best checkpoint is read back into the model and
+    alone (`adapter_only`, the CLI's --save_adapter_only: the whole tree of
+    16 layers is 47 GB a file); then the best checkpoint is read back into the model and
     4 requests are decoded
     from it. Then the 8 x 1024 step with remat on and with remat "moe" (each
     profiled), and dense once."""
@@ -3457,8 +3501,9 @@ DRAFT_LEN = 8
 def verify_rows_phase(torch, seed: int) -> dict:
     """K4, K5 (the fused QKV at rank 48 and proj at rank 16) and K8 (qkv and
     fc_1) at a verify step's rows, each against its plain version (two calls
-    bitwise equal), timed beside its bound and its cuBLAS yardstick."""
-    from dualhyp_tpu_torch.ops import int4, lora, quant, swiglu
+    bitwise equal), timed beside its bound and its cuBLAS yardstick; K8's
+    rows on its middle kernel beside the parent's tile (`q4_mid_row`)."""
+    from dualhyp_tpu_torch.ops import lora, quant, swiglu
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 61)
@@ -3502,9 +3547,8 @@ def verify_rows_phase(torch, seed: int) -> dict:
         packed, scales = quant.quantize_weight_int4(randn(n, k, std=0.02, dtype=torch.float32))
         w_deq = quant.dequantize_weight_int4(packed, scales, bf16)
         for rows in VERIFY_ROWS:
-            out["q4_matmul"][f"{name}_verify_{rows}"] = q4_row(
-                torch, randn(rows, k), packed, scales, w_deq,
-                path="decode" if rows <= int4.DECODE_ROWS else "wgmma")
+            out["q4_matmul"][f"{name}_verify_{rows}"] = q4_mid_row(
+                torch, randn(rows, k), packed, scales, w_deq)
     for name, entry in out.items():
         emit({"phase": "kernel_verify_rows", "name": name,
               "tolerance": dict(zip(("atol", "rtol"), TOLERANCES[name])), **entry})
@@ -4135,8 +4179,9 @@ def serve_slice(torch, seed: int) -> dict:
         missing = [n for n in need if launches[n] <= 0]
         if missing:
             raise RuntimeError(f"kernels never launched in serve run {label}: {missing}")
-    if runs["int4"]["profile"]["paths"]["k8_prefill"]["launches"] <= 0:
-        raise RuntimeError("int4 serving never ran K8's wgmma kernel at 144 verify rows")
+    if (runs["int4"]["profile"]["paths"]["k8_mid"]["launches"] <= 0
+            or runs["int4"]["launches"]["q4_matmul_mid"] <= 0):
+        raise RuntimeError("int4 serving never ran K8's middle kernel at 144 verify rows")
     if runs["fused_lora"]["profile"]["paths"]["k5_prefill"]["launches"] <= 0:
         raise RuntimeError("fused-LoRA serving never ran K5's wgmma kernels at 144 verify rows")
 
@@ -4258,12 +4303,13 @@ def numpy_decoder_tree(cfg, seed: int) -> dict:
 
 def whisper_kernel_phase(torch, seed: int) -> dict:
     """K8 at the Whisper decoder's shapes and rows (WHISPER_Q4_SHAPES x
-    WHISPER_Q4_ROWS) and K6 in bf16 at the encoder's B8 H20 T=S=1500, each
-    against its plain version, timed beside its bound and the library call
-    (cuBLAS on the dequantised weight; SDPA)."""
+    WHISPER_Q4_ROWS; the beam step's 400 rows on the middle kernel beside
+    the parent's tile, `q4_mid_row`) and K6 in bf16 at the encoder's B8 H20
+    T=S=1500, each against its plain version, timed beside its bound and the
+    library call (cuBLAS on the dequantised weight; SDPA)."""
     import torch.nn.functional as F
 
-    from dualhyp_tpu_torch.ops import flash_fwd, int4, quant
+    from dualhyp_tpu_torch.ops import flash_fwd, quant
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 41)
@@ -4280,9 +4326,8 @@ def whisper_kernel_phase(torch, seed: int) -> dict:
         for label, rows in WHISPER_Q4_ROWS:
             if label == "cross_kv" and name != "attn":
                 continue
-            q4[f"whisper_{label}_{name}"] = q4_row(
-                torch, randn(rows, k), packed, scales, w_deq,
-                path="decode" if rows <= int4.DECODE_ROWS else "wgmma")
+            q4[f"whisper_{label}_{name}"] = q4_mid_row(
+                torch, randn(rows, k), packed, scales, w_deq)
         del w_deq, packed, scales
     emit({"phase": "kernel", "name": "q4_matmul", "shapes_of": "whisper-large-v3 decoder",
           "tolerance": dict(zip(("atol", "rtol"), TOLERANCES["q4_matmul"])), **q4})
@@ -4577,9 +4622,10 @@ def whisper_asr_slice(torch, seed: int, whisper: Path) -> dict:
             k8 = launches["q4_matmul"]
             n_enc = w.WHISPER_LARGE_V3.n_layer * -(-ASR_UTTERANCES // ASR_BATCH)
             stray = [name for name in ASR_IDLE if launches[name] != 0]
-            if k6 != n_enc or (k8 > 0) != (label == "int4") or stray:
-                raise RuntimeError(f"ASR {label}: K6 {k6} (want {n_enc}), K8 {k8}, "
-                                   f"off the path {stray}")
+            mid = launches["q4_matmul_mid"]  # the beam's 400 rows
+            if k6 != n_enc or (k8 > 0) != (label == "int4") or (mid > 0) != (k8 > 0) or stray:
+                raise RuntimeError(f"ASR {label}: K6 {k6} (want {n_enc}), K8 {k8} (middle "
+                                   f"kernel {mid}), off the path {stray}")
         hyps = {label: [r["nhyps"]["hyps"][0] for r in json.loads(
             (tmp / f"asr_{label}.json").read_text())] for label, _ in runs}
     result = {"phase": "whisper_asr_slice", "model": "whisper-large-v3 (random, F16 on disk, "
@@ -5229,6 +5275,11 @@ FLASH_HEAD_CONFIGS = (("phi-2", 32, 32, 80), ("Gemma-2b", 8, 1, 256),
                       ("pythia-14m", 4, 4, 32))
 FLASH_HEADS_B, FLASH_HEADS_T, FLASH_HEADS_PREFILL_T = 8, 1024, 384
 FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd") + SPLASH_KERNELS
+# K1's backward at B8 Hq32 G32 T1024 before the narrow-box instances of head
+# sizes 80 and 96 (one warpgroup of 64 keys over two zero-filled 64-column
+# boxes): its device ms on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md's
+# K1 rows), the "was" of their rows
+K1_BWD_WAS_MS = {80: 1.1072, 96: 1.1997}
 # depth2_family_check's configs: phi-2; pythia-1b (D 256, a separate
 # norm_2, rotary 64 of 256); falcon-7b (71 heads of one group, a shared
 # norm, no bias); and the RMSNorm configs whose head sizes (256, 96, 100)
@@ -5381,6 +5432,10 @@ def flash_heads_phase(torch, seed: int) -> dict:
                 library=("SDPA forward (enable_gqa)" if name.endswith("_fwd") else
                          "SDPA backward (dQ, dK, dV together; autograd.grad)"),
                 bound_ms=bms, bound_by=by)
+            if name == "flash_attention_bwd" and hs in K1_BWD_WAS_MS:
+                out[name][f"d{hs}"].update(layout=getattr(attention, "bwd_layout", str)(hs),
+                                           was_device_ms=K1_BWD_WAS_MS[hs],
+                                           was="the instance over two 64-column boxes (PERF.md)")
         dp = attention.padded_head_size(hs)
         if dp != hs:  # the wrappers' zero-padded copies, timed alone
             for name, tensors in (("flash_attention_fwd", (q, k, v)),
@@ -5431,8 +5486,10 @@ def phi2_kernel_phase(torch, seed: int) -> dict:
     plain version at TOLERANCES, timed beside its bound and, for K8 and K5,
     the cuBLAS yardstick (`q4_row`, `lora_row`): K8 at phi-2's five linears
     (PHI2_Q4_SHAPES x PHI2_ROWS), K5 at q/k/v and proj with rank 16, K3 at
-    32 of 80 channels on fused-QKV views (PHI2_ROPE_SHAPES). Returns
-    {kernel: {row: result}}."""
+    32 of 80 channels on fused-QKV views (PHI2_ROPE_SHAPES), and K1's
+    backward at phi-2's training shape (B8, 32 heads, T1024) at head sizes
+    80 and 96 (Phi-3's) beside SDPA's backward and the instance it replaced
+    (K1_BWD_WAS_MS). Returns {kernel: {row: result}}."""
     from dualhyp_tpu_torch import config_from_name
     from dualhyp_tpu_torch.models.gpt import split_heads
     from dualhyp_tpu_torch.ops import lora, quant, rope
@@ -5490,8 +5547,46 @@ def phi2_kernel_phase(torch, seed: int) -> dict:
         del q5, k4, runs
     emit({"phase": "kernel", "name": "apply_rope", "shapes_of": PHI2,
           "tolerance": dict(zip(("atol", "rtol"), TOLERANCES["apply_rope"])), **ro})
+    del cos, sin
     torch.cuda.empty_cache()
-    return {"q4_matmul": q4, "lora_linear": lo, "apply_rope": ro}
+
+    # K1's backward at phi-2's training shape (32 heads of 80, MHA, 8 x
+    # 1024) and Phi-3's head size (96): the narrow-box instances
+    import torch.nn.functional as F
+
+    from dualhyp_tpu_torch.ops import attention
+
+    bwd = {}
+    b, nh, t = 8, 32, 1024
+    for config, hs in ((PHI2, 80), ("Phi-3-mini-4k-instruct", 96)):
+        scale = hs ** -0.5
+        q, k, v, do = (randn(b, nh, t, hs) for _ in range(4))
+        o, lse = attention._flash_fwd(q, k, v, scale)
+        fn = lambda: attention.flash_attention_bwd(q, k, v, o, lse, do, scale)  # noqa: E731
+        plain = lambda: attention.flash_attention_bwd_plain(  # noqa: E731
+            q, k, v, o, lse, do, scale)
+        checks = {f"d{n}": compare_scaled(f"flash_attention_bwd d{n} D{hs}", x, y, torch)
+                  for n, x, y in zip("qkv", fn(), plain())}
+        qr, kr, vr = (z.detach().requires_grad_() for z in (q, k, v))
+        sdpa_out = sdpa_gqa(F, qr, kr, vr, scale)
+        pairs, n_q = b * nh * t * (t + 1) // 2, b * nh * t * hs
+        bms, by = bound(10 * n_q + b * nh * t * 4, 10 * hs * pairs, BF16_TENSOR_FLOPS)
+        bwd[f"d{hs}"] = dict(
+            config=config, shape=[b, nh, nh, t, hs],
+            layout=getattr(attention, "bwd_layout", str)(hs),
+            max_abs_err=max(c["max_abs_err"] for c in checks.values()), **checks,
+            ms=time_ms(fn, torch, iters=10), device_ms=device_ms(fn, torch, iters=5),
+            plain_ms=time_ms(plain, torch, warmup=1, iters=2),
+            library_ms=time_ms(lambda: torch.autograd.grad(sdpa_out, (qr, kr, vr), do,
+                                                           retain_graph=True), torch, iters=5),
+            library="SDPA backward (dQ, dK, dV together; autograd.grad)",
+            bound_ms=bms, bound_by=by, was_device_ms=K1_BWD_WAS_MS[hs],
+            was="the instance over two 64-column boxes (PERF.md)")
+        del q, k, v, do, o, lse, qr, kr, vr, sdpa_out
+        torch.cuda.empty_cache()
+    emit({"phase": "kernel", "name": "flash_attention_bwd", "shapes_of": f"{PHI2} training",
+          "tolerance": dict(zip(("atol", "atol_of_rms", "rtol"), FLASH_BWD_TOL)), **bwd})
+    return {"q4_matmul": q4, "lora_linear": lo, "apply_rope": ro, "flash_attention_bwd": bwd}
 
 
 def randomize_family_leaves(torch, model, gen) -> None:
@@ -5739,7 +5834,9 @@ def phi2_slice(torch, seed: int) -> dict:
         losses = trained["losses"]
         if len(losses) != 4 or not all(math.isfinite(x) for x in losses):
             raise RuntimeError(f"phi-2 training losses {losses}")
-        missing = [n for n in PHI2_TRAIN_PATH if trained["launches"][n] <= 0]
+        # every K1 backward at phi-2's head size: the D80 instance
+        missing = [n for n in PHI2_TRAIN_PATH + ("flash_attention_bwd_d80",)
+                   if trained["launches"][n] <= 0]
         stray = [n for n in PHI2_IDLE + ("lora_linear", "q4_matmul")
                  if trained["launches"][n] != 0]
         if missing or stray:
@@ -6217,6 +6314,10 @@ SCALEOUT_TRAIN = (("dp2", dict(data=2), {}, "xla"),
                   ("tensor2", dict(tensor=2), {}, "fused"),
                   ("pipe2", None, dict(pipeline_stages=2, pipeline_microbatches=2), "xla"))
 SCALEOUT_SEQ_T = 1024  # the seq 2 steps' sequence length (512 tokens a rank)
+# TinyLlama's depth in the scale-out runs (full width; 4 of its 22 layers,
+# two a pipeline stage: every collective of a block still runs, and the
+# script's time stays under its limit on a slow host)
+SCALEOUT_LAYERS = 4
 # a rank's bf16 loss against one rank's of the same batch (the largest
 # measured was 1.6e-4, tensor 2 on an H100)
 SCALEOUT_LOSS_RTOL = 1e-3
@@ -6267,6 +6368,7 @@ def scaleout_kernel_phase(torch, seed: int) -> dict:
                     device_ms=device_ms(fn, torch),
                     plain_ms=time_ms(plain, torch, warmup=1, iters=3),
                     library_ms=time_ms(library, torch) if library else None,
+                    **({"library_device_ms": device_ms(library, torch)} if library else {}),
                     bound_ms=bms, bound_by=by)
 
     emit({"phase": "warm_up", **warm_up(torch)})
@@ -6278,9 +6380,12 @@ def scaleout_kernel_phase(torch, seed: int) -> dict:
 
     d, rows = 2048, 8 * 512
     x, scale = randn(rows, d), 1.0 + randn(d, std=0.1, dtype=torch.float32)
+    scale_bf16 = scale.to(bf16)  # F.rms_norm's weight in x's dtype
     out["rms_norm"] = {"seq2_rows": row(
         "rms_norm", lambda: rmsnorm.rms_norm(x, scale), lambda: rmsnorm.rms_norm_plain(x, scale),
-        2 * rows * d * 2 + d * 4, 4 * rows * d, FP32_FLOPS, [rows, d])}
+        2 * rows * d * 2 + d * 4, 4 * rows * d, FP32_FLOPS, [rows, d],
+        library=lambda: torch.nn.functional.rms_norm(x, (d,), scale_bf16, 1e-5),
+        library_name="F.rms_norm (bf16 weight)")}
 
     cfg = GPTConfig(n_embd=d, n_head=32, n_query_groups=4, rotary_percentage=1.0,
                     intermediate_size=5632, mlp_class="LLaMAMLP")
@@ -6312,7 +6417,10 @@ def scaleout_kernel_phase(torch, seed: int) -> dict:
         entry[label] = row("swiglu_mlp", lambda: swiglu.swiglu_mlp(xx, w1, w2, w3),
                            lambda: swiglu.swiglu_mlp_plain(xx, w1, w2, w3),
                            (2 * n_rows * dd + 3 * inter * dd) * 2, 6 * n_rows * dd * inter,
-                           BF16_TENSOR_FLOPS, [n_rows, dd, inter])
+                           BF16_TENSOR_FLOPS, [n_rows, dd, inter],
+                           library=lambda: (torch.nn.functional.silu(xx @ w1.t())
+                                            * (xx @ w2.t())) @ w3.t(),
+                           library_name="cuBLAS x3 (silu(x W1^T) * x W2^T) W3^T")
         del w1, w2, w3, xx
     out["swiglu_mlp"] = entry
 
@@ -6444,7 +6552,7 @@ def scaleout_runs(torch, seed: int, mesh_of, probe_dir: Path) -> dict:
     from dualhyp_tpu_torch.train import TrainConfig, Trainer
 
     bf16 = torch.bfloat16
-    cfg = lora_config(22)
+    cfg = lora_config(SCALEOUT_LAYERS)
     tree = scaleout_tree(torch, cfg, seed)
     runs = {}
     done = {}  # one rank alone: the run_training runs that are the same run
@@ -7012,6 +7120,10 @@ def main(argv=None) -> int:
         if name in verify_rows:  # K4, K5, K8 at a verify step's rows
             entry["verify_rows"] = {k: {key: v[key] for key in keys + ("path",)}
                                     for k, v in verify_rows[name].items()}
+        if name == "q4_matmul":  # the middle kernel's launches (17 to MID_ROWS rows)
+            entry["middle_kernel_launches"] = {p: counts["q4_matmul_mid"]
+                                               for p, counts in paths.items()
+                                               if counts.get("q4_matmul_mid")}
         if name == "apply_rope":
             entry["train_rows_transpose"] = {
                 k: train_shapes["apply_rope_transpose"][k] for k in keys}

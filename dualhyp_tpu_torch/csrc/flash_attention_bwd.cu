@@ -91,12 +91,29 @@
 //     still take ~250: two warpgroups at the hand-over's 240 spill ~750
 //     bytes and took 2.1x the time of one, so it runs one too. Each choice
 //     was the faster on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md);
+//   * head sizes 80 and 96 (phi-2, Phi-3; `kTail`): a tile's columns past
+//     64 lie in a narrow box of their own (16 columns with a 32-byte
+//     swizzle, or 32 with a 64-byte one), loaded and stored through maps of
+//     their own (`TailMaps`), so dV, dK and dQ run at N = 64 + 16 or + 32
+//     (`wgmma_rs_tb`, `wgmma_ss_tt` over `narrow_desc`) where two
+//     zero-filled 64-column boxes computed 128 columns, and S^T and dP^T
+//     take their last k16 steps from the narrow boxes. Two consumer
+//     warpgroups (128 keys a block) and no producer warpgroup: a warp's
+//     registers come from one quarter of the SM's file, so with a ninth
+//     warp ptxas held the consumers to 168 registers and they spilled
+//     their dK and dV (80 or 96) with S^T and dP^T (64); with eight warps
+//     they fit (255 the most), and the first consumer thread issues the
+//     loads (a pair's slot refilled once both warpgroups are past it). The
+//     two warpgroups' dQ partials of a pair are added in shared memory
+//     (two barriers of the 256 threads) before one reduce-add, half the
+//     adds in the L2 (scripts/torch_flash_bwd_variants.py times each
+//     choice, PERF.md);
 //   * ragged T: TMA reads zeros past T (Q and dO rows give zero dS; keys
 //     past T are masked), the TMA adds and stores stop at T; every T >= 1
 //     runs;
-//   * one instance per head size: 32, 64, 80, 96, 100 (read as 104 from
-//     the wrapper's zero-padded copy), 128 and 256, as the forward's
-//     (flash_attention.cu). At D 256 the dK/dV accumulators alone would
+//   * one instance per head size (`attention.bwd_layout` lists them): 32,
+//     64, 80, 96, 100 (read as 104 from the wrapper's zero-padded copy), 128
+//     and 256, as the forward's (flash_attention.cu). At D 256 the dK/dV accumulators alone would
 //     take 256 registers a thread: the grid holds two blocks a key block,
 //     each keeping half of the columns of dK and dV (both form the whole
 //     of S^T and dP^T, 7 products of D/2 where K1 runs 5 of D), and K1's
@@ -146,11 +163,17 @@ constexpr int kBKV = 64;    // keys of an L1 dQ tile
 // over D stop at the last 16-column step holding data.
 template <int kD>
 constexpr int kColBlocks = (kD + 63) / 64;
+// The backward's columns past its one 64-column box at head sizes 80 and 96
+// (phi-2, Phi-3): a box of their own, 16 or 32 columns wide with a 32- or
+// 64-byte swizzle (`narrow_desc`), so every product whose output is D wide
+// runs at N = D (64 + the tail) and none over zero-filled columns.
+template <int kD>
+constexpr int kTail = (kD == 80 || kD == 96) ? kD - 64 : 0;
 // consumer warpgroups (of 64 keys) a block at head size kD for K1's
 // backward and L1's dK/dV: the faster choice at 64 and 128 on the card
-// (PERF.md), two at one column block, one above
+// (PERF.md), two at one column block and at 80 and 96, one above
 template <int kD>
-constexpr int kWarpgroups = kColBlocks<kD> == 1 ? 2 : 1;
+constexpr int kWarpgroups = (kColBlocks<kD> == 1 || kTail<kD> > 0) ? 2 : 1;
 // column parts of dK and dV: at D 256 a block keeps half of their columns
 // (128 registers a thread of each would not fit) and a second block the
 // other half, each forming the whole of S^T and dP^T
@@ -181,22 +204,34 @@ template <int kD, int kWG, bool kWithDq, int kNParts = 1>
 struct Layout {
   static_assert(kNParts == 1 || !kWithDq, "K1's dQ half runs on whole rows");
   static constexpr int kBK = 64 * kWG;              // keys a block
-  static constexpr int kThreads = 128 * (kWG + 1);  // + the producer warpgroup
+  // the producer: a warpgroup that hands its registers to the consumers,
+  // or at 80 and 96 none, the loads issued by the first consumer thread: a
+  // warp's registers come from one of the SM's four 16K-register quarters,
+  // so a ninth warp holds two consumer warpgroups to 168 registers a thread
+  // (their dK, dV, S^T and dP^T spilled there), eight warps to 255
+  static constexpr int kProducerWarps = kTail<kD> > 0 ? 0 : 4;
+  static constexpr int kThreads = 128 * kWG + 32 * kProducerWarps;
   // registers a thread at launch (the SM's 64K over one block's threads:
-  // 168 with two consumer warpgroups; one takes the 255 cap and needs no
-  // hand-over), then after the hand-over: the producer keeps 24, the
-  // consumers take the rest of what the launch gave the block
+  // 168 with two consumer warpgroups and a producer warpgroup; one takes
+  // the 255 cap and needs no hand-over), then after the hand-over: the
+  // producer keeps 24, the consumers take the rest of what the launch gave
+  // the block
   static constexpr int kLaunchRegs = 65536 / kThreads / 8 * 8;
-  static constexpr bool kHandOver = kLaunchRegs < 255;
+  static constexpr bool kHandOver = kProducerWarps == 4 && kLaunchRegs < 255;
   static constexpr int kProducerRegs = 24;
   static constexpr int kConsumerRegs = (kLaunchRegs * (kWG + 1) - kProducerRegs) / kWG / 8 * 8;
-  static constexpr int kCols = kColBlocks<kD>;      // 64-column (128-byte) blocks
+  static constexpr int kTailCols = kTail<kD>;       // the narrow box's columns (or 0)
+  // 64-column (128-byte) blocks: whole ones only beside a narrow box
+  static constexpr int kCols = kTailCols ? kD / 64 : kColBlocks<kD>;
   static constexpr int kOutCols = kCols / kNParts;  // the blocks of dK, dV a block keeps
   static constexpr int kK16 = (kD + 15) / 16;       // k16 steps over D
-  static constexpr int kKVBytes = kBK * kCols * 64 * 2;  // the K or V tile
-  static constexpr int kQBytes = kBQ * kCols * 64 * 2;   // one Q or dO tile
+  static constexpr int kRowCols = kCols * 64 + kTailCols;  // columns a tile's row takes
+  static constexpr int kKVBytes = kBK * kRowCols * 2;      // the K or V tile
+  static constexpr int kQBytes = kBQ * kRowCols * 2;       // one Q or dO tile
   static constexpr int kDsBytes = kWithDq ? 64 * kBQ * 2 : 0;  // a warpgroup's bf16 dS^T
-  static constexpr int kDqBytes = kWithDq ? kBQ * kCols * 64 * 4 : 0;  // its fp32 dQ partial
+  // its fp32 dQ partial, in (kBQ, 32) boxes (three at 80 and 96)
+  static constexpr int kDqBoxes = kTailCols ? (kD + 31) / 32 : 2 * kCols;
+  static constexpr int kDqBytes = kWithDq ? kBQ * kDqBoxes * 128 : 0;
   static constexpr int kRowBytes = 2 * kBQ * 4;     // a tile's L and Delta
   static constexpr int kV = kKVBytes;
   static constexpr int kQ = 2 * kKVBytes;
@@ -254,19 +289,43 @@ splash_rows(const float* __restrict__ lse, const float* __restrict__ di,
   rows[n_rows + row] = ti < t ? di[src] : 0.f;
 }
 
+// The maps of the narrow boxes (columns 64 to D at head sizes 80 and 96,
+// `kTail`): (rows, kTail) boxes of q, k, v, dO, dk and dv; unused elsewhere.
+struct TailMaps {
+  CUtensorMap q, k, v, dout, dk, dv;
+};
+
+// The byte offset of element (r, c) (c even: the pair shares 4 bytes) of a
+// tile of rows of kBytes bytes (32 or 64) as TMA's 32- or 64-byte swizzle
+// lays it out: the 16-byte chunk XOR address bits 7 and up.
+template <int kBytes>
+__device__ __forceinline__ int narrow_offset(int r, int c) {
+  const int o = r * kBytes + 2 * c;
+  return o ^ (((o >> 7) & (kBytes / 16 - 1)) << 4);
+}
+
 // The backward of one block (K1 with kWithDq; L1's dK/dV without: map_dq
 // is then not read). With kNParts 2 the grid holds two blocks a key block,
 // each keeping one half of the columns of dK and dV. kK1: P by exp2f (K1's
-// arithmetic, also where its D 256 path runs this body without dQ).
+// arithmetic, also where its D 256 path runs this body without dQ). At
+// head sizes 80 and 96 each tile's columns past 64 lie in a narrow box of
+// their own (`tails`), read and written by products of N = kTail.
 template <int kD, int kWG, bool kWithDq, int kNParts = 1, bool kK1 = kWithDq>
 __device__ __forceinline__ void attention_bwd(
     const CUtensorMap* map_q, const CUtensorMap* map_k, const CUtensorMap* map_v,
     const CUtensorMap* map_do, const CUtensorMap* map_rows, const CUtensorMap* map_dq,
-    const CUtensorMap* map_dk, const CUtensorMap* map_dv, int q_per_kv, int t, float scale) {
+    const CUtensorMap* map_dk, const CUtensorMap* map_dv, const TailMaps* tails, int q_per_kv,
+    int t, float scale) {
   using L = Layout<kD, kWG, kWithDq, kNParts>;
   constexpr int kBK = L::kBK;
   constexpr int kCols = L::kCols;
   constexpr int kOutCols = L::kOutCols;
+  constexpr int kTc = L::kTailCols;
+  constexpr int kTcRegs = kTc > 0 ? kTc / 2 : 1;  // a tail product's registers a thread
+  // K1 at 80 and 96: the two warpgroups' dQ partials of a pair are added in
+  // shared memory and reach the fp32 buffer in one TMA reduce-add, half the
+  // L2's adds of one each (which took 0.28-0.30 of 0.79-0.86 ms, PERF.md)
+  constexpr bool kMergeDq = kWithDq && kTc > 0 && kWG == 2;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -306,28 +365,46 @@ __device__ __forceinline__ void attention_bwd(
   }
   __syncthreads();
 
+  // the block's K and V tiles; the Q, dO, L and Delta tiles of pair i (the
+  // group's query heads in turn, each walking its tiles from qt0) into slot s
+  const int n_pairs = q_per_kv * (n_qt - qt0);
+  auto load_kv = [&]() {
+    mbar_expect_tx(kv_bar, 2 * L::kKVBytes);
+    for (int c = 0; c < kCols; ++c) {
+      tma_load_4d(k_s + c * kBK * 64, map_k, kv_bar, c * 64, k0, g, b);
+      tma_load_4d(v_s + c * kBK * 64, map_v, kv_bar, c * 64, k0, g, b);
+    }
+    if constexpr (kTc > 0) {
+      tma_load_4d(k_s + kCols * kBK * 64, &tails->k, kv_bar, kCols * 64, k0, g, b);
+      tma_load_4d(v_s + kCols * kBK * 64, &tails->v, kv_bar, kCols * 64, k0, g, b);
+    }
+  };
+  auto load_pair = [&](int i, int s) {
+    const int h = g * q_per_kv + i / (n_qt - qt0);
+    const int qt = qt0 + i % (n_qt - qt0);
+    mbar_expect_tx(&full[s], 2 * L::kQBytes + L::kRowBytes);
+    for (int c = 0; c < kCols; ++c) {
+      tma_load_4d(q_tile(s) + c * kBQ * 64, map_q, &full[s], c * 64, qt * kBQ, h, b);
+      tma_load_4d(do_tile(s) + c * kBQ * 64, map_do, &full[s], c * 64, qt * kBQ, h, b);
+    }
+    if constexpr (kTc > 0) {
+      tma_load_4d(q_tile(s) + kCols * kBQ * 64, &tails->q, &full[s], kCols * 64, qt * kBQ, h,
+                  b);
+      tma_load_4d(do_tile(s) + kCols * kBQ * 64, &tails->dout, &full[s], kCols * 64,
+                  qt * kBQ, h, b);
+    }
+    tma_load_4d(row_tile(s), map_rows, &full[s], qt * kBQ, h, b, 0);
+    tma_load_4d(row_tile(s) + kBQ, map_rows, &full[s], qt * kBQ, h, b, 1);
+  };
+
   if (warp >= 4 * kWG) {  // ---- the producer warpgroup ----
     if constexpr (L::kHandOver) setmaxnreg_dec<L::kProducerRegs>();
     if (threadIdx.x == 4 * kWG * 32) {
-      mbar_expect_tx(kv_bar, 2 * L::kKVBytes);
-      for (int c = 0; c < kCols; ++c) {
-        tma_load_4d(k_s + c * kBK * 64, map_k, kv_bar, c * 64, k0, g, b);
-        tma_load_4d(v_s + c * kBK * 64, map_v, kv_bar, c * 64, k0, g, b);
-      }
-      int i = 0;
-      for (int hh = 0; hh < q_per_kv; ++hh) {
-        const int h = g * q_per_kv + hh;
-        for (int qt = qt0; qt < n_qt; ++qt, ++i) {
-          const int s = i % kStages;
-          if (i >= kStages) mbar_wait(&empty[s], ((i / kStages) - 1) & 1);
-          mbar_expect_tx(&full[s], 2 * L::kQBytes + L::kRowBytes);
-          for (int c = 0; c < kCols; ++c) {
-            tma_load_4d(q_tile(s) + c * kBQ * 64, map_q, &full[s], c * 64, qt * kBQ, h, b);
-            tma_load_4d(do_tile(s) + c * kBQ * 64, map_do, &full[s], c * 64, qt * kBQ, h, b);
-          }
-          tma_load_4d(row_tile(s), map_rows, &full[s], qt * kBQ, h, b, 0);
-          tma_load_4d(row_tile(s) + kBQ, map_rows, &full[s], qt * kBQ, h, b, 1);
-        }
+      load_kv();
+      for (int i = 0; i < n_pairs; ++i) {
+        const int s = i % kStages;
+        if (i >= kStages) mbar_wait(&empty[s], ((i / kStages) - 1) & 1);
+        load_pair(i, s);
       }
     }
   } else {  // ---- consumers: warpgroup wg owns keys k0 + 64 wg + [0, 64) ----
@@ -342,17 +419,28 @@ __device__ __forceinline__ void attention_bwd(
     const float scale2 = scale * kLog2e;      // logits in base 2
     bf16* k_wg = k_s + 64 * wg * 64;          // the warpgroup's keys, column block 0
     bf16* v_wg = v_s + 64 * wg * 64;
+    bf16* kt_wg = k_s + kCols * kBK * 64 + 64 * wg * kTc;  // and in the narrow box
+    bf16* vt_wg = v_s + kCols * kBK * 64 + 64 * wg * kTc;
     // K1: the warpgroup's bf16 dS^T (64 keys, 64 queries) and its fp32 dQ
     // partial, [kCols][2][kBQ][32], 128-byte swizzled (32-column boxes)
     bf16* ds_s = reinterpret_cast<bf16*>(smem + L::kDs + wg * L::kDsBytes);
     unsigned char* dq_s = smem + L::kDq + wg * L::kDqBytes;
 
     float dk[kOutCols][32], dv[kOutCols][32];
+    float dkt[kTcRegs], dvt[kTcRegs];  // the narrow box's columns of dK and dV
 #pragma unroll
     for (int c = 0; c < kOutCols; ++c)
 #pragma unroll
       for (int i = 0; i < 32; ++i) dk[c][i] = dv[c][i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kTcRegs; ++i) dkt[i] = dvt[i] = 0.f;
 
+    if constexpr (L::kProducerWarps == 0) {  // thread 0 issues the loads
+      if (threadIdx.x == 0) {
+        load_kv();
+        for (int i = 0; i < kStages && i < n_pairs; ++i) load_pair(i, i);
+      }
+    }
     mbar_wait(kv_bar, 0);
     int i = 0;
     for (int hh = 0; hh < q_per_kv; ++hh) {
@@ -360,13 +448,28 @@ __device__ __forceinline__ void attention_bwd(
       for (int qt = qt0; qt < n_qt; ++qt, ++i) {
         const int s = i % kStages;
         const int q0 = qt * kBQ;
+        if constexpr (L::kProducerWarps == 0) {
+          // pair i - 1's slot, once both warpgroups are done with it, takes
+          // pair i - 1 + kStages
+          const int j = i - 1 + kStages;
+          if (threadIdx.x == 0 && i > 0 && j < n_pairs) {
+            mbar_wait(&empty[(i - 1) % kStages], ((i - 1) / kStages) & 1);
+            load_pair(j, (i - 1) % kStages);
+          }
+        }
         mbar_wait(&full[s], (i / kStages) & 1);
         if (q0 + kBQ - 1 < kw0) {  // every key of the warpgroup follows every query
           if (lane == 0) mbar_arrive(&empty[s]);
+          if constexpr (kMergeDq) {  // (warpgroup 1 only) the pair's two merge barriers
+            named_barrier<256>(3);
+            named_barrier<256>(3);
+          }
           continue;
         }
         const bf16* q_sm = q_tile(s);
         const bf16* do_sm = do_tile(s);
+        const bf16* qt_sm = q_sm + kCols * kBQ * 64;  // the narrow boxes
+        const bf16* dot_sm = do_sm + kCols * kBQ * 64;
 
         // S^T = K Q^T and dP^T = V dO^T: rows keys, columns queries
         float st[32], dpt[32];
@@ -377,14 +480,26 @@ __device__ __forceinline__ void attention_bwd(
         for (int kk = 0; kk < L::kK16; ++kk) {
           const int off = (kk / 4) * kBK * 64 + (kk % 4) * 16;
           const int qoff = (kk / 4) * kBQ * 64 + (kk % 4) * 16;
-          Wgmma<64>::ss(st, sw128_desc(k_wg + off), sw128_desc(q_sm + qoff), kk > 0);
+          if (kk < 4 * kCols) {
+            Wgmma<64>::ss(st, sw128_desc(k_wg + off), sw128_desc(q_sm + qoff), kk > 0);
+          } else {
+            const int tk = (kk - 4 * kCols) * 16;
+            Wgmma<64>::ss(st, narrow_desc<2 * kTc>(kt_wg + tk), narrow_desc<2 * kTc>(qt_sm + tk),
+                          kk > 0);
+          }
         }
         if constexpr (!kWithDq) wgmma_commit();  // L1: S^T in a group of its own
 #pragma unroll
         for (int kk = 0; kk < L::kK16; ++kk) {
           const int off = (kk / 4) * kBK * 64 + (kk % 4) * 16;
           const int qoff = (kk / 4) * kBQ * 64 + (kk % 4) * 16;
-          Wgmma<64>::ss(dpt, sw128_desc(v_wg + off), sw128_desc(do_sm + qoff), kk > 0);
+          if (kk < 4 * kCols) {
+            Wgmma<64>::ss(dpt, sw128_desc(v_wg + off), sw128_desc(do_sm + qoff), kk > 0);
+          } else {
+            const int tk = (kk - 4 * kCols) * 16;
+            Wgmma<64>::ss(dpt, narrow_desc<2 * kTc>(vt_wg + tk),
+                          narrow_desc<2 * kTc>(dot_sm + tk), kk > 0);
+          }
         }
         wgmma_commit();
         wgmma_wait<kWithDq ? 0 : 1>();
@@ -465,15 +580,22 @@ __device__ __forceinline__ void attention_bwd(
           fence_regs(dv[c]);
           fence_regs(dk[c]);
         }
+        fence_regs(dvt);
+        fence_regs(dkt);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
+        for (int kk = 0; kk < 4; ++kk) {
 #pragma unroll
           for (int c = 0; c < kOutCols; ++c) {
             const int off = (col0 + c) * kBQ * 64 + kk * 16 * 64;
             wgmma_rs_n64_tb(dv[c], pt[kk], sw128_desc(do_sm + off));
             wgmma_rs_n64_tb(dk[c], dst[kk], sw128_desc(q_sm + off));
           }
+          if constexpr (kTc > 0) {  // the narrow box, read MN-major
+            wgmma_rs_tb<kTc>(dvt, pt[kk], narrow_desc<2 * kTc>(dot_sm + kk * 16 * kTc));
+            wgmma_rs_tb<kTc>(dkt, dst[kk], narrow_desc<2 * kTc>(qt_sm + kk * 16 * kTc));
+          }
+        }
         wgmma_commit();
 
         if constexpr (!kWithDq) {
@@ -483,6 +605,8 @@ __device__ __forceinline__ void attention_bwd(
             fence_regs(dv[c]);
             fence_regs(dk[c]);
           }
+          fence_regs(dvt);
+          fence_regs(dkt);
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk) {
             fence_regs(pt[kk]);
@@ -512,6 +636,8 @@ __device__ __forceinline__ void attention_bwd(
                 fence_regs(dv[cc]);
                 fence_regs(dk[cc]);
               }
+              fence_regs(dvt);
+              fence_regs(dkt);
               if (lane == 0) {
                 mbar_arrive(&empty[s]);  // dV and dK have read the Q and dO tiles
                 bulk_wait_read<0>();     // the last pair's adds have read the staging
@@ -528,9 +654,45 @@ __device__ __forceinline__ void attention_bwd(
                     make_float2(dq[4 * j + 2 * half] * scale, dq[4 * j + 2 * half + 1] * scale);
             }
           }
+          if constexpr (kTc > 0) {  // dQ's columns 64 to D: dS K over the narrow box
+            float dqt[kTc / 2];
+            fence_regs(dqt);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              wgmma_ss_tt<kTc>(dqt, sw128_desc(ds_s + kk * 16 * 64),
+                               narrow_desc<2 * kTc>(kt_wg + kk * 16 * kTc), kk > 0);
+            wgmma_commit();
+            wgmma_wait<0>();
+            fence_regs(dqt);
+#pragma unroll
+            for (int j = 0; j < kTc / 8; ++j) {
+              const int cc = 8 * j + col;  // the column past 64
+              unsigned char* box = dq_s + (2 * kCols + (cc >> 5)) * (kBQ * 128);
+#pragma unroll
+              for (int half = 0; half < 2; ++half)
+                *reinterpret_cast<float2*>(box + swizzled_offset_f32(r0 + 8 * half, cc & 31)) =
+                    make_float2(dqt[4 * j + 2 * half] * scale, dqt[4 * j + 2 * half + 1] * scale);
+            }
+          }
           fence_async_smem();
           __syncwarp();
-          if (lane == 0) {
+          if constexpr (kMergeDq) {
+            // warpgroup 0's staging += warpgroup 1's (where its keys reach
+            // the tile: q0 > k0), by all 256 threads; then warpgroup 0 adds
+            named_barrier<256>(3);  // both partials are staged
+            if (q0 > k0) {
+              float4* dst = reinterpret_cast<float4*>(smem + L::kDq);
+              const float4* src = reinterpret_cast<const float4*>(smem + L::kDq + L::kDqBytes);
+              for (int x = threadIdx.x; x < kBQ * L::kDqBoxes * 8; x += 256) {
+                const float4 a = dst[x], c = src[x];
+                dst[x] = make_float4(a.x + c.x, a.y + c.y, a.z + c.z, a.w + c.w);
+              }
+              fence_async_smem();
+            }
+            named_barrier<256>(3);  // the sum is in warpgroup 0's staging
+          }
+          if (lane == 0 && (!kMergeDq || wg == 0)) {
 #pragma unroll
             for (int box = 0; box < (kD + 31) / 32; ++box)  // no box wholly past D
               tma_reduce_add_4d(map_dq, dq_s + box * (kBQ * 128) + wq * 16 * 128, box * 32,
@@ -557,12 +719,30 @@ __device__ __forceinline__ void attention_bwd(
               pack_bf16x2(dv[c][4 * j + 2 * half], dv[c][4 * j + 2 * half + 1]);
         }
     }
+    if constexpr (kTc > 0) {
+      unsigned char* kbox = reinterpret_cast<unsigned char*>(kt_wg);
+      unsigned char* vbox = reinterpret_cast<unsigned char*>(vt_wg);
+#pragma unroll
+      for (int j = 0; j < kTc / 8; ++j)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int off = narrow_offset<2 * kTc>(r0 + 8 * half, 8 * j + col);
+          *reinterpret_cast<uint32_t*>(kbox + off) =
+              pack_bf16x2(dkt[4 * j + 2 * half] * scale, dkt[4 * j + 2 * half + 1] * scale);
+          *reinterpret_cast<uint32_t*>(vbox + off) =
+              pack_bf16x2(dvt[4 * j + 2 * half], dvt[4 * j + 2 * half + 1]);
+        }
+    }
     fence_async_smem();
     named_barrier<128>(1 + wg);
     if (tid == 0 && kw0 < t) {
       for (int c = 0; c < kOutCols; ++c) {
         tma_store_4d(map_dk, k_wg + c * kBK * 64, (col0 + c) * 64, kw0, g, b);
         tma_store_4d(map_dv, v_wg + c * kBK * 64, (col0 + c) * 64, kw0, g, b);
+      }
+      if constexpr (kTc > 0) {
+        tma_store_4d(&tails->dk, kt_wg, kCols * 64, kw0, g, b);
+        tma_store_4d(&tails->dv, vt_wg, kCols * 64, kw0, g, b);
       }
       bulk_commit();
     }
@@ -579,10 +759,10 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap map_q,
                  const __grid_constant__ CUtensorMap map_rows,
                  const __grid_constant__ CUtensorMap map_dq,
                  const __grid_constant__ CUtensorMap map_dk,
-                 const __grid_constant__ CUtensorMap map_dv, int q_per_kv, int t,
-                 float scale) {
+                 const __grid_constant__ CUtensorMap map_dv,
+                 const __grid_constant__ TailMaps tails, int q_per_kv, int t, float scale) {
   attention_bwd<kD, kWG, true>(&map_q, &map_k, &map_v, &map_do, &map_rows, &map_dq, &map_dk,
-                               &map_dv, q_per_kv, t, scale);
+                               &map_dv, &tails, q_per_kv, t, scale);
 }
 
 template <int kD, int kWG, bool kK1>
@@ -591,9 +771,11 @@ splash_dkv(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CU
            const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
            const __grid_constant__ CUtensorMap map_rows,
            const __grid_constant__ CUtensorMap map_dk,
-           const __grid_constant__ CUtensorMap map_dv, int q_per_kv, int t, float scale) {
+           const __grid_constant__ CUtensorMap map_dv, const __grid_constant__ TailMaps tails,
+           int q_per_kv, int t, float scale) {
   attention_bwd<kD, kWG, false, kParts<kD>, kK1>(&map_q, &map_k, &map_v, &map_do, &map_rows,
-                                                 nullptr, &map_dk, &map_dv, q_per_kv, t, scale);
+                                                 nullptr, &map_dk, &map_dv, &tails, q_per_kv, t,
+                                                 scale);
 }
 
 // ---- L1's dQ ---------------------------------------------------------------
@@ -812,6 +994,20 @@ int rows_map(CUtensorMap* map, void* rows, int b, int n_head, int tp) {
                          CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
+// The map of columns 64 to D (kTail<kD> of them) of a (batch, head, token,
+// D) view, in (rows, kTail) boxes with the 32- or 64-byte swizzle that
+// `narrow_desc` reads.
+int tail_map(CUtensorMap* map, const void* p, int b, int heads, int t, int d, long long sb,
+             long long sh, long long st, int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(t),
+                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st) * 2, static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(d - 64), static_cast<cuuint32_t>(rows), 1, 1};
+  return make_tensor_map(map, p, 4, dims, strides, box, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                         d - 64 == 16 ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_64B);
+}
+
 // The tensor maps and the launch of K1's backward (kWithDq) or L1's dK/dV,
 // once a pre-pass has written `rows` (dq is not read without kWithDq);
 // kK1 without kWithDq: the dK/dV body with K1's exp (K1 at D 256).
@@ -836,6 +1032,15 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout, vo
     e = head_map(&mdq, dq, b, n_head, t, kD, static_cast<long long>(n_head) * t * kD,
                  static_cast<long long>(t) * kD, kD, 16, /*fp32=*/true);
   if (!e) e = rows_map(&mrows, rows, b, n_head, tp);
+  TailMaps tails{};
+  if constexpr (kTail<kD> > 0) {  // the narrow boxes of columns 64 to D
+    if (!e) e = tail_map(&tails.q, q, b, n_head, t, kD, qsb, qsh, qst, kBQ);
+    if (!e) e = tail_map(&tails.k, k, b, n_kv_head, t, kD, ksb, ksh, kst, L::kBK);
+    if (!e) e = tail_map(&tails.v, v, b, n_kv_head, t, kD, vsb, vsh, vst, L::kBK);
+    if (!e) e = tail_map(&tails.dout, dout, b, n_head, t, kD, dsb, dsh, dst, kBQ);
+    if (!e) e = tail_map(&tails.dk, dk, b, n_kv_head, t, kD, dksb, dksh, dkst, 64);
+    if (!e) e = tail_map(&tails.dv, dv, b, n_kv_head, t, kD, dvsb, dvsh, dvst, 64);
+  }
   if (e) return e;
   const dim3 grid(n_kv_head, b, (t + L::kBK - 1) / L::kBK * kNParts);
   cudaError_t err;
@@ -844,13 +1049,13 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout, vo
                                cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
     if (err == cudaSuccess)
       flash_bwd_kernel<kD, kWG><<<grid, L::kThreads, L::kSmem, s>>>(
-          mq, mk, mv, mdo, mrows, mdq, mdk, mdv, n_head / n_kv_head, t, scale);
+          mq, mk, mv, mdo, mrows, mdq, mdk, mdv, tails, n_head / n_kv_head, t, scale);
   } else {
     err = cudaFuncSetAttribute(splash_dkv<kD, kWG, kK1>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
     if (err == cudaSuccess)
       splash_dkv<kD, kWG, kK1><<<grid, L::kThreads, L::kSmem, s>>>(
-          mq, mk, mv, mdo, mrows, mdk, mdv, n_head / n_kv_head, t, scale);
+          mq, mk, mv, mdo, mrows, mdk, mdv, tails, n_head / n_kv_head, t, scale);
   }
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }

@@ -4,9 +4,11 @@
 // reduce-adds through tensor maps, warpgroup matrix products (wgmma) with
 // operands in 128-byte swizzled shared memory or, for A, in registers,
 // warpgroup register hand-over (setmaxnreg), the host-side encoding of
-// the tensor maps; and for the decode kernels of K5 and K8, 16-byte weight
-// loads that skip L1, thread-block clusters (their launch, barrier, and
-// sums over the CTAs' shared memory in a fixed order).
+// the tensor maps; and for the decode kernels of K5 and K8 and K8's middle
+// kernel, 16-byte weight loads that skip L1, thread-block clusters (their
+// launch, barrier, bulk copies between the CTAs' shared memory, and sums
+// over it in a fixed order); narrow (32- and 64-byte swizzled) operand
+// tiles for K1's backward at head sizes 80 and 96.
 //
 // Shared-memory tiles: TMA writes a box of (rows, 64) bf16 with
 // CU_TENSOR_MAP_SWIZZLE_128B, so row r holds its 128 bytes at r * 128 with
@@ -252,6 +254,22 @@ __device__ __forceinline__ void st_cluster_f32(float* p, int rank, float v) {
   uint32_t addr;
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(addr) : "r"(smem_addr(p)), "r"(rank));
   asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
+}
+
+// Copies `bytes` (a multiple of 16, both ends 16-byte aligned) of this
+// CTA's shared memory at `src` to the cluster's CTA `rank`, at the address
+// `dst` names here; the copy completes its bytes on that CTA's mbarrier at
+// the address `bar` names here (armed there with mbar_expect_tx).
+__device__ __forceinline__ void bulk_copy_to_cluster(void* dst, const void* src, uint32_t bytes,
+                                                     uint64_t* bar, int rank) {
+  uint32_t d, b;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(d) : "r"(smem_addr(dst)), "r"(rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(b) : "r"(smem_addr(bar)), "r"(rank));
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(d),
+      "r"(smem_addr(src)), "r"(bytes), "r"(b)
+      : "memory");
 }
 
 // Sends a warp's mma.sync accumulators of 16 weight rows (A's rows, columns
@@ -594,6 +612,79 @@ __device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32], const uint32_t (
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// The descriptor of a tile of rows of kBytes bytes (32 or 64: a 16- or
+// 32-column bf16 box) as TMA's CU_TENSOR_MAP_SWIZZLE_32B / _64B lays it out,
+// starting on a multiple of 8 kBytes (the swizzle's period): eight-row
+// groups 8 kBytes apart. K-major (a row holds its k values) it advances 16
+// k by adding 32 bytes to `p`; MN-major (row k holds its kBytes / 2 N
+// values, one swizzle atom wide) by adding 16 rows.
+template <int kBytes>
+__device__ __forceinline__ uint64_t narrow_desc(const void* p) {
+  const uint32_t a = smem_addr(p);
+  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>((8 * kBytes) >> 4) << 32) |
+         (static_cast<uint64_t>(kBytes == 64 ? 2 : 3) << 62);
+}
+
+// d += a (registers) b (shared memory, MN-major, N = 16 or 32: a narrow box)
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2], const uint32_t (&a)[4],
+                                            uint64_t b);
+template <>
+__device__ __forceinline__ void wgmma_rs_tb<16>(float (&d)[8], const uint32_t (&a)[4],
+                                                uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs_tb<32>(float (&d)[16], const uint32_t (&a)[4],
+                                                uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d (64 x N, N = 16 or 32) = a b (+ d when scale_d), both operands MN-major
+// in shared memory: a 128-byte swizzled (as wgmma_ss_n64_tt), b a narrow box
+template <int N>
+__device__ __forceinline__ void wgmma_ss_tt(float (&d)[N / 2], uint64_t a, uint64_t b,
+                                            int scale_d);
+template <>
+__device__ __forceinline__ void wgmma_ss_tt<16>(float (&d)[8], uint64_t a, uint64_t b,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+template <>
+__device__ __forceinline__ void wgmma_ss_tt<32>(float (&d)[16], uint64_t a, uint64_t b,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
 }
 
 // ---- host: tensor maps ---------------------------------------------------------

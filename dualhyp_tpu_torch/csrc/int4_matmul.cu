@@ -12,13 +12,35 @@
 // operation (0x4300 | (nibble ^ 8) is 128 + v + 8 in bf16; subtract 136).
 // No dequantised value is stored anywhere. The TPU kernel splits x into
 // even and odd planes to meet the two nibble planes; here x meets the
-// nibbles in the order they come (the prefill kernel reads x in place
-// through its row stride; the decode kernel stages it once, its k order
-// permuted within each group). Each group's product is summed in fp32 and
-// multiplied by the group's scale after the product, as the TPU kernel
-// does; one rounding to bf16 at the end.
-//   * prefill rows (more than 16; q4_tma_kernel): the operands are swapped,
-//     outT = W xT, so the weights fill wgmma's 64-row side and the tokens
+// nibbles in the order they come (the prefill and middle kernels read x in
+// k order; the decode kernel stages it once, its k order permuted within
+// each group). Each group's product is summed in fp32 and multiplied by the
+// group's scale after the product, as the TPU kernel does; one rounding to
+// bf16 at the end.
+//   * middle rows (17 to int4.MID_ROWS where its CTAs fit two waves; a
+//     verify step's 144, a Whisper beam step's 400; q4_mid_kernel): every
+//     token of a tile is wgmma's N (up to 200: a warpgroup's group sum and running
+//     sum take N fp32 registers a thread), so one tile reads the weight
+//     once; two warpgroups take 64 weight rows each as register A, unpacked
+//     from the stage's bytes by `nibble_pairs` (x arrives in k order, so
+//     pair_k4's permuted order does not apply). No producer warp and no
+//     tensor map: the 256 threads stream each group's packed rows, scales
+//     and x (two 128-byte swizzled boxes) through a three-stage cp.async
+//     ring. K is split over a cluster of up to 4 CTAs in one launch; their
+//     fp32 parts meet in shared memory by bulk copies and are added in rank
+//     order, with no workspace, no second pass and no atomics. Above 200
+//     rows the plan takes token tiles that each stream the weight (from L2
+//     after the first): two passes over the same A fragments would hold
+//     both tiles' sums, 400 registers a thread at 400 rows, and three tiles
+//     of 144 filled 120 SMs where two of 200 filled 80 and ran faster.
+//     Measured on an NVIDIA H100 80GB HBM3 at 700 W by the global-timer
+//     probe of scripts/torch_q4_mid_variants.py (PERF.md): at 144 rows a CTA
+//     spends ~5 us in its four groups and ~7 us around them (the first
+//     loads, staging the parts, their exchange between SMs, the sums);
+//     eight CTAs a cluster ran slower than four;
+//   * prefill rows (above the middle rows, or where the middle kernel's
+//     CTAs would take more than two waves; q4_tma_kernel): the operands are
+//     swapped, outT = W xT, so the weights fill wgmma's 64-row side and the tokens
 //     are its N (128 a tile). A producer warp keeps a ring of stages in
 //     flight with TMA: a (tokens, 64) bf16 box of x, 128-byte swizzled
 //     (wgmma's B, K-major), and a (128 rows, 32 bytes) box of the packed
@@ -49,6 +71,7 @@
 //     tiles cannot fill the card; each split writes an fp32 partial and
 //     `sum_splits` adds them in a fixed order.
 #include "hopper.cuh"
+#include "wgmma_rs.cuh"
 
 namespace {
 
@@ -454,32 +477,281 @@ int launch_tma(const void* x, long long ldx, const void* packed, const float* sc
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- middle rows: every token of a tile on wgmma's N, K split over a cluster --
+
+constexpr int kMidThreads = 256;  // two warpgroups of 64 weight rows; no producer
+constexpr int kMidRows = 128;     // weight rows (output columns) a CTA
+constexpr int kMidLd = 80;        // bytes a weight row takes in a stage: 64, padded so that
+                                  // a warp's eight rows of 8-byte loads meet no bank twice
+constexpr int kMidStages = 3;     // groups in flight
+constexpr int kMaxMidCluster = 4;  // CTAs of a cluster (`int4.MID_CLUSTERS`)
+
+template <int NT>
+struct MidLayout {
+  static constexpr int kX = 2 * NT * 128;                // a group of x: two (NT, 64) boxes
+  static constexpr int kP = kX + kMidRows * kMidLd;      // + the group's packed bytes
+  static constexpr int kStage = kP + 1024;               // + its scales (512 bytes), aligned
+  static constexpr int kRing = kMidStages * kStage;
+  // the parts, once the ring is done: this CTA's (128 rows, kTokLd) fp32
+  // and the ranks' of its columns (ranks, cols, kTokLd), a row's tokens
+  // contiguous, rows kTokLd apart (8 words past a multiple of 32 banks, so
+  // a warp's 16-byte stores of four tokens meet four wavefronts)
+  static constexpr int kTokLd = NT + (40 - NT % 32) % 32;
+  static constexpr int kSlots = 2 * kMidRows * kTokLd * 4;
+  static constexpr int kBar = kRing > kSlots ? kRing : kSlots;  // the parts' mbarrier
+  static constexpr int kSmem = kBar + 8 + 1024;
+  static_assert(kX % 1024 == 0 && kStage % 1024 == 0, "stages on the swizzle's period");
+};
+
+// Token tile y (NT tokens from y NT), column block cb (128 weight rows from
+// 128 cb), cluster rank r: the CTA streams its share of the groups through
+// a cp.async ring (each thread copies 16-byte chunks: x into two 128-byte
+// swizzled (NT, 64) boxes, wgmma's K-major B; the packed rows as stored),
+// and each warpgroup runs 64 weight rows x NT tokens on wgmma with register
+// A, unpacked from the stage's bytes by `nibble_pairs`, a batch of two k16
+// steps while the previous batch's products run. A group sums into `part`
+// (its first product with scale_d 0), then acc += part * scale, one scale a
+// weight row. Once the loop is done the ring holds the CTA's fp32 parts;
+// after a cluster barrier each CTA sends its parts of the others' columns
+// (128 / ranks each) by one bulk copy a rank, which completes on the owner's
+// mbarrier, and each CTA adds its columns' parts in rank order and writes
+// bf16; a last cluster barrier keeps every CTA's parts alive until read.
+template <int NT>
+__global__ void __launch_bounds__(kMidThreads, 1)
+q4_mid_kernel(const bf16* __restrict__ x, long long ldx, const uint8_t* __restrict__ packed,
+              const float* __restrict__ scales, bf16* __restrict__ out, int m, int n, int k,
+              int col_blocks) {
+  using L = MidLayout<NT>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const int ranks = cluster_size();
+  const int rank = cluster_rank();
+  const int unit = blockIdx.x / ranks;
+  const int cb = unit % col_blocks;
+  const int n0 = cb * kMidRows;
+  const int m0 = unit / col_blocks * NT;
+  const int tokens = min(NT, m - m0);
+  const int groups = k / kGroup;
+  const int g0 = rank * groups / ranks;  // every rank takes one group at least
+  const int ng = (rank + 1) * groups / ranks - g0;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int quad = lane & 3;
+  const int row = 64 * (warp >> 2) + 16 * (warp & 3) + (lane >> 2);  // and row + 8
+  const bf16* xb = x + static_cast<long long>(m0) * ldx;
+  if (threadIdx.x == 0) {  // armed before the cluster's first barrier, below
+    mbar_init(reinterpret_cast<uint64_t*>(smem + L::kBar), 1);
+    mbar_fence_init();
+  }
+
+  // stage `s` <- group g: the CTA's packed rows (past n: row n - 1), their
+  // scales, and x's rows m0 + [0, tokens) (zeros past them: their products
+  // are not stored)
+  auto load = [&](int s, int g) {
+    unsigned char* st = smem + s * L::kStage;
+    // the weights first: theirs is the longer trip, from device memory
+#pragma unroll
+    for (int j = 0; j < kMidRows * 4 / kMidThreads; ++j) {
+      const int i = threadIdx.x + j * kMidThreads;
+      const int r = min(n0 + (i >> 2), n - 1);
+      cp_async_line(st + L::kX + (i >> 2) * kMidLd + 16 * (i & 3),
+                    packed + static_cast<long long>(r) * (k / 2) + g * (kGroup / 2) +
+                        16 * (i & 3),
+                    true);
+    }
+    if (threadIdx.x < kMidRows) {  // the rows' scales of the group (past n: 0)
+      const int r = n0 + threadIdx.x;
+      cp_async<4>(st + L::kP + 4 * threadIdx.x,
+                  scales + static_cast<long long>(min(r, n - 1)) * groups + g, r < n);
+    }
+    for (int i = threadIdx.x; i < NT * 16; i += kMidThreads) {
+      const int t = i >> 4;
+      const int c = i & 15;  // the 16-byte chunk of the group's 256 bytes
+      const bool ok = t < tokens;
+      cp_async(st + (c >> 3) * NT * 128 + t * 128 + (((c & 7) ^ (t & 7)) << 4),
+               ok ? xb + t * ldx + g * kGroup + 8 * c : x, ok);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < kMidStages - 1; ++i) {
+    if (i < ng) load(i, g0 + i);
+    cp_async_commit();
+  }
+
+  const int sel = quad | ((4 + quad) << 4);  // byte quad of a step's two words
+  float acc[NT / 2];
+#pragma unroll
+  for (int i = 0; i < NT / 2; ++i) acc[i] = 0.f;
+  float part[NT / 2];
+  uint32_t a[2][kBatch][4];
+
+  for (int i = 0; i < ng; ++i) {
+    cp_async_wait<kMidStages - 2>();  // this thread's copies of group i have landed
+    __syncthreads();                  // everyone's have, and group i - 1 is done with
+    if (i + kMidStages - 1 < ng) load((i + kMidStages - 1) % kMidStages, g0 + i + kMidStages - 1);
+    cp_async_commit();
+    const unsigned char* st = smem + (i % kMidStages) * L::kStage;
+    const bf16* xs = reinterpret_cast<const bf16*>(st);
+    const unsigned char* ps = st + L::kX + row * kMidLd;
+    const float sc_lo = reinterpret_cast<const float*>(st + L::kP)[row];
+    const float sc_hi = reinterpret_cast<const float*>(st + L::kP)[row + 8];
+#pragma unroll
+    for (int b = 0; b < 8 / kBatch; ++b) {  // the group's eight k16 steps
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int kk = b * kBatch + j;
+        nibble_pairs(ld_shared_v2(ps + 8 * kk), sel, a[b % 2][j][0], a[b % 2][j][2]);
+        nibble_pairs(ld_shared_v2(ps + 8 * kMidLd + 8 * kk), sel, a[b % 2][j][1],
+                     a[b % 2][j][3]);
+      }
+      if (b == 0) fence_regs(part);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int kk = b * kBatch + j;
+        WgmmaRs<NT>::rs(part, a[b % 2][j], sw128_desc(xs + (kk >> 2) * NT * 64 + (kk & 3) * 16),
+                        b > 0 || j > 0);
+      }
+      wgmma_commit();
+      if (b == 8 / kBatch - 1) {
+        wgmma_wait<0>();
+      } else {
+        wgmma_wait<1>();  // batch b - 1 is done: its fragments may be overwritten
+      }
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) fence_regs(a[(b + 1) % 2][j]);
+    }
+    fence_regs(part);
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) fence_regs(a[(8 / kBatch - 1) % 2][j]);
+    // the group's scale multiplies its sum, per weight row
+#pragma unroll
+    for (int e = 0; e < NT / 2; ++e) acc[e] += part[e] * ((e & 2) ? sc_hi : sc_lo);
+  }
+
+  // ---- the cluster's parts meet in the owners' shared memory (the ring) ----
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is done with: it holds the parts from here
+  const int cols = kMidRows / ranks;  // the columns this CTA adds up and stores
+  float* part_s = reinterpret_cast<float*>(smem);         // (128 rows, kTokLd): this CTA's
+  float* recv = part_s + kMidRows * L::kTokLd;             // (ranks, cols, kTokLd): theirs
+  uint64_t* recv_bar = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  // lanes quad and quad ^ 1 trade a pair: an even quad then holds tokens
+  // 8 j + 2 quad + [0, 4) of row `row`, an odd one those of row + 8 from
+  // 8 j + 2 (quad - 1), one 16-byte store each
+  const bool odd = quad & 1;
+  float* dst = part_s + (odd ? row + 8 : row) * L::kTokLd + 2 * (quad & 2);
+#pragma unroll
+  for (int j = 0; j < NT / 8; ++j) {
+    const float s0 = odd ? acc[4 * j] : acc[4 * j + 2];  // the pair the partner wants
+    const float s1 = odd ? acc[4 * j + 1] : acc[4 * j + 3];
+    const float r0 = __shfl_xor_sync(0xffffffffu, s0, 1);
+    const float r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+    *reinterpret_cast<float4*>(dst + 8 * j) =
+        odd ? make_float4(r0, r1, acc[4 * j + 2], acc[4 * j + 3])
+            : make_float4(acc[4 * j], acc[4 * j + 1], r0, r1);
+  }
+  const uint32_t share = cols * L::kTokLd * 4;  // bytes of one rank's columns
+  fence_async_smem();  // the parts, written here, are read by bulk copies
+  if (threadIdx.x == 0 && ranks > 1) mbar_expect_tx(recv_bar, (ranks - 1) * share);
+  cluster_arrive();
+  cluster_wait();  // every CTA's parts are staged and its barrier armed
+  // one thread a rank: this CTA's parts of that rank's columns, by a bulk
+  // copy into its `recv` (slot `rank`), completing on its barrier
+  if (threadIdx.x < ranks && threadIdx.x != rank)
+    bulk_copy_to_cluster(recv + rank * cols * L::kTokLd,
+                         part_s + threadIdx.x * cols * L::kTokLd, share, recv_bar, threadIdx.x);
+  if (ranks > 1) mbar_wait(recv_bar, 0);  // every rank's parts of this CTA's columns are here
+  // a thread adds eight tokens of a column (two 16-byte loads a rank, every
+  // rank's in flight at once) and writes them; a warp's threads take
+  // neighbouring columns, so each token's stores meet in one segment
+  const int col_n = n0 + rank * cols;
+  for (int i = threadIdx.x; i < cols * (NT / 8); i += kMidThreads) {
+    const int c = i % cols;
+    const int t0 = 8 * (i / cols);
+    if (t0 >= tokens || col_n + c >= n) continue;
+    float4 part[kMaxMidCluster][2];
+#pragma unroll
+    for (int r = 0; r < kMaxMidCluster; ++r)
+      if (r < ranks) {
+        const float4* src = reinterpret_cast<const float4*>(
+            (r == rank ? part_s + rank * cols * L::kTokLd : recv + r * cols * L::kTokLd) +
+            c * L::kTokLd + t0);
+        part[r][0] = src[0];
+        part[r][1] = src[1];
+      }
+    float4 lo4 = part[0][0], hi4 = part[0][1];
+#pragma unroll
+    for (int r = 1; r < kMaxMidCluster; ++r)  // in rank order
+      if (r < ranks) {
+        lo4 = make_float4(lo4.x + part[r][0].x, lo4.y + part[r][0].y, lo4.z + part[r][0].z,
+                          lo4.w + part[r][0].w);
+        hi4 = make_float4(hi4.x + part[r][1].x, hi4.y + part[r][1].y, hi4.z + part[r][1].z,
+                          hi4.w + part[r][1].w);
+      }
+    const float v[8] = {lo4.x, lo4.y, lo4.z, lo4.w, hi4.x, hi4.y, hi4.z, hi4.w};
+    bf16* o = out + static_cast<long long>(m0 + t0) * n + col_n + c;
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      if (t0 + e < tokens) o[static_cast<long long>(e) * n] = __float2bfloat16(v[e]);
+  }
+  cluster_arrive();
+  cluster_wait();  // no CTA leaves while its parts may still be read
+}
+
+template <int NT>
+int launch_mid(const bf16* x, long long ldx, const uint8_t* packed, const float* scales,
+               bf16* out, int m, int n, int k, int ranks, cudaStream_t s) {
+  constexpr int smem = MidLayout<NT>::kSmem;
+  const int err = allow_smem<&q4_mid_kernel<NT>>(smem);
+  if (err) return err;
+  const int col_blocks = (n + kMidRows - 1) / kMidRows;
+  const int blocks = col_blocks * ((m + NT - 1) / NT) * ranks;
+  return launch_cluster(q4_mid_kernel<NT>, blocks, kMidThreads, smem, ranks, s, x, ldx, packed,
+                        scales, out, m, n, k, col_blocks);
+}
+
 }  // namespace
+
+// The middle kernel's token tiles (`int4.MID_TILES`).
+#define DH_MID_TILES(X) X(24) X(48) X(72) X(96) X(120) X(144) X(168) X(200)
 
 // x: (m, k) bf16 with row stride ldx (elements; a multiple of 8, 16-byte
 // aligned rows), unit column stride; packed: contiguous (n, k / 2) int8,
 // 16-byte aligned; scales: contiguous (n, k / 128) fp32; out: contiguous
-// (m, n) bf16. k must be a multiple of 128. Up to 16 rows run the decode
-// kernel: `splits` CTAs of a cluster (at most 8) take even shares of the
-// groups and add their parts on chip; ws and per_split are not read. Above
-// 16 rows the TMA kernel (128 weight rows by 128 tokens) runs with groups
-// [z * per_split, (z + 1) * per_split) in split z, whose fp32 parts go
-// to ws, (splits, m, n), when splits > 1, and a second pass adds them.
+// (m, n) bf16. k must be a multiple of 128. `path` 0, up to 16 rows: the
+// decode kernel, `splits` CTAs of a cluster (at most 8) taking even shares
+// of the groups and adding their parts on chip. `path` 1: the middle
+// kernel, token tiles of `per_split` tokens (a DH_MID_TILES width), each
+// column block's groups split over a cluster of `splits` CTAs. ws is read
+// by neither. `path` 2: the TMA kernel (128 weight rows by 128 tokens) with
+// groups [z * per_split, (z + 1) * per_split) in split z, whose fp32 parts
+// go to ws, (splits, m, n), when splits > 1, and a second pass adds them.
 DH_EXPORT int dh_q4_matmul(const void* x, long long ldx, const void* packed,
                            const void* scales, void* out, void* ws, int m, int n,
-                           int k, int splits, int per_split, void* stream) {
+                           int k, int path, int splits, int per_split, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sp = static_cast<const float*>(scales);
   bf16* op = static_cast<bf16*>(out);
   float* wp = static_cast<float*>(ws);
-  if (m <= 16) {
-    if (splits < 1 || splits > 8 || splits > k / kGroup)
-      return static_cast<int>(cudaErrorInvalidValue);
-    const bf16* xp = static_cast<const bf16*>(x);
-    const uint8_t* pp = static_cast<const uint8_t*>(packed);
+  const bf16* xp = static_cast<const bf16*>(x);
+  const uint8_t* pp = static_cast<const uint8_t*>(packed);
+  if (path < 2 && (splits < 1 || splits > (path ? kMaxMidCluster : 8) || splits > k / kGroup))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (path == 0) {
+    if (m > 16) return static_cast<int>(cudaErrorInvalidValue);
     return m <= 8 ? launch_decode<1>(xp, ldx, pp, sp, op, m, n, k, splits, s)
                   : launch_decode<2>(xp, ldx, pp, sp, op, m, n, k, splits, s);
   }
+  if (path == 1) {
+#define DH_CASE(NT) \
+  if (per_split == NT) return launch_mid<NT>(xp, ldx, pp, sp, op, m, n, k, splits, s);
+    DH_MID_TILES(DH_CASE)
+#undef DH_CASE
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (path != 2) return static_cast<int>(cudaErrorInvalidValue);
   int err = launch_tma(x, ldx, packed, sp, op, wp, m, n, k, splits, per_split, s);
   if (err != 0 || splits <= 1) return err;
   const long long mn = static_cast<long long>(m) * n;

@@ -57,11 +57,14 @@ FLASH_FWD = _lib.Kernel(
 # S^T, dP^T, dV, dK and dQ on wgmma (P^T and dS^T as register A operands;
 # dS^T through shared memory for dQ) and add each pair's fp32 dQ tile by
 # TMA reduce-adds, with no per-element atomics; one instance per head size
-# (128 keys a block at D32 and D64, 64 at D80 to D128; at D256 dK/dV split
-# over two blocks by columns and dQ from L1's dQ kernel into the same fp32
-# buffer, all with K1's exp2f). On an NVIDIA H100 80GB HBM3 at
-# 700.00 W: 0.466 ms at B8 Hq32 G4 T1024 D64 (SDPA's backward 0.42-0.64),
-# 1.257 at G8 D128 (SDPA 0.667). See csrc/flash_attention_bwd.cu.
+# (`bwd_layout`: 128 keys a block at D32 to D96, 64 at D100 and D128; at
+# D80 and D96 the columns past 64 in a narrow box of their own, the loads
+# issued by a consumer thread and the two warpgroups' dQ added in shared
+# memory before one reduce-add; at D256 dK/dV split over two blocks by
+# columns and dQ from L1's dQ kernel into the same fp32 buffer, all with
+# K1's exp2f). On an NVIDIA H100 80GB HBM3 at 700.00 W: 0.466 ms at B8 Hq32
+# G4 T1024 D64 (SDPA's backward 0.42-0.64), 1.257 at G8 D128 (SDPA 0.667);
+# the other head sizes in PERF.md. See csrc/flash_attention_bwd.cu.
 FLASH_BWD = _lib.Kernel(
     "dh_flash_attention_bwd",
     [_lib.C_PTR] * 10 + [_lib.C_INT] * 5 + [_lib.C_F32] + [_lib.C_I64] * 21,
@@ -71,6 +74,9 @@ FLASH_BWD = _lib.Kernel(
 # registry (pythia-14m 32, TinyLlama 64, phi-2 80, Phi-3 96, open_llama_3b
 # 100, LLaMA and Mixtral 128, Gemma 256)
 FLASH_HEAD_SIZES = (32, 64, 80, 96, 100, 128, 256)
+# launches of K1's backward at each head size (FLASH_BWD.launches counts
+# them all): a run reads them to show which instance its calls took
+BWD_HEAD_LAUNCHES = dict.fromkeys(FLASH_HEAD_SIZES, 0)
 # head sizes whose rows the kernels read from a copy padded with zero
 # columns (the pad leaves S = q k^T and P V exact; the wrapper drops it)
 _PADDED = {100: 104}
@@ -79,6 +85,26 @@ _PADDED = {100: 104}
 def padded_head_size(d: int) -> int:
     """The row width the kernels read for head size d."""
     return _PADDED.get(d, d)
+
+
+def bwd_layout(d: int) -> dict:
+    """The instance of K1's backward (and L1's dK/dV) that head size d runs,
+    as csrc/flash_attention_bwd.cu lays it out: the row width it reads
+    (`instance`), consumer `warpgroups` of 64 keys (`keys` a block), the
+    whole 64-column boxes and the narrow `tail` box past them (80: 16
+    columns, 96: 32), whether a producer warpgroup issues the loads (else the
+    first consumer thread), whether the warpgroups' dQ partials meet in
+    shared memory before their reduce-add, and the column `parts` of dK/dV
+    (two blocks a key block at 256, whose dQ comes from L1's dQ kernel)."""
+    if d not in FLASH_HEAD_SIZES:
+        raise ValueError(f"flash backward kernel takes head size {FLASH_HEAD_SIZES}, got {d}")
+    dp = padded_head_size(d)
+    tail = dp - 64 if dp in (80, 96) else 0
+    warpgroups = 2 if dp <= 64 or tail else 1
+    return dict(instance=dp, warpgroups=warpgroups, keys=64 * warpgroups,
+                boxes=dp // 64 if tail else -(-dp // 64), tail=tail,
+                producer_warpgroup=not tail, merged_dq=bool(tail),
+                parts=2 if dp > 128 else 1)
 
 
 def _pad_heads(x, dp: int):
@@ -238,6 +264,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale: float):
                   *o.stride()[:3], *do.stride()[:3], *dk.stride()[:3],
                   *dv.stride()[:3],
                   flops=10 * b * hq * t * t * d)  # S again, dP, dV, dQ, dK: SDPA's count
+        BWD_HEAD_LAUNCHES[d] += 1
     return dq[..., :d].to(q.dtype), dk[..., :d], dv[..., :d]
 
 

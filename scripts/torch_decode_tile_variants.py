@@ -62,7 +62,7 @@ def q4_times(torch, cs, int4, quant, randn) -> dict:
                 def fn():
                     int4.Q4_MATMUL(dev, x.data_ptr(), x.stride(0), packed.data_ptr(),
                                    scales.data_ptr(), got.data_ptr(), got.data_ptr(), rows, n,
-                                   k, cluster, 0)
+                                   k, int4.PATHS.index("decode"), cluster, 0)
 
                 row[f"err_{cluster}"] = check(cs, "q4_matmul", fn, got, want, torch)
                 if not isinstance(row[f"err_{cluster}"], str):

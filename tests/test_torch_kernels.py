@@ -44,8 +44,12 @@ K4 (1 to 3072 rows at widths 128 and 2048, inter 200, 256 and 5632, both
 gates, bitwise repeats, an unaligned input), K1 and L1 at the registry's
 other head sizes (32, 80, 96, 100 through a padded copy, 256) with MHA,
 MQA and 7 or 71 query heads in one group, fused-QKV views and the autograd
-op, K3 at the registry's partial rotary pairs and K5 and K8 at phi-2's
-shapes. Every test needs an NVIDIA
+op, K1's backward and L1's dK/dV at 80 and 96 (narrow boxes, 128-key
+blocks) at T about those blocks with bitwise dK/dV repeats, K8's middle
+kernel at 17 to MID_ROWS rows of the verify step's and the Whisper beam's
+shapes (ragged and strided x, bitwise repeats, one launch on the path the
+dispatch names), K3 at the registry's partial rotary pairs and K5 and K8 at
+phi-2's shapes. Every test needs an NVIDIA
 card and skips without one. On the card's machine (no JAX there) run them
 without the suite's conftest:
 
@@ -1445,6 +1449,64 @@ def test_flash_autograd_at_every_head_size_matches_the_cpu(dev, gen, d):
     for x, y in zip(grads, want_grads):
         y = y.to(dev).float()
         assert float((x.float() - y).norm() / y.norm()) <= 2.0 ** -6
+
+
+# K8's middle kernel: a verify step's rows (slots x 9 up to 144), the
+# Whisper beam's 400 and the path's edges (17, MID_ROWS), at TinyLlama's qkv
+# and fc_1 and Whisper's q/k/v/out, fc2 and fc1 (no K split: 40 column
+# blocks fill the card)
+Q4_MID_SHAPES = {"qkv": (2560, 2048), "fc_1": (5632, 2048), "whisper_attn": (1280, 1280),
+                 "whisper_fc2": (1280, 5120), "whisper_fc1": (5120, 1280)}
+
+
+@pytest.mark.parametrize("name", list(Q4_MID_SHAPES))
+@pytest.mark.parametrize("rows", sorted({17, 36, 72, 144, 256, 400, int4.MID_ROWS}))
+@pytest.mark.parametrize("layout", ["ragged", "strided"])
+def test_q4_matmul_middle_rows(dev, gen, name, rows, layout):
+    """Against the plain version, two calls bitwise equal (the cluster's
+    parts meet in rank order: no atomics), one launch on the path the
+    dispatch names; x as a (rows, K) tensor or a view with a row stride
+    of K + 64 and an offset of 32 elements, a row count one past it."""
+    n, k = Q4_MID_SHAPES[name]
+    packed, scales = quant.quantize_weight_int4(_randn(gen, n, k, dtype=torch.float32, std=0.02))
+    if layout == "strided":
+        rows += 1
+        x = _randn(gen, rows, k + 64)[:, 32:32 + k]
+    else:
+        x = _randn(gen, rows, k)
+    path = int4.path_of(rows, n, k)
+    before = (int4.Q4_MATMUL.launches, int4.PATH_LAUNCHES[path])
+    got = int4.q4_matmul(x, packed, scales)
+    assert (int4.Q4_MATMUL.launches, int4.PATH_LAUNCHES[path]) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got, int4.q4_matmul(x, packed, scales))
+    _close(got, int4.q4_matmul_plain(x, packed, scales), *Q4_TOL)
+
+
+# K1's backward at 80 and 96 (narrow boxes past 64 columns, two warpgroups
+# of 64 keys, their dQ added in shared memory): T about its 128-key blocks
+@pytest.mark.parametrize("d", [80, 96])
+@pytest.mark.parametrize("t", [1, 64, 127, 128, 129, 255, 256, 257])
+@pytest.mark.parametrize("hq,g", [(4, 4), (16, 2)])
+def test_flash_attention_bwd_narrow_boxes(dev, gen, d, t, hq, g):
+    """K1's backward against the plain version and L1's dK/dV against its
+    own, two calls of each bitwise equal where no reduce-add sums (dK, dV)."""
+    scale = d ** -0.5
+    q, k, v, do = _splash_inputs(gen, 2, hq, g, t, d)
+    o, lse = attention._flash_fwd(q, k, v, scale)
+    before = attention.BWD_HEAD_LAUNCHES[d]
+    got = attention.flash_attention_bwd(q, k, v, o, lse, do, scale)
+    assert attention.BWD_HEAD_LAUNCHES[d] == before + 1
+    again = attention.flash_attention_bwd(q, k, v, o, lse, do, scale)
+    assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+    for x, y in zip(got, attention.flash_attention_bwd_plain(q, k, v, o, lse, do, scale)):
+        _close_bwd(x, y)
+    so, slse = splash.splash_fwd(q, k, v, scale)
+    di = splash.row_dot(so, do)
+    args = (q, k, v, slse, do, di, scale)
+    dkv = splash.splash_dkv(*args)
+    assert all(torch.equal(x, y) for x, y in zip(dkv, splash.splash_dkv(*args)))
+    for x, y in zip(dkv, splash.splash_dkv_plain(*args)):
+        _close_bwd(x, y)
 
 
 # phi-2's linears (out, in): int4 (K8) at decode, verify and prefill rows,

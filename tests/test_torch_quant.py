@@ -232,8 +232,10 @@ def test_quantized_mlp_bypasses_the_fused_mlp(monkeypatch):
 
 
 def test_q4_split_k_covers_every_group():
-    # the wgmma kernel's splits (rows above int4.DECODE_ROWS; the decode
-    # kernel's parts meet in a cluster: tests/test_torch_decode_tiles.py)
+    # the wgmma kernel's splits (rows it takes, above int4.MID_ROWS or
+    # where the middle kernel would take more than two waves; the decode
+    # and middle kernels' parts meet in a cluster:
+    # tests/test_torch_decode_tiles.py, tests/test_torch_mid_tiles.py)
     for rows, n, groups in [(17, 5632, 16), (64, 2048, 44), (129, 100, 5), (128, 32000, 16),
                             (3072, 5632, 16)]:
         splits, per = int4.split_k(rows, n, groups)

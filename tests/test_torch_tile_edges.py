@@ -174,20 +174,24 @@ def test_q4_matmul_plain_matches_pallas_at_the_tile_edges(rng, rows, n, k):
                          torch.from_numpy(np.asarray(scale)))
     _close(got, want, atol=2e-4)
     groups = k // int4.KERNEL_GROUP
-    if rows <= int4.DECODE_ROWS:  # the decode kernel's ranks take every group once
-        parts = int4.decode_plan(rows, n, k)["groups"]
-        assert [g for lo, hi in parts for g in range(lo, hi)] == list(range(groups))
+    path = int4.path_of(rows, n, k)
+    if path != "wgmma":  # the decode and middle kernels' ranks take every group once
+        plan = (int4.decode_plan if path == "decode" else int4.mid_plan)(rows, n, k)
+        assert [g for lo, hi in plan["groups"] for g in range(lo, hi)] == list(range(groups))
     else:
         splits, per = int4.split_k(rows, n, groups)
         assert splits * per >= groups > (splits - 1) * per
 
 
 def test_q4_tiles_change_at_the_decode_rows():
-    # the rows where csrc/int4_matmul.cu changes path: its C side picks the
-    # same tiles (m <= 16: the decode kernel, 128 columns a CTA; else
-    # wgmma, 128 x 128)
+    # the rows where csrc/int4_matmul.cu changes path (`int4.path_of`: m <=
+    # 16 the decode kernel, 128 columns a CTA; to MID_ROWS the middle
+    # kernel, 128 columns by a token tile; above, wgmma, 128 x 128, whose
+    # K split `split_k` plans from these tiles)
     assert [int4.tile(r)[:2] for r in (16, 17, 64, 65)] == [(16, 128), (128, 128),
                                                               (128, 128), (128, 128)]
+    assert [int4.path_of(r, 200, 640) for r in (16, 17, 64, 65, int4.MID_ROWS + 1)] == [
+        "decode", "mid", "mid", "mid", "wgmma"]
 
 
 # L2's row groups at the edges of its 128-row tile (m a multiple of 128, the

@@ -161,9 +161,12 @@ prints one JSON line; a failed phase raises and the script exits non-zero.
      (qkv, fc_1) at a speculative verify step's rows, slots x (draft 8 +
      1) = 9, 36, 72, 144, which cross K8's (16), K5's (32) and K4's (64)
      decode thresholds: each against its plain version, two calls bitwise
-     equal, timed beside its bound and cuBLAS, K8's middle kernel (above 16
-     rows) beside the parent's wgmma tile on the same inputs
-     (`was_device_ms`; int4 serving must launch the middle kernel); (after
+     equal, timed beside its bound and cuBLAS, the middle paths (K8 above
+     16 rows, K5 above 32, K4 above 64) beside the design each replaced on
+     the same inputs (`was_device_ms`: K8's wgmma tile, K5's rank + TMA
+     pair, K4's row tiles; int4 serving must launch K8's middle kernel,
+     fused-LoRA serving K5's, the speculative lookup and anchored runs and
+     every bf16 serving run K4's middle path); (after
      the depth-2 checks) a
      depth-2, full-width verify step of 9 tokens a row, card against 9
      decode steps on the card and against the CPU (DEPTH2_ATOL);
@@ -785,9 +788,23 @@ def q4_mid_row(torch, x, packed, scales, w_deq, **extra) -> dict:
     return row
 
 
+def parent_path_ms(torch, module, fn) -> float:
+    """Device ms of `fn` with `module`'s dispatch as before its middle path
+    (MID_ROWS at DECODE_ROWS: K5's rank + TMA kernels, K4's row tiles): the
+    parent's design on the same inputs."""
+    saved = module.MID_ROWS
+    module.MID_ROWS = module.DECODE_ROWS
+    try:
+        return device_ms(fn, torch)
+    finally:
+        module.MID_ROWS = saved
+
+
 def lora_row(torch, x, w, a, b, s, xin=None, **extra) -> dict:
     """K5 on x (rows, D) (and a separate xin) against its plain version, as
-    `q4_row` holds K8, beside cuBLAS's x W^T + s (xin A^T) B^T."""
+    `q4_row` holds K8, beside cuBLAS's x W^T + s (xin A^T) B^T; on its
+    middle path (`lora.path_of`) with its plan and the parent's design on
+    the same inputs (`was_device_ms`)."""
     from dualhyp_tpu_torch.ops import lora
 
     (rows, d), o, r = x.shape, w.shape[0], a.shape[0]
@@ -802,13 +819,22 @@ def lora_row(torch, x, w, a, b, s, xin=None, **extra) -> dict:
     bms, by = bound((n_x + o * d + r * d + o * r + rows * o) * 2,
                     2 * rows * o * d + 2 * rows * r * d + 2 * rows * o * LORA_RANK,
                     BF16_TENSOR_FLOPS)
-    return dict(shape=[rows, o, d, r], separate_xin=xin is not None, max_abs_err=err,
-                path="decode" if rows <= lora.DECODE_ROWS else "wgmma", **extra,
-                repeats_bitwise=True, ms=time_ms(fn, torch), device_ms=device_ms(fn, torch),
-                plain_ms=time_ms(plain, torch, warmup=1, iters=3),
-                library_ms=time_ms(library, torch), library_device_ms=device_ms(library, torch),
-                library="cuBLAS x W^T + s (xin A^T) B^T, three products and an add",
-                bound_ms=bms, bound_by=by)
+    path_of = getattr(lora, "path_of", None)  # None in a parent measured in turns
+    path = (path_of(rows) if path_of else "decode" if rows <= lora.DECODE_ROWS else "wgmma")
+    row = dict(shape=[rows, o, d, r], separate_xin=xin is not None, max_abs_err=err,
+               path=path, **extra,
+               repeats_bitwise=True, ms=time_ms(fn, torch), device_ms=device_ms(fn, torch),
+               plain_ms=time_ms(plain, torch, warmup=1, iters=3),
+               library_ms=time_ms(library, torch), library_device_ms=device_ms(library, torch),
+               library="cuBLAS x W^T + s (xin A^T) B^T, three products and an add",
+               bound_ms=bms, bound_by=by)
+    row["share_of_bound"] = bms / row["device_ms"]
+    if path == "mid":
+        plan = lora.mid_plan(rows, o, d, r, s, xin is not None)
+        row["plan"] = {k: plan[k] for k in ("tokens", "wg", "cluster", "ctas", "smem", "stages")}
+        row["was_device_ms"] = parent_path_ms(torch, lora, fn)
+        row["was"] = "the parent's rank + TMA kernels on the same inputs"
+    return row
 
 
 def q4_lora_phase(torch, seed: int) -> dict:
@@ -1064,6 +1090,7 @@ class WordTokenizer:
 SLICE_KERNELS = {"k8_decode": ("q4_decode_kernel",), "k8_mid": ("q4_mid_kernel",),
                  "k8_prefill": ("q4_tma_kernel",),
                  "k8_split_pass": ("::sum_splits(",), "k5_decode": ("lora_decode_kernel",),
+                 "k5_mid": ("LoraMid",), "k4_mid": ("GateMid", "DownMid"),
                  "k5_prefill": ("lora_rank_kernel", "lora_tma_kernel"),
                  "l2_decode": ("gmm_decode_kernel",), "l2_prefill": ("gmm_tma_kernel",)}
 DECODE_PATH = ("rms_norm", "apply_rope", "flash_attention_fwd", "swiglu_mlp")
@@ -1087,27 +1114,30 @@ SLICES = {
 
 
 def reset_counts():
-    from dualhyp_tpu_torch.ops import KERNELS, TRANSPOSED, attention, int4
+    from dualhyp_tpu_torch.ops import KERNELS, TRANSPOSED, attention, int4, lora, swiglu
 
     for kernel in (*KERNELS.values(), *TRANSPOSED.values()):
         kernel.launches = 0
-    # (a parent checkout measured in turns may count neither)
-    for by in (getattr(int4, "PATH_LAUNCHES", {}), getattr(attention, "BWD_HEAD_LAUNCHES", {})):
+    # (a parent checkout measured in turns may count none of these)
+    for by in (getattr(int4, "PATH_LAUNCHES", {}), getattr(attention, "BWD_HEAD_LAUNCHES", {}),
+               getattr(lora, "PATH_LAUNCHES", {}), getattr(swiglu, "PATH_LAUNCHES", {})):
         for key in by:
             by[key] = 0
 
 
 def read_counts() -> dict:
-    """Each kernel's launches, the RoPE kernel's transposed ones, K8's by
-    path (`q4_matmul_mid`: the middle kernel) and K1's backward by head size
+    """Each kernel's launches, the RoPE kernel's transposed ones, K8's, K5's
+    and K4's by path (`q4_matmul_mid`, `lora_linear_mid`, `swiglu_mlp_mid`:
+    the middle kernels) and K1's backward by head size
     (`flash_attention_bwd_d80`)."""
-    from dualhyp_tpu_torch.ops import KERNELS, TRANSPOSED, attention, int4
+    from dualhyp_tpu_torch.ops import KERNELS, TRANSPOSED, attention, int4, lora, swiglu
 
     counts = {name: kernel.launches for name, kernel in KERNELS.items()}
     counts.update({f"{name}_transpose": kernel.launches
                    for name, kernel in TRANSPOSED.items()})
-    counts.update({f"q4_matmul_{path}": n
-                   for path, n in getattr(int4, "PATH_LAUNCHES", {}).items()})
+    for name, module in (("q4_matmul", int4), ("lora_linear", lora), ("swiglu_mlp", swiglu)):
+        counts.update({f"{name}_{path}": n
+                       for path, n in getattr(module, "PATH_LAUNCHES", {}).items()})
     counts.update({f"flash_attention_bwd_d{d}": n
                    for d, n in getattr(attention, "BWD_HEAD_LAUNCHES", {}).items()})
     return counts
@@ -3501,8 +3531,9 @@ DRAFT_LEN = 8
 def verify_rows_phase(torch, seed: int) -> dict:
     """K4, K5 (the fused QKV at rank 48 and proj at rank 16) and K8 (qkv and
     fc_1) at a verify step's rows, each against its plain version (two calls
-    bitwise equal), timed beside its bound and its cuBLAS yardstick; K8's
-    rows on its middle kernel beside the parent's tile (`q4_mid_row`)."""
+    bitwise equal), timed beside its bound and its cuBLAS yardstick; the
+    rows on a middle path (K4 above 64 rows, K5 above 32, K8 above 16)
+    beside the parent's design on the same inputs (`was_device_ms`)."""
     from dualhyp_tpu_torch.ops import lora, quant, swiglu
 
     dev = torch.device("cuda")
@@ -3524,14 +3555,25 @@ def verify_rows_phase(torch, seed: int) -> dict:
             torch.nn.functional.silu(x @ w1.t()) * (x @ w2.t())) @ w3.t()
         bms, by = bound((2 * rows * d + 3 * inter * d) * 2, 6 * rows * d * inter,
                         BF16_TENSOR_FLOPS)
-        out["swiglu_mlp"][f"verify_{rows}"] = dict(
-            shape=[rows, d, inter], path="decode" if rows <= swiglu.DECODE_ROWS else "wgmma",
+        path_of = getattr(swiglu, "path_of", None)  # None in a parent measured in turns
+        path = (path_of(rows) if path_of else
+                "decode" if rows <= swiglu.DECODE_ROWS else "rows")
+        row = out["swiglu_mlp"][f"verify_{rows}"] = dict(
+            shape=[rows, d, inter], path=path,
             max_abs_err=compare("swiglu_mlp", repeatable("swiglu_mlp", fn, torch), plain(),
                                 torch),
             repeats_bitwise=True, ms=time_ms(fn, torch), device_ms=device_ms(fn, torch),
             plain_ms=time_ms(plain, torch, warmup=1, iters=20),
             library_ms=time_ms(library, torch), library_device_ms=device_ms(library, torch),
             bound_ms=bms, bound_by=by)
+        row["share_of_bound"] = bms / row["device_ms"]
+        if path == "mid":
+            plan = swiglu.mid_plan(rows, d, inter)
+            row["plan"] = {"pdl": plan["pdl"], **{
+                stage: {k: plan[stage][k] for k in ("tokens", "wg", "cluster", "ctas", "smem")}
+                for stage in ("gate", "down")}}
+            row["was_device_ms"] = parent_path_ms(torch, swiglu, fn)
+            row["was"] = "the parent's row tiles on the same inputs"
     r = LORA_RANK
     for name, o, dd, blocks in LORA_SHAPES:
         w = randn(o, dd, std=0.02)
@@ -3920,7 +3962,7 @@ def count_syncs(torch, fn):
 
 
 # the speculative decode path: K1 (prefill), K2, K3 (prefill), K4; a verify
-# step's K4 at 72 rows runs the wgmma kernel
+# step's K4 at 72 rows runs its middle path
 SPEC_PATH = DECODE_PATH
 SPEC_MODES = {"lookup": dict(speculative="lookup"), "anchored": dict(speculative="anchored"),
               "continuous": dict(scheduler="continuous")}
@@ -3958,6 +4000,9 @@ def spec_decode_slice(torch, seed: int, reference: dict) -> dict:
                       "sample": records[0]}
         check_served(records, metrics, launches, SPEC_PATH, ("lora_linear", "q4_matmul"),
                      f"speculative {mode}")
+        if mode != "continuous" and launches["swiglu_mlp_mid"] <= 0:
+            raise RuntimeError(f"speculative {mode} never ran K4's middle path at "
+                               f"{8 * (DRAFT_LEN + 1)} verify rows")
     # host syncs of the whole lookup run (the loop reads one flag a verify
     # step; the prefill and the copies back add theirs)
     serve = dict(decode_batch=8, max_new_tokens=32, top_k=1, draft_len=DRAFT_LEN,
@@ -4035,8 +4080,9 @@ def serve_traffic(seed: int, n: int = 24):
 
 
 # (label, draft source, KV cache, profiled); "fused_lora" runs a copy of the
-# model built with lora_impl "fused" (K5 at 144 verify rows), "int4" the
-# model merged and quantized (K8 at 144 rows)
+# model built with lora_impl "fused" (K5 at 144 verify rows, its middle
+# kernel), "int4" the model merged and quantized (K8 at 144 rows); every
+# run but int4 takes K4's middle path at 144 rows
 SERVE_RUNS = (("bf16_lookup", "lookup", None, True), ("bf16_anchored", "anchored", None, False),
               ("int8_kv", "lookup", "int8", False), ("fused_lora", "lookup", None, True),
               ("int4", "anchored", None, True))
@@ -4046,8 +4092,9 @@ def serve_slice(torch, seed: int) -> dict:
     """`ContinuousBatcher` on the decode slice's model: 16 slots, draft 8,
     chunks of 8 verify steps, 24 requests with budgets of 16-64 tokens, in
     bf16 (lookup, anchored), with the int8 KV cache, with LoRA through K5
-    (lora_impl "fused": K5 at 144 rows, the wgmma kernels) and merged +
-    int4 (--quantize int4: K8 at 144 rows, the wgmma kernel). Each chunk
+    (lora_impl "fused": K5 at 144 rows, its middle kernel) and merged +
+    int4 (--quantize int4: K8 at 144 rows, its middle kernel); K4 at 144
+    rows on its middle path in every run but int4. Each chunk
     runs under torch's sync debug mode "error" (a host sync raises); the
     whole serve runs under "warn", each refill counted on its own: each
     run reports p50, tokens/s, chunks, the host syncs a chunk outside the
@@ -4182,8 +4229,14 @@ def serve_slice(torch, seed: int) -> dict:
     if (runs["int4"]["profile"]["paths"]["k8_mid"]["launches"] <= 0
             or runs["int4"]["launches"]["q4_matmul_mid"] <= 0):
         raise RuntimeError("int4 serving never ran K8's middle kernel at 144 verify rows")
-    if runs["fused_lora"]["profile"]["paths"]["k5_prefill"]["launches"] <= 0:
-        raise RuntimeError("fused-LoRA serving never ran K5's wgmma kernels at 144 verify rows")
+    if (runs["fused_lora"]["profile"]["paths"]["k5_mid"]["launches"] <= 0
+            or runs["fused_lora"]["launches"]["lora_linear_mid"] <= 0):
+        raise RuntimeError("fused-LoRA serving never ran K5's middle kernel at 144 verify rows")
+    for label in ("bf16_lookup", "bf16_anchored", "int8_kv", "fused_lora"):
+        if runs[label]["launches"]["swiglu_mlp_mid"] <= 0:
+            raise RuntimeError(f"serve run {label} never ran K4's middle path at 144 verify rows")
+    if runs["bf16_lookup"]["profile"]["paths"]["k4_mid"]["launches"] <= 0:
+        raise RuntimeError("the bf16 serving profile shows no launch of K4's middle kernels")
 
     # the TCP server: 4 requests end to end
     batcher = batcher_for(model, "anchored", None)
@@ -7117,13 +7170,16 @@ def main(argv=None) -> int:
             entry["bound_ms_cuda_cores"] = main_shape["bound_ms_cuda_cores"]
         if name in train_rows:
             entry["train_rows"] = {k: train_rows[name][k] for k in keys}
-        if name in verify_rows:  # K4, K5, K8 at a verify step's rows
-            entry["verify_rows"] = {k: {key: v[key] for key in keys + ("path",)}
-                                    for k, v in verify_rows[name].items()}
-        if name == "q4_matmul":  # the middle kernel's launches (17 to MID_ROWS rows)
-            entry["middle_kernel_launches"] = {p: counts["q4_matmul_mid"]
+        if name in verify_rows:  # K4, K5, K8 at a verify step's rows, each row's path
+            entry["verify_rows"] = {
+                k: {key: v[key] for key in keys + ("path", "library_device_ms",
+                                                   "share_of_bound", "was_device_ms")
+                    if key in v}
+                for k, v in verify_rows[name].items()}
+        if name in ("q4_matmul", "lora_linear", "swiglu_mlp"):  # the middle paths' launches
+            entry["middle_kernel_launches"] = {p: counts[f"{name}_mid"]
                                                for p, counts in paths.items()
-                                               if counts.get("q4_matmul_mid")}
+                                               if counts.get(f"{name}_mid")}
         if name == "apply_rope":
             entry["train_rows_transpose"] = {
                 k: train_shapes["apply_rope_transpose"][k] for k in keys}

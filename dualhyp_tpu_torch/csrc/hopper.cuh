@@ -4,11 +4,12 @@
 // reduce-adds through tensor maps, warpgroup matrix products (wgmma) with
 // operands in 128-byte swizzled shared memory or, for A, in registers,
 // warpgroup register hand-over (setmaxnreg), the host-side encoding of
-// the tensor maps; and for the decode kernels of K5 and K8 and K8's middle
-// kernel, 16-byte weight loads that skip L1, thread-block clusters (their
-// launch, barrier, bulk copies between the CTAs' shared memory, and sums
-// over it in a fixed order); narrow (32- and 64-byte swizzled) operand
-// tiles for K1's backward at head sizes 80 and 96.
+// the tensor maps; and for the decode kernels of K5 and K8 and the middle
+// kernels of K4, K5 and K8, 16-byte weight loads that skip L1, thread-block
+// clusters (their launch, programmatic dependent launches, barrier, stores
+// and bulk copies between the CTAs' shared memory, and sums over it in a
+// fixed order, read at 32-bit shared addresses); narrow (32- and 64-byte
+// swizzled) operand tiles for K1's backward at head sizes 80 and 96.
 //
 // Shared-memory tiles: TMA writes a box of (rows, 64) bf16 with
 // CU_TENSOR_MAP_SWIZZLE_128B, so row r holds its 128 bytes at r * 128 with
@@ -75,6 +76,38 @@ __device__ __forceinline__ uint2 ld_shared_v2(const void* p) {
   uint2 v;
   asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n" : "=r"(v.x), "=r"(v.y) : "r"(smem_addr(p)));
   return v;
+}
+
+// Loads and stores at a 32-bit shared-memory address (`smem_addr`): a
+// pointer the compiler cannot trace to shared memory is otherwise read by a
+// generic load whose address it rebuilds from the CTA's shared window on
+// every access (the middle kernel's sums, mid_matmul.cuh).
+__device__ __forceinline__ float2 lds_f2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ float4 lds_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ uint32_t lds_u32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ void sts_f4(uint32_t addr, float4 v) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(v.x), "f"(v.y),
+               "f"(v.z), "f"(v.w)
+               : "memory");
+}
+__device__ __forceinline__ void sts_bf16(uint32_t addr, float v) {
+  const bf16 b = __float2bfloat16(v);
+  asm volatile("st.shared.b16 [%0], %1;\n" ::"r"(addr), "h"(*reinterpret_cast<const uint16_t*>(&b))
+               : "memory");
 }
 
 // A barrier among `kThreads` threads (whole warps) under hardware id `id` (1-15).
@@ -256,6 +289,28 @@ __device__ __forceinline__ void st_cluster_f32(float* p, int rank, float v) {
   asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
 }
 
+// Writes the four floats v to `at` (16-byte aligned, a 32-bit address in
+// this CTA's shared memory) in the shared memory of the cluster's CTA `rank`.
+__device__ __forceinline__ void st_cluster_v4(uint32_t at, int rank, float4 v) {
+  uint32_t addr;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(addr) : "r"(at), "r"(rank));
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(v.x),
+               "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+// Programmatic dependent launch: a grid launched after this one with the
+// programmatic stream serialization attribute (`launch_cluster`'s `pdl`)
+// may start once every CTA here has called griddep_launch_dependents (or
+// exited); there griddep_wait returns once this grid has completed and its
+// writes are visible. Both are no-ops in a grid launched without it.
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
 // Copies `bytes` (a multiple of 16, both ends 16-byte aligned) of this
 // CTA's shared memory at `src` to the cluster's CTA `rank`, at the address
 // `dst` names here; the copy completes its bytes on that CTA's mbarrier at
@@ -315,25 +370,36 @@ static inline int allow_smem(int bytes) {
 }
 
 // Launches `kernel` on `blocks` CTAs in clusters of `cluster` along x (a
-// multiple of it); returns the launch's error, or the last one.
+// multiple of it); returns the launch's error, or the last one. With `pdl`
+// the launch may begin before the stream's previous kernel has ended (see
+// griddep_wait).
 template <typename... Params, typename... Args>
-static inline int launch_cluster(void (*kernel)(Params...), int blocks, int threads, int smem,
-                                 int cluster, cudaStream_t stream, Args... args) {
+static inline int launch_cluster_pdl(void (*kernel)(Params...), int blocks, int threads,
+                                     int smem, int cluster, bool pdl, cudaStream_t stream,
+                                     Args... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(blocks);
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = cluster;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = pdl ? 2 : 1;
   const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(err != cudaSuccess ? err : last);
+}
+
+template <typename... Params, typename... Args>
+static inline int launch_cluster(void (*kernel)(Params...), int blocks, int threads, int smem,
+                                 int cluster, cudaStream_t stream, Args... args) {
+  return launch_cluster_pdl(kernel, blocks, threads, smem, cluster, false, stream, args...);
 }
 
 // ---- wgmma -----------------------------------------------------------------

@@ -6,9 +6,10 @@
 // at decode rows; the rank-r branch adds 2 * rows * r * (D + O), a few
 // percent. The composition it replaces runs three products and an add and
 // sends the (rows, r) and (rows, O) intermediates through device memory;
-// here the (rows, O) one stays on chip (at decode rows both do). Two
-// designs, chosen by the wrapper by row count:
-//   * prefill and training rows: two wgmma/TMA kernels. lora_rank_kernel
+// here the (rows, O) one stays on chip (at decode and verify rows both
+// do). Three designs, chosen by the wrapper by row count:
+//   * prefill and training rows (above lora.MID_ROWS, 192): two wgmma/TMA
+//     kernels. lora_rank_kernel
 //     computes h = bf16(xin A^T) (the TPU kernel's `accr.astype(x.dtype)`)
 //     into an (m, r_pad) bf16 scratch, r_pad the rank padded to 16: one
 //     read of xin, ~1% of the products. lora_tma_kernel then owns 128 rows
@@ -30,6 +31,17 @@
 //     at rank 32 to 64, and in a third warpgroup it added r / 256 of the
 //     tensor work (3/16 at rank 48), which left the kernel behind cuBLAS's
 //     three products (PERF.md);
+//   * verify rows (33 to lora.MID_ROWS: a verify step's 36-144; the middle
+//     kernel of csrc/mid_matmul.cuh, `LoraMid`): every token of a tile on
+//     wgmma's N, 128 rows of W and A's r rows on its M, a producer
+//     warpgroup streaming x, W and A through a cp.async ring, D split over
+//     a cluster of up to 4 whose fp32 parts meet in shared memory; xin A^T
+//     summed over the cluster before it is rounded, then acc + s * h B^T
+//     (mma.sync), rounded once: one launch, no scratch, no tensor map. On
+//     an NVIDIA H100 80GB HBM3 at 700 W (device us, PERF.md): the fused QKV
+//     (rank 48) 16.5 / 19.0 / 26.1 at 36 / 72 / 144 rows, proj (rank 16)
+//     15.2 / 17.1 / 21.6, where this pair took 37.6 / 38.8 / 40.9 and 36.7 /
+//     37.5 / 39.8, and cuBLAS's three products and an add 26.3-28.4;
 //   * decode rows (lora_decode_kernel, at most 32: from 1 to 32 rows it
 //     takes less device and host time than the wgmma kernels, PERF.md):
 //     a GEMV bound by W's bytes, which a lane streams
@@ -53,6 +65,7 @@
 // three products and an add 0.112 and 0.234), proj (rank 16) 0.1449 at
 // 8192 (0.191).
 #include "hopper.cuh"
+#include "mid_matmul.cuh"
 
 namespace {
 
@@ -528,12 +541,15 @@ int tma(const void* x, const void* xin, const void* w, const void* a, const void
 // x, xin: contiguous (m, d) bf16 (xin == x: the branch reads x); w:
 // contiguous (o, d); a: contiguous (r, d); b: contiguous (o, r); out:
 // contiguous (m, o) bf16; d a multiple of 8, r at most 64, all 16-byte
-// aligned. Given h, an (m, r_pad) bf16 scratch (r_pad: r rounded up to 16),
-// it runs the wgmma/TMA kernels (r a multiple of 8), else the decode kernel
-// on at most 32 rows, its CTAs in clusters of `ranks` (1-8) that split D.
+// aligned. `path` 0: the decode kernel on at most 32 rows, its CTAs in
+// clusters of `ranks` (1-8) that split D. `path` 1: the middle kernel
+// (r a multiple of 8), token tiles of `tokens` (48, 72, 96 or 144) by 128
+// columns, D split over clusters of `ranks`. `path` 2: the
+// wgmma/TMA kernels (r a multiple of 8) with h, an (m, r_pad) bf16 scratch
+// (r_pad: r rounded up to 16).
 DH_EXPORT int dh_lora_linear(const void* x, const void* xin, const void* w, const void* a,
                              const void* b, void* h, void* out, float s, int m, int o, int d,
-                             int r, int ranks, void* stream) {
+                             int r, int path, int ranks, int tokens, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* xp = static_cast<const bf16*>(x);
   const bf16* ip = static_cast<const bf16*>(xin);
@@ -543,7 +559,7 @@ DH_EXPORT int dh_lora_linear(const void* x, const void* xin, const void* w, cons
   bf16* hp = static_cast<bf16*>(h);
   bf16* op = static_cast<bf16*>(out);
   if (r < 1 || r > 64) return static_cast<int>(cudaErrorInvalidValue);
-  if (hp == nullptr) {
+  if (path == 0) {
     if (m > 32 || ranks < 1 || ranks > 8 || ranks > (d + kStep - 1) / kStep)
       return static_cast<int>(cudaErrorInvalidValue);
     switch ((m + 7) / 8) {
@@ -554,6 +570,14 @@ DH_EXPORT int dh_lora_linear(const void* x, const void* xin, const void* w, cons
     }
   }
   if (r % 8) return static_cast<int>(cudaErrorInvalidValue);
+  if (path == 1) {
+    const mid::Args args{xp, ip, wp, wp, ap, bp, op, s, m, o, d, r, d, 0};
+    if (s == 0.f)  // the layer gate off: x W^T alone, exactly
+      return mid::launch_tile<mid::LoraMid<false, false>>(args, tokens, ranks, false, st);
+    return ip == xp ? mid::launch_tile<mid::LoraMid<true, false>>(args, tokens, ranks, false, st)
+                    : mid::launch_tile<mid::LoraMid<true, true>>(args, tokens, ranks, false, st);
+  }
+  if (path != 2 || hp == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   switch ((r + 15) / 16) {
     case 1: return tma<16>(xp, ip, wp, ap, bp, hp, op, s, m, o, d, r, st);
     case 2: return tma<32>(xp, ip, wp, ap, bp, hp, op, s, m, o, d, r, st);

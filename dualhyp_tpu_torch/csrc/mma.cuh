@@ -40,6 +40,19 @@ __device__ __forceinline__ void load_frag_b(uint32_t (&b)[2], const bf16* tile, 
   b[1] = *reinterpret_cast<const uint32_t*>(p + 8);
 }
 
+// Four 8x8 bf16 matrices from shared memory as they lie (ldmatrix): lane l
+// gives the address of row l % 8 of matrix l / 8 (16-byte aligned), and
+// r[i] receives, for matrix i, the elements (l / 4, 2 (l % 4)) and
+// (l / 4, 2 (l % 4) + 1): with matrices (rows 0-7, k 0-7), (rows 8-15, k
+// 0-7), (rows 0-7, k 8-15), (rows 8-15, k 8-15) of a 16 x 16 tile, the
+// mma.sync A fragment (K4's and K5's middle rows, mid_matmul.cuh).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
 // Four 8x8 bf16 matrices from shared memory, transposed (ldmatrix .trans):
 // lane l gives the address of row l % 8 of matrix l / 8 (16-byte aligned),
 // and r[i] receives, for matrix i, the elements (2 (l % 4), l / 4) and
@@ -96,6 +109,15 @@ __device__ __forceinline__ void cp_async_line(void* dst, const void* src, bool p
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// Arrives on the mbarrier at `bar` (shared memory) once every cp.async this
+// thread has issued so far has landed; the arrival is counted in the
+// barrier's expected count (`.noinc`).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(bar)))
+               : "memory");
+}
 
 // Waits until at most `kPending` of this thread's committed copy groups are
 // still in flight.

@@ -23,6 +23,18 @@
 //     tile, sums over all of `inter` in registers and writes it once in
 //     bf16. No atomics, no memset, no cast pass: the output is bitwise
 //     repeatable;
+//   * verify rows (65 to swiglu.MID_ROWS, 144: a verify step's 72 and 144;
+//     the middle kernel of csrc/mid_matmul.cuh): two launches with the
+//     weights' rows on wgmma's M and every token on N, each a producer
+//     warpgroup streaming a cp.async ring. The gate (`GateMid`) takes 64 rows
+//     of W1 and of W2 a CTA over all of d and writes h = bf16(act(a) * b);
+//     the down product (`DownMid`) takes 128 rows of W3, `inter` split over a
+//     cluster of 4 whose fp32 parts meet in shared memory in rank order, and
+//     above 72 rows is a programmatic dependent of the gate. No fp32
+//     workspace, no sum pass. On an NVIDIA H100 80GB HBM3 at 700 W: 49.0 /
+//     54.8 us at 72 / 144 rows of TinyLlama, where the row tiles took 75.1 /
+//     78.6 and cuBLAS's three products 45.1 / 49.8 (PERF.md): the gate's
+//     88 CTAs each read all of x, so the stream is bound by the L2's reads;
 //   * decode rows (at most 64) swap the operands: the weights fill wgmma's
 //     64-row side and the tokens are its N (8, 16, 32 or 64), with an
 //     eight-stage ring of weight tiles per block; stage 2 also splits
@@ -36,6 +48,7 @@
 // at 3072 rows (cuBLAS x3 0.331), 0.0645 at 8 (0.0887), where the atomic
 // kernel this design replaced took 5.718, 1.918 and 0.170 ms (PERF.md).
 #include "hopper.cuh"
+#include "mid_matmul.cuh"
 
 namespace {
 
@@ -364,23 +377,42 @@ int decode(const void* x, const void* w1, const void* w2, const void* w3, bf16* 
 
 // x: contiguous (m, d) bf16; w1, w2: contiguous (inter, d); w3: contiguous
 // (d, inter); h: (m, inter) bf16 scratch (the gate); out: contiguous (m, d)
-// bf16; all 16-byte aligned, d a multiple of 64, inter of 8. Given
-// `partial`, (max_splits, d, m) fp32 scratch, it runs the decode path (m at
-// most 64), else the row-tile path.
+// bf16; all 16-byte aligned, d a multiple of 64, inter of 8. `path` 0 (m
+// at most 64): the decode path, with `partial`, (max_splits, d, m) fp32
+// scratch. `path` 1: the middle path, two launches of the middle kernel
+// with token tiles of `tokens` (48, 72, 96 or 144): the gate over 64 rows
+// of W1 and W2 a CTA, d split over clusters of `ranks1`; the down product
+// over 128 rows of W3 a CTA, inter split over clusters of `ranks2`,
+// launched as a programmatic dependent of the gate when `pdl`.
+// `path` 2: the row-tile path.
 DH_EXPORT int dh_swiglu_mlp(const void* x, const void* w1, const void* w2, const void* w3,
                             void* h, void* partial, void* out, int m, int d, int inter,
-                            int gelu, int max_splits, void* stream) {
+                            int gelu, int max_splits, int path, int tokens, int ranks1,
+                            int ranks2, int pdl, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   bf16* hp = static_cast<bf16*>(h);
   bf16* op = static_cast<bf16*>(out);
   float* pp = static_cast<float*>(partial);
-  if (pp != nullptr) {
+  if (path == 0) {
+    if (pp == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     if (m <= 8) return decode<8>(x, w1, w2, w3, hp, pp, op, m, d, inter, gelu, max_splits, s);
     if (m <= 16) return decode<16>(x, w1, w2, w3, hp, pp, op, m, d, inter, gelu, max_splits, s);
     if (m <= 32) return decode<32>(x, w1, w2, w3, hp, pp, op, m, d, inter, gelu, max_splits, s);
     if (m <= 64) return decode<64>(x, w1, w2, w3, hp, pp, op, m, d, inter, gelu, max_splits, s);
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (path == 1) {
+    const bf16* xp = static_cast<const bf16*>(x);
+    const bf16* w3p = static_cast<const bf16*>(w3);
+    const mid::Args gate{xp, xp, static_cast<const bf16*>(w1), static_cast<const bf16*>(w2),
+                         nullptr, nullptr, hp, 0.f, m, inter, d, 0, d, 0};
+    int err = gelu ? mid::launch_tile<mid::GateMid<1>>(gate, tokens, ranks1, false, s)
+                   : mid::launch_tile<mid::GateMid<0>>(gate, tokens, ranks1, false, s);
+    if (err) return err;
+    const mid::Args down{hp, hp, w3p, w3p, nullptr, nullptr, op, 0.f, m, d, inter, 0, inter, 0};
+    return mid::launch_tile<mid::DownMid>(down, tokens, ranks2, pdl != 0, s);
+  }
+  if (path != 2) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap mx, m1, m2, mh_out, mh_in, m3, mo;
   int err = make_matrix_map(&mx, x, m, d, d, kBM);
   if (!err) err = make_matrix_map(&m1, w1, inter, d, d, kBN);

@@ -16,32 +16,46 @@ import functools
 
 import torch
 
-from dualhyp_tpu_torch.ops import _lib
+from dualhyp_tpu_torch.ops import _lib, mid
 from dualhyp_tpu_torch.ops.swiglu import _full_fp32_matmuls
 
 # K5: replaces dualhyp_tpu/ops/pallas/lora_kernel.py `_kernel`. Bound by the
 # base product's operations at prefill and training rows and by W's bytes at
-# decode rows; the (rows, O) intermediate stays on chip. Above DECODE_ROWS
-# rows two wgmma/TMA kernels: h = bf16(xin A^T) into an (rows, r_pad)
-# scratch, then 128 x 256 tiles of x W^T with h B^T added in the epilogue,
-# s folded into the base sum. At decode rows one kernel streams W and A
-# into mma.sync fragments with 16-byte loads, its CTAs in clusters that
-# split D (`decode_plan`): xin A^T is summed over the cluster on chip and
-# only then rounded, and no tensor map is encoded. On an NVIDIA H100 80GB
-# HBM3 at 700.00 W: 0.0775 ms at 3072 rows of the fused QKV (cuBLAS x3 +
-# add 0.112), 0.1747 at 8192. See the source note in csrc/lora_linear.cu.
+# decode and verify rows; the (rows, O) intermediate stays on chip. Above
+# MID_ROWS rows two wgmma/TMA kernels: h = bf16(xin A^T) into an (rows,
+# r_pad) scratch, then 128 x 256 tiles of x W^T with h B^T added in the
+# epilogue, s folded into the base sum. From DECODE_ROWS to MID_ROWS (a
+# verify step's 36-144) one launch of the middle kernel (csrc/mid_matmul.cuh,
+# `mid_plan`): every token on wgmma's N, 128 rows of W and A's r rows on its
+# M, D split over a cluster whose parts meet on chip, xin A^T summed over
+# all of D before it is rounded, acc + s * delta rounded once. At decode
+# rows one kernel streams W and A into mma.sync fragments with 16-byte
+# loads, its CTAs in clusters that split D (`decode_plan`). No tensor map
+# below MID_ROWS. On an NVIDIA H100 80GB HBM3 at 700.00 W: 0.0775 ms at
+# 3072 rows of the fused QKV (cuBLAS x3 + add 0.112), 0.1747 at 8192; at a
+# verify step's 36 / 72 / 144 rows 0.0165 / 0.0190 / 0.0261 (the wgmma pair
+# 0.0376 / 0.0388 / 0.0409, cuBLAS 0.0268 / 0.0284 / 0.0276). See the source
+# notes in csrc/lora_linear.cu and csrc/mid_matmul.cuh.
 LORA_LINEAR = _lib.Kernel(
     "dh_lora_linear",
-    [_lib.C_PTR] * 7 + [_lib.C_F32] + [_lib.C_INT] * 5,
+    [_lib.C_PTR] * 7 + [_lib.C_F32] + [_lib.C_INT] * 7,
 )
 
 MAX_RANK = 64  # the kernel's largest padded rank
-# rows at or below which the decode kernel runs, above it the wgmma kernels:
+# rows at or below which the decode kernel runs, above it the middle kernel:
 # its most, below which it took less device and host time than the wgmma
 # kernels at every count measured (1 to 32 rows, PERF.md)
 DECODE_ROWS = 32
 DECODE_COLS = 128  # output columns a CTA of the decode kernel: 8 warps of 16
 DECODE_STEP = 32  # depth of the decode kernel's steps over D
+# rows at or below which (above DECODE_ROWS) the middle kernel runs: past a
+# verify step's 144 (16 slots x 9 tokens), as far as it beat the wgmma pair
+# at the fused QKV, proj and both MLP shapes (192 rows, two token tiles of
+# 96; at 256 it tied at the MLP's fc; NVIDIA H100 80GB HBM3, PERF.md)
+MID_ROWS = 192
+PATHS = ("decode", "mid", "wgmma")  # the kernel's `path` argument
+# launches of each path (LORA_LINEAR.launches counts them all)
+PATH_LAUNCHES = dict.fromkeys(PATHS, 0)
 MAX_CLUSTER = 8
 FILL_CTAS = 3 * 132  # CTAs the card holds at once: three an SM of the H100's 132
 SMEM_LIMIT = 232448  # shared memory a CTA may take on an H100 (227 KB)
@@ -95,6 +109,29 @@ def decode_plan(rows: int, o: int, d: int, r: int, s: float = 1.0,
                 columns=[(c * cols, (c + 1) * cols) for c in range(cluster)])
 
 
+def path_of(rows: int) -> str:
+    """K5's path at `rows` (`PATHS`): decode up to DECODE_ROWS, mid up to
+    MID_ROWS, wgmma above."""
+    if rows <= DECODE_ROWS:
+        return "decode"
+    return "mid" if rows <= MID_ROWS else "wgmma"
+
+
+def mid_plan(rows: int, o: int, d: int, r: int, s: float = 1.0,
+             separate: bool = False) -> dict:
+    """The launch of K5's middle kernel at DECODE_ROWS < `rows` <= MID_ROWS
+    (`mid.plan`): token tiles of at most 144 (one to 144 rows, each
+    streaming W), column blocks of 128 output columns, D's 64-deep steps
+    split over a cluster; at s = 0 no A tile (the branch is skipped), else
+    A's r rows (padded to 8, as the wrapper pads A and B) over x or a
+    separate xin."""
+    if not DECODE_ROWS < rows <= MID_ROWS or d % 8 or not 0 < r <= MAX_RANK:
+        raise ValueError(f"middle rows {rows}, O {o}, D {d}, rank {r}")
+    rank = s != 0
+    return mid.plan(rows, o, d, rank=rank, sep=rank and separate,
+                    r=-(-r // 8) * 8 if rank else 0)
+
+
 def lora_linear_plain(x, w, a, b, s, xin=None):
     """The plain PyTorch version of K5, in the fused kernel's arithmetic: the
     base product and xin A^T each summed in fp32; the (rows, r) result
@@ -141,19 +178,26 @@ def _launch(x, xin, w, a, b, s):
     out = torch.empty((rows, o), dtype=x.dtype, device=device)
     if not rows or not o:
         return out.reshape(*x.shape[:-1], o)
-    h, ranks = None, 0
-    if rows <= DECODE_ROWS:  # one launch, no scratch: D's split meets on chip
+    h, ranks, tokens = None, 0, 0
+    path = path_of(rows)
+    if path == "decode":  # one launch, no scratch: D's split meets on chip
         ranks = decode_cluster(rows, o, d, 0 if s == 0 else -(-r // 16), xin is not None)[0]
-    else:  # the wgmma kernels and their (rows, r_pad) scratch
-        if r % 8:  # B's rows go by TMA: 16-byte rows
+    else:
+        if r % 8:  # whole 16-byte rows of A and B: zeros to a multiple of 8
             pad = -r % 8
             a = torch.nn.functional.pad(a, (0, 0, 0, pad))
             b = torch.nn.functional.pad(b, (0, pad))
             r += pad
-        h = torch.empty((rows, -(-r // 16) * 16), dtype=x.dtype, device=device)
+        if path == "mid":  # one launch, no scratch: D's split meets on chip
+            plan = mid_plan(rows, o, d, r, s, xin is not None)
+            ranks, tokens = plan["cluster"], plan["tokens"]
+        else:  # the wgmma kernels and their (rows, r_pad) scratch
+            h = torch.empty((rows, -(-r // 16) * 16), dtype=x.dtype, device=device)
     LORA_LINEAR(device, x2.data_ptr(), xin2.data_ptr(), w.data_ptr(), a.data_ptr(),
                 b.data_ptr(), 0 if h is None else h.data_ptr(), out.data_ptr(),
-                float(s), rows, o, d, r, ranks, flops=2 * rows * (o * d + r * d + o * r))
+                float(s), rows, o, d, r, PATHS.index(path), ranks, tokens,
+                flops=2 * rows * (o * d + r * d + o * r))
+    PATH_LAUNCHES[path] += 1
     return out.reshape(*x.shape[:-1], o)
 
 

@@ -19,33 +19,74 @@ import math
 import torch
 import torch.nn.functional as F
 
-from dualhyp_tpu_torch.ops import _lib
+from dualhyp_tpu_torch.ops import _lib, mid
 
 # K4: replaces dualhyp_tpu/ops/pallas/swiglu_kernel.py `_kernel`. Bound by
-# operations in prefill and training, by weight bytes in decode. Two wgmma
-# products fed by TMA rings: the dual gate product writes h = bf16(act(x
-# W1^T) * (x W2^T)) once, the down product sums h W3^T over all of `inter`
-# in registers and writes each output once (no atomics: bitwise repeatable).
-# Decode rows (<= DECODE_ROWS) put the weights on wgmma's 64-row side and
-# split the down product over `inter`, summing the partials in a fixed
-# order. On an NVIDIA H100 80GB HBM3 at 700.00 W: 1.064 ms at 8192 rows of
-# TinyLlama (cuBLAS x3 0.860), 0.0645 at 8. See the source note in
-# csrc/swiglu.cu.
+# operations in prefill and training, by weight bytes in decode and at a
+# verify step's rows. Above MID_ROWS two wgmma products fed by TMA rings:
+# the dual gate product writes h = bf16(act(x W1^T) * (x W2^T)) once, the
+# down product sums h W3^T over all of `inter` in registers and writes each
+# output once (no atomics: bitwise repeatable). Decode rows (<= DECODE_ROWS)
+# put the weights on wgmma's 64-row side and split the down product over
+# `inter`, summing the partials in a fixed order. From DECODE_ROWS to
+# MID_ROWS (a verify step's 72 and 144) two launches of the middle kernel
+# (csrc/mid_matmul.cuh, `mid_plan`): the gate with W1's and W2's rows on
+# wgmma's M and every token on N (d split over a cluster where the column
+# blocks are few, its parts summed on chip before the gate; TinyLlama's 88
+# fill the card unsplit); the down product with W3's rows on M,
+# `inter` split over a cluster, launched as a programmatic dependent of the
+# gate above MID_PDL_ROWS; no fp32 workspace. On an NVIDIA H100 80GB HBM3
+# at 700.00 W: 1.064 ms at 8192 rows of TinyLlama (cuBLAS x3 0.860), 0.0645
+# at 8, 0.0490 / 0.0548 at 72 / 144 (the row tiles 0.0751 / 0.0786, cuBLAS
+# 0.0451 / 0.0498). See the source notes in csrc/swiglu.cu and
+# csrc/mid_matmul.cuh.
 SWIGLU = _lib.Kernel(
     "dh_swiglu_mlp",
-    [_lib.C_PTR] * 7 + [_lib.C_INT] * 5,
+    [_lib.C_PTR] * 7 + [_lib.C_INT] * 10,
 )
 # rows at or below which K4 takes its decode path (the tokens are wgmma's N,
 # at most 64 in the kernel's instances)
 DECODE_ROWS = 64
 # the most blocks the decode path splits a 64-row slab of W3 over
 DECODE_SPLITS = 8
+# rows at or below which (above DECODE_ROWS) K4 takes its middle path: a
+# verify step's (16 slots x 9 tokens)
+MID_ROWS = 144
+# rows above which the down launch is a programmatic dependent of the gate
+# (it starts streaming W3 while the gate drains): it measured faster at 144
+# rows and slower at 72 (NVIDIA H100 80GB HBM3, PERF.md)
+MID_PDL_ROWS = 72
+PATHS = ("decode", "mid", "rows")  # the kernel's `path` argument
+# launches of each path (SWIGLU.launches counts them all)
+PATH_LAUNCHES = dict.fromkeys(PATHS, 0)
 
 GATES = ("silu", "gelu")
 
 
 def _gelu_tanh(x):
     return 0.5 * x * (1.0 + torch.tanh(math.sqrt(2.0 / math.pi) * (x + 0.044715 * x ** 3)))
+
+
+def path_of(rows: int) -> str:
+    """K4's path at `rows` (`PATHS`): decode up to DECODE_ROWS, mid up to
+    MID_ROWS, rows above."""
+    if rows <= DECODE_ROWS:
+        return "decode"
+    return "mid" if rows <= MID_ROWS else "rows"
+
+
+def mid_plan(rows: int, d: int, inter: int) -> dict:
+    """K4's middle path at DECODE_ROWS < `rows` <= MID_ROWS: the gate launch
+    (`mid.plan` of x (rows, d) against W1 and W2, 64 of their rows a CTA, d
+    split over a cluster) and the down launch (h (rows, inter) against W3,
+    128 of its rows a CTA, `inter` split over a cluster), one token tile
+    each; `pdl`: the down launch a
+    programmatic dependent of the gate, above MID_PDL_ROWS."""
+    if not DECODE_ROWS < rows <= MID_ROWS or d % 64 or inter % 8:
+        raise ValueError(f"middle rows {rows}, d {d}, inter {inter}")
+    gate = mid.plan(rows, inter, d, parts=2)
+    down = mid.plan(rows, d, inter)
+    return dict(tokens=gate["tokens"], gate=gate, down=down, pdl=rows > MID_PDL_ROWS)
 
 
 def swiglu_mlp_plain(x, w1, w2, w3, gate: str = "silu"):
@@ -163,12 +204,19 @@ def _swiglu(x, w1, w2, w3, gate):
     out = torch.empty_like(x2)
     if rows:
         h = torch.empty((rows, inter), dtype=x.dtype, device=device)
+        path = path_of(rows)
         partial = (torch.empty((DECODE_SPLITS, d, rows), dtype=torch.float32, device=device)
-                   if rows <= DECODE_ROWS else None)
+                   if path == "decode" else None)
+        launch = (0,) * 4
+        if path == "mid":
+            plan = mid_plan(rows, d, inter)
+            launch = (plan["tokens"], plan["gate"]["cluster"], plan["down"]["cluster"],
+                      int(plan["pdl"]))
         SWIGLU(device, x2.data_ptr(), w1.data_ptr(), w2.data_ptr(), w3.data_ptr(),
                h.data_ptr(), None if partial is None else partial.data_ptr(),
                out.data_ptr(), rows, d, inter, int(gate == "gelu"), DECODE_SPLITS,
-               flops=6 * rows * d * inter)
+               PATHS.index(path), *launch, flops=6 * rows * d * inter)
+        PATH_LAUNCHES[path] += 1
     return out.reshape(x.shape)
 
 

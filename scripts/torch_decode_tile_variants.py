@@ -91,7 +91,8 @@ def lora_times(torch, cs, lora, randn) -> dict:
                     def fn():
                         lora.LORA_LINEAR(dev, x.data_ptr(), xin.data_ptr(), w.data_ptr(),
                                          a.data_ptr(), b.data_ptr(), 0, got.data_ptr(), 1.0,
-                                         rows, o, d, blocks * r, cluster)
+                                         rows, o, d, blocks * r, lora.PATHS.index("decode"),
+                                         cluster, 0)
 
                     row[f"err_{cluster}"] = check(cs, "lora_linear", fn, got, want, torch)
                     if not isinstance(row[f"err_{cluster}"], str):

@@ -18,8 +18,9 @@ sources: a variant of the design), then prints one JSON line:
     16) at the decode (8), fused-slice prefill (1536), 3072 and training
     (8192) rows, with and without a separate LoRA input, beside cuBLAS's
     three products and an add; and at 1 to 128 rows on each of its paths
-    (the decode kernel, to 32 rows, and the wgmma kernels), device ms and
-    host us a call, where the checkout has both;
+    (the decode kernel, to 32 rows, the wgmma kernels, and the middle
+    kernel where the checkout has it), device ms and host us a call, where
+    the checkout has both;
   * K6 and K7 at bf16 against their plain versions (the largest difference
     and the share of elements that differ), and the same for K1's forward
     (which rounds P to bf16) on K7's inputs; their device ms beside SDPA,
@@ -107,21 +108,29 @@ def lora_times(torch, cs, lora, randn) -> dict:
                     "device_ms": cs.device_ms(fn, torch), "ms": cs.time_ms(fn, torch),
                     "library_ms": cs.time_ms(lambda: x @ w.t() + (xb @ a.t()) @ b.t(), torch),
                     "bound_ms": bms, "bound_by": by}
-        if hasattr(lora, "DECODE_ROWS"):  # both paths at 1 to 128 rows
+        if hasattr(lora, "DECODE_ROWS"):  # every path at 1 to 128 rows
             keep = lora.DECODE_ROWS
+            keep_mid = getattr(lora, "MID_ROWS", None)  # the middle kernel (a checkout with one)
             # the decode kernel takes at most 32 rows (the mma.sync tile
             # before it, any)
             most = 32 if hasattr(lora, "decode_plan") else 10 ** 9
+            cuts = [("decode", most, keep_mid), ("wgmma", 0, 0)]
+            if keep_mid is not None:
+                cuts.append(("mid", 0, max(keep_mid, max(PATH_ROWS))))
             for rows in PATH_ROWS:
                 x = randn(rows, d)
                 fn = lambda: lora.lora_linear(x, w, a, b, 1.0)  # noqa: E731
                 row = {}
-                for path, cut in (("decode", most), ("wgmma", 0)):
-                    if path == "wgmma" or rows <= cut:
+                for path, cut, mid_cut in cuts:
+                    if path != "decode" or rows <= cut:
                         lora.DECODE_ROWS = cut
+                        if keep_mid is not None:
+                            lora.MID_ROWS = mid_cut
                         row[path] = cs.device_ms(fn, torch)
                         row[f"{path}_host_us"] = cs.host_us(fn, torch)
                 lora.DECODE_ROWS = keep
+                if keep_mid is not None:
+                    lora.MID_ROWS = keep_mid
                 row["library_ms"] = cs.time_ms(lambda: x @ w.t() + (x @ a.t()) @ b.t(), torch)
                 out[f"{name}_paths_{rows}"] = row
     return out

@@ -49,7 +49,11 @@ blocks) at T about those blocks with bitwise dK/dV repeats, K8's middle
 kernel at 17 to MID_ROWS rows of the verify step's and the Whisper beam's
 shapes (ragged and strided x, bitwise repeats, one launch on the path the
 dispatch names), K3 at the registry's partial rotary pairs and K5 and K8 at
-phi-2's shapes. Every test needs an NVIDIA
+phi-2's shapes, and K5's and K4's middle paths (csrc/mid_matmul.cuh) around
+each crossing (K5 32/33, 144, 192/193; K4 64/65, 144/145) at a verify
+step's shapes and at a ragged O and `inter`, both gates, s of 0, 0.75 and
+2 with a separate xin, bitwise repeats, each path's launch count, no host
+sync, and one CUDA kernel a K5 call, two a K4 call. Every test needs an NVIDIA
 card and skips without one. On the card's machine (no JAX there) run them
 without the suite's conftest:
 
@@ -1540,6 +1544,102 @@ def test_lora_linear_at_phi2_shapes(dev, gen, name, rows):
     got = lora.lora_linear(x, w, a, b, 1.0)
     assert lora.LORA_LINEAR.launches == before + 1
     _close(got, lora.lora_linear_plain(x, w, a, b, 1.0), *Q4_TOL)
+
+
+# K5's and K4's middle rows (csrc/mid_matmul.cuh): around each crossing
+# (K5 32/33, 144 and MID_ROWS/MID_ROWS + 1; K4 64/65 and MID_ROWS/MID_ROWS + 1)
+# at a verify step's shapes and at a ragged O or `inter` (not a multiple of
+# the 128-column block, nor of 64)
+LORA_MID_SHAPES = {"qkv": (2560, 2048, 48), "proj": (2048, 2048, 16),
+                   "mlp_proj": (2048, 5632, 16), "ragged": (200, 264, 40)}
+
+
+def _without_sync(call):
+    """call() under torch's sync debug mode "error": a host sync raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return call()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _device_kernels(call):
+    """(call's result, the CUDA kernels it ran) under torch.profiler, without
+    a host sync. A call runs one kernel at least: a profile that recorded
+    none (as the profiler sometimes does late in a long process) is taken
+    again, up to three times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = _without_sync(call)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if str(e.device_type).endswith("CUDA")]
+        if names:
+            break
+    return out, names
+
+
+@pytest.mark.parametrize("name", list(LORA_MID_SHAPES))
+@pytest.mark.parametrize("rows", sorted({32, 33, 36, 72, 144, lora.MID_ROWS, lora.MID_ROWS + 1}))
+@pytest.mark.parametrize("s,separate", [(0.75, False), (2.0, True), (0.0, False)])
+def test_lora_linear_middle_rows(dev, gen, name, rows, s, separate):
+    """Against the plain version, two calls bitwise equal (the cluster's
+    parts meet in rank order), one launch counted on the path `path_of`
+    names, no host sync."""
+    o, d, r = LORA_MID_SHAPES[name]
+    x = _randn(gen, rows, d)
+    xin = _randn(gen, rows, d) if separate else None
+    w, a = _randn(gen, o, d, std=0.02), _randn(gen, r, d, std=d ** -0.5)
+    b = _randn(gen, o, r, std=0.05)
+    path = lora.path_of(rows)
+    before = (lora.LORA_LINEAR.launches, lora.PATH_LAUNCHES[path])
+    got = lora.lora_linear(x, w, a, b, s, xin=xin)
+    assert (lora.LORA_LINEAR.launches, lora.PATH_LAUNCHES[path]) == (before[0] + 1,
+                                                                     before[1] + 1)
+    assert torch.equal(got, _without_sync(lambda: lora.lora_linear(x, w, a, b, s, xin=xin)))
+    _close(got, lora.lora_linear_plain(x, w, a, b, s, xin), *Q4_TOL)
+
+
+@pytest.mark.parametrize("rows", sorted({64, 65, 72, 100, swiglu.MID_ROWS,
+                                         swiglu.MID_ROWS + 1}))
+@pytest.mark.parametrize("d,inter", [(2048, 5632), (128, 200), (256, 1000)])
+@pytest.mark.parametrize("gate", ["silu", "gelu"])
+def test_swiglu_middle_rows(dev, gen, rows, d, inter, gate):
+    """As K5's: against the plain version, bitwise repeats, one launch
+    counted on its path, no host sync."""
+    std = 0.02 if d == 2048 else 0.05
+    x = _randn(gen, rows, d)
+    w1, w2 = (_randn(gen, inter, d, std=std) for _ in range(2))
+    w3 = _randn(gen, d, inter, std=std)
+    path = swiglu.path_of(rows)
+    before = (swiglu.SWIGLU.launches, swiglu.PATH_LAUNCHES[path])
+    got = swiglu.swiglu_mlp(x, w1, w2, w3, gate)
+    assert (swiglu.SWIGLU.launches, swiglu.PATH_LAUNCHES[path]) == (before[0] + 1,
+                                                                    before[1] + 1)
+    assert torch.equal(got, _without_sync(lambda: swiglu.swiglu_mlp(x, w1, w2, w3, gate)))
+    _close(got, swiglu.swiglu_mlp_plain(x, w1, w2, w3, gate), 1e-2, 2.0 ** -6)
+
+
+@pytest.mark.parametrize("rows", [72, 144])
+def test_middle_paths_run_their_cuda_kernels_alone(dev, gen, rows):
+    """At a verify step's rows K5's middle path is one CUDA kernel a call and
+    K4's two (the gate and the down product): no scratch pass, no fp32
+    workspace, no `swiglu_sum_splits_kernel`."""
+    o, d, r = LORA_MID_SHAPES["qkv"]
+    x = _randn(gen, rows, d)
+    w, a = _randn(gen, o, d, std=0.02), _randn(gen, r, d, std=d ** -0.5)
+    b = _randn(gen, o, r, std=0.05)
+    _, kernels = _device_kernels(lambda: lora.lora_linear(x, w, a, b, 2.0))
+    assert len(kernels) == 1 and "LoraMid" in kernels[0], kernels
+    w1, w2 = (_randn(gen, 5632, d, std=0.02) for _ in range(2))
+    w3 = _randn(gen, d, 5632, std=0.02)
+    _, kernels = _device_kernels(lambda: swiglu.swiglu_mlp(x, w1, w2, w3))
+    assert len(kernels) == 2, kernels
+    assert "GateMid" in kernels[0] and "DownMid" in kernels[1], kernels
 
 
 if __name__ == "__main__":

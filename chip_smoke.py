@@ -236,7 +236,12 @@ prints one JSON line; a failed phase raises and the script exits non-zero.
      T1024 with phi-2's, Gemma-2b's, Phi-3-mini's, open_llama_3b's and
      pythia-14m's heads and groups; the forwards at T384 too) against
      their plain versions, timed beside the bound and SDPA, with each
-     instance's registers and spills; `depth2_family_check`, two blocks at
+     instance's registers and spills and K1's layouts (the forward at 80
+     and 96 over narrow boxes, the backward at 100 reading its rows in
+     place; each beside its parent's device ms, `K1_WAS`), and K1's
+     backward at 100 again on the model's rows (q and k through K3, v a
+     view of the fused QKV, dO a transposed view) with its peak memory;
+     `depth2_family_check`, two blocks at
      full width of phi-2, pythia-1b, falcon-7b, Gemma-2b,
      Phi-3-mini-4k-instruct and open_llama_3b with LoRA, card bf16 against
      CPU fp32: prefill and decode logits, the K/V caches, one LoRA training
@@ -5328,11 +5333,18 @@ FLASH_HEAD_CONFIGS = (("phi-2", 32, 32, 80), ("Gemma-2b", 8, 1, 256),
                       ("pythia-14m", 4, 4, 32))
 FLASH_HEADS_B, FLASH_HEADS_T, FLASH_HEADS_PREFILL_T = 8, 1024, 384
 FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd") + SPLASH_KERNELS
-# K1's backward at B8 Hq32 G32 T1024 before the narrow-box instances of head
-# sizes 80 and 96 (one warpgroup of 64 keys over two zero-filled 64-column
-# boxes): its device ms on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md's
-# K1 rows), the "was" of their rows
-K1_BWD_WAS_MS = {80: 1.1072, 96: 1.1997}
+# K1's instances at B8 Hq32 G32 T1024 before their redesigns, the "was" of
+# their rows: device ms on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md's
+# K1 rows) of the forward and the backward at 80 and 96 over two
+# zero-filled 64-column boxes (one warpgroup of 64 keys in the backward),
+# and of the backward at 100 on the wrapper's copies padded to 104 columns
+# (the copies' 0.5038 ms included)
+K1_WAS = {("flash_attention_fwd", 80): (0.2307, "the instance over two 64-column boxes"),
+          ("flash_attention_fwd", 96): (0.2358, "the instance over two 64-column boxes"),
+          ("flash_attention_bwd", 80): (1.1072, "the instance over two 64-column boxes"),
+          ("flash_attention_bwd", 96): (1.1997, "the instance over two 64-column boxes"),
+          ("flash_attention_bwd", 100): (1.8662, "the 104-column instance on padded copies, "
+                                                 "the copies included")}
 # depth2_family_check's configs: phi-2; pythia-1b (D 256, a separate
 # norm_2, rotary 64 of 256); falcon-7b (71 heads of one group, a shared
 # norm, no bias); and the RMSNorm configs whose head sizes (256, 96, 100)
@@ -5381,6 +5393,43 @@ def family_lora_config(name: str, **kw):
                             lora_value=True, lora_projection=True, **kw)
 
 
+def peak_mb(fn, torch) -> float:
+    """The device memory one call of fn allocates at its peak, in MiB (what
+    it holds when it returns included)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def k1_bwd_fused_qkv(torch, gen, b, nh, t, hs, scale) -> dict:
+    """K1's backward on the rows the model hands it (MHA, as open_llama_3b):
+    q and k through K3 (contiguous), v a view of the fused QKV projection
+    (a group stride of 3 heads), dO the (B, H, T, D) view of a (B, T, H D)
+    gradient; against the plain version, timed, with its peak memory."""
+    from dualhyp_tpu_torch.ops import attention, rope
+
+    dev = torch.device("cuda")
+    qkv = torch.randn((b, t, nh, 3, hs), generator=gen, device=dev).to(torch.bfloat16)
+    cos, sin = rope.build_rope_cache(t, hs, device=dev, dtype=torch.bfloat16)
+    q = rope.apply_rope(qkv[:, :, :, 0].transpose(1, 2), cos, sin)
+    k = rope.apply_rope(qkv[:, :, :, 1].transpose(1, 2), cos, sin)
+    v = qkv[:, :, :, 2].transpose(1, 2)
+    do = torch.randn((b, t, nh * hs), generator=gen, device=dev).to(torch.bfloat16)
+    do = do.view(b, t, nh, hs).transpose(1, 2)
+    o, lse = attention._flash_fwd(q, k, v, scale)
+    fn = lambda: attention.flash_attention_bwd(q, k, v, o, lse, do, scale)  # noqa: E731
+    checks = {f"d{n}": compare_scaled(f"flash_attention_bwd d{n} D{hs} fused QKV", x, y, torch)
+              for n, x, y in zip("qkv", fn(), attention.flash_attention_bwd_plain(
+                  q, k, v, o, lse, do, scale))}
+    return dict(strides={n: list(x.stride()) for n, x in zip(("q", "k", "v", "do"),
+                                                              (q, k, v, do))},
+                max_abs_err=max(c["max_abs_err"] for c in checks.values()), **checks,
+                device_ms=device_ms(fn, torch, iters=5), peak_mb=peak_mb(fn, torch))
+
+
 def flash_heads_phase(torch, seed: int) -> dict:
     """K1's forward and backward and L1's forward, dQ and dK/dV at the head
     sizes other than 64 and 128 (32, 80, 96, 100, 256), each against its plain version
@@ -5390,8 +5439,13 @@ def flash_heads_phase(torch, seed: int) -> dict:
     Every kernel runs on the raw q at the softmax scale. Times beside the
     bound (the head size's own operations and bytes, not the padded
     tiles'), the plain version and SDPA (forward; its backward beside the
-    gradient kernels); each instance's registers and spills. Returns
-    {kernel: {"d<D>": row}}."""
+    gradient kernels); each instance's registers and spills; K1's layouts
+    (`fwd_layout`, `bwd_layout`) and, where an instance was redesigned
+    since (the forward at 80 and 96, the backward at 80, 96 and 100), the
+    parent's device ms (`K1_WAS`). At head size 100 the forward's padded
+    copies are timed alone (`pad_copy`), and K1's backward, which reads its
+    rows in place, reports its peak memory and runs again on the model's
+    layout (`k1_bwd_fused_qkv`). Returns {kernel: {"d<D>": row}}."""
     import torch.nn.functional as F
 
     from dualhyp_tpu_torch.ops import attention, splash
@@ -5485,19 +5539,25 @@ def flash_heads_phase(torch, seed: int) -> dict:
                 library=("SDPA forward (enable_gqa)" if name.endswith("_fwd") else
                          "SDPA backward (dQ, dK, dV together; autograd.grad)"),
                 bound_ms=bms, bound_by=by)
-            if name == "flash_attention_bwd" and hs in K1_BWD_WAS_MS:
-                out[name][f"d{hs}"].update(layout=getattr(attention, "bwd_layout", str)(hs),
-                                           was_device_ms=K1_BWD_WAS_MS[hs],
-                                           was="the instance over two 64-column boxes (PERF.md)")
+            plan = getattr(attention, {"flash_attention_fwd": "fwd_layout",
+                                       "flash_attention_bwd": "bwd_layout"}.get(name, ""), None)
+            if plan is not None:  # (a parent checkout may lack the planner)
+                out[name][f"d{hs}"]["layout"] = plan(hs)
+            if (name, hs) in K1_WAS:
+                was_ms, was = K1_WAS[name, hs]
+                out[name][f"d{hs}"].update(was_device_ms=was_ms, was=f"{was} (PERF.md)")
         dp = attention.padded_head_size(hs)
-        if dp != hs:  # the wrappers' zero-padded copies, timed alone
-            for name, tensors in (("flash_attention_fwd", (q, k, v)),
-                                  ("flash_attention_bwd", (q, k, v, o, do))):
-                n_in = sum(x.numel() for x in tensors)
-                out[name][f"d{hs}"]["pad_copy"] = dict(
-                    padded_head_size=dp, bytes=2 * n_in * (1 + dp / hs),
-                    ms=time_ms(lambda: [attention._pad_heads(x, dp) for x in tensors], torch,
-                               iters=10))
+        if dp != hs:  # the forward's zero-padded copies, timed alone
+            n_in = sum(x.numel() for x in (q, k, v))
+            out["flash_attention_fwd"][f"d{hs}"]["pad_copy"] = dict(
+                padded_head_size=dp, bytes=2 * n_in * (1 + dp / hs),
+                ms=time_ms(lambda: [attention._pad_heads(x, dp) for x in (q, k, v)], torch,
+                           iters=10))
+        if hs == 100:  # K1's backward on the model's rows, which it reads in place
+            out["flash_attention_bwd"][f"d{hs}"].update(
+                peak_mb=peak_mb(lambda: attention.flash_attention_bwd(q, k, v, o, lse, do, scale),
+                                torch),
+                fused_qkv=k1_bwd_fused_qkv(torch, gen, b, nh, t, hs, scale))
         del q, k, v, do, o, lse, so, slse, di, args, qr, kr, vr, sdpa_out
         torch.cuda.empty_cache()
 
@@ -5524,7 +5584,7 @@ def flash_heads_phase(torch, seed: int) -> dict:
     reports = [ptxas_report(src) for src in ("flash_attention.cu", "flash_attention_bwd.cu")]
     ptxas = ("not measured (library built before this run)" if None in reports else
              {k: v for k, v in {**reports[0], **reports[1]}.items()
-              if any(f"<{d}" in k for d in (32, 80, 96, 104, 256))})
+              if any(f"<{d}" in k for d in (32, 80, 96, 100, 104, 256))})
     emit({"phase": "flash_heads", "tolerance": {
               "forward": dict(zip(("atol", "rtol"), TOLERANCES["flash_attention_fwd"]),
                               lse=LSE_TOL),
@@ -5542,7 +5602,7 @@ def phi2_kernel_phase(torch, seed: int) -> dict:
     32 of 80 channels on fused-QKV views (PHI2_ROPE_SHAPES), and K1's
     backward at phi-2's training shape (B8, 32 heads, T1024) at head sizes
     80 and 96 (Phi-3's) beside SDPA's backward and the instance it replaced
-    (K1_BWD_WAS_MS). Returns {kernel: {row: result}}."""
+    (K1_WAS). Returns {kernel: {row: result}}."""
     from dualhyp_tpu_torch import config_from_name
     from dualhyp_tpu_torch.models.gpt import split_heads
     from dualhyp_tpu_torch.ops import lora, quant, rope
@@ -5633,8 +5693,8 @@ def phi2_kernel_phase(torch, seed: int) -> dict:
             library_ms=time_ms(lambda: torch.autograd.grad(sdpa_out, (qr, kr, vr), do,
                                                            retain_graph=True), torch, iters=5),
             library="SDPA backward (dQ, dK, dV together; autograd.grad)",
-            bound_ms=bms, bound_by=by, was_device_ms=K1_BWD_WAS_MS[hs],
-            was="the instance over two 64-column boxes (PERF.md)")
+            bound_ms=bms, bound_by=by, was_device_ms=K1_WAS["flash_attention_bwd", hs][0],
+            was=K1_WAS["flash_attention_bwd", hs][1] + " (PERF.md)")
         del q, k, v, do, o, lse, qr, kr, vr, sdpa_out
         torch.cuda.empty_cache()
     emit({"phase": "kernel", "name": "flash_attention_bwd", "shapes_of": f"{PHI2} training",

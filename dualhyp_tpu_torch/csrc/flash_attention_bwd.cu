@@ -108,12 +108,26 @@
 //     (two barriers of the 256 threads) before one reduce-add, half the
 //     adds in the L2 (scripts/torch_flash_bwd_variants.py times each
 //     choice, PERF.md);
+//   * head size 100 (open_llama_3b; `kCpAsync`): a 200-byte row breaks
+//     TMA's 16-byte stride rule, and the wrapper's zero-padded copies of q,
+//     k, v, O and dO took 0.50 of 1.87 ms (PERF.md). So K1's instance reads
+//     q, k, v and dO in place: the producer warpgroup's 128 threads copy 8
+//     bytes (4 columns) each by cp.async into the same 128-byte swizzled
+//     tiles TMA would fill (two 64-column boxes), zeros past column 100 and
+//     past T (the copies' zero-fill form), each thread's destinations
+//     stepping by constants (the swizzle repeats every 8 rows), completion
+//     by `cp.async.mbarrier.arrive` on the same full barriers, where L and
+//     Delta still land by TMA; dQ's fp32 buffer is 100 columns (a 400-byte
+//     row is TMA's to reduce into), dK and dV go out by TMA into (.., 104)
+//     buffers; O is read only by the Delta pre-pass, element by element.
+//     One consumer warpgroup of 64 keys, as at 128 (dK and dV over two
+//     boxes take 128 registers);
 //   * ragged T: TMA reads zeros past T (Q and dO rows give zero dS; keys
 //     past T are masked), the TMA adds and stores stop at T; every T >= 1
 //     runs;
 //   * one instance per head size (`attention.bwd_layout` lists them): 32,
-//     64, 80, 96, 100 (read as 104 from the wrapper's zero-padded copy), 128
-//     and 256, as the forward's (flash_attention.cu). At D 256 the dK/dV accumulators alone would
+//     64, 80, 96, 100 (L1's dK/dV: 104, from the wrapper's zero-padded
+//     copy), 128 and 256, as the forward's (flash_attention.cu). At D 256 the dK/dV accumulators alone would
 //     take 256 registers a thread: the grid holds two blocks a key block,
 //     each keeping half of the columns of dK and dV (both form the whole
 //     of S^T and dP^T, 7 products of D/2 where K1 runs 5 of D), and K1's
@@ -147,7 +161,9 @@
 // B8 Hq32 G4 T1024 D64 (bounds 0.052 and 0.070; SDPA's whole backward
 // 0.42), 0.219 and 0.314 ms at G8 D128 (bounds 0.104 and 0.139; SDPA's
 // 0.65), where the mma.sync kernels they replaced took 0.401 and 0.892 ms
-// at D64, 0.778 and 1.146 ms at D128.
+// at D64, 0.778 and 1.146 ms at D128. K1 at D100 (B8 Hq32 G32 T1024): 1.35
+// ms in place, where the padded copies and the 104-column instance took
+// 1.87 (scripts/torch_flash_fwd_variants.py; SDPA's backward 1.41).
 // q, k, v and dO take (batch, head, token) strides with D contiguous, so
 // the heads of the fused QKV projection and a transposed dO need no copy;
 // dq, dk and dv are written with strides too.
@@ -157,10 +173,11 @@ namespace {
 
 constexpr int kBQ = 64;     // query rows of a pair (K1, L1 dK/dV) or an L1 dQ block
 constexpr int kBKV = 64;    // keys of an L1 dQ tile
-// kD: the head size as the rows lie in memory (104: head size 100 in the
-// wrapper's copy padded with 4 zero columns). Tiles are whole 64-column
-// boxes, zero past kD (TMA's out-of-bounds fill); products that contract
-// over D stop at the last 16-column step holding data.
+// kD: the head size as the rows lie in memory (104: head size 100 in L1's
+// copy padded with 4 zero columns). Tiles are whole 64-column boxes, zero
+// past kD (TMA's out-of-bounds fill, or the cp.async copies' at 100);
+// products that contract over D stop at the last 16-column step holding
+// data.
 template <int kD>
 constexpr int kColBlocks = (kD + 63) / 64;
 // The backward's columns past its one 64-column box at head sizes 80 and 96
@@ -169,6 +186,17 @@ constexpr int kColBlocks = (kD + 63) / 64;
 // runs at N = D (64 + the tail) and none over zero-filled columns.
 template <int kD>
 constexpr int kTail = (kD == 80 || kD == 96) ? kD - 64 : 0;
+// Head size 100 (open_llama_3b): a 200-byte row breaks TMA's 16-byte stride
+// rule, so K1's instance reads q, k, v and dO in place by cp.async, 8 bytes
+// (4 columns) a copy, into the tiles' 128-byte swizzled layout.
+template <int kD>
+constexpr bool kCpAsync = kD == 100;
+// The operands the cp.async instance reads in place: base pointers and
+// (batch, head, token) element strides of q, k, v and dO.
+struct InPlace {
+  const bf16* p[4];
+  long long st[4][3];
+};
 // consumer warpgroups (of 64 keys) a block at head size kD for K1's
 // backward and L1's dK/dV: the faster choice at 64 and 128 on the card
 // (PERF.md), two at one column block and at 80 and 96, one above
@@ -181,15 +209,6 @@ template <int kD>
 constexpr int kParts = kColBlocks<kD> > 2 ? 2 : 1;
 constexpr int kStages = 2;  // Q/dO tiles (K/V tiles for L1's dQ) in flight
 constexpr float kLog2e = 1.4426950408889634f;
-
-// 2^x by the SFU's approximation (ex2.approx.ftz: ~2 ulp, subnormal results
-// flushed to zero), one instruction where exp2f adds range handling around
-// it. L1's gradient kernels take it: P is rounded to bf16 before any product.
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // 2^x as K1 takes it (kK1: exp2f, as the JAX kernel's exp) or as L1 does
 template <bool kK1>
@@ -289,21 +308,6 @@ splash_rows(const float* __restrict__ lse, const float* __restrict__ di,
   rows[n_rows + row] = ti < t ? di[src] : 0.f;
 }
 
-// The maps of the narrow boxes (columns 64 to D at head sizes 80 and 96,
-// `kTail`): (rows, kTail) boxes of q, k, v, dO, dk and dv; unused elsewhere.
-struct TailMaps {
-  CUtensorMap q, k, v, dout, dk, dv;
-};
-
-// The byte offset of element (r, c) (c even: the pair shares 4 bytes) of a
-// tile of rows of kBytes bytes (32 or 64) as TMA's 32- or 64-byte swizzle
-// lays it out: the 16-byte chunk XOR address bits 7 and up.
-template <int kBytes>
-__device__ __forceinline__ int narrow_offset(int r, int c) {
-  const int o = r * kBytes + 2 * c;
-  return o ^ (((o >> 7) & (kBytes / 16 - 1)) << 4);
-}
-
 // The backward of one block (K1 with kWithDq; L1's dK/dV without: map_dq
 // is then not read). With kNParts 2 the grid holds two blocks a key block,
 // each keeping one half of the columns of dK and dV. kK1: P by exp2f (K1's
@@ -314,8 +318,8 @@ template <int kD, int kWG, bool kWithDq, int kNParts = 1, bool kK1 = kWithDq>
 __device__ __forceinline__ void attention_bwd(
     const CUtensorMap* map_q, const CUtensorMap* map_k, const CUtensorMap* map_v,
     const CUtensorMap* map_do, const CUtensorMap* map_rows, const CUtensorMap* map_dq,
-    const CUtensorMap* map_dk, const CUtensorMap* map_dv, const TailMaps* tails, int q_per_kv,
-    int t, float scale) {
+    const CUtensorMap* map_dk, const CUtensorMap* map_dv, const TailMaps* tails,
+    const InPlace* src, int q_per_kv, int t, float scale) {
   using L = Layout<kD, kWG, kWithDq, kNParts>;
   constexpr int kBK = L::kBK;
   constexpr int kCols = L::kCols;
@@ -355,10 +359,14 @@ __device__ __forceinline__ void attention_bwd(
   // ptxas sees whole warpgroups take each branch and honours setmaxnreg
   const int warp = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x >> 5), 0);
 
+  // the cp.async instance: each producer thread's copies arrive on the
+  // barriers once they have landed (with L and Delta's TMA on `full`)
+  constexpr bool kAsync = kCpAsync<kD>;
+  constexpr int kLoaders = kAsync ? 128 : 1;
   if (threadIdx.x == 0) {
-    mbar_init(kv_bar, 1);
+    mbar_init(kv_bar, kLoaders);
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], 1);
+      mbar_init(&full[s], kAsync ? kLoaders + 1 : 1);
       mbar_init(&empty[s], 4 * kWG);  // lane 0 of each consumer warp
     }
     mbar_fence_init();
@@ -399,7 +407,52 @@ __device__ __forceinline__ void attention_bwd(
 
   if (warp >= 4 * kWG) {  // ---- the producer warpgroup ----
     if constexpr (L::kHandOver) setmaxnreg_dec<L::kProducerRegs>();
-    if (threadIdx.x == 4 * kWG * 32) {
+    if constexpr (kAsync) {
+      // every producer thread copies 4 columns (lane: columns 4 lane to 4
+      // lane + 3) of rows w + 4 j (w its warp) of each tile: zeros past kD
+      // and past T (the products over D read columns up to 111); the
+      // destination offsets step by constants (a row's swizzle pattern
+      // repeats every 8 rows: two patterns, even and odd j)
+      const int p = threadIdx.x - 4 * kWG * 32;
+      const int lane = p & 31, w = p >> 5;
+      const bool has_cols = lane < kD / 4;
+      const int cc = 4 * (lane & 15);  // the column within its 64-column box
+      auto dst = [&](int rows, int r) {  // the byte offset of row r's 4 columns in a tile
+        return (lane >> 4) * rows * 128 + swizzled_offset(r, cc);
+      };
+      auto copy_rows = [&](bf16* tile, int rows, const bf16* base, long long st, int row0) {
+        unsigned char* to = reinterpret_cast<unsigned char*>(tile);
+        const int even = dst(rows, w), odd = dst(rows, w + 4) - 512;
+        const bf16* from = base + static_cast<long long>(row0 + w) * st + 4 * lane;
+#pragma unroll
+        for (int j = 0; j < rows / 4; ++j) {
+          const bool ok = has_cols && row0 + w + 4 * j < t;
+          cp_async<8>(to + (j & 1 ? odd : even) + 512 * j, ok ? from + 4 * j * st : base, ok);
+        }
+      };
+      auto head = [&](int x, int hh) {  // operand x's rows of batch b, head hh
+        return src->p[x] + b * src->st[x][0] + hh * src->st[x][1];
+      };
+      copy_rows(k_s, kBK, head(1, g), src->st[1][2], k0);
+      copy_rows(v_s, kBK, head(2, g), src->st[2][2], k0);
+      cp_async_mbar_arrive(kv_bar);
+      for (int i = 0; i < n_pairs; ++i) {
+        const int s = i % kStages;
+        if (i >= kStages) mbar_wait(&empty[s], ((i / kStages) - 1) & 1);
+        const int h = g * q_per_kv + i / (n_qt - qt0);
+        const int qt = qt0 + i % (n_qt - qt0);
+        if (p == 0) {  // L and Delta by TMA
+          mbar_expect_tx(&full[s], L::kRowBytes);
+          tma_load_4d(row_tile(s), map_rows, &full[s], qt * kBQ, h, b, 0);
+          tma_load_4d(row_tile(s) + kBQ, map_rows, &full[s], qt * kBQ, h, b, 1);
+        }
+        copy_rows(q_tile(s), kBQ, head(0, h), src->st[0][2], qt * kBQ);
+        copy_rows(do_tile(s), kBQ, head(3, h), src->st[3][2], qt * kBQ);
+        cp_async_mbar_arrive(&full[s]);
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+    } else if (threadIdx.x == 4 * kWG * 32) {
       load_kv();
       for (int i = 0; i < n_pairs; ++i) {
         const int s = i % kStages;
@@ -442,6 +495,9 @@ __device__ __forceinline__ void attention_bwd(
       }
     }
     mbar_wait(kv_bar, 0);
+    // cp.async writes through the generic proxy, wgmma reads through the
+    // async one: order them once the barrier says the tiles have landed
+    if constexpr (kAsync) fence_async_smem();
     int i = 0;
     for (int hh = 0; hh < q_per_kv; ++hh) {
       const int h = g * q_per_kv + hh;
@@ -458,6 +514,7 @@ __device__ __forceinline__ void attention_bwd(
           }
         }
         mbar_wait(&full[s], (i / kStages) & 1);
+        if constexpr (kAsync) fence_async_smem();
         if (q0 + kBQ - 1 < kw0) {  // every key of the warpgroup follows every query
           if (lane == 0) mbar_arrive(&empty[s]);
           if constexpr (kMergeDq) {  // (warpgroup 1 only) the pair's two merge barriers
@@ -760,9 +817,10 @@ flash_bwd_kernel(const __grid_constant__ CUtensorMap map_q,
                  const __grid_constant__ CUtensorMap map_dq,
                  const __grid_constant__ CUtensorMap map_dk,
                  const __grid_constant__ CUtensorMap map_dv,
-                 const __grid_constant__ TailMaps tails, int q_per_kv, int t, float scale) {
+                 const __grid_constant__ TailMaps tails, const __grid_constant__ InPlace src,
+                 int q_per_kv, int t, float scale) {
   attention_bwd<kD, kWG, true>(&map_q, &map_k, &map_v, &map_do, &map_rows, &map_dq, &map_dk,
-                               &map_dv, &tails, q_per_kv, t, scale);
+                               &map_dv, &tails, &src, q_per_kv, t, scale);
 }
 
 template <int kD, int kWG, bool kK1>
@@ -774,8 +832,8 @@ splash_dkv(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CU
            const __grid_constant__ CUtensorMap map_dv, const __grid_constant__ TailMaps tails,
            int q_per_kv, int t, float scale) {
   attention_bwd<kD, kWG, false, kParts<kD>, kK1>(&map_q, &map_k, &map_v, &map_do, &map_rows,
-                                                 nullptr, &map_dk, &map_dv, &tails, q_per_kv, t,
-                                                 scale);
+                                                 nullptr, &map_dk, &map_dv, &tails, nullptr,
+                                                 q_per_kv, t, scale);
 }
 
 // ---- L1's dQ ---------------------------------------------------------------
@@ -994,20 +1052,6 @@ int rows_map(CUtensorMap* map, void* rows, int b, int n_head, int tp) {
                          CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
-// The map of columns 64 to D (kTail<kD> of them) of a (batch, head, token,
-// D) view, in (rows, kTail) boxes with the 32- or 64-byte swizzle that
-// `narrow_desc` reads.
-int tail_map(CUtensorMap* map, const void* p, int b, int heads, int t, int d, long long sb,
-             long long sh, long long st, int rows) {
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(t),
-                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(b)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st) * 2, static_cast<cuuint64_t>(sh) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(d - 64), static_cast<cuuint32_t>(rows), 1, 1};
-  return make_tensor_map(map, p, 4, dims, strides, box, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                         d - 64 == 16 ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_64B);
-}
-
 // The tensor maps and the launch of K1's backward (kWithDq) or L1's dK/dV,
 // once a pre-pass has written `rows` (dq is not read without kWithDq);
 // kK1 without kWithDq: the dK/dV body with K1's exp (K1 at D 256).
@@ -1020,11 +1064,19 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout, vo
                long long dkst, long long dvsb, long long dvsh, long long dvst, cudaStream_t s) {
   constexpr int kNParts = kWithDq ? 1 : kParts<kD>;
   using L = Layout<kD, kWG, kWithDq, kNParts>;
-  CUtensorMap mq, mk, mv, mdo, mrows, mdq, mdk, mdv;
-  int e = head_map(&mq, q, b, n_head, t, kD, qsb, qsh, qst, kBQ);
-  if (!e) e = head_map(&mk, k, b, n_kv_head, t, kD, ksb, ksh, kst, L::kBK);
-  if (!e) e = head_map(&mv, v, b, n_kv_head, t, kD, vsb, vsh, vst, L::kBK);
-  if (!e) e = head_map(&mdo, dout, b, n_head, t, kD, dsb, dsh, dst, kBQ);
+  CUtensorMap mq{}, mk{}, mv{}, mdo{}, mrows, mdq, mdk, mdv;
+  int e = 0;
+  InPlace src{};
+  if constexpr (kCpAsync<kD>) {  // read in place by cp.async: no maps
+    src = InPlace{{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                   static_cast<const bf16*>(v), static_cast<const bf16*>(dout)},
+                  {{qsb, qsh, qst}, {ksb, ksh, kst}, {vsb, vsh, vst}, {dsb, dsh, dst}}};
+  } else {
+    e = head_map(&mq, q, b, n_head, t, kD, qsb, qsh, qst, kBQ);
+    if (!e) e = head_map(&mk, k, b, n_kv_head, t, kD, ksb, ksh, kst, L::kBK);
+    if (!e) e = head_map(&mv, v, b, n_kv_head, t, kD, vsb, vsh, vst, L::kBK);
+    if (!e) e = head_map(&mdo, dout, b, n_head, t, kD, dsb, dsh, dst, kBQ);
+  }
   if (!e) e = head_map(&mdk, dk, b, n_kv_head, t, kD, dksb, dksh, dkst, 64);
   if (!e) e = head_map(&mdv, dv, b, n_kv_head, t, kD, dvsb, dvsh, dvst, 64);
   // dq: contiguous (B, H, T, D) fp32, in (16 rows, 32 columns) boxes
@@ -1049,7 +1101,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout, vo
                                cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
     if (err == cudaSuccess)
       flash_bwd_kernel<kD, kWG><<<grid, L::kThreads, L::kSmem, s>>>(
-          mq, mk, mv, mdo, mrows, mdq, mdk, mdv, tails, n_head / n_kv_head, t, scale);
+          mq, mk, mv, mdo, mrows, mdq, mdk, mdv, tails, src, n_head / n_kv_head, t, scale);
   } else {
     err = cudaFuncSetAttribute(splash_dkv<kD, kWG, kK1>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
@@ -1147,17 +1199,21 @@ int launch_splash_dkv(const void* q, const void* k, const void* v, const void* l
 
 }  // namespace
 
-// Every head size of the model registry: 32, 64, 80, 96, 104 (head size 100
-// in the wrapper's copy padded with 4 zero columns), 128 and 256.
+// Every head size of the model registry: 32, 64, 80, 96, 100 (K1, read in
+// place) or 104 (L1: head size 100 in the wrapper's copy padded with 4 zero
+// columns), 128 and 256.
+#define DH_K1_HEAD_SIZES(X) X(32) X(64) X(80) X(96) X(100) X(128) X(256)
 #define DH_HEAD_SIZES(X) X(32) X(64) X(80) X(96) X(104) X(128) X(256)
 
 // q, dout: (B, H, T, D); k, v: (B, G, T, D): each with (batch, head, token)
 // element strides that are multiples of 8, unit channel stride and a
-// 16-byte aligned base (TMA reads them); o: (B, H, T, D) with strides.
+// 16-byte aligned base (TMA reads them; at D 100 multiples of 4 and an
+// 8-byte aligned base, read by cp.async); o: (B, H, T, D) with strides.
 // lse: contiguous (B, H, T) fp32; rows: (2, B, H, T rounded up to 64) fp32
 // scratch, written here; dq: contiguous (B, H, T, D) fp32, zero on entry
 // (the pairs' partials are added into it; at D 256 each element below T is
-// written once); dk, dv: (B, G, T, D) bf16 with strides, 16-byte aligned.
+// written once); dk, dv: (B, G, T, D) bf16 with strides, 16-byte aligned
+// (at D 100 views of (.., 104) rows).
 DH_EXPORT int dh_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* rows, void* dq, void* dk,
@@ -1173,7 +1229,7 @@ DH_EXPORT int dh_flash_attention_bwd(
     return launch<D>(q, k, v, o, dout, lse, rows, dq, dk, dv, b, n_head, n_kv_head, t, scale, \
                      qsb, qsh, qst, ksb, ksh, kst, vsb, vsh, vst, osb, osh, ost, dsb, dsh,    \
                      dst, dksb, dksh, dkst, dvsb, dvsh, dvst, s);
-  DH_HEAD_SIZES(DH_CASE)
+  DH_K1_HEAD_SIZES(DH_CASE)
 #undef DH_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

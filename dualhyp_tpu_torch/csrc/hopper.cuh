@@ -9,7 +9,8 @@
 // clusters (their launch, programmatic dependent launches, barrier, stores
 // and bulk copies between the CTAs' shared memory, and sums over it in a
 // fixed order, read at 32-bit shared addresses); narrow (32- and 64-byte
-// swizzled) operand tiles for K1's backward at head sizes 80 and 96.
+// swizzled) operand tiles, their maps and offsets for K1's forward and
+// backward at head sizes 80 and 96.
 //
 // Shared-memory tiles: TMA writes a box of (rows, 64) bf16 with
 // CU_TENSOR_MAP_SWIZZLE_128B, so row r holds its 128 bytes at r * 128 with
@@ -116,6 +117,12 @@ __device__ __forceinline__ void named_barrier(int id) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(kThreads) : "memory");
 }
 
+// The arrival half of a named barrier of `kThreads` threads: does not wait.
+template <int kThreads>
+__device__ __forceinline__ void named_barrier_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(kThreads) : "memory");
+}
+
 // Hands registers between warpgroups: every warp of a warpgroup runs the
 // same call, in branches that are warp-uniform to the compiler (a warp
 // index taken through __shfl_sync) and never reconverge; else ptxas keeps
@@ -128,6 +135,16 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 template <int kRegs>
 __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+// 2^x by the SFU's approximation (ex2.approx.ftz: ~2 ulp, subnormal results
+// flushed to zero), one instruction where exp2f adds range handling around
+// it. L1's gradient kernels take it (P is rounded to bf16 before any
+// product), and K1's forward at head sizes 80 and 96.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // ---- TMA ---------------------------------------------------------------------
@@ -225,7 +242,9 @@ __device__ __forceinline__ void tma_store_drain() {
   bulk_wait_read<0>();
 }
 
-// Orders this thread's plain shared-memory writes before later TMA reads.
+// Orders shared-memory writes of the generic proxy (plain stores, cp.async
+// that a barrier says have landed) before later reads of the async proxy
+// (TMA, wgmma).
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -694,6 +713,15 @@ __device__ __forceinline__ uint64_t narrow_desc(const void* p) {
          (static_cast<uint64_t>(kBytes == 64 ? 2 : 3) << 62);
 }
 
+// The byte offset of element (r, c) (c even: the pair shares 4 bytes) of a
+// tile of rows of kBytes bytes (32 or 64) as TMA's 32- or 64-byte swizzle
+// lays it out: the 16-byte chunk XOR address bits 7 and up.
+template <int kBytes>
+__device__ __forceinline__ int narrow_offset(int r, int c) {
+  const int o = r * kBytes + 2 * c;
+  return o ^ (((o >> 7) & (kBytes / 16 - 1)) << 4);
+}
+
 // d += a (registers) b (shared memory, MN-major, N = 16 or 32: a narrow box)
 template <int N>
 __device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2], const uint32_t (&a)[4],
@@ -818,6 +846,27 @@ static inline int head_map(CUtensorMap* map, const void* p, int b, int heads, in
   return make_tensor_map(map, p, 4, dims, strides, box,
                          fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
                               : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
+}
+
+// The maps of the narrow boxes (columns 64 to D at head sizes 80 and 96) of
+// K1's forward (q, k, v, o) and backward (q, k, v, dout, dk, dv); a kernel
+// reads the ones it needs, the others stay unset.
+struct TailMaps {
+  CUtensorMap q, k, v, o, dout, dk, dv;
+};
+
+// The map of columns 64 to D (16 or 32 of them) of a (batch, head, token, D)
+// bf16 view with element strides sb, sh, st, in (rows, D - 64) boxes with
+// the 32- or 64-byte swizzle that `narrow_desc` reads.
+static inline int tail_map(CUtensorMap* map, const void* p, int b, int heads, int t, int d,
+                           long long sb, long long sh, long long st, int rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(t),
+                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st) * 2, static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(d - 64), static_cast<cuuint32_t>(rows), 1, 1};
+  return make_tensor_map(map, p, 4, dims, strides, box, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                         d - 64 == 16 ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
 // A row-major (rows, cols) bf16 matrix with `ld` elements a row, in boxes of

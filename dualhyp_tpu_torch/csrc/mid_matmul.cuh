@@ -304,6 +304,7 @@ __global__ void __launch_bounds__(Shape<NT, kWg, Epi>::kThreads, 1) mid_kernel(c
     for (int i = 0; i < ns; ++i) {
       const int slot = i % S::kStages;
       mbar_wait(&full[slot], (i / S::kStages) & 1);
+      fence_async_smem();  // the cp.async (generic proxy) tiles before wgmma reads them
       const unsigned char* st = smem + slot * S::kStage;
       const unsigned char* at = st + S::kXTiles * S::kXTile + group * 8192;
       const bf16* xs = reinterpret_cast<const bf16*>(

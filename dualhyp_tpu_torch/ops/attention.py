@@ -14,9 +14,10 @@ the grouped broadcast happens inside the kernel or the einsum.
     its own forward (`csrc/flash_attention.cu`), dQ and dK/dV kernels
     (`csrc/flash_attention_bwd.cu`).
     All take every head size of the model registry (`FLASH_HEAD_SIZES`:
-    32, 64, 80, 96, 100, 128, 256); head size 100 runs on a copy of its
-    inputs padded with zero columns to 104 (`padded_head_size`), since a
-    200-byte row breaks TMA's 16-byte stride rule.
+    32, 64, 80, 96, 100, 128, 256). A 200-byte row (head size 100) breaks
+    TMA's 16-byte stride rule: K1's backward reads its rows in place by
+    cp.async (`bwd_layout`), the forwards and L1's gradients run on a copy
+    padded with zero columns to 104 (`padded_head_size`).
   * `chunk_decode_attention`: a speculative verify step's K queries a row
     against the KV cache, query i masked to the slots at or below start +
     i, with the per-slot scales of an int8 cache (plain PyTorch; the JAX
@@ -38,11 +39,13 @@ from dualhyp_tpu_torch.ops import _lib
 # A producer warp streams K/V tiles by TMA (4-D tensor maps over the strided
 # views, encoded at each call) through an mbarrier ring; consumer warpgroups
 # run QK^T and PV on wgmma with S, P and O in registers and the online
-# softmax in fp32; one instance per head size of the model registry, a size
-# that is not a multiple of 64 reading whole 64-column boxes zero-filled
-# past D. On an NVIDIA H100 80GB HBM3 at 700.00 W: 0.147 ms at B8 Hq32 G4
-# T1024 D64 (SDPA 0.112), 0.229 at G8 D128 (SDPA 0.148); the other head
-# sizes in PERF.md. See the source note in csrc/flash_attention.cu.
+# softmax in fp32; one instance per head size of the model registry
+# (`fwd_layout`): whole 64-column boxes zero-filled past D, except at 80 and
+# 96, where the columns past 64 come in a narrow box of their own; with two
+# consumer warpgroups (80 to 128) the next tile's QK^T runs beside this
+# tile's softmax. On an NVIDIA H100 80GB HBM3 at 700.00 W: 0.126 ms at B8
+# Hq32 G4 T1024 D64 (SDPA 0.112), 0.204 at G8 D128 (SDPA 0.148); the other
+# head sizes in PERF.md. See the source note in csrc/flash_attention.cu.
 FLASH_FWD = _lib.Kernel(
     "dh_flash_attention_fwd",
     [_lib.C_PTR] * 5 + [_lib.C_INT] * 5 + [_lib.C_F32] + [_lib.C_I64] * 12,
@@ -60,9 +63,10 @@ FLASH_FWD = _lib.Kernel(
 # (`bwd_layout`: 128 keys a block at D32 to D96, 64 at D100 and D128; at
 # D80 and D96 the columns past 64 in a narrow box of their own, the loads
 # issued by a consumer thread and the two warpgroups' dQ added in shared
-# memory before one reduce-add; at D256 dK/dV split over two blocks by
-# columns and dQ from L1's dQ kernel into the same fp32 buffer, all with
-# K1's exp2f). On an NVIDIA H100 80GB HBM3 at 700.00 W: 0.466 ms at B8 Hq32
+# memory before one reduce-add; at D100 q, k, v and dO read in place by a
+# producer warpgroup's cp.async copies, no padded copy; at D256 dK/dV split
+# over two blocks by columns and dQ from L1's dQ kernel into the same fp32
+# buffer, all with K1's exp2f). On an NVIDIA H100 80GB HBM3 at 700.00 W: 0.466 ms at B8 Hq32
 # G4 T1024 D64 (SDPA's backward 0.42-0.64), 1.257 at G8 D128 (SDPA 0.667);
 # the other head sizes in PERF.md. See csrc/flash_attention_bwd.cu.
 FLASH_BWD = _lib.Kernel(
@@ -77,34 +81,66 @@ FLASH_HEAD_SIZES = (32, 64, 80, 96, 100, 128, 256)
 # launches of K1's backward at each head size (FLASH_BWD.launches counts
 # them all): a run reads them to show which instance its calls took
 BWD_HEAD_LAUNCHES = dict.fromkeys(FLASH_HEAD_SIZES, 0)
-# head sizes whose rows the kernels read from a copy padded with zero
-# columns (the pad leaves S = q k^T and P V exact; the wrapper drops it)
+# head sizes whose rows K1's forward and L1's kernels read from a copy
+# padded with zero columns (the pad leaves S = q k^T and P V exact; the
+# wrapper drops it); K1's backward reads them in place (`IN_PLACE`)
 _PADDED = {100: 104}
+# head sizes K1's backward reads in place by cp.async (rows whose strides
+# are multiples of 4 elements and whose base is 8-byte aligned)
+IN_PLACE = (100,)
 
 
 def padded_head_size(d: int) -> int:
-    """The row width the kernels read for head size d."""
+    """The row width K1's forward and L1's kernels read for head size d."""
     return _PADDED.get(d, d)
+
+
+def fwd_layout(d: int) -> dict:
+    """The instance of K1's forward (and L1's) that head size d runs, as
+    csrc/flash_attention.cu lays it out (`Layout`): the row width it reads
+    (`instance`), the whole 64-column `boxes` and the narrow `tail` box past
+    them (80: 16 columns, 96: 32), consumer `warpgroups` of 64 query rows
+    beside one producer warp, `keys` a K/V tile, the K/V `stages` in flight,
+    whether the next tile's QK^T is in flight over this tile's softmax and
+    the warpgroups take turns issuing their products (`overlap`: with two
+    warpgroups, four stages), and the
+    dynamic shared memory a block takes (`smem` bytes: Q, the K/V stages,
+    the barriers and 1024 bytes of alignment slack)."""
+    if d not in FLASH_HEAD_SIZES:
+        raise ValueError(f"flash kernel takes head size {FLASH_HEAD_SIZES}, got {d}")
+    dp = padded_head_size(d)
+    tail = dp - 64 if dp in (80, 96) else 0
+    boxes = dp // 64 if tail else -(-dp // 64)
+    warpgroups = 2 if boxes == 2 or tail else 1
+    overlap = warpgroups == 2
+    stages = 4 if overlap else 2
+    row_bytes = 2 * (64 * boxes + tail)
+    smem = (64 * warpgroups + 2 * stages * 64) * row_bytes + 8 * (1 + 2 * stages) + 1024
+    return dict(instance=dp, boxes=boxes, tail=tail, warpgroups=warpgroups, keys=64,
+                stages=stages, overlap=overlap, smem=smem)
 
 
 def bwd_layout(d: int) -> dict:
     """The instance of K1's backward (and L1's dK/dV) that head size d runs,
     as csrc/flash_attention_bwd.cu lays it out: the row width it reads
-    (`instance`), consumer `warpgroups` of 64 keys (`keys` a block), the
-    whole 64-column boxes and the narrow `tail` box past them (80: 16
-    columns, 96: 32), whether a producer warpgroup issues the loads (else the
-    first consumer thread), whether the warpgroups' dQ partials meet in
-    shared memory before their reduce-add, and the column `parts` of dK/dV
-    (two blocks a key block at 256, whose dQ comes from L1's dQ kernel)."""
+    (`instance`; L1's dK/dV reads head size 100 as 104, from the padded
+    copy), consumer `warpgroups` of 64 keys (`keys` a block), the whole
+    64-column boxes and the narrow `tail` box past them (80: 16 columns, 96:
+    32), whether a producer warpgroup issues the loads (else the first
+    consumer thread) and how (`loads`: "tma", or "cp.async" at 100, whose
+    rows break TMA's stride rule: q, k, v and dO in place, L and Delta by
+    TMA), whether the warpgroups' dQ partials meet in shared memory before
+    their reduce-add, and the column `parts` of dK/dV (two blocks a key
+    block at 256, whose dQ comes from L1's dQ kernel)."""
     if d not in FLASH_HEAD_SIZES:
         raise ValueError(f"flash backward kernel takes head size {FLASH_HEAD_SIZES}, got {d}")
-    dp = padded_head_size(d)
-    tail = dp - 64 if dp in (80, 96) else 0
-    warpgroups = 2 if dp <= 64 or tail else 1
-    return dict(instance=dp, warpgroups=warpgroups, keys=64 * warpgroups,
-                boxes=dp // 64 if tail else -(-dp // 64), tail=tail,
-                producer_warpgroup=not tail, merged_dq=bool(tail),
-                parts=2 if dp > 128 else 1)
+    tail = d - 64 if d in (80, 96) else 0
+    warpgroups = 2 if d <= 64 or tail else 1
+    return dict(instance=d, warpgroups=warpgroups, keys=64 * warpgroups,
+                boxes=d // 64 if tail else -(-d // 64), tail=tail,
+                producer_warpgroup=not tail,
+                loads="cp.async" if d in IN_PLACE else "tma", merged_dq=bool(tail),
+                parts=2 if d > 128 else 1)
 
 
 def _pad_heads(x, dp: int):
@@ -181,14 +217,19 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, scale: float):
     return (dq.reshape(b, hq, t, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
 
 
-def _aligned_rows(x) -> bool:
-    return x.stride(-1) == 1 and not any(s % 8 for s in x.stride()[:3]) and not x.data_ptr() % 16
+def _aligned_rows(x, align: int = 16) -> bool:
+    """Unit channel stride, (batch, head, token) strides and base on `align`
+    bytes (16: TMA's rule; 8: the cp.async copies of K1's backward at 100)."""
+    n = align // x.element_size()
+    return (x.stride(-1) == 1 and not any(s % n for s in x.stride()[:3])
+            and not x.data_ptr() % align)
 
 
-def _check_rows(name, x):
-    if not _aligned_rows(x):
+def _check_rows(name, x, align: int = 16):
+    if not _aligned_rows(x, align):
         raise ValueError(
-            f"flash kernel needs 16-byte aligned rows of {name}: strides {x.stride()}")
+            f"flash kernel needs {align}-byte aligned rows of {name}: strides {x.stride()}, "
+            f"base {x.data_ptr() % 16} bytes past 16")
 
 
 def _flash_fwd(q, k, v, scale):
@@ -226,7 +267,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale: float):
     k, v: (B, G, T, D), all bf16 with any (batch, head, token) strides and a
     unit channel stride (O as the forward's (B, T, Hq, D) view, dO as
     autograd hands it: neither is copied); lse: (B, Hq, T) fp32. Returns
-    (dq, dk, dv)."""
+    (dq, dk, dv). At head size 100 (`IN_PLACE`) nothing is copied: q, k, v
+    and dO need strides that are multiples of 4 elements and an 8-byte
+    aligned base (the fused QKV's views, K3's output), else it raises; dk
+    and dv come back as views of (.., 104) buffers, whose rows TMA stores."""
     device = _lib.check_cuda(q, k, v, o, lse, do)
     b, hq, t, d = q.shape
     g = k.shape[1]
@@ -243,29 +287,32 @@ def flash_attention_bwd(q, k, v, o, lse, do, scale: float):
             raise TypeError(f"flash kernel takes bfloat16 {name}, got {x.dtype}")
     if lse.dtype != torch.float32:
         raise TypeError(f"flash kernel takes fp32 lse, got {lse.dtype}")
-    dp = padded_head_size(d)
-    if dp != d:
-        q, k, v, o, do = (_pad_heads(x, dp) for x in (q, k, v, o, do))
-    if not _aligned_rows(do):
-        do = do.contiguous()
-    for name, x in (("q", q), ("k", k), ("v", v), ("o", o)):
-        _check_rows(name, x)
+    if d in IN_PLACE:  # read in place by cp.async, 8 bytes a copy: no copy of any input
+        for name, x in (("q", q), ("k", k), ("v", v), ("do", do)):
+            _check_rows(name, x, align=8)
+        width = padded_head_size(d)  # dK and dV's rows, 16-byte strided for their TMA stores
+    else:
+        if not _aligned_rows(do):
+            do = do.contiguous()
+        for name, x in (("q", q), ("k", k), ("v", v), ("o", o)):
+            _check_rows(name, x)
+        width = d
     lse = lse.contiguous()
-    dq = torch.zeros((b, hq, t, dp), dtype=torch.float32, device=device)
+    dq = torch.zeros((b, hq, t, d), dtype=torch.float32, device=device)
     # L and Delta, each (B, Hq, T rounded up to 64): whole 64-row TMA boxes
     rows = torch.empty((2, b, hq, -(-t // 64) * 64), dtype=torch.float32, device=device)
-    dk = torch.empty((b, g, t, dp), dtype=k.dtype, device=device)
-    dv = torch.empty((b, g, t, dp), dtype=v.dtype, device=device)
+    dk = torch.empty((b, g, t, width), dtype=k.dtype, device=device)
+    dv = torch.empty((b, g, t, width), dtype=v.dtype, device=device)
     if q.numel():
         FLASH_BWD(device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                   do.data_ptr(), lse.data_ptr(), rows.data_ptr(), dq.data_ptr(),
-                  dk.data_ptr(), dv.data_ptr(), b, hq, g, t, dp, float(scale),
+                  dk.data_ptr(), dv.data_ptr(), b, hq, g, t, d, float(scale),
                   *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                   *o.stride()[:3], *do.stride()[:3], *dk.stride()[:3],
                   *dv.stride()[:3],
                   flops=10 * b * hq * t * t * d)  # S again, dP, dV, dQ, dK: SDPA's count
         BWD_HEAD_LAUNCHES[d] += 1
-    return dq[..., :d].to(q.dtype), dk[..., :d], dv[..., :d]
+    return dq.to(q.dtype), dk[..., :d], dv[..., :d]
 
 
 class FlashAttention(torch.autograd.Function):

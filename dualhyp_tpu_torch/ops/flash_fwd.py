@@ -39,11 +39,11 @@ _ARGS = [_lib.C_PTR] * 4 + [_lib.C_INT] * 6 + [_lib.C_F32] + [_lib.C_I64] * 12
 # operand (split in shared memory; wgmma and TMA), bf16 on L1's forward
 # kernel body (wgmma, TMA, P V as hi + lo). Online softmax. On an NVIDIA
 # H100 80GB HBM3 at 700.00 W: fp32 0.019 ms at B1 H20 T=S=280 (SDPA 0.037)
-# and 0.198 at T=S=1500 (SDPA 0.443), bf16 0.398 at B8 (SDPA 0.255). See
+# and 0.198 at T=S=1500 (SDPA 0.443), bf16 0.362 at B8 (SDPA 0.255). See
 # the source notes in csrc/flash_fwd.cu and csrc/flash_attention.cu.
 FLASH_FULL = _lib.Kernel("dh_full_attention_fwd", _ARGS)
 # K7: the same `_kernel` as `causal_attention_fwd` calls it (causal=True),
-# bf16 on the same body: 0.172 ms at B8 Hq32 G4 T1024 on an NVIDIA H100
+# bf16 on the same body: 0.145 ms at B8 Hq32 G4 T1024 on an NVIDIA H100
 # 80GB HBM3 at 700.00 W (SDPA 0.109).
 FLASH_CAUSAL = _lib.Kernel("dh_causal_attention_fwd", _ARGS)
 

@@ -45,8 +45,8 @@ from dualhyp_tpu_torch.ops.swiglu import _aligned
 # warp streams K/V tiles by TMA, consumer warpgroups run QK^T on wgmma, the
 # online softmax in registers and P V as two register-A wgmma products of
 # P's hi and lo halves; the longest query tiles first. On an NVIDIA H100
-# 80GB HBM3 at 700.00 W: 0.195 ms at B8 Hq32 G4 T1024 D64 (SDPA 0.109),
-# 0.276 at G8 D128 (SDPA 0.148).
+# 80GB HBM3 at 700.00 W: 0.147 ms at B8 Hq32 G4 T1024 D64 (SDPA 0.109),
+# 0.248 at G8 D128 (SDPA 0.148).
 SPLASH_FWD = _lib.Kernel(
     "dh_splash_fwd", [_lib.C_PTR] * 5 + [_lib.C_INT] * 5 + [_lib.C_F32] + [_lib.C_I64] * 12)
 

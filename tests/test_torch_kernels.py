@@ -42,10 +42,13 @@ backward and L1's forward (T 127, 128, 129 and 256 at the edges of their
 64- and 128-key blocks, an unaligned input copied, one launch a call) and
 K4 (1 to 3072 rows at widths 128 and 2048, inter 200, 256 and 5632, both
 gates, bitwise repeats, an unaligned input), K1 and L1 at the registry's
-other head sizes (32, 80, 96, 100 through a padded copy, 256) with MHA,
-MQA and 7 or 71 query heads in one group, fused-QKV views and the autograd
-op, K1's backward and L1's dK/dV at 80 and 96 (narrow boxes, 128-key
-blocks) at T about those blocks with bitwise dK/dV repeats, K8's middle
+other head sizes (32, 80, 96, 100, 256; the forward at 100 through a
+padded copy) with MHA, MQA and 7 or 71 query heads in one group, fused-QKV
+views and the autograd op, K1's backward and L1's dK/dV at 80 and 96
+(narrow boxes, 128-key blocks) at T about those blocks with bitwise dK/dV
+repeats, K1's forward at 80 and 96 (narrow boxes) on fused-QKV views at T
+1 to 1024 and G 1, 4 and 32, K1's backward at 100 on the model's rows read
+in place (no padded copy; misaligned rows refused), K8's middle
 kernel at 17 to MID_ROWS rows of the verify step's and the Whisper beam's
 shapes (ragged and strided x, bitwise repeats, one launch on the path the
 dispatch names), K3 at the registry's partial rotary pairs and K5 and K8 at
@@ -53,7 +56,8 @@ phi-2's shapes, and K5's and K4's middle paths (csrc/mid_matmul.cuh) around
 each crossing (K5 32/33, 144, 192/193; K4 64/65, 144/145) at a verify
 step's shapes and at a ragged O and `inter`, both gates, s of 0, 0.75 and
 2 with a separate xin, bitwise repeats, each path's launch count, no host
-sync, and one CUDA kernel a K5 call, two a K4 call. Every test needs an NVIDIA
+sync, and one CUDA kernel a K5 call, two a K4 call (profiled in a process of
+its own). Every test needs an NVIDIA
 card and skips without one. On the card's machine (no JAX there) run them
 without the suite's conftest:
 
@@ -73,7 +77,11 @@ up to q_per_kv * T terms, and where the exact gradient is zero (dQ and dK
 at T=1) both sides hold fp32 noise (see chip_smoke.py's FLASH_BWD_TOL).
 """
 
+import json
 import math
+import subprocess
+import sys
+from pathlib import Path
 
 import pytest
 import torch
@@ -1513,6 +1521,87 @@ def test_flash_attention_bwd_narrow_boxes(dev, gen, d, t, hq, g):
         _close_bwd(x, y)
 
 
+# K1's forward at 80 and 96 (the columns past 64 in a narrow box, the next
+# tile's Q K^T beside this tile's softmax): T about the 64-row and 64-key
+# tiles, a prefill and a training length; GQA ratios 32, 8 and 1
+@pytest.mark.parametrize("d", [80, 96])
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 200, 384, 1024])
+@pytest.mark.parametrize("g", [1, 4, 32])
+def test_flash_attention_narrow_boxes_on_fused_qkv_views(dev, gen, d, t, g):
+    """q, k and v as strided views of the fused QKV projection (32 query
+    heads), O and L against the plain pair; one launch a call."""
+    cfg = GPTConfig(n_embd=32 * d, n_head=32, n_query_groups=g, intermediate_size=256,
+                    mlp_class="LLaMAMLP")
+    b = 1 if t == 1024 else 2
+    q5, k, v = split_heads(cfg, _randn(gen, b, t, cfg.qkv_out_dim))
+    q = q5.reshape(b, 32, t, d)
+    assert not k.is_contiguous() and not v.is_contiguous()
+    scale = d ** -0.5
+    before = attention.FLASH_FWD.launches
+    o, lse = attention._flash_fwd(q, k, v, scale)
+    assert attention.FLASH_FWD.launches == before + 1
+    want_o, want_lse = attention.causal_attention_plain_lse(q, k, v, scale)
+    _close(o, want_o, 1e-2, 2.0 ** -6)
+    _close(lse, want_lse, 1e-4, 1e-5)
+
+
+def _model_layout_100(gen, b, t, hq=4, g=4):
+    """q, k, v and dO at head size 100 as the model hands them to K1's
+    backward: q and k through K3 (contiguous), v a view of the fused QKV
+    projection (a 600-byte group stride at MHA), dO the (B, H, T, D) view of
+    a (B, T, H D) gradient."""
+    cfg = GPTConfig(n_embd=hq * 100, n_head=hq, n_query_groups=g, intermediate_size=256,
+                    mlp_class="LLaMAMLP")
+    q5, k, v = split_heads(cfg, _randn(gen, b, t, cfg.qkv_out_dim))
+    cos, sin = _rope_tables(gen, t, 100, torch.bfloat16)
+    q = rope.apply_rope(q5, cos, sin).reshape(b, hq, t, 100)
+    k = rope.apply_rope(k, cos, sin)
+    do = _randn(gen, b, t, hq * 100).view(b, t, hq, 100).transpose(1, 2)
+    return q, k, v, do
+
+
+# K1's backward at 100: q, k, v and dO read in place by cp.async (no padded
+# copy): T about the 64-key blocks and ragged; MHA and 4 query heads a group
+@pytest.mark.parametrize("t", [1, 63, 65, 200, 1024])
+@pytest.mark.parametrize("hq,g", [(4, 4), (8, 2)])
+def test_flash_attention_bwd_head_size_100_reads_rows_in_place(dev, gen, monkeypatch, t, hq, g):
+    """Against the plain version on the model's layout (strided v and dO);
+    the wrapper copies no input (`_pad_heads` raises inside the call)."""
+    q, k, v, do = _model_layout_100(gen, 1 if t == 1024 else 2, t, hq, g)
+    # v breaks TMA's 16-byte rule (a 600-byte group stride, or a base 8 bytes
+    # past 16), dO is a transposed view
+    assert any(x % 8 for x in v.stride()[:3]) or v.data_ptr() % 16
+    assert t == 1 or not do.is_contiguous()
+    scale = 100 ** -0.5
+    o, lse = attention._flash_fwd(q, k, v, scale)
+
+    def no_copy(*args):
+        raise AssertionError("K1's backward at 100 copied an input")
+
+    monkeypatch.setattr(attention, "_pad_heads", no_copy)
+    before = attention.BWD_HEAD_LAUNCHES[100]
+    got = attention.flash_attention_bwd(q, k, v, o, lse, do, scale)
+    assert attention.BWD_HEAD_LAUNCHES[100] == before + 1
+    again = attention.flash_attention_bwd(q, k, v, o, lse, do, scale)
+    assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+    for x, y in zip(got, attention.flash_attention_bwd_plain(q, k, v, o, lse, do, scale)):
+        _close_bwd(x, y)
+
+
+def test_flash_attention_bwd_head_size_100_refuses_misaligned_rows(dev, gen):
+    """Rows whose strides are not multiples of 4 elements, or whose base is
+    not 8-byte aligned, raise (the cp.async copies move 8 bytes)."""
+    q, k, v, do = _model_layout_100(gen, 1, 70)
+    o, lse = attention._flash_fwd(q, k, v, 100 ** -0.5)
+    shifted = _randn(gen, 1, 4, 70, 104)[..., 2:102]  # base 4 bytes past the row start
+    odd = _randn(gen, 1, 4, 70, 102)[..., :100]  # a 204-byte row: stride 102
+    for bad in (shifted, odd):
+        with pytest.raises(ValueError, match="8-byte aligned rows of do"):
+            attention.flash_attention_bwd(q, k, v, o, lse, bad, 100 ** -0.5)
+        with pytest.raises(ValueError, match="8-byte aligned rows of q"):
+            attention.flash_attention_bwd(bad, k, v, o, lse, do, 100 ** -0.5)
+
+
 # phi-2's linears (out, in): int4 (K8) at decode, verify and prefill rows,
 # fused LoRA (K5, rank 16, q/k/v and proj) at decode and prefill rows
 PHI2_Q4_SHAPES = {"qkv": (7680, 2560), "attn_proj": (2560, 2560), "fc": (10240, 2560),
@@ -1565,22 +1654,30 @@ def _without_sync(call):
 
 
 def _device_kernels(call):
-    """(call's result, the CUDA kernels it ran) under torch.profiler, without
-    a host sync. A call runs one kernel at least: a profile that recorded
-    none (as the profiler sometimes does late in a long process) is taken
-    again, up to three times."""
+    """The CUDA kernels one call ran, under torch.profiler, without a host
+    sync (the call runs once before, so nothing is built or loaded then)."""
     from torch.profiler import ProfilerActivity, profile
 
     call()
     torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            out = _without_sync(call)
-            torch.cuda.synchronize()
-        names = [e.name for e in prof.events() if str(e.device_type).endswith("CUDA")]
-        if names:
-            break
-    return out, names
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _without_sync(call)
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if str(e.device_type).endswith("CUDA")]
+
+
+def _middle_kernels(rows):
+    """{"lora": the CUDA kernels of one K5 call, "swiglu": of one K4 call} at
+    `rows` rows of the verify step's shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    o, d, r = LORA_MID_SHAPES["qkv"]
+    x = _randn(gen, rows, d)
+    w, a = _randn(gen, o, d, std=0.02), _randn(gen, r, d, std=d ** -0.5)
+    b = _randn(gen, o, r, std=0.05)
+    w1, w2 = (_randn(gen, 5632, d, std=0.02) for _ in range(2))
+    w3 = _randn(gen, d, 5632, std=0.02)
+    return {"lora": _device_kernels(lambda: lora.lora_linear(x, w, a, b, 2.0)),
+            "swiglu": _device_kernels(lambda: swiglu.swiglu_mlp(x, w1, w2, w3))}
 
 
 @pytest.mark.parametrize("name", list(LORA_MID_SHAPES))
@@ -1625,37 +1722,40 @@ def test_swiglu_middle_rows(dev, gen, rows, d, inter, gate):
 
 
 @pytest.mark.parametrize("rows", [72, 144])
-def test_middle_paths_run_their_cuda_kernels_alone(dev, gen, rows):
+def test_middle_paths_run_their_cuda_kernels_alone(dev, rows):
     """At a verify step's rows K5's middle path is one CUDA kernel a call and
     K4's two (the gate and the down product): no scratch pass, no fp32
-    workspace, no `swiglu_sum_splits_kernel`."""
-    o, d, r = LORA_MID_SHAPES["qkv"]
-    x = _randn(gen, rows, d)
-    w, a = _randn(gen, o, d, std=0.02), _randn(gen, r, d, std=d ** -0.5)
-    b = _randn(gen, o, r, std=0.05)
-    _, kernels = _device_kernels(lambda: lora.lora_linear(x, w, a, b, 2.0))
-    assert len(kernels) == 1 and "LoraMid" in kernels[0], kernels
-    w1, w2 = (_randn(gen, 5632, d, std=0.02) for _ in range(2))
-    w3 = _randn(gen, d, 5632, std=0.02)
-    _, kernels = _device_kernels(lambda: swiglu.swiglu_mlp(x, w1, w2, w3))
-    assert len(kernels) == 2, kernels
-    assert "GateMid" in kernels[0] and "DownMid" in kernels[1], kernels
+    workspace, no `swiglu_sum_splits_kernel`. Profiled in a process of its
+    own: late in a long process torch.profiler may record no CUDA event."""
+    run = subprocess.run([sys.executable, "-m", "tests.test_torch_kernels", "--middle-kernels",
+                          str(rows)], cwd=Path(__file__).resolve().parents[1],
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-4000:]
+    kernels = json.loads(run.stdout.splitlines()[-1])
+    assert len(kernels["lora"]) == 1 and "LoraMid" in kernels["lora"][0], kernels
+    assert len(kernels["swiglu"]) == 2, kernels
+    assert "GateMid" in kernels["swiglu"][0] and "DownMid" in kernels["swiglu"][1], kernels
 
 
 if __name__ == "__main__":
     # The spread of the small-MoE card-vs-CPU step over LoRA draws, one JSON
     # line a draw, on the card's machine from the repo root:
     #     python -m tests.test_torch_kernels --moe-draws 100
+    # (--middle-kernels ROWS: the middle paths' CUDA kernels, one JSON line)
     import argparse
-    import json
 
     # (the test's step: --rows 16 --tokens 16 --hold-alike)
     parser = argparse.ArgumentParser()
-    parser.add_argument("--moe-draws", type=int, required=True)
+    group = parser.add_mutually_exclusive_group(required=True)
+    group.add_argument("--moe-draws", type=int)
+    group.add_argument("--middle-kernels", type=int, metavar="ROWS")
     parser.add_argument("--rows", type=int, default=2)
     parser.add_argument("--tokens", type=int, default=40)
     parser.add_argument("--hold-alike", action="store_true")
     args = parser.parse_args()
+    if args.middle_kernels is not None:
+        print(json.dumps(_middle_kernels(args.middle_kernels)), flush=True)
+        sys.exit(0)
     shape = (args.rows, args.tokens)
     for draw in range(args.moe_draws):
         out = small_moe_step(torch.device("cuda"), draw, shape, args.hold_alike)
